@@ -1,0 +1,715 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
+
+Drives the port's serving path on the card and holds every kernel on that
+path against its plain PyTorch version:
+
+1. card      — nvidia-smi name and power limit, torch device name and count;
+2. build     — nvcc builds of ``ops/csrc/*.cu`` (one process per source,
+               started together) and Triton's first compile, timed;
+3. kernels   — paged attention and RMSNorm/LayerNorm against their plain
+               versions at the serving shapes, bf16 and fp32;
+4. llama2_7b — ``FastGenEngine`` at full width and depth (random weights
+               from a seed, bf16) serves 8 requests through ``generate_all``;
+               launch counters prove every tick went through the kernels;
+               one mixed tick's logits on the kernel path vs the plain path;
+5. gpt2_125m — the LayerNorm / learned-position / GELU path, same checks;
+6. times     — kernels vs plain vs library calls vs their bounds (CUDA
+               events), decode tokens/s, TTFT, peak memory, the profiler's
+               share of a decode tick per kernel.
+
+Prints one JSON line per phase, then the nvidia-smi line, then the
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero without the last line. It needs one CUDA device
+and the repository beside it, and does not import jax.
+
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --phases card,build,kernels
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+PHASES = ("card", "build", "kernels", "llama2_7b", "gpt2_125m", "times")
+
+# Tolerances of a kernel against its plain version on the same inputs.
+# fp32: both compute in fp32 and differ only in summation order (a few ulp
+# of O(1) values). bf16: both compute in fp32 and round the output to bf16
+# once, so they may differ by one bf16 ulp (2^-7 relative) where the fp32
+# values straddle a rounding boundary.
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}   # atol, rtol
+# One mixed tick of the whole model, kernel path vs plain path, on the
+# main path's parameters and pool. In fp32 (the same weights upcast, exact)
+# the kernels must give the plain path's logits: max|Δlogit| / max|logit|
+# over the real rows within LOGIT_REL_TOL_FP32 (ulp-level differences
+# carried through every layer) and the same argmax on TOP1_MIN of the rows.
+# In bf16 a random-weight model turns one-ulp differences into logit
+# noise of a few percent (4 % and 92 % top-1 agreement between two bf16
+# paths of llama2_7b, measured on an NVIDIA H100 80GB HBM3 at 700 W), so
+# there the kernel path is held against the fp32 reference instead: no
+# more than BF16_VS_PLAIN times as far from it as the plain bf16 path, and
+# its top-1 agreement with it at most BF16_TOP1_SLACK below the plain
+# path's.
+HEAD_ATOL = 1e-4
+LOGIT_REL_TOL_FP32 = 1e-3
+TOP1_MIN = 0.99
+BF16_VS_PLAIN = 2.0
+BF16_TOP1_SLACK = 0.05
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+class Smoke:
+    def __init__(self, torch, seed: int):
+        self.torch = torch
+        self.seed = seed
+        self.dev = torch.device("cuda:0")
+        self.card = ""
+        self.launches = {}       # kernel → {model: launches on its run}
+        self.ticks = {}          # model → ticks of its main-path run
+        self.state = {}          # engine, prompts of each model's run
+
+    # ------------------------------------------------------------------ #
+    def sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize(self.dev)
+
+    def close(self, name, got, want, dtype):
+        torch = self.torch
+        atol, rtol = TOL[dtype]
+        diff = (got.float() - want.float()).abs()
+        bad = diff > atol + rtol * want.float().abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        if bool(bad.any()) or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version: max abs err {err:.3g} (atol "
+                                 f"{atol}, rtol {rtol:.3g}), "
+                                 f"{int(bad.sum())} elements out of bound")
+        return err
+
+    # ------------------------------------------------------------------ #
+    def phase_card(self):
+        torch = self.torch
+        self.card = nvidia_smi()
+        emit("card", nvidia_smi=self.card,
+             torch_device=torch.cuda.get_device_name(0),
+             count=torch.cuda.device_count(), torch=torch.__version__,
+             cuda=torch.version.cuda,
+             capability=list(torch.cuda.get_device_capability(0)))
+        if torch.cuda.get_device_capability(0) < (9, 0):
+            raise RuntimeError("the kernels are built for sm_90a (Hopper)")
+
+    def phase_build(self):
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import build, norms
+
+        t0 = time.perf_counter()
+        build.build_all()
+        nvcc_s = time.perf_counter() - t0
+        ptxas = {name: [ln.strip() for ln in str(log["ptxas"]).splitlines()
+                        if "Used" in ln or "spill" in ln]
+                 for name, log in build.build_log.items()}
+        t0 = time.perf_counter()
+        x = torch.randn(4, 4096, device=self.dev, dtype=torch.bfloat16)
+        norms.rms_norm(x, torch.ones(4096, device=self.dev,
+                                     dtype=torch.bfloat16))
+        x = torch.randn(4, 768, device=self.dev, dtype=torch.bfloat16)
+        one = torch.ones(768, device=self.dev, dtype=torch.bfloat16)
+        norms.layer_norm(x, one, one)
+        self.sync()
+        emit("build", nvcc_seconds=nvcc_s,
+             per_source={n: {"seconds": v["seconds"], "cached": v["cached"]}
+                         for n, v in build.build_log.items()},
+             triton_first_use_seconds=time.perf_counter() - t0, ptxas=ptxas)
+
+    # ------------------------------------------------------------------ #
+    def pa_inputs(self, N, K, D, bs, MB, dtype, lengths, pad_rows=2,
+                  NB=None, seed=0):
+        """Random q/pools and ragged tables: each real row gets distinct
+        blocks; ``pad_rows`` extra rows carry all-zero tables (the trash
+        block) with lengths 1 and 0."""
+        torch = self.torch
+        g = torch.Generator(self.dev).manual_seed(seed)
+        Tn = len(lengths) + pad_rows
+        NB = NB or (len(lengths) * MB + 1)
+        dt = getattr(torch, dtype)
+        q = torch.randn(Tn, N, D, generator=g, device=self.dev).to(dt)
+        kp = torch.randn(NB, bs, K, D, generator=g, device=self.dev).to(dt)
+        vp = torch.randn(NB, bs, K, D, generator=g, device=self.dev).to(dt)
+        rng = np.random.default_rng(seed)
+        tables = np.zeros((Tn, MB), np.int32)
+        free = rng.permutation(np.arange(1, NB)).astype(np.int32)
+        for t in range(len(lengths)):
+            tables[t] = free[t * MB:(t + 1) * MB]
+        lens = np.array(list(lengths) + [1, 0][:pad_rows], np.int32)
+        return (q, kp, vp, torch.from_numpy(tables).to(self.dev),
+                torch.from_numpy(lens).to(self.dev))
+
+    def phase_kernels(self):
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import norms
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        rows = []
+        for label, N, K, D, bs, MB in (("llama2_7b", 32, 32, 128, 32, 16),
+                                       ("gqa", 32, 8, 128, 32, 16),
+                                       ("gpt2_125m", 12, 12, 64, 64, 16)):
+            lengths = [1, 2, bs - 1, bs, bs + 1, 2 * bs, 3 * bs + 7,
+                       MB * bs - 1, MB * bs]
+            for dtype in ("bfloat16", "float32"):
+                args = self.pa_inputs(N, K, D, bs, MB, dtype, lengths)
+                got = PA.paged_attention(*args)
+                want = PA.paged_attention_reference(*args)
+                self.sync()
+                err = self.close(f"paged_attention[{label},{dtype}]", got,
+                                 want, dtype)
+                rows.append({"kernel": "paged_attention", "shape": label,
+                             "N": N, "K": K, "D": D, "bs": bs, "MB": MB,
+                             "dtype": dtype, "max_abs_err": err,
+                             "tol": TOL[dtype]})
+        g = torch.Generator(self.dev).manual_seed(1)
+        for kind, H in (("rms_norm", 4096), ("layer_norm", 768)):
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                for R in (1, 37, 256):
+                    x = torch.randn(R, H, generator=g, device=self.dev).to(dt)
+                    s = (1 + 0.1 * torch.randn(H, generator=g,
+                                               device=self.dev)).to(dt)
+                    b = (0.1 * torch.randn(H, generator=g,
+                                           device=self.dev)).to(dt)
+                    if kind == "rms_norm":
+                        got = norms.rms_norm(x, s, 1e-5)
+                        want = norms.rms_norm_ref(x, s, 1e-5)
+                    else:
+                        got = norms.layer_norm(x, s, b, 1e-5)
+                        want = norms.layer_norm_ref(x, s, b, 1e-5)
+                    self.sync()
+                    err = self.close(f"{kind}[R={R},H={H},{dtype}]", got,
+                                     want, dtype)
+                    rows.append({"kernel": kind, "R": R, "H": H,
+                                 "dtype": dtype, "max_abs_err": err,
+                                 "tol": TOL[dtype]})
+        # the LM head's fp32 logits from bf16 operands (one cuBLAS product
+        # with an fp32 output) against the upcast fp32 product: the same
+        # exact products, summed in another order (a few fp32 ulp of the
+        # O(1) logits; HEAD_ATOL); llama2_7b's head and gpt2's tied one
+        from deepspeed_tpu_torch.models import transformer as T
+        for label, H, V, tied in (("llama2_7b", 4096, 32000, False),
+                                  ("gpt2_125m", 768, 50304, True)):
+            x = torch.randn(8, H, generator=g, device=self.dev).bfloat16()
+            w = (0.02 * torch.randn(V, H, generator=g, device=self.dev)
+                 ).bfloat16()
+            w = w.t() if tied else w.t().contiguous()
+            got = T.head_matmul(x, w)
+            want = x.float() @ w.float()
+            err = float((got - want).abs().max())
+            if got.dtype != torch.float32 or not err <= HEAD_ATOL:
+                raise AssertionError(f"head_matmul[{label}]: {got.dtype}, "
+                                     f"max abs err {err:.3g} > {HEAD_ATOL}")
+            rows.append({"kernel": "head_matmul (cuBLAS, fp32 out)",
+                         "shape": label, "tied": tied, "max_abs_err": err,
+                         "tol": HEAD_ATOL})
+        emit("kernels", checks=rows)
+
+    # ------------------------------------------------------------------ #
+    def reset_counts(self):
+        from deepspeed_tpu_torch.ops import norms
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        for d in (PA.launches, norms.launches):
+            for k in d:
+                d[k] = 0
+
+    def read_counts(self):
+        from deepspeed_tpu_torch.ops import norms
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        return {**PA.launches, **norms.launches}
+
+    def serve(self, model, n_req, lo, hi, max_new, norm_kind, **engine_kw):
+        """One model's main-path run + checks + a mixed-tick comparison."""
+        torch = self.torch
+        from deepspeed_tpu_torch import telemetry
+        from deepspeed_tpu_torch.inference.fastgen import FastGenEngine
+
+        if self.dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.dev)
+        t0 = time.perf_counter()
+        eng = FastGenEngine(model, device=self.dev, seed=self.seed,
+                            temperature=0.0, **engine_kw)
+        self.sync()
+        init_s = time.perf_counter() - t0
+        cfg = eng.cfg
+        vocab = min(cfg.vocab_size, 32000)
+        rng = np.random.default_rng(self.seed)
+        lens = [int(n) for n in rng.integers(lo, hi + 1, n_req)]
+        prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+        uids = list(range(n_req))
+        free0 = eng.allocator.free_blocks
+        ticks = telemetry.get_registry().counter("fastgen_ticks_total")
+
+        # ---- the main path: counts to 0 just before, read just after ---- #
+        ticks0 = ticks.total()
+        self.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.generate_all(uids, prompts, max_new_tokens=max_new)
+        self.sync()
+        wall = time.perf_counter() - t0
+        counts = self.read_counts()
+        n_ticks = int(ticks.total() - ticks0)
+        # ----------------------------------------------------------------- #
+        L = cfg.num_layers
+        want = {"paged_attention": L * n_ticks,
+                norm_kind: (2 * L + 1) * n_ticks}
+        problems = []
+        for k, v in want.items():
+            if counts[k] != v:
+                problems.append(f"{k} launched {counts[k]} times, want {v}")
+        short = {u: len(t) for u, t in out.items() if len(t) != max_new}
+        if short:
+            problems.append(f"uids with fewer than {max_new} tokens: {short}")
+        if eng.allocator.free_blocks != free0:
+            problems.append(f"free blocks {eng.allocator.free_blocks} after "
+                            f"flush, {free0} before")
+        on_cpu = [n for n, p in eng.model.named_parameters()
+                  if p.device != self.dev] + [k for k, v in eng.pool.items()
+                                              if v.device != self.dev]
+        if on_cpu:
+            problems.append(f"tensors on the CPU: {on_cpu}")
+        toks = np.array([t for u in uids for t in out[u]])
+        if toks.size and (toks.min() < 0 or toks.max() >= cfg.vocab_size):
+            problems.append("sampled token ids out of the vocabulary")
+        if problems:
+            raise AssertionError(f"{model}: " + "; ".join(problems))
+        for k in want:
+            self.launches.setdefault(k, {})[model] = counts[k]
+        self.ticks[model] = n_ticks
+        peak = (torch.cuda.max_memory_allocated(self.dev)
+                if self.dev.type == "cuda" else None)
+        ttft = list(eng.ttft_log)[-n_req:]      # this run's requests
+        emit(model, requests=n_req, prompt_lens=lens, max_new_tokens=max_new,
+             ticks=n_ticks, launches=counts, launches_want=want,
+             init_seconds=init_s, generate_all_seconds=wall,
+             ttft_p50_s=float(np.median(ttft)), peak_memory_bytes=peak,
+             card=self.card, first_tokens={u: out[u][:4] for u in uids[:2]})
+
+        self.mixed_tick(model, eng, uids, prompts)
+        self.state[model] = {"engine": eng, "prompts": prompts, "lens": lens}
+        return eng
+
+    def mixed_tick(self, model, eng, uids, prompts):
+        """One mixed (decode + prefill) tick of the main path's requests,
+        four ways: {bf16, fp32} x {kernels, plain}. The tick reads a
+        compact copy of the blocks it names, so the fp32 pool stays small;
+        the host state is rolled back, so the engine never ran the tick."""
+        torch = self.torch
+        import dataclasses
+        from deepspeed_tpu_torch.models import paged as PG
+
+        eng.put(uids, prompts)
+        for _ in range(100):
+            live = [s for s in eng.seqs.values() if not s.done]
+            if any(s.prefill_remaining == 0 and s.last_tok is not None
+                   for s in live) and any(s.prefill_remaining > 0
+                                          for s in live):
+                break
+            eng.step()
+        else:
+            raise AssertionError(f"{model}: no mixed tick in 100 steps")
+        snap, rr = eng._snapshot_host(live), eng._decode_rr
+        tokens, positions, tables, heads, row = eng._schedule_tick(live)
+        eng._restore_host(snap)
+        eng._decode_rr = rr
+        mb = eng._mb_tier(int(positions[:row].max()) // eng.block_size + 1)
+        tables = tables[:, :mb]
+        used = np.unique(np.concatenate([[0], tables.ravel()]))
+        remap = np.zeros(eng.allocator.n_blocks, np.int32)
+        remap[used] = np.arange(len(used), dtype=np.int32)
+        tk, ps, tb = (eng._to_dev(a) for a in (tokens, positions,
+                                                remap[tables]))
+        idx = torch.from_numpy(used).to(self.dev)
+        cfg32 = dataclasses.replace(eng.cfg, dtype="float32")
+
+        def upcast(tree):
+            return {k: upcast(v) if isinstance(v, dict) else v.float()
+                    for k, v in tree.items()}
+
+        logits = {}
+        for prec, cfg, params in (("bf16", eng.cfg, eng.params),
+                                  ("fp32", cfg32, None)):
+            if params is None:
+                params = upcast(eng.params)
+            for path, kern in (("kernels", True), ("plain", False)):
+                pool = {k: v[:, idx].to(cfg.compute_dtype)
+                        for k, v in eng.pool.items()}
+                lg, _ = PG.forward_paged(params, tk, ps, tb, pool, cfg,
+                                         use_kernels=kern)
+                logits[(prec, path)] = lg[:row]
+                del pool
+            del params
+        eng.flush(uids)
+
+        def cmp(a, b):
+            a, b = logits[a], logits[b]
+            return (float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+                    float((a - b).abs().max() / b.abs().max()))
+
+        top1_32, rel_32 = cmp(("fp32", "kernels"), ("fp32", "plain"))
+        top1_16, rel_16 = cmp(("bf16", "kernels"), ("bf16", "plain"))
+        top1_k, rel_k = cmp(("bf16", "kernels"), ("fp32", "plain"))
+        top1_p, rel_p = cmp(("bf16", "plain"), ("fp32", "plain"))
+        finite = all(bool(torch.isfinite(v).all()) for v in logits.values())
+        n_dec = sum(1 for h in heads if h[2])
+        emit(f"{model}/mixed_tick", rows=row, decode_rows=n_dec,
+             prefill_rows=row - n_dec, table_width=mb, blocks=len(used),
+             fp32_kernels_vs_plain={"top1": top1_32, "rel_err": rel_32},
+             bf16_kernels_vs_plain={"top1": top1_16, "rel_err": rel_16},
+             bf16_kernels_vs_fp32={"top1": top1_k, "rel_err": rel_k},
+             bf16_plain_vs_fp32={"top1": top1_p, "rel_err": rel_p},
+             bounds={"fp32_rel": LOGIT_REL_TOL_FP32, "fp32_top1": TOP1_MIN,
+                     "bf16_vs_plain": BF16_VS_PLAIN,
+                     "bf16_top1_slack": BF16_TOP1_SLACK}, finite=finite)
+        problems = []
+        if not finite:
+            problems.append("non-finite logits")
+        if top1_32 < TOP1_MIN or rel_32 > LOGIT_REL_TOL_FP32:
+            problems.append(f"fp32 top1 {top1_32}, rel err {rel_32:.3g}")
+        if rel_k > BF16_VS_PLAIN * rel_p or top1_k < top1_p - BF16_TOP1_SLACK:
+            problems.append(f"bf16 kernels vs fp32: top1 {top1_k}, rel err "
+                            f"{rel_k:.3g}; plain: top1 {top1_p}, rel err "
+                            f"{rel_p:.3g}")
+        if problems:
+            raise AssertionError(f"{model}: mixed tick kernel vs plain: "
+                                 + "; ".join(problems))
+
+    def phase_llama2_7b(self):
+        self.serve("llama2_7b", 8, 16, 1024, 32, "rms_norm", n_blocks=512,
+                   block_size=32, max_blocks_per_seq=64, token_budget=256)
+
+    def phase_gpt2_125m(self):
+        # the repo's serving-bench settings (bench.py fastgen entry)
+        self.serve("gpt2_125m", 8, 16, 480, 32, "layer_norm", n_blocks=512,
+                   block_size=64, max_blocks_per_seq=16, token_budget=512,
+                   max_seq_len=1024)
+
+    # ------------------------------------------------------------------ #
+    def time_ms(self, fn, iters=20, flush=None):
+        """Median device ms of ``fn`` by CUDA events, one event pair per
+        call, with L2 flushed before each (the serving path meets each
+        layer's pool cold). A spin kernel queued first keeps the card busy
+        while the host enqueues the flush, the events and ``fn``'s kernels,
+        so the events time the device, not the host's launch latency."""
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(5_000_000)        # spin 5e6 cycles
+            if flush is not None:
+                flush.zero_()
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    def pa_case(self, name, q, kp, vp, tables, lengths, flush):
+        """Kernel / plain / bound / SDPA-on-pre-gathered-KV times."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        Tn, N, D = q.shape
+        _, bs, K, _ = kp.shape
+        elt = q.element_size()
+        got = PA.paged_attention(q, kp, vp, tables, lengths)
+        want = PA.paged_attention_reference(q, kp, vp, tables, lengths)
+        err = self.close(name, got, want, str(q.dtype).split(".")[-1])
+        tb, ln = tables.cpu().numpy(), lengths.cpu().numpy()
+        blocks = {int(tb[t, j]) for t in range(Tn)
+                  for j in range(-(-int(ln[t]) // bs))}
+        kv_bytes = len(blocks) * bs * K * D * 2 * elt
+        io_bytes = 2 * q.numel() * elt + tables.numel() * 4 + Tn * 4
+        flops = float(4 * N * D * ln.astype(np.int64).sum())
+        t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+        ms = self.time_ms(lambda: PA.paged_attention(q, kp, vp, tables,
+                                                     lengths), flush=flush)
+        plain = self.time_ms(lambda: PA.paged_attention_reference(
+            q, kp, vp, tables, lengths), iters=5, flush=flush)
+        # SDPA over KV gathered beforehand into [T, N, ctx, D]: a different
+        # function (no paging, rectangular context), timed as a yardstick
+        ctx = int(ln.max())
+        idx = tables[:, :-(-ctx // bs)].long()
+        kg = kp[idx].reshape(Tn, -1, K, D)[:, :ctx].repeat_interleave(
+            N // K, 2).transpose(1, 2).contiguous()
+        vg = vp[idx].reshape(Tn, -1, K, D)[:, :ctx].repeat_interleave(
+            N // K, 2).transpose(1, 2).contiguous()
+        mask = (torch.arange(ctx, device=self.dev)[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+        qs = q[:, :, None, :]
+        sdpa = self.time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kg, vg, attn_mask=mask), flush=flush)
+        del kg, vg
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "unique_kv_bytes": kv_bytes, "rows": Tn,
+                "sdpa_pregathered_ms": sdpa}
+
+    def norm_case(self, kind, x, s, b, eps, flush):
+        torch = self.torch
+        import torch.nn.functional as F
+        from deepspeed_tpu_torch.ops import norms
+
+        H = x.shape[-1]
+        if kind == "rms_norm":
+            k = lambda: norms.rms_norm(x, s, eps)
+            p = lambda: norms.rms_norm_ref(x, s, eps)
+            lib = lambda: F.rms_norm(x, (H,), s, eps)
+            params = (s,)
+        else:
+            k = lambda: norms.layer_norm(x, s, b, eps)
+            p = lambda: norms.layer_norm_ref(x, s, b, eps)
+            lib = lambda: F.layer_norm(x, (H,), s, b, eps)
+            params = (s, b)
+        err = self.close(kind, k(), p(), str(x.dtype).split(".")[-1])
+        nbytes = 2 * x.numel() * x.element_size() + sum(
+            t.numel() * t.element_size() for t in params)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 8.0 * x.numel() / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+        return {"max_abs_err": err, "ms": self.time_ms(k, flush=flush),
+                "plain_ms": self.time_ms(p, flush=flush),
+                "library_ms": self.time_ms(lib, flush=flush),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "rows": x.shape[0]}
+
+    def decode_rate(self, model):
+        """Prefill the main path's prompts with step() ticks, then time one
+        fused decode window of 32 ticks (host clock around synchronised
+        work), and profile one more window of 8 for the device's share."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        st = self.state[model]
+        eng, prompts = st["engine"], st["prompts"]
+        uids = list(range(100, 100 + len(prompts)))
+        eng.put(uids, prompts)
+        self.sync()
+        t0 = time.perf_counter()
+        n_steps = 0
+        while not all(s.prefill_remaining == 0 and s.last_tok is not None
+                      for s in eng.seqs.values()):
+            eng.step()
+            n_steps += 1
+        self.sync()
+        prefill_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = eng.decode_steps(32)
+        self.sync()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(v) for v in got.values())
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got2 = eng.decode_steps(8)
+            self.sync()
+        n_ticks = 8 if got2 else 0
+        spans = {"decode_window", "decode_tick", "schedule_tick"}
+        dev_us = {}     # kernels only: ops and span ranges would double count
+        n_kernels = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.key in spans \
+                    or getattr(e, "is_user_annotation", False):
+                continue
+            t = float(getattr(e, "self_device_time_total", 0)
+                      or getattr(e, "self_cuda_time_total", 0))
+            if t:
+                dev_us[e.key] = dev_us.get(e.key, 0.0) + t
+                n_kernels += e.count
+        total_us = sum(dev_us.values())
+        by_kind = {}
+        for key, us in dev_us.items():
+            low = key.lower()
+            kind = ("paged_attention" if "paged_attention" in low
+                    else "rms_norm" if "rms_norm" in low
+                    else "layer_norm" if "layer_norm" in low
+                    else "gemm" if any(w in low for w in (
+                        "gemm", "nvjet", "cutlass", "matmul", "sm90_xmma"))
+                    else "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / max(n_ticks, 1)
+        eng.flush(uids)
+        tick_ms = wall / 32 * 1e3
+        dev_ms = total_us / 1e3 / n_ticks if total_us and n_ticks else None
+        return {"batch": len(prompts), "prefill_steps": n_steps,
+                "prefill_wall_s": prefill_wall,
+                "prefill_tokens_per_s": sum(st["lens"]) / prefill_wall,
+                "decode_tokens": n_tok, "decode_wall_s": wall,
+                "decode_tokens_per_s": n_tok / wall, "decode_tick_ms": tick_ms,
+                "profiled_ticks": n_ticks,
+                "kernels_per_tick": (n_kernels / n_ticks if n_kernels
+                                     else "not measured"),
+                "device_ms_per_tick": dev_ms or "not measured",
+                "device_ms_per_tick_by_kind": by_kind or "not measured",
+                "device_idle_share": (1 - dev_ms / tick_ms if dev_ms
+                                      else "not measured"),
+                "top_kernels_us": {k[:90]: v for k, v in sorted(
+                    dev_us.items(), key=lambda kv: -kv[1])[:8]}}
+
+    def phase_times(self):
+        torch = self.torch
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=self.dev)
+        llama = self.state.get("llama2_7b")
+        gpt2 = self.state.get("gpt2_125m")
+        if llama is None or gpt2 is None:
+            raise RuntimeError("times: run the llama2_7b and gpt2_125m "
+                               "phases first")
+        eng = llama["engine"]
+        lens = llama["lens"]
+        bs = eng.block_size
+        dt = "bfloat16"
+        # decode tick of the main path: one row per request, each at its
+        # prompt length + 16, table width tier of the longest
+        dec_len = [n + 16 for n in lens]
+        mb = eng._mb_tier(max(dec_len) // bs + 1)
+        pa = {}
+        args = self.pa_inputs(32, 32, 128, bs, mb, dt, dec_len, pad_rows=0)
+        pa["decode"] = self.pa_case("paged_attention[decode]", *args, flush)
+        # prefill tick: 256 rows, the last chunk of the longest prompt
+        L0 = max(max(lens), 256)
+        chunk = [L0 - 255 + i for i in range(256)]
+        mb = eng._mb_tier((L0 - 1) // bs + 1)
+        q, kp, vp, tables, _ = self.pa_inputs(32, 32, 128, bs, mb, dt,
+                                              [L0], pad_rows=0)
+        q = torch.randn(256, 32, 128, device=self.dev).to(q.dtype)
+        pa["prefill"] = self.pa_case(
+            "paged_attention[prefill]", q, kp, vp, tables.expand(256, -1)
+            .contiguous(), torch.tensor(chunk, dtype=torch.int32,
+                                        device=self.dev), flush)
+        del q, kp, vp, tables, args
+        g = torch.Generator(self.dev).manual_seed(2)
+        nm = {}
+        for kind, H, R in (("rms_norm", 4096, 8), ("rms_norm", 4096, 256),
+                           ("layer_norm", 768, 8), ("layer_norm", 768, 512)):
+            x = torch.randn(R, H, generator=g, device=self.dev).to(
+                torch.bfloat16)
+            s = (1 + 0.1 * torch.randn(H, generator=g, device=self.dev)).to(
+                torch.bfloat16)
+            b = (0.1 * torch.randn(H, generator=g, device=self.dev)).to(
+                torch.bfloat16)
+            nm[f"{kind}[R={R}]"] = self.norm_case(kind, x, s, b, 1e-5, flush)
+        rates = {m: self.decode_rate(m) for m in ("llama2_7b", "gpt2_125m")}
+        emit("times", card=self.card, paged_attention=pa, norms=nm,
+             decode=rates, peak_memory_bytes=torch.cuda.max_memory_allocated(
+                 self.dev))
+        return pa, nm
+
+    def kernels_line(self, pa, nm):
+        src = {"paged_attention": ("cuda",
+                                   "deepspeed_tpu_torch/ops/csrc/"
+                                   "paged_attention.cu",
+                                   "deepspeed_tpu/ops/pallas/"
+                                   "paged_attention.py:40"),
+               "rms_norm": ("triton", "deepspeed_tpu_torch/ops/norms.py",
+                            "deepspeed_tpu/ops/pallas/norms.py:30"),
+               "layer_norm": ("triton", "deepspeed_tpu_torch/ops/norms.py",
+                              "deepspeed_tpu/ops/pallas/norms.py:37")}
+        timed = {"paged_attention": dict(pa["decode"], library_ms=None),
+                 "rms_norm": nm["rms_norm[R=8]"],
+                 "layer_norm": nm["layer_norm[R=8]"]}
+        out = []
+        for name, (route, source, replaces) in src.items():
+            t = timed[name]
+            by_model = self.launches.get(name, {})
+            out.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces,
+                        "launches": sum(by_model.values()),
+                        "launches_by_model": by_model,
+                        "launches_per_tick": {
+                            m: n / self.ticks[m] for m, n in by_model.items()
+                            if self.ticks.get(m)},
+                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
+        return {"kernels": out}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import deepspeed_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the deepspeed_tpu_torch package is not beside "
+              f"this script ({e})", file=sys.stderr)
+        return 2
+    # fp32 matmuls in full fp32 (the PyTorch default, stated): the fp32
+    # kernel checks compare against fp32 references
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smoke = Smoke(torch, args.seed)
+    t_start = time.perf_counter()
+    pa = nm = None
+    for phase in phases:
+        t0 = time.perf_counter()
+        try:
+            res = getattr(smoke, f"phase_{phase}")()
+        except Exception as e:
+            emit(phase, error=f"{type(e).__name__}: {e}")
+            print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
+            raise
+        if phase == "times":
+            pa, nm = res
+        emit(f"{phase}/done", seconds=time.perf_counter() - t0)
+    emit("total", seconds=time.perf_counter() - t_start)
+    print(smoke.card or nvidia_smi(), flush=True)
+    if pa is not None:
+        print(json.dumps(smoke.kernels_line(pa, nm)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""Build the CUDA sources of the port into shared libraries, load with ctypes.
+
+Parity role: ``deepspeed_tpu/ops/op_builder.py`` (the op-builder seam). On a
+TPU "building" an op resolved a Pallas kernel; here each ``ops/csrc/*.cu``
+is compiled by ``nvcc`` for Hopper into a library with a plain C interface
+and bound with ``ctypes``. No PyTorch headers are included, so a build
+takes seconds, not minutes.
+
+* Builds happen at first use, into ``build/torch_kernels/`` beside the
+  package (``DSTPU_TORCH_BUILD_DIR`` overrides), cached by a hash of the
+  source, the flags and the compiler path: an unchanged source is not
+  rebuilt, a changed one is.
+* :func:`build_all` starts one ``nvcc`` per source, all at once, and waits
+  for them together.
+* A failed build raises :class:`KernelBuildError` with nvcc's stderr.
+* Callers declare ``argtypes`` with ``ctypes.c_void_p`` for every pointer
+  and the stream; left undeclared, ctypes passes Python ints as 32-bit
+  C ints and cuts the pointers.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: per source: {"seconds": build wall time (0.0 on a cache hit), "cached":
+#: bool, "path": library, "ptxas": nvcc's resource report}
+build_log: Dict[str, Dict[str, object]] = {}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def build_dir() -> Path:
+    env = os.environ.get("DSTPU_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def find_nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+        "/usr/local/cuda/bin): the CUDA kernels build on a machine with the "
+        "CUDA toolkit")
+
+
+def _target(name: str, nvcc: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode() + nvcc.encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, ctypes.CDLL]:
+    """Build (or find cached) and load every named source — all of
+    ``ops/csrc/*.cu`` by default — with one ``nvcc`` process per source
+    started together. Returns ``{name: CDLL}``."""
+    if names is None:
+        names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        if not todo:
+            return {n: _libs[n] for n in names}
+        nvcc = find_nvcc()
+        build_dir().mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in todo:
+            out = _target(name, nvcc)
+            if out.exists():
+                build_log[name] = {"seconds": 0.0, "cached": True,
+                                   "path": str(out), "ptxas": ""}
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True),
+                           tmp, out, time.perf_counter())
+        errors = []
+        for name, (proc, tmp, out, t0) in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu "
+                              f"(exit {proc.returncode}):\n{stderr}{stdout}")
+                continue
+            os.replace(tmp, out)
+            build_log[name] = {"seconds": time.perf_counter() - t0,
+                               "cached": False, "path": str(out),
+                               "ptxas": stderr}
+        if errors:
+            raise KernelBuildError("\n".join(errors))
+        for name in todo:
+            _libs[name] = ctypes.CDLL(build_log[name]["path"])
+        return {n: _libs[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``ops/csrc/<name>.cu``, built at first use."""
+    return build_all([name])[name]

@@ -12,13 +12,18 @@ setup(
     version="0.1.0",
     description="TPU-native distributed training & inference framework "
                 "(DeepSpeed-compatible API on JAX/XLA/Pallas)",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    # deepspeed_tpu_torch: the PyTorch/CUDA port (its CUDA sources ship as
+    # package data and build with nvcc at first use)
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch",
+                                    "deepspeed_tpu_torch.*"]),
     # the committed compiled-program contracts hlolint/memlint enforce
     # (analysis/{hlolint,memlint}/contracts/*.json) ship with the package
     package_data={"deepspeed_tpu.analysis.hlolint": ["contracts/*.json"],
                   "deepspeed_tpu.analysis.memlint": ["contracts/*.json"],
                   "deepspeed_tpu.analysis.racelint": ["contracts/*.json",
-                                                      "baseline.json"]},
+                                                      "baseline.json"],
+                  "deepspeed_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "orbax-checkpoint", "einops"],
     extras_require={
