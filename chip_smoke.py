@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
 
-Drives the port's serving path on the card and holds every kernel on that
-path against its plain PyTorch version:
+Drives the port's serving and training paths on the card and holds every
+kernel on them against its plain PyTorch version:
 
 1. card      — nvidia-smi name and power limit, torch device name and count;
 2. build     — nvcc builds of ``ops/csrc/*.cu`` (one process per source,
                started together) and Triton's first compile, timed;
-3. kernels   — paged attention and RMSNorm/LayerNorm against their plain
-               versions at the serving shapes, bf16 and fp32;
+3. kernels   — paged attention, RMSNorm/LayerNorm, flash attention
+               (forward, dq, dkv) and fused Adam against their plain
+               versions, bf16 and fp32, at the main-path shapes and edge
+               cases (unaligned S, GQA, non-causal);
 4. llama2_7b — ``FastGenEngine`` at full width and depth (random weights
                from a seed, bf16) serves 8 requests through ``generate_all``;
                launch counters prove every tick went through the kernels;
                one mixed tick's logits on the kernel path vs the plain path;
 5. gpt2_125m — the LayerNorm / learned-position / GELU path, same checks;
-6. times     — kernels vs plain vs library calls vs their bounds (CUDA
-               events), decode tokens/s, TTFT, peak memory, the profiler's
-               share of a decode tick per kernel.
+6. train_gpt2_125m  — ``initialize`` + ``train_batch`` at the repo's
+               headline training settings (micro 32, seq 1024, gas 4, bf16,
+               ZeRO-1, flash attention, remat full, Adam lr 1e-4), full
+               width and depth, a fixed batch: the loss falls, the counters
+               prove every step launched flash fwd/dq/dkv, fused Adam and the
+               norms; one step kernel path vs plain path in fp32, and bf16 no
+               further from that fp32 reference than the plain bf16 path;
+7. train_llama_750m — the same at micro 4, seq 2048, gas 4 (RMSNorm, RoPE,
+               SwiGLU, head_dim 128);
+8. times     — kernels vs plain vs library calls vs their bounds (CUDA
+               events), decode tokens/s, TTFT, training step time, tokens/s,
+               MFU, idle share, the profiler's split of a step, peak memory.
 
 Prints one JSON line per phase, then the nvidia-smi line, then the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -39,7 +50,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
-PHASES = ("card", "build", "kernels", "llama2_7b", "gpt2_125m", "times")
+PHASES = ("card", "build", "kernels", "llama2_7b", "gpt2_125m",
+          "train_gpt2_125m", "train_llama_750m", "times")
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # fp32: both compute in fp32 and differ only in summation order (a few ulp
@@ -59,6 +71,59 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}   # atol, rtol
 # more than BF16_VS_PLAIN times as far from it as the plain bf16 path, and
 # its top-1 agreement with it at most BF16_TOP1_SLACK below the plain
 # path's.
+# Flash attention against its plain version: both sum in fp32, over up to
+# S = 2048 keys and (dk, dv) rep x S queries, in other orders; the absolute
+# error grows with the number of terms, so fp32 gets 1e-4 where one
+# row-wise kernel gets 1e-5. bf16 adds one rounding of the output (2^-7).
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 2.0 ** -7)}
+# (label, B, S, N, K, D, causal): the two main-path shapes, then edges
+FLASH_CASES = (("gpt2_125m", 32, 1024, 12, 12, 64, True),
+               ("llama_750m", 4, 2048, 12, 12, 128, True),
+               ("unaligned_d64", 2, 1000, 4, 4, 64, True),
+               ("unaligned_d128", 2, 1000, 4, 2, 128, True),
+               ("gqa", 2, 512, 32, 8, 128, True),
+               ("full_d64", 2, 512, 4, 4, 64, False),
+               ("full_d128_unaligned", 1, 300, 4, 2, 128, False))
+# (kind, H, rows): the serving sizes (a decode tick to a prefill chunk),
+# then the training main path's, micro x seq rows (llama_750m's H 1536 is
+# a masked BLOCK_H 2048 program)
+NORM_CASES = (("rms_norm", 4096, (1, 37, 256)), ("rms_norm", 1536, (8192,)),
+              ("layer_norm", 768, (1, 37, 256, 32768)))
+# Training runs: the repo's headline settings (bench.py train_bench) and the
+# zero3_llama_750m_bf16 row's shape (bench.py), at ZeRO stage 1
+TRAIN = {"gpt2_125m": dict(micro=32, seq=1024, gas=4, steps=4,
+                           norm="layer_norm", gate_micro=2),
+         "llama_750m": dict(micro=4, seq=2048, gas=4, steps=3,
+                            norm="rms_norm", gate_micro=1)}
+TRAIN_LR = 1e-4
+# One optimizer step, kernel path vs plain path, fp32, same weights and
+# batch: loss within TRAIN_LOSS_REL (relative), grad norm within
+# TRAIN_NORM_REL, the whole gradient within TRAIN_GRAD_REL (relative L2),
+# and the Adam update with the same sign on all but TRAIN_SIGN_MISS of the
+# elements: step 1 of Adam moves each weight by about lr * sign(g), so a
+# gradient that differs only in its last digits flips the sign of a
+# near-zero element — the key bias's true gradient is 0 (softmax ignores a
+# per-query constant), so its L x N x D elements are rounding noise on
+# either path (7.4e-5 of gpt2_125m's weights), and a CPU rehearsal of the
+# tiny model gave 3.5e-4 for all such elements together. Those elements'
+# |g| lies far below eps, so they move by lr g / eps, next to nothing, and
+# the update's relative L2 (kernel vs plain) follows the gradient's: within
+# TRAIN_UPDATE_REL, ten times TRAIN_GRAD_REL. Every way's update is also
+# held against step 1 of Adam from its own gradient, -lr g / (|g| + eps),
+# within TRAIN_ADAM_REL (relative L2): the fp32 rounding of p - lr u, about
+# 6e-8 |p| against lr = 1e-4 per weight. A 1 % error of the lr or the bias
+# correction on the step path reads 1e-2 there. (On an NVIDIA H100 80GB
+# HBM3 at 700 W: update 4.5e-5 and 9.0e-5, Adam 8.7e-6 and 8.4e-6, for
+# gpt2_125m and llama_750m.) bf16: the kernel path's error against the
+# fp32 plain step at most BF16_VS_PLAIN times the plain bf16 path's, metric
+# by metric (the gate's inputs come from the seed, and two runs on one card
+# gave the same readings to the last digit).
+TRAIN_LOSS_REL = 1e-5
+TRAIN_NORM_REL = 1e-4
+TRAIN_GRAD_REL = 1e-4
+TRAIN_SIGN_MISS = 1e-3
+TRAIN_UPDATE_REL = 10 * TRAIN_GRAD_REL
+TRAIN_ADAM_REL = 1e-4
 HEAD_ATOL = 1e-4
 LOGIT_REL_TOL_FP32 = 1e-3
 TOP1_MIN = 0.99
@@ -68,6 +133,16 @@ BF16_TOP1_SLACK = 0.05
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
+
+
+def flops_per_token(cfg, seq_len: int) -> float:
+    """Model FLOPs per token of a training step, a copy of ``bench.py``
+    ``_flops_per_token`` (dense): 6 N for the forward and backward matmuls
+    plus causal attention 6 L H S; remat recompute not counted."""
+    attn = 6 * cfg.num_layers * cfg.hidden_size * seq_len
+    if not cfg.causal:
+        attn *= 2
+    return float(6 * cfg.num_params() + attn)
 
 
 def nvidia_smi() -> str:
@@ -86,6 +161,8 @@ class Smoke:
         self.card = ""
         self.launches = {}       # kernel → {model: launches on its run}
         self.ticks = {}          # model → ticks of its main-path run
+        self.steps = {}          # train_<model> → steps of its main-path run
+        self.errs = {}           # kernel → max abs err at the main-path shape
         self.state = {}          # engine, prompts of each model's run
 
     # ------------------------------------------------------------------ #
@@ -94,17 +171,7 @@ class Smoke:
             self.torch.cuda.synchronize(self.dev)
 
     def close(self, name, got, want, dtype):
-        torch = self.torch
-        atol, rtol = TOL[dtype]
-        diff = (got.float() - want.float()).abs()
-        bad = diff > atol + rtol * want.float().abs()
-        err = float(diff.max()) if diff.numel() else 0.0
-        if bool(bad.any()) or not bool(torch.isfinite(got.float()).all()):
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version: max abs err {err:.3g} (atol "
-                                 f"{atol}, rtol {rtol:.3g}), "
-                                 f"{int(bad.sum())} elements out of bound")
-        return err
+        return self.close_tol(name, got, want, TOL[dtype])
 
     # ------------------------------------------------------------------ #
     def phase_card(self):
@@ -187,10 +254,10 @@ class Smoke:
                              "dtype": dtype, "max_abs_err": err,
                              "tol": TOL[dtype]})
         g = torch.Generator(self.dev).manual_seed(1)
-        for kind, H in (("rms_norm", 4096), ("layer_norm", 768)):
+        for kind, H, Rs in NORM_CASES:
             for dtype in ("bfloat16", "float32"):
                 dt = getattr(torch, dtype)
-                for R in (1, 37, 256):
+                for R in Rs:
                     x = torch.randn(R, H, generator=g, device=self.dev).to(dt)
                     s = (1 + 0.1 * torch.randn(H, generator=g,
                                                device=self.dev)).to(dt)
@@ -228,22 +295,140 @@ class Smoke:
             rows.append({"kernel": "head_matmul (cuBLAS, fp32 out)",
                          "shape": label, "tied": tied, "max_abs_err": err,
                          "tol": HEAD_ATOL})
+        rows += self.flash_checks()
+        rows += self.adam_checks()
         emit("kernels", checks=rows)
 
+    def close_tol(self, name, got, want, tol):
+        diff = (got.float() - want.float()).abs()
+        atol, rtol = tol
+        bad = diff > atol + rtol * want.float().abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        if bool(bad.any()) or not bool(self.torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version: max abs err {err:.3g} (atol "
+                                 f"{atol}, rtol {rtol:.3g}), "
+                                 f"{int(bad.sum())} elements out of bound")
+        return err
+
+    def flash_inputs(self, B, S, N, K, D, dtype, seed):
+        torch = self.torch
+        g = torch.Generator(self.dev).manual_seed(seed)
+        dt = getattr(torch, dtype)
+        q = torch.randn(B, S, N, D, generator=g, device=self.dev).to(dt)
+        k = torch.randn(B, S, K, D, generator=g, device=self.dev).to(dt)
+        v = torch.randn(B, S, K, D, generator=g, device=self.dev).to(dt)
+        do = torch.randn(B, S, N, D, generator=g, device=self.dev).to(dt)
+        return q, k, v, do
+
+    def flash_checks(self):
+        """Flash forward (o, lse), dq and dkv against the plain versions on
+        the same inputs (the backward from the kernel's own o and lse)."""
+        from deepspeed_tpu_torch.ops import flash_attention as PF
+
+        rows = []
+        for label, B, S, N, K, D, causal in FLASH_CASES:
+            for dtype in ("bfloat16", "float32"):
+                q, k, v, do = self.flash_inputs(B, S, N, K, D, dtype, seed=S)
+                o, lse = PF.flash_fwd(q, k, v, causal)
+                ro, rlse = PF.flash_fwd_ref(q, k, v, causal)
+                self.sync()
+                tag = f"[{label},{dtype}]"
+                errs = {"o": self.close_tol("flash_fwd.o" + tag, o, ro,
+                                            FLASH_TOL[dtype]),
+                        "lse": self.close_tol("flash_fwd.lse" + tag, lse,
+                                              rlse, FLASH_TOL["float32"])}
+                del ro, rlse
+                grads = PF.flash_bwd(q, k, v, o, lse, do, causal)
+                refs = PF.flash_bwd_ref(q, k, v, o, lse, do, causal)
+                self.sync()
+                for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+                    errs[name] = self.close_tol(f"flash_bwd.{name}{tag}",
+                                                got, want, FLASH_TOL[dtype])
+                if label == "gpt2_125m" and dtype == "bfloat16":
+                    self.errs.update(flash_fwd=max(errs["o"], errs["lse"]),
+                                     flash_bwd_dq=errs["dq"],
+                                     flash_bwd_dkv=max(errs["dk"],
+                                                       errs["dv"]))
+                rows.append({"kernel": "flash_attention", "shape": label,
+                             "B": B, "S": S, "N": N, "K": K, "D": D,
+                             "causal": causal, "dtype": dtype,
+                             "max_abs_err": errs, "tol": FLASH_TOL[dtype]})
+                del q, k, v, do, o, lse, grads, refs
+                self.torch.cuda.empty_cache()
+        return rows
+
+    def adam_checks(self):
+        """Fused Adam on a flat buffer of each trained model's size (+3, a
+        ragged tail; llama_750m's 2.66 GB buffers pass 2^31 bytes), Adam and
+        AdamW with weight decay, bf16 copy written: the kernel rounds every
+        operation as its plain version does, so p, m, v and the copy are
+        held to the fp32 tolerance and compared bit for bit as well."""
+        torch = self.torch
+        from deepspeed_tpu_torch.models import transformer as T
+
+        g = torch.Generator(self.dev).manual_seed(3)
+        rows = []
+        for model in TRAIN:
+            n = T.get_model_config(model).num_params() + 3
+            for adam_w in (True, False):
+                rows.append(self.adam_check(model, n, adam_w, g))
+        return rows
+
+    def adam_check(self, model, n, adam_w, g):
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import fused_adam as FA
+
+        p = torch.randn(n, generator=g, device=self.dev)
+        grad = 0.01 * torch.randn(n, generator=g, device=self.dev)
+        m = 0.001 * torch.randn(n, generator=g, device=self.dev)
+        v = 1e-6 * torch.rand(n, generator=g, device=self.dev)
+        ref = [t.clone() for t in (p, m, v)]
+        out = torch.empty(n, dtype=torch.bfloat16, device=self.dev)
+        rout = torch.empty_like(out)
+        bc1, bc2 = FA.bias_corrections(3, (0.9, 0.999))
+        args = (1e-4, (0.9, 0.999), 1e-8, 0.1, bc1, bc2)
+        FA.fused_adam(p, grad, m, v, *args, adam_w=adam_w, out=out)
+        FA.fused_adam_ref(*ref[:1], grad, *ref[1:], *args, adam_w=adam_w,
+                          out=rout)
+        self.sync()
+        tag = f"[{model},adam_w={adam_w}]"
+        errs = {name: self.close(f"fused_adam.{name}{tag}", got, want,
+                                 "float32")
+                for name, got, want in zip(("p", "m", "v"), (p, m, v), ref)}
+        errs["bf16_copy"] = self.close(f"fused_adam.copy{tag}", out, rout,
+                                       "bfloat16")
+        bitwise = all(bool(torch.equal(a, b)) for a, b in
+                      zip((p, m, v, out), (*ref, rout)))
+        self.errs["fused_adam"] = max(self.errs.get("fused_adam", 0.0),
+                                      *errs.values())
+        del p, grad, m, v, ref, out, rout
+        torch.cuda.empty_cache()
+        return {"kernel": "fused_adam", "shape": model, "n": n,
+                "adam_w": adam_w, "weight_decay": 0.1, "max_abs_err": errs,
+                "bitwise_equal": bitwise, "tol": TOL["float32"]}
+
     # ------------------------------------------------------------------ #
-    def reset_counts(self):
+    def counters(self):
+        from deepspeed_tpu_torch.ops import flash_attention as PF
+        from deepspeed_tpu_torch.ops import fused_adam as FA
         from deepspeed_tpu_torch.ops import norms
         from deepspeed_tpu_torch.ops import paged_attention as PA
 
-        for d in (PA.launches, norms.launches):
+        return (PA.launches, norms.launches, PF.launches, FA.launches)
+
+    def reset_counts(self):
+        from deepspeed_tpu_torch.ops import norms
+
+        for d in self.counters() + (norms.backward_calls,):
             for k in d:
                 d[k] = 0
 
     def read_counts(self):
-        from deepspeed_tpu_torch.ops import norms
-        from deepspeed_tpu_torch.ops import paged_attention as PA
-
-        return {**PA.launches, **norms.launches}
+        out = {}
+        for d in self.counters():
+            out.update(d)
+        return out
 
     def serve(self, model, n_req, lo, hi, max_new, norm_kind, **engine_kw):
         """One model's main-path run + checks + a mixed-tick comparison."""
@@ -410,6 +595,192 @@ class Smoke:
         self.serve("gpt2_125m", 8, 16, 480, 32, "layer_norm", n_blocks=512,
                    block_size=64, max_blocks_per_seq=16, token_budget=512,
                    max_seq_len=1024)
+
+    # ------------------------------------------------------------------ #
+    # training
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def train_config(micro, gas, precision):
+        cfg = {"train_micro_batch_size_per_gpu": micro,
+               "gradient_accumulation_steps": gas,
+               "optimizer": {"type": "adam", "params": {"lr": TRAIN_LR}},
+               "zero_optimization": {"stage": 1},
+               "steps_per_print": 10 ** 9}
+        if precision == "bf16":
+            cfg["bf16"] = {"enabled": True}
+        return cfg
+
+    def train(self, model):
+        """The main path: ``initialize`` + ``train_batch`` at full width and
+        depth on a fixed batch; counters to 0 just before the timed steps,
+        read just after; then the kernel-vs-plain step gate."""
+        torch = self.torch
+        import itertools
+
+        import deepspeed_tpu_torch as dtt
+        from deepspeed_tpu_torch.ops import norms
+
+        t = TRAIN[model]
+        micro, seq, gas, steps = t["micro"], t["seq"], t["gas"], t["steps"]
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        base = torch.cuda.memory_allocated(self.dev)   # earlier phases' engines
+        t0 = time.perf_counter()
+        spec = dtt.causal_lm_spec(model, attention="flash", remat="full")
+        engine, *_ = dtt.initialize(model=spec, config=self.train_config(
+            micro, gas, "bf16"))
+        self.sync()
+        init_s = time.perf_counter() - t0
+        cfg = spec.config
+        rng = np.random.default_rng(self.seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (micro, seq),
+                                        dtype=np.int32)}
+        data = itertools.repeat(batch)
+        t0 = time.perf_counter()
+        first = float(engine.train_batch(data))      # warm-up (first compiles)
+        warm_s = time.perf_counter() - t0
+
+        # ---- the main path: counts to 0 just before, read just after ---- #
+        self.reset_counts()
+        losses, walls = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = engine.train_batch(data)
+            self.sync()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        counts = self.read_counts()
+        bwd_calls = dict(norms.backward_calls)
+        # ----------------------------------------------------------------- #
+        L, norm = cfg.num_layers, t["norm"]
+        micros = gas * steps
+        want = {"flash_fwd": 2 * L * micros,     # remat: forward runs twice
+                "flash_bwd_dq": L * micros, "flash_bwd_dkv": L * micros,
+                "fused_adam": steps,
+                norm: (4 * L + 1) * micros,      # 2 per layer, twice, + final
+                "paged_attention": 0}
+        problems = [f"{k} launched {counts[k]} times, want {v}"
+                    for k, v in want.items() if counts[k] != v]
+        if bwd_calls[norm] != (2 * L + 1) * micros:
+            problems.append(f"{norm} backward ran {bwd_calls[norm]} times, "
+                            f"want {(2 * L + 1) * micros}")
+        if not all(np.isfinite([first] + losses)):
+            problems.append(f"non-finite loss {[first] + losses}")
+        elif not losses[-1] < first:
+            problems.append(f"loss did not fall: {[first] + losses}")
+        off = [n for n in ("flat_master", "flat_compute", "flat_grad",
+                           "flat_grad_acc")
+               if getattr(engine, n).device != self.dev]
+        if off:
+            problems.append(f"engine buffers off the card: {off}")
+        if problems:
+            raise AssertionError(f"train {model}: " + "; ".join(problems))
+        for k in want:
+            if want[k]:
+                self.launches.setdefault(k, {})[f"train_{model}"] = counts[k]
+        self.steps[f"train_{model}"] = steps
+        step_s = float(np.median(walls))
+        tokens = micro * seq * gas
+        flops = flops_per_token(cfg, seq) * tokens
+        peak = torch.cuda.max_memory_allocated(self.dev) - base
+        result = {"micro": micro, "seq": seq, "gas": gas, "steps": steps,
+                  "params": cfg.num_params(), "init_seconds": init_s,
+                  "warmup_step_seconds": warm_s, "losses": [first] + losses,
+                  "step_walls_s": walls, "step_ms": step_s * 1e3,
+                  "tokens_per_s": tokens / step_s,
+                  "model_tflops_per_s": flops / step_s / 1e12,
+                  "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+                  "launches": counts, "launches_want": want,
+                  "norm_backward_calls": bwd_calls[norm],
+                  "peak_memory_bytes": peak,
+                  "memory_held_by_earlier_phases_bytes": base,
+                  "card": self.card}
+        emit(f"train_{model}", **result)
+        self.state[f"train_{model}"] = dict(result, engine=engine,
+                                            data=data, batch=batch)
+        self.train_gate(model, engine, batch)
+
+    def train_gate(self, model, main, batch):
+        """One optimizer step, four ways ({fp32, bf16} x {kernels, plain}),
+        from the main path's fp32 master on the first ``gate_micro`` rows of
+        its batch; each against the fp32 plain step. Every way runs the
+        config's Adam (the kernel, held against its plain version in the
+        kernels phase), so the paths differ only in the model's kernels;
+        each way's update is also held against step 1 of Adam computed here
+        from its own gradient."""
+        torch = self.torch
+        import deepspeed_tpu_torch as dtt
+        from deepspeed_tpu_torch.models.convert import load_master
+
+        t = TRAIN[model]
+        tokens = batch["tokens"][:t["gate_micro"]]
+        ref = None
+        res = {}
+        for prec, path in (("fp32", "plain"), ("fp32", "kernels"),
+                           ("bf16", "plain"), ("bf16", "kernels")):
+            spec = dtt.causal_lm_spec(
+                model, attention="flash", remat="full",
+                use_kernels=path == "kernels",
+                dtype="float32" if prec == "fp32" else "bfloat16")
+            engine, *_ = dtt.initialize(model=spec, config=self.train_config(
+                t["gate_micro"], 1, prec))
+            load_master(engine, main.state["master"])
+            before = engine.flat_master.clone()
+            loss = float(engine.train_batch(iter([{"tokens": tokens}])))
+            norm = engine.get_global_grad_norm()
+            grad = engine.flat_grad_acc.float()     # unscaled, gas 1
+            update = engine.flat_master - before
+            del before
+            # step 1 of Adam, no weight decay: m̂ = g, v̂ = g²
+            adam = -TRAIN_LR * grad / (grad.abs() + 1e-8)
+            row = {"loss": loss, "grad_norm": norm,
+                   "adam_rel": float((update - adam).norm() / adam.norm())}
+            del adam
+            if ref is None:
+                ref = {"loss": loss, "norm": norm, "grad": grad.clone(),
+                       "update": update.clone()}
+            else:
+                row.update(
+                    loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                    norm_rel=abs(norm - ref["norm"]) / ref["norm"],
+                    grad_rel=float((grad - ref["grad"]).norm()
+                                   / ref["grad"].norm()),
+                    update_rel=float((update - ref["update"]).norm()
+                                     / ref["update"].norm()),
+                    sign_miss=float((torch.sign(update)
+                                     != torch.sign(ref["update"]))
+                                    .float().mean()))
+            res[(prec, path)] = row
+            del engine, grad, update
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+        k32, kb, pb = (res[("fp32", "kernels")], res[("bf16", "kernels")],
+                       res[("bf16", "plain")])
+        limits = {"loss_rel": TRAIN_LOSS_REL, "norm_rel": TRAIN_NORM_REL,
+                  "grad_rel": TRAIN_GRAD_REL, "update_rel": TRAIN_UPDATE_REL,
+                  "sign_miss": TRAIN_SIGN_MISS}
+        problems = [f"fp32 {m} {k32[m]:.3g} > {lim}"
+                    for m, lim in limits.items() if not k32[m] <= lim]
+        problems += [f"bf16 {m}: kernels {kb[m]:.3g}, plain {pb[m]:.3g}"
+                     for m in limits if not kb[m] <= BF16_VS_PLAIN * pb[m]]
+        problems += [f"{prec} {path}: Adam update off step 1 by "
+                     f"{r['adam_rel']:.3g} (relative L2)"
+                     for (prec, path), r in res.items()
+                     if not r["adam_rel"] <= TRAIN_ADAM_REL]
+        emit(f"train_{model}/step_gate", micro=t["gate_micro"],
+             seq=t["seq"], fp32_plain=res[("fp32", "plain")],
+             fp32_kernels=k32, bf16_plain=pb, bf16_kernels=kb,
+             bounds=dict(limits, bf16_vs_plain=BF16_VS_PLAIN,
+                         adam_rel=TRAIN_ADAM_REL), card=self.card)
+        if problems:
+            raise AssertionError(f"train {model}: step kernel vs plain: "
+                                 + "; ".join(problems))
+
+    def phase_train_gpt2_125m(self):
+        self.train("gpt2_125m")
+
+    def phase_train_llama_750m(self):
+        self.train("llama_750m")
 
     # ------------------------------------------------------------------ #
     def time_ms(self, fn, iters=20, flush=None):
@@ -585,9 +956,10 @@ class Smoke:
         flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=self.dev)
         llama = self.state.get("llama2_7b")
         gpt2 = self.state.get("gpt2_125m")
-        if llama is None or gpt2 is None:
-            raise RuntimeError("times: run the llama2_7b and gpt2_125m "
-                               "phases first")
+        if llama is None or gpt2 is None or any(
+                f"train_{m}" not in self.state for m in TRAIN):
+            raise RuntimeError("times: run the serving and training phases "
+                               "first")
         eng = llama["engine"]
         lens = llama["lens"]
         bs = eng.block_size
@@ -614,7 +986,9 @@ class Smoke:
         g = torch.Generator(self.dev).manual_seed(2)
         nm = {}
         for kind, H, R in (("rms_norm", 4096, 8), ("rms_norm", 4096, 256),
-                           ("layer_norm", 768, 8), ("layer_norm", 768, 512)):
+                           ("rms_norm", 1536, 8192), ("layer_norm", 768, 8),
+                           ("layer_norm", 768, 512),
+                           ("layer_norm", 768, 32768)):
             x = torch.randn(R, H, generator=g, device=self.dev).to(
                 torch.bfloat16)
             s = (1 + 0.1 * torch.randn(H, generator=g, device=self.dev)).to(
@@ -626,9 +1000,183 @@ class Smoke:
         emit("times", card=self.card, paged_attention=pa, norms=nm,
              decode=rates, peak_memory_bytes=torch.cuda.max_memory_allocated(
                  self.dev))
-        return pa, nm
+        del eng, llama, gpt2                     # free the serving engines
+        for m in ("llama2_7b", "gpt2_125m"):
+            self.state.pop(m)
+        torch.cuda.empty_cache()
+        fl = {label: self.flash_times(label, B, S, N, K, D, flush)
+              for label, B, S, N, K, D, _ in FLASH_CASES[:2]}
+        adam = self.adam_times(flush)
+        steps = {m: self.train_profile(m) for m in TRAIN}
+        emit("times/train", card=self.card, flash=fl, fused_adam=adam,
+             steps=steps)
+        return pa, nm, fl, adam
 
-    def kernels_line(self, pa, nm):
+    @staticmethod
+    def bound(nbytes, flops, dtype="bfloat16"):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops}
+
+    def flash_times(self, label, B, S, N, K, D, flush):
+        """Forward, dq and dkv at a main-path shape (bf16, causal, N == K):
+        kernel, plain, the library's calls (SDPA forward; PyTorch's
+        flash-attention backward op alone, which gives dq, dk and dv
+        together; SDPA forward+backward as well), bounds with each
+        input read and each output written once and the causal half of the
+        score matrix computed."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deepspeed_tpu_torch.ops import flash_attention as PF
+
+        q, k, v, do = self.flash_inputs(B, S, N, K, D, "bfloat16", seed=7)
+        o, lse = PF.flash_fwd(q, k, v, True)
+        delta = PF.flash_bwd_delta(o, do)
+        elt, BN = q.element_size(), B * N
+        pairs = BN * S * (S + 1) // 2
+        qb, kvb, rowb = q.numel() * elt, k.numel() * elt, BN * S * 4
+        out = {
+            "flash_fwd": dict(self.bound(2 * qb + 2 * kvb + rowb,
+                                         4.0 * pairs * D),
+                              ms=self.time_ms(lambda: PF.flash_fwd(
+                                  q, k, v, True), flush=flush),
+                              plain_ms=self.time_ms(lambda: PF.flash_fwd_ref(
+                                  q, k, v, True), iters=5, flush=flush)),
+            "flash_bwd_dq": dict(self.bound(3 * qb + 2 * kvb + 2 * rowb,
+                                            6.0 * pairs * D),
+                                 ms=self.time_ms(lambda: PF.flash_bwd_dq(
+                                     q, k, v, do, lse, delta, True),
+                                     flush=flush)),
+            "flash_bwd_dkv": dict(self.bound(2 * qb + 4 * kvb + 2 * rowb,
+                                             8.0 * pairs * D),
+                                  ms=self.time_ms(lambda: PF.flash_bwd_dkv(
+                                      q, k, v, do, lse, delta, True),
+                                      flush=flush))}
+        # the plain backward computes dq, dk and dv together
+        plain_bwd = self.time_ms(lambda: PF.flash_bwd_ref(
+            q, k, v, o, lse, do, True), iters=5, flush=flush)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        gqa = dict(enable_gqa=True) if K != N else {}
+        sdpa_fwd = self.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa), flush=flush)
+        qr, kr, vr = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+        def sdpa_fb():
+            F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                           **gqa).backward(dot)
+
+        sdpa_fb_ms = self.time_ms(sdpa_fb, flush=flush)
+        # the library's backward alone: PyTorch's flash-attention backward
+        # op from the same (do, q, k, v) and its own forward's o and lse
+        aten = torch.ops.aten
+        fo = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+        lib_bwd = self.time_ms(
+            lambda: aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, *fo[:6], 0.0, True, *fo[6:8]), flush=flush)
+        out["flash_fwd"]["library_ms"] = sdpa_fwd
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            out[name].update(plain_ms=plain_bwd, plain_computes="dq, dk, dv",
+                             library_ms=lib_bwd,
+                             library_computes="dq, dk, dv")
+        for row in out.values():
+            row["sdpa_fwd_bwd_ms"] = sdpa_fb_ms
+            row["shape"] = {"B": B, "S": S, "N": N, "K": K, "D": D,
+                            "causal": True, "dtype": "bfloat16"}
+        del q, k, v, do, o, lse, delta, qr, kr, vr, fo
+        torch.cuda.empty_cache()
+        return out
+
+    def adam_times(self, flush):
+        """Fused Adam over gpt2_125m's flat buffer (the main path's, with
+        the bf16 compute copy written): kernel, plain, and
+        ``torch.optim.AdamW(fused=True).step()`` as the yardstick (no
+        compute copy)."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import fused_adam as FA
+
+        n = self.state["train_gpt2_125m"]["engine"].flat_master.numel()
+        g = torch.Generator(self.dev).manual_seed(5)
+        p, grad, m = (0.02 * torch.randn(n, generator=g, device=self.dev)
+                      for _ in range(3))
+        v = 1e-6 * torch.rand(n, generator=g, device=self.dev)
+        out = torch.empty(n, dtype=torch.bfloat16, device=self.dev)
+        bc1, bc2 = FA.bias_corrections(10, (0.9, 0.999))
+        args = (TRAIN_LR, (0.9, 0.999), 1e-8, 0.0, bc1, bc2, True, out)
+        ms = self.time_ms(lambda: FA.fused_adam(p, grad, m, v, *args),
+                          flush=flush)
+        plain = self.time_ms(lambda: FA.fused_adam_ref(p, grad, m, v, *args),
+                             iters=5, flush=flush)
+        pl = p.clone().requires_grad_()
+        pl.grad = grad
+        opt = torch.optim.AdamW([pl], lr=TRAIN_LR, weight_decay=0.0,
+                                fused=True)
+        opt.step()                      # allocates its state
+        lib = self.time_ms(opt.step, flush=flush)
+        res = dict(self.bound(30.0 * n, 15.0 * n, "float32"), ms=ms,
+                   plain_ms=plain, library_ms=lib, n=n,
+                   bytes_per_element=30)
+        del p, grad, m, v, out, pl, opt
+        torch.cuda.empty_cache()
+        return res
+
+    def train_profile(self, model):
+        """One more step of the main-path engine under torch.profiler: the
+        device time by kernel kind, the annotated loss and norm-backward
+        spans, and the idle share of that step (its device time against
+        its own synchronised wall, which the profiler's host cost lengthens
+        beside the unprofiled median step)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        st = self.state[f"train_{model}"]
+        engine = st["engine"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            self.sync()
+            t0 = time.perf_counter()
+            engine.train_batch(st["data"])
+            self.sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        annotated = ("fused_lm_loss", "fused_lm_loss_backward",
+                     "norm_backward")
+        kinds, spans = {}, {}
+        n_kernels = 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = float(getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "self_cuda_time_total", 0))
+            if e.key in annotated:
+                spans[e.key] = spans.get(e.key, 0.0) + us / 1e3
+                continue
+            if getattr(e, "is_user_annotation", False) or not us:
+                continue
+            low = e.key.lower()
+            kind = ("flash_fwd" if "flash_fwd_kernel" in low
+                    else "flash_bwd_dq" if "flash_bwd_dq_kernel" in low
+                    else "flash_bwd_dkv" if "flash_bwd_dkv_kernel" in low
+                    else "fused_adam" if "fused_adam_kernel" in low
+                    else "norm_fwd" if "norm_fwd" in low
+                    else "gemm" if any(w in low for w in (
+                        "gemm", "nvjet", "cutlass", "matmul", "sm90_xmma"))
+                    else "other")
+            kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+            n_kernels += e.count
+        device_ms = sum(kinds.values())
+        return {"step_ms": st["step_ms"], "tokens_per_s": st["tokens_per_s"],
+                "model_tflops_per_s": st["model_tflops_per_s"],
+                "mfu": st["mfu"], "peak_memory_bytes": st["peak_memory_bytes"],
+                "device_ms_per_step": device_ms or "not measured",
+                "device_ms_by_kind": kinds or "not measured",
+                "annotated_device_ms": spans or "not measured",
+                "kernels_per_step": n_kernels or "not measured",
+                "profiled_step_ms": wall_ms,
+                "device_idle_share": (1 - device_ms / wall_ms
+                                      if device_ms else "not measured")}
+
+    def kernels_line(self, pa, nm, fl, adam):
         src = {"paged_attention": ("cuda",
                                    "deepspeed_tpu_torch/ops/csrc/"
                                    "paged_attention.cu",
@@ -638,9 +1186,23 @@ class Smoke:
                             "deepspeed_tpu/ops/pallas/norms.py:30"),
                "layer_norm": ("triton", "deepspeed_tpu_torch/ops/norms.py",
                               "deepspeed_tpu/ops/pallas/norms.py:37")}
+        flash_src = "deepspeed_tpu_torch/ops/csrc/flash_attention.cu"
+        src.update({
+            "flash_fwd": ("cuda", flash_src,
+                          "deepspeed_tpu/ops/pallas/flash_attention.py:71"),
+            "flash_bwd_dq": ("cuda", flash_src,
+                             "deepspeed_tpu/ops/pallas/flash_attention.py:169"),
+            "flash_bwd_dkv": ("cuda", flash_src,
+                              "deepspeed_tpu/ops/pallas/flash_attention.py:214"),
+            "fused_adam": ("cuda", "deepspeed_tpu_torch/ops/csrc/fused_adam.cu",
+                           "deepspeed_tpu/ops/pallas/fused_adam.py:34")})
         timed = {"paged_attention": dict(pa["decode"], library_ms=None),
                  "rms_norm": nm["rms_norm[R=8]"],
-                 "layer_norm": nm["layer_norm[R=8]"]}
+                 "layer_norm": nm["layer_norm[R=8]"],
+                 "fused_adam": dict(adam, max_abs_err=self.errs["fused_adam"])}
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            timed[name] = dict(fl["gpt2_125m"][name],
+                               max_abs_err=self.errs[name])
         out = []
         for name, (route, source, replaces) in src.items():
             t = timed[name]
@@ -652,10 +1214,15 @@ class Smoke:
                         "launches_per_tick": {
                             m: n / self.ticks[m] for m, n in by_model.items()
                             if self.ticks.get(m)},
+                        "launches_per_step": {
+                            m: n / self.steps[m] for m, n in by_model.items()
+                            if self.steps.get(m)},
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
+            if "sdpa_fwd_bwd_ms" in t:
+                out[-1]["sdpa_fwd_bwd_ms"] = t["sdpa_fwd_bwd_ms"]
         return {"kernels": out}
 
 
@@ -689,7 +1256,7 @@ def main(argv=None) -> int:
 
     smoke = Smoke(torch, args.seed)
     t_start = time.perf_counter()
-    pa = nm = None
+    timed = None
     for phase in phases:
         t0 = time.perf_counter()
         try:
@@ -699,12 +1266,12 @@ def main(argv=None) -> int:
             print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
             raise
         if phase == "times":
-            pa, nm = res
+            timed = res
         emit(f"{phase}/done", seconds=time.perf_counter() - t0)
     emit("total", seconds=time.perf_counter() - t_start)
     print(smoke.card or nvidia_smi(), flush=True)
-    if pa is not None:
-        print(json.dumps(smoke.kernels_line(pa, nm)), flush=True)
+    if timed is not None:
+        print(json.dumps(smoke.kernels_line(*timed)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,16 +7,58 @@ layouts at the public functions, so the parity tests feed both the same
 numpy inputs. This package imports ``torch`` and never ``jax`` or anything
 of ``deepspeed_tpu``.
 
-Ported so far (the serving slice): FastGen continuous batching over the
-paged KV pool (``inference/fastgen.py``, ``models/paged.py``) with the
-model zoo subset it needs (``models/transformer.py``), and two kernels
-written by hand for Hopper — paged attention in CUDA C++
-(``ops/csrc/paged_attention.cu``) and RMSNorm/LayerNorm in Triton
-(``ops/norms.py``).
+Ported so far:
+
+* serving — FastGen continuous batching over the paged KV pool
+  (``inference/fastgen.py``, ``models/paged.py``) with paged attention in
+  CUDA C++ (``ops/csrc/paged_attention.cu``) and RMSNorm/LayerNorm in
+  Triton (``ops/norms.py``);
+* single-process training — :func:`initialize` → ``engine.train_batch``
+  (``runtime/engine.py``) over ``causal_lm_spec`` models, with flash
+  attention forward / dq / dkv (``ops/csrc/flash_attention.cu``) and fused
+  Adam (``ops/csrc/fused_adam.cu``) in CUDA C++.
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no explicit device they raise.
 """
-from deepspeed_tpu_torch.accelerator import resolve_device
+from typing import Any, Optional, Tuple
 
-__all__ = ["resolve_device"]
+from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.models.api import ModelSpec, causal_lm_spec
+from deepspeed_tpu_torch.runtime.config import DeepSpeedTPUConfig, load_config
+from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
+
+__all__ = ["DeepSpeedTPUConfig", "DeepSpeedTPUEngine", "ModelSpec",
+           "causal_lm_spec", "initialize", "load_config", "resolve_device"]
+
+
+def initialize(args: Any = None, model: Optional[ModelSpec] = None,
+               optimizer: Any = None, model_parameters: Any = None,
+               training_data: Any = None, lr_scheduler: Any = None,
+               config: Any = None, config_params: Any = None,
+               device=None, **unused: Any
+               ) -> Tuple[DeepSpeedTPUEngine, Any, Any, Any]:
+    """The JAX ``deepspeed_tpu.initialize`` (reference ``deepspeed.
+    initialize``): returns ``(engine, optimizer, None, lr_scheduler)``.
+    ``device`` as in :func:`resolve_device` (``None`` = the first GPU; the
+    tests pass ``"cpu"``). The data loader, and the reference's distributed
+    arguments, come in a later slice: a ``training_data`` or a non-None
+    distributed argument raises."""
+    from deepspeed_tpu_torch.runtime.config_utils import later_slice
+
+    config = config if config is not None else config_params
+    if config is None and args is not None \
+            and hasattr(args, "deepspeed_config"):
+        config = args.deepspeed_config
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize requires a "
+                         "ModelSpec via `model=`")
+    if training_data is not None:
+        raise later_slice("initialize(training_data=...) (the data loader)")
+    given = sorted(k for k, v in unused.items() if v is not None)
+    if given:
+        raise later_slice(f"initialize arguments {given}")
+    engine = DeepSpeedTPUEngine(model=model, config=config,
+                                optimizer=optimizer,
+                                lr_scheduler=lr_scheduler, device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler

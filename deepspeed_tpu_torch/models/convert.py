@@ -5,6 +5,10 @@ turns a JAX parameter pytree (nested dicts of numpy arrays, same keys and
 shapes as the port's) into a :class:`~deepspeed_tpu_torch.models.paged.
 PagedTransformer`. Floating leaves are cast to the compute dtype, as the JAX
 ``FastGenEngine`` casts them; integer leaves keep theirs.
+
+``load_master(engine, jax.tree.map(np.asarray, jax_engine.state["master"]))``
+copies a JAX fp32 master tree into a training engine's master state, so both
+engines start from the same weights.
 """
 from __future__ import annotations
 
@@ -47,3 +51,28 @@ def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerConfig,
     dev = resolve_device(device)
     return PagedTransformer(
         cfg, tree_from_numpy(tree, dtype or cfg.compute_dtype, dev))
+
+
+def load_master(engine, tree: Dict[str, Any]) -> None:
+    """Copy the fp32 master tree ``tree`` (numpy arrays or tensors, the JAX
+    keys and shapes) into ``engine``'s master and refresh its compute copy.
+    Keys or shapes that differ raise ``ValueError``."""
+    have = engine.state["master"]
+
+    def copy(dst: Dict[str, Any], src: Dict[str, Any], path: str) -> None:
+        if sorted(dst) != sorted(src):
+            raise ValueError(f"master keys differ at {path or '/'}: "
+                             f"{sorted(dst)} vs {sorted(src)}")
+        for k, d in dst.items():
+            if isinstance(d, dict):
+                copy(d, src[k], f"{path}/{k}")
+                continue
+            t = _to_tensor(src[k], torch.float32, d.device)
+            if tuple(t.shape) != tuple(d.shape):
+                raise ValueError(f"master {path}/{k}: shape "
+                                 f"{tuple(t.shape)}, want {tuple(d.shape)}")
+            with torch.no_grad():
+                d.copy_(t)
+
+    copy(have, tree, "")
+    engine._compute_params()

@@ -1,5 +1,6 @@
-"""Model zoo subset of the port: config, presets, init, and the layer pieces
-the paged serving forward uses.
+"""Model zoo subset of the port: config, presets, init, the layer pieces the
+paged serving forward uses, and the training forward (``forward_hidden``,
+``forward``, the LM losses) with their gradients.
 
 Parity: ``deepspeed_tpu/models/transformer.py``. ``TransformerConfig`` is
 copied field for field with the same defaults, and ``PRESETS`` with the same
@@ -20,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.ops import norms
@@ -398,10 +400,11 @@ def rope_table(seq_len: int, head_dim: int, theta: float,
                scaling: Optional[Dict[str, Any]] = None,
                device: Optional[torch.device] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) [seq_len, head_dim/2] fp32. Cached per arguments and
-    device: the JAX program folded it into a constant; eager PyTorch would
-    otherwise rebuild it every tick."""
-    device = torch.device("cpu") if device is None else torch.device(device)
+    """(cos, sin) [seq_len, head_dim/2] fp32 on ``device`` (resolved as
+    :func:`resolve_device` does: ``None`` is the first GPU). Cached per
+    arguments and device: the JAX program folded it into a constant; eager
+    PyTorch would otherwise rebuild it every tick."""
+    device = resolve_device(device)
     key = (seq_len, head_dim, theta,
            tuple(sorted(scaling.items())) if scaling else None, str(device))
     hit = _ROPE_CACHE.get(key)
@@ -451,9 +454,36 @@ def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
     return down
 
 
+def _head_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    return torch.mm(x.float(), w.float())
+
+
+class _HeadMatmul(torch.autograd.Function):
+    """The JAX ``head_matmul`` custom VJP: the fp32 cotangent is cast to the
+    compute dtype, so both backward products run in it (tensor cores for
+    bf16), each summed in fp32 and rounded once to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _head_product(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gl = g.to(x.dtype)
+        dx = torch.matmul(gl, w.t().to(x.dtype))
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                          gl.reshape(-1, gl.shape[-1]))
+        return dx.to(x.dtype), dw.to(w.dtype)
+
+
 def head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """LM-head projection with fp32 logits (forward of the JAX
-    ``head_matmul``).
+    """LM-head projection ``x [..., H] @ w [H, V]`` with fp32 logits (the
+    JAX ``head_matmul``).
 
     The JAX product takes bf16 inputs and returns fp32
     (``preferred_element_type=jnp.float32``); ``torch.matmul`` of bf16
@@ -463,10 +493,264 @@ def head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the products are summed and written in fp32: on a GPU by one cuBLAS
     tensor-core product with an fp32 output (``out_dtype``), on the CPU,
     which has no such product, by upcasting both operands first (a bf16
-    value is exact in fp32, so the products are the same)."""
-    if x.device.type == "cuda" and x.dtype != torch.float32:
-        return torch.mm(x, w, out_dtype=torch.float32)
-    return torch.mm(x.float(), w.float())
+    value is exact in fp32, so the products are the same). Differentiable
+    through :class:`_HeadMatmul` when autograd needs it."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _HeadMatmul.apply(x, w)
+    if x.dim() == 2:
+        return _head_product(x, w)
+    return _head_product(x.reshape(-1, x.shape[-1]), w).reshape(
+        *x.shape[:-1], w.shape[-1])
+
+
+# --------------------------------------------------------------------------- #
+# training forward (the JAX forward_hidden / forward / losses)
+# --------------------------------------------------------------------------- #
+
+REMAT_POLICIES = ("none", "full", "save_nothing")
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, N, D]; rotates the halves (tables [S, rot/2]); trailing dims
+    past the tables pass through (partial rotary)."""
+    rot = 2 * cos.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    d2 = rot // 2
+    x1, x2 = x_rot[..., :d2], x_rot[..., d2:]
+    cos = cos[None, :, None, :].to(x.dtype)
+    sin = sin[None, :, None, :].to(x.dtype)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if x_pass.shape[-1]:
+        out = torch.cat([out, x_pass], dim=-1)
+    return out
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          segment_mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The plain ("xla") attention with the JAX numerics: scores in the
+    input dtype, then fp32 and scaled; fp32 softmax; probabilities cast to
+    q's dtype before P·V. q [B,S,N,D], k/v [B,S,K,D]; ``segment_mask``
+    [B, S, S] bool (True = attend)."""
+    B, S, N, D = q.shape
+    K = k.shape[2]
+    if K != N:
+        k = k.repeat_interleave(N // K, dim=2)
+        v = v.repeat_interleave(N // K, dim=2)
+    scale = 1.0 / math.sqrt(D)
+    scores = torch.einsum("bsnd,btnd->bnst", q, k).float() * scale
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, -1e30)
+    if segment_mask is not None:
+        scores = scores.masked_fill(~segment_mask[:, None], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
+def _block_forward(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                   cfg: TransformerConfig, cos: Optional[torch.Tensor],
+                   sin: Optional[torch.Tensor], attention_fn,
+                   use_kernels: bool = True) -> torch.Tensor:
+    """One sequential (GPT/Llama) block on x [B, S, H]; ``lp`` holds this
+    layer's parameters. The parallel, MLA and MoE blocks come in a later
+    slice (``_check_supported``). ``use_kernels=False`` takes the norms'
+    plain versions."""
+    B, S, _ = x.shape
+    dt = cfg.compute_dtype
+    lp = _cast_tree(lp, dt)      # a no-op for the engine's compute params
+
+    def proj(name, inp, heads):
+        out = inp @ lp[f"w{name}"].to(dt)
+        if cfg.attn_bias_enabled if name in ("q", "k", "v") else cfg.use_bias:
+            out = out + lp[f"b{name}"].to(dt)
+        return out if heads is None else out.reshape(B, S, heads,
+                                                     cfg.head_dim)
+
+    h = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps, use_kernels)
+    q = proj("q", h, cfg.num_heads)
+    k = proj("k", h, cfg.kv_heads)
+    v = proj("v", h, cfg.kv_heads)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    attn = attention_fn(q, k, v, causal=cfg.causal)
+    x = x + proj("o", attn.reshape(B, S, cfg.num_heads * cfg.head_dim), None)
+    h2 = _norm(x, lp["ln2"], cfg.norm, cfg.norm_eps, use_kernels)
+    return x + _ffn(h2, lp, cfg)
+
+
+def _cast_tree(tree, dtype):
+    """Floating leaves cast to ``dtype`` (``.to`` returns the tensor itself
+    when it already has that dtype)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _remat_wrap(body, remat: Optional[str]):
+    """The layer remat policy: ``none`` runs the body as is; ``full`` (=
+    ``save_nothing``) saves only the layer's input and recomputes the rest
+    in backward (``jax.checkpoint``), here
+    ``torch.utils.checkpoint(use_reentrant=False)``. Other JAX policies
+    come in a later slice; unknown names raise, as in JAX."""
+    if remat in ("none", None):
+        return body
+    if remat in ("full", "save_nothing"):
+        from torch.utils.checkpoint import checkpoint
+
+        def wrapped(x):
+            return checkpoint(body, x, use_reentrant=False,
+                              preserve_rng_state=False)
+
+        return wrapped
+    raise NotImplementedError(
+        f"remat policy {remat!r} is not supported by deepspeed_tpu_torch "
+        "yet (none|full); it comes in a later slice of the port")
+
+
+def layer_params(blocks, layer: int) -> Dict[str, torch.Tensor]:
+    """Layer ``layer``'s parameters from ``params["blocks"]``: a dict of
+    stacked [L, ...] tensors (the JAX layout) or a list of per-layer dicts
+    (the engine's leaves, each a view into its flat buffers)."""
+    if isinstance(blocks, (list, tuple)):
+        return blocks[layer]
+    return {k: layer_params(v, layer) if isinstance(v, dict) else v[layer]
+            for k, v in blocks.items()}
+
+
+def forward_hidden(params: Params, tokens: torch.Tensor,
+                   cfg: TransformerConfig, attention_fn=None,
+                   use_kernels: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """tokens [B, S] → (final hidden [B, S, H], LM head [H, V], MoE aux
+    loss 0). The JAX ``forward_hidden`` without PLD, random-LTD or chunked
+    scans (a later slice); the layer scan is a Python loop, each layer
+    wrapped by the config's remat policy. ``use_kernels=False`` takes the
+    norms' plain versions (the card's kernel-vs-plain checks)."""
+    _check_supported(cfg)
+    attention_fn = attention_fn or dot_product_attention
+    dt = cfg.compute_dtype
+    B, S = tokens.shape
+    x = F.embedding(tokens.long(), params["tok_emb"].to(dt))
+    if cfg.pos_emb == "learned":
+        x = x + params["pos_emb"].to(dt)[:S][None]
+    cos = sin = None
+    if cfg.pos_emb == "rope":
+        cos, sin = rope_table(S, cfg.rope_dim, cfg.rope_theta,
+                              cfg.rope_scaling_dict, device=x.device)
+    for layer in range(cfg.num_layers):
+        lp = layer_params(params["blocks"], layer)
+
+        def body(h, lp=lp):
+            return _block_forward(h, lp, cfg, cos, sin, attention_fn,
+                                  use_kernels)
+
+        x = _remat_wrap(body, cfg.remat)(x)
+    x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps, use_kernels)
+    return x, _lm_head_of(params, cfg), torch.zeros((), device=x.device)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            attention_fn=None, use_kernels: bool = True) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] in fp32."""
+    x, head, _ = forward_hidden(params, tokens, cfg, attention_fn,
+                                use_kernels)
+    return head_matmul(x, head.to(x.dtype))
+
+
+def _loss_rows(n_rows: int, vocab: int) -> int:
+    """Rows of [rows, V] fp32 temporaries taken at once by the fused loss
+    (~1 GiB each): the whole [B·S, V] fp32 would be 6.6 GB at GPT-2's
+    headline shape. Chunking changes no arithmetic."""
+    return max(1, min(n_rows, (1 << 28) // max(vocab, 1)))
+
+
+class _FusedLMLoss(torch.autograd.Function):
+    """The JAX ``fused_lm_loss`` custom VJP: logits in the compute dtype
+    (fp32 sums, one rounding), fp32 softmax statistics; the backward writes
+    ONE compute-dtype grad-logits array — into the saved logits' own
+    storage — that feeds both backward products. Single use: the saved
+    logits are overwritten by the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, tokens, mask):
+        with record_function("fused_lm_loss"):
+            return _FusedLMLoss._forward(ctx, x, w, tokens, mask)
+
+    @staticmethod
+    def _forward(ctx, x, w, tokens, mask):
+        dt = x.dtype
+        B, S, H = x.shape
+        wc = w.to(dt)
+        xs = x[:, :-1]
+        tgt = tokens[:, 1:].long().reshape(-1)
+        logits = torch.matmul(xs, wc)                       # [B, S-1, V] dt
+        lg = logits.reshape(-1, logits.shape[-1])
+        R = lg.shape[0]
+        logz = torch.empty(R, dtype=torch.float32, device=x.device)
+        picked = torch.empty(R, dtype=torch.float32, device=x.device)
+        step = _loss_rows(R, lg.shape[1])
+        for a in range(0, R, step):
+            lf = lg[a:a + step].float()
+            logz[a:a + step] = torch.logsumexp(lf, dim=-1)
+            picked[a:a + step] = lf.gather(1, tgt[a:a + step, None])[:, 0]
+        m = (torch.ones(B, S - 1, device=x.device) if mask is None
+             else mask[:, 1:].float()).reshape(-1)
+        cnt = torch.clamp(m.sum(), min=1.0)
+        loss = ((logz - picked) * m).sum() / cnt
+        ctx.save_for_backward(logits, logz, xs, wc, tgt, m, cnt)
+        ctx.w_dtype = w.dtype
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        with record_function("fused_lm_loss_backward"):
+            return _FusedLMLoss._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
+        logits, logz, xs, wc, tgt, m, cnt = ctx.saved_tensors
+        dt = xs.dtype
+        lg = logits.reshape(-1, logits.shape[-1])
+        coef = m * (g / cnt)
+        R = lg.shape[0]
+        step = _loss_rows(R, lg.shape[1])
+        for a in range(0, R, step):
+            rows = torch.arange(lg[a:a + step].shape[0], device=lg.device)
+            p = torch.exp(lg[a:a + step].float() - logz[a:a + step, None])
+            p[rows, tgt[a:a + step]] -= 1.0
+            lg[a:a + step] = (p * coef[a:a + step, None]).to(dt)
+        dx = torch.matmul(logits, wc.t())                   # [B, S-1, H]
+        dw = torch.matmul(xs.reshape(-1, xs.shape[-1]).t(), lg)
+        B, S1, H = dx.shape
+        dx_full = torch.zeros(B, S1 + 1, H, dtype=dt, device=dx.device)
+        dx_full[:, :-1] = dx
+        return dx_full, dw.to(ctx.w_dtype), None, None
+
+
+def fused_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
+                  tokens: torch.Tensor,
+                  loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Head projection + next-token cross entropy with the compute-dtype
+    logits of the JAX ``fused_lm_loss`` (torch-autocast semantics)."""
+    return _FusedLMLoss.apply(hidden, head, tokens, loss_mask)
+
+
+def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                   loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy on fp32 logits (logsumexp − picked)."""
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1]
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets[..., None])[..., 0]
+    nll = logz - picked
+    if loss_mask is not None:
+        mask = loss_mask[:, 1:].float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 # --------------------------------------------------------------------------- #

@@ -1,10 +1,17 @@
-"""RMSNorm / LayerNorm forward: Triton kernels and their plain versions.
+"""RMSNorm / LayerNorm: Triton forward kernels, their plain versions, and
+the gradients.
 
 Ports ``deepspeed_tpu/ops/pallas/norms.py`` (``_rms_kernel`` / ``_ln_kernel``
-via ``rms_norm`` / ``layer_norm``), forward only; the backward kernels come
-with the training slice. The function is ``models/transformer.py:_norm``:
-fp32 statistics, scale (and bias) read in their own dtype and applied in
-fp32, the result cast back to x's dtype.
+via ``rms_norm`` / ``layer_norm``). The function is
+``models/transformer.py:_norm``: fp32 statistics, scale (and bias) read in
+their own dtype and applied in fp32, the result cast back to x's dtype.
+
+The gradients port the JAX package's analytic VJPs ``_rms_bwd`` /
+``_ln_bwd``, which are jnp beside the Pallas forward, not kernels: here they
+are plain PyTorch (fp32 math, dscale and dbias summed over rows) in the
+backward of a ``torch.autograd.Function`` around the forward wrapper. The
+wrappers take that Function only when autograd needs it, so serving under
+``torch.no_grad`` launches exactly the forward kernel.
 
 What bounds it on the H100: bytes — one read and one write of [R, H] and a
 few flops per element. Eager PyTorch runs the same expression as about six
@@ -21,6 +28,7 @@ import os
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from deepspeed_tpu_torch.accelerator import on_device
 from deepspeed_tpu_torch.ops import build
@@ -29,6 +37,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_H = 65536
 
 launches: Dict[str, int] = {"rms_norm": 0, "layer_norm": 0}
+# calls of the (plain PyTorch) backward: not kernel launches, so apart
+backward_calls: Dict[str, int] = {"rms_norm": 0, "layer_norm": 0}
 
 triton = tl = None          # bound at the first launch (see _kernels)
 _compiled: Optional[Dict[str, object]] = None
@@ -129,9 +139,8 @@ def _launch(name: str, x: torch.Tensor, eps: float,
     return out
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    """x [..., H] * rsqrt(mean(x²) + eps) * scale, fp32 stats."""
+def _rms_forward(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rms_norm_ref(x, scale, eps)
     if x.device.type != "cuda":
@@ -139,11 +148,93 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return _launch("rms_norm", x, eps, scale)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """(x - mean) * rsqrt(var + eps) * scale + bias, fp32 stats."""
+def _ln_forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return layer_norm_ref(x, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm: unsupported device {x.device}")
     return _launch("layer_norm", x, eps, scale, bias)
+
+
+def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                 eps: float = 1e-5):
+    """``_rms_bwd``: (dx in x's dtype, dscale in scale's dtype)."""
+    H = x.shape[-1]
+    x32, g32 = x.float(), g.float()
+    inv = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = x32 * inv
+    gs = g32 * scale.float()
+    dx = inv * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+    dscale = (g32 * xhat).reshape(-1, H).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                   eps: float = 1e-5):
+    """``_ln_bwd``: (dx, dscale, dbias), dscale/dbias in scale's dtype."""
+    H = x.shape[-1]
+    x32, g32 = x.float(), g.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((x32 - mean).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (x32 - mean) * inv
+    gs = g32 * scale.float()
+    dx = inv * (gs - gs.mean(dim=-1, keepdim=True)
+                - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+    dscale = (g32 * xhat).reshape(-1, H).sum(dim=0)
+    dbias = g32.reshape(-1, H).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype), dbias.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with record_function("norm_backward"):
+            dx, dscale = rms_norm_bwd(x, scale, g, ctx.eps)
+        backward_calls["rms_norm"] += 1
+        return dx, dscale, None
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _ln_forward(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with record_function("norm_backward"):
+            dx, dscale, dbias = layer_norm_bwd(x, scale, g, ctx.eps)
+        backward_calls["layer_norm"] += 1
+        return dx, dscale, dbias, None
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """x [..., H] * rsqrt(mean(x²) + eps) * scale, fp32 stats;
+    differentiable (backward :func:`rms_norm_bwd`)."""
+    if _needs_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rms_forward(x, scale, eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias, fp32 stats;
+    differentiable (backward :func:`layer_norm_bwd`)."""
+    if _needs_grad(x, scale, bias):
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return _ln_forward(x, scale, bias, eps)

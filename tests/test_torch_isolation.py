@@ -48,7 +48,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15, out.stdout          # every module was walked
+    assert int(n) >= 27, out.stdout          # every module was walked
     assert bad == "[]", bad
 
 
@@ -79,6 +79,33 @@ def test_model_constructors_default_to_the_gpu_or_an_error():
         PPG.init_paged_kv(cfg, 4, 8)
     assert PPG.init_paged_kv(cfg, 4, 8, device="cpu")["v"].device.type \
         == "cpu"
+
+
+def test_training_entry_points_default_to_the_gpu_or_an_error():
+    """``initialize``, the engine and a spec's ``init_fn`` resolve
+    ``device=None`` to the first card, or raise — training never runs on
+    the CPU unasked."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
+
+    spec = dtt.causal_lm_spec("tiny", dtype="float32")
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "optimizer": {"type": "adam", "params": {"lr": 1e-3}}}
+    if torch.cuda.is_available():
+        engine, *_ = dtt.initialize(model=spec, config=config)
+        assert engine.flat_master.device.type == "cuda"
+        assert spec.init_fn()["tok_emb"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dtt.initialize(model=spec, config=config)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeepSpeedTPUEngine(spec, config)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spec.init_fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PT.rope_table(16, 8, 10000.0)
+    engine, *_ = dtt.initialize(model=spec, config=config, device="cpu")
+    assert engine.flat_master.device.type == "cpu"
 
 
 def test_cpu_device_is_reached_only_by_asking():

@@ -94,3 +94,52 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take(bad, match):
     with pytest.raises((ValueError, TypeError), match=match):
         norms._check("rms_norm", x, scale)
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("R,H", [(1, 64), (37, 96)])
+def test_gradients_match_jax_vjp_of_pallas_norms(kind, dtype, R, H):
+    """The norm autograd Functions' dx, dscale and dbias against ``jax.vjp``
+    of the Pallas ``rms_norm`` / ``layer_norm`` (whose VJPs are the
+    analytic ``_rms_bwd`` / ``_ln_bwd``), x of shape [2, R, H]."""
+    import jax
+
+    x, scale, bias = _inputs(2 * R, H, seed=R * H)
+    x = x.reshape(2, R, H)
+    g = np.random.default_rng(R).normal(size=x.shape).astype(np.float32)
+    tx, jx = _both(x, dtype)
+    ts, js = _both(scale, dtype)
+    tb, jb = _both(bias, dtype)
+    tg, jg = _both(g, dtype)
+    for t in (tx, ts, tb):
+        t.requires_grad_(True)
+    if kind == "rmsnorm":
+        jout, vjp = jax.vjp(lambda a, s: JN.rms_norm(a, s, EPS), jx, js)
+        want = vjp(jg)
+        out = norms.rms_norm(tx, ts, EPS)
+        got_in = (tx, ts)
+    else:
+        jout, vjp = jax.vjp(lambda a, s, b: JN.layer_norm(a, s, b, EPS),
+                            jx, js, jb)
+        want = vjp(jg)
+        out = norms.layer_norm(tx, ts, tb, EPS)
+        got_in = (tx, ts, tb)
+    out.backward(tg)
+    np.testing.assert_allclose(_np(out.detach()), _np(jout), **TOL[dtype])
+    # dscale/dbias sum 2R rows: fp32 sums in another order; in bf16 one
+    # rounding of an O(R) sum
+    tol = TOL[dtype] if dtype == "float32" else dict(rtol=2 ** -7, atol=2e-2)
+    for t, w, name in zip(got_in, want, ("dx", "dscale", "dbias")):
+        assert t.grad.dtype == t.dtype, name
+        np.testing.assert_allclose(_np(t.grad), _np(w), err_msg=name, **tol)
+
+
+def test_no_grad_and_inference_take_the_forward_only():
+    x, scale, bias = (torch.from_numpy(a).requires_grad_()
+                      for a in _inputs(5, 64, seed=6))
+    with torch.no_grad():
+        y = norms.rms_norm(x, scale, EPS)
+    assert y.grad_fn is None
+    y = norms.layer_norm(x, scale, bias, EPS)
+    assert type(y.grad_fn).__name__ == "_LayerNormBackward"

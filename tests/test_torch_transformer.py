@@ -44,7 +44,7 @@ def test_presets_equal_field_by_field():
      "original_max_position_embeddings": 64},
 ])
 def test_rope_table_matches(scaling):
-    cos, sin = PT.rope_table(300, 32, 10000.0, scaling)
+    cos, sin = PT.rope_table(300, 32, 10000.0, scaling, device="cpu")
     jcos, jsin = JT.rope_table(300, 32, 10000.0, scaling)
     np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), rtol=0,
                                atol=1e-6)
