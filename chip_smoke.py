@@ -8,9 +8,11 @@ kernel on them against its plain PyTorch version:
 2. build     — nvcc builds of ``ops/csrc/*.cu`` (one process per source,
                started together) and Triton's first compile, timed;
 3. kernels   — paged attention, RMSNorm/LayerNorm, flash attention
-               (forward, dq, dkv) and fused Adam against their plain
+               (forward, dq, dkv), fused Adam and the grouped GEMM (gmm,
+               gmm with the rhs transposed, tgmm) against their plain
                versions, bf16 and fp32, at the main-path shapes and edge
-               cases (unaligned S, GQA, non-causal);
+               cases (unaligned S, GQA, non-causal; ragged groups, an empty
+               group, moe_1b's width);
 4. llama2_7b — ``FastGenEngine`` at full width and depth (random weights
                from a seed, bf16) serves 8 requests through ``generate_all``;
                launch counters prove every tick went through the kernels;
@@ -25,9 +27,14 @@ kernel on them against its plain PyTorch version:
                further from that fp32 reference than the plain bf16 path;
 7. train_llama_750m — the same at micro 4, seq 2048, gas 4 (RMSNorm, RoPE,
                SwiGLU, head_dim 128);
-8. times     — kernels vs plain vs library calls vs their bounds (CUDA
+8. train_moe_350m — the same at micro 16, seq 1024, gas 4 for the MoE
+               model (4 experts, top-2, dropless): the counters prove every
+               step launched gmm 288 times and tgmm 96 times; the step gate
+               adds the routing agreement and the aux loss;
+9. times     — kernels vs plain vs library calls vs their bounds (CUDA
                events), decode tokens/s, TTFT, training step time, tokens/s,
-               MFU, idle share, the profiler's split of a step, peak memory.
+               MFU (active parameters), idle share, the profiler's split of
+               a step, peak memory.
 
 Prints one JSON line per phase, then the nvidia-smi line, then the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -40,6 +47,7 @@ and the repository beside it, and does not import jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -51,7 +59,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 PHASES = ("card", "build", "kernels", "llama2_7b", "gpt2_125m",
-          "train_gpt2_125m", "train_llama_750m", "times")
+          "train_gpt2_125m", "train_llama_750m", "train_moe_350m", "times")
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # fp32: both compute in fp32 and differ only in summation order (a few ulp
@@ -79,22 +87,41 @@ FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 2.0 ** -7)}
 # (label, B, S, N, K, D, causal): the two main-path shapes, then edges
 FLASH_CASES = (("gpt2_125m", 32, 1024, 12, 12, 64, True),
                ("llama_750m", 4, 2048, 12, 12, 128, True),
+               ("moe_350m", 16, 1024, 12, 12, 64, True),
                ("unaligned_d64", 2, 1000, 4, 4, 64, True),
                ("unaligned_d128", 2, 1000, 4, 2, 128, True),
                ("gqa", 2, 512, 32, 8, 128, True),
                ("full_d64", 2, 512, 4, 4, 64, False),
                ("full_d128_unaligned", 1, 300, 4, 2, 128, False))
+# Grouped GEMM against its plain version: both sum exact products in fp32,
+# over up to K = 3072 terms (gmm) and a whole group's rows (tgmm, ~16k), in
+# other orders, so fp32 gets flash attention's 1e-4 on outputs of O(1)
+# (the inputs are scaled so); bf16 adds one rounding of the output (2^-7).
+GMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 2.0 ** -7)}
+# (label, M, K, N, E, tail): moe_350m's up and down projections (micro 16 x
+# seq 1024 x top-2 rows), moe_1b's expert shape (bench.py moe_1b_large_
+# experts) and a ragged case whose widths and group sizes are no multiples
+# of the tiles and whose last `tail` rows lie past the groups. Group sizes:
+# a fixed uneven split with group 1 empty (see gmm_sizes).
+GMM_CASES = (("moe_350m_up", 32768, 768, 3072, 4, 0),
+             ("moe_350m_down", 32768, 3072, 768, 4, 0),
+             ("moe_1b_up", 32768, 1536, 6144, 8, 0),
+             ("ragged", 1000, 264, 200, 8, 24))
 # (kind, H, rows): the serving sizes (a decode tick to a prefill chunk),
 # then the training main path's, micro x seq rows (llama_750m's H 1536 is
 # a masked BLOCK_H 2048 program)
 NORM_CASES = (("rms_norm", 4096, (1, 37, 256)), ("rms_norm", 1536, (8192,)),
               ("layer_norm", 768, (1, 37, 256, 32768)))
-# Training runs: the repo's headline settings (bench.py train_bench) and the
-# zero3_llama_750m_bf16 row's shape (bench.py), at ZeRO stage 1
+# Training runs: the repo's headline settings (bench.py train_bench), the
+# zero3_llama_750m_bf16 row's shape and the moe_ulysses_moe_350m_bf16 row's
+# (bench.py), at ZeRO stage 1 (one process partitions nothing), flash
+# attention (ulysses_flash at sequence world 1) and remat full
 TRAIN = {"gpt2_125m": dict(micro=32, seq=1024, gas=4, steps=4,
                            norm="layer_norm", gate_micro=2),
          "llama_750m": dict(micro=4, seq=2048, gas=4, steps=3,
-                            norm="rms_norm", gate_micro=1)}
+                            norm="rms_norm", gate_micro=1),
+         "moe_350m": dict(micro=16, seq=1024, gas=4, steps=3,
+                          norm="layer_norm", gate_micro=2)}
 TRAIN_LR = 1e-4
 # One optimizer step, kernel path vs plain path, fp32, same weights and
 # batch: loss within TRAIN_LOSS_REL (relative), grad norm within
@@ -117,7 +144,24 @@ TRAIN_LR = 1e-4
 # gpt2_125m and llama_750m.) bf16: the kernel path's error against the
 # fp32 plain step at most BF16_VS_PLAIN times the plain bf16 path's, metric
 # by metric (the gate's inputs come from the seed, and two runs on one card
-# gave the same readings to the last digit).
+# gave the same readings to the last digit). For the loss and the aux loss
+# (BF16_FLOORED) a plain error below the fp32 gate's own limit counts as
+# that limit: such a scalar carries noise of either sign, and the plain
+# bf16 moe_350m step once hit the fp32 loss to the last bit (error 0, the
+# kernel path's 1.5e-5; on an NVIDIA H100 80GB HBM3 at 700 W).
+# MoE: the share of (token, choice) pairs routed to the same expert as on
+# the fp32 plain step, over every layer of the gate step's forward, at
+# least ROUTE_AGREE_MIN in fp32 (the two paths' router inputs differ in
+# their last fp32 digits, so only a near-tie of the k-th and (k+1)-th
+# scores can flip); the aux loss within TRAIN_LOSS_REL. A flip sends one
+# token's row through another expert: the loss and grad norm move by about
+# one token's share (1/4096 at the gate's 2 x 1024 x top-2), but that
+# expert's weight gradient by about 1/sqrt(its rows), ~2e-2, so the
+# gradient, update and sign gates would fail with it — the routing metric
+# names the cause. bf16 holds route misses and the aux error to
+# BF16_VS_PLAIN times the plain bf16 path's, like the other metrics (0.36 %
+# of the pairs flip between the plain bf16 step and the fp32 one).
+ROUTE_AGREE_MIN = 1 - 1e-4
 TRAIN_LOSS_REL = 1e-5
 TRAIN_NORM_REL = 1e-4
 TRAIN_GRAD_REL = 1e-4
@@ -128,6 +172,7 @@ HEAD_ATOL = 1e-4
 LOGIT_REL_TOL_FP32 = 1e-3
 TOP1_MIN = 0.99
 BF16_VS_PLAIN = 2.0
+BF16_FLOORED = ("loss_rel", "aux_rel")
 BF16_TOP1_SLACK = 0.05
 
 
@@ -135,14 +180,48 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
 
 
+def active_params(cfg) -> int:
+    """Parameters whose matmuls run for each token, a copy of ``bench.py``
+    ``_active_params`` (MoE: top_k of n_experts; a dense model's count is
+    ``num_params``)."""
+    n_params = cfg.num_params()
+    if cfg.n_experts > cfg.moe_top_k:
+        ffn_mats = 3 if cfg.activation == "swiglu" else 2
+        per_expert = ffn_mats * cfg.hidden_size * cfg.ffn_size
+        n_params = n_params - cfg.num_layers * \
+            (cfg.n_experts - cfg.moe_top_k) * per_expert
+    return n_params
+
+
 def flops_per_token(cfg, seq_len: int) -> float:
     """Model FLOPs per token of a training step, a copy of ``bench.py``
-    ``_flops_per_token`` (dense): 6 N for the forward and backward matmuls
+    ``_flops_per_token``: 6 N_active for the forward and backward matmuls
     plus causal attention 6 L H S; remat recompute not counted."""
     attn = 6 * cfg.num_layers * cfg.hidden_size * seq_len
     if not cfg.causal:
         attn *= 2
-    return float(6 * cfg.num_params() + attn)
+    return float(6 * active_params(cfg) + attn)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Yields a list that receives every routed MoE layer's (experts [T, k],
+    aux loss), detached, while the block runs: the layer's gate is wrapped
+    for its duration and restored after."""
+    from deepspeed_tpu_torch.moe import layer as MoE
+
+    gate, routes = MoE._gate_indices, []
+
+    def recording_gate(*args, **kwargs):
+        out = gate(*args, **kwargs)
+        routes.append((out.experts.detach(), out.aux_loss.detach()))
+        return out
+
+    MoE._gate_indices = recording_gate
+    try:
+        yield routes
+    finally:
+        MoE._gate_indices = gate
 
 
 def nvidia_smi() -> str:
@@ -193,7 +272,8 @@ class Smoke:
         build.build_all()
         nvcc_s = time.perf_counter() - t0
         ptxas = {name: [ln.strip() for ln in str(log["ptxas"]).splitlines()
-                        if "Used" in ln or "spill" in ln]
+                        if "Used" in ln or "spill" in ln
+                        or "entry function" in ln]
                  for name, log in build.build_log.items()}
         t0 = time.perf_counter()
         x = torch.randn(4, 4096, device=self.dev, dtype=torch.bfloat16)
@@ -297,6 +377,7 @@ class Smoke:
                          "tol": HEAD_ATOL})
         rows += self.flash_checks()
         rows += self.adam_checks()
+        rows += self.gmm_checks()
         emit("kernels", checks=rows)
 
     def close_tol(self, name, got, want, tol):
@@ -408,14 +489,86 @@ class Smoke:
                 "adam_w": adam_w, "weight_decay": 0.1, "max_abs_err": errs,
                 "bitwise_equal": bitwise, "tol": TOL["float32"]}
 
+    @staticmethod
+    def gmm_sizes(M, E, tail=0):
+        """A fixed uneven split of M - tail rows over E groups, weights E,
+        0, E-2, ..., 1: group 1 empty, group 0 the largest (4 groups of
+        32,768 rows: 18,725 / 0 / 9,362 / 4,681), no size a multiple of
+        the 128-row tile."""
+        w = np.array([E - i for i in range(E)], np.float64)
+        w[1] = 0.0
+        sizes = np.floor(w / w.sum() * (M - tail)).astype(np.int64)
+        sizes[0] += M - tail - sizes.sum()
+        return sizes.astype(np.int32)
+
+    def gmm_inputs(self, M, K, N, E, dtype, sizes, seed):
+        """lhs [M, K], rhs [E, K, N] / sqrt(K) and dy [M, N]: gmm outputs
+        of O(1) (``gmm_checks`` scales dy by 1 / sqrt(the largest group's
+        rows) for tgmm)."""
+        torch = self.torch
+        g = torch.Generator(self.dev).manual_seed(seed)
+        dt = getattr(torch, dtype)
+        lhs = torch.randn(M, K, generator=g, device=self.dev).to(dt)
+        rhs = (torch.randn(E, K, N, generator=g, device=self.dev)
+               / K ** 0.5).to(dt)
+        dy = torch.randn(M, N, generator=g, device=self.dev).to(dt)
+        gs = torch.from_numpy(sizes).to(self.dev)
+        return lhs, rhs, dy, gs
+
+    def gmm_checks(self):
+        """gmm, gmm with the rhs transposed (the input gradient: dy [M, N]
+        against rhs [E, K, N]) and tgmm against their plain versions."""
+        from deepspeed_tpu_torch.ops import grouped_gemm as GG
+
+        rows = []
+        for label, M, K, N, E, tail in GMM_CASES:
+            sizes = self.gmm_sizes(M, E, tail)
+            for dtype in ("bfloat16", "float32"):
+                lhs, rhs, dy, gs = self.gmm_inputs(M, K, N, E, dtype, sizes,
+                                                   seed=M + K)
+                tag = f"[{label},{dtype}]"
+                tol = GMM_TOL[dtype]
+                errs = {}
+                got, want = GG.gmm(lhs, rhs, gs), GG.gmm_ref(lhs, rhs, gs)
+                self.sync()
+                errs["gmm"] = self.close_tol("gmm" + tag, got, want, tol)
+                del got, want
+                got = GG.gmm(dy, rhs, gs, transpose_rhs=True)
+                want = GG.gmm_ref(dy, rhs, gs, transpose_rhs=True)
+                self.sync()
+                errs["gmm_transpose_rhs"] = self.close_tol(
+                    "gmm_transpose_rhs" + tag, got, want, tol)
+                del got, want
+                dyt = (dy.float() / float(sizes.max()) ** 0.5).to(dy.dtype)
+                got, want = GG.tgmm(lhs, dyt, gs), GG.tgmm_ref(lhs, dyt, gs)
+                self.sync()
+                errs["tgmm"] = self.close_tol("tgmm" + tag, got, want, tol)
+                empty = bool((got[1] == 0).all())
+                if not empty:
+                    raise AssertionError(f"tgmm{tag}: the empty group's "
+                                         "gradient is not zero")
+                if label == "moe_350m_up" and dtype == "bfloat16":
+                    self.errs.update(gmm=max(errs["gmm"],
+                                             errs["gmm_transpose_rhs"]),
+                                     tgmm=errs["tgmm"])
+                rows.append({"kernel": "grouped_gemm", "shape": label,
+                             "M": M, "K": K, "N": N, "E": E,
+                             "group_sizes": sizes.tolist(), "dtype": dtype,
+                             "max_abs_err": errs, "tol": tol})
+                del lhs, rhs, dy, dyt, gs, got, want
+                self.torch.cuda.empty_cache()
+        return rows
+
     # ------------------------------------------------------------------ #
     def counters(self):
         from deepspeed_tpu_torch.ops import flash_attention as PF
         from deepspeed_tpu_torch.ops import fused_adam as FA
+        from deepspeed_tpu_torch.ops import grouped_gemm as GG
         from deepspeed_tpu_torch.ops import norms
         from deepspeed_tpu_torch.ops import paged_attention as PA
 
-        return (PA.launches, norms.launches, PF.launches, FA.launches)
+        return (PA.launches, norms.launches, PF.launches, FA.launches,
+                GG.launches)
 
     def reset_counts(self):
         from deepspeed_tpu_torch.ops import norms
@@ -636,7 +789,8 @@ class Smoke:
                                         dtype=np.int32)}
         data = itertools.repeat(batch)
         t0 = time.perf_counter()
-        first = float(engine.train_batch(data))      # warm-up (first compiles)
+        with recorded_routes() as routes:
+            first = float(engine.train_batch(data))  # warm-up (first compiles)
         warm_s = time.perf_counter() - t0
 
         # ---- the main path: counts to 0 just before, read just after ---- #
@@ -653,10 +807,15 @@ class Smoke:
         # ----------------------------------------------------------------- #
         L, norm = cfg.num_layers, t["norm"]
         micros = gas * steps
+        # each expert weight: one gmm forward, again in the remat recompute,
+        # one gmm with the rhs transposed (input gradient) and one tgmm
+        # (weight gradient); 0 for a dense model
+        n_w = (3 if cfg.activation == "swiglu" else 2) if cfg.n_experts else 0
         want = {"flash_fwd": 2 * L * micros,     # remat: forward runs twice
                 "flash_bwd_dq": L * micros, "flash_bwd_dkv": L * micros,
                 "fused_adam": steps,
                 norm: (4 * L + 1) * micros,      # 2 per layer, twice, + final
+                "gmm": 3 * n_w * L * micros, "tgmm": n_w * L * micros,
                 "paged_attention": 0}
         problems = [f"{k} launched {counts[k]} times, want {v}"
                     for k, v in want.items() if counts[k] != v]
@@ -683,7 +842,8 @@ class Smoke:
         flops = flops_per_token(cfg, seq) * tokens
         peak = torch.cuda.max_memory_allocated(self.dev) - base
         result = {"micro": micro, "seq": seq, "gas": gas, "steps": steps,
-                  "params": cfg.num_params(), "init_seconds": init_s,
+                  "params": cfg.num_params(),
+                  "active_params": active_params(cfg), "init_seconds": init_s,
                   "warmup_step_seconds": warm_s, "losses": [first] + losses,
                   "step_walls_s": walls, "step_ms": step_s * 1e3,
                   "tokens_per_s": tokens / step_s,
@@ -694,6 +854,13 @@ class Smoke:
                   "peak_memory_bytes": peak,
                   "memory_held_by_earlier_phases_bytes": base,
                   "card": self.card}
+        if cfg.n_experts:
+            # the warm-up step's layer-0 routing: the grouped GEMMs' group
+            # sizes on the main path (the times phase runs them at these)
+            result["group_sizes_layer0"] = torch.bincount(
+                routes[0][0].reshape(-1), minlength=cfg.n_experts).tolist()
+            result["launches_per_step"] = {
+                k: counts[k] / steps for k in ("gmm", "tgmm")}
         emit(f"train_{model}", **result)
         self.state[f"train_{model}"] = dict(result, engine=engine,
                                             data=data, batch=batch)
@@ -713,6 +880,8 @@ class Smoke:
 
         t = TRAIN[model]
         tokens = batch["tokens"][:t["gate_micro"]]
+        moe = main.model_spec.config.n_experts > 0
+        L = main.model_spec.config.num_layers
         ref = None
         res = {}
         for prec, path in (("fp32", "plain"), ("fp32", "kernels"),
@@ -725,7 +894,9 @@ class Smoke:
                 t["gate_micro"], 1, prec))
             load_master(engine, main.state["master"])
             before = engine.flat_master.clone()
-            loss = float(engine.train_batch(iter([{"tokens": tokens}])))
+            # routes: the forward's L layers, then the recompute's
+            with recorded_routes() as routes:
+                loss = float(engine.train_batch(iter([{"tokens": tokens}])))
             norm = engine.get_global_grad_norm()
             grad = engine.flat_grad_acc.float()     # unscaled, gas 1
             update = engine.flat_master - before
@@ -735,10 +906,22 @@ class Smoke:
             row = {"loss": loss, "grad_norm": norm,
                    "adam_rel": float((update - adam).norm() / adam.norm())}
             del adam
+            if moe:
+                idx = torch.stack([r[0] for r in routes[:L]])
+                aux = float(sum(r[1] for r in routes[:L]))
+                row["aux_loss"] = aux
             if ref is None:
                 ref = {"loss": loss, "norm": norm, "grad": grad.clone(),
                        "update": update.clone()}
+                if moe:
+                    ref.update(idx=idx, aux=aux)
+                    row["routed_pairs"] = idx.numel()
             else:
+                if moe:
+                    row.update(
+                        route_agree=float((idx == ref["idx"]).float().mean()),
+                        aux_rel=abs(aux - ref["aux"]) / abs(ref["aux"]))
+                    row["route_miss"] = 1.0 - row["route_agree"]
                 row.update(
                     loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
                     norm_rel=abs(norm - ref["norm"]) / ref["norm"],
@@ -759,10 +942,15 @@ class Smoke:
         limits = {"loss_rel": TRAIN_LOSS_REL, "norm_rel": TRAIN_NORM_REL,
                   "grad_rel": TRAIN_GRAD_REL, "update_rel": TRAIN_UPDATE_REL,
                   "sign_miss": TRAIN_SIGN_MISS}
+        if moe:
+            limits.update(route_miss=1 - ROUTE_AGREE_MIN,
+                          aux_rel=TRAIN_LOSS_REL)
         problems = [f"fp32 {m} {k32[m]:.3g} > {lim}"
                     for m, lim in limits.items() if not k32[m] <= lim]
+        floor = {m: limits[m] if m in BF16_FLOORED else 0.0 for m in limits}
         problems += [f"bf16 {m}: kernels {kb[m]:.3g}, plain {pb[m]:.3g}"
-                     for m in limits if not kb[m] <= BF16_VS_PLAIN * pb[m]]
+                     for m in limits
+                     if not kb[m] <= BF16_VS_PLAIN * max(pb[m], floor[m])]
         problems += [f"{prec} {path}: Adam update off step 1 by "
                      f"{r['adam_rel']:.3g} (relative L2)"
                      for (prec, path), r in res.items()
@@ -771,7 +959,8 @@ class Smoke:
              seq=t["seq"], fp32_plain=res[("fp32", "plain")],
              fp32_kernels=k32, bf16_plain=pb, bf16_kernels=kb,
              bounds=dict(limits, bf16_vs_plain=BF16_VS_PLAIN,
-                         adam_rel=TRAIN_ADAM_REL), card=self.card)
+                         bf16_floored=BF16_FLOORED, adam_rel=TRAIN_ADAM_REL),
+             card=self.card)
         if problems:
             raise AssertionError(f"train {model}: step kernel vs plain: "
                                  + "; ".join(problems))
@@ -781,6 +970,9 @@ class Smoke:
 
     def phase_train_llama_750m(self):
         self.train("llama_750m")
+
+    def phase_train_moe_350m(self):
+        self.train("moe_350m")
 
     # ------------------------------------------------------------------ #
     def time_ms(self, fn, iters=20, flush=None):
@@ -1005,12 +1197,14 @@ class Smoke:
             self.state.pop(m)
         torch.cuda.empty_cache()
         fl = {label: self.flash_times(label, B, S, N, K, D, flush)
-              for label, B, S, N, K, D, _ in FLASH_CASES[:2]}
+              for label, B, S, N, K, D, _ in FLASH_CASES[:3]}
         adam = self.adam_times(flush)
+        gg = self.gmm_times(flush)
+        nb = self.norm_bwd_times(flush)
         steps = {m: self.train_profile(m) for m in TRAIN}
         emit("times/train", card=self.card, flash=fl, fused_adam=adam,
-             steps=steps)
-        return pa, nm, fl, adam
+             grouped_gemm=gg, norm_backward=nb, steps=steps)
+        return pa, nm, fl, adam, gg
 
     @staticmethod
     def bound(nbytes, flops, dtype="bfloat16"):
@@ -1121,6 +1315,110 @@ class Smoke:
         torch.cuda.empty_cache()
         return res
 
+    def gmm_times(self, flush):
+        """The grouped GEMMs of one moe_350m layer on the main path (bf16,
+        the warm-up step's layer-0 group sizes): up and down forward, their
+        input gradients (rhs transposed) and weight gradients (tgmm) —
+        kernel, plain, the library's grouped product (``torch._grouped_mm``)
+        and the bound (each operand read once, the output written once,
+        2 M K N flops over the routed rows)."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import grouped_gemm as GG
+
+        st = self.state["train_moe_350m"]
+        cfg = st["engine"].model_spec.config
+        sizes = np.array(st["group_sizes_layer0"], np.int32)
+        H, Fe, E = cfg.hidden_size, cfg.moe_ffn, cfg.n_experts
+        M = int(sizes.sum())
+        gs = torch.from_numpy(sizes).to(self.dev)
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        g = torch.Generator(self.dev).manual_seed(11)
+        bf = torch.bfloat16
+        out = {}
+        for proj, K, N in (("up", H, Fe), ("down", Fe, H)):
+            x = torch.randn(M, K, generator=g, device=self.dev).to(bf)
+            w = (torch.randn(E, K, N, generator=g, device=self.dev)
+                 / K ** 0.5).to(bf)
+            dy = torch.randn(M, N, generator=g, device=self.dev).to(bf)
+            cases = {
+                "gmm": (lambda: GG.gmm(x, w, gs),
+                        lambda: GG.gmm_ref(x, w, gs),
+                        lambda: torch._grouped_mm(x, w, offs=offs),
+                        (x, w), M * N),
+                "gmm_transpose_rhs": (
+                    lambda: GG.gmm(dy, w, gs, transpose_rhs=True),
+                    lambda: GG.gmm_ref(dy, w, gs, transpose_rhs=True),
+                    lambda: torch._grouped_mm(dy, w.transpose(1, 2),
+                                              offs=offs),
+                    (dy, w), M * K),
+                "tgmm": (lambda: GG.tgmm(x, dy, gs),
+                         lambda: GG.tgmm_ref(x, dy, gs),
+                         lambda: torch._grouped_mm(x.t(), dy, offs=offs),
+                         (x, dy), E * K * N)}
+            for op, (kern, plain, lib, ins, n_out) in cases.items():
+                nbytes = 2 * (sum(t.numel() for t in ins) + n_out) + 4 * E
+                out[f"{op}[{proj}]"] = dict(
+                    self.bound(nbytes, 2.0 * M * K * N),
+                    ms=self.time_ms(kern, flush=flush),
+                    plain_ms=self.time_ms(plain, iters=5, flush=flush),
+                    library_ms=self.time_ms(lib, flush=flush),
+                    library="torch._grouped_mm",
+                    shape={"M": M, "K": K, "N": N, "E": E,
+                           "group_sizes": sizes.tolist(),
+                           "dtype": "bfloat16"})
+            del x, w, dy
+        torch.cuda.empty_cache()
+        return out
+
+    def norm_bwd_times(self, flush):
+        """The norm backward at gpt2_125m's training size (R 32,768, H 768,
+        bf16): the plain version on the main path (``ops/norms.py``
+        ``layer_norm_bwd``) against PyTorch's one-call backward
+        (``aten.native_layer_norm_backward``), and the RMS counterpart at
+        llama_750m's (R 8,192, H 1,536) where this PyTorch has one."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import norms
+
+        aten = torch.ops.aten
+        g = torch.Generator(self.dev).manual_seed(13)
+        out = {}
+        for kind, R, H in (("layer_norm", 32768, 768),
+                           ("rms_norm", 8192, 1536)):
+            x, dy = (torch.randn(R, H, generator=g, device=self.dev)
+                     .to(torch.bfloat16) for _ in range(2))
+            s = (1 + 0.1 * torch.randn(H, generator=g, device=self.dev)
+                 ).to(torch.bfloat16)
+            b = torch.zeros_like(s)
+            if kind == "layer_norm":
+                plain = lambda: norms.layer_norm_bwd(x, s, dy, 1e-5)
+                _, mean, rstd = aten.native_layer_norm(x, (H,), s, b, 1e-5)
+                lib_op = "aten.native_layer_norm_backward"
+                lib = lambda: aten.native_layer_norm_backward(
+                    dy, x, (H,), mean, rstd, s, b, [True, True, True])
+            else:
+                plain = lambda: norms.rms_norm_bwd(x, s, dy, 1e-5)
+                op = getattr(aten, "_fused_rms_norm_backward", None)
+                fwd = getattr(aten, "_fused_rms_norm", None)
+                lib = lib_op = None
+                if op is not None and fwd is not None:
+                    try:
+                        _, rstd = fwd(x, [H], s, 1e-5)
+                        lib = lambda: op(dy, x, [H], rstd, s,
+                                         [True, True])
+                        lib()
+                        lib_op = "aten._fused_rms_norm_backward"
+                    except (RuntimeError, TypeError) as e:
+                        lib, lib_op = None, f"none ({type(e).__name__})"
+            nbytes = 3 * x.numel() * 2 + 2 * H * 2
+            out[f"{kind}[R={R},H={H}]"] = dict(
+                self.bound(nbytes, 10.0 * x.numel()),
+                plain_ms=self.time_ms(plain, iters=5, flush=flush),
+                library_ms=(self.time_ms(lib, flush=flush) if lib
+                            else None), library=lib_op)
+            del x, dy, s, b
+        torch.cuda.empty_cache()
+        return out
+
     def train_profile(self, model):
         """One more step of the main-path engine under torch.profiler: the
         device time by kernel kind, the annotated loss and norm-backward
@@ -1140,7 +1438,9 @@ class Smoke:
             self.sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
         annotated = ("fused_lm_loss", "fused_lm_loss_backward",
-                     "norm_backward")
+                     "norm_backward", "moe_gate", "moe_dispatch",
+                     "moe_combine", "moe_dispatch_backward",
+                     "moe_combine_backward")
         kinds, spans = {}, {}
         n_kernels = 0
         for e in prof.key_averages():
@@ -1154,7 +1454,9 @@ class Smoke:
             if getattr(e, "is_user_annotation", False) or not us:
                 continue
             low = e.key.lower()
-            kind = ("flash_fwd" if "flash_fwd_kernel" in low
+            kind = ("moe_tgmm" if "gmm_kernel<" in low and ", 2>" in low
+                    else "moe_gmm" if "gmm_kernel<" in low
+                    else "flash_fwd" if "flash_fwd_kernel" in low
                     else "flash_bwd_dq" if "flash_bwd_dq_kernel" in low
                     else "flash_bwd_dkv" if "flash_bwd_dkv_kernel" in low
                     else "fused_adam" if "fused_adam_kernel" in low
@@ -1165,18 +1467,29 @@ class Smoke:
             kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
             n_kernels += e.count
         device_ms = sum(kinds.values())
+        moe = {}
+        if "moe_gmm" in kinds:
+            # the MoE layer's share: the grouped GEMM kernels, and the
+            # annotated spans of the gathers and the gate (plain PyTorch)
+            moe = {"gmm": kinds["moe_gmm"], "tgmm": kinds.get("moe_tgmm", 0.0),
+                   "dispatch_combine_gathers": sum(
+                       spans.get(k, 0.0) for k in (
+                           "moe_dispatch", "moe_combine",
+                           "moe_dispatch_backward", "moe_combine_backward")),
+                   "gating": spans.get("moe_gate", 0.0)}
         return {"step_ms": st["step_ms"], "tokens_per_s": st["tokens_per_s"],
                 "model_tflops_per_s": st["model_tflops_per_s"],
                 "mfu": st["mfu"], "peak_memory_bytes": st["peak_memory_bytes"],
                 "device_ms_per_step": device_ms or "not measured",
                 "device_ms_by_kind": kinds or "not measured",
                 "annotated_device_ms": spans or "not measured",
+                "moe_device_ms": moe or None,
                 "kernels_per_step": n_kernels or "not measured",
                 "profiled_step_ms": wall_ms,
                 "device_idle_share": (1 - device_ms / wall_ms
                                       if device_ms else "not measured")}
 
-    def kernels_line(self, pa, nm, fl, adam):
+    def kernels_line(self, pa, nm, fl, adam, gg):
         src = {"paged_attention": ("cuda",
                                    "deepspeed_tpu_torch/ops/csrc/"
                                    "paged_attention.cu",
@@ -1195,7 +1508,12 @@ class Smoke:
             "flash_bwd_dkv": ("cuda", flash_src,
                               "deepspeed_tpu/ops/pallas/flash_attention.py:214"),
             "fused_adam": ("cuda", "deepspeed_tpu_torch/ops/csrc/fused_adam.cu",
-                           "deepspeed_tpu/ops/pallas/fused_adam.py:34")})
+                           "deepspeed_tpu/ops/pallas/fused_adam.py:34"),
+            # megablox gmm / tgmm (its VJP), reached from grouped_dot
+            "gmm": ("cuda", "deepspeed_tpu_torch/ops/csrc/grouped_gemm.cu",
+                    "deepspeed_tpu/moe/layer.py:185"),
+            "tgmm": ("cuda", "deepspeed_tpu_torch/ops/csrc/grouped_gemm.cu",
+                     "deepspeed_tpu/moe/layer.py:185")})
         timed = {"paged_attention": dict(pa["decode"], library_ms=None),
                  "rms_norm": nm["rms_norm[R=8]"],
                  "layer_norm": nm["layer_norm[R=8]"],
@@ -1203,6 +1521,8 @@ class Smoke:
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             timed[name] = dict(fl["gpt2_125m"][name],
                                max_abs_err=self.errs[name])
+        for name, key in (("gmm", "gmm[up]"), ("tgmm", "tgmm[up]")):
+            timed[name] = dict(gg[key], max_abs_err=self.errs[name])
         out = []
         for name, (route, source, replaces) in src.items():
             t = timed[name]

@@ -128,7 +128,7 @@ class FastGenEngine:
             raise _later_slice("tensor-parallel FastGen serving (tp=True)")
         if isinstance(cfg, str):
             cfg = T.get_model_config(cfg, **overrides)
-        T._check_supported(cfg)
+        PG.check_servable(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = self._resolve_params(params, seed)

@@ -74,7 +74,9 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     default) or 'exact' (fp32 logits through ``head_matmul``).
     ``use_kernels=False`` runs the kernels' plain versions on any device
     (flash attention's whole-tensor version under autograd, the plain
-    norms): the card's kernel-vs-plain checks."""
+    norms and grouped GEMMs): the card's kernel-vs-plain checks. An MoE
+    config (``n_experts > 0``) adds ``moe_aux_coef`` × the layers' summed
+    aux loss to the LM loss, as JAX does."""
     if attention_fn is not None and attention is not None:
         raise ValueError("pass either attention_fn or attention=, not both")
     if loss_impl not in ("fused", "exact"):
@@ -104,13 +106,17 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
 
     def loss_fn(params, batch):
         tokens = _tokens_of(batch)
-        hidden, head, _ = T.forward_hidden(params, tokens, cfg,
-                                           attention_fn=attention_fn,
-                                           use_kernels=use_kernels)
+        hidden, head, aux = T.forward_hidden(params, tokens, cfg,
+                                             attention_fn=attention_fn,
+                                             use_kernels=use_kernels)
         if loss_impl == "fused":
-            return T.fused_lm_loss(hidden, head, tokens, _mask_of(batch))
-        logits = T.head_matmul(hidden, head.to(hidden.dtype))
-        return T.causal_lm_loss(logits, tokens, _mask_of(batch))
+            loss = T.fused_lm_loss(hidden, head, tokens, _mask_of(batch))
+        else:
+            logits = T.head_matmul(hidden, head.to(hidden.dtype))
+            loss = T.causal_lm_loss(logits, tokens, _mask_of(batch))
+        if cfg.n_experts > 0:
+            loss = loss + cfg.moe_aux_coef * aux
+        return loss
 
     def apply_fn(params, batch):
         return T.forward(params, _tokens_of(batch), cfg,

@@ -268,10 +268,30 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                      "wo": dense((L, qdim, h), out_std)}
     if cfg.has_ln2:
         block["ln2"] = norm_init((L, h))
-    block["w_up"] = dense((L, h, f), std)
-    block["w_down"] = dense((L, f, h), out_std)
-    if cfg.activation == "swiglu":
-        block["w_gate"] = dense((L, h, f), std)
+    E = cfg.n_experts
+    if E > 0:
+        # MoE FFN: per-expert weights (no biases), a router gate per layer
+        fe = cfg.moe_ffn
+        block["gate_w"] = dense((L, h, E), std)
+        block["w_up"] = dense((L, E, h, fe), std)
+        block["w_down"] = dense((L, E, fe, h), out_std)
+        if cfg.activation == "swiglu":
+            block["w_gate"] = dense((L, E, h, fe), std)
+        fs = cfg.moe_shared_size
+        if fs > 0:
+            block["sw_up"] = dense((L, h, fs), std)
+            block["sw_down"] = dense((L, fs, h), out_std)
+            if cfg.activation == "swiglu":
+                block["sw_gate"] = dense((L, h, fs), std)
+            if cfg.moe_shared_gate:
+                block["shared_gate_w"] = dense((L, h, 1), std)
+        if cfg.moe_gate_bias:
+            block["gate_bias"] = const((L, E), 0.0)
+    else:
+        block["w_up"] = dense((L, h, f), std)
+        block["w_down"] = dense((L, f, h), out_std)
+        if cfg.activation == "swiglu":
+            block["w_gate"] = dense((L, h, f), std)
     if cfg.attn_bias_enabled:
         block["bq"] = const((L, qdim), 0.0)
         block["bk"] = const((L, kvdim), 0.0)
@@ -295,8 +315,9 @@ def _check_supported(cfg: TransformerConfig) -> None:
     unsupported = [name for name, on in (
         ("mla", cfg.mla), ("alibi", cfg.pos_emb == "alibi"),
         ("qk_norm", cfg.qk_norm), ("parallel_block", cfg.parallel_block),
-        ("emb_norm", cfg.emb_norm), ("moe (n_experts > 0)", cfg.n_experts > 0),
-        ("lm_head_bias", cfg.lm_head_bias)) if on]
+        ("emb_norm", cfg.emb_norm), ("lm_head_bias", cfg.lm_head_bias),
+        ("moe_dispatch='dense'",
+         cfg.n_experts > 0 and cfg.moe_dispatch == "dense")) if on]
     if unsupported:
         raise NotImplementedError(
             f"{', '.join(unsupported)}: not supported by deepspeed_tpu_torch "
@@ -437,8 +458,26 @@ def apply_rope_at(x: torch.Tensor, cos_table: torch.Tensor,
 
 
 def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
-         cfg: TransformerConfig) -> torch.Tensor:
-    """Dense FFN on normed input (the MoE branch comes in a later slice)."""
+         cfg: TransformerConfig, use_kernels: bool = True
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense or MoE FFN on normed input → (output, aux loss: fp32 0 for a
+    dense block). ``use_kernels=False`` runs the grouped GEMMs' plain
+    versions."""
+    if cfg.n_experts > 0:
+        from deepspeed_tpu_torch.moe.layer import moe_ffn
+
+        experts = {k_: lp[k_] for k_ in ("w_up", "w_down", "w_gate")
+                   if k_ in lp}
+        shared = {k_: lp[k_] for k_ in ("sw_up", "sw_down", "sw_gate",
+                                        "shared_gate_w") if k_ in lp}
+        return moe_ffn(
+            h, lp["gate_w"], experts, activation=cfg.activation,
+            k=cfg.moe_top_k, score_func=cfg.moe_score_func,
+            route_norm=cfg.moe_route_norm,
+            route_scale=cfg.moe_route_scale, shared=shared or None,
+            gate_bias=lp.get("gate_bias"), n_group=cfg.moe_n_group,
+            topk_group=cfg.moe_topk_group, dispatch=cfg.moe_dispatch,
+            use_kernels=use_kernels)
     up = h @ lp["w_up"]
     if cfg.use_bias:
         up = up + lp["b_up"]
@@ -451,7 +490,7 @@ def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
     down = act @ lp["w_down"]
     if cfg.use_bias:
         down = down + lp["b_down"]
-    return down
+    return down, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _head_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -553,11 +592,13 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _block_forward(x: torch.Tensor, lp: Dict[str, torch.Tensor],
                    cfg: TransformerConfig, cos: Optional[torch.Tensor],
                    sin: Optional[torch.Tensor], attention_fn,
-                   use_kernels: bool = True) -> torch.Tensor:
-    """One sequential (GPT/Llama) block on x [B, S, H]; ``lp`` holds this
-    layer's parameters. The parallel, MLA and MoE blocks come in a later
-    slice (``_check_supported``). ``use_kernels=False`` takes the norms'
-    plain versions."""
+                   use_kernels: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sequential (GPT/Llama) block on x [B, S, H], dense or MoE FFN;
+    ``lp`` holds this layer's parameters. Returns (x, MoE aux loss). The
+    parallel and MLA blocks come in a later slice (``_check_supported``).
+    ``use_kernels=False`` takes the norms' and grouped GEMMs' plain
+    versions."""
     B, S, _ = x.shape
     dt = cfg.compute_dtype
     lp = _cast_tree(lp, dt)      # a no-op for the engine's compute params
@@ -579,7 +620,8 @@ def _block_forward(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     attn = attention_fn(q, k, v, causal=cfg.causal)
     x = x + proj("o", attn.reshape(B, S, cfg.num_heads * cfg.head_dim), None)
     h2 = _norm(x, lp["ln2"], cfg.norm, cfg.norm_eps, use_kernels)
-    return x + _ffn(h2, lp, cfg)
+    down, aux = _ffn(h2, lp, cfg, use_kernels)
+    return x + down, aux
 
 
 def _cast_tree(tree, dtype):
@@ -626,10 +668,11 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
                    use_kernels: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tokens [B, S] → (final hidden [B, S, H], LM head [H, V], MoE aux
-    loss 0). The JAX ``forward_hidden`` without PLD, random-LTD or chunked
-    scans (a later slice); the layer scan is a Python loop, each layer
-    wrapped by the config's remat policy. ``use_kernels=False`` takes the
-    norms' plain versions (the card's kernel-vs-plain checks)."""
+    loss summed over layers, fp32 — 0 for dense models). The JAX
+    ``forward_hidden`` without PLD, random-LTD or chunked scans (a later
+    slice); the layer scan is a Python loop, each layer wrapped by the
+    config's remat policy. ``use_kernels=False`` takes the norms' and
+    grouped GEMMs' plain versions (the card's kernel-vs-plain checks)."""
     _check_supported(cfg)
     attention_fn = attention_fn or dot_product_attention
     dt = cfg.compute_dtype
@@ -641,6 +684,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     if cfg.pos_emb == "rope":
         cos, sin = rope_table(S, cfg.rope_dim, cfg.rope_theta,
                               cfg.rope_scaling_dict, device=x.device)
+    auxes = []
     for layer in range(cfg.num_layers):
         lp = layer_params(params["blocks"], layer)
 
@@ -648,9 +692,10 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
             return _block_forward(h, lp, cfg, cos, sin, attention_fn,
                                   use_kernels)
 
-        x = _remat_wrap(body, cfg.remat)(x)
+        x, aux = _remat_wrap(body, cfg.remat)(x)
+        auxes.append(aux)
     x = _norm(x, params["final_norm"], cfg.norm, cfg.norm_eps, use_kernels)
-    return x, _lm_head_of(params, cfg), torch.zeros((), device=x.device)
+    return x, _lm_head_of(params, cfg), torch.stack(auxes).sum()
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,

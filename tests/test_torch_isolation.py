@@ -1,7 +1,8 @@
 """The PyTorch port stands alone and never falls back silently.
 
-* Importing every module of ``deepspeed_tpu_torch`` and ``chip_smoke.py``
-  imports neither jax nor anything of ``deepspeed_tpu``.
+* Importing every module of ``deepspeed_tpu_torch`` (the MoE modules and
+  the grouped GEMM among them) and ``chip_smoke.py`` imports neither jax
+  nor anything of ``deepspeed_tpu``.
 * Without a CUDA device, entry points that default to the GPU raise; with
   one, they land on it. Whether a card is present is decided inside each
   test, never at import or collection time.
@@ -41,14 +42,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu."))
-        print(len(names), bad)
+        print(len(names), ",".join(names), bad)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 27, out.stdout          # every module was walked
+    n, names, bad = out.stdout.strip().split(" ", 2)
+    assert int(n) >= 31, out.stdout          # every module was walked
+    for mod in ("moe.gating", "moe.layer", "ops.grouped_gemm"):
+        assert f"deepspeed_tpu_torch.{mod}" in names.split(","), mod
     assert bad == "[]", bad
 
 

@@ -319,7 +319,7 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
     ({}, {"remat": "dots_saveable"}),
     ({}, {"loss_tiles": 4}),
     ({}, {"attention": "ring"}),
-    ({}, {"n_experts": 4}),
+    ({}, {"n_experts": 4, "moe_dispatch": "dense"}),
 ])
 def test_out_of_slice_options_raise(extra, spec_kw):
     with pytest.raises(NotImplementedError, match="later slice"):
