@@ -8,11 +8,14 @@ kernel on them against its plain PyTorch version:
 2. build     — nvcc builds of ``ops/csrc/*.cu`` (one process per source,
                started together) and Triton's first compile, timed;
 3. kernels   — paged attention, RMSNorm/LayerNorm, flash attention
-               (forward, dq, dkv), fused Adam and the grouped GEMM (gmm,
-               gmm with the rhs transposed, tgmm) against their plain
-               versions, bf16 and fp32, at the main-path shapes and edge
-               cases (unaligned S, GQA, non-causal; ragged groups, an empty
-               group, moe_1b's width);
+               (forward, dq, dkv), fused Adam, the grouped GEMM (gmm, gmm
+               with the rhs transposed, tgmm), block-sparse attention
+               (forward, dq, dkv) and the Evoformer forward against their
+               plain versions, bf16 and fp32, at the main-path shapes and
+               edge cases (unaligned S, GQA, non-causal; ragged groups, an
+               empty group, moe_1b's width; sparse layouts with an inactive
+               row; a dense layout against flash; Evoformer at OpenFold's
+               widths, D 8, a masked row, unaligned S);
 4. llama2_7b — ``FastGenEngine`` at full width and depth (random weights
                from a seed, bf16) serves 8 requests through ``generate_all``;
                launch counters prove every tick went through the kernels;
@@ -31,10 +34,20 @@ kernel on them against its plain PyTorch version:
                model (4 experts, top-2, dropless): the counters prove every
                step launched gmm 288 times and tgmm 96 times; the step gate
                adds the routing agreement and the aux loss;
-9. times     — kernels vs plain vs library calls vs their bounds (CUDA
+9. train_llama_750m_sparse — llama_750m's run with
+               ``attention="sparse:fixed"`` (block-sparse attention, block
+               64, the causal fixed layout): the counters prove every step
+               launched the block-sparse forward 160 times and dq, dkv 80
+               times each, and flash attention never;
+10. evoformer — ``msa_row_attention_with_pair_bias`` at OpenFold's
+               Evoformer widths (MSA [128, 256, 256], 8 heads of 32, pair
+               bias [8, 256, 256], gated), forward and backward on the card
+               through the Evoformer kernel, held against the plain path;
+11. times    — kernels vs plain vs library calls vs their bounds (CUDA
                events), decode tokens/s, TTFT, training step time, tokens/s,
                MFU (active parameters), idle share, the profiler's split of
-               a step, peak memory.
+               a step, peak memory. It times what the phases before it ran:
+               the serving, Adam and grouped-GEMM rows need their phases.
 
 Prints one JSON line per phase, then the nvidia-smi line, then the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
@@ -43,6 +56,7 @@ and the repository beside it, and does not import jax.
 
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases card,build,kernels
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sparse,evoformer,times
 """
 from __future__ import annotations
 
@@ -59,7 +73,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 PHASES = ("card", "build", "kernels", "llama2_7b", "gpt2_125m",
-          "train_gpt2_125m", "train_llama_750m", "train_moe_350m", "times")
+          "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
+          "train_llama_750m_sparse", "evoformer", "times")
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # fp32: both compute in fp32 and differ only in summation order (a few ulp
@@ -112,16 +127,59 @@ GMM_CASES = (("moe_350m_up", 32768, 768, 3072, 4, 0),
 # a masked BLOCK_H 2048 program)
 NORM_CASES = (("rms_norm", 4096, (1, 37, 256)), ("rms_norm", 1536, (8192,)),
               ("layer_norm", 768, (1, 37, 256, 32768)))
+# Block-sparse attention against its plain version: the flash kernels'
+# bodies over the layout's active squares, so flash attention's tolerances
+# and reasons. (label, B, S, N, K, D, layout, causal): llama_750m's shape
+# with the model path's three layouts (block 64, causal), gpt2's D 64, GQA,
+# and a non-causal layout with an all-inactive q row (o = 0, lse = -1e30,
+# dq = 0 there; dk = dv = 0 for keys no row attends).
+SPARSE_BLOCK = 64
+SPARSE_CASES = (("llama_750m_fixed", 4, 2048, 12, 12, 128, "fixed", True),
+                ("llama_750m_bigbird", 4, 2048, 12, 12, 128, "bigbird", True),
+                ("llama_750m_bslongformer", 4, 2048, 12, 12, 128,
+                 "bslongformer", True),
+                ("gpt2_d64_fixed", 8, 1024, 12, 12, 64, "fixed", True),
+                ("gqa", 2, 1024, 12, 4, 128, "fixed", True),
+                ("inactive_row_d64", 2, 512, 4, 4, 64, "inactive_row", False),
+                ("inactive_row_d128", 2, 512, 4, 2, 128, "inactive_row",
+                 False))
+# Evoformer forward against its plain version: one kernel sums each row's
+# S <= 256 keys in fp32 like the plain version, so the kernels' TOL.
+# (label, G, S, N, D, bias): OpenFold's triangle attention (config.py:
+# pair channels 128 = 4 heads of c_hidden_tri_att 32 at crop_size 256; a
+# per-row mask bias [G, 1, 1, S], one row of it -inf everywhere, plus the
+# shared triangle bias [1, N, S, S] → a per-row [256, 4, 256, 256]), its
+# MSA-row attention (8 heads of c_hidden_msa_att 32 over max_msa_clusters
+# 128 rows; the shared pair bias, Gb 1), the extra-MSA stack's D 8, and
+# unaligned S with per-row and shared biases.
+EVO_CASES = (("triangle", 256, 256, 4, 32, "mask+shared"),
+             ("msa_row", 128, 256, 8, 32, "shared"),
+             ("extra_msa_d8", 256, 256, 8, 8, "shared"),
+             ("unaligned_s200", 8, 200, 4, 32, "per_row"),
+             ("unaligned_d128", 2, 100, 2, 128, "shared"),
+             ("d16", 4, 130, 2, 16, "per_row"),
+             ("d64", 4, 130, 2, 64, "shared"))
+# The evoformer phase: msa_row_attention_with_pair_bias at OpenFold's
+# Evoformer widths (config.py: c_m 256, 8 heads of c_hidden_msa_att 32,
+# max_msa_clusters 128, crop_size 256), gated.
+EVO_MAIN = dict(rows=128, seq=256, c_m=256, heads=8, head_dim=32)
 # Training runs: the repo's headline settings (bench.py train_bench), the
 # zero3_llama_750m_bf16 row's shape and the moe_ulysses_moe_350m_bf16 row's
 # (bench.py), at ZeRO stage 1 (one process partitions nothing), flash
-# attention (ulysses_flash at sequence world 1) and remat full
+# attention (ulysses_flash at sequence world 1) and remat full; then
+# llama_750m's run again with block-sparse attention ("sparse:fixed", the
+# model path's default kind; the JAX package's sparse training path).
+# "model" names the preset where the run's key does not.
 TRAIN = {"gpt2_125m": dict(micro=32, seq=1024, gas=4, steps=4,
                            norm="layer_norm", gate_micro=2),
          "llama_750m": dict(micro=4, seq=2048, gas=4, steps=3,
                             norm="rms_norm", gate_micro=1),
          "moe_350m": dict(micro=16, seq=1024, gas=4, steps=3,
-                          norm="layer_norm", gate_micro=2)}
+                          norm="layer_norm", gate_micro=2),
+         "llama_750m_sparse": dict(model="llama_750m",
+                                   attention="sparse:fixed", micro=4,
+                                   seq=2048, gas=4, steps=3, norm="rms_norm",
+                                   gate_micro=1)}
 TRAIN_LR = 1e-4
 # One optimizer step, kernel path vs plain path, fp32, same weights and
 # batch: loss within TRAIN_LOSS_REL (relative), grad norm within
@@ -378,6 +436,8 @@ class Smoke:
         rows += self.flash_checks()
         rows += self.adam_checks()
         rows += self.gmm_checks()
+        rows += self.sparse_checks()
+        rows += self.evo_checks()
         emit("kernels", checks=rows)
 
     def close_tol(self, name, got, want, tol):
@@ -450,7 +510,8 @@ class Smoke:
 
         g = torch.Generator(self.dev).manual_seed(3)
         rows = []
-        for model in TRAIN:
+        presets = dict.fromkeys(t.get("model", m) for m, t in TRAIN.items())
+        for model in presets:
             n = T.get_model_config(model).num_params() + 3
             for adam_w in (True, False):
                 rows.append(self.adam_check(model, n, adam_w, g))
@@ -559,8 +620,175 @@ class Smoke:
                 self.torch.cuda.empty_cache()
         return rows
 
+    @staticmethod
+    def sparse_layout(kind, n_blocks, causal):
+        """The model path's layouts (``causal_layout`` when causal), or
+        ``inactive_row``: bslongformer with q square 1 attending nothing and
+        the last kv square attended by nothing."""
+        from deepspeed_tpu_torch.ops import block_sparse as BS
+
+        if kind == "inactive_row":
+            lay = BS.bslongformer_layout(n_blocks)
+            lay[1] = 0
+            lay[:, -1] = 0
+            return lay
+        if kind == "dense":
+            return BS.dense_layout(n_blocks)
+        lay = BS.MODEL_LAYOUTS[kind](n_blocks)
+        return BS.causal_layout(lay) if causal else lay
+
+    def sparse_checks(self):
+        """Block-sparse forward (o, lse), dq and dkv against the plain
+        versions on the same inputs (the backward from the kernel's own o
+        and lse); the inactive squares' zeros; and a dense layout against
+        the flash kernel (JAX's test_matches_dense_flash_semantics)."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import block_sparse as BS
+        from deepspeed_tpu_torch.ops import flash_attention as PF
+
+        blk = SPARSE_BLOCK
+        rows = []
+        for label, B, S, N, K, D, kind, causal in SPARSE_CASES:
+            lay = self.sparse_layout(kind, S // blk, causal)
+            for dtype in ("bfloat16", "float32"):
+                q, k, v, do = self.flash_inputs(B, S, N, K, D, dtype,
+                                                seed=S + D)
+                tag = f"[{label},{dtype}]"
+                tol = FLASH_TOL[dtype]
+                o, lse = BS.block_sparse_fwd(q, k, v, lay, blk, causal)
+                ro, rlse = BS.block_sparse_fwd_ref(q, k, v, lay, blk, causal)
+                self.sync()
+                errs = {"o": self.close_tol("block_sparse_fwd.o" + tag, o,
+                                            ro, tol),
+                        "lse": self.close_tol("block_sparse_fwd.lse" + tag,
+                                              lse, rlse, FLASH_TOL["float32"])}
+                del ro, rlse
+                grads = BS.block_sparse_bwd(q, k, v, o, lse, do, lay, blk,
+                                            causal)
+                refs = BS.block_sparse_bwd_ref(q, k, v, o, lse, do, lay, blk,
+                                               causal)
+                self.sync()
+                for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+                    errs[name] = self.close_tol(f"block_sparse_bwd.{name}{tag}",
+                                                got, want, tol)
+                if kind == "inactive_row":
+                    dead_q = slice(blk, 2 * blk)
+                    dead_kv = slice(S - blk, S)
+                    lse_q = lse.reshape(B, N, S)[:, :, dead_q]
+                    zeros = (bool((o[:, dead_q] == 0).all())
+                             and bool((lse_q == BS.NEG_INF).all())
+                             and bool((grads[0][:, dead_q] == 0).all())
+                             and bool((grads[1][:, dead_kv] == 0).all())
+                             and bool((grads[2][:, dead_kv] == 0).all()))
+                    if not zeros:
+                        raise AssertionError(
+                            f"block_sparse{tag}: the inactive squares' o, "
+                            "lse, dq, dk, dv are not 0 / -1e30")
+                if label == "llama_750m_fixed" and dtype == "bfloat16":
+                    self.errs.update(
+                        block_sparse_fwd=max(errs["o"], errs["lse"]),
+                        block_sparse_bwd_dq=errs["dq"],
+                        block_sparse_bwd_dkv=max(errs["dk"], errs["dv"]))
+                rows.append({"kernel": "block_sparse_attention",
+                             "shape": label, "B": B, "S": S, "N": N, "K": K,
+                             "D": D, "block": blk, "layout": kind,
+                             "causal": causal, "active_squares": int(
+                                 (lay != 0).sum()), "squares": lay.size,
+                             "dtype": dtype, "max_abs_err": errs,
+                             "tol": tol})
+                del q, k, v, do, o, lse, grads, refs
+                torch.cuda.empty_cache()
+        # a dense layout runs the flash kernels' arithmetic over the same
+        # tiles in the same order: equal to flash attention
+        for dtype in ("bfloat16", "float32"):
+            B, S, N, K, D = 2, 1024, 12, 4, 128
+            q, k, v, do = self.flash_inputs(B, S, N, K, D, dtype, seed=5)
+            lay = self.sparse_layout("dense", S // blk, True)
+            o, lse = BS.block_sparse_fwd(q, k, v, lay, blk, True)
+            fo, flse = PF.flash_fwd(q, k, v, True)
+            grads = BS.block_sparse_bwd(q, k, v, o, lse, do, lay, blk, True)
+            fgrads = PF.flash_bwd(q, k, v, fo, flse, do, True)
+            self.sync()
+            tag = f"[dense_layout_vs_flash,{dtype}]"
+            errs = {n: self.close_tol(f"block_sparse.{n}{tag}", a, b,
+                                      FLASH_TOL[dtype])
+                    for n, a, b in zip(("o", "lse", "dq", "dk", "dv"),
+                                       (o, lse, *grads), (fo, flse, *fgrads))}
+            bitwise = all(bool(torch.equal(a, b)) for a, b in
+                          zip((o, lse, *grads), (fo, flse, *fgrads)))
+            rows.append({"kernel": "block_sparse_attention",
+                         "shape": "dense_layout_vs_flash", "B": B, "S": S,
+                         "N": N, "K": K, "D": D, "block": blk,
+                         "layout": "dense", "causal": True, "dtype": dtype,
+                         "against": "flash kernels", "max_abs_err": errs,
+                         "bitwise_equal": bitwise, "tol": FLASH_TOL[dtype]})
+            del q, k, v, do, o, lse, fo, flse, grads, fgrads
+            torch.cuda.empty_cache()
+        return rows
+
+    def evo_inputs(self, G, S, N, D, bias_kind, dtype, seed):
+        """q/k/v [G, S, N, D] and the kernel's bias [Gb, N, S, S]:
+        ``shared`` a pair bias [1, N, S, S]; ``per_row`` [G, N, S, S];
+        ``mask+shared`` a key mask [G, 1, 1, S] (0 or -1e9, row 0 -inf
+        everywhere: its output is 0) plus a shared bias, summed as the
+        entry point sums them (into [G, N, S, S])."""
+        torch = self.torch
+        g = torch.Generator(self.dev).manual_seed(seed)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(G, S, N, D, generator=g, device=self.dev)
+                   .to(dt) for _ in range(3))
+        if bias_kind == "per_row":
+            bias = torch.randn(G, N, S, S, generator=g, device=self.dev)
+        else:
+            bias = torch.randn(1, N, S, S, generator=g, device=self.dev)
+        if bias_kind == "mask+shared":
+            keep = torch.rand(G, 1, 1, S, generator=g, device=self.dev) < 0.9
+            mask = torch.where(keep, 0.0, -1e9)
+            mask[0] = float("-inf")
+            bias = (mask + bias).contiguous()
+        return q, k, v, bias.to(dt)
+
+    def evo_checks(self):
+        """The Evoformer forward kernel against its plain version, bf16 and
+        fp32 (the bias in the same dtype), and bf16 q/k/v with an fp32
+        bias."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import evoformer as EV
+
+        rows = []
+        for label, G, S, N, D, bias_kind in EVO_CASES:
+            for dtype in ("bfloat16", "float32", "bfloat16+fp32_bias"):
+                if dtype.endswith("bias") and label != "msa_row":
+                    continue
+                qdt = dtype.split("+")[0]
+                q, k, v, bias = self.evo_inputs(G, S, N, D, bias_kind, qdt,
+                                                seed=G + S + D)
+                if dtype.endswith("bias"):
+                    bias = bias.float()
+                got = EV.evoformer_fwd(q, k, v, bias)
+                want = EV.evoformer_flash_ref(q, k, v, bias)
+                self.sync()
+                tag = f"[{label},{dtype}]"
+                err = self.close(f"evoformer_fwd{tag}", got, want, qdt)
+                if bias_kind == "mask+shared" and not bool((got[0] == 0)
+                                                           .all()):
+                    raise AssertionError(f"evoformer_fwd{tag}: a row masked "
+                                         "everywhere is not 0")
+                if label == "msa_row" and dtype == "bfloat16":
+                    self.errs["evoformer_fwd"] = err
+                rows.append({"kernel": "evoformer_fwd", "shape": label,
+                             "G": G, "S": S, "N": N, "D": D,
+                             "bias": list(bias.shape), "bias_kind": bias_kind,
+                             "dtype": dtype, "max_abs_err": err,
+                             "tol": TOL[qdt]})
+                del q, k, v, bias, got, want
+                torch.cuda.empty_cache()
+        return rows
+
     # ------------------------------------------------------------------ #
     def counters(self):
+        from deepspeed_tpu_torch.ops import block_sparse as BS
+        from deepspeed_tpu_torch.ops import evoformer as EV
         from deepspeed_tpu_torch.ops import flash_attention as PF
         from deepspeed_tpu_torch.ops import fused_adam as FA
         from deepspeed_tpu_torch.ops import grouped_gemm as GG
@@ -568,7 +796,7 @@ class Smoke:
         from deepspeed_tpu_torch.ops import paged_attention as PA
 
         return (PA.launches, norms.launches, PF.launches, FA.launches,
-                GG.launches)
+                GG.launches, BS.launches, EV.launches)
 
     def reset_counts(self):
         from deepspeed_tpu_torch.ops import norms
@@ -775,10 +1003,12 @@ class Smoke:
 
         t = TRAIN[model]
         micro, seq, gas, steps = t["micro"], t["seq"], t["gas"], t["steps"]
+        attention = t.get("attention", "flash")
         torch.cuda.reset_peak_memory_stats(self.dev)
         base = torch.cuda.memory_allocated(self.dev)   # earlier phases' engines
         t0 = time.perf_counter()
-        spec = dtt.causal_lm_spec(model, attention="flash", remat="full")
+        spec = dtt.causal_lm_spec(t.get("model", model), attention=attention,
+                                  remat="full")
         engine, *_ = dtt.initialize(model=spec, config=self.train_config(
             micro, gas, "bf16"))
         self.sync()
@@ -811,8 +1041,14 @@ class Smoke:
         # one gmm with the rhs transposed (input gradient) and one tgmm
         # (weight gradient); 0 for a dense model
         n_w = (3 if cfg.activation == "swiglu" else 2) if cfg.n_experts else 0
-        want = {"flash_fwd": 2 * L * micros,     # remat: forward runs twice
-                "flash_bwd_dq": L * micros, "flash_bwd_dkv": L * micros,
+        # the attention's kernels, and none of the other attention's
+        attn, other = (("block_sparse", "flash")
+                       if attention.startswith("sparse")
+                       else ("flash", "block_sparse"))
+        want = {f"{attn}_fwd": 2 * L * micros,   # remat: forward runs twice
+                f"{attn}_bwd_dq": L * micros, f"{attn}_bwd_dkv": L * micros,
+                f"{other}_fwd": 0, f"{other}_bwd_dq": 0,
+                f"{other}_bwd_dkv": 0, "evoformer_fwd": 0,
                 "fused_adam": steps,
                 norm: (4 * L + 1) * micros,      # 2 per layer, twice, + final
                 "gmm": 3 * n_w * L * micros, "tgmm": n_w * L * micros,
@@ -841,7 +1077,8 @@ class Smoke:
         tokens = micro * seq * gas
         flops = flops_per_token(cfg, seq) * tokens
         peak = torch.cuda.max_memory_allocated(self.dev) - base
-        result = {"micro": micro, "seq": seq, "gas": gas, "steps": steps,
+        result = {"model": t.get("model", model), "attention": attention,
+                  "micro": micro, "seq": seq, "gas": gas, "steps": steps,
                   "params": cfg.num_params(),
                   "active_params": active_params(cfg), "init_seconds": init_s,
                   "warmup_step_seconds": warm_s, "losses": [first] + losses,
@@ -849,6 +1086,9 @@ class Smoke:
                   "tokens_per_s": tokens / step_s,
                   "model_tflops_per_s": flops / step_s / 1e12,
                   "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+                  # bench.py's count: dense causal attention, whatever the
+                  # attention computes
+                  "mfu_flops": "dense model (bench.py _flops_per_token)",
                   "launches": counts, "launches_want": want,
                   "norm_backward_calls": bwd_calls[norm],
                   "peak_memory_bytes": peak,
@@ -859,12 +1099,21 @@ class Smoke:
             # sizes on the main path (the times phase runs them at these)
             result["group_sizes_layer0"] = torch.bincount(
                 routes[0][0].reshape(-1), minlength=cfg.n_experts).tolist()
-            result["launches_per_step"] = {
-                k: counts[k] / steps for k in ("gmm", "tgmm")}
+        result["launches_per_step"] = {k: v / steps for k, v in want.items()
+                                       if v}
         emit(f"train_{model}", **result)
         self.state[f"train_{model}"] = dict(result, engine=engine,
                                             data=data, batch=batch)
         self.train_gate(model, engine, batch)
+        # the profiled step now, and the engine freed: the later phases'
+        # engines would not fit beside every earlier one
+        st = self.state[f"train_{model}"]
+        st["profile"] = self.train_profile(model)
+        st.update(flat_n=engine.flat_master.numel(), config=cfg)
+        for k in ("engine", "data", "batch"):
+            del st[k]
+        del engine, data
+        torch.cuda.empty_cache()
 
     def train_gate(self, model, main, batch):
         """One optimizer step, four ways ({fp32, bf16} x {kernels, plain}),
@@ -880,6 +1129,7 @@ class Smoke:
 
         t = TRAIN[model]
         tokens = batch["tokens"][:t["gate_micro"]]
+        attention = t.get("attention", "flash")
         moe = main.model_spec.config.n_experts > 0
         L = main.model_spec.config.num_layers
         ref = None
@@ -887,7 +1137,7 @@ class Smoke:
         for prec, path in (("fp32", "plain"), ("fp32", "kernels"),
                            ("bf16", "plain"), ("bf16", "kernels")):
             spec = dtt.causal_lm_spec(
-                model, attention="flash", remat="full",
+                t.get("model", model), attention=attention, remat="full",
                 use_kernels=path == "kernels",
                 dtype="float32" if prec == "fp32" else "bfloat16")
             engine, *_ = dtt.initialize(model=spec, config=self.train_config(
@@ -973,6 +1223,118 @@ class Smoke:
 
     def phase_train_moe_350m(self):
         self.train("moe_350m")
+
+    def phase_train_llama_750m_sparse(self):
+        self.train("llama_750m_sparse")
+
+    # ------------------------------------------------------------------ #
+    # Evoformer
+    # ------------------------------------------------------------------ #
+    def evo_main_inputs(self):
+        """fp32 msa [R, S, C], pair bias [N, S, S], the projections wq, wk,
+        wv, w_gate [C, N*D] and wo [N*D, C] (scaled by 1/sqrt(fan-in)) and a
+        cotangent of the output, from the seed."""
+        torch = self.torch
+        m = EVO_MAIN
+        R, S, C = m["rows"], m["seq"], m["c_m"]
+        H = m["heads"] * m["head_dim"]
+        g = torch.Generator(self.dev).manual_seed(self.seed + 17)
+
+        def rand(*shape, scale=1.0):
+            return scale * torch.randn(*shape, generator=g, device=self.dev)
+
+        return [rand(R, S, C), rand(m["heads"], S, S),
+                *(rand(C, H, scale=C ** -0.5) for _ in range(3)),
+                rand(H, C, scale=H ** -0.5), rand(C, H, scale=C ** -0.5),
+                rand(R, S, C)]
+
+    def evo_step(self, inputs, use_flash):
+        """msa_row_attention_with_pair_bias forward, then backward of the
+        output against the fixed cotangent: (output, [grads of msa, pair
+        bias, wq, wk, wv, wo, w_gate])."""
+        from deepspeed_tpu_torch.ops import evoformer_attn as EA
+
+        *xs, cot = inputs
+        leaves = [t.detach().clone().requires_grad_() for t in xs]
+        msa, pair, wq, wk, wv, wo, wg = leaves
+        out = EA.msa_row_attention_with_pair_bias(
+            msa, pair, wq, wk, wv, wo, w_gate=wg,
+            num_heads=EVO_MAIN["heads"], use_flash=use_flash)
+        out.backward(cot)
+        return out.detach(), [t.grad for t in leaves]
+
+    def phase_evoformer(self):
+        """The DS4Sci entry point's main path: msa_row_attention_with_pair_
+        bias at OpenFold's Evoformer widths, forward and backward, fp32 and
+        bf16, through the kernel (use_flash auto on CUDA tensors); then the
+        plain path (use_flash=False) on the same inputs. fp32: the output
+        within TOL of the plain path, every gradient (input, weights, pair
+        bias) within TRAIN_GRAD_REL (relative L2); bf16: output and each
+        gradient no further from the fp32 plain path than BF16_VS_PLAIN
+        times the plain bf16 path."""
+        torch = self.torch
+        x32 = self.evo_main_inputs()
+        xbf = [t.bfloat16() for t in x32]
+
+        # ---- the main path: counts to 0 just before, read just after ---- #
+        self.reset_counts()
+        t0 = time.perf_counter()
+        k32 = self.evo_step(x32, None)
+        kbf = self.evo_step(xbf, None)
+        self.sync()
+        wall = time.perf_counter() - t0
+        counts = self.read_counts()
+        # ----------------------------------------------------------------- #
+        want = {"evoformer_fwd": 2, "flash_fwd": 0, "block_sparse_fwd": 0}
+        problems = [f"{k} launched {counts[k]} times, want {v}"
+                    for k, v in want.items() if counts[k] != v]
+        p32 = self.evo_step(x32, False)
+        pbf = self.evo_step(xbf, False)
+        self.sync()
+        if self.read_counts()["evoformer_fwd"] != counts["evoformer_fwd"]:
+            problems.append("the plain path launched the kernel")
+
+        def rel(a, b):
+            return float((a.float() - b.float()).norm() / b.float().norm())
+
+        names = ("out", "msa", "pair_bias", "wq", "wk", "wv", "wo", "w_gate")
+        res = {}
+        for way, (out, grads) in (("fp32_kernels", k32), ("bf16_kernels", kbf),
+                                  ("bf16_plain", pbf)):
+            res[way] = {n: rel(a, b) for n, a, b in
+                        zip(names, [out, *grads], [p32[0], *p32[1]])}
+        finite = all(bool(torch.isfinite(t).all()) for way in (k32, kbf)
+                     for t in [way[0], *way[1]])
+        if not finite:
+            problems.append("non-finite output or gradient")
+        try:
+            out_err = self.close_tol("evoformer[msa_row,fp32]", k32[0],
+                                     p32[0], TOL["float32"])
+        except AssertionError as e:
+            problems.append(str(e))
+            out_err = None
+        problems += [f"fp32 {n} grad rel {res['fp32_kernels'][n]:.3g} > "
+                     f"{TRAIN_GRAD_REL}" for n in names[1:]
+                     if not res["fp32_kernels"][n] <= TRAIN_GRAD_REL]
+        problems += [f"bf16 {n}: kernels {res['bf16_kernels'][n]:.3g}, plain "
+                     f"{res['bf16_plain'][n]:.3g}" for n in names
+                     if not res["bf16_kernels"][n]
+                     <= BF16_VS_PLAIN * res["bf16_plain"][n]]
+        m = EVO_MAIN
+        emit("evoformer", card=self.card, msa=[m["rows"], m["seq"], m["c_m"]],
+             heads=m["heads"], head_dim=m["head_dim"],
+             pair_bias=[m["heads"], m["seq"], m["seq"]], gated=True,
+             launches=counts, launches_want=want, main_path_seconds=wall,
+             fp32_out_max_abs_err=out_err, rel_l2_vs_fp32_plain=res,
+             bounds={"out_tol": TOL["float32"], "grad_rel": TRAIN_GRAD_REL,
+                     "bf16_vs_plain": BF16_VS_PLAIN})
+        if problems:
+            raise AssertionError("evoformer: " + "; ".join(problems))
+        self.launches.setdefault("evoformer_fwd", {})["evoformer"] = \
+            counts["evoformer_fwd"]
+        self.state["evoformer"] = {"inputs": xbf}
+        del x32, k32, kbf, p32, pbf
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ #
     def time_ms(self, fn, iters=20, flush=None):
@@ -1144,14 +1506,60 @@ class Smoke:
                     dev_us.items(), key=lambda kv: -kv[1])[:8]}}
 
     def phase_times(self):
+        """Times what the phases before it ran: the serving rows need the
+        serving phases, fused Adam train_gpt2_125m, the grouped GEMM
+        train_moe_350m, each step profile its train phase; the kernel rows
+        of flash, block-sparse and Evoformer attention and the norms need
+        none. Every phase runs before it when the script runs whole."""
         torch = self.torch
         flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=self.dev)
-        llama = self.state.get("llama2_7b")
-        gpt2 = self.state.get("gpt2_125m")
-        if llama is None or gpt2 is None or any(
-                f"train_{m}" not in self.state for m in TRAIN):
-            raise RuntimeError("times: run the serving and training phases "
-                               "first")
+        g = torch.Generator(self.dev).manual_seed(2)
+        nm = {}
+        for kind, H, R in (("rms_norm", 4096, 8), ("rms_norm", 4096, 256),
+                           ("rms_norm", 1536, 8192), ("layer_norm", 768, 8),
+                           ("layer_norm", 768, 512),
+                           ("layer_norm", 768, 32768)):
+            x = torch.randn(R, H, generator=g, device=self.dev).to(
+                torch.bfloat16)
+            s = (1 + 0.1 * torch.randn(H, generator=g, device=self.dev)).to(
+                torch.bfloat16)
+            b = (0.1 * torch.randn(H, generator=g, device=self.dev)).to(
+                torch.bfloat16)
+            nm[f"{kind}[R={R}]"] = self.norm_case(kind, x, s, b, 1e-5, flush)
+        pa = rates = None
+        if "llama2_7b" in self.state and "gpt2_125m" in self.state:
+            pa = self.serving_times(flush)
+            rates = {m: self.decode_rate(m) for m in ("llama2_7b",
+                                                      "gpt2_125m")}
+            for m in ("llama2_7b", "gpt2_125m"):       # free the engines
+                self.state.pop(m)
+        emit("times", card=self.card, paged_attention=pa, norms=nm,
+             decode=rates, peak_memory_bytes=torch.cuda.max_memory_allocated(
+                 self.dev))
+        torch.cuda.empty_cache()
+        fl = {label: self.flash_times(label, B, S, N, K, D, flush)
+              for label, B, S, N, K, D, _ in FLASH_CASES[:3]}
+        adam = (self.adam_times(flush) if "train_gpt2_125m" in self.state
+                else None)
+        gg = (self.gmm_times(flush) if "train_moe_350m" in self.state
+              else None)
+        nb = self.norm_bwd_times(flush)
+        sp = self.sparse_times(flush, fl["llama_750m"])
+        ev = self.evo_times(flush)
+        steps = {m: self.state[f"train_{m}"]["profile"] for m in TRAIN
+                 if f"train_{m}" in self.state}
+        if "evoformer" in self.state:
+            ev["msa_row_attention_step_ms"] = self.evo_step_times()
+        emit("times/train", card=self.card, flash=fl, fused_adam=adam,
+             grouped_gemm=gg, norm_backward=nb, block_sparse=sp,
+             evoformer=ev, steps=steps)
+        return {"pa": pa, "nm": nm, "fl": fl, "adam": adam, "gg": gg,
+                "sp": sp, "ev": ev}
+
+    def serving_times(self, flush):
+        """Paged attention at llama2_7b's decode and prefill ticks."""
+        torch = self.torch
+        llama = self.state["llama2_7b"]
         eng = llama["engine"]
         lens = llama["lens"]
         bs = eng.block_size
@@ -1174,37 +1582,7 @@ class Smoke:
             "paged_attention[prefill]", q, kp, vp, tables.expand(256, -1)
             .contiguous(), torch.tensor(chunk, dtype=torch.int32,
                                         device=self.dev), flush)
-        del q, kp, vp, tables, args
-        g = torch.Generator(self.dev).manual_seed(2)
-        nm = {}
-        for kind, H, R in (("rms_norm", 4096, 8), ("rms_norm", 4096, 256),
-                           ("rms_norm", 1536, 8192), ("layer_norm", 768, 8),
-                           ("layer_norm", 768, 512),
-                           ("layer_norm", 768, 32768)):
-            x = torch.randn(R, H, generator=g, device=self.dev).to(
-                torch.bfloat16)
-            s = (1 + 0.1 * torch.randn(H, generator=g, device=self.dev)).to(
-                torch.bfloat16)
-            b = (0.1 * torch.randn(H, generator=g, device=self.dev)).to(
-                torch.bfloat16)
-            nm[f"{kind}[R={R}]"] = self.norm_case(kind, x, s, b, 1e-5, flush)
-        rates = {m: self.decode_rate(m) for m in ("llama2_7b", "gpt2_125m")}
-        emit("times", card=self.card, paged_attention=pa, norms=nm,
-             decode=rates, peak_memory_bytes=torch.cuda.max_memory_allocated(
-                 self.dev))
-        del eng, llama, gpt2                     # free the serving engines
-        for m in ("llama2_7b", "gpt2_125m"):
-            self.state.pop(m)
-        torch.cuda.empty_cache()
-        fl = {label: self.flash_times(label, B, S, N, K, D, flush)
-              for label, B, S, N, K, D, _ in FLASH_CASES[:3]}
-        adam = self.adam_times(flush)
-        gg = self.gmm_times(flush)
-        nb = self.norm_bwd_times(flush)
-        steps = {m: self.train_profile(m) for m in TRAIN}
-        emit("times/train", card=self.card, flash=fl, fused_adam=adam,
-             grouped_gemm=gg, norm_backward=nb, steps=steps)
-        return pa, nm, fl, adam, gg
+        return pa
 
     @staticmethod
     def bound(nbytes, flops, dtype="bfloat16"):
@@ -1282,6 +1660,133 @@ class Smoke:
         torch.cuda.empty_cache()
         return out
 
+    def sparse_times(self, flush, dense):
+        """Block-sparse forward, dq and dkv at the main path's shape
+        (llama_750m: B 4, S 2048, N 12, D 128, bf16, block 64, the causal
+        fixed layout): kernel, plain, bound (each input read and each output
+        written once; flops over the active squares' causal pairs only),
+        and the library's yardsticks on the layout expanded to an [S, S]
+        mask — SDPA forward, and the memory-efficient attention backward op
+        (dq, dk, dv together) where this PyTorch takes its arguments. The
+        port's dense flash kernels' times at this shape (``dense``) stand
+        beside them."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deepspeed_tpu_torch.ops import block_sparse as BS
+        from deepspeed_tpu_torch.ops import flash_attention as PF
+
+        t = TRAIN["llama_750m_sparse"]
+        B, S, N, D, blk = t["micro"], t["seq"], 12, 128, SPARSE_BLOCK
+        lay = self.sparse_layout("fixed", S // blk, True)
+        q, k, v, do = self.flash_inputs(B, S, N, N, D, "bfloat16", seed=9)
+        o, lse = BS.block_sparse_fwd(q, k, v, lay, blk, True)
+        delta = PF.flash_bwd_delta(o, do)
+        idx = np.argwhere(lay != 0)
+        diag = int((idx[:, 0] == idx[:, 1]).sum())
+        pairs = B * N * ((len(idx) - diag) * blk * blk
+                         + diag * blk * (blk + 1) // 2)
+        elt, BN = q.element_size(), B * N
+        qb, kvb, rowb = q.numel() * elt, k.numel() * elt, BN * S * 4
+        args = (lay, blk, True)
+        out = {
+            "block_sparse_fwd": dict(
+                self.bound(2 * qb + 2 * kvb + rowb, 4.0 * pairs * D),
+                ms=self.time_ms(lambda: BS.block_sparse_fwd(q, k, v, *args),
+                                flush=flush),
+                plain_ms=self.time_ms(lambda: BS.block_sparse_fwd_ref(
+                    q, k, v, *args), iters=5, flush=flush),
+                dense_flash_ms=dense["flash_fwd"]["ms"]),
+            "block_sparse_bwd_dq": dict(
+                self.bound(3 * qb + 2 * kvb + 2 * rowb, 6.0 * pairs * D),
+                ms=self.time_ms(lambda: BS.block_sparse_bwd_dq(
+                    q, k, v, do, lse, delta, *args), flush=flush),
+                dense_flash_ms=dense["flash_bwd_dq"]["ms"]),
+            "block_sparse_bwd_dkv": dict(
+                self.bound(2 * qb + 4 * kvb + 2 * rowb, 8.0 * pairs * D),
+                ms=self.time_ms(lambda: BS.block_sparse_bwd_dkv(
+                    q, k, v, do, lse, delta, *args), flush=flush),
+                dense_flash_ms=dense["flash_bwd_dkv"]["ms"])}
+        plain_bwd = self.time_ms(lambda: BS.block_sparse_bwd_ref(
+            q, k, v, o, lse, do, *args), iters=5, flush=flush)
+        mask = BS._mask(lay, blk, S, True, self.dev)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        sdpa_fwd = self.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), flush=flush)
+        # the memory-efficient attention op pair with the layout as an
+        # additive bias (0 / -inf), its backward alone
+        bias = torch.zeros(S, S, dtype=q.dtype, device=self.dev) \
+            .masked_fill(~mask, float("-inf")).expand(B, N, S, S)
+        aten = torch.ops.aten
+        lib_bwd, lib_op = None, "aten._scaled_dot_product_efficient_" \
+            "attention_backward"
+        try:
+            qc, kc, vc, dc = (x.contiguous() for x in (qt, kt, vt, dot))
+            fo = aten._scaled_dot_product_efficient_attention(
+                qc, kc, vc, bias, True, 0.0, False)
+            lib_bwd = self.time_ms(
+                lambda: aten._scaled_dot_product_efficient_attention_backward(
+                    dc, qc, kc, vc, bias, fo[0], fo[1], fo[2], fo[3], 0.0,
+                    [True, True, True, False], False), flush=flush)
+            del qc, kc, vc, dc, fo
+        except (RuntimeError, TypeError) as e:
+            lib_op = f"none ({type(e).__name__}: {str(e)[:120]})"
+        out["block_sparse_fwd"].update(
+            library_ms=sdpa_fwd, library="F.scaled_dot_product_attention "
+            "(bool mask)")
+        for name in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
+            out[name].update(plain_ms=plain_bwd, plain_computes="dq, dk, dv",
+                             library_ms=lib_bwd, library=lib_op,
+                             library_computes="dq, dk, dv")
+        for row in out.values():
+            row["shape"] = {"B": B, "S": S, "N": N, "K": N, "D": D,
+                            "block": blk, "layout": "fixed (causal)",
+                            "active_squares": len(idx),
+                            "causal_squares": (S // blk) * (S // blk + 1)
+                            // 2, "dtype": "bfloat16"}
+        del q, k, v, do, o, lse, delta, mask, bias, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+        return out
+
+    def evo_times(self, flush):
+        """The Evoformer forward at OpenFold's triangle (per-row bias) and
+        MSA-row (shared bias) shapes, bf16 with a bf16 bias: kernel, plain,
+        bound (q, k, v and the bias read once, o written once; 4 G N S^2 D
+        flops) and SDPA with the bias as its float ``attn_mask``."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from deepspeed_tpu_torch.ops import evoformer as EV
+
+        out = {}
+        for label, G, S, N, D, bias_kind in EVO_CASES[:2]:
+            q, k, v, bias = self.evo_inputs(G, S, N, D, bias_kind,
+                                            "bfloat16", seed=3)
+            elt = q.element_size()
+            nbytes = 4 * q.numel() * elt + bias.numel() * bias.element_size()
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out[label] = dict(
+                self.bound(nbytes, 4.0 * G * N * S * S * D),
+                ms=self.time_ms(lambda: EV.evoformer_fwd(q, k, v, bias),
+                                flush=flush),
+                plain_ms=self.time_ms(lambda: EV.evoformer_flash_ref(
+                    q, k, v, bias), iters=5, flush=flush),
+                library_ms=self.time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias), flush=flush),
+                library="F.scaled_dot_product_attention (float attn_mask)",
+                shape={"G": G, "S": S, "N": N, "D": D,
+                       "bias": list(bias.shape), "dtype": "bfloat16"})
+            del q, k, v, bias, qt, kt, vt
+            torch.cuda.empty_cache()
+        return out
+
+    def evo_step_times(self):
+        """One bf16 forward + backward of the evoformer phase's main path,
+        kernel and plain (CUDA events, median)."""
+        x = self.state.pop("evoformer")["inputs"]
+        return {"kernels": self.time_ms(lambda: self.evo_step(x, None),
+                                        iters=5),
+                "plain": self.time_ms(lambda: self.evo_step(x, False),
+                                      iters=5)}
+
     def adam_times(self, flush):
         """Fused Adam over gpt2_125m's flat buffer (the main path's, with
         the bf16 compute copy written): kernel, plain, and
@@ -1290,7 +1795,7 @@ class Smoke:
         torch = self.torch
         from deepspeed_tpu_torch.ops import fused_adam as FA
 
-        n = self.state["train_gpt2_125m"]["engine"].flat_master.numel()
+        n = self.state["train_gpt2_125m"]["flat_n"]
         g = torch.Generator(self.dev).manual_seed(5)
         p, grad, m = (0.02 * torch.randn(n, generator=g, device=self.dev)
                       for _ in range(3))
@@ -1326,7 +1831,7 @@ class Smoke:
         from deepspeed_tpu_torch.ops import grouped_gemm as GG
 
         st = self.state["train_moe_350m"]
-        cfg = st["engine"].model_spec.config
+        cfg = st["config"]
         sizes = np.array(st["group_sizes_layer0"], np.int32)
         H, Fe, E = cfg.hidden_size, cfg.moe_ffn, cfg.n_experts
         M = int(sizes.sum())
@@ -1420,7 +1925,8 @@ class Smoke:
         return out
 
     def train_profile(self, model):
-        """One more step of the main-path engine under torch.profiler: the
+        """One more step of the main-path engine under torch.profiler (at
+        the end of its train phase, before the engine is freed): the
         device time by kernel kind, the annotated loss and norm-backward
         spans, and the idle share of that step (its device time against
         its own synchronised wall, which the profiler's host cost lengthens
@@ -1456,6 +1962,11 @@ class Smoke:
             low = e.key.lower()
             kind = ("moe_tgmm" if "gmm_kernel<" in low and ", 2>" in low
                     else "moe_gmm" if "gmm_kernel<" in low
+                    else "block_sparse_fwd" if "block_sparse_fwd_kernel" in low
+                    else "block_sparse_bwd_dq"
+                    if "block_sparse_bwd_dq_kernel" in low
+                    else "block_sparse_bwd_dkv"
+                    if "block_sparse_bwd_dkv_kernel" in low
                     else "flash_fwd" if "flash_fwd_kernel" in low
                     else "flash_bwd_dq" if "flash_bwd_dq_kernel" in low
                     else "flash_bwd_dkv" if "flash_bwd_dkv_kernel" in low
@@ -1489,7 +2000,12 @@ class Smoke:
                 "device_idle_share": (1 - device_ms / wall_ms
                                       if device_ms else "not measured")}
 
-    def kernels_line(self, pa, nm, fl, adam, gg):
+    def kernels_line(self, timed_rows):
+        """One row per kernel with every key of the contract, for the
+        kernels whose rows the run measured (all of them in a whole run)."""
+        pa, nm, fl = timed_rows["pa"], timed_rows["nm"], timed_rows["fl"]
+        adam, gg = timed_rows["adam"], timed_rows["gg"]
+        sp, ev = timed_rows["sp"], timed_rows["ev"]
         src = {"paged_attention": ("cuda",
                                    "deepspeed_tpu_torch/ops/csrc/"
                                    "paged_attention.cu",
@@ -1513,16 +2029,40 @@ class Smoke:
             "gmm": ("cuda", "deepspeed_tpu_torch/ops/csrc/grouped_gemm.cu",
                     "deepspeed_tpu/moe/layer.py:185"),
             "tgmm": ("cuda", "deepspeed_tpu_torch/ops/csrc/grouped_gemm.cu",
-                     "deepspeed_tpu/moe/layer.py:185")})
-        timed = {"paged_attention": dict(pa["decode"], library_ms=None),
-                 "rms_norm": nm["rms_norm[R=8]"],
-                 "layer_norm": nm["layer_norm[R=8]"],
-                 "fused_adam": dict(adam, max_abs_err=self.errs["fused_adam"])}
+                     "deepspeed_tpu/moe/layer.py:185"),
+            # the flash kernels' bodies over the layout's active squares
+            "block_sparse_fwd": ("cuda", flash_src,
+                                 "deepspeed_tpu/ops/pallas/block_sparse.py:120"),
+            "block_sparse_bwd_dq": (
+                "cuda", flash_src,
+                "deepspeed_tpu/ops/pallas/block_sparse.py:211"),
+            "block_sparse_bwd_dkv": (
+                "cuda", flash_src,
+                "deepspeed_tpu/ops/pallas/block_sparse.py:251"),
+            "evoformer_fwd": ("cuda",
+                              "deepspeed_tpu_torch/ops/csrc/evoformer.cu",
+                              "deepspeed_tpu/ops/pallas/evoformer.py:33")})
+        timed = {"rms_norm": nm["rms_norm[R=8]"],
+                 "layer_norm": nm["layer_norm[R=8]"]}
+        if pa is not None:
+            timed["paged_attention"] = dict(pa["decode"], library_ms=None)
+        if adam is not None and "fused_adam" in self.errs:
+            timed["fused_adam"] = dict(adam,
+                                       max_abs_err=self.errs["fused_adam"])
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            timed[name] = dict(fl["gpt2_125m"][name],
-                               max_abs_err=self.errs[name])
+            if name in self.errs:
+                timed[name] = dict(fl["gpt2_125m"][name],
+                                   max_abs_err=self.errs[name])
         for name, key in (("gmm", "gmm[up]"), ("tgmm", "tgmm[up]")):
-            timed[name] = dict(gg[key], max_abs_err=self.errs[name])
+            if gg is not None and name in self.errs:
+                timed[name] = dict(gg[key], max_abs_err=self.errs[name])
+        for name in sp:
+            if name in self.errs:
+                timed[name] = dict(sp[name], max_abs_err=self.errs[name])
+        if "evoformer_fwd" in self.errs:
+            timed["evoformer_fwd"] = dict(
+                ev["msa_row"], max_abs_err=self.errs["evoformer_fwd"])
+        src = {k: v for k, v in src.items() if k in timed}
         out = []
         for name, (route, source, replaces) in src.items():
             t = timed[name]
@@ -1541,8 +2081,9 @@ class Smoke:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
-            if "sdpa_fwd_bwd_ms" in t:
-                out[-1]["sdpa_fwd_bwd_ms"] = t["sdpa_fwd_bwd_ms"]
+            for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms"):
+                if extra in t:
+                    out[-1][extra] = t[extra]
         return {"kernels": out}
 
 
@@ -1591,7 +2132,7 @@ def main(argv=None) -> int:
     emit("total", seconds=time.perf_counter() - t_start)
     print(smoke.card or nvidia_smi(), flush=True)
     if timed is not None:
-        print(json.dumps(smoke.kernels_line(*timed)), flush=True)
+        print(json.dumps(smoke.kernels_line(timed)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """ModelSpec — the contract between a model and the training engine.
 
 Ports ``deepspeed_tpu/models/api.py``: ``ModelSpec`` (:23),
-``resolve_attention`` (:58) for ``xla`` / ``None`` and ``flash``, and
+``resolve_attention`` (:58) for ``xla`` / ``None``, ``flash`` and
+``sparse[:fixed|bigbird|bslongformer]``, and
 ``causal_lm_spec`` (:124) for ``loss_impl`` fused or exact with untiled
 loss. A model is functions plus metadata: ``init_fn(generator, device)``
 returns the fp32 master tree (the JAX pytree's keys and shapes), and
@@ -49,18 +50,27 @@ def _mask_of(batch: Batch):
     return batch.get("loss_mask") if isinstance(batch, dict) else None
 
 
-def resolve_attention(attention: Optional[str]):
+def resolve_attention(attention: Optional[str], use_kernels: bool = True):
     """'xla' / None / 'default' → None (the plain attention of the model);
-    'flash' → the CUDA flash-attention kernels (``ops/flash_attention.py``).
-    The JAX package's sequence-parallel and block-sparse attentions raise
-    ``NotImplementedError``; unknown names raise ``ValueError``, as in JAX."""
+    'flash' → the CUDA flash-attention kernels (``ops/flash_attention.py``);
+    'sparse' | 'sparse:fixed' | 'sparse:bigbird' | 'sparse:bslongformer' →
+    block-sparse attention at block 64 (``ops/block_sparse.py``, the
+    default kind ``fixed``). ``use_kernels=False`` gives the kernels' plain
+    versions under autograd. The JAX package's sequence-parallel attentions
+    raise ``NotImplementedError``; unknown names and sparse kinds raise
+    ``ValueError``, as in JAX."""
     if attention in (None, "xla", "default"):
         return None
     if attention == "flash":
-        from deepspeed_tpu_torch.ops.flash_attention import flash_attention
+        from deepspeed_tpu_torch.ops import flash_attention as PF
 
-        return flash_attention
-    if attention in _LATER_ATTENTION or attention.startswith("sparse"):
+        return PF.flash_attention if use_kernels else PF.flash_attention_plain
+    if attention.startswith("sparse"):
+        from deepspeed_tpu_torch.ops.block_sparse import sparse_attention
+
+        kind = attention.split(":", 1)[1] if ":" in attention else "fixed"
+        return sparse_attention(kind, use_kernels=use_kernels)
+    if attention in _LATER_ATTENTION:
         raise later_slice(f"attention={attention!r}")
     raise ValueError(f"unknown attention impl {attention!r}")
 
@@ -73,9 +83,9 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     (compute-dtype logits, one compute-dtype grad-logits array — the JAX
     default) or 'exact' (fp32 logits through ``head_matmul``).
     ``use_kernels=False`` runs the kernels' plain versions on any device
-    (flash attention's whole-tensor version under autograd, the plain
-    norms and grouped GEMMs): the card's kernel-vs-plain checks. An MoE
-    config (``n_experts > 0``) adds ``moe_aux_coef`` × the layers' summed
+    (flash and block-sparse attention's whole-tensor versions under
+    autograd, the plain norms and grouped GEMMs): the card's kernel-vs-plain
+    checks. An MoE config (``n_experts > 0``) adds ``moe_aux_coef`` × the layers' summed
     aux loss to the LM loss, as JAX does."""
     if attention_fn is not None and attention is not None:
         raise ValueError("pass either attention_fn or attention=, not both")
@@ -86,13 +96,7 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     if loss_tiles > 1:
         raise later_slice(f"loss_tiles={loss_tiles}")
     if attention_fn is None:
-        attention_fn = resolve_attention(attention)
-        if attention == "flash" and not use_kernels:
-            from deepspeed_tpu_torch.ops.flash_attention import (
-                flash_attention_plain,
-            )
-
-            attention_fn = flash_attention_plain
+        attention_fn = resolve_attention(attention, use_kernels)
     if isinstance(cfg, str):
         name = cfg
         cfg = T.get_model_config(cfg, **overrides)

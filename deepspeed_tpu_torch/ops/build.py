@@ -63,7 +63,9 @@ def find_nvcc() -> str:
 
 
 def _target(name: str, nvcc: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (``csrc/*.cuh``) are part of every source's key
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode() + nvcc.encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -63,17 +63,17 @@ def _heads_first(x: torch.Tensor, rep: int) -> torch.Tensor:
     return x.transpose(1, 2)
 
 
-def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [B, S, N, D] in q's dtype, lse fp32 [B*N, S]). A row with no valid
-    key gives o = 0 and lse = -1e30 (the Pallas ``_finalize``)."""
+def masked_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of every attention kernel here under an [Sq, Skv] bool
+    ``mask``: (o [B, S, N, D] in q's dtype, lse fp32 [B*N, S]). A row with
+    no valid key gives o = 0 and lse = -1e30 (the Pallas ``_finalize``)."""
     B, Sq, N, D = q.shape
-    Skv, K = k.shape[1], k.shape[2]
-    rep = N // K
+    rep = N // k.shape[2]
     q32 = q.float().transpose(1, 2)                       # [B, N, Sq, D]
     k32, v32 = _heads_first(k, rep), _heads_first(v, rep)
-    mask = _mask(Sq, Skv, causal, q.device)
-    s = torch.matmul(q32, k32.transpose(-1, -2)) * _scale(D)
+    s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
     s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=q.device))
@@ -87,20 +87,19 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.reshape(B * N, Sq))
 
 
-def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                  causal: bool = True
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) in the dtypes of q, k, v; p recomputed from lse, delta =
-    rowsum(do * o) in fp32, dk and dv summed over each GQA group."""
+def masked_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   mask: torch.Tensor, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the dtypes of q, k, v under an [Sq, Skv] bool
+    ``mask``; p recomputed from lse, delta = rowsum(do * o) in fp32, dk and
+    dv summed over each GQA group."""
     B, Sq, N, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     rep = N // K
-    scale = _scale(D)
     q32 = q.float().transpose(1, 2)
     do32 = do.float().transpose(1, 2)
     k32, v32 = _heads_first(k, rep), _heads_first(v, rep)
-    mask = _mask(Sq, Skv, causal, q.device)
     s = torch.matmul(q32, k32.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse.reshape(B, N, Sq, 1)),
                     torch.zeros((), device=q.device))
@@ -113,6 +112,25 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = dk.reshape(B, K, rep, Skv, D).sum(2).transpose(1, 2)
     dv = dv.reshape(B, K, rep, Skv, D).sum(2).transpose(1, 2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, S, N, D] in q's dtype, lse fp32 [B*N, S]). A row with no valid
+    key gives o = 0 and lse = -1e30 (the Pallas ``_finalize``)."""
+    return masked_fwd_ref(q, k, v, _mask(q.shape[1], k.shape[1], causal,
+                                         q.device), _scale(q.shape[3]))
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the dtypes of q, k, v; p recomputed from lse, delta =
+    rowsum(do * o) in fp32, dk and dv summed over each GQA group."""
+    return masked_bwd_ref(q, k, v, o, lse, do,
+                          _mask(q.shape[1], k.shape[1], causal, q.device),
+                          _scale(q.shape[3]))
 
 
 # --------------------------------------------------------------------------- #
@@ -140,34 +158,34 @@ def _bind(name: str):
     return fn
 
 
-def _check(q, k, v, *more) -> None:
+def _check(q, k, v, *more, what: str = "flash attention") -> None:
     if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(
-            f"flash attention: want q [B, S, N, D] and k/v [B, Skv, K, D], "
+            f"{what}: want q [B, S, N, D] and k/v [B, Skv, K, D], "
             f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     B, Sq, N, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or N % k.shape[2]:
-        raise ValueError(f"flash attention: q {tuple(q.shape)} and k "
+        raise ValueError(f"{what}: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match (batch, head dim, "
                          "or kv heads not dividing q heads)")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash attention: dtype {q.dtype}; the kernels take "
+        raise TypeError(f"{what}: dtype {q.dtype}; the kernels take "
                         "float32 or bfloat16")
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash attention: head dim {D}; the kernels take "
+        raise ValueError(f"{what}: head dim {D}; the kernels take "
                          f"D in {_HEAD_DIMS}")
     align = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)) + more:
         if t.device != q.device:
-            raise ValueError(f"flash attention: {name} on {t.device}, q on "
+            raise ValueError(f"{what}: {name} on {t.device}, q on "
                              f"{q.device}")
         if t.dtype != q.dtype:
-            raise TypeError(f"flash attention: {name} is {t.dtype}, q is "
+            raise TypeError(f"{what}: {name} is {t.dtype}, q is "
                             f"{q.dtype}")
         if t.stride(3) != 1 or any(t.stride(i) % align for i in range(3)) \
                 or t.data_ptr() % 16:
             raise ValueError(
-                f"flash attention: {name} must have a contiguous head dim "
+                f"{what}: {name} must have a contiguous head dim "
                 "and 16-byte aligned rows (strides "
                 f"{tuple(t.stride())})")
 
@@ -216,13 +234,14 @@ def flash_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
         .reshape(B * N, S).contiguous()
 
 
-def _check_bwd(q, k, v, do, lse, delta) -> None:
-    _check(q, k, v, ("do", do))
+def _check_bwd(q, k, v, do, lse, delta,
+               what: str = "flash attention") -> None:
+    _check(q, k, v, ("do", do), what=what)
     B, Sq, N, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (B * N, Sq) \
                 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash backward: {name} must be contiguous "
+            raise ValueError(f"{what} backward: {name} must be contiguous "
                              f"float32 [{B * N}, {Sq}] on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)}")
 
