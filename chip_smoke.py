@@ -43,7 +43,23 @@ kernel on them against its plain PyTorch version:
                Evoformer widths (MSA [128, 256, 256], 8 heads of 32, pair
                bias [8, 256, 256], gated), forward and backward on the card
                through the Evoformer kernel, held against the plain path;
-11. times    — kernels vs plain vs library calls vs their bounds (CUDA
+11. train_llama_750m_zeropp_dp2 — two ranks (spawned processes, gloo, both
+               on the one card by explicit device) train llama_750m at full
+               width and depth with ZeRO-2 + qgZ + qwZ + LoCo (the repo's
+               zero2_qgz_llama_750m_bf16 row: micro 4 a rank, seq 2048, gas
+               4, bf16, flash, remat full, Adam): the loss falls, the
+               counters prove every step launched the int8 quantize and
+               dequant-reduce kernels; four gates (the wire bit-exact on the
+               step's real packed gradient; one fp32 step all kernels vs all
+               plain within a tenth of the wire's own noise; bf16 no further
+               from it than twice the plain bf16 path; the int8 error within
+               half a quantization step a rank); then exact ZeRO-2 at world
+               2 as the baseline;
+12. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
+               the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
+               the error against the exact mean within the bound, the ranks'
+               chunks concatenating to the whole reduction;
+13. times    — kernels vs plain vs library calls vs their bounds (CUDA
                events), decode tokens/s, TTFT, training step time, tokens/s,
                MFU (active parameters), idle share, the profiler's split of
                a step, peak memory. It times what the phases before it ran:
@@ -57,22 +73,36 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py                      # every phase
     python3 chip_smoke.py --phases card,build,kernels
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sparse,evoformer,times
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,quantized_reduce_scatter,times
+
+The whole run takes the phases in PHASES order: the data-parallel phases
+(11, 12) run right after the kernels phase. Wire times of the data-parallel phases are gloo's through host memory, the
+ranks sharing one card: not NVLink's.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
+import queue
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
-PHASES = ("card", "build", "kernels", "llama2_7b", "gpt2_125m",
+# The data-parallel phases run before the serving phases, whose engines
+# the parent holds until `times` (~23 GB beside two ranks' engines did not
+# fit 80 GB).
+PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
+          "quantized_reduce_scatter", "llama2_7b", "gpt2_125m",
           "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
           "train_llama_750m_sparse", "evoformer", "times")
 
@@ -232,6 +262,28 @@ TOP1_MIN = 0.99
 BF16_VS_PLAIN = 2.0
 BF16_FLOORED = ("loss_rel", "aux_rel")
 BF16_TOP1_SLACK = 0.05
+# The ZeRO++ phase: bench.py's zero2_qgz_llama_750m_bf16 row (ZeRO-2 +
+# qgZ + qwZ + LoCo, micro 4 a rank, seq 2048, gas 4, bf16) at world 2, both
+# ranks on the one card over gloo; 1 warm-up + 2 steps. Per rank and step
+# the design launches quantize gas + 1 times (each micro-batch's qgZ send,
+# the step's qwZ publish) and dequant-reduce 2 gas + 1 times (each
+# micro-batch's receive and LoCo's dequantized send, the publish's rows).
+ZEROPP = dict(model="llama_750m", world=2, micro=4, seq=2048, gas=4, steps=2,
+              gate_micro=1)
+ZEROPP_WIRE = {"stage": 2, "zero_quantized_gradients": True,
+               "zero_quantized_weights": True, "loco_error_feedback": True}
+ZEROPP_EXACT = {"stage": 2}
+# Gate 2 of the ZeRO++ phase: one fp32 step (gas 1), all kernels against
+# all plain versions (model kernels and the wire's): the reduced gradient
+# and the update no further apart than WIRE_NOISE_SHARE of the distance
+# between the plain qgZ step and the plain exact ZeRO-2 step from the same
+# state (the int8 wire's own noise; a flipped int8 rounding moves one
+# element by one quantization step, so kernel-vs-plain differences of the
+# fp32 gradient's last digits may flip a few).
+WIRE_NOISE_SHARE = 0.1
+PG_TIMEOUT_S = 900               # the ranks' process group
+RANKS_TIMEOUT_S = 900            # a spawned phase's ranks, all together
+QRS = dict(n=2 ** 26, worlds=(2, 4))
 
 
 def emit(phase: str, **fields) -> None:
@@ -288,6 +340,494 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def counter_dicts():
+    """Every kernel wrapper's launch counts."""
+    from deepspeed_tpu_torch.ops import block_sparse as BS
+    from deepspeed_tpu_torch.ops import evoformer as EV
+    from deepspeed_tpu_torch.ops import flash_attention as PF
+    from deepspeed_tpu_torch.ops import fused_adam as FA
+    from deepspeed_tpu_torch.ops import grouped_gemm as GG
+    from deepspeed_tpu_torch.ops import norms
+    from deepspeed_tpu_torch.ops import paged_attention as PA
+    from deepspeed_tpu_torch.ops import quant_kernels as QK
+
+    return (PA.launches, norms.launches, PF.launches, FA.launches,
+            GG.launches, BS.launches, EV.launches, QK.launches)
+
+
+def reset_counts():
+    from deepspeed_tpu_torch.ops import norms
+
+    for d in counter_dicts() + (norms.backward_calls,):
+        for k in d:
+            d[k] = 0
+
+
+def read_counts():
+    out = {}
+    for d in counter_dicts():
+        out.update(d)
+    return out
+
+
+def same_bits(a, b) -> bool:
+    """Equal element for element, NaN where the other is NaN."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@contextlib.contextmanager
+def plain_wire():
+    """The int8 wire's plain versions in place of its kernels while the
+    block runs (the wire modules' names are rebound, then restored): the
+    plain path of the kernel-vs-plain gates. No product code reads this."""
+    from deepspeed_tpu_torch.ops import quant_kernels as QK
+    from deepspeed_tpu_torch.ops import quantization as PQ
+    from deepspeed_tpu_torch.parallel import compressed as C
+
+    def dequantize_ref(q, s, block=QK.DEFAULT_BLOCK):
+        return QK.dequant_reduce_ref(q.reshape(1, -1), s.reshape(1, -1), block)
+
+    names = {C: ("quantize_int8", "dequant_reduce", "dequantize_int8"),
+             PQ: ("quantize_int8", "dequant_reduce")}
+    plain = {"quantize_int8": QK.quantize_int8_blocks_ref,
+             "dequant_reduce": QK.dequant_reduce_ref,
+             "dequantize_int8": dequantize_ref}
+    saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
+    for (m, n) in saved:
+        setattr(m, n, plain[n])
+    try:
+        yield
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+
+
+def rank_entry(fn_name, rank, world, init_method, out, args):
+    """A spawned rank: join the gloo group on the one card, run
+    ``fn_name(rank, world, *args)``, send its result (or its traceback)
+    to the parent. Ranks print no result lines themselves."""
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        import deepspeed_tpu_torch as dtt
+
+        dtt.init_distributed(dist_backend="gloo", init_method=init_method,
+                             rank=rank, world_size=world,
+                             timeout=PG_TIMEOUT_S, verbose=False)
+        result = globals()[fn_name](rank, world, *args)
+        dtt.comm.destroy_process_group()
+        out.put((rank, "ok", result))
+    except Exception:                                   # noqa: BLE001
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def spawn_ranks(fn_name, world, *args):
+    """``fn_name`` in ``world`` spawned ranks; their results by rank. Any
+    rank's failure, or no result in ``RANKS_TIMEOUT_S``, raises; every
+    process is stopped before it returns."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    procs = [ctx.Process(target=rank_entry, args=(
+        fn_name, r, world, f"file://{os.path.join(tmp, 'pg')}", out, args))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.time() + RANKS_TIMEOUT_S
+    try:
+        while len(results) < world and not errors:
+            try:
+                rank, status, value = out.get(
+                    timeout=max(1.0, deadline - time.time()))
+            except queue.Empty:
+                errors.append(f"no result from ranks "
+                              f"{sorted(set(range(world)) - set(results))} "
+                              f"in {RANKS_TIMEOUT_S} s")
+                break
+            if status == "ok":
+                results[rank] = value
+            else:
+                errors.append(f"rank {rank} failed:\n{value}")
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        raise RuntimeError("; ".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def dev_sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dev_peak(dev, reset=False):
+    """Peak bytes allocated on ``dev`` since the last reset (0 on the CPU,
+    where a rehearsal runs)."""
+    import torch
+
+    if dev.type != "cuda":
+        return 0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def dev_free(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def zeropp_config(micro, gas, precision, zero):
+    cfg = Smoke.train_config(micro, gas, precision)
+    cfg["zero_optimization"] = dict(zero)
+    return cfg
+
+
+def gathered_sq(n_sh, t):
+    """Σ t² over the whole model from a rank's local buffer: the sharded
+    region (its first ``n_sh`` elements) all-reduced, the replicated one
+    once."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+
+    sq = torch.stack([t[:n_sh].double().square().sum(),
+                      t[n_sh:].double().square().sum()])
+    comm.all_reduce(sq[:1])
+    return float(sq.sum())
+
+
+def zeropp_run(t, dev, zero, batch, precision="bf16"):
+    """The main path of one data-parallel config on this rank: initialize,
+    a warm-up step, then ``t["steps"]`` timed steps with the counters set
+    to 0 just before and read just after."""
+    import itertools
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.comm import comm
+
+    steps = t["steps"]
+    dev_peak(dev, reset=True)
+    t0 = time.perf_counter()
+    spec = dtt.causal_lm_spec(t["model"], attention="flash", remat="full")
+    engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
+        t["micro"], t["gas"], precision, zero), device=dev)
+    dev_sync(dev)
+    init_s = time.perf_counter() - t0
+    data = itertools.repeat(batch)
+    t0 = time.perf_counter()
+    first = float(engine.train_batch(data))
+    warm_s = time.perf_counter() - t0
+    comm.barrier()
+    reset_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = engine.train_batch(data)
+        dev_sync(dev)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = read_counts()
+    return engine, data, {
+        "wire": engine._wire_format(), "init_seconds": init_s,
+        "warmup_step_seconds": warm_s, "losses": [first] + losses,
+        "step_walls_s": walls, "step_ms": float(np.median(walls)) * 1e3,
+        "launches": counts, "peak_memory_bytes": dev_peak(dev),
+        "n_sharded": engine._n_sh, "n_replicated": engine._n_rep}
+
+
+def zeropp_profile(engine, data, dev, profiled):
+    """One more step; on rank 0 under torch.profiler: device time by kind
+    (compute kernels, the two int8 kernels, the annotated wire spans'
+    device time), the host time of the wire stages (telemetry spans: gloo
+    through host memory), and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch import telemetry
+
+    telemetry.reset()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if profiled else contextlib.nullcontext())
+    with ctx as prof:
+        dev_sync(dev)
+        t0 = time.perf_counter()
+        engine.train_batch(data)
+        dev_sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = ("zero_pack", "zero_publish", "qgz_quantize", "qgz_sent",
+             "qgz_all_to_all", "qgz_dequant_reduce", "qwz_publish",
+             "zero_reduce_exact")
+    hist = telemetry.get_registry().histogram("span_seconds")
+    host_ms = {sp: hist.summary(span=sp).get("sum", 0.0) * 1e3
+               for sp in spans}
+    if not profiled:
+        return {"profiled_step_ms": wall_ms, "host_span_ms": host_ms}
+    kinds, dev_spans = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(e, "self_device_time_total", 0)
+                   or getattr(e, "self_cuda_time_total", 0))
+        if e.key in spans:
+            dev_spans[e.key] = dev_spans.get(e.key, 0.0) + us / 1e3
+            continue
+        if getattr(e, "is_user_annotation", False) or not us:
+            continue
+        low = e.key.lower()
+        kind = ("quant_int8" if "quant_kernel" in low
+                else "dequant_reduce" if "dequant_reduce_kernel" in low
+                else "flash" if "flash_" in low
+                else "fused_adam" if "fused_adam_kernel" in low
+                else "norm" if "norm" in low
+                else "gemm" if any(w in low for w in (
+                    "gemm", "nvjet", "cutlass", "matmul", "sm90_xmma"))
+                else "copy" if any(w in low for w in (
+                    "copy", "memcpy", "elementwise", "vectorized"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+    device_ms = sum(kinds.values())
+    return {"profiled_step_ms": wall_ms,
+            "device_ms_per_step": device_ms or "not measured",
+            "device_ms_by_kind": kinds or "not measured",
+            "wire_span_device_ms": dev_spans or "not measured",
+            "host_span_ms": host_ms,
+            "wire_host_ms_gloo": sum(host_ms[k] for k in (
+                "qgz_all_to_all", "qwz_publish", "zero_reduce_exact")),
+            "device_idle_share": (1 - device_ms / wall_ms if device_ms
+                                  else "not measured")}
+
+
+def wire_gates(engine, batch, dev):
+    """Gates 1 and 4 on the step's real packed gradient: one more
+    micro-batch's gradient packed as the wire sends it (with the LoCo
+    residual); kernel q, scales and reduced chunk against the plain
+    versions, bit for bit; |reduced − exact mean| within Σ_w (scale_w / 2)
+    / W plus fp32 rounding, per element."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops import quant_kernels as QK
+    from deepspeed_tpu_torch.runtime.dataloader import stack_micros
+
+    W, B = engine.world, QK.DEFAULT_BLOCK
+    mb = engine._to_device(engine._local_rows(stack_micros([batch])))
+    mb = {k: v[0] for k, v in mb.items()}
+    engine._loss_and_grads(mb, None)
+    engine._pack(accumulate=False)
+    x = engine._packed
+    if engine.loco_err is not None:
+        x.add_(engine.loco_err)
+    q, sc = QK.quantize_int8_blocks(x.view(-1))
+    # the plain versions chunk by chunk (blocks are independent): their
+    # whole-buffer temporaries would not fit beside two ranks' engines
+    step = 2 ** 26
+    q_equal = s_equal = red_equal = True
+    for i in range(0, q.numel(), step):
+        rq, rsc = QK.quantize_int8_blocks_ref(x.view(-1)[i:i + step])
+        q_equal &= same_bits(q[i:i + step], rq)
+        s_equal &= same_bits(sc[i // B:(i + step) // B], rsc)
+    del rq, rsc
+    qa = comm.all_to_all_single(q.view(W, -1))
+    sa = comm.all_to_all_single(sc.view(W, -1))
+    del q, sc
+    red = QK.dequant_reduce(qa, sa, mean=True)
+    for i in range(0, red.numel(), step):
+        red_equal &= same_bits(red[i:i + step], QK.dequant_reduce_ref(
+            qa[:, i:i + step].contiguous(),
+            sa[:, i // B:(i + step) // B].contiguous(), mean=True))
+    xa = comm.all_to_all_single(x)
+    exact = xa[0].clone()
+    for w in range(1, W):
+        exact.add_(xa[w])
+    exact.div_(torch.tensor(float(W), device=dev))
+    del xa
+    bound = (sa.sum(0) / (2 * W)).repeat_interleave(B)
+    err = (red - exact).abs()
+    over = err > bound * (1 + 1e-6) + 1e-6 * exact.abs()
+    ratio = float((err / bound.clamp_min(1e-30)).max())
+    out = {"q_bitwise_equal": q_equal, "scales_bitwise_equal": s_equal,
+           "reduced_bitwise_equal": red_equal, "elements": x.numel(),
+           "quant_err_max_over_bound": ratio,
+           "quant_err_out_of_bound": int(over.sum()),
+           "quant_err_max_abs": float(err.max())}
+    engine.flat_grad.zero_()
+    return out
+
+
+def zeropp_gate_step(t, dev, master, batch, zero, precision, kernels):
+    """One step (gas 1, the gate's micro) from ``master`` on this rank:
+    (sharded elements, loss, reduced gradient, update) — the gradient's and
+    update's local buffers stay on the device."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import load_master
+
+    spec = dtt.causal_lm_spec(
+        t["model"], attention="flash", remat="full", use_kernels=kernels,
+        dtype="float32" if precision == "fp32" else "bfloat16")
+    with (contextlib.nullcontext() if kernels else plain_wire()):
+        engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
+            t["gate_micro"], 1, precision, zero), device=dev)
+        load_master(engine, master)
+        before = engine.flat_master.clone()
+        loss = float(engine.train_batch(iter([batch])))
+    grad = engine.flat_grad_acc.float()
+    update = engine.flat_master - before
+    n_sh = engine._n_sh
+    del before, engine
+    return n_sh, loss, grad, update
+
+
+def zeropp_gates(t, dev, master, batch):
+    """Gates 2 and 3: fp32 all kernels vs all plain within WIRE_NOISE_SHARE
+    of the plain qgZ-vs-exact distance; bf16 kernels no further from the
+    fp32 plain step than BF16_VS_PLAIN times the plain bf16 path."""
+    res = {}
+    ref = None
+    for way, zero, prec, kern in (
+            ("fp32_plain", ZEROPP_WIRE, "fp32", False),
+            ("fp32_plain_exact", ZEROPP_EXACT, "fp32", False),
+            ("fp32_kernels", ZEROPP_WIRE, "fp32", True),
+            ("bf16_plain", ZEROPP_WIRE, "bf16", False),
+            ("bf16_kernels", ZEROPP_WIRE, "bf16", True)):
+        n_sh, loss, grad, upd = zeropp_gate_step(t, dev, master, batch,
+                                                 zero, prec, kern)
+        row = {"loss": loss}
+        if ref is None:
+            ref = {"loss": loss, "grad": grad, "upd": upd,
+                   "g2": gathered_sq(n_sh, grad), "u2": gathered_sq(n_sh, upd)}
+        else:
+            row.update(
+                loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                grad_dist=gathered_sq(n_sh, grad - ref["grad"]) ** 0.5,
+                update_dist=gathered_sq(n_sh, upd - ref["upd"]) ** 0.5)
+            row["grad_rel"] = row["grad_dist"] / ref["g2"] ** 0.5
+            row["update_rel"] = row["update_dist"] / ref["u2"] ** 0.5
+        res[way] = row
+        del grad, upd
+        dev_free(dev)
+    del ref
+    dev_free(dev)
+    k, noise = res["fp32_kernels"], res["fp32_plain_exact"]
+    problems = []
+    if not k["loss_rel"] <= TRAIN_LOSS_REL:
+        problems.append(f"fp32 loss rel {k['loss_rel']:.3g}")
+    for m in ("grad_dist", "update_dist"):
+        if not k[m] <= WIRE_NOISE_SHARE * noise[m]:
+            problems.append(f"fp32 {m} {k[m]:.3g} > {WIRE_NOISE_SHARE} x "
+                            f"the wire's noise {noise[m]:.3g}")
+    kb, pb = res["bf16_kernels"], res["bf16_plain"]
+    for m in ("loss_rel", "grad_rel", "update_rel"):
+        floor = TRAIN_LOSS_REL if m == "loss_rel" else 0.0
+        if not kb[m] <= BF16_VS_PLAIN * max(pb[m], floor):
+            problems.append(f"bf16 {m}: kernels {kb[m]:.3g}, plain "
+                            f"{pb[m]:.3g}")
+    return res, problems
+
+
+def train_llama_750m_zeropp_dp2_rank(rank, world, seed, t):
+    """One rank of the ZeRO++ phase (``t``: ZEROPP and the device): the
+    main path, its profile, the four gates, then exact ZeRO-2 as the
+    baseline."""
+    import torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    dev = torch.device(t["device"])
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, vocab, (t["micro"] * world, t["seq"]),
+                                    dtype=np.int32)}
+    out = {"rank": rank}
+    engine, data, out["main"] = zeropp_run(t, dev, ZEROPP_WIRE, batch)
+    out["profile"] = zeropp_profile(engine, data, dev,
+                                    profiled=rank == 0 and dev.type == "cuda")
+    out["wire_gate"] = wire_gates(engine, batch, dev)
+    master = engine.full_master()
+    del engine, data
+    dev_free(dev)
+    gate_batch = {"tokens": batch["tokens"][:t["gate_micro"] * world]}
+    out["gates"], out["gate_problems"] = zeropp_gates(t, dev, master,
+                                                      gate_batch)
+    del master
+    engine, data, out["baseline"] = zeropp_run(t, dev, ZEROPP_EXACT, batch)
+    out["baseline_profile"] = zeropp_profile(engine, data, dev,
+                                             profiled=False)
+    del engine, data
+    dev_free(dev)
+    return out
+
+
+def quantized_reduce_scatter_rank(rank, world, seed, p):
+    """One rank of the entry-point phase: every rank's input regenerated
+    from the seed; the kernels' result, the plain versions' (bit-equal),
+    the whole plain reduction computed here (the parent checks that the
+    ranks' chunks concatenate to it), the error against the exact mean."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops import quant_kernels as QK
+    from deepspeed_tpu_torch.ops import quantization as PQ
+
+    dev = torch.device(p["device"])
+    N, B = p["n"], QK.DEFAULT_BLOCK
+    xs = [torch.randn(N, generator=torch.Generator(dev).manual_seed(
+        seed * 100 + w), device=dev) * 10.0 ** (w % 3 - 1)
+        for w in range(world)]
+    comm.barrier()
+    reset_counts()
+    dev_sync(dev)
+    t0 = time.perf_counter()
+    got = PQ.quantized_reduce_scatter(xs[rank])
+    dev_sync(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in read_counts().items()
+              if k in ("quant_int8", "dequant_reduce")}
+    with plain_wire():
+        plain = PQ.quantized_reduce_scatter(xs[rank])
+    chunk = N // world
+    q = [QK.quantize_int8_blocks_ref(x) for x in xs]
+    whole = [QK.dequant_reduce_ref(
+        torch.stack([qw[r * chunk:(r + 1) * chunk] for qw, _ in q]),
+        torch.stack([sw[r * chunk // B:(r + 1) * chunk // B]
+                     for _, sw in q]), mean=True) for r in range(world)]
+    exact = sum(x[rank * chunk:(rank + 1) * chunk] for x in xs) / world
+    bound = (sum(sw[rank * chunk // B:(rank + 1) * chunk // B]
+                 for _, sw in q) / (2 * world)).repeat_interleave(B)
+    err = (got - exact).abs()
+    bound = bound.clamp_min(1e-30)
+    return {"rank": rank, "world": world, "n": N, "wall_ms": wall_ms,
+            "launches": counts, "kernel_equals_plain": same_bits(got, plain),
+            "chunk": digest(got), "whole": [digest(c) for c in whole],
+            "finite": bool(torch.isfinite(got).all()),
+            "err_max_over_bound": float((err / bound).max()),
+            "err_out_of_bound": int((err > bound * (1 + 1e-6)
+                                     + 1e-6 * exact.abs()).sum())}
 
 
 class Smoke:
@@ -438,7 +978,126 @@ class Smoke:
         rows += self.gmm_checks()
         rows += self.sparse_checks()
         rows += self.evo_checks()
+        rows += self.quant_checks()
         emit("kernels", checks=rows)
+
+    def packed_width(self, model, world):
+        """The elements of one rank's row of the ZeRO++ wire's packed
+        gradient: every sharded leaf's shard padded to the 2048 block
+        (``runtime/engine.zero_layout``), from the model's shapes."""
+        torch = self.torch
+        import deepspeed_tpu_torch as dtt
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.runtime import engine as E
+
+        spec = dtt.causal_lm_spec(model)
+        tree = T.init_params(spec.config, torch.Generator(self.dev)
+                             .manual_seed(0), self.dev, dtype=torch.bfloat16)
+        slots = [E._Slot(path, tuple(t.shape), 0)
+                 for path, t in E._flatten(tree)]
+        del tree
+        torch.cuda.empty_cache()
+        _, n_sh, n_rep = E.zero_layout(spec, slots, world, 2,
+                                       {"data": world})
+        return n_sh, n_rep
+
+    def quant_check(self, label, x, block=2048):
+        """Quantize ``x`` with the kernel and the plain version: q and the
+        scales equal bit for bit (a NaN scale where the other has one)."""
+        from deepspeed_tpu_torch.ops import quant_kernels as QK
+
+        q, sc = QK.quantize_int8_blocks(x, block)
+        rq, rsc = QK.quantize_int8_blocks_ref(x, block)
+        self.sync()
+        ok = same_bits(q, rq) and same_bits(sc, rsc)
+        if not ok:
+            bad = int((q != rq).sum())
+            raise AssertionError(f"quantize_int8_blocks[{label}]: kernel and "
+                                 f"plain version differ ({bad} of q)")
+        return q, sc, {"kernel": "quantize_int8_blocks", "shape": label,
+                       "n": x.numel(), "block": block,
+                       "dtype": str(x.dtype).split(".")[-1],
+                       "bitwise_equal": ok, "max_abs_err": 0.0}
+
+    def dequant_check(self, label, q, sc, mean, block=2048):
+        from deepspeed_tpu_torch.ops import quant_kernels as QK
+
+        got = QK.dequant_reduce(q, sc, block, mean=mean)
+        want = QK.dequant_reduce_ref(q, sc, block, mean=mean)
+        self.sync()
+        ok = same_bits(got, want)
+        if not ok:
+            diff = (got - want).abs()
+            raise AssertionError(f"dequant_reduce[{label},mean={mean}]: "
+                                 f"kernel and plain version differ (max "
+                                 f"{float(diff.nan_to_num().max()):.3g})")
+        return {"kernel": "dequant_reduce", "shape": label,
+                "W": q.shape[0], "C": q.shape[1], "mean": mean,
+                "block": block, "bitwise_equal": ok, "max_abs_err": 0.0}
+
+    def quant_checks(self):
+        """The int8 wire's kernels against their plain versions, bit for
+        bit: llama_750m's packed qgZ gradient at world 2 (fp32 [2, n_sh],
+        per-block magnitudes from 1e-6 to 1e2) and its dequant-reduce; W 4
+        and 8, mean on and off; exact .5 ties, an all-zero block, blocks
+        holding inf and NaN, bf16 input, an unaligned view and a block of 6
+        (the scalar variants)."""
+        torch = self.torch
+        rows = []
+        g = torch.Generator(self.dev).manual_seed(21)
+        W, B = ZEROPP["world"], 2048
+        n_sh, _ = self.packed_width(ZEROPP["model"], W)
+        mag = 10.0 ** torch.randint(-6, 3, (W * n_sh // B, 1), generator=g,
+                                    device=self.dev).float()
+        x = (torch.randn(W * n_sh // B, B, generator=g, device=self.dev)
+             * mag).reshape(-1)
+        del mag
+        q, sc, row = self.quant_check("llama_750m_packed_dp2", x)
+        rows.append(dict(row, W=W, n_sh=n_sh))
+        del x
+        torch.cuda.empty_cache()
+        for mean in (True, False):
+            rows.append(self.dequant_check("llama_750m_packed_dp2",
+                                           q.view(W, -1), sc.view(W, -1),
+                                           mean))
+        del q, sc
+        torch.cuda.empty_cache()
+        C = 2 ** 22
+        for Wn in (2, 4, 8):
+            qn = torch.randint(-127, 128, (Wn, C), generator=g,
+                               device=self.dev, dtype=torch.int8)
+            sn = torch.rand(Wn, C // B, generator=g, device=self.dev) + 1e-3
+            for mean in (True, False):
+                rows.append(self.dequant_check(f"W{Wn}", qn, sn, mean))
+        x = torch.randn(6 * B, generator=g, device=self.dev)
+        k = torch.arange(-127, 127, device=self.dev, dtype=torch.float32)
+        x[:k.numel()] = (k + 0.5) * 0.5               # exact ties at scale .5
+        x[B - 1] = 63.5
+        x[B:2 * B] = 0.0                              # scale 1
+        x[2 * B + 5] = float("inf")                   # scale inf, q 0
+        x[3 * B + 9] = float("nan")                   # scale NaN (queue C)
+        x[4 * B + 1] = -float("inf")
+        q, sc, row = self.quant_check("edges", x)
+        scl = sc.tolist()
+        if not (scl[0] == 0.5 and scl[1] == 1.0 and scl[2] == float("inf")
+                and scl[3] != scl[3] and not q[B:4 * B].any()):
+            raise AssertionError(f"quantize edge cases: scales {scl[:5]}")
+        rows.append(dict(row, scales=[str(v) for v in scl]))
+        for mean in (True, False):
+            rows.append(self.dequant_check("edges", q.view(2, -1),
+                                           sc.view(2, -1), mean))
+        rows.append(self.quant_check("bf16", torch.randn(
+            8 * B, generator=g, device=self.dev).bfloat16())[2])
+        rows.append(self.quant_check("unaligned_view", torch.randn(
+            4 * B + 1, generator=g, device=self.dev)[1:])[2])
+        xs = torch.randn(60, generator=g, device=self.dev)
+        q6, s6, row = self.quant_check("block6", xs, block=6)
+        rows.append(row)
+        rows.append(self.dequant_check("block6", q6.view(2, -1),
+                                       s6.view(2, -1), True, block=6))
+        self.errs["quant_int8"] = self.errs["dequant_reduce"] = 0.0
+        torch.cuda.empty_cache()
+        return rows
 
     def close_tol(self, name, got, want, tol):
         diff = (got.float() - want.float()).abs()
@@ -786,30 +1445,11 @@ class Smoke:
         return rows
 
     # ------------------------------------------------------------------ #
-    def counters(self):
-        from deepspeed_tpu_torch.ops import block_sparse as BS
-        from deepspeed_tpu_torch.ops import evoformer as EV
-        from deepspeed_tpu_torch.ops import flash_attention as PF
-        from deepspeed_tpu_torch.ops import fused_adam as FA
-        from deepspeed_tpu_torch.ops import grouped_gemm as GG
-        from deepspeed_tpu_torch.ops import norms
-        from deepspeed_tpu_torch.ops import paged_attention as PA
-
-        return (PA.launches, norms.launches, PF.launches, FA.launches,
-                GG.launches, BS.launches, EV.launches)
-
     def reset_counts(self):
-        from deepspeed_tpu_torch.ops import norms
-
-        for d in self.counters() + (norms.backward_calls,):
-            for k in d:
-                d[k] = 0
+        reset_counts()
 
     def read_counts(self):
-        out = {}
-        for d in self.counters():
-            out.update(d)
-        return out
+        return read_counts()
 
     def serve(self, model, n_req, lo, hi, max_new, norm_kind, **engine_kw):
         """One model's main-path run + checks + a mixed-tick comparison."""
@@ -1337,6 +1977,181 @@ class Smoke:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ #
+    # data parallel on the one card
+    # ------------------------------------------------------------------ #
+    def phase_train_llama_750m_zeropp_dp2(self):
+        """Two ranks on the card: the ZeRO++ main path and its gates, then
+        the exact ZeRO-2 baseline (``train_llama_750m_zeropp_dp2_rank``).
+        The libraries are built before spawning, so the ranks load them
+        from the build cache."""
+        torch = self.torch
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        torch.cuda.empty_cache()
+        t = ZEROPP
+        world, gas, steps = t["world"], t["gas"], t["steps"]
+        cfg = T.get_model_config(t["model"])
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("train_llama_750m_zeropp_dp2_rank", world,
+                            self.seed, dict(t, device=str(self.dev)))
+        wall = time.perf_counter() - t0
+        L = cfg.num_layers
+        micros = gas * steps
+        want = {"quant_int8": (gas + 1) * steps,
+                "dequant_reduce": (2 * gas + 1) * steps,
+                "flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
+                "flash_bwd_dkv": L * micros, "fused_adam": steps,
+                "rms_norm": (4 * L + 1) * micros, "block_sparse_fwd": 0,
+                "gmm": 0, "tgmm": 0, "evoformer_fwd": 0,
+                "paged_attention": 0}
+        problems = []
+        for r in ranks:
+            m, wg = r["main"], r["wire_gate"]
+            tag = f"rank {r['rank']}"
+            problems += [f"{tag}: {k} launched {m['launches'][k]} times, "
+                         f"want {v}" for k, v in want.items()
+                         if m["launches"][k] != v]
+            for run in ("main", "baseline"):
+                ls = r[run]["losses"]
+                if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+                    problems.append(f"{tag}: {run} loss did not fall: {ls}")
+            if r["main"]["losses"] != ranks[0]["main"]["losses"]:
+                problems.append(f"{tag}: the ranks' losses differ")
+            for k in ("q_bitwise_equal", "scales_bitwise_equal",
+                      "reduced_bitwise_equal"):
+                if not wg[k]:
+                    problems.append(f"{tag}: wire gate {k} false")
+            if wg["quant_err_out_of_bound"]:
+                problems.append(f"{tag}: {wg['quant_err_out_of_bound']} "
+                                "elements past the int8 error bound")
+            problems += [f"{tag}: {p}" for p in r["gate_problems"]]
+        tokens = t["micro"] * t["seq"] * gas * world
+        flops = flops_per_token(cfg, t["seq"]) * tokens
+
+        def rates(run):
+            step_s = run["step_ms"] / 1e3
+            return {"step_ms": run["step_ms"], "tokens_per_s": tokens / step_s,
+                    "model_tflops_per_s": flops / step_s / 1e12,
+                    "mfu": flops / step_s / PEAK_FLOPS["bfloat16"]}
+
+        r0 = ranks[0]
+        result = {"model": t["model"], "world": world, "micro": t["micro"],
+                  "seq": t["seq"], "gas": gas, "steps": steps,
+                  "zero": ZEROPP_WIRE, "params": cfg.num_params(),
+                  "phase_wall_s": wall, "card": self.card,
+                  "wire_note": "gloo through host memory, two ranks "
+                               "sharing one card",
+                  "launches_want_per_rank": want,
+                  "launches_per_step": {k: v / steps for k, v in want.items()
+                                        if v},
+                  "zeropp": dict(rates(r0["main"]), per_rank=[
+                      r["main"] for r in ranks]),
+                  "exact_zero2_baseline": dict(rates(r0["baseline"]),
+                                               per_rank=[r["baseline"]
+                                                         for r in ranks]),
+                  "profile_rank0": r0["profile"],
+                  "baseline_profile_rank0": r0["baseline_profile"]}
+        emit("train_llama_750m_zeropp_dp2", **result)
+        emit("train_llama_750m_zeropp_dp2/gates", card=self.card,
+             wire_gate=[r["wire_gate"] for r in ranks],
+             step_gate=r0["gates"],
+             bounds={"loss_rel": TRAIN_LOSS_REL,
+                     "wire_noise_share": WIRE_NOISE_SHARE,
+                     "bf16_vs_plain": BF16_VS_PLAIN,
+                     "quant_err": "sum_w scale_w / 2 / W + 1e-6 |exact|"})
+        if problems:
+            raise AssertionError("train_llama_750m_zeropp_dp2: "
+                                 + "; ".join(problems))
+        name = "train_llama_750m_zeropp_dp2"
+        for k, v in want.items():
+            if v:
+                self.launches.setdefault(k, {})[name] = \
+                    r0["main"]["launches"][k]
+        self.steps[name] = steps
+        self.state["zeropp"] = {"n_sh": r0["main"]["n_sharded"],
+                                "profile": dict(rates(r0["main"]),
+                                                **r0["profile"]),
+                                "baseline": dict(rates(r0["baseline"]),
+                                                 **r0["baseline_profile"])}
+
+    def phase_quantized_reduce_scatter(self):
+        """The entry point at world 2 and 4, ranks on the one card."""
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        self.torch.cuda.empty_cache()
+        out, problems = {}, []
+        for world in QRS["worlds"]:
+            ranks = spawn_ranks("quantized_reduce_scatter_rank", world,
+                                self.seed, dict(QRS, device=str(self.dev)))
+            for r in ranks:
+                tag = f"world {world} rank {r['rank']}"
+                if not r["kernel_equals_plain"]:
+                    problems.append(f"{tag}: kernels differ from plain")
+                if r["chunk"] != ranks[0]["whole"][r["rank"]]:
+                    problems.append(f"{tag}: its chunk is not chunk "
+                                    f"{r['rank']} of the whole reduction")
+                if r["err_out_of_bound"] or not r["finite"]:
+                    problems.append(f"{tag}: {r['err_out_of_bound']} "
+                                    "elements past the int8 error bound")
+                if r["launches"] != {"quant_int8": 1, "dequant_reduce": 1}:
+                    problems.append(f"{tag}: launches {r['launches']}")
+            out[f"world{world}"] = [{k: v for k, v in r.items()
+                                     if k not in ("chunk", "whole")}
+                                    for r in ranks]
+        emit("quantized_reduce_scatter", card=self.card, n_per_rank=QRS["n"],
+             wire_note="gloo through host memory, ranks sharing one card",
+             **out)
+        if problems:
+            raise AssertionError("quantized_reduce_scatter: "
+                                 + "; ".join(problems))
+
+    def quant_times(self, flush):
+        """quantize_int8_blocks on llama_750m's packed qgZ gradient at world
+        2 and dequant_reduce on its [2, n_sh] receive: kernel, plain, bound
+        (each input read once, each output written once: quantize 4 + 1
+        bytes an element and a scale a block; dequant-reduce W int8 rows,
+        their scales and the fp32 row). No single PyTorch call computes
+        per-block int8 with this scale rule, so library_ms is null."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import quant_kernels as QK
+
+        W, B = ZEROPP["world"], 2048
+        n_sh = (self.state["zeropp"]["n_sh"] if "zeropp" in self.state
+                else self.packed_width(ZEROPP["model"], W)[0])
+        N = W * n_sh
+        g = torch.Generator(self.dev).manual_seed(23)
+        x = torch.randn(N, generator=g, device=self.dev) * 1e-3
+        q, sc = QK.quantize_int8_blocks(x)
+        lib = "none: no single PyTorch call computes per-block int8 with " \
+              "this scale rule"
+        shape = {"W": W, "n_sh": n_sh, "block": B}
+        out = {
+            "quant_int8": dict(
+                self.bound(5.0 * N + 4.0 * N / B, 4.0 * N, "float32"),
+                ms=self.time_ms(lambda: QK.quantize_int8_blocks(x),
+                                flush=flush),
+                plain_ms=self.time_ms(lambda: QK.quantize_int8_blocks_ref(x),
+                                      iters=5, flush=flush),
+                library_ms=None, library=lib,
+                shape=dict(shape, n=N, dtype="float32")),
+            "dequant_reduce": dict(
+                self.bound(N + 4.0 * N / W + 4.0 * N / B, 2.0 * N,
+                           "float32"),
+                ms=self.time_ms(lambda: QK.dequant_reduce(
+                    q.view(W, -1), sc.view(W, -1), mean=True), flush=flush),
+                plain_ms=self.time_ms(lambda: QK.dequant_reduce_ref(
+                    q.view(W, -1), sc.view(W, -1), mean=True), iters=5,
+                    flush=flush),
+                library_ms=None, library=lib,
+                shape=dict(shape, C=n_sh, mean=True))}
+        del x, q, sc
+        torch.cuda.empty_cache()
+        return out
+
+    # ------------------------------------------------------------------ #
     def time_ms(self, fn, iters=20, flush=None):
         """Median device ms of ``fn`` by CUDA events, one event pair per
         call, with L2 flushed before each (the serving path meets each
@@ -1548,13 +2363,20 @@ class Smoke:
         ev = self.evo_times(flush)
         steps = {m: self.state[f"train_{m}"]["profile"] for m in TRAIN
                  if f"train_{m}" in self.state}
+        if "zeropp" in self.state:
+            zp = self.state["zeropp"]
+            steps["llama_750m_zeropp_dp2"] = zp["profile"]
+            steps["llama_750m_exact_zero2_dp2"] = zp["baseline"]
         if "evoformer" in self.state:
             ev["msa_row_attention_step_ms"] = self.evo_step_times()
+        q8 = self.quant_times(flush)
         emit("times/train", card=self.card, flash=fl, fused_adam=adam,
              grouped_gemm=gg, norm_backward=nb, block_sparse=sp,
-             evoformer=ev, steps=steps)
+             evoformer=ev, int8_wire=q8, steps=steps,
+             wire_note="data-parallel step times: gloo through host "
+                       "memory, two ranks sharing one card")
         return {"pa": pa, "nm": nm, "fl": fl, "adam": adam, "gg": gg,
-                "sp": sp, "ev": ev}
+                "sp": sp, "ev": ev, "q8": q8}
 
     def serving_times(self, flush):
         """Paged attention at llama2_7b's decode and prefill ticks."""
@@ -2041,7 +2863,13 @@ class Smoke:
                 "deepspeed_tpu/ops/pallas/block_sparse.py:251"),
             "evoformer_fwd": ("cuda",
                               "deepspeed_tpu_torch/ops/csrc/evoformer.cu",
-                              "deepspeed_tpu/ops/pallas/evoformer.py:33")})
+                              "deepspeed_tpu/ops/pallas/evoformer.py:33"),
+            "quant_int8": ("cuda",
+                           "deepspeed_tpu_torch/ops/csrc/quantization.cu",
+                           "deepspeed_tpu/ops/pallas/quantization.py:40"),
+            "dequant_reduce": ("cuda",
+                               "deepspeed_tpu_torch/ops/csrc/quantization.cu",
+                               "deepspeed_tpu/ops/pallas/quantization.py:80")})
         timed = {"rms_norm": nm["rms_norm[R=8]"],
                  "layer_norm": nm["layer_norm[R=8]"]}
         if pa is not None:
@@ -2062,6 +2890,10 @@ class Smoke:
         if "evoformer_fwd" in self.errs:
             timed["evoformer_fwd"] = dict(
                 ev["msa_row"], max_abs_err=self.errs["evoformer_fwd"])
+        for name in ("quant_int8", "dequant_reduce"):
+            if name in self.errs:
+                timed[name] = dict(timed_rows["q8"][name],
+                                   max_abs_err=self.errs[name])
         src = {k: v for k, v in src.items() if k in timed}
         out = []
         for name, (route, source, replaces) in src.items():

@@ -13,10 +13,16 @@ Ported so far:
   (``inference/fastgen.py``, ``models/paged.py``) with paged attention in
   CUDA C++ (``ops/csrc/paged_attention.cu``) and RMSNorm/LayerNorm in
   Triton (``ops/norms.py``);
-* single-process training — :func:`initialize` → ``engine.train_batch``
+* training — :func:`initialize` → ``engine.train_batch``
   (``runtime/engine.py``) over ``causal_lm_spec`` models, with flash
   attention forward / dq / dkv (``ops/csrc/flash_attention.cu``) and fused
-  Adam (``ops/csrc/fused_adam.cu``) in CUDA C++.
+  Adam (``ops/csrc/fused_adam.cu``) in CUDA C++; the MoE FFN's grouped GEMM,
+  block-sparse attention and the Evoformer forward;
+* data-parallel training over ``torch.distributed`` —
+  :func:`init_distributed`, then :func:`initialize` builds a
+  ``DataParallelEngine``: ZeRO stages 0-2 with the exact wire or the ZeRO++
+  int8 wire (qgZ, qwZ, LoCo: ``parallel/compressed.py``) through the int8
+  quantize and dequant-reduce kernels (``ops/csrc/quantization.cu``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no explicit device they raise.
@@ -24,12 +30,18 @@ Entry points run on the GPU unless the caller asks for the CPU
 from typing import Any, Optional, Tuple
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm.comm import init_distributed
 from deepspeed_tpu_torch.models.api import ModelSpec, causal_lm_spec
 from deepspeed_tpu_torch.runtime.config import DeepSpeedTPUConfig, load_config
-from deepspeed_tpu_torch.runtime.engine import DeepSpeedTPUEngine
+from deepspeed_tpu_torch.runtime.engine import (
+    DataParallelEngine,
+    DeepSpeedTPUEngine,
+)
 
-__all__ = ["DeepSpeedTPUConfig", "DeepSpeedTPUEngine", "ModelSpec",
-           "causal_lm_spec", "initialize", "load_config", "resolve_device"]
+__all__ = ["DataParallelEngine", "DeepSpeedTPUConfig", "DeepSpeedTPUEngine",
+           "ModelSpec", "causal_lm_spec", "init_distributed", "initialize",
+           "load_config", "resolve_device"]
 
 
 def initialize(args: Any = None, model: Optional[ModelSpec] = None,
@@ -41,7 +53,10 @@ def initialize(args: Any = None, model: Optional[ModelSpec] = None,
     """The JAX ``deepspeed_tpu.initialize`` (reference ``deepspeed.
     initialize``): returns ``(engine, optimizer, None, lr_scheduler)``.
     ``device`` as in :func:`resolve_device` (``None`` = the first GPU; the
-    tests pass ``"cpu"``). The data loader, and the reference's distributed
+    tests pass ``"cpu"``). With the default process group up and more than
+    one process (:func:`init_distributed`) it builds a
+    :class:`DataParallelEngine`, whose ``device`` is the caller's, else
+    ``cuda:{LOCAL_RANK}``. The data loader, and the reference's distributed
     arguments, come in a later slice: a ``training_data`` or a non-None
     distributed argument raises."""
     from deepspeed_tpu_torch.runtime.config_utils import later_slice
@@ -58,7 +73,8 @@ def initialize(args: Any = None, model: Optional[ModelSpec] = None,
     given = sorted(k for k, v in unused.items() if v is not None)
     if given:
         raise later_slice(f"initialize arguments {given}")
-    engine = DeepSpeedTPUEngine(model=model, config=config,
-                                optimizer=optimizer,
-                                lr_scheduler=lr_scheduler, device=device)
+    cls = DataParallelEngine if comm.get_world_size() > 1 \
+        else DeepSpeedTPUEngine
+    engine = cls(model=model, config=config, optimizer=optimizer,
+                 lr_scheduler=lr_scheduler, device=device)
     return engine, engine.optimizer, None, engine.lr_scheduler

@@ -1,0 +1,265 @@
+"""DeepSpeed-shaped collective API over ``torch.distributed``.
+
+Ports ``deepspeed_tpu/comm/comm.py``: ``ReduceOp`` (:42),
+``init_distributed`` (:59), ``is_initialized`` / ``destroy_process_group``
+/ ``get_world_size`` / ``get_rank`` / ``get_local_rank`` /
+``get_data_parallel_world_size`` (:99-163), ``barrier`` (:169) and the
+collectives ``all_reduce`` (:267), ``all_gather`` / ``all_gather_into_tensor``
+(:296, :313), ``reduce_scatter`` / ``reduce_scatter_tensor`` (:320, :341),
+``all_to_all_single`` (:347) and ``broadcast`` (:374). The JAX functions
+run over named mesh axes of one program; these run between processes, each
+passing its own tensor, with ``torch.distributed``'s semantics: a
+collective returns the local result (``all_reduce`` and ``broadcast`` in
+place, the ``*_into_tensor`` / ``*_tensor`` forms into ``output``).
+
+The backend is the caller's choice and is never switched: ``nccl`` by
+default (CUDA tensors), ``gloo`` when asked (CPU tensors, or several
+processes sharing one card, which NCCL refuses). gloo runs its collectives
+in host memory: for a CUDA tensor it copies through host buffers itself
+where it takes CUDA tensors at all, and refuses them for other ops. So
+every gloo collective on a CUDA tensor goes through
+:func:`_gloo_via_pinned_host`, which copies the operands into pinned host
+buffers, runs the collective there and copies the result back — one path
+for every op. The compute stays on the device.
+"""
+from __future__ import annotations
+
+import datetime
+import enum
+import os
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from deepspeed_tpu_torch.comm import mesh as mesh_mod
+from deepspeed_tpu_torch.runtime.config_utils import logger
+
+
+class ReduceOp(enum.Enum):
+    SUM = 0
+    PRODUCT = 1
+    MIN = 2
+    MAX = 3
+    AVG = 4
+
+
+_TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
+              ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT,
+              ReduceOp.MIN: dist.ReduceOp.MIN, ReduceOp.MAX: dist.ReduceOp.MAX}
+# newer torch names the flat-tensor forms *_single and deprecates the old
+_all_gather_flat = getattr(dist, "all_gather_single",
+                           dist.all_gather_into_tensor)
+_reduce_scatter_flat = getattr(dist, "reduce_scatter_single",
+                               dist.reduce_scatter_tensor)
+
+
+# --------------------------------------------------------------------------- #
+# bring-up and queries
+# --------------------------------------------------------------------------- #
+
+def init_distributed(dist_backend: str = "nccl",
+                     auto_mpi_discovery: bool = True, verbose: bool = True,
+                     timeout=None, init_method: Optional[str] = None,
+                     dist_init_required: Optional[bool] = None, config=None,
+                     rank: int = -1, world_size: int = -1,
+                     mesh_config: Optional[mesh_mod.MeshConfig] = None
+                     ) -> None:
+    """Join the default process group and resolve the mesh over it.
+
+    ``rank`` / ``world_size`` of -1 and ``init_method=None`` leave them to
+    torch, which reads ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` from the environment (``env://``). ``timeout`` is in
+    seconds (or a ``timedelta``). A second call is a no-op."""
+    if not dist.is_initialized():
+        if dist_init_required is False:
+            return
+        kw = {}
+        if timeout is not None:
+            kw["timeout"] = (timeout if isinstance(timeout, datetime.timedelta)
+                             else datetime.timedelta(seconds=float(timeout)))
+        if rank >= 0:
+            kw["rank"] = rank
+        if world_size >= 0:
+            kw["world_size"] = world_size
+        dist.init_process_group(backend=dist_backend, init_method=init_method,
+                                **kw)
+    mesh_mod.initialize_mesh(mesh_config)
+    if verbose:
+        logger.info(f"init_distributed: backend={dist.get_backend()} "
+                    f"rank={dist.get_rank()} world={dist.get_world_size()} "
+                    f"mesh={mesh_mod.get_mesh_manager()}")
+
+
+def is_initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def destroy_process_group() -> None:
+    if is_initialized():
+        dist.destroy_process_group()
+    _pinned.clear()
+    mesh_mod.reset_mesh()
+
+
+def get_world_size(group=None) -> int:
+    return dist.get_world_size(group) if is_initialized() else 1
+
+
+def get_rank(group=None) -> int:
+    return dist.get_rank(group) if is_initialized() else 0
+
+
+def get_local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def get_data_parallel_world_size() -> int:
+    return mesh_mod.get_mesh_manager().dp_world_size
+
+
+def get_backend(group=None) -> Optional[str]:
+    return dist.get_backend(group) if is_initialized() else None
+
+
+def barrier(group=None) -> None:
+    if get_world_size(group) > 1:
+        dist.barrier(group)
+
+
+# --------------------------------------------------------------------------- #
+# gloo on CUDA tensors: through pinned host buffers
+# --------------------------------------------------------------------------- #
+
+_pinned: Dict[Tuple[str, int, torch.dtype], torch.Tensor] = {}
+
+
+def _host_buffer(slot: str, like: torch.Tensor) -> torch.Tensor:
+    """A host tensor of ``like``'s size and dtype, pinned when a card is
+    present, kept per (slot, size, dtype) for the next call."""
+    key = (slot, like.numel(), like.dtype)
+    buf = _pinned.get(key)
+    if buf is None:
+        buf = torch.empty(like.numel(), dtype=like.dtype,
+                          pin_memory=torch.cuda.is_available())
+        _pinned[key] = buf
+    return buf.view(like.shape)
+
+
+def _gloo_via_pinned_host(op: Callable[[torch.Tensor, torch.Tensor], None],
+                          out: torch.Tensor, inp: torch.Tensor) -> None:
+    """Run ``op(host_out, host_in)`` — a gloo collective — on host copies
+    of ``inp`` and copy its result into ``out`` (``out is inp`` for the
+    in-place ops)."""
+    h_in = _host_buffer("in", inp)
+    h_in.copy_(inp)
+    h_out = h_in if out is inp else _host_buffer("out", out)
+    op(h_out, h_in)
+    out.copy_(h_out)
+
+
+def _run(op: Callable[[torch.Tensor, torch.Tensor], None], out: torch.Tensor,
+         inp: torch.Tensor, group=None) -> torch.Tensor:
+    if inp.device.type == "cuda" and get_backend(group) == "gloo":
+        _gloo_via_pinned_host(op, out, inp)
+    else:
+        op(out, inp)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# collectives
+# --------------------------------------------------------------------------- #
+
+def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+               group=None) -> torch.Tensor:
+    """In-place all-reduce; AVG is a SUM divided by the world size (gloo
+    has no AVG)."""
+    world = get_world_size(group)
+    if world <= 1:
+        return tensor
+    top = _TORCH_OPS[ReduceOp.SUM if op == ReduceOp.AVG else op]
+    _run(lambda o, i: dist.all_reduce(o, op=top, group=group), tensor,
+         tensor, group)
+    if op == ReduceOp.AVG:
+        tensor.div_(torch.tensor(float(world), device=tensor.device))
+    return tensor
+
+
+def all_gather_into_tensor(output_tensor: torch.Tensor, tensor: torch.Tensor,
+                           group=None) -> torch.Tensor:
+    """``output_tensor`` [world × n] ← every rank's ``tensor`` [n], in rank
+    order."""
+    if get_world_size(group) <= 1:
+        return output_tensor.copy_(tensor.reshape(output_tensor.shape))
+    return _run(lambda o, i: _all_gather_flat(
+        o.view(-1), i.reshape(-1), group=group), output_tensor, tensor, group)
+
+
+def all_gather(tensor: torch.Tensor, group=None, gather_axis: int = 0,
+               tiled: bool = True) -> torch.Tensor:
+    """Every rank's ``tensor`` concatenated along ``gather_axis``
+    (``tiled``) or stacked on a new leading axis."""
+    world = get_world_size(group)
+    t = tensor.movedim(gather_axis, 0).contiguous()
+    out = torch.empty((world,) + tuple(t.shape), dtype=t.dtype,
+                      device=t.device)
+    all_gather_into_tensor(out, t, group)
+    if not tiled:
+        return out
+    return out.reshape((-1,) + tuple(t.shape[1:])).movedim(0, gather_axis)
+
+
+def reduce_scatter_tensor(output_tensor: torch.Tensor, tensor: torch.Tensor,
+                          op: ReduceOp = ReduceOp.SUM,
+                          group=None) -> torch.Tensor:
+    """``output_tensor`` [n] ← this rank's chunk of the reduction of every
+    rank's ``tensor`` [world × n]; SUM or AVG."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise ValueError(f"reduce_scatter supports SUM/AVG, got {op}")
+    world = get_world_size(group)
+    if world <= 1:
+        output_tensor.copy_(tensor.reshape(output_tensor.shape))
+    else:
+        _run(lambda o, i: _reduce_scatter_flat(
+            o.view(-1), i.reshape(-1), op=dist.ReduceOp.SUM, group=group),
+            output_tensor, tensor, group)
+    if op == ReduceOp.AVG:
+        output_tensor.div_(torch.tensor(float(world),
+                                        device=output_tensor.device))
+    return output_tensor
+
+
+def reduce_scatter(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+                   group=None, scatter_axis: int = 0,
+                   tiled: bool = True) -> torch.Tensor:
+    """This rank's chunk along ``scatter_axis`` of the reduction (``tiled``;
+    otherwise ``scatter_axis`` has the world's length and is dropped)."""
+    world = get_world_size(group)
+    t = tensor.movedim(scatter_axis, 0).contiguous()
+    out = torch.empty((t.shape[0] // world,) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    reduce_scatter_tensor(out, t, op, group)
+    if not tiled:
+        return out[0]
+    return out.movedim(0, scatter_axis)
+
+
+def all_to_all_single(tensor: torch.Tensor, group=None, split_axis: int = 0,
+                      concat_axis: int = 0) -> torch.Tensor:
+    """Row r of dim 0 goes to rank r; the result's row r came from rank r
+    (``split_axis = concat_axis = 0``, the tiled form)."""
+    if split_axis != 0 or concat_axis != 0:
+        raise ValueError("all_to_all_single splits and concatenates dim 0")
+    if get_world_size(group) <= 1:
+        return tensor.clone()
+    out = torch.empty_like(tensor)
+    return _run(lambda o, i: dist.all_to_all_single(o, i, group=group), out,
+                tensor.contiguous(), group)
+
+
+def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    if get_world_size(group) <= 1:
+        return tensor
+    return _run(lambda o, i: dist.broadcast(o, src=src, group=group), tensor,
+                tensor, group)

@@ -8,7 +8,8 @@ loss. A model is functions plus metadata: ``init_fn(generator, device)``
 returns the fp32 master tree (the JAX pytree's keys and shapes), and
 ``loss_fn(params, batch)`` the scalar loss on compute-dtype parameters —
 a tree whose ``blocks`` are either stacked [L, ...] tensors or a list of
-per-layer dicts (the engine's per-layer leaves).
+per-layer dicts (the engine's per-layer leaves) — and ``axes_fn()`` the
+logical axes of each parameter dim.
 """
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ class ModelSpec:
     # engine's activation_checkpointing.policy); None when the spec holds a
     # hand-written attention_fn
     builder: Optional[Callable[..., "ModelSpec"]] = None
+    # → the tree of logical axis names per parameter dim (the ZeRO layout
+    # reads it); None: every leaf replicated
+    axes_fn: Optional[Callable[[], Any]] = None
 
 
 def _tokens_of(batch: Batch) -> torch.Tensor:
@@ -142,4 +146,5 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, apply_fn=apply_fn,
                      name=name, num_params=cfg.num_params(),
                      seq_len=cfg.max_seq_len, config=cfg,
-                     builder=None if user_attention_fn else _rebuild)
+                     builder=None if user_attention_fn else _rebuild,
+                     axes_fn=lambda: T.param_logical_axes(cfg))

@@ -8,7 +8,9 @@ PagedTransformer`. Floating leaves are cast to the compute dtype, as the JAX
 
 ``load_master(engine, jax.tree.map(np.asarray, jax_engine.state["master"]))``
 copies a JAX fp32 master tree into a training engine's master state, so both
-engines start from the same weights.
+engines start from the same weights; a data-parallel rank keeps its shard
+of each leaf. ``gather_master(engine)`` reads a data-parallel engine's
+sharded master back as full numpy arrays (every rank calls it).
 """
 from __future__ import annotations
 
@@ -53,26 +55,46 @@ def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerConfig,
         cfg, tree_from_numpy(tree, dtype or cfg.compute_dtype, dev))
 
 
+def _leaves(tree: Dict[str, Any], prefix=()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 def load_master(engine, tree: Dict[str, Any]) -> None:
     """Copy the fp32 master tree ``tree`` (numpy arrays or tensors, the JAX
-    keys and shapes) into ``engine``'s master and refresh its compute copy.
-    Keys or shapes that differ raise ``ValueError``."""
-    have = engine.state["master"]
-
-    def copy(dst: Dict[str, Any], src: Dict[str, Any], path: str) -> None:
-        if sorted(dst) != sorted(src):
-            raise ValueError(f"master keys differ at {path or '/'}: "
-                             f"{sorted(dst)} vs {sorted(src)}")
-        for k, d in dst.items():
-            if isinstance(d, dict):
-                copy(d, src[k], f"{path}/{k}")
-                continue
-            t = _to_tensor(src[k], torch.float32, d.device)
-            if tuple(t.shape) != tuple(d.shape):
-                raise ValueError(f"master {path}/{k}: shape "
-                                 f"{tuple(t.shape)}, want {tuple(d.shape)}")
-            with torch.no_grad():
-                d.copy_(t)
-
-    copy(have, tree, "")
+    keys and shapes) into ``engine``'s master — a data-parallel rank keeps
+    its shard — and refresh its compute copy. Keys or shapes that differ
+    raise ``ValueError``."""
+    slots = {slot.path: slot for slot in engine._slots}
+    src = dict(_leaves(tree))
+    if sorted(slots) != sorted(src):
+        diff = sorted(set(slots) ^ set(src))
+        raise ValueError(f"master keys differ at {'/'.join(diff[0])}: "
+                         f"{len(slots)} leaves vs {len(src)}")
+    with torch.no_grad():
+        for path, slot in slots.items():
+            t = _to_tensor(src[path], torch.float32, engine.device)
+            if tuple(t.shape) != slot.shape:
+                raise ValueError(f"master /{'/'.join(path)}: shape "
+                                 f"{tuple(t.shape)}, want {slot.shape}")
+            engine._load_master_leaf(slot, t)
     engine._compute_params()
+
+
+def gather_master(engine) -> Dict[str, Any]:
+    """The engine's whole fp32 master as numpy arrays (JAX's keys and
+    shapes); collective on a data-parallel engine."""
+    if hasattr(engine, "full_master"):
+        tree = engine.full_master()
+    else:
+        tree = engine.state["master"]
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict)
+                else v.detach().cpu().numpy() for k, v in t.items()}
+
+    return walk(tree)

@@ -310,6 +310,61 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
+def param_logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Logical axis names per parameter dim, the tree of
+    :func:`init_params` (JAX ``param_logical_axes``, transformer.py:382,
+    for the options this port runs): the ZeRO layout reads them."""
+    _check_supported(cfg)
+
+    def norm_axes(prefix):
+        p = {"scale": prefix + ("embed",)}
+        if cfg.norm == "layernorm":
+            p["bias"] = prefix + ("embed",)
+        return p
+
+    lyr = ("layers",)
+    block: Dict[str, Any] = {"ln1": norm_axes(lyr),
+                             "wq": lyr + ("embed", "heads"),
+                             "wk": lyr + ("embed", "kv_heads"),
+                             "wv": lyr + ("embed", "kv_heads"),
+                             "wo": lyr + ("heads", "embed")}
+    if cfg.has_ln2:
+        block["ln2"] = norm_axes(lyr)
+    if cfg.n_experts > 0:
+        block["gate_w"] = lyr + ("embed", None)
+        block["w_up"] = lyr + ("expert", "embed", "mlp")
+        block["w_down"] = lyr + ("expert", "mlp", "embed")
+        if cfg.activation == "swiglu":
+            block["w_gate"] = lyr + ("expert", "embed", "mlp")
+        if cfg.moe_shared_size > 0:
+            block["sw_up"] = lyr + ("embed", "mlp")
+            block["sw_down"] = lyr + ("mlp", "embed")
+            if cfg.activation == "swiglu":
+                block["sw_gate"] = lyr + ("embed", "mlp")
+            if cfg.moe_shared_gate:
+                block["shared_gate_w"] = lyr + ("embed", None)
+        if cfg.moe_gate_bias:
+            block["gate_bias"] = lyr + (None,)
+    else:
+        block["w_up"] = lyr + ("embed", "mlp")
+        block["w_down"] = lyr + ("mlp", "embed")
+        if cfg.activation == "swiglu":
+            block["w_gate"] = lyr + ("embed", "mlp")
+    if cfg.attn_bias_enabled:
+        block.update({"bq": lyr + ("heads",), "bk": lyr + ("kv_heads",),
+                      "bv": lyr + ("kv_heads",)})
+    if cfg.use_bias:
+        block.update({"bo": lyr + ("embed",), "b_up": lyr + ("mlp",),
+                      "b_down": lyr + ("embed",)})
+    axes: Dict[str, Any] = {"tok_emb": ("vocab", "embed"), "blocks": block,
+                            "final_norm": norm_axes(())}
+    if cfg.pos_emb == "learned":
+        axes["pos_emb"] = ("seq", "embed")
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 def _check_supported(cfg: TransformerConfig) -> None:
     """Options of the JAX model that this slice of the port does not run."""
     unsupported = [name for name, on in (

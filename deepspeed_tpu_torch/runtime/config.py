@@ -1,19 +1,21 @@
-"""JSON config → typed config tree: the subset the single-process training
-engine reads.
+"""JSON config → typed config tree: the subset the training engine reads.
 
 Ports ``deepspeed_tpu/runtime/config.py``: ``DeepSpeedTPUConfig`` (:1188)
 with the batch triple and ``resolve_batch_size``, ``gradient_clipping``,
 ``steps_per_print``, ``prescale_gradients``, ``seed``, and the sections
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler``, ``zero_optimization``,
-``data_types`` and ``activation_checkpointing`` — copied field for field with
-the same defaults and the same validation, so the same JSON gives the same
-values and a wrong one raises the same ``DeepSpeedConfigError``.
+``data_types``, ``activation_checkpointing`` and ``mesh`` — copied field for
+field with the same defaults and the same validation, so the same JSON gives
+the same values and a wrong one raises the same ``DeepSpeedConfigError``.
+The mesh resolves over the processes of the default process group; axes
+other than ``data`` above 1 raise ``NotImplementedError`` there
+(``comm/mesh.initialize_mesh``).
 
-The JAX package's other sections (mesh, telemetry, serving, fault
-tolerance, ...) are not read by this slice. :func:`load_config` accepts
-one only while it is inert — absent, empty, ``{"enabled": false}``, or
-(``mesh``) one process on every axis — and raises ``NotImplementedError``
-naming the later slice otherwise; nothing is silently ignored. Keys
+The JAX package's other sections (telemetry, serving, fault tolerance, ...)
+are not read by this slice. :func:`load_config` accepts one only while it
+is inert — absent, empty or ``{"enabled": false}`` — and raises
+``NotImplementedError`` naming the later slice otherwise; nothing is
+silently ignored. Keys
 neither package knows warn and are ignored, as in JAX; the reference's
 CUDA-only sections are accepted and ignored, as in JAX.
 """
@@ -105,10 +107,11 @@ class ZenFlowSectionConfig:
 @dataclasses.dataclass
 class ZeroConfig:
     """``zero_optimization`` (``deepspeed_tpu/runtime/config.py:89``), every
-    key and its validation. One process partitions nothing: the engine runs
-    stages 0 and 1 (the same arithmetic) and raises for stage >= 2, offload,
-    ZenFlow and the quantized wires; the bucket and overlap keys have no
-    effect at one process, as in the JAX engine at data-parallel world 1."""
+    key and its validation. The engine runs stages 0-2, with the exact wire
+    or the ZeRO++ int8 wire (qgZ / qwZ / LoCo) between processes, and raises
+    for stage 3, hpZ / MiCS subgroups, offload and ZenFlow; one process
+    partitions nothing. The bucket and overlap keys order sends without
+    changing values and have no effect here."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True
@@ -243,6 +246,24 @@ class DataTypesConfig:
     grad_accum_dtype: Optional[str] = None
 
 
+@dataclasses.dataclass
+class MeshSectionConfig:
+    """Named mesh axis sizes (``deepspeed_tpu/runtime/config.py:1057``);
+    -1 absorbs the remaining processes."""
+    pipe: int = 1
+    data: int = -1
+    zshard: int = 1
+    expert: int = 1
+    seq: int = 1
+    tensor: int = 1
+
+    def to_mesh_config(self):
+        from deepspeed_tpu_torch.comm.mesh import MeshConfig
+
+        return MeshConfig(pipe=self.pipe, data=self.data, zshard=self.zshard,
+                          expert=self.expert, seq=self.seq, tensor=self.tensor)
+
+
 # CUDA-only reference sections accepted and ignored (as in JAX)
 _IGNORED_SECTIONS = (
     "amp", "aio", "hybrid_engine", "compression_training",
@@ -253,7 +274,7 @@ _IGNORED_SECTIONS = (
 _UNREAD_SECTIONS = (
     "comms_logger", "telemetry", "serving", "fleet", "tenancy", "slo",
     "hlolint", "memlint", "autotuning", "elasticity", "flops_profiler",
-    "tensorboard", "csv_monitor", "wandb", "comet", "mesh", "tensor_parallel",
+    "tensorboard", "csv_monitor", "wandb", "comet", "tensor_parallel",
     "sequence_parallel", "pipeline", "checkpoint", "fault_tolerance",
     "guardian", "data_efficiency", "curriculum_learning",
     "progressive_layer_drop",
@@ -268,13 +289,11 @@ _UNREAD_KEYS = {
 }
 
 
-def _inert(name: str, value: Any) -> bool:
+def _inert(value: Any) -> bool:
     if value is None or value == {}:
         return True
     if not isinstance(value, dict):
         return False
-    if name == "mesh":
-        return all(v in (1, -1) for v in value.values())
     return value.get("enabled") is False
 
 
@@ -294,6 +313,7 @@ class DeepSpeedTPUConfig:
     activation_checkpointing: ActivationCheckpointingConfig = dataclasses.field(
         default_factory=ActivationCheckpointingConfig)
     data_types: DataTypesConfig = dataclasses.field(default_factory=DataTypesConfig)
+    mesh: MeshSectionConfig = dataclasses.field(default_factory=MeshSectionConfig)
     seed: int = 1234
 
     # resolved fields (filled by resolve_batch_size)
@@ -364,7 +384,7 @@ def load_config(config) -> DeepSpeedTPUConfig:
             config.pop(section)
     for section in _UNREAD_SECTIONS:
         value = config.pop(section, None)
-        if not _inert(section, value):
+        if not _inert(value):
             raise later_slice(f"config section {section!r}")
     for key, default in _UNREAD_KEYS.items():
         if key in config and config.pop(key) != default:

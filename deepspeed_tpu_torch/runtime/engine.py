@@ -1,11 +1,12 @@
-"""DeepSpeedTPUEngine — the single-process training engine of the port.
+"""DeepSpeedTPUEngine — the training engine of the port, one process or many.
 
-Ports the single-process subset of ``deepspeed_tpu/runtime/engine.py``
-(``DeepSpeedTPUEngine``; the class name is kept so its counterpart is easy
-to find): ``_init_state`` (:1709), ``_compute_params`` (:1736),
-``_loss_and_grads`` (:1783), ``accumulate_microbatches`` (:1946),
-``_apply_update`` (:1832), ``train_batch`` (:2626), ``train_batches``
-(:2719), ``global_steps`` / ``micro_steps``. One step:
+Ports ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedTPUEngine``; the class
+name is kept so its counterpart is easy to find): ``_init_state`` (:1709),
+``_compute_params`` (:1736), ``_loss_and_grads`` (:1783),
+``accumulate_microbatches`` (:1946), ``_apply_update`` (:1832),
+``_resolve_compressed_modes`` (:503), ``_wire_format`` (:2101),
+``train_batch`` (:2626), ``train_batches`` (:2719), ``global_steps`` /
+``micro_steps``. One step:
 
     gas micro-batches of forward → LM loss → backward (remat per layer)
     → fp32 gradient accumulation → unscale, global norm, clip (fp16:
@@ -31,9 +32,13 @@ by gas × loss scale in the update. The compute copy is cast once per step
 (by the Adam kernel itself for bf16), which gives the values the JAX
 per-micro-batch cast gives.
 
-Out of this slice, raising ``NotImplementedError``: ZeRO stage >= 2, more
-than one process, offload, ZenFlow, ZeRO++ wires, remat policies other than
-none/full, and the config sections ``load_config`` refuses.
+More than one process (the default process group up, world > 1) takes
+:class:`DataParallelEngine`: ZeRO stages 0-2 over ``torch.distributed``,
+with the exact wire or the ZeRO++ int8 wire (qgZ, qwZ, LoCo).
+
+Out of this slice, raising ``NotImplementedError``: ZeRO stage 3, hpZ /
+MiCS subgroups, offload, ZenFlow, remat policies other than none/full, and
+the config sections ``load_config`` refuses.
 """
 from __future__ import annotations
 
@@ -44,10 +49,16 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm import mesh as mesh_mod
 from deepspeed_tpu_torch.models import transformer as T
 from deepspeed_tpu_torch.models.api import ModelSpec
+from deepspeed_tpu_torch.ops import quant_kernels as QK
 from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer, get_optimizer
+from deepspeed_tpu_torch.parallel import compressed as C
+from deepspeed_tpu_torch.parallel.partitioning import ShardingPolicy
 from deepspeed_tpu_torch.runtime.config import (
     ActivationCheckpointingConfig,
     DeepSpeedTPUConfig,
@@ -86,10 +97,16 @@ def _set_path(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
-def _world_size() -> int:
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
+def _process_world() -> int:
+    """Processes of the default process group; a ``WORLD_SIZE`` above 1
+    without one raises: the engine joins no process group itself."""
+    world = comm.get_world_size()
+    env = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 and env > 1:
+        raise RuntimeError(
+            f"WORLD_SIZE={env} but the default process group is not "
+            "initialized: call deepspeed_tpu_torch.init_distributed() first")
+    return world
 
 
 @dataclasses.dataclass
@@ -111,9 +128,17 @@ class DeepSpeedTPUEngine:
         self.config: DeepSpeedTPUConfig = load_config(config)
         self.device = resolve_device(device)
         self._check_slice()
-        self.dp_world_size = 1
+        self.mesh_manager = mesh_mod.initialize_mesh(
+            self.config.mesh.to_mesh_config())
+        self.dp_world_size = self.mesh_manager.dp_world_size
+        if self.dp_world_size > 1 and not isinstance(self,
+                                                     DataParallelEngine):
+            raise ValueError(
+                f"{self.dp_world_size} processes: build the engine with "
+                "deepspeed_tpu_torch.initialize (DataParallelEngine)")
         self.config.resolve_batch_size(self.dp_world_size)
         self.zero_stage = self.config.zero_optimization.stage
+        self._resolve_compressed_modes(self.config.zero_optimization)
 
         # activation_checkpointing.policy → the spec's remat policy, rebuilt
         # through the spec's own builder (as the JAX engine does)
@@ -166,21 +191,16 @@ class DeepSpeedTPUEngine:
         """Options of the JAX engine that this slice does not run."""
         cfg = self.config
         z = cfg.zero_optimization
-        if _world_size() > 1:
-            raise later_slice("training on more than one process")
-        if z.stage >= 2:
+        _process_world()
+        if z.stage >= 3:
             raise later_slice(f"zero_optimization.stage={z.stage} (this "
-                              "slice runs stages 0 and 1)")
+                              "slice runs stages 0-2)")
         for name, off in (("offload_optimizer", z.offload_optimizer),
                           ("offload_param", z.offload_param)):
             if off.device not in ("none", None) or off.host_step:
                 raise later_slice(f"zero_optimization.{name}")
-        for key in ("super_offload", "zero_quantized_weights",
-                    "zero_quantized_gradients",
-                    "zero_quantized_nontrainable_weights",
-                    "loco_error_feedback"):
-            if getattr(z, key):
-                raise later_slice(f"zero_optimization.{key}")
+        if z.super_offload:
+            raise later_slice("zero_optimization.super_offload")
         if z.zenflow.enabled:
             raise later_slice("zero_optimization.zenflow")
         if z.mics_shard_size > 1 or z.zero_hpz_partition_size > 1:
@@ -197,6 +217,53 @@ class DeepSpeedTPUEngine:
         if cfg.precision_dtype == "bfloat16" and not cfg.bf16.fp32_master:
             raise later_slice("bf16.fp32_master=false (needs a "
                               "stochastic-rounding optimizer)")
+
+    def _resolve_compressed_modes(self, zcfg) -> None:
+        """Whether the step uses the ZeRO++ int8 wire (JAX
+        ``_resolve_compressed_modes``, engine.py:503, with its log lines
+        and warnings): qwZ / qgZ need stage >= 1 and a data-parallel width
+        > 1; LoCo needs an active qgZ. Every accepted but inapplicable flag
+        warns."""
+        shape = self.mesh_manager.shape
+        eligible = (self.dp_world_size > 1 and shape.get("seq", 1) == 1
+                    and shape.get("pipe", 1) == 1)
+        quant_w = bool(zcfg.zero_quantized_weights
+                       or zcfg.zero_quantized_nontrainable_weights)
+        quant_g = bool(zcfg.zero_quantized_gradients)
+        self._compressed: Optional[Dict[str, bool]] = None
+        if quant_w or quant_g:
+            if self.zero_stage < 1:
+                logger.warning(
+                    "zero_quantized_weights/gradients require ZeRO stage >= 1 "
+                    f"(got stage {self.zero_stage}) — exact collectives used")
+            elif not eligible:
+                logger.warning(
+                    "zero_quantized_weights/gradients need data-parallel width "
+                    "> 1 and seq=pipe=1 in the mesh — exact collectives "
+                    f"used (mesh={dict(shape)})")
+            else:
+                self._compressed = {"quant_weights": quant_w,
+                                    "quant_grads": quant_g}
+                logger.info(f"ZeRO++ compressed collectives active: "
+                            f"qwZ={quant_w} qgZ={quant_g} over axes "
+                            "('data', 'zshard')")
+        if zcfg.loco_error_feedback:
+            if self._compressed is not None \
+                    and self._compressed["quant_grads"]:
+                self._compressed["loco"] = True
+                logger.info("LoCo error feedback active for the qgZ reduce "
+                            "(reference coalesced_collectives.py:81)")
+            else:
+                logger.warning(
+                    "loco_error_feedback requires an ACTIVE "
+                    "zero_quantized_gradients path — ignored")
+
+    def _wire_format(self) -> str:
+        """``exact`` / ``qz`` / ``qz+loco`` (JAX's values; its ``onebit``
+        comes with the 1-bit optimizers, a later slice)."""
+        if self._compressed:
+            return "qz+loco" if self._compressed.get("loco") else "qz"
+        return "exact"
 
     # ------------------------------------------------------------------ #
     # state: flat buffers and the views into them
@@ -235,6 +302,10 @@ class DeepSpeedTPUEngine:
 
     def _view(self, flat: torch.Tensor, slot: _Slot) -> torch.Tensor:
         return flat[slot.offset:slot.offset + slot.numel].view(slot.shape)
+
+    def _load_master_leaf(self, slot: _Slot, full: torch.Tensor) -> None:
+        """Set one leaf of the master from its full fp32 value."""
+        self._view(self.flat_master, slot).copy_(full)
 
     def _views(self, flat: torch.Tensor) -> Dict[str, Any]:
         """The parameter tree (JAX keys and shapes) as views into ``flat``."""
@@ -417,3 +488,403 @@ class DeepSpeedTPUEngine:
                 f"lr={host['lr']:.3e} grad_norm={host['grad_norm']:.3f}"
                 + (f" loss_scale={host['loss_scale']:.0f}"
                    if self.fp16_enabled else ""))
+
+
+@dataclasses.dataclass
+class _Shard:
+    """Where one leaf lives in a rank's local buffers. A leaf sharded on
+    ``dim`` keeps its ``moveaxis(leaf, dim, 0)`` rows: row r of
+    ``[world, n_loc]`` is rank r's shard, at ``offset`` of the sharded
+    region, padded to a multiple of the quantization block. A replicated
+    leaf (``dim`` None) lies whole at ``offset`` of the replicated
+    region."""
+    slot: _Slot
+    dim: Optional[int]
+    n_loc: int
+    offset: int
+
+    def moved(self, world: int) -> Tuple[int, ...]:
+        """[world, shape[dim] / world, other dims...]: the moved layout."""
+        shape = self.slot.shape
+        return (world, shape[self.dim] // world) + tuple(
+            s for i, s in enumerate(shape) if i != self.dim)
+
+
+class DataParallelEngine(DeepSpeedTPUEngine):
+    """Data-parallel training over the default process group: ZeRO stages
+    0-2 with the exact wire or the ZeRO++ int8 wire.
+
+    Follows the JAX engine at ``data`` = world (engine.py:131-152, :242,
+    ``_build_train_step_bucketed_wire`` :2144-2309). Each rank:
+
+    * takes its contiguous rows of every global micro-batch (JAX's batch
+      spec shards dim 1 of the stacked micro-batches), so every rank's data
+      iterator yields the same global batches as JAX's;
+    * holds the full compute copy and the per-micro-batch gradient (compute
+      dtype) for its forward and backward, as the JAX wire step does, and
+      its shard of the fp32 master, of the Adam moments and of the gradient
+      accumulator in one local flat buffer each: the sharded leaves' rows
+      in the moved layout (``parallel/partitioning.py`` picks JAX's dim;
+      stage 0 shards nothing), then the replicated leaves whole. Fused Adam
+      is one launch over the local buffer and writes the bf16 compute
+      shard;
+    * exact wire: accumulates the full gradient in fp32 over gas, packed
+      in the moved layout, then one mean reduce-scatter (stage 2) or
+      all-reduce (stage 1);
+    * ZeRO++ wire (qgZ, with LoCo's per-rank fp32 residual when armed,
+      reset after an fp16 overflow): per micro-batch, packs the gradient
+      into one [world, Σ n_pad] fp32 buffer and reduces it through
+      ``parallel/compressed._q_reduce_scatter`` — one quantize launch, one
+      ``all_to_all`` each for q and the scales, one dequant-reduce launch
+      (÷ world fused) — then rounds the mean shard to the compute dtype
+      (JAX's ``astype(g.dtype)``) and adds it to the fp32 accumulator;
+      replicated leaves take an exact fp32 all-reduce mean;
+    * publishes the compute copy once per step (and at start): qwZ through
+      ``_q_allgather`` on the master shards, else an exact all-gather of
+      the compute-dtype shards;
+    * global grad norm = sqrt of the all-reduced sum of the shards'
+      squares, plus the replicated leaves' once; clip and the fp16
+      overflow skip on it; the loss is the mean over ranks.
+
+    JAX's straight-through ``_build_train_step_qz`` gives the same values
+    up to reassociation, so one formulation serves both. The overlap
+    scheduler (``overlap_comm``) only orders sends and is accepted without
+    effect here."""
+
+    def __init__(self, model: ModelSpec, config: Any,
+                 optimizer: Optional[TPUOptimizer] = None,
+                 lr_scheduler: Optional[LRSchedule] = None,
+                 seed: Optional[int] = None, device=None):
+        self.rank = comm.get_rank()
+        self.world = comm.get_world_size()
+        super().__init__(model, config, optimizer=optimizer,
+                         lr_scheduler=lr_scheduler, seed=seed,
+                         device=rank_device(device))
+
+    # ------------------------------------------------------------------ #
+    # state
+    # ------------------------------------------------------------------ #
+    def _init_state(self, seed: int) -> None:
+        gen = torch.Generator(self.device).manual_seed(seed)
+        tree = self.model_spec.init_fn(gen, self.device)
+        W = self.world
+        self._slots = []
+        off = 0
+        for path, t in _flatten(tree):
+            self._slots.append(_Slot(path, tuple(t.shape), off))
+            off += -(-t.numel() // _ALIGN) * _ALIGN
+        self._numel = off
+        dev, cdt = self.device, self.compute_dtype
+        self.flat_compute = torch.zeros(off, dtype=cdt, device=dev)
+        self.flat_grad = torch.zeros(off, dtype=cdt, device=dev)
+
+        self._shards, sh_off, rep_off = zero_layout(
+            self.model_spec, self._slots, W, self.zero_stage,
+            self.mesh_manager.shape)
+        self._n_sh, self._n_rep = sh_off, rep_off
+        n_local = sh_off + rep_off
+        self.flat_master = torch.zeros(n_local, dtype=torch.float32,
+                                       device=dev)
+        self.flat_grad_acc = torch.zeros(n_local, dtype=self._accum_dtype(),
+                                         device=dev)
+        # the compute-dtype shard Adam writes (bf16), the exact publish's send
+        self._shard_compute = (torch.zeros(n_local, dtype=cdt, device=dev)
+                               if cdt == torch.bfloat16 else None)
+        # [world, n_sh] fp32: the packed gradient (both wires), the qwZ
+        # publish's dequantized rows
+        self._packed = torch.zeros(W, sh_off, dtype=torch.float32,
+                                   device=dev)
+        self._rep_buf = torch.zeros(rep_off, dtype=torch.float32, device=dev)
+        self.loco_err = (torch.zeros(W, sh_off, dtype=torch.float32,
+                                     device=dev)
+                         if self._wire_format() == "qz+loco" else None)
+        for sh, (_, t) in zip(self._shards, _flatten(tree)):
+            self._load_master_leaf(sh.slot, t)
+        del tree
+        self.state: Dict[str, Any] = {
+            "step": 0, "master": self._master_tree(),
+            "opt": self.optimizer.init(self.flat_master)}
+        self._params = self._leaves()
+        self._compute_params()
+        logger.info(
+            f"rank {self.rank}/{W}: wire={self._wire_format()} "
+            f"sharded={sh_off} replicated={rep_off} elements per rank")
+
+    def _local(self, flat: torch.Tensor, sh: _Shard) -> torch.Tensor:
+        """The rank's part of leaf ``sh`` in a local buffer: its shard in
+        the moved layout, or the whole replicated leaf."""
+        if sh.dim is None:
+            start = self._n_sh + sh.offset
+            return flat[start:start + sh.n_loc].view(sh.slot.shape)
+        return flat[sh.offset:sh.offset + sh.n_loc].view(
+            sh.moved(self.world)[1:])
+
+    def _master_tree(self) -> Dict[str, Any]:
+        tree: Dict[str, Any] = {}
+        for sh in self._shards:
+            _set_path(tree, sh.slot.path, self._local(self.flat_master, sh))
+        return tree
+
+    def _load_master_leaf(self, slot: _Slot, full: torch.Tensor) -> None:
+        sh = next(s for s in self._shards if s.slot is slot)
+        full = full.to(device=self.device, dtype=torch.float32)
+        if sh.dim is not None:
+            full = torch.movedim(full, sh.dim, 0).reshape(
+                sh.moved(self.world))[self.rank]
+        self._local(self.flat_master, sh).copy_(full)
+
+    def _rows(self, packed: torch.Tensor, sh: _Shard) -> torch.Tensor:
+        """Leaf ``sh``'s [world, shape[dim]/world, ...] rows in a packed
+        [world, n_sh] buffer."""
+        return packed[:, sh.offset:sh.offset + sh.n_loc].view(
+            sh.moved(self.world))
+
+    def _moved(self, flat: torch.Tensor, sh: _Shard) -> torch.Tensor:
+        """Leaf ``sh`` of a full flat buffer as a [world, shape[dim]/world,
+        ...] view of ``moveaxis(leaf, dim, 0)``."""
+        return torch.movedim(self._view(flat, sh.slot), sh.dim, 0).view(
+            sh.moved(self.world))
+
+    def _compute_params(self, shard_written: bool = False) -> None:
+        """Publish the compute copy from the master shards: qwZ (int8
+        all-gather) or the exact all-gather of the compute-dtype shards;
+        replicated leaves are cast in place. ``shard_written``: Adam has
+        just written the bf16 compute shard."""
+        cdt = self.compute_dtype
+        with torch.no_grad(), telemetry.span("zero_publish"):
+            if self._shard_compute is None:
+                src = self.flat_master.to(cdt)
+            else:
+                src = self._shard_compute
+                if not shard_written:
+                    src.copy_(self.flat_master)
+            rows = self._packed
+            if not self._n_sh:
+                pass
+            elif self._compressed and self._compressed["quant_weights"]:
+                rows = C._q_allgather(self.flat_master[:self._n_sh], None,
+                                      self.world, out=self._packed)
+            else:
+                rows = torch.empty(self.world, self._n_sh, dtype=cdt,
+                                   device=self.device)
+                comm.all_gather_into_tensor(rows, src[:self._n_sh])
+            for sh in self._shards:
+                if sh.dim is None:
+                    self._view(self.flat_compute, sh.slot).copy_(
+                        self._local(src, sh))
+                else:
+                    self._moved(self.flat_compute, sh).copy_(
+                        self._rows(rows, sh))
+
+    # ------------------------------------------------------------------ #
+    # the step
+    # ------------------------------------------------------------------ #
+    def _local_rows(self, stacked):
+        """This rank's contiguous rows of every stacked global micro-batch
+        [gas, micro × world, ...]."""
+        if isinstance(stacked, dict):
+            return {k: self._local_rows(v) for k, v in stacked.items()}
+        n = stacked.shape[1] // self.world
+        return stacked[:, self.rank * n:(self.rank + 1) * n]
+
+    def _pack(self, accumulate: bool) -> None:
+        """The micro-batch gradient (compute dtype, full) into the packed
+        fp32 rows and the replicated buffer: copied, or added."""
+        with torch.no_grad(), telemetry.span("zero_pack"):
+            for sh in self._shards:
+                g = self._view(self.flat_grad, sh.slot)
+                if sh.dim is None:
+                    dst = self._rep_buf[sh.offset:sh.offset + sh.n_loc] \
+                        .view(sh.slot.shape)
+                else:
+                    dst, g = self._rows(self._packed, sh), self._moved(
+                        self.flat_grad, sh)
+                if accumulate:
+                    dst.add_(g)
+                else:
+                    dst.copy_(g)
+
+    def _replicated_mean(self) -> torch.Tensor:
+        comm.all_reduce(self._rep_buf)
+        return self._rep_buf / torch.tensor(float(self.world),
+                                            device=self.device)
+
+    def _reduce_micro_int8(self) -> None:
+        """qgZ (and LoCo) for one micro-batch's gradient; the mean shard,
+        rounded to the compute dtype, is added to the accumulator."""
+        self._pack(accumulate=False)
+        acc, cdt = self.flat_grad_acc, self.compute_dtype
+        with torch.no_grad():
+            if self.loco_err is not None:
+                self._packed.add_(self.loco_err)
+                mine, _ = C._q_reduce_scatter(
+                    self._packed, None, self.world, return_sent=True,
+                    mean=True, sent_out=self.loco_err)
+                torch.sub(self._packed, self.loco_err, out=self.loco_err)
+            else:
+                mine = C._q_reduce_scatter(self._packed, None, self.world,
+                                           mean=True)
+            acc[:self._n_sh].add_(mine.to(cdt))
+            if self._n_rep:
+                acc[self._n_sh:].add_(self._replicated_mean().to(cdt))
+
+    def _reduce_exact(self) -> None:
+        """The exact wire once per step: the packed fp32 gradient summed
+        over gas → mean shard (reduce-scatter at stage 2, all-reduce at
+        stages 0-1) into the accumulator."""
+        acc, world = self.flat_grad_acc, torch.tensor(
+            float(self.world), device=self.device)
+        with torch.no_grad(), telemetry.span("zero_reduce_exact"):
+            if self._n_sh:
+                if self.zero_stage >= 2:
+                    mine = torch.empty(self._n_sh, dtype=torch.float32,
+                                       device=self.device)
+                    comm.reduce_scatter_tensor(mine, self._packed)
+                else:
+                    comm.all_reduce(self._packed)
+                    mine = self._packed[self.rank]
+                acc[:self._n_sh].copy_(mine / world)
+            if self._n_rep:
+                acc[self._n_sh:].copy_(self._replicated_mean())
+
+    def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
+        batch = self._to_device(self._local_rows(stacked))
+        scale = self._scaler_state.scale if self.fp16_enabled else None
+        self.flat_grad_acc.zero_()
+        quant_grads = bool(self._compressed
+                           and self._compressed["quant_grads"])
+        if not quant_grads:
+            self._packed.zero_()
+            self._rep_buf.zero_()
+        losses = []
+        for i in range(gas):
+            mb = ({k: v[i] for k, v in batch.items()}
+                  if isinstance(batch, dict) else batch[i])
+            losses.append(self._loss_and_grads(mb, scale))
+            if quant_grads:
+                self._reduce_micro_int8()
+            else:
+                self._pack(accumulate=True)
+        if not quant_grads:
+            self._reduce_exact()
+        mean_loss = losses[0] if gas == 1 else torch.stack(losses).mean()
+        mean_loss = comm.all_reduce(mean_loss.float().reshape(1),
+                                    comm.ReduceOp.AVG)[0]
+        grad_scale = float(gas) * (scale if scale is not None else 1.0)
+        metrics = self._apply_update(self.flat_grad_acc, grad_scale)
+        if self.loco_err is not None and metrics["overflow"]:
+            self.loco_err.zero_()
+        metrics["loss"] = mean_loss
+        self.global_steps += 1
+        self.micro_steps += gas
+        self._after_step(metrics)
+        return mean_loss
+
+    def _apply_update(self, grads: torch.Tensor, grad_scale: float
+                      ) -> Dict[str, Any]:
+        scale_t = torch.full((), grad_scale, dtype=torch.float32,
+                             device=self.device)
+        g = grads.div_(scale_t) if grads.dtype == torch.float32 \
+            else grads.float() / scale_t
+        lr = self._lr_at(self.state["step"])
+        sq = torch.stack([g[:self._n_sh].square().sum(),
+                          g[self._n_sh:].square().sum()])
+        comm.all_reduce(sq[:1])
+        norm = torch.sqrt(sq.sum())
+        if self.config.gradient_clipping > 0:
+            clip_by_global_norm([g], self.config.gradient_clipping, norm)
+        overflow = False
+        if self.fp16_enabled:
+            overflow = not bool(torch.isfinite(norm))   # host read
+        if not overflow:
+            self.optimizer.update(g, self.state["opt"], self.flat_master,
+                                  lr=lr, out=self._shard_compute)
+            self._compute_params(shard_written=True)
+        else:
+            self._skips += 1
+        metrics: Dict[str, Any] = {"grad_norm": norm, "lr": lr,
+                                   "overflow": float(overflow)}
+        if self.fp16_enabled:
+            self._scaler_state = self.scaler.update(self._scaler_state,
+                                                    overflow)
+            metrics["loss_scale"] = self._scaler_state.scale
+        self.state["step"] += 1
+        return metrics
+
+    # ------------------------------------------------------------------ #
+    # full views, for checks (collective: every rank calls them)
+    # ------------------------------------------------------------------ #
+    def full_master(self) -> Dict[str, Any]:
+        """The whole fp32 master as a tree of CPU tensors (JAX's keys and
+        shapes), gathered from every rank's shard."""
+        rows = torch.empty(self.world, self._n_sh, dtype=torch.float32,
+                           device=self.device)
+        comm.all_gather_into_tensor(rows, self.flat_master[:self._n_sh])
+        tree: Dict[str, Any] = {}
+        for sh in self._shards:
+            if sh.dim is None:
+                full = self._local(self.flat_master, sh)
+            else:
+                full = torch.movedim(self._rows(rows, sh).reshape(
+                    (-1,) + sh.moved(self.world)[2:]), 0, sh.dim)
+            _set_path(tree, sh.slot.path, full.detach().cpu().clone())
+        return tree
+
+    def full_loco_err(self) -> Dict[str, Any]:
+        """Every rank's LoCo residual as JAX's ``state["loco_err"]``: per
+        leaf [world, *shape] (row r = rank r's residual, the moved layout's
+        elements in the leaf's shape; zeros for replicated leaves)."""
+        rows = torch.empty((self.world,) + tuple(self.loco_err.shape),
+                           dtype=torch.float32, device=self.device)
+        comm.all_gather_into_tensor(rows, self.loco_err)
+        tree: Dict[str, Any] = {}
+        for sh in self._shards:
+            shape = (self.world,) + sh.slot.shape
+            if sh.dim is None:
+                err = torch.zeros(shape)
+            else:
+                err = rows[:, :, sh.offset:sh.offset + sh.n_loc].reshape(
+                    shape).cpu().clone()
+            _set_path(tree, sh.slot.path, err)
+        return tree
+
+
+def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,
+                zero_stage: int, sizes: Dict[str, int]
+                ) -> Tuple[List[_Shard], int, int]:
+    """Each leaf's place in a rank's local buffers → (shards, sharded
+    elements, replicated elements). The sharded dim is JAX's
+    (``parallel/partitioning.ShardingPolicy.state_spec`` from the model's
+    logical axes); a spec without ``axes_fn`` replicates every leaf."""
+    specs: Dict[Tuple[str, ...], Any] = {slot.path: () for slot in slots}
+    if model.axes_fn is not None:
+        shapes: Dict[str, Any] = {}
+        for slot in slots:
+            _set_path(shapes, slot.path, slot.shape)
+        tree = ShardingPolicy(sizes, zero_stage).state_spec(model.axes_fn(),
+                                                            shapes)
+        specs = dict(_flatten(tree))
+    shards: List[_Shard] = []
+    sh_off = rep_off = 0
+    for slot in slots:
+        dim = C.sharded_dim(specs[slot.path], (mesh_mod.DATA_AXIS,))
+        if dim is None:
+            shards.append(_Shard(slot, None, slot.numel, rep_off))
+            rep_off += -(-slot.numel // _ALIGN) * _ALIGN
+        else:
+            n_loc = slot.numel // world
+            shards.append(_Shard(slot, dim, n_loc, sh_off))
+            sh_off += -(-n_loc // QK.DEFAULT_BLOCK) * QK.DEFAULT_BLOCK
+    return shards, sh_off, rep_off
+
+
+def rank_device(device=None) -> torch.device:
+    """A rank's device: the caller's, else ``cuda:{LOCAL_RANK}`` when that
+    card exists; raises otherwise (never a silent ``cuda:0``)."""
+    if device is not None:
+        return resolve_device(device)
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        raise RuntimeError("a data-parallel rank needs its device: pass "
+                           "device=, or set LOCAL_RANK")
+    return resolve_device(f"cuda:{int(local)}")

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and never falls back silently.
 
-* Importing every module of ``deepspeed_tpu_torch`` (the MoE modules and
-  the grouped GEMM among them) and ``chip_smoke.py`` imports neither jax
-  nor anything of ``deepspeed_tpu``.
+* Importing every module of ``deepspeed_tpu_torch`` (the MoE modules, the
+  grouped GEMM, ``comm/``, ``parallel/`` and the int8 wire's kernels among
+  them) and ``chip_smoke.py`` imports neither jax nor anything of
+  ``deepspeed_tpu``.
 * Without a CUDA device, entry points that default to the GPU raise; with
   one, they land on it. Whether a card is present is decided inside each
   test, never at import or collection time.
@@ -49,8 +50,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(n) >= 31, out.stdout          # every module was walked
-    for mod in ("moe.gating", "moe.layer", "ops.grouped_gemm"):
+    assert int(n) >= 39, out.stdout          # every module was walked
+    for mod in ("moe.gating", "moe.layer", "ops.grouped_gemm", "comm.comm",
+                "comm.mesh", "parallel.partitioning", "parallel.compressed",
+                "ops.quantization", "ops.quant_kernels"):
         assert f"deepspeed_tpu_torch.{mod}" in names.split(","), mod
     assert bad == "[]", bad
 

@@ -8,7 +8,7 @@ global micro-batch is micro × 8, so the port's single process takes a micro
 batch of 8 × the JAX micro: both see the same 8 sequences per micro-batch
 and the same mean loss. Also: config parity (the same values and the same
 errors), ``lr_at`` parity, and the ``NotImplementedError`` of every option
-outside the slice.
+outside the slice (the multi-process path: ``tests/test_torch_zero.py``).
 """
 import itertools
 
@@ -303,11 +303,11 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
 
 
 @pytest.mark.parametrize("extra,spec_kw", [
-    ({"zero_optimization": {"stage": 2}}, {}),
+    ({"zero_optimization": {"stage": 2, "mics_shard_size": 2}}, {}),
     ({"zero_optimization": {"stage": 3}}, {}),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, {}),
     ({"zero_optimization": {"stage": 1, "zenflow": {"enabled": True}}}, {}),
-    ({"zero_optimization": {"zero_quantized_gradients": True}}, {}),
+    ({"zero_optimization": {"stage": 2, "super_offload": True}}, {}),
     ({"pipeline": {"stages": 2}}, {}),
     ({"mesh": {"pipe": 2}}, {}),
     ({"sequence_parallel": {"auto": True}}, {}),
@@ -339,8 +339,11 @@ def test_initialize_refuses_what_it_does_not_run_yet():
 
 
 def test_more_than_one_process_raises(monkeypatch):
+    """WORLD_SIZE above 1 without a process group: the engine joins none
+    itself, it asks for ``init_distributed`` (the data-parallel path is
+    ``tests/test_torch_zero.py``)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         dtt.initialize(model=dtt.causal_lm_spec("tiny", dtype="float32"),
                        config=BASE, device="cpu")
 
