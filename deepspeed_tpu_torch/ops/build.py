@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: per source: {"seconds": build wall time (0.0 on a cache hit), "cached":
-#: bool, "path": library, "ptxas": nvcc's resource report}
+#: bool, "path": library, "ptxas": nvcc's resource report (kept beside the
+#: library, so a cache hit has it too)}
 build_log: Dict[str, Dict[str, object]] = {}
 
 
@@ -70,6 +71,12 @@ def _target(name: str, nvcc: str) -> Path:
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _report(lib: Path) -> Path:
+    """nvcc's resource report (ptxas -v) of a built library, kept beside it
+    for cache hits."""
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, ctypes.CDLL]:
     """Build (or find cached) and load every named source — all of
     ``ops/csrc/*.cu`` by default — with one ``nvcc`` process per source
@@ -86,8 +93,11 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, ctypes.CDLL]:
         for name in todo:
             out = _target(name, nvcc)
             if out.exists():
+                report = _report(out)
                 build_log[name] = {"seconds": 0.0, "cached": True,
-                                   "path": str(out), "ptxas": ""}
+                                   "path": str(out),
+                                   "ptxas": report.read_text()
+                                   if report.exists() else ""}
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -101,6 +111,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, ctypes.CDLL]:
                 errors.append(f"nvcc failed for {name}.cu "
                               f"(exit {proc.returncode}):\n{stderr}{stdout}")
                 continue
+            _report(out).write_text(stderr)
             os.replace(tmp, out)
             build_log[name] = {"seconds": time.perf_counter() - t0,
                                "cached": False, "path": str(out),

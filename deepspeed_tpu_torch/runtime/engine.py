@@ -544,7 +544,11 @@ class DataParallelEngine(DeepSpeedTPUEngine):
       the compute-dtype shards;
     * global grad norm = sqrt of the all-reduced sum of the shards'
       squares, plus the replicated leaves' once; clip and the fp16
-      overflow skip on it; the loss is the mean over ranks.
+      overflow skip on it; the loss is the mean over ranks;
+    * the loss each rank differentiates: on the exact wire, with a
+      ``loss_mask``, its masked mean weighted so that the ranks' mean is
+      the global masked token mean (``_token_weights``); on the int8 wire
+      its own masked mean, as JAX's int8 steps take the ranks' mean.
 
     JAX's straight-through ``_build_train_step_qz`` gives the same values
     up to reassociation, so one formulation serves both. The overlap
@@ -747,12 +751,33 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             if self._n_rep:
                 acc[self._n_sh:].copy_(self._replicated_mean())
 
+    def _token_weights(self, stacked, batch) -> Optional[torch.Tensor]:
+        """Exact wire, batches with a ``loss_mask``: each micro-batch's
+        loss weight max(n_rank, 1) · W / max(n_global, 1), with n the valid
+        tokens (``loss_mask[:, 1:]`` summed, as ``causal_lm_loss`` counts
+        them). The mean over ranks of the weighted masked means is then the
+        global masked token mean, which JAX's exact step (one GSPMD step
+        over the data-sharded micro-batch) takes. Every rank holds the
+        global batch, so n_global needs no collective. None without a
+        ``loss_mask``: every rank counts the same."""
+        if not isinstance(stacked, dict) or stacked.get("loss_mask") is None:
+            return None
+
+        def counts(mask):
+            return mask[:, :, 1:].float().sum(dim=(1, 2)).clamp(min=1.0)
+
+        n_global = counts(torch.as_tensor(stacked["loss_mask"]))
+        return (counts(batch["loss_mask"]) * float(self.world)
+                / n_global.to(self.device))
+
     def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
         batch = self._to_device(self._local_rows(stacked))
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
         quant_grads = bool(self._compressed
                            and self._compressed["quant_grads"])
+        # the int8 wire keeps the mean of the ranks' means, as JAX's pmean
+        weights = None if quant_grads else self._token_weights(stacked, batch)
         if not quant_grads:
             self._packed.zero_()
             self._rep_buf.zero_()
@@ -760,7 +785,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         for i in range(gas):
             mb = ({k: v[i] for k, v in batch.items()}
                   if isinstance(batch, dict) else batch[i])
-            losses.append(self._loss_and_grads(mb, scale))
+            if weights is None:
+                losses.append(self._loss_and_grads(mb, scale))
+            else:
+                w = weights[i]
+                loss = self._loss_and_grads(
+                    mb, w if scale is None else w * scale)
+                losses.append(loss * w)
             if quant_grads:
                 self._reduce_micro_int8()
             else:

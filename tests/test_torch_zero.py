@@ -23,6 +23,9 @@ imported inside the fixtures and tests, never at the top.
   fp32 model, the JAX initial master carried over, the same global batches
   for 3 steps): stage 1 exact, stage 2 exact, stage 2 qgZ, qgZ + qwZ and
   qgZ + qwZ + LoCo; ``_compressed`` / ``_wire_format`` equal to JAX's.
+  Then stage 1 / stage 2 exact and qgZ on batches whose ``loss_mask``
+  keeps a different number of tokens on each rank: the exact wire takes
+  JAX's global masked token mean, the int8 wire the ranks' mean.
 """
 import pickle
 import queue
@@ -400,6 +403,103 @@ def test_engine_world2_matches_jax_engine(jax_zero_runs, tmp_path):
             assert ediff.mean() <= tol["err_mean"], (name, ediff.mean())
         else:
             assert got["loco_err"] is None
+
+
+# Masked batches whose valid-token counts differ by rank: rank 0's row keeps
+# every token, rank 1's a third of them, and in micro-batch 3 (step 2's
+# first) rank 1 keeps none, in micro-batch 4 rank 0 none. JAX's exact step
+# is one GSPMD step over the data-sharded micro-batch, so its loss divides
+# by the global count of valid tokens; its int8 wire takes the mean of the
+# ranks' own masked means (a pmean).
+MASKED = ("stage1_exact", "stage2_exact", "stage2_qgz")
+
+
+def _masked_batches(world):
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(STEPS * 2):                 # gas 2
+        mask = np.ones((world, SEQ), np.float32)
+        mask[1] = (np.arange(SEQ) % 3 == 0)
+        if i == 3:
+            mask[1] = 0.0
+        if i == 4:
+            mask[0] = 0.0
+        out.append({"tokens": rng.integers(0, 512, (world, SEQ),
+                                           dtype=np.int32),
+                    "loss_mask": mask})
+    return out
+
+
+@pytest.fixture(scope="module")
+def masked_runs(tmp_path_factory):
+    """The JAX engine at data = 2 and the port's world-2 engine (spawned
+    ranks) on the masked batches, each config from the same initial
+    master: {name: (jax run, [rank runs])}."""
+    import jax
+
+    import deepspeed_tpu as dst
+    from deepspeed_tpu.comm.mesh import MeshConfig, initialize_mesh
+
+    runs = {}
+    for name in MASKED:
+        spec = dst.causal_lm_spec("tiny", dtype="float32")
+        mm = initialize_mesh(MeshConfig(data=WORLD),
+                             devices=jax.devices()[:WORLD])
+        engine, *_ = dst.initialize(model=spec,
+                                    config=_engine_config(ZERO[name]),
+                                    mesh_manager=mm)
+        master0 = jax.tree.map(np.asarray, engine.state["master"])
+        data = iter(_masked_batches(WORLD))
+        losses = [float(engine.train_batch(data)) for _ in range(STEPS)]
+        runs[name] = {"master0": master0, "losses": losses,
+                      "master": jax.tree.map(np.asarray,
+                                             engine.state["master"]),
+                      "wire": engine._wire_format()}
+    tmp = tmp_path_factory.mktemp("masked")
+    path = tmp / "runs.pkl"
+    path.write_bytes(pickle.dumps(runs))
+    ranks = _spawn(_masked_engine_rank, WORLD, tmp, str(path))
+    return {name: (runs[name], [r[name] for r in ranks]) for name in MASKED}
+
+
+def _masked_engine_rank(rank, world, runs_path):
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import gather_master, load_master
+
+    runs = pickle.loads(open(runs_path, "rb").read())
+    out = {}
+    for name in MASKED:
+        spec = dtt.causal_lm_spec("tiny", dtype="float32")
+        engine, *_ = dtt.initialize(model=spec,
+                                    config=_engine_config(ZERO[name]),
+                                    device="cpu")
+        load_master(engine, runs[name]["master0"])
+        data = iter(_masked_batches(world))
+        losses = [float(engine.train_batch(data)) for _ in range(STEPS)]
+        out[name] = {"losses": losses, "master": gather_master(engine),
+                     "wire": engine._wire_format()}
+    return out
+
+
+@pytest.mark.parametrize("name", MASKED)
+def test_engine_world2_masked_token_mean_matches_jax(masked_runs, name):
+    """Uneven valid-token counts across ranks: the exact wire takes JAX's
+    global masked token mean (losses and final master within
+    ``TOL["exact"]``), the int8 wire JAX's mean of the ranks' means
+    (``TOL["int8"]``)."""
+    want, got = masked_runs[name]
+    tol = TOL["exact" if want["wire"] == "exact" else "int8"]
+    assert got[0]["wire"] == want["wire"]
+    assert got[1]["losses"] == got[0]["losses"], name
+    np.testing.assert_allclose(got[0]["losses"], want["losses"],
+                               rtol=tol["loss"], atol=0, err_msg=name)
+    mine, theirs = dict(_leaves(got[0]["master"])), dict(
+        _leaves(want["master"]))
+    assert sorted(mine) == sorted(theirs)
+    diff = np.concatenate([np.abs(mine[k] - theirs[k]).ravel()
+                           for k in theirs])
+    assert diff.max() <= tol["master"], (name, diff.max())
+    assert diff.mean() <= tol["master_mean"], (name, diff.mean())
 
 
 def test_world_one_warns_and_runs_the_exact_wire(caplog):
