@@ -1,13 +1,16 @@
 // Warp-level tensor-core helpers for the bf16 attention kernels
-// (flash_attention.cu): 16-byte `cp.async` copies into XOR-swizzled shared
-// tiles, `ldmatrix` fragment loads, and the m16n8k16 bf16 `mma.sync` with
-// fp32 sums. Inline PTX (sm_80 and later), no library headers.
+// (flash_attention.cu, evoformer.cu): 16-byte `cp.async` copies into XOR-
+// swizzled shared tiles, `ldmatrix` fragment loads, and the m16n8k16 bf16
+// `mma.sync` with fp32 sums. Inline PTX (sm_80 and later), no library headers.
 //
 // Shared tiles are [rows][D] bf16, row-major, with the 16-byte chunks of
-// row r stored at chunk index c ^ (r & 7). The 8 rows an `ldmatrix` phase
-// reads (one chunk each) and the 8 chunks of a row that one phase of a
-// copy writes then fall in 8 distinct groups of 4 banks: both are free of
-// bank conflicts, with no padding.
+// row r stored at chunk index c ^ (r & 7) (D >= 64: 8 or more chunks a
+// row). A narrower row of CH = D / 8 < 8 chunks takes 8 / CH rows to fill
+// 128 bytes, so chunk c of row r goes to c ^ ((r / (8 / CH)) & (CH - 1)):
+// D 32 c ^ ((r >> 1) & 3), D 16 c ^ ((r >> 2) & 1), D 8 no swizzle. The 8
+// rows an `ldmatrix` phase reads (one chunk each) and the 128 bytes that
+// one phase of a copy writes then fall in 8 distinct groups of 4 banks:
+// both are free of bank conflicts, with no padding.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): lane l holds, with
 // g = l / 4 and t = l % 4,
@@ -34,7 +37,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // byte offset of 16-byte chunk c (8 bf16) of row r in a swizzled [r][D] tile
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * (D * 2) + ((c ^ (r & 7)) << 4));
+  constexpr int CH = D / 8;
+  if constexpr (CH >= 8) {
+    return static_cast<uint32_t>(r * (D * 2) + ((c ^ (r & 7)) << 4));
+  } else {
+    return static_cast<uint32_t>(r * (D * 2) +
+                                 ((c ^ ((r / (8 / CH)) & (CH - 1))) << 4));
+  }
 }
 
 // 16 bytes global → shared, bypassing L1; pred false zero-fills the 16

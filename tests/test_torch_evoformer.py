@@ -238,3 +238,82 @@ def test_msa_row_attention_with_pair_bias_matches_jax(use_flash):
     for t, want, name in zip(tin, jgrads, names):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
                                    err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["extra_msa_d8", "unaligned_s40_d16",
+                                  "unaligned_s40_d32_per_row"])
+def test_plain_matches_pallas_kernel_at_small_contract_shapes(case):
+    """chip_smoke's Evoformer edge cases cut small: the extra-MSA stack's
+    D 8 under a shared pair bias plus a key mask of -1e9 (and one row of
+    the batch -inf everywhere: its output is 0), and a sequence (40) that
+    is no multiple of the kernels' 64-key tile, with shared and per-row
+    biases. The plain version against the Pallas kernel (interpret) and,
+    where no row is masked everywhere, the XLA path."""
+    D, Gb, S = {"extra_msa_d8": (8, 1, 48), "unaligned_s40_d16": (16, 1, 40),
+                "unaligned_s40_d32_per_row": (32, 3, 40)}[case]
+    q, k, v, bias = _inputs(S=S, D=D, Gb=Gb, seed=D + S)
+    if case == "extra_msa_d8":
+        rng = np.random.default_rng(3)
+        mask = np.where(rng.random((3, 1, 1, S)) < 0.9, 0.0,
+                        -1e9).astype(np.float32)
+        mask[0] = -np.inf
+        bias = (mask + bias).astype(np.float32)
+    jin = [jnp.asarray(x) for x in (q, k, v, bias)]
+    got = EV.evoformer_flash(*_t(q, k, v, bias)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(JEV.evoformer_flash(*jin)), **FWD_TOL)
+    if case == "extra_msa_d8":
+        assert (got[0] == 0).all() and np.isfinite(got).all()
+    else:
+        want_xla = np.asarray(JEA.evoformer_attention(
+            *jin[:3], biases=(jin[3],), use_flash=False))
+        np.testing.assert_allclose(got, want_xla, **FWD_TOL)
+
+
+@pytest.mark.parametrize("dtype, bias_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("Gb", ["1", "G"])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128])
+def test_kernel_wrapper_checks_accept_the_kernel_contract(D, Gb, dtype,
+                                                          bias_dtype):
+    """D in {8, 16, 32, 64, 128}, a bias shared by the G rows (Gb 1) or one
+    a row (Gb G), either bias dtype, and q/k/v read in place from a fused
+    [G, S, 3, N, D] projection (strided, 16-byte aligned rows): the launch
+    checks pass."""
+    G, S, N = 3, 40, 2
+    qkv = torch.zeros(G, S, 3, N, D, dtype=dtype)
+    q, k, v = qkv.unbind(2)
+    bias = torch.zeros(1 if Gb == "1" else G, N, S, S, dtype=bias_dtype)
+    EV._check(q, k, v, bias)
+    EV._check(q.contiguous(), k.contiguous(), v.contiguous(), bias)
+
+
+@pytest.mark.parametrize("case, err, match", [
+    ("head_dim_4", ValueError, "head dim 4"),
+    ("head_dim_256", ValueError, "head dim 256"),
+    ("bias_rows_2_of_3", ValueError, "want bias"),
+    ("bias_not_square", ValueError, "want bias"),
+    ("rectangular_k", ValueError, "of one shape"),
+    ("mixed_qkv_dtypes", TypeError, "v is torch.bfloat16"),
+    ("bias_float16", TypeError, "float32 or bfloat16"),
+    ("row_stride_misaligned", ValueError, "16-byte aligned rows"),
+])
+def test_kernel_wrapper_checks_refuse_outside_the_contract(case, err, match):
+    G, S, N, D = 3, 16, 2, 8
+    q = torch.zeros(G, S, N, D)
+    bias = torch.zeros(1, N, S, S)
+    args = {
+        "head_dim_4": lambda: [torch.zeros(G, S, N, 4)] * 3 + [bias],
+        "head_dim_256": lambda: [torch.zeros(G, S, N, 256)] * 3 + [bias],
+        "bias_rows_2_of_3": lambda: [q, q, q, torch.zeros(2, N, S, S)],
+        "bias_not_square": lambda: [q, q, q, torch.zeros(1, N, S, S + 1)],
+        "rectangular_k": lambda: [q, torch.zeros(G, S + 8, N, D), q, bias],
+        "mixed_qkv_dtypes": lambda: [q, q, q.bfloat16(), bias],
+        "bias_float16": lambda: [q, q, q, bias.half()],
+        # q/k/v rows 9 floats apart (36 bytes)
+        "row_stride_misaligned": lambda: [
+            torch.zeros(G, S, N, 9)[..., :D]] * 3 + [bias],
+    }[case]()
+    with pytest.raises(err, match=match):
+        EV._check(*args)

@@ -178,3 +178,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         GG.tgmm(tx, tdy[:10], tgs)
     with pytest.raises(TypeError, match="cast the weights"):
         GG.grouped_matmul(tx, tw.bfloat16(), tgs)
+
+
+def _ragged_sizes(m, e, tail):
+    """chip_smoke's split of m - tail rows over e groups (weights e, 0,
+    e - 2, ..., 1: group 1 empty, none a multiple of the 128-row tile)."""
+    w = np.array([e - i for i in range(e)], np.float64)
+    w[1] = 0.0
+    sizes = np.floor(w / w.sum() * (m - tail)).astype(np.int64)
+    sizes[0] += m - tail - sizes.sum()
+    return sizes.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["gmm", "gmm_transpose_rhs", "tgmm"])
+def test_plain_matches_ragged_dot_at_the_ragged_case(op, dtype):
+    """chip_smoke's ``ragged`` case (M 1000, K 264, N 200, E 8, the last 24
+    rows past the groups, group 1 empty), whose widths are no multiples of
+    the kernels' tiles: the plain versions against ``lax.ragged_dot`` and
+    its VJP (gmm with the rhs transposed is ragged_dot's input gradient,
+    tgmm its weight gradient)."""
+    m, k, n, e, tail = 1000, 264, 200, 8, 24
+    sizes = _ragged_sizes(m, e, tail)
+    (x, w, dy), (tx, tw, tdy) = _data(dtype, m, k, n, e, seed=5)
+    gs, tgs = jnp.asarray(sizes), torch.from_numpy(sizes)
+    out, vjp = jax.vjp(lambda a, b: jax.lax.ragged_dot(a, b, gs),
+                       _j(x, dtype), _j(w, dtype))
+    if op == "gmm":
+        want, got = out, GG.gmm_ref(tx, tw, tgs)
+    elif op == "gmm_transpose_rhs":
+        want, got = vjp(_j(dy, dtype))[0], GG.gmm_ref(tdy, tw, tgs,
+                                                     transpose_rhs=True)
+    else:
+        want, got = vjp(_j(dy, dtype))[1], GG.tgmm_ref(tx, tdy, tgs)
+    assert got.dtype == _TORCH[dtype]
+    np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)),
+                               **TOL[dtype])
+    if op == "tgmm":
+        assert not _np(got)[1].any()                 # the empty group
+    else:
+        assert not _np(got)[m - tail:].any()         # rows past the groups
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k, n", [(8, 8), (24, 40), (264, 200), (768, 3072),
+                                  (3072, 768)])
+@pytest.mark.parametrize("sizes", [[5, 0, -2], [0, 0, 0], [16, 16, 16]])
+def test_check_accepts_the_kernels_contract(k, n, dtype, sizes):
+    """K and N multiples of 8 (16-byte rows), any group sizes (empty and
+    negative ones too): the launch checks pass, for both dtypes."""
+    lhs = torch.zeros(16, k, dtype=dtype)
+    rhs = torch.zeros(len(sizes), k, n, dtype=dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    GG._check("gmm", lhs, rhs, gs, len(sizes), k, n)
+    GG._check("tgmm", lhs, torch.zeros(16, n, dtype=dtype), gs, len(sizes),
+              k, n)
+
+
+def _refusals():
+    ok = (torch.zeros(16, 24), torch.zeros(2, 24, 40),
+          torch.tensor([8, 8], dtype=torch.int32))
+    return {
+        "k_not_multiple_of_8": ((torch.zeros(16, 20), torch.zeros(2, 20, 40),
+                                 ok[2], 2, 20, 40), ValueError,
+                                "multiples of 8"),
+        "n_not_multiple_of_8": ((ok[0], torch.zeros(2, 24, 36), ok[2], 2, 24,
+                                 36), ValueError, "multiples of 8"),
+        "lhs_not_contiguous": ((torch.zeros(24, 16).t(), ok[1], ok[2], 2, 24,
+                                40), ValueError, "contiguous and 16-byte"),
+        "rhs_misaligned": ((ok[0], torch.zeros(2 * 24 * 40 + 1)[1:].view(
+            2, 24, 40), ok[2], 2, 24, 40), ValueError, "16-byte aligned"),
+        "sizes_int64": ((*ok[:2], ok[2].long(), 2, 24, 40), ValueError,
+                        "contiguous int32"),
+        "sizes_wrong_count": ((*ok[:2], torch.zeros(3, dtype=torch.int32), 2,
+                               24, 40), ValueError, "contiguous int32"),
+        "float16": ((ok[0].half(), ok[1].half(), ok[2], 2, 24, 40), TypeError,
+                    "float32 or bfloat16"),
+        "mixed_dtypes": ((ok[0], ok[1].to(torch.bfloat16), ok[2], 2, 24, 40),
+                         TypeError, "one dtype"),
+        "rhs_on_another_device": ((ok[0], ok[1].to("meta"), ok[2], 2, 24, 40),
+                                  ValueError, "rhs on meta"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_refusals()))
+def test_check_refuses_what_the_kernels_never_took(case):
+    args, err, match = _refusals()[case]
+    with pytest.raises(err, match=match):
+        GG._check("gmm", *args)
