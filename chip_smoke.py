@@ -7,13 +7,19 @@ kernel on them against its plain PyTorch version:
 1. card      — nvidia-smi name and power limit, torch device name and count;
 2. build     — nvcc builds of ``ops/csrc/*.cu`` (one process per source,
                started together) and Triton's first compile, timed; each
-               flash, block-sparse, grouped-GEMM and Evoformer
-               instantiation's registers, spills and shared memory on a
-               line of its own, and its SASS: the bf16 attention kernels
-               hold bf16 HMMA (fp32 sums) and LDGSTS (cp.async), the bf16
-               grouped GEMM bf16 HGMMA (wgmma, fp32 sums), the fp32 kernels
-               neither HMMA nor HGMMA;
-3. kernels   — paged attention, RMSNorm/LayerNorm, flash attention
+               flash, block-sparse, grouped-GEMM, Evoformer and paged-
+               attention instantiation's registers, spills and shared
+               memory on a line of its own, and its SASS: the bf16
+               attention kernels (paged prefill too) hold bf16 HMMA (fp32
+               sums) and LDGSTS (cp.async), the paged decode kernels
+               LDGSTS, the bf16 grouped GEMM bf16 HGMMA (wgmma, fp32 sums),
+               the fp32 kernels neither HMMA nor HGMMA;
+3. kernels   — paged attention (the three main-path shapes and PA_TICKS:
+               prefill runs, mixed ticks, GQA with a chunk, a shared
+               prefix, interleaved rows, unordered lengths, 2048-slot
+               contexts; the plan kernel bit-equal to its plain version;
+               bf16 prefill rows by FLASH_BF16_RULE), RMSNorm/LayerNorm,
+               flash attention
                (forward, dq, dkv), fused Adam, the grouped GEMM (gmm, gmm
                with the rhs transposed, tgmm), block-sparse attention
                (forward, dq, dkv) and the Evoformer forward against their
@@ -26,8 +32,10 @@ kernel on them against its plain PyTorch version:
                relative-L2 rule (the tensor cores take P and dS in bf16);
 4. llama2_7b — ``FastGenEngine`` at full width and depth (random weights
                from a seed, bf16) serves 8 requests through ``generate_all``;
-               launch counters prove every tick went through the kernels;
-               one mixed tick's logits on the kernel path vs the plain path;
+               launch counters prove every tick went through the kernels
+               (one plan, L paged decode and L paged prefill launches a
+               tick); one mixed tick's plan has rows in both regimes, and
+               its logits on the kernel path vs the plain path;
 5. gpt2_125m — the LayerNorm / learned-position / GELU path, same checks;
 6. train_gpt2_125m  — ``initialize`` + ``train_batch`` at the repo's
                headline training settings (micro 32, seq 1024, gas 4, bf16,
@@ -68,7 +76,9 @@ kernel on them against its plain PyTorch version:
                the error against the exact mean within the bound, the ranks'
                chunks concatenating to the whole reduction;
 13. times    — kernels vs plain vs library calls vs their bounds (CUDA
-               events), decode tokens/s, TTFT, training step time, tokens/s,
+               events; paged attention at a decode, a prefill and a mixed
+               tick, each kernel's own time by the profiler, and the plan
+               kernel), decode tokens/s, TTFT, training step time, tokens/s,
                MFU (active parameters), idle share, the profiler's split of
                a step, peak memory. It times what the phases before it ran:
                the serving, Adam and grouped-GEMM rows need their phases.
@@ -83,6 +93,7 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sparse,evoformer,times
     python3 chip_smoke.py --phases card,build,kernels,train_moe_350m,evoformer,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,quantized_reduce_scatter,times
+    python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
 
 The whole run takes the phases in PHASES order: the data-parallel phases
 (11, 12) run right after the kernels phase. Wire times of the data-parallel phases are gloo's through host memory, the
@@ -181,6 +192,130 @@ GMM_CASES = (("moe_350m_up", 32768, 768, 3072, 4, 0),
 # a masked BLOCK_H 2048 program)
 NORM_CASES = (("rms_norm", 4096, (1, 37, 256)), ("rms_norm", 1536, (8192,)),
               ("layer_norm", 768, (1, 37, 256, 32768)))
+# Paged-attention ticks of the kernels phase beside the three main-path
+# shapes, (label, paged_tick kind, N, K, D, bs, MB): prefill runs of 1, 63,
+# 64, 65 and 256 rows starting mid-block; a mixed tick (decode rows, two
+# prompts' chunks, pad rows) at llama2_7b's and gpt2_125m's shapes; GQA rep
+# 3, 4, 6 and 8 with a chunk of 70 rows (rep 3 and 6 do not divide the
+# prefill kernel's 64 rows: its blocks take 21 and 10 rows of a tile, and
+# the last block of each tile only the rest); two tables sharing a prefix;
+# rows of two sequences
+# interleaved; one run with unordered lengths (0, 1, past the table);
+# contexts of MB * bs = 2048. fp32 outputs and the bf16 decode rows (fp32 P)
+# are held at TOL; the bf16 prefill rows (P rounded to bf16 for the tensor
+# cores) by FLASH_BF16_RULE.
+PA_TICKS = tuple(
+    [(f"run{n}", f"run{n}", 32, 32, 128, 32, 16) for n in (1, 63, 64, 65, 256)]
+    + [("mixed", "mixed", 32, 32, 128, 32, 16),
+       ("mixed_gpt2", "mixed", 12, 12, 64, 64, 16),
+       ("gqa3", "gqa", 24, 8, 128, 32, 16),
+       ("gqa4", "gqa", 32, 8, 128, 32, 16),
+       ("gqa6", "gqa", 48, 8, 64, 32, 16),
+       ("gqa8", "gqa", 32, 4, 128, 32, 16),
+       ("shared_prefix", "shared_prefix", 32, 32, 128, 32, 16),
+       ("interleaved", "interleaved", 32, 32, 128, 32, 16),
+       ("ragged", "ragged", 32, 32, 128, 32, 16),
+       ("long", "long", 32, 32, 128, 32, 64)])
+
+
+def paged_tick(kind, bs, MB, seed=0):
+    """(tables [T, MB] int32, lengths [T] int32, pool blocks NB) of one
+    PA_TICKS tick. Each sequence names its own pool blocks (a permutation
+    of 1 .. NB-1; block 0 is the trash block of the pad rows' all-zero
+    tables); a chunk's rows share their sequence's table row, lengths
+    start + 1 .. start + n."""
+    rng = np.random.default_rng(seed)
+    cap = MB * bs
+    prefixes, rows = [], []      # per sequence: whose prefix it shares;
+    #                              per row: (sequence or -1 for pad, length)
+
+    def seq(prefix=None):
+        prefixes.append(prefix)
+        return len(prefixes) - 1
+
+    def chunk(s, n, start):
+        rows.extend((s, start + 1 + i) for i in range(n))
+
+    if kind.startswith("run"):
+        n = int(kind[3:])
+        chunk(seq(), n, min(2 * bs + bs // 2, cap - n))
+    elif kind == "mixed":
+        for n in (1, bs + 3, cap - 5):
+            rows.append((seq(), n))
+        chunk(seq(), 40, bs // 2 + 1)
+        chunk(seq(), 20, 3 * bs + 5)
+        rows.extend([(-1, 1)] * 6)
+    elif kind == "gqa":
+        rows += [(seq(), bs + 1), (seq(), cap)]
+        chunk(seq(), 70, bs // 2 + 3)
+    elif kind == "shared_prefix":
+        a = seq()
+        b = seq(prefix=a)
+        chunk(a, 20, bs * (MB // 2) + 1)
+        chunk(b, 18, bs * (MB // 2) + 2)
+        rows += [(a, cap - 3), (b, cap // 2 + 7)]
+    elif kind == "interleaved":
+        a, b = seq(), seq()
+        for i in range(12):
+            rows += [(a, 2 * bs + i + 1), (b, 3 * bs + i + 1)]
+    elif kind == "ragged":
+        s = seq()
+        lens = [0, 1, cap, cap + 9] + [int(n) for n in
+                                        rng.integers(1, cap, 16)]
+        rng.shuffle(lens)
+        rows += [(s, n) for n in lens]
+    elif kind == "long":
+        for n in (cap, cap + 100, cap - 1, 0):
+            rows.append((seq(), n))
+        chunk(seq(), 64, cap - 64)
+    else:
+        raise ValueError(f"unknown paged tick {kind!r}")
+    NB = 1 + MB * len(prefixes)
+    free = rng.permutation(np.arange(1, NB)).astype(np.int32)
+    tabs = []
+    for i, prefix in enumerate(prefixes):
+        t = free[i * MB:(i + 1) * MB].copy()
+        if prefix is not None:
+            t[:MB // 2] = tabs[prefix][:MB // 2]
+        tabs.append(t)
+    tables = np.zeros((len(rows), MB), np.int32)
+    for r, (s, _) in enumerate(rows):
+        if s >= 0:
+            tables[r] = tabs[s]
+    return tables, np.array([n for _, n in rows], np.int32), NB
+
+
+def prefill_rows(tables, min_run):
+    """The rows of a tick that the plan sends to the prefill kernel,
+    computed on the host: runs of at least ``min_run`` consecutive rows
+    with equal table rows."""
+    T = len(tables)
+    out = np.zeros(T, bool)
+    lo = 0
+    for t in range(1, T + 1):
+        if t == T or not np.array_equal(tables[t], tables[lo]):
+            out[lo:t] = t - lo >= min_run
+            lo = t
+    return out
+
+
+def serving_launches_want(L, tick_rows, norm_kind, min_run):
+    """Launch counts of a bf16 serving run of an L-layer model whose ticks
+    had ``tick_rows`` rows each: each layer of each tick calls paged
+    attention once, which launches the decode kernel (a tick with no decode
+    row launches it all the same: its blocks find no work and exit); a tick
+    of at least ``min_run`` rows, which may hold a run, launches the plan
+    kernel once and the prefill kernel once a layer (a tick of fewer rows
+    launches neither); the norm kernel 2 L + 1 times a tick."""
+    n_ticks = len(tick_rows)
+    n_planned = sum(1 for t in tick_rows if t >= min_run)
+    return {"paged_attention": L * n_ticks,
+            "paged_attention_decode": L * n_ticks,
+            "paged_attention_prefill": L * n_planned,
+            "paged_attention_plan": n_planned,
+            norm_kind: (2 * L + 1) * n_ticks}
+
+
 # Block-sparse attention against its plain version: the flash kernels'
 # bodies over the layout's active squares, so flash attention's tolerances
 # and reasons. (label, B, S, N, K, D, layout, causal): llama_750m's shape
@@ -867,16 +1002,33 @@ DESIGN_INSTANTIATIONS = tuple(
     + [("gmm", f"{dt} {mode}") for dt in ("bf16", "fp32")
        for mode in ("gmm", "gmm_transpose_rhs", "tgmm")]
     + [("evoformer", f"{dt} bias {bt} D{d}") for dt in ("bf16", "fp32")
-       for bt in ("bf16", "fp32") for d in (8, 16, 32, 64, 128)])
+       for bt in ("bf16", "fp32") for d in (8, 16, 32, 64, 128)]
+    + [("paged", f"{dt} decode D{d} R{r}") for dt in ("bf16", "fp32")
+       for d in (64, 128) for r in (1, 2, 4, 8)]
+    + [("paged", f"bf16 prefill D{d}") for d in (64, 128)]
+    + [("paged", "int32 plan")])
 _GMM_MODES = ("gmm", "gmm_transpose_rhs", "tgmm")
 
 
 def sass_kernel_label(mangled):
     """(family, dtype, rest) of a mangled kernel name of the flash /
-    block-sparse, grouped-GEMM or Evoformer library, or None for another
-    function: ("flash", "bf16", "flash_fwd_kernel_mma D128 tiles 64x64"),
-    ("gmm", "bf16", "tgmm"), ("evoformer", "bf16", "bias fp32 D32")."""
+    block-sparse, grouped-GEMM, Evoformer or paged-attention library, or
+    None for another function: ("flash", "bf16", "flash_fwd_kernel_mma D128
+    tiles 64x64"), ("gmm", "bf16", "tgmm"), ("evoformer", "bf16", "bias
+    fp32 D32"), ("paged", "bf16", "prefill D128")."""
     import re
+
+    if re.search(r"\d+paged_attention_plan_kernelE", mangled):
+        return ("paged", "int32", "plan")
+    m = re.search(r"\d+paged_attention_(decode_kernel|prefill_kernel_mma)I"
+                  r"(.*?)EEv", mangled)
+    if m is not None:
+        args = re.findall(r"Li(\d+)E", m.group(2))
+        kind = m.group(1).split("_")[0]
+        if kind == "prefill":
+            return ("paged", "bf16", f"prefill D{args[0]}")
+        dtype = "bf16" if "bfloat16" in m.group(2) else "fp32"
+        return ("paged", dtype, f"decode D{args[0]} R{args[1]}")
 
     m = re.search(r"\d+((?:flash|block_sparse)_\w*?kernel(?:_mma)?)I(.*?)EEv",
                   mangled)
@@ -975,6 +1127,11 @@ def kernel_kind(name):
                       ("flash_bwd_dq_kernel", "flash_bwd_dq"),
                       ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
                       ("evoformer_fwd_kernel", "evoformer_fwd"),
+                      ("paged_attention_decode_kernel",
+                       "paged_attention_decode"),
+                      ("paged_attention_prefill_kernel",
+                       "paged_attention_prefill"),
+                      ("paged_attention_plan_kernel", "paged_attention_plan"),
                       ("fused_adam_kernel", "fused_adam"),
                       ("norm_fwd", "norm_fwd")):
         if sub in low:
@@ -1044,14 +1201,15 @@ class Smoke:
 
     def design_check(self):
         """The designs on the path, from the built libraries: each
-        instantiation of the flash / block-sparse, grouped-GEMM and
-        Evoformer kernels with its registers, spills and shared memory
-        (ptxas; the dynamic shared memory its launch takes), one line each,
-        and its SASS ops (cuobjdump). Every bf16 flash, block-sparse and
-        Evoformer kernel holds bf16 HMMA with fp32 sums and LDGSTS
-        (cp.async); every bf16 grouped-GEMM mode holds HGMMA (wgmma) with
-        fp32 sums; no fp32 kernel holds HMMA or HGMMA. Every instantiation
-        the launches can reach must be in the library."""
+        instantiation of the flash / block-sparse, grouped-GEMM, Evoformer
+        and paged-attention kernels with its registers, spills and shared
+        memory (ptxas; the dynamic shared memory its launch takes), one line
+        each, and its SASS ops (cuobjdump). Every bf16 flash, block-sparse,
+        Evoformer and paged-prefill kernel holds bf16 HMMA with fp32 sums
+        and LDGSTS (cp.async); every paged-decode kernel LDGSTS (its ring);
+        every bf16 grouped-GEMM mode holds HGMMA (wgmma) with fp32 sums; no
+        fp32 kernel holds HMMA or HGMMA. Every instantiation the launches
+        can reach must be in the library."""
         import ctypes
 
         from deepspeed_tpu_torch.ops import build
@@ -1063,13 +1221,16 @@ class Smoke:
                                  3),
                                 ("grouped_gemm", "dstpu_gmm_smem_bytes", 1),
                                 ("evoformer", "dstpu_evoformer_smem_bytes",
+                                 3),
+                                ("paged_attention", "dstpu_paged_smem_bytes",
                                  3)):
             f = getattr(build.load(lib), fn)
             f.argtypes = [ctypes.c_int] * n_args
             f.restype = ctypes.c_int
             smem[lib] = f
         problems, seen = [], set()
-        for lib in ("flash_attention", "grouped_gemm", "evoformer"):
+        for lib in ("flash_attention", "grouped_gemm", "evoformer",
+                    "paged_attention"):
             log = build.build_log[lib]
             ptx = ptxas_resources(str(log["ptxas"]))
             if not ptx:
@@ -1090,6 +1251,12 @@ class Smoke:
                     dyn = smem[lib](kernel, dtype == "bf16", int(dim[1:]))
                 elif family == "gmm":
                     dyn = smem[lib](dtype == "bf16")
+                elif family == "paged" and rest == "plan":
+                    dyn = 0
+                elif family == "paged":
+                    kind, dim = rest.split()[:2]
+                    dyn = smem[lib](int(kind == "prefill"), dtype == "bf16",
+                                    int(dim[1:]))
                 else:
                     words = rest.split()
                     dyn = smem[lib](dtype == "bf16", words[1] == "bf16",
@@ -1105,6 +1272,9 @@ class Smoke:
                 elif dtype == "bf16" and family == "gmm" \
                         and not counts["HGMMA.F32.BF16"]:
                     problems.append(f"{text}: no bf16 HGMMA with fp32 sums")
+                elif family == "paged" and "decode" in rest:
+                    if not counts["LDGSTS"]:
+                        problems.append(f"{text}: no LDGSTS")
                 elif dtype == "bf16" and family != "gmm" \
                         and not (counts["HMMA.16816.F32.BF16"]
                                  and counts["LDGSTS"]):
@@ -1139,6 +1309,64 @@ class Smoke:
         return (q, kp, vp, torch.from_numpy(tables).to(self.dev),
                 torch.from_numpy(lens).to(self.dev))
 
+    def paged_checks(self):
+        """PA_TICKS through the wrapper (the plan built on the card) against
+        the plain version: fp32 and the bf16 decode rows at TOL, the bf16
+        prefill rows by FLASH_BF16_RULE against the plain version of the
+        fp32 upcast; the plan kernel bit-equal to build_plan_reference, and
+        its regimes against the host's runs."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        rows = []
+        for label, kind, N, K, D, bs, MB in PA_TICKS:
+            tb, ln, NB = paged_tick(kind, bs, MB, seed=len(rows))
+            pre = prefill_rows(tb, PA.MIN_RUN)
+            tables = torch.from_numpy(tb).to(self.dev)
+            lengths = torch.from_numpy(ln).to(self.dev)
+            plan = PA.build_plan(tables)
+            ref = PA.build_plan_reference(tables)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(plan.fields(), ref.fields())):
+                raise AssertionError(f"paged plan[{label}]: the plan kernel "
+                                     "differs from build_plan_reference")
+            got_dec = sorted(plan.dec_rows[:int(plan.n_dec)].tolist())
+            if got_dec != np.flatnonzero(~pre).tolist():
+                raise AssertionError(f"paged plan[{label}]: decode rows "
+                                     f"{got_dec}, want those outside runs "
+                                     f"of {PA.MIN_RUN}")
+            g = torch.Generator(self.dev).manual_seed(len(rows))
+            q32 = torch.randn(len(ln), N, D, generator=g, device=self.dev)
+            kp32 = torch.randn(NB, bs, K, D, generator=g, device=self.dev)
+            vp32 = torch.randn(NB, bs, K, D, generator=g, device=self.dev)
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                q, kp, vp = (x.to(dt) for x in (q32, kp32, vp32))
+                got = PA.paged_attention(q, kp, vp, tables, lengths)
+                want = PA.paged_attention_reference(q, kp, vp, tables,
+                                                    lengths)
+                self.sync()
+                name = f"paged_attention[{label},{dtype}]"
+                row = {"kernel": "paged_attention", "shape": label, "N": N,
+                       "K": K, "D": D, "bs": bs, "MB": MB, "dtype": dtype,
+                       "rows": len(ln), "prefill_rows": int(pre.sum()),
+                       "tol": TOL[dtype]}
+                dec = torch.from_numpy(~pre).to(self.dev) \
+                    if dtype == "bfloat16" else torch.ones(
+                        len(ln), dtype=torch.bool, device=self.dev)
+                err = self.close(name, got[dec], want[dec], dtype) \
+                    if bool(dec.any()) else 0.0
+                if not bool(dec.all()):
+                    want32 = PA.paged_attention_reference(
+                        q.float(), kp.float(), vp.float(), tables, lengths)
+                    err_p, rule = self.close_flash(
+                        name + "/prefill", got[~dec], want[~dec],
+                        want32[~dec], dtype, "o")
+                    row.update(prefill_max_abs_err=err_p, bf16_rule=rule)
+                    err = max(err, err_p)
+                rows.append(dict(row, max_abs_err=err))
+        return rows
+
     def phase_kernels(self):
         torch = self.torch
         from deepspeed_tpu_torch.ops import norms
@@ -1161,6 +1389,7 @@ class Smoke:
                              "N": N, "K": K, "D": D, "bs": bs, "MB": MB,
                              "dtype": dtype, "max_abs_err": err,
                              "tol": TOL[dtype]})
+        rows += self.paged_checks()
         g = torch.Generator(self.dev).manual_seed(1)
         for kind, H, Rs in NORM_CASES:
             for dtype in ("bfloat16", "float32"):
@@ -1745,6 +1974,7 @@ class Smoke:
         torch = self.torch
         from deepspeed_tpu_torch import telemetry
         from deepspeed_tpu_torch.inference.fastgen import FastGenEngine
+        from deepspeed_tpu_torch.models import paged as PG
 
         if self.dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.dev)
@@ -1762,20 +1992,34 @@ class Smoke:
         free0 = eng.allocator.free_blocks
         ticks = telemetry.get_registry().counter("fastgen_ticks_total")
 
+        # each tick's rows, read on the host as the engine calls the tick
+        tick_rows = []
+
+        def forward_paged(params, tokens, *a, **k):
+            tick_rows.append(int(tokens.shape[0]))
+            return real_forward(params, tokens, *a, **k)
+
+        real_forward = PG.forward_paged
         # ---- the main path: counts to 0 just before, read just after ---- #
         ticks0 = ticks.total()
+        PG.forward_paged = forward_paged
         self.reset_counts()
-        t0 = time.perf_counter()
-        out = eng.generate_all(uids, prompts, max_new_tokens=max_new)
-        self.sync()
-        wall = time.perf_counter() - t0
-        counts = self.read_counts()
+        try:
+            t0 = time.perf_counter()
+            out = eng.generate_all(uids, prompts, max_new_tokens=max_new)
+            self.sync()
+            wall = time.perf_counter() - t0
+            counts = self.read_counts()
+        finally:
+            PG.forward_paged = real_forward
         n_ticks = int(ticks.total() - ticks0)
         # ----------------------------------------------------------------- #
         L = cfg.num_layers
-        want = {"paged_attention": L * n_ticks,
-                norm_kind: (2 * L + 1) * n_ticks}
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+        want = serving_launches_want(L, tick_rows, norm_kind, PA.MIN_RUN)
         problems = []
+        if len(tick_rows) != n_ticks:
+            problems.append(f"{len(tick_rows)} tick calls, {n_ticks} ticks")
         for k, v in want.items():
             if counts[k] != v:
                 problems.append(f"{k} launched {counts[k]} times, want {v}")
@@ -1802,7 +2046,9 @@ class Smoke:
                 if self.dev.type == "cuda" else None)
         ttft = list(eng.ttft_log)[-n_req:]      # this run's requests
         emit(model, requests=n_req, prompt_lens=lens, max_new_tokens=max_new,
-             ticks=n_ticks, launches=counts, launches_want=want,
+             ticks=n_ticks, tick_rows=sorted(set(tick_rows)),
+             ticks_with_a_plan=sum(t >= PA.MIN_RUN for t in tick_rows),
+             launches=counts, launches_want=want,
              init_seconds=init_s, generate_all_seconds=wall,
              ttft_p50_s=float(np.median(ttft)), peak_memory_bytes=peak,
              card=self.card, first_tokens={u: out[u][:4] for u in uids[:2]})
@@ -1836,6 +2082,17 @@ class Smoke:
         eng._decode_rr = rr
         mb = eng._mb_tier(int(positions[:row].max()) // eng.block_size + 1)
         tables = tables[:, :mb]
+        # the plan that forward_paged builds for this tick, on the card,
+        # against the host's runs: both regimes have rows
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+        pre = prefill_rows(tables, PA.MIN_RUN)
+        plan = PA.build_plan(eng._to_dev(tables))
+        n_dec, n_tiles = int(plan.n_dec), int(plan.n_tiles)
+        if n_dec != int((~pre).sum()) or not (n_dec and n_tiles):
+            raise AssertionError(
+                f"{model}: mixed tick plan: {n_dec} decode rows, {n_tiles} "
+                f"prefill tiles; the host's runs give {int((~pre).sum())} "
+                "decode rows and both regimes")
         used = np.unique(np.concatenate([[0], tables.ravel()]))
         remap = np.zeros(eng.allocator.n_blocks, np.int32)
         remap[used] = np.arange(len(used), dtype=np.int32)
@@ -1873,9 +2130,11 @@ class Smoke:
         top1_k, rel_k = cmp(("bf16", "kernels"), ("fp32", "plain"))
         top1_p, rel_p = cmp(("bf16", "plain"), ("fp32", "plain"))
         finite = all(bool(torch.isfinite(v).all()) for v in logits.values())
-        n_dec = sum(1 for h in heads if h[2])
+        n_plan_dec, n_dec = n_dec, sum(1 for h in heads if h[2])
         emit(f"{model}/mixed_tick", rows=row, decode_rows=n_dec,
              prefill_rows=row - n_dec, table_width=mb, blocks=len(used),
+             plan={"decode_rows": n_plan_dec, "prefill_tiles": n_tiles,
+                   "tick_rows": len(tables)},
              fp32_kernels_vs_plain={"top1": top1_32, "rel_err": rel_32},
              bf16_kernels_vs_plain={"top1": top1_16, "rel_err": rel_16},
              bf16_kernels_vs_fp32={"top1": top1_k, "rel_err": rel_k},
@@ -2465,7 +2724,10 @@ class Smoke:
         return float(np.median(times))
 
     def pa_case(self, name, q, kp, vp, tables, lengths, flush):
-        """Kernel / plain / bound / SDPA-on-pre-gathered-KV times."""
+        """The call's time (CUDA events, as every kernel row), plain,
+        bound and SDPA-on-pre-gathered-KV times, with the plan built
+        beforehand where the call reads one, as forward_paged does once a
+        tick; besides, each kernel's own device time under the profiler."""
         torch = self.torch
         import torch.nn.functional as F
         from deepspeed_tpu_torch.ops import paged_attention as PA
@@ -2473,19 +2735,43 @@ class Smoke:
         Tn, N, D = q.shape
         _, bs, K, _ = kp.shape
         elt = q.element_size()
-        got = PA.paged_attention(q, kp, vp, tables, lengths)
+        dtype = str(q.dtype).split(".")[-1]
+        plan = PA.build_plan(tables) if PA.uses_plan(q.dtype, Tn) else None
+        got = PA.paged_attention(q, kp, vp, tables, lengths, plan=plan)
         want = PA.paged_attention_reference(q, kp, vp, tables, lengths)
-        err = self.close(name, got, want, str(q.dtype).split(".")[-1])
         tb, ln = tables.cpu().numpy(), lengths.cpu().numpy()
+        pre = torch.from_numpy(prefill_rows(tb, PA.MIN_RUN)).to(self.dev)
+        err = self.close(name, got[~pre], want[~pre], dtype) \
+            if bool((~pre).any()) else 0.0
+        rule = None
+        if bool(pre.any()):
+            want32 = PA.paged_attention_reference(q.float(), kp.float(),
+                                                  vp.float(), tables, lengths)
+            err_p, rule = self.close_flash(name + "/prefill", got[pre],
+                                           want[pre], want32[pre], dtype, "o")
+            err = max(err, err_p)
+        cap = tb.shape[1] * bs
         blocks = {int(tb[t, j]) for t in range(Tn)
-                  for j in range(-(-int(ln[t]) // bs))}
+                  for j in range(-(-min(int(ln[t]), cap) // bs))}
         kv_bytes = len(blocks) * bs * K * D * 2 * elt
         io_bytes = 2 * q.numel() * elt + tables.numel() * 4 + Tn * 4
-        flops = float(4 * N * D * ln.astype(np.int64).sum())
+        flops = float(4 * N * D * np.clip(ln, 0, cap).astype(np.int64).sum())
         t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
-        ms = self.time_ms(lambda: PA.paged_attention(q, kp, vp, tables,
-                                                     lengths), flush=flush)
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        call = lambda: PA.paged_attention(q, kp, vp, tables, lengths,
+                                          plan=plan)
+        ms = self.time_ms(call, flush=flush)
+        # the host's cost of a call: 50 calls queued back to back (the card
+        # keeps up or falls behind; either way the host does not wait)
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call()
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3
+        self.sync()
+        by_kernel = self.kernel_device_ms(
+            call, ("paged_attention_decode", "paged_attention_prefill"),
+            flush=flush)
         plain = self.time_ms(lambda: PA.paged_attention_reference(
             q, kp, vp, tables, lengths), iters=5, flush=flush)
         # SDPA over KV gathered beforehand into [T, N, ctx, D]: a different
@@ -2503,10 +2789,40 @@ class Smoke:
             qs, kg, vg, attn_mask=mask), flush=flush)
         del kg, vg
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "kernel_ms": by_kernel, "host_ms_per_call": host_ms,
+                "bf16_rule": rule,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "unique_kv_bytes": kv_bytes, "rows": Tn,
+                "prefill_rows": int(pre.sum()),
                 "sdpa_pregathered_ms": sdpa}
+
+    def kernel_device_ms(self, fn, subs, iters=10, flush=None):
+        """Device ms a call of ``fn`` spends in the kernels whose names
+        hold each of ``subs``: torch.profiler's kernel times over ``iters``
+        calls, each behind an L2 flush, over ``iters``."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            self.sync()
+        out = {sub: 0.0 for sub in subs}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            t = float(getattr(e, "self_device_time_total", 0)
+                      or getattr(e, "self_cuda_time_total", 0))
+            for sub in subs:
+                if sub in e.key:
+                    out[sub] += t / 1e3 / iters
+        return {k: v or "not measured" for k, v in out.items()}
 
     def norm_case(self, kind, x, s, b, eps, flush):
         torch = self.torch
@@ -2580,16 +2896,23 @@ class Smoke:
             if t:
                 dev_us[e.key] = dev_us.get(e.key, 0.0) + t
                 n_kernels += e.count
+        # the host's CUDA runtime calls (launches, copies, synchronisations)
+        # a tick, as CUPTI sees them: whatever waits on the card shows here
+        runtime = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CPU and e.key.startswith("cuda"):
+                runtime[e.key] = {
+                    "calls": e.count / max(n_ticks, 1),
+                    "us": float(getattr(e, "cpu_time_total", 0))
+                    / max(n_ticks, 1)}
         total_us = sum(dev_us.values())
         by_kind = {}
         for key, us in dev_us.items():
-            low = key.lower()
-            kind = ("paged_attention" if "paged_attention" in low
-                    else "rms_norm" if "rms_norm" in low
-                    else "layer_norm" if "layer_norm" in low
-                    else "gemm" if any(w in low for w in (
-                        "gemm", "nvjet", "cutlass", "matmul", "sm90_xmma"))
-                    else "other")
+            kind = kernel_kind(key)
+            if kind in ("norm_fwd", "other"):     # the norm kernel by kind
+                low = key.lower()
+                kind = ("rms_norm" if "rms_norm" in low
+                        else "layer_norm" if "layer_norm" in low else kind)
             by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / max(n_ticks, 1)
         eng.flush(uids)
         tick_ms = wall / 32 * 1e3
@@ -2606,6 +2929,7 @@ class Smoke:
                 "device_ms_per_tick_by_kind": by_kind or "not measured",
                 "device_idle_share": (1 - dev_ms / tick_ms if dev_ms
                                       else "not measured"),
+                "host_runtime_per_tick": runtime or "not measured",
                 "top_kernels_us": {k[:90]: v for k, v in sorted(
                     dev_us.items(), key=lambda kv: -kv[1])[:8]}}
 
@@ -2668,7 +2992,8 @@ class Smoke:
                 "sp": sp, "ev": ev, "q8": q8}
 
     def serving_times(self, flush):
-        """Paged attention at llama2_7b's decode and prefill ticks."""
+        """Paged attention at llama2_7b's decode, prefill and mixed
+        ticks."""
         torch = self.torch
         llama = self.state["llama2_7b"]
         eng = llama["engine"]
@@ -2689,11 +3014,83 @@ class Smoke:
         q, kp, vp, tables, _ = self.pa_inputs(32, 32, 128, bs, mb, dt,
                                               [L0], pad_rows=0)
         q = torch.randn(256, 32, 128, device=self.dev).to(q.dtype)
-        pa["prefill"] = self.pa_case(
-            "paged_attention[prefill]", q, kp, vp, tables.expand(256, -1)
-            .contiguous(), torch.tensor(chunk, dtype=torch.int32,
-                                        device=self.dev), flush)
+        ticks = {"prefill": (q, kp, vp, tables.expand(256, -1).contiguous(),
+                             torch.tensor(chunk, dtype=torch.int32,
+                                          device=self.dev))}
+        pa["prefill"] = self.pa_case("paged_attention[prefill]",
+                                     *ticks["prefill"], flush)
+        # mixed tick: the 8 decode rows, then a 248-row chunk of the
+        # longest prompt ending at its last token
+        mixed = dec_len[:8] + [L0 - 247 + i for i in range(248)]
+        mb = eng._mb_tier(max(mixed) // bs + 1)
+        q, kp, vp, tables, _ = self.pa_inputs(32, 32, 128, bs, mb, dt,
+                                              dec_len[:8] + [L0], pad_rows=0)
+        q = torch.randn(256, 32, 128, device=self.dev).to(q.dtype)
+        tables = torch.cat([tables[:8], tables[8:].expand(248, -1)])
+        tables = tables.contiguous()
+        ticks["mixed"] = (q, kp, vp, tables, torch.tensor(
+            mixed, dtype=torch.int32, device=self.dev))
+        pa["mixed"] = self.pa_case("paged_attention[mixed]",
+                                   *ticks["mixed"], flush)
+        pa["plan"] = self.plan_case(tables, flush)
+        pa["decode_grid_rows"] = self.decode_grid_sweep(eng, dec_len, ticks,
+                                                        flush)
         return pa
+
+    def decode_grid_sweep(self, eng, dec_len, ticks, flush):
+        """The decode kernel's grid x, capped by PA.DECODE_GRID_ROWS (its
+        blocks walk the rows past the cap in turn; None: one block row a
+        row), at caps 16, 32, 64 and none: decode ticks of 32, 64 and 128
+        rows at llama2_7b's shapes (the main path's lengths, repeated;
+        every row its own table, so every row a decode row), and the
+        prefill and mixed ticks of ``ticks``, whose grid is mostly blocks
+        with no decode row. The call's time by CUDA events."""
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        bs, cap0 = eng.block_size, PA.DECODE_GRID_ROWS
+        out = {"default": cap0}
+
+        def sweep(name, args):
+            plan = PA.build_plan(args[3])
+            for cap in (16, 32, 64, None):
+                PA.DECODE_GRID_ROWS = cap
+                out[f"{name}_cap{cap or 'none'}_ms"] = self.time_ms(
+                    lambda: PA.paged_attention(*args, plan=plan),
+                    flush=flush)
+
+        try:
+            for n in (32, 64, 128):
+                ln = [dec_len[i % len(dec_len)] for i in range(n)]
+                mb = eng._mb_tier(max(ln) // bs + 1)
+                sweep(f"decode{n}", self.pa_inputs(
+                    32, 32, 128, bs, mb, "bfloat16", ln, pad_rows=0, seed=n))
+            for name, args in ticks.items():
+                sweep(name, args)
+        finally:
+            PA.DECODE_GRID_ROWS = cap0
+        return out
+
+    def plan_case(self, tables, flush):
+        """The plan kernel at a tick's tables against build_plan_reference
+        on the card (bit-equal), timed; bound: the tables read once and the
+        plan written once."""
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        got = PA.build_plan(tables)
+        ref = PA.build_plan_reference(tables)
+        if not all(self.torch.equal(a, b)
+                   for a, b in zip(got.fields(), ref.fields())):
+            raise AssertionError("paged_attention[plan]: the plan kernel "
+                                 "differs from build_plan_reference")
+        out_bytes = sum(t.numel() * 4 for t in got.fields())
+        b = self.bound(tables.numel() * 4 + out_bytes, 0.0)
+        return {"max_abs_err": 0.0, "rows": tables.shape[0],
+                "table_width": tables.shape[1],
+                "ms": self.time_ms(lambda: PA.build_plan(tables),
+                                   flush=flush),
+                "plain_ms": self.time_ms(
+                    lambda: PA.build_plan_reference(tables), flush=flush),
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
 
     @staticmethod
     def bound(nbytes, flops, dtype="bfloat16"):
@@ -3112,11 +3509,11 @@ class Smoke:
         pa, nm, fl = timed_rows["pa"], timed_rows["nm"], timed_rows["fl"]
         adam, gg = timed_rows["adam"], timed_rows["gg"]
         sp, ev = timed_rows["sp"], timed_rows["ev"]
-        src = {"paged_attention": ("cuda",
-                                   "deepspeed_tpu_torch/ops/csrc/"
-                                   "paged_attention.cu",
-                                   "deepspeed_tpu/ops/pallas/"
-                                   "paged_attention.py:40"),
+        pa_src = ("cuda", "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+                  "deepspeed_tpu/ops/pallas/paged_attention.py:40")
+        src = {"paged_attention_decode": pa_src,
+               "paged_attention_prefill": pa_src,
+               "paged_attention_plan": pa_src,
                "rms_norm": ("triton", "deepspeed_tpu_torch/ops/norms.py",
                             "deepspeed_tpu/ops/pallas/norms.py:30"),
                "layer_norm": ("triton", "deepspeed_tpu_torch/ops/norms.py",
@@ -3157,7 +3554,13 @@ class Smoke:
         timed = {"rms_norm": nm["rms_norm[R=8]"],
                  "layer_norm": nm["layer_norm[R=8]"]}
         if pa is not None:
-            timed["paged_attention"] = dict(pa["decode"], library_ms=None)
+            # the wrapper's call at the tick each kernel serves (CUDA events,
+            # as every row); the kernel's own profiler time beside it
+            for name, case in (("paged_attention_decode", "decode"),
+                               ("paged_attention_prefill", "prefill")):
+                timed[name] = dict(pa[case], library_ms=None,
+                                   kernel_ms=pa[case]["kernel_ms"][name])
+            timed["paged_attention_plan"] = dict(pa["plan"], library_ms=None)
         if adam is not None and "fused_adam" in self.errs:
             timed["fused_adam"] = dict(adam,
                                        max_abs_err=self.errs["fused_adam"])
@@ -3198,7 +3601,7 @@ class Smoke:
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
-                          "tflops_per_s"):
+                          "tflops_per_s", "kernel_ms"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         return {"kernels": out}

@@ -16,6 +16,7 @@ where the JAX scan carried a flat ``[L*NB, ...]`` pool and offset tables by
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -103,11 +104,11 @@ def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
     donated buffer; PyTorch writes the rows into the same tensors.
 
     ``use_kernels``: paged attention and the norms go through their kernel
-    wrappers (the kernels on a GPU, the plain versions on the CPU);
-    ``False`` takes the plain versions on any device."""
+    wrappers (the kernels on a GPU, the plain versions on the CPU), with
+    one paged-attention plan (``PA.build_plan``) for every layer of the
+    tick where one is read (``PA.uses_plan``: bf16, at least ``MIN_RUN``
+    rows); ``False`` takes the plain versions on any device."""
     check_servable(cfg)
-    attention_fn = PA.paged_attention if use_kernels \
-        else PA.paged_attention_reference
     dt = cfg.compute_dtype
     N, K, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     Tn = tokens.shape[0]
@@ -126,6 +127,11 @@ def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
     offsets = pos % bs
     lengths = (pos + 1).to(torch.int32)
     tables32 = tables.to(torch.int32).contiguous()
+    if use_kernels:
+        plan = PA.build_plan(tables32) if PA.uses_plan(dt, Tn) else None
+        attention_fn = functools.partial(PA.paged_attention, plan=plan)
+    else:
+        attention_fn = PA.paged_attention_reference
     blocks = params["blocks"]
 
     def proj(h, lp, name, heads):

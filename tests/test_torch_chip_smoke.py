@@ -7,13 +7,18 @@
   flash, block-sparse and Evoformer kernels by theirs; cuBLAS GEMMs under
   ``gemm``; anything else under ``other``. A grouped GEMM that fell into
   ``other`` would read 0 under ``moe.gmm``.
-* ``sass_kernel_label`` names each instantiation of the three attention and
+* ``sass_kernel_label`` names each instantiation of the attention and
   GEMM libraries from its mangled name (as cuobjdump prints it), and every
   instantiation the design check requires has a name it can produce.
+* ``paged_tick`` builds the paged-attention ticks the kernels phase checks
+  as each kind says; ``prefill_rows`` finds the runs the plan sends to the
+  prefill kernel; ``serving_launches_want`` gives the serving phases'
+  launch counts.
 
 The names have the form nvcc and the demangler give these kernels, the
 anonymous namespace's per-file prefix included.
 """
+import numpy as np
 import pytest
 
 import chip_smoke as C
@@ -21,6 +26,7 @@ import chip_smoke as C
 _GG = "_ZN48_GLOBAL__N__065297f9_15_grouped_gemm_cu_dac80e6d"
 _FA = "_ZN51_GLOBAL__N__ac34abae_18_flash_attention_cu_446faa15"
 _EV = "_ZN45_GLOBAL__N__2c3e0a11_12_evoformer_cu_8c1d2e6f"
+_PA = "_ZN51_GLOBAL__N__81a95b55_18_paged_attention_cu_746e21b6"
 _ANON = "(anonymous namespace)::"
 
 
@@ -63,6 +69,12 @@ _ANON = "(anonymous namespace)::"
     (f"void {_ANON}tc::evoformer_fwd_kernel_mma<__nv_bfloat16, 32>("
      "__nv_bfloat16 const*)", "evoformer_fwd"),
     (f"void {_ANON}fused_adam_kernel(float*, float*)", "fused_adam"),
+    (f"void {_ANON}paged_attention_decode_kernel<__nv_bfloat16, 128, 1>("
+     f"{_ANON}DecodeArgs)", "paged_attention_decode"),
+    (f"void {_ANON}paged_attention_prefill_kernel_mma<128>({_ANON}"
+     "PrefillArgs)", "paged_attention_prefill"),
+    (f"void {_ANON}paged_attention_plan_kernel({_ANON}PlanArgs)",
+     "paged_attention_plan"),
     ("_layer_norm_fwd", "norm_fwd"),
     ("nvjet_tst_128x256_64x4_2x1_v_bz_coopB_TNT", "gemm"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
@@ -95,6 +107,14 @@ def test_kernel_kind(name, kind):
      ("flash", "bf16", "flash_fwd_kernel_mma D128 tiles 64x64")),
     (f"{_FA}27block_sparse_bwd_dq_kernelIfLi64ELi64ELi64EEEvPKT_",
      ("block_sparse", "fp32", "block_sparse_bwd_dq_kernel D64 tiles 64x64")),
+    (f"{_PA}34paged_attention_prefill_kernel_mmaILi128EEEvNS_11PrefillArgsE",
+     ("paged", "bf16", "prefill D128")),
+    (f"{_PA}29paged_attention_decode_kernelI13__nv_bfloat16Li128ELi1EEEvNS_"
+     "10DecodeArgsE", ("paged", "bf16", "decode D128 R1")),
+    (f"{_PA}29paged_attention_decode_kernelIfLi64ELi8EEEvNS_10DecodeArgsE",
+     ("paged", "fp32", "decode D64 R8")),
+    (f"{_PA}27paged_attention_plan_kernelENS_8PlanArgsE",
+     ("paged", "int32", "plan")),
     ("_Z14quant_kernelPKfPaPfi", None),
 ])
 def test_sass_kernel_label(mangled, label):
@@ -118,6 +138,13 @@ def test_every_required_instantiation_has_a_name():
                 stem = f"{fam}_{kind}_kernel"
                 names.append(f"{_FA}1{stem}_mmaILi{d}ELi64ELi64EEEvPK")
                 names.append(f"{_FA}1{stem}IfLi{d}ELi64ELi64EEEvPK")
+    for d in (64, 128):
+        names.append(f"{_PA}34paged_attention_prefill_kernel_mmaILi{d}EEEv")
+        for r in (1, 2, 4, 8):
+            for t in ("f", "13__nv_bfloat16"):
+                names.append(f"{_PA}29paged_attention_decode_kernelI{t}Li{d}"
+                             f"ELi{r}EEEvNS_10DecodeArgsE")
+    names.append(f"{_PA}27paged_attention_plan_kernelENS_8PlanArgsE")
     seen = set()
     for n in names:
         fam, dtype, rest = C.sass_kernel_label(n)
@@ -125,7 +152,7 @@ def test_every_required_instantiation_has_a_name():
     for family, text in C.DESIGN_INSTANTIATIONS:
         assert any(f == family and (t == text or t.startswith(text + " "))
                    for f, t in seen), (family, text)
-    assert len(C.DESIGN_INSTANTIATIONS) == 24 + 6 + 20
+    assert len(C.DESIGN_INSTANTIATIONS) == 24 + 6 + 20 + 16 + 2 + 1
 
 
 def test_sass_op_counts_reads_hgmma_and_hmma():
@@ -163,3 +190,63 @@ def test_ptxas_resources():
     (info,) = C.ptxas_resources(report).values()
     assert info == {"spill_bytes": 12, "registers": 123,
                     "static_smem_bytes": 33792}
+
+
+@pytest.mark.parametrize("label, kind, N, K, D, bs, MB", C.PA_TICKS)
+def test_paged_ticks_are_what_their_kinds_say(label, kind, N, K, D, bs, MB):
+    tables, lengths, NB = C.paged_tick(kind, bs, MB)
+    T, cap = len(lengths), MB * bs
+    assert tables.shape == (T, MB) and tables.dtype == lengths.dtype
+    assert tables.min() >= 0 and tables.max() < NB
+    assert N % K == 0 and N // K <= 8 and D in (64, 128)
+    pad = ~tables.any(axis=1)
+    real = {tuple(t) for t in tables[~pad]}
+    for a in real:          # sequences own their blocks (beyond a prefix)
+        for b in real - {a}:
+            assert not set(a[MB // 2:]) & set(b)
+    pre = C.prefill_rows(tables, 16)
+    if kind.startswith("run"):
+        n = int(kind[3:])
+        assert T == n and len(real) == 1 and not pad.any()
+        assert lengths[0] % bs not in (0, 1)            # starts mid-block
+        np.testing.assert_array_equal(np.diff(lengths), 1)
+        assert pre.all() == (n >= 16)
+    elif kind == "mixed":
+        assert pad.sum() == 6 and (lengths[pad] == 1).all()
+        assert pre.sum() == 60 and not pre[:3].any()
+    elif kind == "gqa":
+        assert pre.sum() == 70 and lengths.max() == cap
+    elif kind == "shared_prefix":
+        a, b = tables[0], tables[20]
+        assert (a[:MB // 2] == b[:MB // 2]).all() and not (a == b).all()
+        assert pre.sum() == 38
+    elif kind == "interleaved":
+        assert not pre.any() and len(real) == 2
+        assert all((tables[i] != tables[i + 1]).any() for i in range(T - 1))
+    elif kind == "ragged":
+        assert pre.all() and {0, 1, cap}.issubset(set(lengths.tolist()))
+        assert lengths.max() > cap and (np.diff(lengths) < 0).any()
+    elif kind == "long":
+        assert cap == 2048 and lengths.max() > cap and 0 in lengths
+        assert pre.sum() == 64
+
+
+def test_prefill_rows_takes_runs_of_equal_tables():
+    t = np.array([[1, 2]] * 3 + [[3, 4]] * 2 + [[1, 2]] * 3, np.int32)
+    np.testing.assert_array_equal(C.prefill_rows(t, 3),
+                                  [1, 1, 1, 0, 0, 1, 1, 1])
+    np.testing.assert_array_equal(C.prefill_rows(t, 4), [0] * 8)
+
+
+def test_serving_launches_want():
+    """12 step ticks of 32 rows (a plan, L prefill launches each) and 32
+    decode-window ticks of 8 (neither), as llama2_7b's main path runs."""
+    assert C.serving_launches_want(32, [32] * 12 + [8] * 32, "rms_norm",
+                                   16) == {
+        "paged_attention": 1408, "paged_attention_decode": 1408,
+        "paged_attention_prefill": 384, "paged_attention_plan": 12,
+        "rms_norm": 2860}
+    assert C.serving_launches_want(12, [16, 15], "layer_norm", 16) == {
+        "paged_attention": 24, "paged_attention_decode": 24,
+        "paged_attention_prefill": 12, "paged_attention_plan": 1,
+        "layer_norm": 50}
