@@ -31,11 +31,20 @@ kernel on them against its plain PyTorch version:
                block-sparse and Evoformer outputs by FLASH_BF16_RULE's
                relative-L2 rule (the tensor cores take P and dS in bf16);
 4. llama2_7b — ``FastGenEngine`` at full width and depth (random weights
-               from a seed, bf16) serves 8 requests through ``generate_all``;
-               launch counters prove every tick went through the kernels
-               (one plan, L paged decode and L paged prefill launches a
-               tick); one mixed tick's plan has rows in both regimes, and
-               its logits on the kernel path vs the plain path;
+               from a seed, bf16) serves 8 requests through ``generate_all``,
+               every tick a replay of a captured CUDA graph; launch counters
+               prove every tick went through the kernels (one plan, L paged
+               decode and L paged prefill launches a tick; a replay counts
+               its capture's launches, a key's warm-up tick its own); the
+               graph gates: G1 a 32-tick decode window and a SplitFuse tick
+               of >= 16 rows, graphs against eager ticks from one state
+               (tokens equal, logits bit-equal); G2 a capture changes no KV
+               block but the trash block 0; G3 decode_stream against
+               decode_steps; G4 parameters and pool never move, one capture
+               a key; G5 sampling at temperature 0.8 through the graphs,
+               one seed giving one stream of tokens; one mixed tick's plan
+               has rows in both regimes, and its logits on the kernel path
+               vs the plain path;
 5. gpt2_125m — the LayerNorm / learned-position / GELU path, same checks;
 6. train_gpt2_125m  — ``initialize`` + ``train_batch`` at the repo's
                headline training settings (micro 32, seq 1024, gas 4, bf16,
@@ -78,7 +87,11 @@ kernel on them against its plain PyTorch version:
 13. times    — kernels vs plain vs library calls vs their bounds (CUDA
                events; paged attention at a decode, a prefill and a mixed
                tick, each kernel's own time by the profiler, and the plan
-               kernel), decode tokens/s, TTFT, training step time, tokens/s,
+               kernel), decode tokens/s, device ms, idle share, kernels and
+               CUDA runtime calls a tick with graphs against eager ticks
+               from one state, decode_stream's rate, TTFT, each graph key's
+               capture cost, the norm and paged-decode kernels' device time
+               a launch inside the graph, training step time, tokens/s,
                MFU (active parameters), idle share, the profiler's split of
                a step, peak memory. It times what the phases before it ran:
                the serving, Adam and grouped-GEMM rows need their phases.
@@ -103,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import hashlib
 import json
 import os
@@ -530,6 +544,14 @@ def read_counts():
     out = {}
     for d in counter_dicts():
         out.update(d)
+    return out
+
+
+def engine_addresses(eng):
+    """Where an engine's parameters and KV pool live on the device: a
+    captured graph holds these addresses, so they must never move."""
+    out = {f"param/{n}": p.data_ptr() for n, p in eng.model.named_parameters()}
+    out.update({f"pool/{k}": v.data_ptr() for k, v in eng.pool.items()})
     return out
 
 
@@ -1970,11 +1992,11 @@ class Smoke:
         return read_counts()
 
     def serve(self, model, n_req, lo, hi, max_new, norm_kind, **engine_kw):
-        """One model's main-path run + checks + a mixed-tick comparison."""
+        """One model's main-path run + checks, the graph gates (G1-G5) and
+        a mixed-tick comparison."""
         torch = self.torch
         from deepspeed_tpu_torch import telemetry
         from deepspeed_tpu_torch.inference.fastgen import FastGenEngine
-        from deepspeed_tpu_torch.models import paged as PG
 
         if self.dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.dev)
@@ -1983,6 +2005,7 @@ class Smoke:
                             temperature=0.0, **engine_kw)
         self.sync()
         init_s = time.perf_counter() - t0
+        addresses = engine_addresses(eng)
         cfg = eng.cfg
         vocab = min(cfg.vocab_size, 32000)
         rng = np.random.default_rng(self.seed)
@@ -1992,34 +2015,33 @@ class Smoke:
         free0 = eng.allocator.free_blocks
         ticks = telemetry.get_registry().counter("fastgen_ticks_total")
 
-        # each tick's rows, read on the host as the engine calls the tick
-        tick_rows = []
-
-        def forward_paged(params, tokens, *a, **k):
-            tick_rows.append(int(tokens.shape[0]))
-            return real_forward(params, tokens, *a, **k)
-
-        real_forward = PG.forward_paged
         # ---- the main path: counts to 0 just before, read just after ---- #
-        ticks0 = ticks.total()
-        PG.forward_paged = forward_paged
+        ticks0, dev_ticks0 = ticks.total(), eng.device_ticks.copy()
         self.reset_counts()
-        try:
-            t0 = time.perf_counter()
-            out = eng.generate_all(uids, prompts, max_new_tokens=max_new)
-            self.sync()
-            wall = time.perf_counter() - t0
-            counts = self.read_counts()
-        finally:
-            PG.forward_paged = real_forward
+        t0 = time.perf_counter()
+        out = eng.generate_all(uids, prompts, max_new_tokens=max_new)
+        self.sync()
+        wall = time.perf_counter() - t0
+        counts = self.read_counts()
         n_ticks = int(ticks.total() - ticks0)
         # ----------------------------------------------------------------- #
+        # every tick the device ran, with its rows, as the engine kept them:
+        # the replays, the eager ticks, and each captured key's warm-up
+        dev_ticks = eng.device_ticks - dev_ticks0
+        tick_rows = [rows for (_, rows), n in sorted(dev_ticks.items())
+                     for _ in range(n)]
+        served_rows = [rows for (how, rows), n in sorted(dev_ticks.items())
+                       if how != "warmup" for _ in range(n)]
         L = cfg.num_layers
         from deepspeed_tpu_torch.ops import paged_attention as PA
         want = serving_launches_want(L, tick_rows, norm_kind, PA.MIN_RUN)
         problems = []
-        if len(tick_rows) != n_ticks:
-            problems.append(f"{len(tick_rows)} tick calls, {n_ticks} ticks")
+        if len(served_rows) != n_ticks:
+            problems.append(f"{len(served_rows)} device ticks, {n_ticks} "
+                            "ticks")
+        if self.dev.type == "cuda" and any(
+                how == "eager" for how, _ in dev_ticks):
+            problems.append(f"eager ticks on the card: {dict(dev_ticks)}")
         for k, v in want.items():
             if counts[k] != v:
                 problems.append(f"{k} launched {counts[k]} times, want {v}")
@@ -2047,15 +2069,212 @@ class Smoke:
         ttft = list(eng.ttft_log)[-n_req:]      # this run's requests
         emit(model, requests=n_req, prompt_lens=lens, max_new_tokens=max_new,
              ticks=n_ticks, tick_rows=sorted(set(tick_rows)),
+             device_ticks={f"{how}[{rows}]": n
+                           for (how, rows), n in sorted(dev_ticks.items())},
              ticks_with_a_plan=sum(t >= PA.MIN_RUN for t in tick_rows),
              launches=counts, launches_want=want,
              init_seconds=init_s, generate_all_seconds=wall,
              ttft_p50_s=float(np.median(ttft)), peak_memory_bytes=peak,
+             graphs=eng.graph_stats(),
              card=self.card, first_tokens={u: out[u][:4] for u in uids[:2]})
 
+        gates = self.graph_gates(model, eng, prompts)
         self.mixed_tick(model, eng, uids, prompts)
-        self.state[model] = {"engine": eng, "prompts": prompts, "lens": lens}
+        moved = {k for k, v in engine_addresses(eng).items()
+                 if addresses.get(k) != v}
+        warmups = sum(n for (how, _), n in eng.device_ticks.items()
+                      if how == "warmup")
+        emit(f"{model}/graphs_g4", moved=sorted(moved), graphs=len(
+            eng._tick_graphs), warmups=warmups, keys=sorted(
+                map(str, eng._tick_graphs)))
+        if moved or (eng._graphs and warmups != len(eng._tick_graphs)):
+            raise AssertionError(
+                f"{model}: G4: moved {sorted(moved)}; {warmups} captures for "
+                f"{len(eng._tick_graphs)} graph keys")
+        self.state[model] = {"engine": eng, "prompts": prompts, "lens": lens,
+                             "gates": gates}
         return eng
+
+    # ------------------------------------------------------------------ #
+    # CUDA graphs of the ticks
+    # ------------------------------------------------------------------ #
+    def prefill(self, eng, uids, prompts):
+        eng.put(uids, prompts)
+        while not all(eng.seqs[u].prefill_remaining == 0
+                      and eng.seqs[u].last_tok is not None for u in uids):
+            eng.step()
+
+    def saver(self, eng, live):
+        """(save, restore, the pool's copy) of an engine's state over the
+        sequences in ``live``: their host bookkeeping, the allocator and the
+        KV pool (one clone, reused); saved once here. A restore may be
+        repeated."""
+        saved = {k: v.clone() for k, v in eng.pool.items()}
+        host = {}
+
+        def save():
+            for k, v in eng.pool.items():
+                saved[k].copy_(v)
+            host["state"] = eng._snapshot_host(live), eng._decode_rr
+
+        def restore():
+            snap, rr = copy.deepcopy(host["state"])
+            eng._restore_host(snap)
+            eng._decode_rr = rr
+            for k, v in eng.pool.items():
+                v.copy_(saved[k])
+
+        save()
+        return save, restore, saved
+
+    def graph_gates(self, model, eng, prompts):
+        """G1-G3 and G5 on the main path's engine (G4 closes the phase):
+        each compares graph ticks with eager ticks or with another entry
+        point from one state, restored between the two runs."""
+        torch = self.torch
+        uids = list(range(1000, 1000 + len(prompts)))
+        self.prefill(eng, uids, prompts)
+        live = [eng.seqs[u] for u in uids]
+        save, restore, saved = self.saver(eng, live)
+        out = {}
+        # G1: a 32-tick decode_steps window, eager then graphs
+        out["g1_decode"] = self.graph_vs_eager(
+            eng, lambda: eng.decode_steps(32), lambda: len(live), restore)
+        # ... and one SplitFuse tick of >= MIN_RUN rows: the decode rows
+        # and a chunk of a new prompt (the plan and prefill kernels); its
+        # real rows are the decode rows and the chunk
+        extra = 1000 + len(prompts)
+        eng.put([extra], [prompts[0][:1] + prompts[-1]])
+        live.append(eng.seqs[extra])
+        save()
+        out["g1_splitfuse"] = self.graph_vs_eager(
+            eng, eng.step, lambda: len(uids) + live[-1].prefilled, restore)
+        eng.flush([extra])
+        live.pop()
+        # G2: a new key's warm-up and capture touch only trash block 0
+        save()
+        key = ("dec", 128, eng.max_blocks_per_seq)
+        t0 = time.perf_counter()
+        if eng._graphs and key not in eng._tick_graphs:
+            eng._tick_graph(key, 128, eng.max_blocks_per_seq, decode=True)
+        self.sync()
+        touched = [k for k, v in eng.pool.items()
+                   if not torch.equal(v[:, 1:], saved[k][:, 1:])]
+        out["g2"] = {"key": str(key), "seconds": time.perf_counter() - t0,
+                     "blocks_other_than_0_changed": touched}
+        if touched:
+            raise AssertionError(f"{model}: G2: capturing {key} changed KV "
+                                 f"blocks other than 0 in {touched}")
+        # G3: decode_stream against decode_steps, four windows of 8: the
+        # stream yields three and is closed, its window in flight drained
+        save()
+        steps = [eng.decode_steps(8) for _ in range(4)]
+        want = {s.uid: (list(s.generated), s.pos, s.last_tok) for s in live}
+        restore()
+        served = []
+        for emitted in eng.decode_stream(window=8):
+            served.append(emitted)
+            if len(served) == 3:
+                break
+        got = {s.uid: (list(s.generated), s.pos, s.last_tok) for s in live}
+        out["g3"] = {"windows": len(served), "rows": len(live),
+                     "tokens_equal": got == want and served == steps[:3]}
+        if not out["g3"]["tokens_equal"]:
+            raise AssertionError(f"{model}: G3: decode_stream differs from "
+                                 "decode_steps")
+        eng.flush(uids)
+        del save, restore, saved            # the pool's copy
+        out["g5"] = self.sampling_gate(model, eng, prompts)
+        emit(f"{model}/graph_gates", **out)
+        return out
+
+    def graph_vs_eager(self, eng, run, real_rows, restore):
+        """G1: ``run`` eagerly, then (state restored) through the graphs:
+        the sampled tokens equal on every row and tick, the last tick's
+        logits of its ``real_rows()`` rows bit-equal (else within TOL, with
+        the largest difference shown; pad rows read the trash block, which
+        a warm-up may have written)."""
+        torch = self.torch
+        real = eng._run_tick
+        kept = {}
+
+        def eager_tick(*a):
+            kept["logits"], sampled = real(*a)
+            return kept["logits"], sampled
+
+        results = {}
+        for mode in ("eager", "graph"):
+            if mode == "graph":
+                restore()
+            eng._graphs = mode == "graph" and self.dev.type == "cuda"
+            ticks0 = eng.device_ticks.copy()
+            replays0 = {k: g.replays for k, g in eng._tick_graphs.items()}
+            if not eng._graphs:
+                eng._run_tick = eager_tick
+            try:
+                got = run()
+            finally:
+                eng.__dict__.pop("_run_tick", None)
+            self.sync()
+            ran = [g for k, g in eng._tick_graphs.items()
+                   if g.replays > replays0.get(k, 0)]
+            if eng._graphs and len(ran) != 1:
+                raise AssertionError(f"G1: {len(ran)} graphs replayed")
+            logits = ran[0].logits if eng._graphs else kept.pop("logits")
+            results[mode] = (got, logits, eng.device_ticks - ticks0)
+        eng._graphs = self.dev.type == "cuda"
+        (got_e, le, ticks_e), (got_g, lg, ticks_g) = (results["eager"],
+                                                      results["graph"])
+        n = real_rows()
+        bit_equal = bool(torch.equal(le[:n], lg[:n]))
+        res = {"tokens_equal": got_e == got_g, "logits_bit_equal": bit_equal,
+               "logits_max_abs_diff": float((le[:n] - lg[:n]).abs().max()),
+               "rows": n, "ticks": {mode: {f"{how}[{rows}]": c for (how, rows),
+                                           c in sorted(t.items())}
+                                    for mode, t in (("eager", ticks_e),
+                                                    ("graph", ticks_g))}}
+        if got_e != got_g:
+            raise AssertionError(f"G1: graph tokens differ from eager: {res}")
+        if not bit_equal:
+            self.close_tol("G1 logits graph vs eager", lg[:n], le[:n],
+                           TOL["bfloat16"])
+        return res
+
+    def sampling_gate(self, model, eng, prompts):
+        """G5: temperature 0.8, top-k 20, top-p 0.9 through the graphs: two
+        engines made from one seed (sharing the main engine's weights, each
+        with a small pool) give the same tokens, and the default CUDA
+        generator is never drawn from; an eager engine of the same seed
+        beside them, reported."""
+        torch = self.torch
+        from deepspeed_tpu_torch.inference.fastgen import FastGenEngine
+
+        kw = dict(params=eng.model, device=self.dev, n_blocks=64,
+                  block_size=eng.block_size,
+                  max_blocks_per_seq=eng.max_blocks_per_seq,
+                  token_budget=eng.token_budget, temperature=0.8, top_k=20,
+                  top_p=0.9, seed=self.seed + 11)
+        short = [p[:48] for p in prompts[:4]]
+        uids = list(range(len(short)))
+        cuda = self.dev.type == "cuda"
+        rng0 = torch.cuda.get_rng_state(self.dev) if cuda else None
+        outs, how = [], []
+        for graphs in (True, True, False):
+            e = FastGenEngine(eng.cfg, **kw)
+            e._graphs = graphs and cuda
+            outs.append(e.generate_all(uids, short, max_new_tokens=16))
+            how.append(sorted({h for h, _ in e.device_ticks}))
+            del e
+        drew_default = cuda and not torch.equal(
+            rng0, torch.cuda.get_rng_state(self.dev))
+        res = {"same_seed_equal": outs[0] == outs[1],
+               "graph_equals_eager": outs[0] == outs[2],
+               "default_generator_drawn": drew_default, "ticks": how,
+               "tokens": {u: outs[0][u][:6] for u in uids[:2]}}
+        if not res["same_seed_equal"] or drew_default or (
+                cuda and how[:2] != [["replay", "warmup"]] * 2):
+            raise AssertionError(f"{model}: G5: {res}")
+        return res
 
     def mixed_tick(self, model, eng, uids, prompts):
         """One mixed (decode + prefill) tick of the main path's requests,
@@ -2853,41 +3072,127 @@ class Smoke:
                 "rows": x.shape[0]}
 
     def decode_rate(self, model):
-        """Prefill the main path's prompts with step() ticks, then time one
-        fused decode window of 32 ticks (host clock around synchronised
-        work), and profile one more window of 8 for the device's share."""
+        """Graph ticks against eager ticks in one run, from one state, the
+        keys warm. The main path's prompts are prefilled by step() ticks
+        each way (TTFT p50, prefill tokens/s); then decode windows of 32
+        ticks in turns eager, graph, graph, eager, each from the same
+        restored state after a window that warms its key (host clock around
+        synchronised work), and one window of 8 each way under the profiler
+        (device ms, idle share, kernels and CUDA runtime calls a tick);
+        then decode_stream's rate from one drain to the next, on the
+        graphs; and each graph key's capture cost. The norm forwards'
+        device time per launch inside the graph is the profiled window's
+        norm time over its launches."""
         torch = self.torch
+        st = self.state[model]
+        eng, prompts = st["engine"], st["prompts"]
+        cuda = self.dev.type == "cuda"
+        out = {"batch": len(prompts), "card": self.card}
+        for mode, base in (("eager", 200), ("graph", 100)):
+            eng._graphs = mode == "graph" and cuda
+            uids = list(range(base, base + len(prompts)))
+            ticks0 = eng.device_ticks.copy()
+            self.sync()
+            t0 = time.perf_counter()
+            self.prefill(eng, uids, prompts)
+            self.sync()
+            wall = time.perf_counter() - t0
+            ran = eng.device_ticks - ticks0
+            out[mode] = {
+                "prefill_steps": sum(n for (how, _), n in ran.items()
+                                     if how != "warmup"),
+                "prefill_captures": sum(n for (how, _), n in ran.items()
+                                        if how == "warmup"),
+                "prefill_wall_s": wall,
+                "prefill_tokens_per_s": sum(st["lens"]) / wall,
+                "ttft_p50_s": float(np.median(
+                    list(eng.ttft_log)[-len(prompts):]))}
+            if mode == "eager":
+                eng.flush(uids)
+        live = [eng.seqs[u] for u in uids]
+        _, restore, saved = self.saver(eng, live)
+
+        walls = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            eng._graphs = mode == "graph" and cuda
+            restore()
+            eng.decode_steps(32)                # warms the key
+            restore()
+            self.sync()
+            t0 = time.perf_counter()
+            got = eng.decode_steps(32)
+            self.sync()
+            walls[mode].append(time.perf_counter() - t0)
+            n_tok = sum(len(v) for v in got.values())
+        for mode in ("eager", "graph"):
+            eng._graphs = mode == "graph" and cuda
+            restore()
+            eng.decode_steps(8)
+            restore()
+            prof = self.profile_window(eng, 8)
+            w = float(np.median(walls[mode]))
+            tick_ms = w / 32 * 1e3
+            dev_ms = prof.pop("device_ms_per_tick")
+            out[mode].update(
+                decode_tokens=n_tok, decode_wall_s=walls[mode],
+                decode_tokens_per_s=[n_tok / x for x in walls[mode]],
+                decode_tick_ms=tick_ms, device_ms_per_tick=dev_ms or
+                "not measured",
+                device_idle_share=(1 - dev_ms / tick_ms if dev_ms
+                                   else "not measured"), **prof)
+        # decode_stream on the graphs: drain-to-drain over 6 windows of 8
+        eng._graphs = cuda
+        restore()
+        marks = []
+        self.sync()
+        for _ in eng.decode_stream(window=8):
+            marks.append(time.perf_counter())
+            if len(marks) == 7:
+                break
+        gaps = np.diff(marks)
+        out["stream"] = {"windows": len(gaps), "window_wall_s": gaps.tolist(),
+                         "decode_tokens_per_s": float(
+                             8 * len(live) / np.median(gaps)) if len(gaps)
+                         else "not measured"}
+        eng.flush(uids)
+        # the norm forwards inside the graph: device ms a launch
+        kind = "rms_norm" if eng.cfg.norm == "rmsnorm" else "layer_norm"
+        per_tick = out["graph"]["device_ms_per_tick_by_kind"]
+        norm_ms = (per_tick.get(kind) if isinstance(per_tick, dict)
+                   else None)
+        out["norm_in_graph"] = {
+            "kernel": kind, "launches_per_tick": 2 * eng.cfg.num_layers + 1,
+            "device_ms_per_launch": (norm_ms / (2 * eng.cfg.num_layers + 1)
+                                     if norm_ms else "not measured")}
+        stats = eng.graph_stats()
+        out["graphs"] = {"keys": len(stats), "per_key": stats}
+        return out
+
+    def profile_window(self, eng, n_ticks):
+        """One decode_steps window of ``n_ticks`` under torch.profiler:
+        device ms, kernels and the host's CUDA runtime calls a tick, and
+        the device's idle gaps between its first and last kernel (with
+        graphs: the gaps between nodes and between replays)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        st = self.state[model]
-        eng, prompts = st["engine"], st["prompts"]
-        uids = list(range(100, 100 + len(prompts)))
-        eng.put(uids, prompts)
-        self.sync()
-        t0 = time.perf_counter()
-        n_steps = 0
-        while not all(s.prefill_remaining == 0 and s.last_tok is not None
-                      for s in eng.seqs.values()):
-            eng.step()
-            n_steps += 1
-        self.sync()
-        prefill_wall = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = eng.decode_steps(32)
-        self.sync()
-        wall = time.perf_counter() - t0
-        n_tok = sum(len(v) for v in got.values())
-
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            got2 = eng.decode_steps(8)
+            got = eng.decode_steps(n_ticks)
             self.sync()
-        n_ticks = 8 if got2 else 0
+        ticks = n_ticks if got else 0
         spans = {"decode_window", "decode_tick", "schedule_tick"}
         dev_us = {}     # kernels only: ops and span ranges would double count
         n_kernels = 0
+        runtime = {}
         for e in prof.key_averages():
+            if e.device_type == DeviceType.CPU and e.key.startswith("cuda"):
+                # the host's CUDA runtime calls (launches, copies,
+                # synchronisations) a tick, as CUPTI sees them
+                runtime[e.key] = {
+                    "calls": e.count / max(ticks, 1),
+                    "us": float(getattr(e, "cpu_time_total", 0))
+                    / max(ticks, 1)}
             if e.device_type != DeviceType.CUDA or e.key in spans \
                     or getattr(e, "is_user_annotation", False):
                 continue
@@ -2896,16 +3201,6 @@ class Smoke:
             if t:
                 dev_us[e.key] = dev_us.get(e.key, 0.0) + t
                 n_kernels += e.count
-        # the host's CUDA runtime calls (launches, copies, synchronisations)
-        # a tick, as CUPTI sees them: whatever waits on the card shows here
-        runtime = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CPU and e.key.startswith("cuda"):
-                runtime[e.key] = {
-                    "calls": e.count / max(n_ticks, 1),
-                    "us": float(getattr(e, "cpu_time_total", 0))
-                    / max(n_ticks, 1)}
-        total_us = sum(dev_us.values())
         by_kind = {}
         for key, us in dev_us.items():
             kind = kernel_kind(key)
@@ -2913,22 +3208,30 @@ class Smoke:
                 low = key.lower()
                 kind = ("rms_norm" if "rms_norm" in low
                         else "layer_norm" if "layer_norm" in low else kind)
-            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / max(n_ticks, 1)
-        eng.flush(uids)
-        tick_ms = wall / 32 * 1e3
-        dev_ms = total_us / 1e3 / n_ticks if total_us and n_ticks else None
-        return {"batch": len(prompts), "prefill_steps": n_steps,
-                "prefill_wall_s": prefill_wall,
-                "prefill_tokens_per_s": sum(st["lens"]) / prefill_wall,
-                "decode_tokens": n_tok, "decode_wall_s": wall,
-                "decode_tokens_per_s": n_tok / wall, "decode_tick_ms": tick_ms,
-                "profiled_ticks": n_ticks,
-                "kernels_per_tick": (n_kernels / n_ticks if n_kernels
+            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / max(ticks, 1)
+        total_us = sum(dev_us.values())
+        # the device's busy intervals, merged: their gaps inside the span
+        spans_us = sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.key in dev_us)
+        gap_us, end = 0.0, None
+        for a, b in spans_us:
+            if end is not None and a > end:
+                gap_us += a - end
+            end = b if end is None else max(end, b)
+        span_us = end - spans_us[0][0] if spans_us else 0.0
+        return {"profiled_ticks": ticks,
+                "device_span_ms_per_tick": (span_us / 1e3 / ticks
+                                            if span_us and ticks
+                                            else "not measured"),
+                "device_gap_ms_per_tick": (gap_us / 1e3 / ticks
+                                           if span_us and ticks
+                                           else "not measured"),
+                "kernels_per_tick": (n_kernels / ticks if n_kernels
                                      else "not measured"),
-                "device_ms_per_tick": dev_ms or "not measured",
+                "device_ms_per_tick": (total_us / 1e3 / ticks
+                                       if total_us and ticks else None),
                 "device_ms_per_tick_by_kind": by_kind or "not measured",
-                "device_idle_share": (1 - dev_ms / tick_ms if dev_ms
-                                      else "not measured"),
                 "host_runtime_per_tick": runtime or "not measured",
                 "top_kernels_us": {k[:90]: v for k, v in sorted(
                     dev_us.items(), key=lambda kv: -kv[1])[:8]}}
@@ -2959,6 +3262,18 @@ class Smoke:
             pa = self.serving_times(flush)
             rates = {m: self.decode_rate(m) for m in ("llama2_7b",
                                                       "gpt2_125m")}
+            # device ms a launch inside the decode tick's graph
+            for m, row, name in (
+                    ("llama2_7b", nm["rms_norm[R=8]"], None),
+                    ("gpt2_125m", nm["layer_norm[R=8]"], None),
+                    ("llama2_7b", pa["decode"], "paged_attention_decode")):
+                r = rates[m]
+                by_kind = r["graph"]["device_ms_per_tick_by_kind"]
+                L = self.state[m]["engine"].cfg.num_layers
+                row["in_graph_kernel_ms"] = (
+                    r["norm_in_graph"]["device_ms_per_launch"] if name is None
+                    else by_kind[name] / L if isinstance(by_kind, dict)
+                    and by_kind.get(name) else "not measured")
             for m in ("llama2_7b", "gpt2_125m"):       # free the engines
                 self.state.pop(m)
         emit("times", card=self.card, paged_attention=pa, norms=nm,
@@ -3601,7 +3916,7 @@ class Smoke:
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
-                          "tflops_per_s", "kernel_ms"):
+                          "tflops_per_s", "kernel_ms", "in_graph_kernel_ms"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         return {"kernels": out}

@@ -18,13 +18,20 @@ Parity: ``deepspeed_tpu/inference/fastgen.py`` (``BlockAllocator``, ``_Seq``,
   only rows flagged as sequence heads.
 * ``decode_steps`` runs ``n`` pure-decode ticks with the sampled tokens kept
   on the device and fetches the ``[n, B]`` tokens once at the end — the
-  JAX package's fused ``lax.scan`` window, as a Python loop of eager ticks.
+  JAX package's fused ``lax.scan`` window; ``decode_stream`` chains such
+  windows with one always in flight while the last one drains.
+* On a CUDA device with the kernels, every tick replays a captured CUDA
+  graph (``inference/graphs.TickGraph``), one per tick shape: the
+  counterpart of the JAX package's jitted tick and decode scan, cached as
+  its ``_ticks``. A key's first tick warms up, captures and instantiates
+  its graph. The plain path (``use_kernels=False``) and the CPU run ticks
+  eagerly, as the plain paged attention reads the lengths on the host.
 
 Host scheduling (tiers, rotation, backpressure, rollback, deadlines) is the
 JAX package's, rule for rule, so greedy outputs match it token for token.
 Not in this slice (they raise ``NotImplementedError``): planned serving
-(``generate_all(planned=True)``, ``serve_planned``), ``decode_stream``,
-tensor-parallel serving (``tp=True``) and weight-only-quantized params.
+(``generate_all(planned=True)``, ``serve_planned``), tensor-parallel
+serving (``tp=True``) and weight-only-quantized params.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch
 
 from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.inference.graphs import TickGraph
 from deepspeed_tpu_torch.inference.sampling import sample_logits
 from deepspeed_tpu_torch.models import paged as PG
 from deepspeed_tpu_torch.models import transformer as T
@@ -108,11 +116,12 @@ class FastGenEngine:
 
     ``device``: ``None`` → the first CUDA device, raising without one;
     ``"cpu"`` runs the plain PyTorch path. ``use_kernels``: ``None`` → on
-    for a CUDA device; ``False`` takes the plain versions of the kernels
-    (the comparison path). ``params``: ``None`` initialises from ``seed``
-    on the device; a :class:`~deepspeed_tpu_torch.models.paged.
-    PagedTransformer`, or a nested dict of tensors/arrays under the JAX
-    keys (floating leaves cast to the compute dtype)."""
+    for a CUDA device, where every tick then replays a captured CUDA graph
+    (``inference/graphs.py``); ``False`` takes the plain versions of the
+    kernels in eager ticks (the comparison path). ``params``: ``None``
+    initialises from ``seed`` on the device; a :class:`~deepspeed_tpu_torch.
+    models.paged.PagedTransformer`, or a nested dict of tensors/arrays
+    under the JAX keys (floating leaves cast to the compute dtype)."""
 
     def __init__(self, cfg: Union[str, T.TransformerConfig],
                  params: Optional[Any] = None,
@@ -159,10 +168,20 @@ class FastGenEngine:
         self._seen_shapes: set = set()
         #: TTFTs (seconds, host-observed) of this engine's recent requests
         self.ttft_log: collections.deque = collections.deque(maxlen=4096)
+        #: the ticks the device ran, by (how, rows): "eager", "warmup" (a
+        #: graph's eager first tick, every row a pad row) or "replay"
+        self.device_ticks: collections.Counter = collections.Counter()
         self._setup_telemetry()
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
         self._use_kernels = bool(use_kernels)
+        # ticks replay CUDA graphs on the card with the kernels; only the
+        # comparison of graph against eager ticks turns this off
+        self._graphs = self.device.type == "cuda" and self._use_kernels
+        self._tick_graphs: Dict[tuple, TickGraph] = {}
+        self._graph_pool = self._graph_stream = None
+        # a decode_stream window is in flight (see _assert_stream_drained)
+        self._stream_inflight = False
 
     def _resolve_params(self, params, seed: int) -> PG.PagedTransformer:
         cfg, dev = self.cfg, self.device
@@ -325,15 +344,108 @@ class FastGenEngine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _tick(self, tokens: torch.Tensor, positions: torch.Tensor,
-              tables: torch.Tensor) -> torch.Tensor:
-        """One forward + sampling on the device → sampled tokens [T] int32
-        (still on the device)."""
+    def _run_tick(self, tokens: torch.Tensor, positions: torch.Tensor,
+                  tables: torch.Tensor,
+                  generator: Optional[torch.Generator]):
+        """Forward + sampling → (logits [T, V] fp32, sampled [T] int32),
+        on the device: what a tick graph captures."""
         logits, _ = PG.forward_paged(self.params, tokens, positions, tables,
                                      self.pool, self.cfg,
                                      use_kernels=self._use_kernels)
-        return sample_logits(logits, self._gen, self.temperature,
-                             self.top_k, self.top_p).to(torch.int32)
+        return logits, sample_logits(logits, generator, self.temperature,
+                                     self.top_k, self.top_p).to(torch.int32)
+
+    def _tick(self, tokens: torch.Tensor, positions: torch.Tensor,
+              tables: torch.Tensor) -> torch.Tensor:
+        """One eager tick → sampled tokens [T] int32 (still on the
+        device)."""
+        sampled = self._run_tick(tokens, positions, tables, self._gen)[1]
+        self.device_ticks[("eager", tokens.shape[0])] += 1
+        return sampled
+
+    def _tick_graph(self, key: tuple, rows: int, mb: int,
+                    decode: bool) -> TickGraph:
+        """The key's graph, captured at its first use (the JAX package's
+        ``_ticks`` cache). A capture that fails raises: nothing carries on
+        eagerly."""
+        g = self._tick_graphs.get(key)
+        if g is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graph_stream = torch.cuda.Stream(self.device)
+            g = TickGraph.capture(
+                self._run_tick, rows, mb, self.device, self._graph_pool,
+                self._graph_stream, decode,
+                generator=self._gen if self.temperature > 0 else None)
+            self._tick_graphs[key] = g
+            self.device_ticks[("warmup", rows)] += 1
+        return g
+
+    def graph_stats(self) -> Dict[str, Dict[str, object]]:
+        """Per captured key: rows, table width, warm-up, capture and
+        instantiation seconds, replays, kernel launches a replay."""
+        return {str(k): g.stats() for k, g in self._tick_graphs.items()}
+
+    def _cold(self, key: tuple) -> bool:
+        """Whether a tick of this key is its first (which may JIT a kernel)
+        or captures its graph: its wall time stays out of the latency
+        accumulators."""
+        cold = key not in self._seen_shapes or (
+            self._graphs and key not in self._tick_graphs)
+        self._seen_shapes.add(key)
+        return cold
+
+    def _queue_tick(self, tokens: np.ndarray, positions: np.ndarray,
+                    tables: np.ndarray) -> torch.Tensor:
+        """One SplitFuse tick from host arrays (tables [T, mb]) → sampled
+        tokens [T] int32 on the device: the (T, mb) graph replayed, or an
+        eager tick."""
+        if not self._graphs:
+            return self._tick(self._to_dev(tokens), self._to_dev(positions),
+                              self._to_dev(tables))
+        rows, mb = tables.shape
+        g = self._tick_graph((rows, mb), rows, mb, decode=False)
+        g.load(tokens, positions, tables)
+        g.replay()
+        self.device_ticks[("replay", rows)] += 1
+        return g.sampled
+
+    def _queue_decode(self, chain, Bt: int, mb: int, n: int,
+                      out: torch.Tensor, tokens: Optional[np.ndarray] = None,
+                      positions: Optional[np.ndarray] = None,
+                      tables: Optional[np.ndarray] = None):
+        """Queue ``n`` pure-decode ticks of ``Bt`` rows at table width
+        ``mb``; tick t's sampled tokens go to ``out[t]`` ([n, Bt] int32 on
+        the device). Host ``tokens`` and ``positions`` start a chain;
+        without them the window chains on what the last window (``chain``)
+        left on the device. Host ``tables`` [Bt, mb] replace the chain's.
+        Returns the chain for the next window: the ("dec", Bt, mb) graph,
+        or the eager path's (tokens, positions, tables) tensors."""
+        if self._graphs:
+            g = self._tick_graph(("dec", Bt, mb), Bt, mb, decode=True)
+            if tokens is not None:
+                g.load(tokens=tokens, positions=positions)
+            elif chain is not g:
+                if tables is None:
+                    raise ValueError("a decode window on another graph needs "
+                                     "its tables")
+                g.chain_from(chain)
+            g.load(tables=tables)
+            for t in range(n):
+                g.replay()
+                out[t].copy_(g.tokens)
+            self.device_ticks[("replay", Bt)] += n
+            return g
+        toks, pos, tbl = chain if chain is not None else (None,) * 3
+        if tokens is not None:
+            toks, pos = self._to_dev(tokens), self._to_dev(positions)
+        if tables is not None:
+            tbl = self._to_dev(tables)
+        for t in range(n):
+            toks = self._tick(toks, pos, tbl)
+            out[t].copy_(toks)
+            pos = pos + 1
+        return toks, pos, tbl
 
     def _blocks_needed(self, seq: _Seq, upto_pos: int) -> int:
         return max(0, upto_pos // self.block_size + 1 - len(seq.blocks))
@@ -350,7 +462,9 @@ class FastGenEngine:
 
         ``allow_overshoot``: run the smallest ladder rung even when it
         exceeds ``max_ticks`` (callers with a fixed total budget trim the
-        extras)."""
+        extras). On the card the window's n ticks are n replays of one
+        decode graph."""
+        self._assert_stream_drained()
         self._expire_deadlines()
         live = [self.seqs[u] for u in self._admit_order
                 if u in self.seqs and not self.seqs[u].done]
@@ -381,46 +495,54 @@ class FastGenEngine:
             return {}
         B = len(live)
         Bt = self._slot_tier(B)
-        mb, tables = self._decode_window_tensors(live, Bt, n)
-        tokens = np.zeros((Bt,), np.int32)
-        positions = np.zeros((Bt,), np.int32)
-        for i, s in enumerate(live):
-            tokens[i] = s.last_tok
-            positions[i] = s.pos                    # pad rows → trash block 0
-
-        key = ("dec", Bt, n, mb)
-        cold = key not in self._seen_shapes
-        self._seen_shapes.add(key)
+        mb, tables, _ = self._decode_window_tensors(live, Bt, n)
+        tokens, positions = self._decode_inputs(live, Bt)
+        cold = self._cold(("dec", Bt, mb))
         t0 = time.perf_counter()
         with telemetry.span("decode_window", ticks=n):
-            toks = self._to_dev(tokens)
-            pos = self._to_dev(positions)
-            tbl = self._to_dev(tables[:, :mb])
-            outs = []
-            for _ in range(n):
-                toks = self._tick(toks, pos, tbl)
-                outs.append(toks)
-                pos = pos + 1
-            out = torch.stack(outs).cpu().numpy()   # [n, Bt]: one fetch
+            out = torch.empty((n, Bt), dtype=torch.int32, device=self.device)
+            self._queue_decode(None, Bt, mb, n, out, tokens, positions,
+                               tables[:, :mb])
+            out = out.cpu().numpy()                 # [n, Bt]: one fetch
         if not cold:
             self._observe_tok_lat(
                 (time.perf_counter() - t0) / (n * B), n=n * B)
         self._tm_ticks.inc(n, kind="decode", mb_tier=self._mb_tier_name(mb))
         self._tm_occup.set(B / Bt, phase="decode")
         self._tm_sched_gauges()
-        return self._drain_decode_out(out, live, n)
+        return self._drain_decode_out(out, live, n, pos_advanced=False)
 
-    def _drain_decode_out(self, out, live, n: int) -> Dict[int, List[int]]:
-        """Fold a window's [n, Bt] sampled tokens into host bookkeeping."""
+    @staticmethod
+    def _decode_inputs(live: List[_Seq], Bt: int):
+        """Host (tokens, positions) [Bt] of a decode window's first tick;
+        pad rows are token 0 at position 0 (trash block 0)."""
+        tokens = np.zeros((Bt,), np.int32)
+        positions = np.zeros((Bt,), np.int32)
+        for i, s in enumerate(live):
+            tokens[i] = s.last_tok
+            positions[i] = s.pos
+        return tokens, positions
+
+    def _drain_decode_out(self, out, live, n: int, pos_advanced: bool,
+                          pos0: Optional[List[int]] = None
+                          ) -> Dict[int, List[int]]:
+        """Fold a window's [n, Bt] sampled tokens into host bookkeeping.
+        ``pos_advanced``: decode_stream advances ``s.pos`` when it queues a
+        window (the next window chains on the device before this one
+        drains) and passes ``pos0``, each row's position before the window,
+        so that the max-len cutoff applies at each tick's own position; the
+        synchronous path advances ``s.pos`` here."""
         result: Dict[int, List[int]] = {}
         for i, s in enumerate(live):
             got: List[int] = []
             for t in range(n):
                 tok = int(out[t, i])
-                s.pos += 1          # this tick's input token entered the cache
+                if not pos_advanced:
+                    s.pos += 1      # this tick's input token entered the cache
                 s.last_tok = tok
                 before = len(s.generated)
-                self._note_token(s, tok)
+                self._note_token(
+                    s, tok, pos=None if pos0 is None else pos0[i] + t + 1)
                 if len(s.generated) > before:
                     got.append(tok)
                 if s.done:
@@ -429,7 +551,132 @@ class FastGenEngine:
         return result
 
     def decode_stream(self, window: int = 8):
-        raise _later_slice("decode_stream")
+        """Generator of fused decode windows with ONE window always in
+        flight: window N+1 is queued, chained on the tokens and positions
+        window N left on the device, before N's tokens are fetched. Yields
+        {uid: [tokens]} per drained window.
+
+        On the card window N's tokens go to a pinned host buffer by a copy
+        queued right after its ticks, and the host waits on that copy's
+        event only; two buffers alternate. The tables are copied to the
+        device only when a block was added or the width tier changed.
+
+        The chain holds while the live set, slot tier and window tier are
+        unchanged and no admission is pending; any change (EOS found at a
+        drain, a new put(), block exhaustion, an expired deadline) drains
+        the window in flight and the generator returns: callers re-enter
+        after rescheduling. A sequence that hits EOS one window early costs
+        at most one window of wasted ticks.
+
+        If the caller breaks out (closing the generator), the window in
+        flight is still drained into engine bookkeeping: those tokens are
+        visible through ``query`` but were never yielded."""
+        self._assert_stream_drained()   # a 2nd concurrent stream would
+        # read the optimistic pos/stale last_tok and corrupt both chains
+        pending = None          # (host tokens, copy event, live, n, pos0)
+        dev_chain = None        # what the next window chains on
+        tables_mb = None
+        chain = None            # (tier Bt, n, live uids) the chain was built on
+        bufs = None             # two (device out, host out, copy event)
+        prev_drain_t = [None]   # drain-to-drain timing = steady-state rate
+        cold = [False]          # a graph was captured since the last drain
+
+        def drain(p):
+            host, copied, p_live, p_n, p_pos0 = p
+            if copied is not None:
+                copied.synchronize()      # this window's copy, nothing else
+            now = time.perf_counter()
+            if prev_drain_t[0] is not None and not cold[0]:
+                # with a window always in flight, drain-to-drain wall time
+                # over the window's tokens IS the per-token serving rate
+                self._observe_tok_lat(
+                    (now - prev_drain_t[0]) / max(1, p_n * len(p_live)),
+                    n=p_n * len(p_live))
+            prev_drain_t[0] = now
+            cold[0] = False
+            return self._drain_decode_out(
+                host.numpy(), p_live, p_n, pos_advanced=True, pos0=p_pos0)
+
+        last = None
+        k = 0
+        try:
+            while True:
+                # deadline expiry changes the live set, which breaks the
+                # chain below and drains — as a flush() mid-stream does
+                self._expire_deadlines()
+                live = [self.seqs[u] for u in self._admit_order
+                        if u in self.seqs and not self.seqs[u].done]
+                n = self._fit_decode_tier(live, window)
+                Bt = self._slot_tier(len(live)) if live else 0
+                key_now = (Bt, n, tuple(s.uid for s in live))
+                if n < 1 or (chain is not None and key_now != chain):
+                    break       # drain in-flight below; caller reschedules
+                chain = key_now
+                mb, tables, grew = self._decode_window_tensors(live, Bt, n)
+                upload = None
+                if tables_mb is None or grew or mb != tables_mb:
+                    upload = tables[:, :mb]
+                    tables_mb = mb
+                start = (None, None)
+                if dev_chain is None:
+                    start = self._decode_inputs(live, Bt)
+                if bufs is None:
+                    bufs = self._stream_buffers(n, Bt)
+                out, host, copied = bufs[k % 2]
+                k += 1
+                cold[0] |= self._cold(("dec", Bt, mb))
+                pos0 = [s.pos for s in live]
+                with telemetry.span("decode_window", ticks=n):
+                    dev_chain = self._queue_decode(dev_chain, Bt, mb, n, out,
+                                                   *start, tables=upload)
+                    if copied is not None:
+                        host.copy_(out, non_blocking=True)
+                        copied.record()
+                self._tm_ticks.inc(n, kind="decode",
+                                   mb_tier=self._mb_tier_name(mb))
+                self._tm_occup.set(len(live) / Bt, phase="decode")
+                self._tm_sched_gauges()
+                # the device is now computing THIS window; positions advance
+                # now so the next iteration's block math is right
+                for s in live:
+                    s.pos += n
+                prev, pending = pending, (host, copied, live, n, pos0)
+                # while a window is in flight, s.pos is a window ahead of
+                # s.last_tok: step()/decode_steps() would decode a stale
+                # token at an advanced position, so they raise until drained
+                self._stream_inflight = True
+                if prev is not None:
+                    yield drain(prev)
+                    if any(s.done for s in prev[2]):
+                        # EOS found late: the window in flight ran garbage
+                        # for that row (bounded waste); drain it and end
+                        res = drain(pending)
+                        pending = None
+                        self._stream_inflight = False
+                        yield res
+                        return
+        finally:
+            # the caller broke out (GeneratorExit) or the chain ended: the
+            # window in flight MUST fold into host bookkeeping or
+            # last_tok/pos go stale and later windows decode garbage
+            if pending is not None:
+                last = drain(pending)
+                pending = None
+            self._stream_inflight = False
+        if last is not None:
+            yield last
+
+    def _stream_buffers(self, n: int, Bt: int):
+        """decode_stream's two alternating (device out [n, Bt], host out,
+        copy event): on the card the host buffers are pinned and an event
+        marks each copy; on the CPU the device buffer is the host's."""
+        i32 = dict(dtype=torch.int32)
+        out = [torch.empty((n, Bt), device=self.device, **i32)
+               for _ in range(2)]
+        if self.device.type != "cuda":
+            return [(o, o, None) for o in out]
+        return [(o, torch.empty((n, Bt), pin_memory=True, **i32),
+                 torch.cuda.Event()) for o in out]
 
     def serve_planned(self, *args, **kwargs):
         raise _later_slice("planned serving (serve_planned)")
@@ -450,15 +697,32 @@ class FastGenEngine:
 
     def _decode_window_tensors(self, live: List[_Seq], Bt: int, n: int):
         """Allocate blocks for an n-tick window and build the padded block
-        tables; returns (mb tier, tables [Bt, max_blocks])."""
+        tables; returns (mb tier, tables [Bt, max_blocks], grew: whether
+        any table changed, so that a chained window knows the device's copy
+        is stale)."""
+        grew = False
         for s in live:
+            before = len(s.blocks)
             self._ensure_blocks(s, s.pos + n - 1)
+            grew |= len(s.blocks) != before
         mb_need = (max(s.pos for s in live) + n - 1) // self.block_size + 1
         mb = self._mb_tier(mb_need)
         tables = np.zeros((Bt, self.max_blocks_per_seq), np.int32)
         for i, s in enumerate(live):
             tables[i] = s.table
-        return mb, tables
+        return mb, tables, grew
+
+    def _assert_stream_drained(self) -> None:
+        """decode_stream misuse guard: while its window is in flight, s.pos
+        is a window ahead of s.last_tok, so step(), decode_steps() or a
+        second stream would decode a stale token at an advanced position.
+        Exhaust or close() the stream first (closing drains the window).
+        put() is not guarded: it is host bookkeeping only, and admission
+        mid-stream ends the chain at its next window."""
+        if self._stream_inflight:
+            raise RuntimeError(
+                "decode_stream window in flight — exhaust or close the "
+                "stream before step()/decode_steps()/decode_stream()")
 
     # ------------------------------------------------------------------ #
     def put(self, uids: Sequence[int], prompts: Sequence[Sequence[int]],
@@ -577,6 +841,7 @@ class FastGenEngine:
         before re-raising. A fault inside the device work itself may have
         written into the pool in place; that is a dead-device condition,
         not state this rollback can save."""
+        self._assert_stream_drained()
         self._expire_deadlines()
         live = [self.seqs[u] for u in self._admit_order
                 if u in self.seqs and not self.seqs[u].done]
@@ -665,14 +930,10 @@ class FastGenEngine:
         mb_need = int(positions[:row].max()) // self.block_size + 1
         mb = self._mb_tier(mb_need)
 
-        key = (Tn, mb)
-        cold = key not in self._seen_shapes
-        self._seen_shapes.add(key)
+        cold = self._cold((Tn, mb))
         t0 = time.perf_counter()
         with telemetry.span("decode_tick"):
-            sampled = self._tick(self._to_dev(tokens),
-                                 self._to_dev(positions),
-                                 self._to_dev(tables[:, :mb]))
+            sampled = self._queue_tick(tokens, positions, tables[:, :mb])
             sampled = sampled.cpu().numpy()
         n_decode_rows = sum(1 for _, _, is_d in heads if is_d)
         if not cold and n_decode_rows:
@@ -696,7 +957,11 @@ class FastGenEngine:
             out[seq.uid] = tok
         return out
 
-    def _note_token(self, seq: _Seq, tok: int) -> None:
+    def _note_token(self, seq: _Seq, tok: int,
+                    pos: Optional[int] = None) -> None:
+        """``pos``: the sequence's position at the tick that produced this
+        token — decode_stream drains with ``seq.pos`` already a window or
+        two ahead, so the max-len cutoff must use the tick's position."""
         if seq.done:
             return
         # TTFT anchors on the first sampled token even when it's EOS
@@ -706,7 +971,7 @@ class FastGenEngine:
             return
         seq.generated.append(tok)
         self._tm_gen_tok.inc()
-        if seq.pos + 1 >= self.max_len:
+        if (seq.pos if pos is None else pos) + 1 >= self.max_len:
             self._finish(seq)
 
     def _finish(self, seq: _Seq) -> None:

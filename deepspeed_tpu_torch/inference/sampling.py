@@ -3,7 +3,10 @@
 Parity: ``deepspeed_tpu/inference/sampling.py`` ``sample_logits``. The JAX
 version draws with a ``jax.random`` key; this one with a
 ``torch.Generator``. The two give different draws from one seed; greedy
-(temperature 0) is identical.
+(temperature 0) is identical. Inside a captured CUDA graph
+(``inference/graphs.TickGraph``) the generator must be registered with the
+graph (``CUDAGraph.register_generator_state``), so that each replay draws
+anew from it; a capture that draws from one not registered raises.
 """
 from __future__ import annotations
 

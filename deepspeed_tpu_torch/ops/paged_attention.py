@@ -30,7 +30,7 @@ prefill, plan).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -272,8 +272,12 @@ def paged_attention_emulated(q: torch.Tensor, kpool: torch.Tensor,
 
 _fns: Dict[str, object] = {}   # the bound C entry points, at the first launch
 #: the decode kernel's split counters [T * K] int32 per (device, stream):
-#: zero between launches (the last split of a row resets its own)
+#: zero between launches (the last split of a row resets its own), so a
+#: captured CUDA graph finds them zero at every replay
 _sems: Dict[tuple, torch.Tensor] = {}
+#: counters outgrown by a wider tick: a graph captured with one still
+#: holds its address, so it is never freed
+_retired_sems: List[torch.Tensor] = []
 
 
 def _bind():
@@ -380,6 +384,8 @@ def paged_attention(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
         key = (q.device.index, stream)
         sem = _sems.get(key)
         if sem is None or sem.numel() < Tn * K:
+            if sem is not None:
+                _retired_sems.append(sem)
             sem = _sems[key] = torch.zeros(Tn * K, dtype=torch.int32,
                                            device=q.device)
         # no plan: every row a decode row

@@ -170,8 +170,8 @@ def test_rematerialize_and_temperature_sampling():
     assert eng.rematerialize(99) is None
 
 
-@pytest.mark.parametrize("call", ["planned", "serve_planned",
-                                  "decode_stream", "tp", "quantized"])
+@pytest.mark.parametrize("call", ["planned", "serve_planned", "tp",
+                                  "quantized"])
 def test_later_slice_options_raise(call):
     with pytest.raises(NotImplementedError, match="later slice"):
         if call == "tp":
@@ -184,10 +184,8 @@ def test_later_slice_options_raise(call):
             eng = _engine()
             if call == "planned":
                 eng.generate_all([1], _prompts(8, [4]), 2, planned=True)
-            elif call == "serve_planned":
-                eng.serve_planned(4)
             else:
-                eng.decode_stream()
+                eng.serve_planned(4)
 
 
 def test_engine_initialises_its_own_params_on_the_cpu():
