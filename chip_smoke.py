@@ -80,11 +80,25 @@ kernel on them against its plain PyTorch version:
                from it than twice the plain bf16 path; the int8 error within
                half a quantization step a rank); then exact ZeRO-2 at world
                2 as the baseline;
-12. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
+12. train_llama_750m_zero3_dp2 — the same two ranks train llama_750m at
+               full width and depth with ZeRO-3 (the repo's
+               zero3_llama_750m_bf16 row, overlap_comm on: 8 layer chunks
+               of JAX's plan, each gathered where the forward and the
+               recompute use it, the next in flight): (a) exact, (b) + qgZ
+               + qwZ + LoCo, (c) exact ZeRO-2 (the zeropp phase's when it
+               ran): step, tokens/s, MFU, peak a rank, the wire's host
+               waits with the prefetch on and off; gates Z1 (one fp32 step
+               ZeRO-3 vs ZeRO-2 at 4 layers, full width, by the training
+               rule), Z2 (bf16: the loss within 1e-5, the update no
+               further from fp32 than 2x ZeRO-2's), Z3 (each chunk's qwZ
+               gather within half a step of the exact gather; the zeropp
+               wire gate on (b)), Z4 ((a)'s peak >= 3 GB below (c)'s), Z5
+               (the launches and the 17 gathers a micro-batch);
+13. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
                chunks concatenating to the whole reduction;
-13. times    — kernels vs plain vs library calls vs their bounds (CUDA
+14. times    — kernels vs plain vs library calls vs their bounds (CUDA
                events; paged attention at a decode, a prefill and a mixed
                tick, each kernel's own time by the profiler, and the plan
                kernel), decode tokens/s, device ms, idle share, kernels and
@@ -106,10 +120,11 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sparse,evoformer,times
     python3 chip_smoke.py --phases card,build,kernels,train_moe_350m,evoformer,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,quantized_reduce_scatter,times
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,train_llama_750m_zero3_dp2,times
     python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11, 12) run right after the kernels phase. Wire times of the data-parallel phases are gloo's through host memory, the
+(11-13) run right after the kernels phase. Wire times of the data-parallel phases are gloo's through host memory, the
 ranks sharing one card: not NVLink's.
 """
 from __future__ import annotations
@@ -136,8 +151,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 # the parent holds until `times` (~23 GB beside two ranks' engines did not
 # fit 80 GB).
 PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
-          "quantized_reduce_scatter", "llama2_7b", "gpt2_125m",
-          "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
+          "train_llama_750m_zero3_dp2", "quantized_reduce_scatter",
+          "llama2_7b", "gpt2_125m", "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
           "train_llama_750m_sparse", "evoformer", "times")
 
 # Tolerances of a kernel against its plain version on the same inputs.
@@ -439,12 +454,16 @@ BF16_FLOORED = ("loss_rel", "aux_rel")
 BF16_TOP1_SLACK = 0.05
 # The ZeRO++ phase: bench.py's zero2_qgz_llama_750m_bf16 row (ZeRO-2 +
 # qgZ + qwZ + LoCo, micro 4 a rank, seq 2048, gas 4, bf16) at world 2, both
-# ranks on the one card over gloo; 1 warm-up + 2 steps. Per rank and step
-# the design launches quantize gas + 1 times (each micro-batch's qgZ send,
-# the step's qwZ publish) and dequant-reduce 2 gas + 1 times (each
-# micro-batch's receive and LoCo's dequantized send, the publish's rows).
+# ranks on the one card over gloo; 1 warm-up + 2 steps. The qwZ publish
+# quantizes by JAX's overlap plan: at allgather_bucket_size 5e8 and
+# llama_750m's 28,311,552 elements a layer, two layer chunks, so three
+# groups (the head group, then each chunk). Per rank and step the design
+# launches quantize gas + 3 times (each micro-batch's qgZ send, the
+# publish's groups) and dequant-reduce 2 gas + 3 times (each micro-batch's
+# receive and LoCo's dequantized send, the publish's groups).
 ZEROPP = dict(model="llama_750m", world=2, micro=4, seq=2048, gas=4, steps=2,
               gate_micro=1)
+ZEROPP_CHUNKS = [[0, 10], [10, 20]]
 ZEROPP_WIRE = {"stage": 2, "zero_quantized_gradients": True,
                "zero_quantized_weights": True, "loco_error_feedback": True}
 ZEROPP_EXACT = {"stage": 2}
@@ -456,6 +475,24 @@ ZEROPP_EXACT = {"stage": 2}
 # element by one quantization step, so kernel-vs-plain differences of the
 # fp32 gradient's last digits may flip a few).
 WIRE_NOISE_SHARE = 0.1
+# The ZeRO-3 phase: bench.py's zero3_llama_750m_bf16 row (llama_750m,
+# stage 3, micro 4 a rank, seq 2048, gas 4, bf16, flash, remat full, Adam)
+# at world 2 on the one card over gloo, overlap_comm on with the default
+# stage3_prefetch_bucket_size 5e7: JAX's plan of 8 layer chunks
+# (even_chunk_bounds(20, 8): 3, 3, 3, 3, 2, 2, 2, 2 layers). Run (a) exact
+# ZeRO-3, (b) ZeRO-3 + qgZ + qwZ + LoCo, (c) exact ZeRO-2 (the zeropp
+# phase's baseline when it ran in the same call); 1 warm-up + 2 steps
+# each. The gate steps Z1-Z2 run the model cut to ZERO3["gate_layers"]
+# layers at full width (gas 1, micro 1 a rank).
+ZERO3 = dict(ZEROPP, gate_layers=4)
+ZERO3_EXACT = {"stage": 3}
+ZERO3_WIRE = dict(ZEROPP_WIRE, stage=3)
+ZERO3_CHUNKS = 8
+# Z4: run (a)'s peak a rank at least this far below exact ZeRO-2's
+ZERO3_MEMORY_SAVED = 3e9
+ZERO3_SPANS = ("zero3_gather_issue", "zero3_gather_wait",
+               "zero3_gather_unpack", "zero3_reduce_issue",
+               "zero3_reduce_wait")
 PG_TIMEOUT_S = 900               # the ranks' process group
 RANKS_TIMEOUT_S = 900            # a spawned phase's ranks, all together
 QRS = dict(n=2 ** 26, worlds=(2, 4))
@@ -683,8 +720,13 @@ def dev_peak(dev, reset=False):
 
 
 def dev_free(dev):
+    """Return what dropped engines held (after a collection: a reference
+    cycle would keep a whole engine) to the card."""
+    import gc
+
     import torch
 
+    gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -744,7 +786,9 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
         "warmup_step_seconds": warm_s, "losses": [first] + losses,
         "step_walls_s": walls, "step_ms": float(np.median(walls)) * 1e3,
         "launches": counts, "peak_memory_bytes": dev_peak(dev),
-        "n_sharded": engine._n_sh, "n_replicated": engine._n_rep}
+        "n_sharded": engine._n_sh, "n_replicated": engine._n_rep,
+        "plan_chunks": [list(b) for b in
+                        engine.overlap_plan()["chunk_bounds"]]}
 
 
 def zeropp_profile(engine, data, dev, profiled):
@@ -768,7 +812,7 @@ def zeropp_profile(engine, data, dev, profiled):
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = ("zero_pack", "zero_publish", "qgz_quantize", "qgz_sent",
              "qgz_all_to_all", "qgz_dequant_reduce", "qwz_publish",
-             "zero_reduce_exact")
+             "zero_reduce_exact") + ZERO3_SPANS
     hist = telemetry.get_registry().histogram("span_seconds")
     host_ms = {sp: hist.summary(span=sp).get("sum", 0.0) * 1e3
                for sp in spans}
@@ -823,9 +867,11 @@ def wire_gates(engine, batch, dev):
     W, B = engine.world, QK.DEFAULT_BLOCK
     mb = engine._to_device(engine._local_rows(stack_micros([batch])))
     mb = {k: v[0] for k, v in mb.items()}
-    engine._loss_and_grads(mb, None)
-    engine._pack(accumulate=False)
-    x = engine._packed
+    with engine._step_buffers():        # ZeRO-3: the step's full gradient
+        engine._loss_and_grads(mb, None)
+        engine._pack(accumulate=False)
+        x = engine._packed
+        engine.flat_grad.zero_()
     if engine.loco_err is not None:
         x.add_(engine.loco_err)
     q, sc = QK.quantize_int8_blocks(x.view(-1))
@@ -861,7 +907,6 @@ def wire_gates(engine, batch, dev):
            "quant_err_max_over_bound": ratio,
            "quant_err_out_of_bound": int(over.sum()),
            "quant_err_max_abs": float(err.max())}
-    engine.flat_grad.zero_()
     return out
 
 
@@ -1011,6 +1056,243 @@ def quantized_reduce_scatter_rank(rank, world, seed, p):
             "err_max_over_bound": float((err / bound).max()),
             "err_out_of_bound": int((err > bound * (1 + 1e-6)
                                      + 1e-6 * exact.abs()).sum())}
+
+
+def zero3_launches_want(L, gas, steps, chunks, wire):
+    """Kernel launches a rank of the ZeRO-3 phase makes in ``steps``
+    steps: flash forward twice a layer (the forward and remat's
+    recompute), dq and dkv once; the norms 4 a layer and the final one;
+    Adam once a step. On the int8 wire, per micro-batch: one quantize and
+    one dequant-reduce a qwZ gather (the head group, each chunk in the
+    forward and again in the recompute: 1 + 2 chunks), plus qgZ's
+    quantize, and its receive and LoCo's dequantized send."""
+    micros = gas * steps
+    gathers = 1 + 2 * chunks
+    return {"quant_int8": (gathers + 1) * micros if wire else 0,
+            "dequant_reduce": (gathers + 2) * micros if wire else 0,
+            "flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
+            "flash_bwd_dkv": L * micros, "fused_adam": steps,
+            "rms_norm": (4 * L + 1) * micros, "block_sparse_fwd": 0,
+            "gmm": 0, "tgmm": 0, "evoformer_fwd": 0, "paged_attention": 0}
+
+
+def zero3_count_problems(counts, gas, chunks, wire):
+    """Z5's gathers and reduces of one step against the plan: a gather of
+    the head group and of each chunk in the forward, each chunk again in
+    the recompute; on the exact wire one reduce a group (chunks and the
+    head group), none on the int8 wire (qgZ reduces the step's full
+    gradient once a micro-batch)."""
+    want = {"gather_fwd": gas * (1 + chunks), "gather_bwd": gas * chunks,
+            "reduce": 0 if wire else gas * (1 + chunks)}
+    return [f"{k}: {counts.get(k)} a step, want {v}"
+            for k, v in want.items() if counts.get(k) != v]
+
+
+def zero3_gate_problems(g):
+    """Z1: the fp32 ZeRO-3 step against the fp32 ZeRO-2 step by the
+    training parity rule; Z2: the bf16 ZeRO-3 loss within 1e-5 of the bf16
+    ZeRO-2 loss and its update no further from the fp32 step than
+    BF16_VS_PLAIN times ZeRO-2's bf16 update."""
+    out = []
+    z = g["fp32_zero3"]
+    for m, lim in (("loss_rel", TRAIN_LOSS_REL), ("grad_rel", TRAIN_GRAD_REL),
+                   ("update_rel", TRAIN_UPDATE_REL),
+                   ("sign_miss", TRAIN_SIGN_MISS)):
+        if not z[m] <= lim:
+            out.append(f"Z1 fp32 {m} {z[m]:.3g} > {lim}")
+    b2, b3 = g["bf16_zero2"], g["bf16_zero3"]
+    if not abs(b3["loss"] - b2["loss"]) <= TRAIN_LOSS_REL * abs(b2["loss"]):
+        out.append(f"Z2 bf16 loss {b3['loss']!r} against ZeRO-2's "
+                   f"{b2['loss']!r}")
+    if not b3["update_rel"] <= BF16_VS_PLAIN * b2["update_rel"]:
+        out.append(f"Z2 bf16 update_rel {b3['update_rel']:.3g} > "
+                   f"{BF16_VS_PLAIN} x ZeRO-2's {b2['update_rel']:.3g}")
+    return out
+
+
+def zero3_memory_problems(peak_zero3, peak_zero2):
+    """Z4: exact ZeRO-3's peak a rank at least ZERO3_MEMORY_SAVED below
+    exact ZeRO-2's."""
+    if peak_zero3 <= peak_zero2 - ZERO3_MEMORY_SAVED:
+        return []
+    return [f"Z4 peak {peak_zero3 / 1e9:.3f} GB, not {ZERO3_MEMORY_SAVED / 1e9:g}"
+            f" GB below exact ZeRO-2's {peak_zero2 / 1e9:.3f} GB"]
+
+
+def qwz_chunk_gate(engine, groups=None):
+    """Z3: each group's qwZ gather (the head group, every chunk) against
+    the exact fp32 gather of the same master: |q − exact| ≤ scale / 2 per
+    element (scale = amax / 127 of its block of its rank's row), plus
+    fp32 rounding."""
+    import torch
+    from deepspeed_tpu_torch.ops.quant_kernels import DEFAULT_BLOCK as B
+    from deepspeed_tpu_torch.parallel import stage3 as S3
+
+    out = []
+    W = engine.world
+    with torch.no_grad():
+        for i, grp in enumerate(groups or engine._zero3.groups):
+            q = S3.gather_group(grp, engine, engine.flat_master, True)
+            ex = S3.gather_group(grp, engine, engine.flat_master, False)
+            step = ex.abs().view(W, -1, B).amax(-1) / 127.0
+            bound = (step / 2).repeat_interleave(B, dim=1)
+            err = (q - ex).abs()
+            over = err > bound * (1 + 1e-6) + 1e-6 * ex.abs()
+            out.append({"group": i, "layers": grp.layers,
+                        "elements": ex.numel(),
+                        "max_over_bound": float(
+                            (err / bound.clamp_min(1e-30)).max()),
+                        "out_of_bound": int(over.sum())})
+            del q, ex, err, over, bound
+    return out
+
+
+def zero3_stats(engine):
+    z = engine._zero3
+    return {"zero3_counts": dict(z.counts),
+            "gathers_per_micro": z.gathers_per_micro(),
+            "chunk_bounds": [list(b) for b in
+                             engine.overlap_plan()["chunk_bounds"]],
+            "groups": len(z.groups)}
+
+
+def zero3_exposed(engine, data, dev):
+    """One step with the next chunk's gather in flight (overlap_comm on),
+    one with every gather issued where it is used (what overlap_comm off
+    builds on the exact wire: the same chunks, no prefetch), on the same
+    engine: the step's wall and the host ms it waited on the wire (the
+    gathers' and the reduces' waits: the wire time left exposed)."""
+    from deepspeed_tpu_torch import telemetry
+
+    out = {}
+    for label, on in (("overlap_on", True), ("overlap_off", False)):
+        engine._zero3.prefetch = on
+        telemetry.reset()
+        dev_sync(dev)
+        t0 = time.perf_counter()
+        engine.train_batch(data)
+        dev_sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        hist = telemetry.get_registry().histogram("span_seconds")
+        spans = {sp: hist.summary(span=sp).get("sum", 0.0) * 1e3
+                 for sp in ZERO3_SPANS}
+        out[label] = {"step_ms": wall, "host_span_ms": spans,
+                      "exposed_wire_ms": spans["zero3_gather_wait"]
+                      + spans["zero3_reduce_wait"]}
+    engine._zero3.prefetch = True
+    return out
+
+
+def zero3_gate_step(t, dev, master, batch, zero, precision):
+    """One step (gas 1, the gate's micro, ``t["gate_layers"]`` layers at
+    full width) from ``master`` (None: this engine's own initial master,
+    returned) → (master, sharded elements, loss, reduced gradient,
+    update)."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import load_master
+
+    spec = dtt.causal_lm_spec(
+        t["model"], attention="flash", remat="full",
+        num_layers=t["gate_layers"],
+        dtype="float32" if precision == "fp32" else "bfloat16")
+    engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
+        t["gate_micro"], 1, precision, zero), device=dev)
+    if master is None:
+        master = engine.full_master()
+    else:
+        load_master(engine, master)
+    before = engine.flat_master.clone()
+    loss = float(engine.train_batch(iter([batch])))
+    grad = engine.flat_grad_acc.float()
+    update = engine.flat_master - before
+    n_sh = engine._n_sh
+    if hasattr(engine, "close"):
+        engine.close()
+    del before, engine
+    return master, n_sh, loss, grad, update
+
+
+def zero3_gates(t, dev, batch):
+    """Z1 and Z2's numbers: fp32 and bf16 steps of exact ZeRO-2 and exact
+    ZeRO-3 from one master and one batch, each against the fp32 ZeRO-2
+    step (the local buffers share ZeRO-2's layout)."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+
+    res, ref, master = {}, None, None
+    for way, zero, prec in (("fp32_zero2", ZEROPP_EXACT, "fp32"),
+                            ("fp32_zero3", ZERO3_EXACT, "fp32"),
+                            ("bf16_zero2", ZEROPP_EXACT, "bf16"),
+                            ("bf16_zero3", ZERO3_EXACT, "bf16")):
+        master, n_sh, loss, grad, upd = zero3_gate_step(
+            t, dev, master, batch, zero, prec)
+        row = {"loss": loss}
+        if ref is None:
+            ref = {"loss": loss, "grad": grad, "upd": upd,
+                   "g2": gathered_sq(n_sh, grad), "u2": gathered_sq(n_sh, upd)}
+        else:
+            miss = ((upd > 0) != (ref["upd"] > 0)) & (
+                (upd != 0) | (ref["upd"] != 0))
+            nz = ((upd != 0) | (ref["upd"] != 0))
+            counts = torch.stack([miss[:n_sh].sum(), nz[:n_sh].sum(),
+                                  miss[n_sh:].sum(), nz[n_sh:].sum()]).double()
+            comm.all_reduce(counts[:2])
+            row.update(
+                loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                grad_rel=gathered_sq(n_sh, grad - ref["grad"]) ** 0.5
+                / ref["g2"] ** 0.5,
+                update_rel=gathered_sq(n_sh, upd - ref["upd"]) ** 0.5
+                / ref["u2"] ** 0.5,
+                sign_miss=float((counts[0] + counts[2])
+                                / (counts[1] + counts[3]).clamp(min=1)))
+        res[way] = row
+        del grad, upd
+        dev_free(dev)
+    res["bf16_loss_bit_equal"] = res["bf16_zero3"]["loss"] == \
+        res["bf16_zero2"]["loss"]
+    res["gate_layers"] = t["gate_layers"]
+    return res
+
+
+def train_llama_750m_zero3_dp2_rank(rank, world, seed, t):
+    """One rank of the ZeRO-3 phase (``t``: ZERO3, the device, whether to
+    run the ZeRO-2 baseline): run (a) exact ZeRO-3 — the main path, the
+    overlap on/off steps, its profile; run (b) ZeRO-3 + qgZ + qwZ + LoCo —
+    the main path, the wire gate, the qwZ chunk gate; the Z1-Z2 gate
+    steps; run (c) exact ZeRO-2 when asked."""
+    import torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    dev = torch.device(t["device"])
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, vocab, (t["micro"] * world, t["seq"]),
+                                    dtype=np.int32)}
+    out = {"rank": rank}
+    engine, data, out["exact"] = zeropp_run(t, dev, ZERO3_EXACT, batch)
+    out["exact"].update(zero3_stats(engine))
+    out["exposed"] = zero3_exposed(engine, data, dev)
+    out["exact_profile"] = zeropp_profile(
+        engine, data, dev, profiled=rank == 0 and dev.type == "cuda")
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    engine, data, out["wire"] = zeropp_run(t, dev, ZERO3_WIRE, batch)
+    out["wire"].update(zero3_stats(engine))
+    out["wire_profile"] = zeropp_profile(engine, data, dev, profiled=False)
+    out["wire_gate"] = wire_gates(engine, batch, dev)
+    out["qwz_gate"] = qwz_chunk_gate(engine)
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    gate_batch = {"tokens": batch["tokens"][:t["gate_micro"] * world]}
+    out["gates"] = zero3_gates(t, dev, gate_batch)
+    if t["baseline"]:
+        engine, data, out["baseline"] = zeropp_run(t, dev, ZEROPP_EXACT,
+                                                   batch)
+        del engine, data
+        dev_free(dev)
+    return out
 
 
 # The kernel instantiations the launches reach, as sass_kernel_label names
@@ -2766,8 +3048,9 @@ class Smoke:
         wall = time.perf_counter() - t0
         L = cfg.num_layers
         micros = gas * steps
-        want = {"quant_int8": (gas + 1) * steps,
-                "dequant_reduce": (2 * gas + 1) * steps,
+        groups = 1 + len(ZEROPP_CHUNKS)
+        want = {"quant_int8": (gas + groups) * steps,
+                "dequant_reduce": (2 * gas + groups) * steps,
                 "flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
                 "flash_bwd_dkv": L * micros, "fused_adam": steps,
                 "rms_norm": (4 * L + 1) * micros, "block_sparse_fwd": 0,
@@ -2777,6 +3060,9 @@ class Smoke:
         for r in ranks:
             m, wg = r["main"], r["wire_gate"]
             tag = f"rank {r['rank']}"
+            if m["plan_chunks"] != ZEROPP_CHUNKS:
+                problems.append(f"{tag}: plan chunks {m['plan_chunks']}, "
+                                f"want {ZEROPP_CHUNKS}")
             problems += [f"{tag}: {k} launched {m['launches'][k]} times, "
                          f"want {v}" for k, v in want.items()
                          if m["launches"][k] != v]
@@ -2841,7 +3127,131 @@ class Smoke:
                                 "profile": dict(rates(r0["main"]),
                                                 **r0["profile"]),
                                 "baseline": dict(rates(r0["baseline"]),
-                                                 **r0["baseline_profile"])}
+                                                 **r0["baseline_profile"]),
+                                "baseline_runs": [r["baseline"]
+                                                  for r in ranks]}
+
+    def phase_train_llama_750m_zero3_dp2(self):
+        """Two ranks on the card: exact ZeRO-3 and ZeRO-3 + qgZ + qwZ +
+        LoCo at the full width and depth of zero3_llama_750m_bf16, gates
+        Z1-Z5 (``train_llama_750m_zero3_dp2_rank``); exact ZeRO-2 as the
+        baseline, the zeropp phase's when it ran in this call."""
+        torch = self.torch
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+        from deepspeed_tpu_torch.parallel.overlap import even_chunk_bounds
+
+        build.build_all()
+        torch.cuda.empty_cache()
+        t = dict(ZERO3, baseline="zeropp" not in self.state)
+        world, gas, steps = t["world"], t["gas"], t["steps"]
+        cfg = T.get_model_config(t["model"])
+        L = cfg.num_layers
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("train_llama_750m_zero3_dp2_rank", world,
+                            self.seed, dict(t, device=str(self.dev)))
+        wall = time.perf_counter() - t0
+        baselines = ([r["baseline"] for r in ranks] if t["baseline"]
+                     else self.state["zeropp"]["baseline_runs"])
+        bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
+        want = {run: zero3_launches_want(L, gas, steps, ZERO3_CHUNKS,
+                                         wire=run == "wire")
+                for run in ("exact", "wire")}
+        problems = []
+        for r, base in zip(ranks, baselines):
+            tag = f"rank {r['rank']}"
+            for run in ("exact", "wire"):
+                m = r[run]
+                problems += [f"{tag} {run}: {k} launched {m['launches'][k]}"
+                             f" times, want {v}" for k, v in want[run].items()
+                             if m["launches"][k] != v]
+                problems += [f"{tag} {run}: {p}" for p in zero3_count_problems(
+                    m["zero3_counts"], gas, ZERO3_CHUNKS, run == "wire")]
+                if m["chunk_bounds"] != bounds:
+                    problems.append(f"{tag} {run}: chunks {m['chunk_bounds']}"
+                                    f", want {bounds}")
+                ls = m["losses"]
+                if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+                    problems.append(f"{tag}: {run} loss did not fall: {ls}")
+                if ls != ranks[0][run]["losses"]:
+                    problems.append(f"{tag}: the ranks' {run} losses differ")
+            wg = r["wire_gate"]
+            for k in ("q_bitwise_equal", "scales_bitwise_equal",
+                      "reduced_bitwise_equal"):
+                if not wg[k]:
+                    problems.append(f"{tag}: Z3 wire gate {k} false")
+            if wg["quant_err_out_of_bound"]:
+                problems.append(f"{tag}: Z3 {wg['quant_err_out_of_bound']} "
+                                "qgZ elements past the int8 error bound")
+            problems += [f"{tag}: Z3 qwZ group {g['group']}: "
+                         f"{g['out_of_bound']} elements past half a step"
+                         for g in r["qwz_gate"] if g["out_of_bound"]]
+            problems += [f"{tag}: {p}" for p in zero3_gate_problems(
+                r["gates"])]
+            problems += [f"{tag}: {p}" for p in zero3_memory_problems(
+                r["exact"]["peak_memory_bytes"], base["peak_memory_bytes"])]
+        tokens = t["micro"] * t["seq"] * gas * world
+        flops = flops_per_token(cfg, t["seq"]) * tokens
+
+        def rates(run):
+            step_s = run["step_ms"] / 1e3
+            return {"step_ms": run["step_ms"], "tokens_per_s": tokens / step_s,
+                    "model_tflops_per_s": flops / step_s / 1e12,
+                    "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+                    "peak_memory_bytes_per_rank": [
+                        x["peak_memory_bytes"] for x in run["per_rank"]]}
+
+        r0 = ranks[0]
+        runs = {"a_exact_zero3": [r["exact"] for r in ranks],
+                "b_zero3_qgz_qwz_loco": [r["wire"] for r in ranks],
+                "c_exact_zero2": baselines}
+        result = {"model": t["model"], "world": world, "micro": t["micro"],
+                  "seq": t["seq"], "gas": gas, "steps": steps,
+                  "zero_a": ZERO3_EXACT, "zero_b": ZERO3_WIRE,
+                  "chunks": bounds, "params": cfg.num_params(),
+                  "phase_wall_s": wall, "card": self.card,
+                  "baseline_from": "this phase" if t["baseline"]
+                  else "train_llama_750m_zeropp_dp2",
+                  "wire_note": "gloo through host memory, two ranks "
+                               "sharing one card",
+                  "launches_want_per_rank": want,
+                  **{k: rates({"step_ms": v[0]["step_ms"], "per_rank": v})
+                     for k, v in runs.items()},
+                  "per_rank": runs,
+                  "exposed_wire_rank0": r0["exposed"],
+                  "profile_rank0": r0["exact_profile"],
+                  "wire_profile_rank0": r0["wire_profile"]}
+        emit("train_llama_750m_zero3_dp2", **result)
+        emit("train_llama_750m_zero3_dp2/gates", card=self.card,
+             gate_depth=f"Z1-Z2 at {t['gate_layers']} layers, full width",
+             step_gates=[r["gates"] for r in ranks],
+             wire_gate=[r["wire_gate"] for r in ranks],
+             qwz_gate=r0["qwz_gate"],
+             memory_saved_gb=[(b["peak_memory_bytes"]
+                               - r["exact"]["peak_memory_bytes"]) / 1e9
+                              for r, b in zip(ranks, baselines)],
+             bounds={"loss_rel": TRAIN_LOSS_REL, "grad_rel": TRAIN_GRAD_REL,
+                     "update_rel": TRAIN_UPDATE_REL,
+                     "sign_miss": TRAIN_SIGN_MISS,
+                     "bf16_vs_zero2": BF16_VS_PLAIN,
+                     "memory_saved_gb": ZERO3_MEMORY_SAVED / 1e9})
+        if problems:
+            raise AssertionError("train_llama_750m_zero3_dp2: "
+                                 + "; ".join(problems))
+        name = "train_llama_750m_zero3_dp2"
+        for run in ("exact", "wire"):
+            for k, v in want[run].items():
+                if v:
+                    self.launches.setdefault(k, {})[f"{name}/{run}"] = \
+                        r0[run]["launches"][k]
+            self.steps[f"{name}/{run}"] = steps
+        self.state["zero3"] = {
+            "exact": dict(rates({"step_ms": r0["exact"]["step_ms"],
+                                 "per_rank": runs["a_exact_zero3"]}),
+                          **r0["exact_profile"]),
+            "wire": dict(rates({"step_ms": r0["wire"]["step_ms"],
+                                "per_rank": runs["b_zero3_qgz_qwz_loco"]}),
+                         **r0["wire_profile"])}
 
     def phase_quantized_reduce_scatter(self):
         """The entry point at world 2 and 4, ranks on the one card."""
@@ -3295,6 +3705,10 @@ class Smoke:
             zp = self.state["zeropp"]
             steps["llama_750m_zeropp_dp2"] = zp["profile"]
             steps["llama_750m_exact_zero2_dp2"] = zp["baseline"]
+        if "zero3" in self.state:
+            steps["llama_750m_exact_zero3_dp2"] = self.state["zero3"]["exact"]
+            steps["llama_750m_zero3_qgz_qwz_loco_dp2"] = \
+                self.state["zero3"]["wire"]
         if "evoformer" in self.state:
             ev["msa_row_attention_step_ms"] = self.evo_step_times()
         q8 = self.quant_times(flush)

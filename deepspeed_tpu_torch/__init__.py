@@ -22,7 +22,10 @@ Ported so far:
   :func:`init_distributed`, then :func:`initialize` builds a
   ``DataParallelEngine``: ZeRO stages 0-2 with the exact wire or the ZeRO++
   int8 wire (qgZ, qwZ, LoCo: ``parallel/compressed.py``) through the int8
-  quantize and dequant-reduce kernels (``ops/csrc/quantization.cu``).
+  quantize and dequant-reduce kernels (``ops/csrc/quantization.cu``); at
+  stage 3 a ``Zero3Engine``, whose parameters are gathered per use by the
+  overlap plan's layer chunks with the next chunk's gather in flight
+  (``parallel/stage3.py``, ``parallel/overlap.py``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no explicit device they raise.
@@ -37,10 +40,11 @@ from deepspeed_tpu_torch.runtime.config import DeepSpeedTPUConfig, load_config
 from deepspeed_tpu_torch.runtime.engine import (
     DataParallelEngine,
     DeepSpeedTPUEngine,
+    Zero3Engine,
 )
 
 __all__ = ["DataParallelEngine", "DeepSpeedTPUConfig", "DeepSpeedTPUEngine",
-           "ModelSpec", "causal_lm_spec", "init_distributed", "initialize",
+           "ModelSpec", "Zero3Engine", "causal_lm_spec", "init_distributed", "initialize",
            "load_config", "resolve_device"]
 
 
@@ -55,7 +59,8 @@ def initialize(args: Any = None, model: Optional[ModelSpec] = None,
     ``device`` as in :func:`resolve_device` (``None`` = the first GPU; the
     tests pass ``"cpu"``). With the default process group up and more than
     one process (:func:`init_distributed`) it builds a
-    :class:`DataParallelEngine`, whose ``device`` is the caller's, else
+    :class:`DataParallelEngine` (:class:`Zero3Engine` at ZeRO stage 3),
+    whose ``device`` is the caller's, else
     ``cuda:{LOCAL_RANK}``. The data loader, and the reference's distributed
     arguments, come in a later slice: a ``training_data`` or a non-None
     distributed argument raises."""
@@ -73,8 +78,10 @@ def initialize(args: Any = None, model: Optional[ModelSpec] = None,
     given = sorted(k for k, v in unused.items() if v is not None)
     if given:
         raise later_slice(f"initialize arguments {given}")
-    cls = DataParallelEngine if comm.get_world_size() > 1 \
-        else DeepSpeedTPUEngine
+    cls = DeepSpeedTPUEngine
+    if comm.get_world_size() > 1:
+        stage = load_config(config).zero_optimization.stage
+        cls = Zero3Engine if stage >= 3 else DataParallelEngine
     engine = cls(model=model, config=config, optimizer=optimizer,
                  lr_scheduler=lr_scheduler, device=device)
     return engine, engine.optimizer, None, engine.lr_scheduler

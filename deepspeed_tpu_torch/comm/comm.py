@@ -21,13 +21,21 @@ every gloo collective on a CUDA tensor goes through
 :func:`_gloo_via_pinned_host`, which copies the operands into pinned host
 buffers, runs the collective there and copies the result back — one path
 for every op. The compute stays on the device.
+
+:class:`CommQueue` runs collectives while the card computes (ZeRO-3's
+chunk gathers and gradient reduces, ``parallel/stage3.py``): one worker
+thread takes them in the order they were submitted, so every rank issues
+the same collectives in the same order; on gloo with CUDA tensors it
+stages them through its own pinned buffers, one set a slot, on a side
+stream. ``submit`` returns a :class:`Handle` to wait on.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import datetime
 import enum
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -131,18 +139,22 @@ def barrier(group=None) -> None:
 # gloo on CUDA tensors: through pinned host buffers
 # --------------------------------------------------------------------------- #
 
-_pinned: Dict[Tuple[str, int, torch.dtype], torch.Tensor] = {}
+_PinnedT = Dict[Tuple[str, int, torch.dtype], torch.Tensor]
+_pinned: _PinnedT = {}
 
 
-def _host_buffer(slot: str, like: torch.Tensor) -> torch.Tensor:
+def _host_buffer(slot: str, like: torch.Tensor,
+                 pool: Optional[_PinnedT] = None) -> torch.Tensor:
     """A host tensor of ``like``'s size and dtype, pinned when a card is
-    present, kept per (slot, size, dtype) for the next call."""
+    present, kept in ``pool`` (default: the module's) per (slot, size,
+    dtype) for the next call."""
+    pool = _pinned if pool is None else pool
     key = (slot, like.numel(), like.dtype)
-    buf = _pinned.get(key)
+    buf = pool.get(key)
     if buf is None:
         buf = torch.empty(like.numel(), dtype=like.dtype,
                           pin_memory=torch.cuda.is_available())
-        _pinned[key] = buf
+        pool[key] = buf
     return buf.view(like.shape)
 
 
@@ -263,3 +275,134 @@ def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
         return tensor
     return _run(lambda o, i: dist.broadcast(o, src=src, group=group), tensor,
                 tensor, group)
+
+
+# --------------------------------------------------------------------------- #
+# collectives in flight: one ordered queue
+# --------------------------------------------------------------------------- #
+
+class Handle:
+    """A submitted collective. :meth:`wait` returns its outputs once they
+    hold the result; the caller's later work on them is then safe."""
+
+    def __init__(self, outs: Sequence[torch.Tensor], future=None,
+                 keep: Sequence[torch.Tensor] = ()):
+        self._outs = list(outs)
+        self._future = future
+        self._keep = list(keep)       # inputs alive until the op is done
+
+    def done(self) -> bool:
+        return self._future is None or self._future.done()
+
+    def wait(self) -> List[torch.Tensor]:
+        if self._future is not None:
+            self._future.result()     # raises the op's own error
+            self._future = None
+            self._keep = []
+        return self._outs
+
+
+class CommQueue:
+    """Collectives that run while the card computes, in submission order.
+
+    ``submit(op, outs, ins, slot)`` runs ``op(outs, ins)`` — collectives of
+    the default group on those tensors — after every earlier submission.
+    gloo runs them in one worker thread, started at the first submission:
+    on CPU tensors directly; on CUDA tensors through pinned host buffers
+    kept per ``(slot, size, dtype)``, copied on a side stream that first
+    waits for the work the submitting stream had queued (an event recorded
+    at submission), so the copies never block the submitting thread. Each
+    op finishes — its outputs copied back to the card and synchronised —
+    before the next one starts; a slot a chunk keeps two consecutive
+    chunks' buffers apart all the same. NCCL needs no staging: the op runs
+    in the caller's thread, on NCCL's own stream.
+
+    The caller waits on every handle (or :meth:`drain`) before it issues a
+    collective outside the queue: gloo matches collectives by issue order
+    across ranks. :meth:`close` drains, stops the thread and frees the
+    pinned buffers."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._stream = None
+        self._pinned: _PinnedT = {}
+        self._pending: List[Handle] = []
+
+    def _worker(self) -> concurrent.futures.ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="dstpu-comm")
+        return self._pool
+
+    def submit(self, op: Callable[[List[torch.Tensor], List[torch.Tensor]],
+                                  None],
+               outs: Sequence[torch.Tensor], ins: Sequence[torch.Tensor],
+               slot: str) -> Handle:
+        outs, ins = list(outs), list(ins)
+        dev = ins[0].device
+        if dev.type == "cuda" and get_backend(self.group) != "gloo":
+            op(outs, ins)                       # NCCL: its own stream
+            return Handle(outs)
+        if dev.type != "cuda":
+            fut = self._worker().submit(op, outs, ins)
+        else:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+            fut = self._worker().submit(self._staged, op, outs, ins, slot,
+                                        ready, dev)
+        handle = Handle(outs, fut, keep=ins)
+        self._pending = [h for h in self._pending if not h.done()]
+        self._pending.append(handle)
+        return handle
+
+    def _staged(self, op, outs, ins, slot, ready, dev) -> None:
+        with torch.cuda.device(dev):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            side = self._stream
+            side.wait_event(ready)
+            h_ins = [_host_buffer(f"{slot}/in{i}", t, self._pinned)
+                     for i, t in enumerate(ins)]
+            h_outs = [_host_buffer(f"{slot}/out{i}", t, self._pinned)
+                      for i, t in enumerate(outs)]
+            with torch.cuda.stream(side):
+                for h, t in zip(h_ins, ins):
+                    h.copy_(t, non_blocking=True)
+            side.synchronize()
+            op(h_outs, h_ins)
+            with torch.cuda.stream(side):
+                for t, h in zip(outs, h_outs):
+                    t.copy_(h, non_blocking=True)
+            side.synchronize()
+
+    def drain(self) -> None:
+        """Wait for every submitted op."""
+        pending, self._pending = self._pending, []
+        for h in pending:
+            h.wait()
+
+    def close(self) -> None:
+        self.drain()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+        self._pinned.clear()
+
+
+def all_gather_op(group=None):
+    """``CommQueue`` op: ``outs[i]`` [world × n_i] ← every rank's
+    ``ins[i]`` [n_i], for each pair (one gather, or q and its scales)."""
+    def op(outs, ins):
+        for o, i in zip(outs, ins):
+            _all_gather_flat(o.view(-1), i.reshape(-1), group=group)
+    return op
+
+
+def reduce_scatter_op(group=None):
+    """``CommQueue`` op: ``outs[0]`` [n] ← this rank's chunk of the sum of
+    every rank's ``ins[0]`` [world × n]."""
+    def op(outs, ins):
+        _reduce_scatter_flat(outs[0].view(-1), ins[0].reshape(-1),
+                             op=dist.ReduceOp.SUM, group=group)
+    return op

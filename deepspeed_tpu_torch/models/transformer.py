@@ -708,6 +708,23 @@ def _remat_wrap(body, remat: Optional[str]):
         "yet (none|full); it comes in a later slice of the port")
 
 
+class ParamHook:
+    """Parameters handed out per use: the counterpart of the JAX engine's
+    ``scan_chunks`` / ``param_sync_fn`` injection (``models/api.py``
+    :131-150, ``models/transformer.py:962-1016``), through which a ZeRO-3
+    engine gathers each layer chunk where it is used
+    (``parallel/stage3.Stage3Params``). :func:`forward_hidden` takes one in
+    place of the parameter tree: :meth:`head` at the start (every leaf
+    outside ``blocks``), :meth:`layer` for layer l INSIDE the layer's remat
+    body, so the backward's recompute asks for it again."""
+
+    def head(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def layer(self, layer: int) -> Dict[str, Any]:
+        raise NotImplementedError
+
+
 def layer_params(blocks, layer: int) -> Dict[str, torch.Tensor]:
     """Layer ``layer``'s parameters from ``params["blocks"]``: a dict of
     stacked [L, ...] tensors (the JAX layout) or a list of per-layer dicts
@@ -727,11 +744,16 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     ``forward_hidden`` without PLD, random-LTD or chunked scans (a later
     slice); the layer scan is a Python loop, each layer wrapped by the
     config's remat policy. ``use_kernels=False`` takes the norms' and
-    grouped GEMMs' plain versions (the card's kernel-vs-plain checks)."""
+    grouped GEMMs' plain versions (the card's kernel-vs-plain checks).
+    ``params`` may be a :class:`ParamHook`; without one the layers take
+    :func:`layer_params`."""
     _check_supported(cfg)
     attention_fn = attention_fn or dot_product_attention
     dt = cfg.compute_dtype
     B, S = tokens.shape
+    hook = params if isinstance(params, ParamHook) else None
+    if hook is not None:
+        params = hook.head()
     x = F.embedding(tokens.long(), params["tok_emb"].to(dt))
     if cfg.pos_emb == "learned":
         x = x + params["pos_emb"].to(dt)[:S][None]
@@ -741,11 +763,16 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
                               cfg.rope_scaling_dict, device=x.device)
     auxes = []
     for layer in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], layer)
+        if hook is None:
+            lp = layer_params(params["blocks"], layer)
 
-        def body(h, lp=lp):
-            return _block_forward(h, lp, cfg, cos, sin, attention_fn,
-                                  use_kernels)
+            def body(h, lp=lp):
+                return _block_forward(h, lp, cfg, cos, sin, attention_fn,
+                                      use_kernels)
+        else:
+            def body(h, layer=layer):
+                return _block_forward(h, hook.layer(layer), cfg, cos, sin,
+                                      attention_fn, use_kernels)
 
         x, aux = _remat_wrap(body, cfg.remat)(x)
         auxes.append(aux)

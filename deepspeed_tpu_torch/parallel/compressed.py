@@ -5,7 +5,13 @@ Ports ``deepspeed_tpu/parallel/compressed.py`` at the ``data`` axis:
 ``sharded_dim`` (:404), ``_leaf_wire_plan`` (:264), ``_q_allgather`` (:67),
 ``_q_reduce_scatter`` (:84, with ``return_sent``), ``q_reduce_leaf``
 (:281), ``loco_reduce_leaf`` (:209) and ``reduce_tree_bucketed`` (:322)
-with ``bucket_elems=None``. The JAX functions run inside a ``shard_map``
+with ``bucket_elems=None``; and the parameter side: ``leaf_gather_axes``
+(:415), ``leaf_gather_fn`` (:426), ``gather_tree_fn`` (:447),
+``publish_gather_tree_fn`` (:468), ``chunked_gather_tree_fn`` (:501) and
+``gather_with_compressed_vjp`` (:124, a ``torch.autograd.Function``: the
+exact or int8 all-gather of a local shard forward, the exact or qgZ
+reduce-scatter of the full gradient backward). The JAX functions run
+inside a ``shard_map``
 over the mesh; these run in each process on its own tensors, and the
 ``group``'s collectives (``comm/comm.py``) carry the int8 blocks.
 
@@ -19,12 +25,21 @@ padded rows into one [world, Σ n_pad] buffer and calls
 quantize launch, one ``all_to_all`` each for q and the scales, one
 dequant-reduce launch.
 
+The per-leaf gathers take a local shard in the leaf's own layout (JAX's
+``shard_map`` view: ``shape[dim] / world`` at the sharded dim) and quantize
+``moveaxis(shard, dim, 0)`` flattened and padded to ``block``, as JAX does.
+The engines move whole groups of leaves in one collective instead
+(``parallel/stage3.py``): each leaf's piece padded to ``block`` in one
+packed row, which quantizes the same blocks.
+
 hpZ / MiCS (a ``zshard`` axis) and the bucketed, fenced sends belong to a
-later slice.
+later slice; the gather functions keep their ``axis_sizes`` and gather-axes
+arguments, which reduce to the ``data`` axis at ``zshard`` = 1.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -225,3 +240,233 @@ def reduce_tree_bucketed(gfull_tree, spec_tree, manual_axes: AxesT,
         grads.append((path, gl))
     return _unflatten(grads), (_unflatten(new_errs) if errs is not None
                                else None)
+
+
+# --------------------------------------------------------------------------- #
+# the parameter side: per-use gathers with the compressed VJP
+# --------------------------------------------------------------------------- #
+
+def gather_rows(flat: torch.Tensor, group, world: int, out_dtype,
+                quant: bool, block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Every rank's flat vector [n] → [world, n]: the int8 wire
+    (:func:`_q_allgather`, fp32 rows) or an exact gather in ``out_dtype``."""
+    if quant:
+        return _q_allgather(flat, group, world, block)
+    rows = torch.empty(world, flat.shape[0], dtype=out_dtype,
+                       device=flat.device)
+    comm.all_gather_into_tensor(rows, flat.to(out_dtype), group)
+    return rows
+
+
+def reduce_rows(rows: torch.Tensor, group, world: int, quant: bool,
+                block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """fp32 rows [world, n] (row r → rank r) → this rank's summed row [n]:
+    the qgZ wire or an exact reduce-scatter."""
+    if quant:
+        return _q_reduce_scatter(rows, group, world, block)
+    mine = torch.empty(rows.shape[1], dtype=torch.float32, device=rows.device)
+    comm.reduce_scatter_tensor(mine, rows.contiguous(), group=group)
+    return mine
+
+
+@dataclasses.dataclass(frozen=True)
+class _LeafWire:
+    """One leaf's gather and its gradient's reduce (JAX's closure over
+    ``gather_with_compressed_vjp``'s arguments)."""
+    dim: Optional[int]
+    world: int                 # the mean's divisor: every reduce axis
+    gather_world: int          # the ranks the shard is gathered over
+    out_dtype: torch.dtype
+    quant_weights: bool
+    quant_grads: bool
+    block: int
+    group: Any
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dim is None:
+            return x.to(self.out_dtype)
+        m = torch.movedim(x, self.dim, 0)
+        rows = gather_rows(m.reshape(-1), self.group, self.gather_world,
+                           self.out_dtype, self.quant_weights, self.block)
+        full = rows.reshape((self.gather_world * m.shape[0],)
+                            + tuple(m.shape[1:]))
+        return torch.movedim(full, 0, self.dim).to(self.out_dtype)
+
+    def reduce(self, g: torch.Tensor, local_shape, in_dtype) -> torch.Tensor:
+        if self.dim is None:
+            return _replicated_mean(g, self.group, self.world).to(in_dtype)
+        rows = torch.movedim(g, self.dim, 0).reshape(
+            self.gather_world, -1).float()
+        mine = reduce_rows(rows, self.group, self.gather_world,
+                           self.quant_grads, self.block)
+        mine = mine / torch.tensor(float(self.world), device=g.device)
+        return _unmove(mine, local_shape, self.dim, 1).to(in_dtype)
+
+
+class _GatherWithCompressedVJP(torch.autograd.Function):
+    """Forward: local shard → full parameter (out dtype). Backward: full
+    gradient → this rank's shard of the MEAN-reduced gradient, in the
+    shard's dtype. Saves no tensor, so the gathered parameter lives only as
+    long as its users keep it."""
+
+    @staticmethod
+    def forward(ctx, x_local, wire: _LeafWire):
+        ctx.wire = wire
+        ctx.local_shape = tuple(x_local.shape)
+        ctx.in_dtype = x_local.dtype
+        with torch.no_grad():
+            return wire.gather(x_local)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.no_grad():
+            return ctx.wire.reduce(g, ctx.local_shape, ctx.in_dtype), None
+
+
+def gather_with_compressed_vjp(dim: Optional[int], axes: AxesT, world: int,
+                               out_dtype, quant_weights: bool,
+                               quant_grads: bool,
+                               block: int = DEFAULT_BLOCK,
+                               gather_axes: Optional[AxesT] = None,
+                               gather_world: Optional[int] = None,
+                               group=None) -> Callable[[torch.Tensor],
+                                                       torch.Tensor]:
+    """The straight-through gather of one parameter leaf sharded on
+    ``dim`` (None: replicated — a cast forward, an exact all-reduce mean
+    backward). Forward: the exact or int8 (``quant_weights``) all-gather
+    over ``gather_axes``; backward: the exact or qgZ (``quant_grads``)
+    reduce-scatter, divided by ``world`` (every axis of ``axes``). Replica
+    axes outside ``gather_axes`` (hpZ) are a later slice."""
+    gather_axes = tuple(gather_axes) if gather_axes is not None else axes
+    if any(a not in gather_axes for a in axes) and dim is not None:
+        raise later_slice("hpZ / MiCS subgroups (a 'zshard' axis)")
+    wire = _LeafWire(dim, world,
+                     gather_world if gather_world is not None else world,
+                     out_dtype, quant_weights, quant_grads, block, group)
+    return lambda x: _GatherWithCompressedVJP.apply(x, wire)
+
+
+def leaf_gather_axes(spec, dim: Optional[int], manual_axes: AxesT) -> AxesT:
+    """The manual axes the leaf's ``dim`` is sharded over."""
+    if dim is None:
+        return manual_axes
+    entry = spec[dim]
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return tuple(a for a in manual_axes if a in names)
+
+
+def leaf_gather_fn(spec, manual_axes: AxesT, world: int, out_dtype,
+                   quant_weights: bool, quant_grads: bool,
+                   block: int = DEFAULT_BLOCK,
+                   axis_sizes: Optional[Dict[str, int]] = None, group=None):
+    """The gather of one leaf of ``spec``: over the axes its dim is sharded
+    on (``axis_sizes`` given), else over all ``manual_axes``."""
+    dim = sharded_dim(spec, manual_axes)
+    if axis_sizes is not None and dim is not None:
+        gaxes = leaf_gather_axes(spec, dim, manual_axes)
+        gworld = 1
+        for a in gaxes:
+            gworld *= axis_sizes.get(a, 1)
+        if axis_sizes.get(ZSHARD_AXIS, 1) > 1:
+            raise later_slice("hpZ / MiCS subgroups (a 'zshard' axis)")
+    else:
+        gaxes, gworld = manual_axes, world
+    return gather_with_compressed_vjp(
+        dim, manual_axes, world, out_dtype, quant_weights, quant_grads,
+        block, gather_axes=gaxes, gather_world=gworld, group=group)
+
+
+def _map_specs(fn, spec_tree):
+    if isinstance(spec_tree, dict):
+        return {k: _map_specs(fn, v) for k, v in spec_tree.items()}
+    return fn(spec_tree)
+
+
+def _apply(fns, tree):
+    if isinstance(fns, dict):
+        return {k: _apply(fns[k], tree[k]) for k in fns}
+    return fns(tree)
+
+
+def gather_tree_fn(spec_tree, manual_axes: AxesT, world: int, out_dtype,
+                   quant_weights: bool, quant_grads: bool,
+                   block: int = DEFAULT_BLOCK,
+                   axis_sizes: Optional[Dict[str, int]] = None, group=None):
+    """Local master shards (a tree) → full compute parameters, each leaf
+    through :func:`leaf_gather_fn` (so with the compressed VJP)."""
+    gathers = _map_specs(lambda spec: leaf_gather_fn(
+        spec, manual_axes, world, out_dtype, quant_weights, quant_grads,
+        block, axis_sizes, group), spec_tree)
+    return lambda master_local: _apply(gathers, master_local)
+
+
+def chunked_gather_tree_fn(spec_tree, manual_axes: AxesT, world: int,
+                           out_dtype, quant_weights: bool,
+                           chunk_bounds: Sequence[Tuple[int, int]],
+                           block: int = DEFAULT_BLOCK,
+                           axis_sizes: Optional[Dict[str, int]] = None,
+                           blocks_key: str = "blocks", group=None):
+    """The gather over the layer-chunk plan: first a head group (every
+    non-``blocks`` leaf, and a ``blocks`` leaf sharded ON the stacking dim
+    0, whose slices would tear the shard layout) whole, then each chunk
+    ``[start, stop)`` of every other ``blocks`` leaf, quantized on its own
+    (``moveaxis(shard[start:stop], dim, 0)``). The chunks are concatenated
+    back, so the result is :func:`gather_tree_fn`'s tree; with one chunk
+    it IS that function. Built for gradients reduced outside the gather
+    (``reduce_tree_bucketed``): its backward reduces exactly."""
+    bounds = [tuple(b) for b in (chunk_bounds or [])]
+    plain = gather_tree_fn(spec_tree, manual_axes, world, out_dtype,
+                           quant_weights, False, block, axis_sizes, group)
+    if len(bounds) <= 1 or not isinstance(spec_tree, dict) \
+            or blocks_key not in spec_tree:
+        return plain
+    one = lambda spec: leaf_gather_fn(                     # noqa: E731
+        spec, manual_axes, world, out_dtype, quant_weights, False, block,
+        axis_sizes, group)
+    head = {k: _map_specs(one, v) for k, v in spec_tree.items()
+            if k != blocks_key}
+    blk_specs = dict(_flatten(spec_tree[blocks_key]))
+
+    def gather_tree(master_local):
+        out = {k: _apply(head[k], master_local[k]) for k in head}
+        vals = dict(_flatten(master_local[blocks_key]))
+        whole = {p for p, spec in blk_specs.items()
+                 if sharded_dim(spec, manual_axes) == 0}
+        blk = {p: one(blk_specs[p])(vals[p]) for p in sorted(whole)}
+        parts: Dict[Tuple[str, ...], list] = {p: [] for p in blk_specs
+                                              if p not in whole}
+        for start, stop in bounds:
+            for p in sorted(parts):
+                parts[p].append(one(blk_specs[p])(vals[p][start:stop]))
+        blk.update({p: torch.cat(v, dim=0) for p, v in parts.items()})
+        out[blocks_key] = _unflatten(sorted(blk.items()))
+        return out
+
+    return gather_tree
+
+
+def publish_gather_tree_fn(spec_tree, manual_axes: AxesT, world: int,
+                           out_dtype, quant_weights: bool,
+                           chunk_bounds: Optional[Sequence[Tuple[int, int]]]
+                           = None, block: int = DEFAULT_BLOCK,
+                           axis_sizes: Optional[Dict[str, int]] = None,
+                           group=None):
+    """The post-update publish of the compute parameters: the same gather
+    the forward would run on the same master (chunked when the plan has
+    more than one chunk), so its values are what an in-step gather gives.
+    That is why ZeRO-3 keeps no published buffer: it gathers per use."""
+    bounds = [tuple(b) for b in (chunk_bounds or [])]
+    if len(bounds) > 1:
+        inner = chunked_gather_tree_fn(spec_tree, manual_axes, world,
+                                       out_dtype, quant_weights, bounds,
+                                       block, axis_sizes, group=group)
+    else:
+        inner = gather_tree_fn(spec_tree, manual_axes, world, out_dtype,
+                               quant_weights, False, block, axis_sizes,
+                               group)
+
+    def publish(master_local):
+        with telemetry.span("zero_publish"), torch.no_grad():
+            return inner(master_local)
+
+    return publish

@@ -2,8 +2,8 @@
 
 Ports the ZeRO half of ``deepspeed_tpu/parallel/partitioning.py``:
 ``logical_to_spec`` (:65), ``_add_zero_axis`` (:75-90) and
-``ShardingPolicy`` ``zero_spec`` / ``state_spec`` / ``grad_spec``
-(:119-143). A spec is a tuple with one entry per dim — ``None``, an axis
+``ShardingPolicy`` ``zero_spec`` / ``param_spec`` / ``state_spec`` /
+``grad_spec`` / ``leaf_grad_spec`` (:119-156). A spec is a tuple with one entry per dim — ``None``, an axis
 name or a tuple of names — as ``PartitionSpec`` holds them; the mesh is its
 axis sizes (``comm/mesh.MeshManager.shape``).
 
@@ -110,6 +110,13 @@ class ShardingPolicy:
             logical_to_spec(axes, self.tp_rules), shape, self.sizes,
             self.zero_axes), axes_tree, shape_tree)
 
+    def param_spec(self, axes_tree, shape_tree) -> Any:
+        """The compute parameters' specs: ZeRO-sharded at stage 3 (each
+        gathered per use), TP-only below."""
+        if self.zero_stage >= 3:
+            return self.zero_spec(axes_tree, shape_tree)
+        return self.tp_spec(axes_tree, shape_tree)
+
     def state_spec(self, axes_tree, shape_tree) -> Any:
         if self.zero_stage >= 1:
             return self.zero_spec(axes_tree, shape_tree)
@@ -119,3 +126,13 @@ class ShardingPolicy:
         if self.zero_stage >= 2:
             return self.zero_spec(axes_tree, shape_tree)
         return self.tp_spec(axes_tree, shape_tree)
+
+    def leaf_grad_spec(self, logical_axes: Tuple[Optional[str], ...],
+                       shape: Tuple[int, ...]) -> Spec:
+        """The gradient spec of ONE leaf of ``shape`` (a layer chunk's
+        slice, whose leading dim differs from the stacked leaf's)."""
+        spec = logical_to_spec(logical_axes, self.tp_rules)
+        if self.zero_stage >= 2:
+            spec = _add_zero_axis(spec, tuple(shape), self.sizes,
+                                  self.zero_axes)
+        return spec

@@ -1,0 +1,437 @@
+"""ZeRO-3 at the ``data`` axis: parameters sharded, gathered chunk by chunk.
+
+Stands for, in JAX:
+
+* ``ShardingPolicy.param_spec`` at stage 3 (``parallel/partitioning.py:127``)
+  and GSPMD's per-use gathers: JAX's compute parameters carry the ZeRO spec,
+  and XLA gathers each one where the forward, or the backward's
+  rematerialised forward, uses it, and reduce-scatters its gradient;
+* the overlap scheduler's layer chunks (``runtime/engine.py:777-800``,
+  ``parallel/overlap.py:135 chunk_layers``): one gather a chunk, the next
+  chunk's gather in flight while the current one computes;
+* on the int8 wire, ``parallel/compressed.py:501 chunked_gather_tree_fn``:
+  a head group, then every chunk, each leaf's piece quantized on its own.
+
+:func:`gather_groups` cuts the leaves into those groups: the head group
+(every leaf outside ``blocks``, and a ``blocks`` leaf sharded on its
+stacking dim 0, gathered whole) and one group a chunk ``[start, stop)``
+of the other ``blocks`` leaves. A group moves in ONE collective: each
+sharded leaf's piece (``moveaxis(shard[start:stop], dim, 0)`` flattened,
+which is the rank's moved-layout row ``[:, start:stop]``) padded to the
+quantization block in one packed row, so the int8 wire quantizes the
+blocks JAX quantizes per leaf. The stage-2 qwZ publish takes the same
+groups (``runtime/engine.py`` ``DataParallelEngine._compute_params``).
+
+:class:`Stage3Params` is the parameter coordinator, handed to the model as
+its parameters (``models/transformer.ParamHook``). Per micro-batch:
+
+* forward: the head group at the start; chunk c when its first layer
+  runs, chunk c + 1's gather submitted then (``overlap_comm``); a chunk's
+  parameters dropped after its last layer;
+* backward (remat full): chunk c gathered again when its last layer's
+  recompute starts (the last chunk's gather submitted as the forward
+  ends), chunk c - 1's submitted then, dropped after its first layer's
+  recompute; autograd frees them when that layer's backward is done;
+* gradients: a chunk's gather is one ``torch.autograd.Function`` whose
+  outputs are its layers' parameters; its backward runs once the chunk's
+  backward is done. Exact wire: the chunk's gradient (compute dtype,
+  fp32 on the wire) reduce-scattered through the queue, the mean shard
+  added to the fp32 accumulator when it lands (the same sum as ZeRO-2's
+  once-a-step reduce, in another order). qgZ / LoCo: the gradient is
+  written into the engine's transient full gradient, which the engine
+  reduces leaf by leaf once per micro-batch, as JAX's wire step does (a
+  per-chunk qgZ would quantize other blocks). Replicated leaves add into
+  the engine's replicated buffer, all-reduced once a step.
+
+Every collective goes through one ``comm.CommQueue``, in the same order on
+every rank; the engine drains it before any collective of its own.
+Nothing keeps a gathered chunk alive but its users: the gather Function
+saves no tensor, and the coordinator's cache holds a chunk only between
+its first and last layer of one pass. Without remat the forward's chunks
+stay alive in autograd until the backward (correct, but no memory saved).
+"""
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from deepspeed_tpu_torch import telemetry
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.models.transformer import ParamHook
+from deepspeed_tpu_torch.ops.quant_kernels import DEFAULT_BLOCK
+from deepspeed_tpu_torch.parallel import compressed as C
+
+BLOCKS = "blocks"      # top-level key whose leaves stack the layers
+
+
+def _pad(n: int) -> int:
+    return -(-n // DEFAULT_BLOCK) * DEFAULT_BLOCK
+
+
+@dataclasses.dataclass(frozen=True)
+class Piece:
+    """One leaf's part of a group: the layers ``[start, stop)`` of a
+    ``blocks`` leaf, or the whole leaf (``layers`` None); ``n`` elements a
+    rank sends at ``offset`` of the packed row (0: replicated, no wire)."""
+    shard: Any                           # runtime.engine._Shard
+    layers: Optional[Tuple[int, int]]
+    offset: int
+    n: int
+
+    @property
+    def path(self) -> Tuple[str, ...]:
+        return self.shard.slot.path
+
+    def shape(self) -> Tuple[int, ...]:
+        """The piece's full value, in the leaf's own layout."""
+        shape = self.shard.slot.shape
+        if self.layers is None:
+            return tuple(shape)
+        return (self.layers[1] - self.layers[0],) + tuple(shape[1:])
+
+    def moved(self, world: int) -> Tuple[int, ...]:
+        """[world, shape[dim] / world, the other dims]."""
+        shape, dim = self.shape(), self.shard.dim
+        return (world, shape[dim] // world) + tuple(
+            s for i, s in enumerate(shape) if i != dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    pieces: Tuple[Piece, ...]
+    n_row: int                           # the packed row, block multiple
+    layers: Optional[Tuple[int, int]]    # a chunk's layers; None: head
+    identity: bool                       # the row IS the local shard
+
+
+def gather_groups(shards, chunk_bounds) -> List[Group]:
+    """No bounds: one group, every leaf whole (its packed row is the
+    sharded region of the local buffer). Bounds: the head group, then one
+    group a chunk."""
+    def group(items, layers):
+        pieces, off = [], 0
+        for sh, lay in items:
+            if sh.dim is None:
+                n = 0
+            elif lay is None:
+                n = sh.n_loc
+            else:
+                n = sh.n_loc // sh.slot.shape[0] * (lay[1] - lay[0])
+            pieces.append(Piece(sh, lay, off, n))
+            off += _pad(n)
+        identity = layers is None and all(
+            p.n == 0 or (p.layers is None and p.offset == p.shard.offset)
+            for p in pieces)
+        return Group(tuple(pieces), off, layers, identity)
+
+    bounds = [tuple(b) for b in chunk_bounds]
+    if not bounds:
+        return [group([(sh, None) for sh in shards], None)]
+    chunked = [sh for sh in shards
+               if sh.slot.path[0] == BLOCKS and sh.dim != 0]
+    head = [(sh, None) for sh in shards
+            if not any(sh is c for c in chunked)]
+    return [group(head, None)] + [group([(sh, b) for sh in chunked], b)
+                                  for b in bounds]
+
+
+def pack(group: Group, engine, src: torch.Tensor) -> torch.Tensor:
+    """The rank's packed row of ``group`` from a local buffer (its pads
+    zero, so they quantize as JAX's padding does)."""
+    if group.identity:
+        return src[:group.n_row]
+    out = torch.zeros(group.n_row, dtype=src.dtype, device=src.device)
+    for p in group.pieces:
+        if not p.n:
+            continue
+        loc = engine._local(src, p.shard)
+        if p.layers is not None:
+            loc = loc[:, p.layers[0]:p.layers[1]]
+        out[p.offset:p.offset + p.n].view(loc.shape).copy_(loc)
+    return out
+
+
+def unpack(group: Group, rows: torch.Tensor, world: int, dst) -> None:
+    """Gathered rows [world, n_row] → each sharded piece's full value,
+    copied into ``dst(piece)`` (the leaf's layout; cast on copy)."""
+    for p in group.pieces:
+        if not p.n:
+            continue
+        moved = p.moved(world)
+        full = rows[:, p.offset:p.offset + p.n].reshape(
+            (moved[0] * moved[1],) + moved[2:])
+        dst(p).copy_(torch.movedim(full, 0, p.shard.dim))
+
+
+def gather_group(group: Group, engine, src: torch.Tensor, quant: bool,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One group's synchronous gather → rows [world, n_row]: the int8 wire
+    from the fp32 master (``out``: fp32 rows to dequantize into) or the
+    exact gather of the compute-dtype shard."""
+    send = pack(group, engine, src)
+    if quant:
+        return C._q_allgather(send, None, engine.world, out=out)
+    return C.gather_rows(send, None, engine.world, send.dtype, False)
+
+
+class _ChunkGather(torch.autograd.Function):
+    """A group's gather as one autograd node: forward waits for the
+    group's rows and returns its parameters (one output a layer and
+    leaf); backward hands the gradients to the coordinator. Saves no
+    tensor."""
+
+    @staticmethod
+    def forward(ctx, anchor, coord, key):
+        ctx.coord, ctx.key = coord, key
+        ctx.set_materialize_grads(False)
+        return tuple(coord._materialize(key))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.coord._backward(ctx.key[0], grads)
+        return None, None, None
+
+
+class Stage3Params(ParamHook):
+    """The ZeRO-3 parameter coordinator of one :class:`~deepspeed_tpu_torch.
+    runtime.engine.Zero3Engine` (see the module docstring). The engine
+    calls :meth:`begin_forward`, the model's loss with this object as its
+    parameters, :meth:`begin_backward`, the backward, then
+    :meth:`finish_micro`. ``counts`` holds this step's gathers (by pass)
+    and reduces."""
+
+    def __init__(self, engine, chunk_bounds, prefetch: bool,
+                 recompute: bool):
+        # a weak reference: the engine owns the coordinator, and a cycle
+        # would keep a dropped engine's buffers until the next collection
+        self.e = weakref.proxy(engine)
+        n_layers = engine.model_spec.config.num_layers
+        bounds = [tuple(b) for b in chunk_bounds] or [(0, n_layers)]
+        self.groups = gather_groups(engine._shards, bounds)
+        self.chunk_of = {l: c for c, (s, e) in enumerate(bounds, start=1)
+                         for l in range(s, e)}
+        self.prefetch = prefetch
+        self.recompute = recompute
+        self.queue = comm.CommQueue()
+        self.anchor = torch.zeros((), device=engine.device,
+                                  requires_grad=True)
+        self._pass = "fwd"
+        self._inflight: Dict[Tuple[int, str], Any] = {}
+        self._cache: Dict[Tuple[int, str], Tuple[torch.Tensor, ...]] = {}
+        self._head: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None
+        self._reduces: List[Tuple[Any, int]] = []
+        self.counts = {"gather_fwd": 0, "gather_bwd": 0, "reduce": 0}
+        # each group's outputs: (piece, layer or None) in output order
+        self._layout = []
+        for g in self.groups:
+            if g.layers is None:
+                self._layout.append([(p, None) for p in g.pieces])
+            else:
+                self._layout.append([(p, l) for l in range(*g.layers)
+                                     for p in g.pieces])
+
+    # ------------------------------------------------------------------ #
+    # the gathers
+    # ------------------------------------------------------------------ #
+    def _issue(self, key: Tuple[int, str]) -> None:
+        g = self.groups[key[0]]
+        W, e = self.e.world, self.e
+        with torch.no_grad(), telemetry.span("zero3_gather_issue"):
+            if e._quant_weights():
+                q, s = C.quantize_int8(pack(g, e, e.flat_master),
+                                       DEFAULT_BLOCK)
+                outs = [torch.empty((W,) + tuple(q.shape), dtype=q.dtype,
+                                    device=q.device),
+                        torch.empty((W,) + tuple(s.shape), dtype=s.dtype,
+                                    device=s.device)]
+                ins = [q, s]
+            else:
+                send = pack(g, e, e._gather_source())
+                outs = [torch.empty(W, g.n_row, dtype=send.dtype,
+                                    device=send.device)]
+                ins = [send]
+            handle = self.queue.submit(comm.all_gather_op(), outs, ins,
+                                       slot=f"z3g{key[0] % 2}")
+        self._inflight[key] = handle
+
+    def _materialize(self, key: Tuple[int, str]) -> List[torch.Tensor]:
+        """Wait for the group's rows; its parameters in the leaf layout
+        (compute dtype), one output a (layer, piece)."""
+        gi = key[0]
+        g, e = self.groups[gi], self.e
+        if key not in self._inflight:
+            self._issue(key)
+        handle = self._inflight.pop(key)
+        with telemetry.span("zero3_gather_wait"):
+            outs = handle.wait()
+        self.counts[f"gather_{key[1]}"] += 1
+        with telemetry.span("zero3_gather_unpack"):
+            if e._quant_weights():
+                qg, sg = outs
+                rows = C.dequant_reduce(qg.view(1, -1), sg.view(1, -1),
+                                        DEFAULT_BLOCK).view(e.world, -1)
+            else:
+                rows = outs[0]
+            full = {}
+            for p in g.pieces:
+                full[p.path] = torch.empty(p.shape(), dtype=e.compute_dtype,
+                                           device=e.device)
+                if not p.n:                 # replicated: the local copy
+                    loc = e._local(e._gather_source(), p.shard)
+                    if p.layers is not None:
+                        loc = loc[p.layers[0]:p.layers[1]]
+                    full[p.path].copy_(loc)
+            unpack(g, rows, e.world, lambda p: full[p.path])
+            del rows, outs
+        start = g.layers[0] if g.layers is not None else 0
+        return [full[p.path] if l is None else full[p.path][l - start]
+                for p, l in self._layout[gi]]
+
+    def _take(self, gi: int) -> Tuple[torch.Tensor, ...]:
+        key = (gi, self._pass)
+        out = self._cache.get(key)
+        if out is None:
+            out = _ChunkGather.apply(self.anchor, self, key)
+            self._cache[key] = out
+        return out
+
+    def _submit_ahead(self, gi: int, pass_: str) -> None:
+        """Submit a gather ahead of its use (``overlap_comm``); the head
+        group (0) only at the forward's start."""
+        if self.prefetch and 0 <= gi < len(self.groups) \
+                and (gi, pass_) not in self._inflight \
+                and (gi, pass_) not in self._cache:
+            self._issue((gi, pass_))
+
+    # ------------------------------------------------------------------ #
+    # the model's hook
+    # ------------------------------------------------------------------ #
+    def begin_forward(self) -> None:
+        self._pass = "fwd"
+        self._submit_ahead(0, "fwd")
+        self._submit_ahead(1, "fwd")
+
+    def begin_backward(self) -> None:
+        self._pass = "bwd"
+
+    def head(self) -> Dict[str, Any]:
+        outs = _ChunkGather.apply(self.anchor, self, (0, "fwd"))
+        self._head = {p.path: t for (p, _), t in zip(self._layout[0], outs)}
+        tree: Dict[str, Any] = {}
+        for path, t in self._head.items():
+            if path[0] != BLOCKS:
+                _set_path(tree, path, t)
+        return tree
+
+    def layer(self, layer: int) -> Dict[str, Any]:
+        gi = self.chunk_of[layer]
+        start, stop = self.groups[gi].layers
+        fwd = self._pass == "fwd"
+        first = layer == (start if fwd else stop - 1)
+        last = layer == (stop - 1 if fwd else start)
+        if first and (fwd or gi > 1):
+            self._submit_ahead(gi + 1 if fwd else gi - 1, self._pass)
+        outs = self._take(gi)
+        lp: Dict[str, Any] = {}
+        for (p, l), t in zip(self._layout[gi], outs):
+            if l == layer:
+                _set_path(lp, p.path[1:], t)
+        for path, t in self._head.items():      # blocks leaves sharded on 0
+            if path[0] == BLOCKS:
+                _set_path(lp, path[1:], t[layer])
+        if last:
+            del self._cache[(gi, self._pass)]
+            if fwd and gi == len(self.groups) - 1 and self.recompute:
+                self._submit_ahead(gi, "bwd")
+        return lp
+
+    # ------------------------------------------------------------------ #
+    # the gradients
+    # ------------------------------------------------------------------ #
+    def _backward(self, gi: int, grads) -> None:
+        g, e = self.groups[gi], self.e
+        with torch.no_grad():
+            if e.flat_grad is not None:          # qgZ / LoCo
+                self._to_full_grad(gi, grads)
+                return
+            with telemetry.span("zero3_reduce_issue"):
+                rows = torch.zeros(e.world, g.n_row, dtype=torch.float32,
+                                   device=e.device)
+                for (p, l), gr in zip(self._layout[gi], grads):
+                    if gr is None:
+                        continue
+                    if not p.n:
+                        rep = e._rep_view(p.shard)
+                        (rep if l is None else rep[l]).add_(gr)
+                        continue
+                    moved = p.moved(e.world)
+                    dst = rows[:, p.offset:p.offset + p.n].view(moved)
+                    if l is not None:
+                        dst = dst[:, :, l - g.layers[0]]
+                        gr = torch.movedim(gr, p.shard.dim - 1, 0)
+                    else:
+                        gr = torch.movedim(gr, p.shard.dim, 0)
+                    dst.copy_(gr.reshape(dst.shape))
+                mine = torch.empty(g.n_row, dtype=torch.float32,
+                                   device=e.device)
+                handle = self.queue.submit(comm.reduce_scatter_op(), [mine],
+                                           [rows], slot=f"z3r{gi % 2}")
+            self.counts["reduce"] += 1
+            self._reduces.append((handle, gi))
+            while len(self._reduces) > 2:       # bound what is in flight
+                self._land(*self._reduces.pop(0))
+
+    def _to_full_grad(self, gi: int, grads) -> None:
+        e = self.e
+        for (p, l), gr in zip(self._layout[gi], grads):
+            if gr is None:
+                continue
+            dst = e._view(e.flat_grad, p.shard.slot)
+            if p.layers is not None:
+                dst = dst[l]
+            dst.copy_(gr)
+
+    def _land(self, handle, gi: int) -> None:
+        """A reduce has landed: its mean shard into the accumulator."""
+        g, e = self.groups[gi], self.e
+        with telemetry.span("zero3_reduce_wait"):
+            mine, = handle.wait()
+        with torch.no_grad():
+            mine.div_(torch.tensor(float(e.world), device=e.device))
+            for p in g.pieces:
+                if not p.n:
+                    continue
+                acc = e._local(e.flat_grad_acc, p.shard)
+                if p.layers is not None:
+                    acc = acc[:, p.layers[0]:p.layers[1]]
+                acc.add_(mine[p.offset:p.offset + p.n].view(acc.shape))
+
+    def finish_micro(self) -> None:
+        """After the backward: every reduce landed, nothing in flight or
+        cached (gloo must see no queued op before the engine's own)."""
+        while self._reduces:
+            self._land(*self._reduces.pop(0))
+        self.queue.drain()
+        self._head = None
+        if self._inflight or self._cache:
+            raise RuntimeError(f"ZeRO-3: gathers left after the micro-batch:"
+                               f" {sorted(self._inflight)} "
+                               f"{sorted(self._cache)}")
+
+    def gathers_per_micro(self) -> int:
+        """Gathers a micro-batch: the head group, each chunk in the
+        forward, and again in the backward's recompute."""
+        chunks = len(self.groups) - 1
+        return 1 + chunks * (2 if self.recompute else 1)
+
+    def close(self) -> None:
+        self.queue.close()
+
+
+def _set_path(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value

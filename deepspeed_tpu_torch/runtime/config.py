@@ -107,11 +107,20 @@ class ZenFlowSectionConfig:
 @dataclasses.dataclass
 class ZeroConfig:
     """``zero_optimization`` (``deepspeed_tpu/runtime/config.py:89``), every
-    key and its validation. The engine runs stages 0-2, with the exact wire
-    or the ZeRO++ int8 wire (qgZ / qwZ / LoCo) between processes, and raises
-    for stage 3, hpZ / MiCS subgroups, offload and ZenFlow; one process
-    partitions nothing. The bucket and overlap keys order sends without
-    changing values and have no effect here."""
+    key and its validation, JAX's defaults. The engines run stages 0-3,
+    with the exact wire or the ZeRO++ int8 wire (qgZ / qwZ / LoCo) between
+    processes, and raise for hpZ / MiCS subgroups, offload, ZenFlow and
+    SuperOffload; one process partitions nothing. ``overlap_comm`` with
+    ``allgather_bucket_size`` (stages 1-2) or ``stage3_prefetch_bucket_size``
+    (stage 3) sets the overlap plan's layer chunks (``parallel/overlap.py``):
+    qwZ's quantization blocks and ZeRO-3's gathers, the next chunk's gather
+    in flight. ``stage3_max_live_parameters``,
+    ``stage3_max_reuse_distance`` and ``stage3_param_persistence_threshold``
+    are accepted and inert, as in JAX (its ``analysis/rules/
+    config_keys.py:73-75``); so are ``reduce_bucket_size``,
+    ``overlap_step`` and ``update_bucket_size``, which order JAX's fenced
+    sends and its double-buffered publish, neither of which the port
+    keeps."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True

@@ -34,14 +34,21 @@ per-micro-batch cast gives.
 
 More than one process (the default process group up, world > 1) takes
 :class:`DataParallelEngine`: ZeRO stages 0-2 over ``torch.distributed``,
-with the exact wire or the ZeRO++ int8 wire (qgZ, qwZ, LoCo).
+with the exact wire or the ZeRO++ int8 wire (qgZ, qwZ, LoCo); at stage 3
+:class:`Zero3Engine`, whose parameters are sharded too and gathered per
+use, layer chunk by layer chunk (``parallel/stage3.py``). Every engine
+resolves JAX's overlap-scheduler plan (``_setup_overlap_scheduler``,
+``overlap_plan``): its layer chunks set qwZ's quantization blocks and
+ZeRO-3's gathers. One process at stage 3 shards nothing and runs the
+stage-0 step, as JAX at ``data = 1``.
 
-Out of this slice, raising ``NotImplementedError``: ZeRO stage 3, hpZ /
-MiCS subgroups, offload, ZenFlow, remat policies other than none/full, and
+Out of this slice, raising ``NotImplementedError``: hpZ / MiCS subgroups,
+offload, ZenFlow, SuperOffload, remat policies other than none/full, and
 the config sections ``load_config`` refuses.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -58,6 +65,12 @@ from deepspeed_tpu_torch.models.api import ModelSpec
 from deepspeed_tpu_torch.ops import quant_kernels as QK
 from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer, get_optimizer
 from deepspeed_tpu_torch.parallel import compressed as C
+from deepspeed_tpu_torch.parallel import stage3 as S3
+from deepspeed_tpu_torch.parallel.overlap import (
+    OverlapConfig,
+    chunk_layers,
+    leaf_count,
+)
 from deepspeed_tpu_torch.parallel.partitioning import ShardingPolicy
 from deepspeed_tpu_torch.runtime.config import (
     ActivationCheckpointingConfig,
@@ -192,9 +205,6 @@ class DeepSpeedTPUEngine:
         cfg = self.config
         z = cfg.zero_optimization
         _process_world()
-        if z.stage >= 3:
-            raise later_slice(f"zero_optimization.stage={z.stage} (this "
-                              "slice runs stages 0-2)")
         for name, off in (("offload_optimizer", z.offload_optimizer),
                           ("offload_param", z.offload_param)):
             if off.device not in ("none", None) or off.host_step:
@@ -266,6 +276,58 @@ class DeepSpeedTPUEngine:
         return "exact"
 
     # ------------------------------------------------------------------ #
+    # the overlap scheduler's plan (JAX engine.py:704-868)
+    # ------------------------------------------------------------------ #
+    def _setup_overlap_scheduler(self) -> None:
+        """JAX's ``_setup_overlap_scheduler``: with ``overlap_comm`` at
+        stage >= 1 and a rebuildable multi-layer model, the layer chunks
+        from ``stage3_prefetch_bucket_size`` (stage 3) or
+        ``allgather_bucket_size`` (stages 1-2) over the ``blocks``
+        elements a layer. JAX also marks mid-backward sync points at stage
+        >= 2 (``chunk_bounds`` then holds even one chunk). The port gathers
+        (qwZ, ZeRO-3) and reduces (ZeRO-3) by these chunks; it keeps no
+        double-buffered publish, so ``step_overlap`` and ``param_buffer``
+        read False. Reads ``self._slots``."""
+        zcfg = self.config.zero_optimization
+        self._overlap = OverlapConfig.from_zero_config(zcfg, self.zero_stage)
+        ub = zcfg.update_bucket_size
+        self._overlap_plan: Dict[str, Any] = {
+            "enabled": self._overlap.enabled, "scan_chunks": 1,
+            "chunk_bounds": [], "grad_sync_points": False,
+            "step_overlap": False, "param_buffer": False,
+            "update_bucket_elems": (self._overlap.reduce_bucket_elems
+                                    if ub == "auto" else int(ub)),
+            "wire_format": self._wire_format()}
+        if not self._overlap.enabled:
+            return
+        spec_cfg = getattr(self.model_spec, "config", None)
+        n_layers = getattr(spec_cfg, "num_layers", 0) or 0
+        if (self.model_spec.builder is None or spec_cfg is None
+                or not hasattr(spec_cfg, "scan_chunks") or n_layers <= 1
+                or self.mesh_manager.shape.get("pipe", 1) > 1):
+            return
+        per_layer = max(sum(leaf_count(s.shape) for s in self._slots
+                            if s.path[0] == _STACKED) // n_layers, 1)
+        chunk_elems = (self._overlap.prefetch_bucket_elems
+                       if self.zero_stage >= 3
+                       else self._overlap.allgather_bucket_elems)
+        bounds = chunk_layers(n_layers, per_layer, chunk_elems)
+        sync = self.zero_stage >= 2
+        if len(bounds) > 1 or sync:
+            self._overlap_plan.update(scan_chunks=max(len(bounds), 1),
+                                      chunk_bounds=bounds,
+                                      grad_sync_points=sync)
+
+    def overlap_plan(self) -> Dict[str, Any]:
+        """The resolved plan: chunk bounds, bucket sizes (JAX's
+        ``overlap_plan``, engine.py:860)."""
+        plan = dict(self._overlap_plan)
+        plan.update(reduce_bucket_elems=self._overlap.reduce_bucket_elems,
+                    allgather_bucket_elems=self._overlap.allgather_bucket_elems,
+                    prefetch_bucket_elems=self._overlap.prefetch_bucket_elems)
+        return plan
+
+    # ------------------------------------------------------------------ #
     # state: flat buffers and the views into them
     # ------------------------------------------------------------------ #
     def _accum_dtype(self) -> torch.dtype:
@@ -275,7 +337,9 @@ class DeepSpeedTPUEngine:
         return getattr(torch, _DTYPE_ALIAS.get(name, name)) if name \
             else torch.float32
 
-    def _init_state(self, seed: int) -> None:
+    def _init_tree(self, seed: int) -> Dict[str, Any]:
+        """The model's initial fp32 tree from ``seed``; lays out the slots
+        of the flat buffers and resolves the overlap plan."""
         gen = torch.Generator(self.device).manual_seed(seed)
         tree = self.model_spec.init_fn(gen, self.device)
         self._slots: List[_Slot] = []
@@ -284,6 +348,12 @@ class DeepSpeedTPUEngine:
             self._slots.append(_Slot(path, tuple(t.shape), off))
             off += -(-t.numel() // _ALIGN) * _ALIGN
         self._numel = off
+        self._setup_overlap_scheduler()
+        return tree
+
+    def _init_state(self, seed: int) -> None:
+        tree = self._init_tree(seed)
+        off = self._numel
         dev = self.device
         self.flat_master = torch.zeros(off, dtype=torch.float32, device=dev)
         self.flat_compute = torch.zeros(off, dtype=self.compute_dtype,
@@ -551,9 +621,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
       its own masked mean, as JAX's int8 steps take the ranks' mean.
 
     JAX's straight-through ``_build_train_step_qz`` gives the same values
-    up to reassociation, so one formulation serves both. The overlap
-    scheduler (``overlap_comm``) only orders sends and is accepted without
-    effect here."""
+    up to reassociation, so one formulation serves both. With the overlap
+    scheduler's plan holding more than one layer chunk, the qwZ publish
+    quantizes each chunk's pieces on their own (the head group first), as
+    JAX's ``chunked_gather_tree_fn`` does; otherwise leaf by leaf."""
 
     def __init__(self, model: ModelSpec, config: Any,
                  optimizer: Optional[TPUOptimizer] = None,
@@ -569,19 +640,40 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     # state
     # ------------------------------------------------------------------ #
     def _init_state(self, seed: int) -> None:
-        gen = torch.Generator(self.device).manual_seed(seed)
-        tree = self.model_spec.init_fn(gen, self.device)
-        W = self.world
-        self._slots = []
-        off = 0
-        for path, t in _flatten(tree):
-            self._slots.append(_Slot(path, tuple(t.shape), off))
-            off += -(-t.numel() // _ALIGN) * _ALIGN
-        self._numel = off
+        if self.zero_stage >= 3:
+            raise ValueError("ZeRO stage 3 between processes: build the "
+                             "engine with deepspeed_tpu_torch.initialize "
+                             "(Zero3Engine)")
+        tree = self._init_tree(seed)
         dev, cdt = self.device, self.compute_dtype
-        self.flat_compute = torch.zeros(off, dtype=cdt, device=dev)
-        self.flat_grad = torch.zeros(off, dtype=cdt, device=dev)
+        self.flat_compute = torch.zeros(self._numel, dtype=cdt, device=dev)
+        self.flat_grad = torch.zeros(self._numel, dtype=cdt, device=dev)
+        self._init_shards(tree)
+        del tree
+        # qwZ publishes by the plan's layer chunks when it has more than
+        # one (JAX's chunked_gather_tree_fn), else leaf by leaf
+        bounds = self._overlap_plan["chunk_bounds"]
+        self._publish_groups = S3.gather_groups(
+            self._shards, bounds if self._quant_weights() and len(bounds) > 1
+            else [])
+        # [world, n_sh] fp32: the packed gradient (both wires), the qwZ
+        # publish's dequantized rows
+        self._packed = torch.zeros(self.world, self._n_sh,
+                                   dtype=torch.float32, device=dev)
+        self._params = self._leaves()
+        self._compute_params()
+        logger.info(
+            f"rank {self.rank}/{self.world}: wire={self._wire_format()} "
+            f"sharded={self._n_sh} replicated={self._n_rep} elements per "
+            "rank")
 
+    def _init_shards(self, tree: Dict[str, Any]) -> None:
+        """A rank's local buffers, JAX's ZeRO dim for each leaf
+        (``zero_layout``): the fp32 master (from ``tree``), the gradient
+        accumulator, the compute-dtype shard Adam writes (bf16), the
+        replicated leaves' gradient, LoCo's residual when armed, and the
+        optimizer state."""
+        W, dev, cdt = self.world, self.device, self.compute_dtype
         self._shards, sh_off, rep_off = zero_layout(
             self.model_spec, self._slots, W, self.zero_stage,
             self.mesh_manager.shape)
@@ -591,28 +683,17 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                                        device=dev)
         self.flat_grad_acc = torch.zeros(n_local, dtype=self._accum_dtype(),
                                          device=dev)
-        # the compute-dtype shard Adam writes (bf16), the exact publish's send
         self._shard_compute = (torch.zeros(n_local, dtype=cdt, device=dev)
                                if cdt == torch.bfloat16 else None)
-        # [world, n_sh] fp32: the packed gradient (both wires), the qwZ
-        # publish's dequantized rows
-        self._packed = torch.zeros(W, sh_off, dtype=torch.float32,
-                                   device=dev)
         self._rep_buf = torch.zeros(rep_off, dtype=torch.float32, device=dev)
         self.loco_err = (torch.zeros(W, sh_off, dtype=torch.float32,
                                      device=dev)
                          if self._wire_format() == "qz+loco" else None)
         for sh, (_, t) in zip(self._shards, _flatten(tree)):
             self._load_master_leaf(sh.slot, t)
-        del tree
         self.state: Dict[str, Any] = {
             "step": 0, "master": self._master_tree(),
             "opt": self.optimizer.init(self.flat_master)}
-        self._params = self._leaves()
-        self._compute_params()
-        logger.info(
-            f"rank {self.rank}/{W}: wire={self._wire_format()} "
-            f"sharded={sh_off} replicated={rep_off} elements per rank")
 
     def _local(self, flat: torch.Tensor, sh: _Shard) -> torch.Tensor:
         """The rank's part of leaf ``sh`` in a local buffer: its shard in
@@ -649,12 +730,24 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         return torch.movedim(self._view(flat, sh.slot), sh.dim, 0).view(
             sh.moved(self.world))
 
+    def _quant_weights(self) -> bool:
+        return bool(self._compressed and self._compressed["quant_weights"])
+
+    def _piece_view(self, flat: torch.Tensor, piece) -> torch.Tensor:
+        """A gather piece's place in a full flat buffer (leaf layout)."""
+        full = self._view(flat, piece.shard.slot)
+        return full if piece.layers is None \
+            else full[piece.layers[0]:piece.layers[1]]
+
     def _compute_params(self, shard_written: bool = False) -> None:
-        """Publish the compute copy from the master shards: qwZ (int8
-        all-gather) or the exact all-gather of the compute-dtype shards;
-        replicated leaves are cast in place. ``shard_written``: Adam has
-        just written the bf16 compute shard."""
-        cdt = self.compute_dtype
+        """Publish the compute copy from the master shards, group by group
+        (``_publish_groups``): qwZ (int8 all-gather of the fp32 master,
+        dequantized into ``_packed``) or the exact all-gather of the
+        compute-dtype shards; replicated leaves are cast in place.
+        ``shard_written``: Adam has just written the bf16 compute
+        shard."""
+        cdt, W = self.compute_dtype, self.world
+        quant = self._quant_weights()
         with torch.no_grad(), telemetry.span("zero_publish"):
             if self._shard_compute is None:
                 src = self.flat_master.to(cdt)
@@ -662,23 +755,20 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                 src = self._shard_compute
                 if not shard_written:
                     src.copy_(self.flat_master)
-            rows = self._packed
-            if not self._n_sh:
-                pass
-            elif self._compressed and self._compressed["quant_weights"]:
-                rows = C._q_allgather(self.flat_master[:self._n_sh], None,
-                                      self.world, out=self._packed)
-            else:
-                rows = torch.empty(self.world, self._n_sh, dtype=cdt,
-                                   device=self.device)
-                comm.all_gather_into_tensor(rows, src[:self._n_sh])
+            for grp in self._publish_groups if self._n_sh else ():
+                out = self._packed.view(-1)[:W * grp.n_row].view(
+                    W, grp.n_row) if quant else None
+                rows = S3.gather_group(grp, self, self.flat_master if quant
+                                       else src, quant, out=out)
+                S3.unpack(grp, rows, W,
+                          lambda p: self._piece_view(self.flat_compute, p))
+                if quant and not grp.identity:
+                    # the qgZ send quantizes _packed's pads: keep them 0
+                    self._packed.zero_()
             for sh in self._shards:
                 if sh.dim is None:
                     self._view(self.flat_compute, sh.slot).copy_(
                         self._local(src, sh))
-                else:
-                    self._moved(self.flat_compute, sh).copy_(
-                        self._rows(rows, sh))
 
     # ------------------------------------------------------------------ #
     # the step
@@ -770,34 +860,52 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         return (counts(batch["loss_mask"]) * float(self.world)
                 / n_global.to(self.device))
 
+    def _quant_grads(self) -> bool:
+        return bool(self._compressed and self._compressed["quant_grads"])
+
+    @contextlib.contextmanager
+    def _step_buffers(self):
+        """The buffers a step's gradient wire needs beyond the persistent
+        ones (ZeRO-2 keeps them all)."""
+        yield
+
+    def _reduce_micro(self) -> None:
+        """After a micro-batch's backward: qgZ reduces it, the exact wire
+        adds it to the packed fp32 rows."""
+        if self._quant_grads():
+            self._reduce_micro_int8()
+        else:
+            self._pack(accumulate=True)
+
+    def _reduce_step(self) -> None:
+        if not self._quant_grads():
+            self._reduce_exact()
+
     def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
         batch = self._to_device(self._local_rows(stacked))
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
-        quant_grads = bool(self._compressed
-                           and self._compressed["quant_grads"])
+        quant_grads = self._quant_grads()
         # the int8 wire keeps the mean of the ranks' means, as JAX's pmean
         weights = None if quant_grads else self._token_weights(stacked, batch)
         if not quant_grads:
-            self._packed.zero_()
+            if self._packed is not None:
+                self._packed.zero_()
             self._rep_buf.zero_()
         losses = []
-        for i in range(gas):
-            mb = ({k: v[i] for k, v in batch.items()}
-                  if isinstance(batch, dict) else batch[i])
-            if weights is None:
-                losses.append(self._loss_and_grads(mb, scale))
-            else:
-                w = weights[i]
-                loss = self._loss_and_grads(
-                    mb, w if scale is None else w * scale)
-                losses.append(loss * w)
-            if quant_grads:
-                self._reduce_micro_int8()
-            else:
-                self._pack(accumulate=True)
-        if not quant_grads:
-            self._reduce_exact()
+        with self._step_buffers():
+            for i in range(gas):
+                mb = ({k: v[i] for k, v in batch.items()}
+                      if isinstance(batch, dict) else batch[i])
+                if weights is None:
+                    losses.append(self._loss_and_grads(mb, scale))
+                else:
+                    w = weights[i]
+                    loss = self._loss_and_grads(
+                        mb, w if scale is None else w * scale)
+                    losses.append(loss * w)
+                self._reduce_micro()
+            self._reduce_step()
         mean_loss = losses[0] if gas == 1 else torch.stack(losses).mean()
         mean_loss = comm.all_reduce(mean_loss.float().reshape(1),
                                     comm.ReduceOp.AVG)[0]
@@ -878,6 +986,144 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                     shape).cpu().clone()
             _set_path(tree, sh.slot.path, err)
         return tree
+
+
+class Zero3Engine(DataParallelEngine):
+    """ZeRO stage 3 over the default process group: the compute
+    parameters sharded too, gathered per use by layer chunks
+    (``parallel/stage3.py``), with the exact wire or the ZeRO++ int8 wire.
+
+    JAX at ``data`` = world (``param_spec`` at stage 3, GSPMD's per-use
+    gathers; ``chunked_gather_tree_fn`` on the int8 wire). Each rank holds
+    only shards between steps: the fp32 master, the Adam moments, the
+    gradient accumulator, the compute-dtype shard (bf16: the one Adam
+    writes; fp16: cast after the update; fp32: the master itself), the
+    replicated leaves' buffer and, with LoCo, its residual. No full compute
+    copy, no full gradient and no packed [world, n_sh] buffer persists;
+    the layout (each leaf's ZeRO dim) is ZeRO-2's.
+
+    The forward and the backward's recompute gather the head group and
+    each layer chunk of the plan when they use it (the next chunk in
+    flight under ``overlap_comm``); the chunks are
+    ``overlap_plan()["chunk_bounds"]``, else ``stage3_prefetch_bucket_size``'s
+    chunks without prefetch when ``overlap_comm`` is off — whole leaves
+    on the qwZ wire then, as JAX's straight-through step quantizes them.
+    Exact wire: each chunk's gradient is reduce-scattered when its
+    backward is done and its mean shard added to the accumulator. qgZ /
+    LoCo: as ZeRO-2 per micro-batch, on a full gradient held for the step
+    only (JAX's wire step holds the same transient). The update is ZeRO-2's
+    over the shards; nothing is published after it: the next forward
+    gathers what it uses. (JAX's ``overlap_step`` double buffer holds the
+    values such a gather gives — ``compressed.publish_gather_tree_fn`` — so
+    gathering per use computes the same step.)"""
+
+    def _init_state(self, seed: int) -> None:
+        if not isinstance(getattr(self.model_spec, "config", None),
+                          T.TransformerConfig):
+            raise later_slice("ZeRO stage 3 for a model spec other than "
+                              "causal_lm_spec's (its layer loop takes the "
+                              "parameter hook)")
+        tree = self._init_tree(seed)
+        self._init_shards(tree)
+        del tree
+        cdt = self.compute_dtype
+        self._shard_cast = (torch.zeros_like(self.flat_master, dtype=cdt)
+                            if cdt == torch.float16 else None)
+        # the int8 gradient wire's step-long buffers (``_step_buffers``)
+        self.flat_compute = self.flat_grad = self._packed = None
+        self._zero3 = S3.Stage3Params(
+            self, self._stage3_bounds(), prefetch=self._overlap.enabled,
+            recompute=self.model_spec.config.remat in ("full",
+                                                       "save_nothing"))
+        self._params = self._zero3
+        self._compute_params()
+        logger.info(
+            f"rank {self.rank}/{self.world}: ZeRO-3 wire="
+            f"{self._wire_format()} groups={len(self._zero3.groups)} "
+            f"sharded={self._n_sh} replicated={self._n_rep} elements per "
+            "rank")
+
+    def _stage3_bounds(self):
+        """The plan's chunks; with ``overlap_comm`` off, the chunks the
+        plan would have (no prefetch) — none on the qwZ wire, whose
+        straight-through JAX step quantizes whole leaves."""
+        if self._overlap.enabled:
+            return self._overlap_plan["chunk_bounds"]
+        if self._quant_weights():
+            return []
+        cfg = self.model_spec.config
+        per_layer = max(sum(leaf_count(s.shape) for s in self._slots
+                            if s.path[0] == _STACKED) // cfg.num_layers, 1)
+        return chunk_layers(cfg.num_layers, per_layer,
+                            self._overlap.prefetch_bucket_elems)
+
+    def _gather_source(self) -> torch.Tensor:
+        """The compute-dtype local shard the exact wire gathers."""
+        for t in (self._shard_compute, self._shard_cast):
+            if t is not None:
+                return t
+        return self.flat_master
+
+    def _rep_view(self, sh: _Shard) -> torch.Tensor:
+        """A replicated leaf in the replicated-gradient buffer."""
+        return self._rep_buf[sh.offset:sh.offset + sh.n_loc].view(
+            sh.slot.shape)
+
+    def _compute_params(self, shard_written: bool = False) -> None:
+        """Refresh the compute-dtype shard from the master (bf16 unless
+        Adam has just written it); nothing is gathered here."""
+        with torch.no_grad():
+            if self._shard_compute is not None and not shard_written:
+                self._shard_compute.copy_(self.flat_master)
+            if self._shard_cast is not None:
+                self._shard_cast.copy_(self.flat_master)
+
+    @contextlib.contextmanager
+    def _step_buffers(self):
+        """qgZ / LoCo: the full gradient (compute dtype) and the packed
+        [world, n_sh] fp32 rows, for one step."""
+        if not self._quant_grads():
+            yield
+            return
+        self.flat_grad = torch.zeros(self._numel, dtype=self.compute_dtype,
+                                     device=self.device)
+        self._packed = torch.zeros(self.world, self._n_sh,
+                                   dtype=torch.float32, device=self.device)
+        try:
+            yield
+        finally:
+            self.flat_grad = self._packed = None
+
+    def _loss_and_grads(self, mb, scale: Optional[float]) -> torch.Tensor:
+        if self.flat_grad is not None:
+            self.flat_grad.zero_()
+        z = self._zero3
+        z.begin_forward()
+        loss = self.model_spec.loss_fn(z, mb)
+        z.begin_backward()
+        (loss * scale if scale is not None else loss).backward()
+        z.finish_micro()
+        return loss.detach()
+
+    def _reduce_micro(self) -> None:
+        """qgZ / LoCo once per micro-batch; the exact wire has reduced in
+        the backward."""
+        if self._quant_grads():
+            self._reduce_micro_int8()
+
+    def _reduce_step(self) -> None:
+        if not self._quant_grads() and self._n_rep:
+            with torch.no_grad():
+                self.flat_grad_acc[self._n_sh:].copy_(self._replicated_mean())
+
+    def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
+        for k in self._zero3.counts:
+            self._zero3.counts[k] = 0
+        return super()._dispatch_train_step(stacked, gas)
+
+    def close(self) -> None:
+        """Stop the coordinator's communication thread."""
+        self._zero3.close()
 
 
 def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,

@@ -14,6 +14,9 @@
   as each kind says; ``prefill_rows`` finds the runs the plan sends to the
   prefill kernel; ``serving_launches_want`` gives the serving phases'
   launch counts.
+* The ZeRO-3 phase: its launch formula, the gathers and reduces a step,
+  the Z1-Z2 gate arithmetic, the Z4 memory comparison, and its rank
+  function rehearsed at tiny size on two gloo ranks of the CPU.
 
 The names have the form nvcc and the demangler give these kernels, the
 anonymous namespace's per-file prefix included.
@@ -250,3 +253,91 @@ def test_serving_launches_want():
         "paged_attention": 24, "paged_attention_decode": 24,
         "paged_attention_prefill": 12, "paged_attention_plan": 1,
         "layer_norm": 50}
+
+
+# --------------------------------------------------------------------------- #
+# the ZeRO-3 phase's host-side logic
+# --------------------------------------------------------------------------- #
+
+def test_zero3_launches_want():
+    """llama_750m's 8 chunks, gas 4, 2 steps: 17 gathers a micro-batch
+    (the head group, each chunk in the forward and in the recompute), one
+    quantize and one dequant-reduce each on the qwZ wire, plus qgZ's
+    quantize and its two dequant-reduces (receive, LoCo's sent)."""
+    exact = C.zero3_launches_want(20, 4, 2, 8, wire=False)
+    wire = C.zero3_launches_want(20, 4, 2, 8, wire=True)
+    assert exact == dict(wire, quant_int8=0, dequant_reduce=0)
+    assert (wire["quant_int8"], wire["dequant_reduce"]) == (144, 152)
+    assert (wire["flash_fwd"], wire["flash_bwd_dq"], wire["flash_bwd_dkv"],
+            wire["fused_adam"], wire["rms_norm"]) == (320, 160, 160, 2, 648)
+    assert C.ZERO3_CHUNKS == 8 and C.ZERO3["gas"] == 4
+
+
+def test_zero3_count_problems():
+    good = {"gather_fwd": 36, "gather_bwd": 32, "reduce": 36}
+    assert C.zero3_count_problems(good, 4, 8, wire=False) == []
+    assert C.zero3_count_problems(dict(good, reduce=0), 4, 8, wire=True) \
+        == []
+    assert len(C.zero3_count_problems(dict(good, gather_bwd=31), 4, 8,
+                                      wire=False)) == 1
+    assert len(C.zero3_count_problems(good, 4, 8, wire=True)) == 1
+
+
+def _gates(**z3):
+    row = {"loss": 6.0, "loss_rel": 0.0, "grad_rel": 1e-6,
+           "update_rel": 1e-5, "sign_miss": 0.0}
+    return {"fp32_zero2": {"loss": 6.0}, "fp32_zero3": dict(row, **z3),
+            "bf16_zero2": dict(row, loss=6.01, update_rel=0.05),
+            "bf16_zero3": dict(row, loss=6.01, update_rel=0.06)}
+
+
+@pytest.mark.parametrize("change, n", [
+    ({}, 0), ({"loss_rel": 2e-5}, 1), ({"grad_rel": 2e-4}, 1),
+    ({"update_rel": 2e-3}, 1), ({"sign_miss": 2e-3}, 1),
+    ({"grad_rel": 2e-4, "sign_miss": 1.0}, 2)])
+def test_zero3_gate_problems_z1(change, n):
+    """Z1 holds the fp32 ZeRO-3 step to the training parity rule."""
+    assert len(C.zero3_gate_problems(_gates(**change))) == n
+
+
+def test_zero3_gate_problems_z2():
+    """Z2: the bf16 loss within 1e-5 of ZeRO-2's, the bf16 update no
+    further from the fp32 step than twice ZeRO-2's."""
+    g = _gates()
+    g["bf16_zero3"]["loss"] = 6.01 * (1 + 2e-5)
+    assert len(C.zero3_gate_problems(g)) == 1
+    g = _gates()
+    g["bf16_zero3"]["update_rel"] = 0.11
+    assert len(C.zero3_gate_problems(g)) == 1
+    g["bf16_zero3"]["update_rel"] = 0.1
+    assert C.zero3_gate_problems(g) == []
+
+
+def test_zero3_memory_problems():
+    assert C.zero3_memory_problems(14.0e9, 17.0e9) == []
+    assert len(C.zero3_memory_problems(14.1e9, 17.0e9)) == 1
+    assert len(C.zero3_memory_problems(20e9, 17e9)) == 1
+
+
+def test_zero3_phase_rank_rehearsal_on_cpu():
+    """The phase's rank function at tiny size on two gloo ranks of the CPU
+    (the plain paths; the counters read 0 there): both runs train, the
+    gathers and reduces a step are the plan's, the qwZ groups stay within
+    half a step, the wire gate's bits agree, and Z1-Z2 pass."""
+    t = dict(C.ZERO3, model="tiny", micro=2, seq=32, gas=2, steps=2,
+             gate_layers=2, device="cpu", baseline=True)
+    ranks = C.spawn_ranks("train_llama_750m_zero3_dp2_rank", 2, 0, t)
+    for r in ranks:
+        for run, wire in (("exact", False), ("wire", True)):
+            m = r[run]
+            assert np.isfinite(m["losses"]).all()
+            assert m["losses"] == ranks[0][run]["losses"]
+            assert C.zero3_count_problems(m["zero3_counts"], 2,
+                                          len(m["chunk_bounds"]), wire) == []
+        assert all(g["out_of_bound"] == 0 for g in r["qwz_gate"])
+        assert r["wire_gate"]["q_bitwise_equal"]
+        assert r["wire_gate"]["quant_err_out_of_bound"] == 0
+        assert C.zero3_gate_problems(r["gates"]) == []
+        assert r["gates"]["bf16_loss_bit_equal"]
+        assert set(r["exposed"]) == {"overlap_on", "overlap_off"}
+        assert r["baseline"]["losses"][0] == r["exact"]["losses"][0]

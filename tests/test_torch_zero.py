@@ -277,6 +277,16 @@ ZERO = {
     "stage2_qgz_qwz_loco": {"stage": 2, "zero_quantized_gradients": True,
                             "zero_quantized_weights": True,
                             "loco_error_feedback": True},
+    # 20,000 elements a chunk: tiny's 49,984 a layer give the plan two
+    # chunks, and qwZ quantizes each chunk's pieces on their own
+    "stage2_qgz_qwz_chunked": {"stage": 2, "zero_quantized_gradients": True,
+                               "zero_quantized_weights": True,
+                               "allgather_bucket_size": 20000},
+    "stage2_qgz_qwz_loco_chunked": {"stage": 2,
+                                    "zero_quantized_gradients": True,
+                                    "zero_quantized_weights": True,
+                                    "loco_error_feedback": True,
+                                    "allgather_bucket_size": 20000},
 }
 # Tolerances, measured on this CPU run (numpy seeds, 3 steps of AdamW at
 # lr 1e-2 with gradient clipping). Adam's eps is 1e-3: at the default 1e-8
