@@ -94,11 +94,29 @@ kernel on them against its plain PyTorch version:
                gather within half a step of the exact gather; the zeropp
                wire gate on (b)), Z4 ((a)'s peak >= 3 GB below (c)'s), Z5
                (the launches and the 17 gathers a micro-batch);
-13. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
+13. train_llama_750m_hpz_dp4 — four ranks (mesh data 2 x zshard 2, rank
+               r at data r // 2, zshard r % 2) train llama_750m at full
+               width and depth at the zero3_llama_750m_bf16 row's settings:
+               (a) the ZeRO++ trio, ZeRO-3 + hpZ (zero_hpz_partition_size
+               2) + qwZ + qgZ, (b) MiCS at stage 3 (mics_shard_size 2,
+               exact): step, tokens/s, MFU, each rank's peak and their sum
+               against the card's memory, the host seconds in each
+               group's collectives; gates H1 (one fp32 step of hpZ ZeRO-3
+               and of hpZ ZeRO-2 against the same step at data = 4, 4
+               layers, by the training rule), H2 (bf16: the first loss
+               bit-equal to data = 4's, the update no further from fp32
+               than 2x), H3 (the step's real reduced shard through the
+               replica hop: its quantize and dequant-reduce kernels
+               bit-equal to their plain versions, the int8 two-hop mean
+               within half a step a hop of the exact one), H4 (each
+               group's collectives and elements a step by formula: no
+               parameter gather on the data group, which carries the
+               replica hop only), H5 (the launches and gathers a step);
+14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
                chunks concatenating to the whole reduction;
-14. times    — kernels vs plain vs library calls vs their bounds (CUDA
+15. times    — kernels vs plain vs library calls vs their bounds (CUDA
                events; paged attention at a decode, a prefill and a mixed
                tick, each kernel's own time by the profiler, and the plan
                kernel), decode tokens/s, device ms, idle share, kernels and
@@ -121,11 +139,13 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_moe_350m,evoformer,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,quantized_reduce_scatter,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,train_llama_750m_zero3_dp2,times
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_hpz_dp4,times
     python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-13) run right after the kernels phase. Wire times of the data-parallel phases are gloo's through host memory, the
-ranks sharing one card: not NVLink's.
+(11-14) run right after the kernels phase. Wire times of the
+data-parallel phases are gloo's through host memory, the ranks sharing
+one card: not NVLink's.
 """
 from __future__ import annotations
 
@@ -151,7 +171,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 # the parent holds until `times` (~23 GB beside two ranks' engines did not
 # fit 80 GB).
 PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
-          "train_llama_750m_zero3_dp2", "quantized_reduce_scatter",
+          "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
+          "quantized_reduce_scatter",
           "llama2_7b", "gpt2_125m", "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
           "train_llama_750m_sparse", "evoformer", "times")
 
@@ -493,6 +514,35 @@ ZERO3_MEMORY_SAVED = 3e9
 ZERO3_SPANS = ("zero3_gather_issue", "zero3_gather_wait",
                "zero3_gather_unpack", "zero3_reduce_issue",
                "zero3_reduce_wait")
+# The hpZ / MiCS phase: bench.py's zero3_llama_750m_bf16 row at world 4 on
+# the mesh data 2 x zshard 2 (rank r at data r // 2, zshard r % 2), the
+# four ranks on the one card over gloo; 1 warm-up + 2 steps a run. Run (a)
+# the ZeRO++ trio: ZeRO-3 + hpZ + qwZ + qgZ, without LoCo, whose step-long
+# fp32 residual (2.66 GB a rank) is left out to keep the four ranks' peaks
+# well inside the card (LoCo under hpZ is held against JAX on the CPU,
+# tests/test_torch_hpz.py).
+# Run (b) MiCS at stage 3: exact ZeRO-3 + mics_shard_size 2. Gates H1-H2
+# run HPZ["gate_layers"] layers at full width (gas 1, micro 1 a rank), each
+# hpZ step against the same step at data = 4 (hpZ off).
+HPZ = dict(ZERO3, world=4)
+HPZ_Z = 2
+HPZ_TRIO = {"stage": 3, "zero_hpz_partition_size": HPZ_Z,
+            "zero_quantized_gradients": True, "zero_quantized_weights": True}
+HPZ_MICS = {"stage": 3, "mics_shard_size": HPZ_Z}
+HPZ_GATES = (("fp32_d4_zero3", {"stage": 3}, "fp32"),
+             ("fp32_hpz_zero3", {"stage": 3,
+                                 "zero_hpz_partition_size": HPZ_Z}, "fp32"),
+             ("bf16_d4_zero3", {"stage": 3}, "bf16"),
+             ("bf16_hpz_zero3", {"stage": 3,
+                                 "zero_hpz_partition_size": HPZ_Z}, "bf16"),
+             ("fp32_d4_zero2", {"stage": 2}, "fp32"),
+             ("fp32_hpz_zero2", {"stage": 2,
+                                 "zero_hpz_partition_size": HPZ_Z}, "fp32"))
+# each gate step's reference: the same step at data = 4 (bf16: fp32's)
+HPZ_GATE_REF = {"fp32_hpz_zero3": "fp32_d4_zero3",
+                "bf16_d4_zero3": "fp32_d4_zero3",
+                "bf16_hpz_zero3": "fp32_d4_zero3",
+                "fp32_hpz_zero2": "fp32_d4_zero2"}
 PG_TIMEOUT_S = 900               # the ranks' process group
 RANKS_TIMEOUT_S = 900            # a spawned phase's ranks, all together
 QRS = dict(n=2 ** 26, worlds=(2, 4))
@@ -633,11 +683,22 @@ def plain_wire():
 def rank_entry(fn_name, rank, world, init_method, out, args):
     """A spawned rank: join the gloo group on the one card, run
     ``fn_name(rank, world, *args)``, send its result (or its traceback)
-    to the parent. Ranks print no result lines themselves."""
+    to the parent. Ranks print no result lines themselves.
+
+    Without a card (the CPU rehearsals) a rank computes with one intra-op
+    thread. With the default pool, the first forward of a process
+    sometimes gave other bits than every later one on the same inputs: the
+    plain attention's fp32 batched matmuls (MKL's), while the rank's
+    communication thread ran its first gathers. In the ZeRO-3 rehearsal
+    under 6 runs at once that was 2 of 72 runs with the default pool, 1 of
+    24 with two threads, none of 72 with one: one thread leaves the
+    library no split of the work to choose."""
     try:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         import torch
 
+        if not torch.cuda.is_available():
+            torch.set_num_threads(1)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if torch.cuda.is_available():
@@ -752,8 +813,9 @@ def gathered_sq(n_sh, t):
 
 def zeropp_run(t, dev, zero, batch, precision="bf16"):
     """The main path of one data-parallel config on this rank: initialize,
-    a warm-up step, then ``t["steps"]`` timed steps with the counters set
-    to 0 just before and read just after."""
+    a warm-up step, then ``t["steps"]`` timed steps with the counters (and
+    the collectives' traffic by group) set to 0 just before and read just
+    after."""
     import itertools
 
     import deepspeed_tpu_torch as dtt
@@ -773,6 +835,7 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
     warm_s = time.perf_counter() - t0
     comm.barrier()
     reset_counts()
+    comm.reset_traffic()
     losses, walls = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -781,11 +844,13 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
         walls.append(time.perf_counter() - t0)
         losses.append(float(loss))
     counts = read_counts()
+    traffic = {k: list(v) for k, v in comm.traffic.items()}
     return engine, data, {
         "wire": engine._wire_format(), "init_seconds": init_s,
         "warmup_step_seconds": warm_s, "losses": [first] + losses,
         "step_walls_s": walls, "step_ms": float(np.median(walls)) * 1e3,
-        "launches": counts, "peak_memory_bytes": dev_peak(dev),
+        "launches": counts, "traffic": traffic,
+        "peak_memory_bytes": dev_peak(dev),
         "n_sharded": engine._n_sh, "n_replicated": engine._n_rep,
         "plan_chunks": [list(b) for b in
                         engine.overlap_plan()["chunk_bounds"]]}
@@ -1058,18 +1123,23 @@ def quantized_reduce_scatter_rank(rank, world, seed, p):
                                      + 1e-6 * exact.abs()).sum())}
 
 
-def zero3_launches_want(L, gas, steps, chunks, wire):
-    """Kernel launches a rank of the ZeRO-3 phase makes in ``steps``
-    steps: flash forward twice a layer (the forward and remat's
-    recompute), dq and dkv once; the norms 4 a layer and the final one;
-    Adam once a step. On the int8 wire, per micro-batch: one quantize and
-    one dequant-reduce a qwZ gather (the head group, each chunk in the
-    forward and again in the recompute: 1 + 2 chunks), plus qgZ's
-    quantize, and its receive and LoCo's dequantized send."""
+def zero3_launches_want(L, gas, steps, chunks, wire, loco=True,
+                        replica=False):
+    """Kernel launches a rank of a ZeRO-3 phase makes in ``steps`` steps:
+    flash forward twice a layer (the forward and remat's recompute), dq
+    and dkv once; the norms 4 a layer and the final one; Adam once a step.
+    On the int8 wire, per micro-batch: one quantize and one dequant-reduce
+    a qwZ gather (the head group, each chunk in the forward and again in
+    the recompute: 1 + 2 chunks), plus qgZ's quantize and its receive's
+    dequant-reduce; LoCo's dequantized send (``loco``); hpZ's replica hop
+    (``replica``): one quantize and one dequant-reduce over the replicas'
+    rows."""
     micros = gas * steps
     gathers = 1 + 2 * chunks
-    return {"quant_int8": (gathers + 1) * micros if wire else 0,
-            "dequant_reduce": (gathers + 2) * micros if wire else 0,
+    quant = gathers + 1 + replica
+    dequant = gathers + 1 + loco + replica
+    return {"quant_int8": quant * micros if wire else 0,
+            "dequant_reduce": dequant * micros if wire else 0,
             "flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
             "flash_bwd_dkv": L * micros, "fused_adam": steps,
             "rms_norm": (4 * L + 1) * micros, "block_sparse_fwd": 0,
@@ -1129,7 +1199,7 @@ def qwz_chunk_gate(engine, groups=None):
     from deepspeed_tpu_torch.parallel import stage3 as S3
 
     out = []
-    W = engine.world
+    W = engine.shard_world
     with torch.no_grad():
         for i, grp in enumerate(groups or engine._zero3.groups):
             q = S3.gather_group(grp, engine, engine.flat_master, True)
@@ -1292,6 +1362,281 @@ def train_llama_750m_zero3_dp2_rank(rank, world, seed, t):
                                                    batch)
         del engine, data
         dev_free(dev)
+    return out
+
+
+def hpz_traffic_want(n_rows, n_sh, n_rep, gas, steps, wire, Z=HPZ_Z,
+                     block=2048):
+    """H4: the collectives a rank of the hpZ phase issues in ``steps``
+    steps, by group and kind → [calls, elements it sends in]. ``n_rows``:
+    the ZeRO-3 groups' packed rows (the head group first), ``n_sh`` /
+    ``n_rep``: the rank's sharded / replicated elements. Per micro-batch,
+    on ``zshard``: each group gathered in the forward and each chunk again
+    in the recompute (int8: q and its scales, two calls a gather); the
+    exact wire's reduce of each group, a reduce-scatter of Z rows. On
+    ``data``, only the gradient's replica hop: the exact wire's all-reduce
+    of the rank's row of each group, or the int8 wire's gathers of q and
+    scales of the rank's reduced shard [n_sh]; the int8 wire's first hop
+    is qgZ's all-to-all of q and scales [Z x n_sh] on ``zshard``. On
+    ``world``: the replicated leaves' all-reduce (int8: a micro-batch,
+    exact: a step). Per step: the loss mean (``world``, 1 element) and the
+    norm's sum of squares (``zshard``, 1 element: each shard is held once
+    a zshard group). No parameter gather runs on ``data``."""
+    gathers = [n_rows[0]] + 2 * list(n_rows[1:])
+    micros = gas * steps
+    want = {}
+
+    def add(key, calls, elements):
+        c = want.setdefault(key, [0, 0])
+        c[0] += calls
+        c[1] += elements
+
+    if wire:
+        add("zshard/all_gather", 2 * len(gathers) * micros,
+            sum(n + n // block for n in gathers) * micros)
+        add("zshard/all_to_all", 2 * micros,
+            (Z * n_sh + Z * n_sh // block) * micros)
+        add("data/all_gather", 2 * micros, (n_sh + n_sh // block) * micros)
+        if n_rep:
+            add("world/all_reduce", micros, n_rep * micros)
+    else:
+        add("zshard/all_gather", len(gathers) * micros, sum(gathers) * micros)
+        add("zshard/reduce_scatter", len(n_rows) * micros,
+            Z * sum(n_rows) * micros)
+        add("data/all_reduce", len(n_rows) * micros, sum(n_rows) * micros)
+        if n_rep:
+            add("world/all_reduce", steps, n_rep * steps)
+    add("world/all_reduce", steps, steps)
+    add("zshard/all_reduce", steps, steps)
+    return want
+
+
+def hpz_traffic_problems(traffic, want):
+    """H4: each group's calls and elements against ``hpz_traffic_want``
+    (the seconds are reported, not held)."""
+    got = {k: [int(v[0]), int(v[1])] for k, v in traffic.items()}
+    out = [f"{k}: {got.get(k)}, want {v}" for k, v in want.items()
+           if got.get(k) != v]
+    out += [f"{k}: {v}, want none" for k, v in got.items() if k not in want]
+    return out
+
+
+def hpz_wire_seconds(traffic):
+    """Host seconds in each group's collectives (the queue's worker thread
+    included)."""
+    out = {}
+    for k, v in traffic.items():
+        group = k.split("/")[0]
+        out[group] = out.get(group, 0.0) + v[2]
+    return out
+
+
+def hpz_run(t, dev, zero, batch):
+    """The main path of one hpZ config on this rank, with ZeRO-3's gather
+    and reduce counts, its groups' packed rows and the rank's mesh
+    coordinates."""
+    import torch
+
+    engine, data, run = zeropp_run(t, dev, zero, batch)
+    run.update(zero3_stats(engine))
+    mm = engine.mesh_manager
+    run.update(n_rows=[g.n_row for g in engine._zero3.groups],
+               shard_world=engine.shard_world, shard_rank=engine.shard_rank,
+               coords={a: mm.coords[a] for a in ("data", "zshard")},
+               zshard_ranks=list(mm.group_ranks(("zshard",))),
+               data_ranks=list(mm.group_ranks(("data",))),
+               card_bytes=(torch.cuda.get_device_properties(dev).total_memory
+                           if dev.type == "cuda" else 0))
+    return engine, data, run
+
+
+def replica_gate(engine, batch, dev):
+    """H3 on the step's real reduced shard: one more micro-batch's
+    gradient packed as the wire sends it, through qgZ's first hop (the
+    sum over ``zshard``); then the replica hop's quantize and dequant-
+    reduce kernels on that shard against their plain versions, bit for
+    bit; and the int8 two-hop mean against the exact two-hop mean within
+    half a quantization step a hop: Σ over the replicas of each one's
+    first-hop bound Σ_z s_z / 2, plus Σ_d s_d / 2 of the replica hop, ÷
+    the world, per element (scales of its block), plus fp32 rounding."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops import quant_kernels as QK
+    from deepspeed_tpu_torch.runtime.dataloader import stack_micros
+
+    W, Z, D, B = (engine.world, engine.shard_world, engine.replica_world,
+                  QK.DEFAULT_BLOCK)
+    zg, dg = engine.shard_group, engine.replica_group
+    mb = engine._to_device(engine._local_rows(stack_micros([batch])))
+    mb = {k: v[0] for k, v in mb.items()}
+    with engine._step_buffers():        # the step's full gradient
+        engine._loss_and_grads(mb, None)
+        engine._pack(accumulate=False)
+        x = engine._packed
+    n = x.shape[1]
+    with torch.no_grad():
+        exact = torch.empty(n, dtype=torch.float32, device=dev)
+        comm.reduce_scatter_tensor(exact, x, group=zg)
+        comm.all_reduce(exact, group=dg)
+        q, sc = QK.quantize_int8_blocks(x.view(-1))
+        del x
+        qa = comm.all_to_all_single(q.view(Z, -1), zg)
+        sa = comm.all_to_all_single(sc.view(Z, -1), zg)
+        del q, sc
+        mine = QK.dequant_reduce(qa, sa)             # the first hop's sum
+        hop1 = sa.sum(0) / 2                          # [n / B]
+        del qa, sa
+        q2, s2 = QK.quantize_int8_blocks(mine)
+        step = 2 ** 26
+        q_equal = s_equal = red_equal = True
+        for i in range(0, n, step):
+            rq, rs = QK.quantize_int8_blocks_ref(mine[i:i + step])
+            q_equal &= same_bits(q2[i:i + step], rq)
+            s_equal &= same_bits(s2[i // B:(i + step) // B], rs)
+        del rq, rs, mine
+        qg = torch.empty((D, n), dtype=q2.dtype, device=dev)
+        sg = torch.empty((D, n // B), dtype=s2.dtype, device=dev)
+        comm.all_gather_into_tensor(qg, q2, dg)
+        comm.all_gather_into_tensor(sg, s2, dg)
+        del q2, s2
+        red = QK.dequant_reduce(qg, sg)               # the replica hop's sum
+        for i in range(0, n, step):
+            red_equal &= same_bits(red[i:i + step], QK.dequant_reduce_ref(
+                qg[:, i:i + step].contiguous(),
+                sg[:, i // B:(i + step) // B].contiguous()))
+        del qg
+        bound = (comm.all_reduce(hop1, group=dg) + sg.sum(0) / 2) / W
+        ratio, over = 0.0, 0
+        for i in range(0, n, step):
+            got = red[i:i + step].view(-1, B) / W
+            ex = exact[i:i + step].view(-1, B) / W
+            b = bound[i // B:(i + step) // B, None]
+            err = (got - ex).abs()
+            over += int((err > b * (1 + 1e-6) + 1e-6 * ex.abs()).sum())
+            ratio = max(ratio, float((err / b.clamp_min(1e-30)).max()))
+    return {"elements": n, "replicas": D, "q_bitwise_equal": q_equal,
+            "scales_bitwise_equal": s_equal,
+            "reduced_bitwise_equal": red_equal,
+            "two_hop_err_max_over_bound": ratio,
+            "two_hop_err_out_of_bound": over}
+
+
+def hpz_gate_step(t, dev, master, batch, zero, precision):
+    """One step (gas 1, the gate's micro, ``t["gate_layers"]`` layers at
+    full width) from ``master`` (None: this engine's own initial master,
+    returned) → (master, loss, reduced gradient, update), the last two as
+    whole flat fp32 vectors on the device (the layouts at data = 4 and
+    under hpZ differ)."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import load_master
+    from deepspeed_tpu_torch.runtime.engine import _flatten
+
+    def flat(tree):
+        return torch.cat([v.reshape(-1) for _, v in _flatten(tree)])
+
+    spec = dtt.causal_lm_spec(
+        t["model"], attention="flash", remat="full",
+        num_layers=t["gate_layers"],
+        dtype="float32" if precision == "fp32" else "bfloat16")
+    engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
+        t["gate_micro"], 1, precision, zero), device=dev)
+    if master is None:
+        master = engine.full_master()
+    else:
+        load_master(engine, master)
+    before = engine.flat_master.clone()
+    loss = float(engine.train_batch(iter([batch])))
+    grad = flat(engine.full_tree(engine.flat_grad_acc, dev))
+    update = flat(engine.full_tree(engine.flat_master - before, dev))
+    if hasattr(engine, "close"):
+        engine.close()
+    del before, engine
+    return master, loss, grad, update
+
+
+def hpz_gates(t, dev, batch):
+    """H1 and H2's numbers: each HPZ_GATES step from one master and one
+    batch against its HPZ_GATE_REF step (whole vectors: every rank
+    computes the same numbers)."""
+    import torch
+
+    res, kept, master = {}, {}, None
+    for way, zero, prec in HPZ_GATES:
+        master, loss, grad, upd = hpz_gate_step(t, dev, master, batch, zero,
+                                                prec)
+        row = {"loss": loss}
+        ref = kept.get(HPZ_GATE_REF.get(way))
+        if ref is not None:
+            miss = ((upd > 0) != (ref["upd"] > 0)) & (
+                (upd != 0) | (ref["upd"] != 0))
+            nz = (upd != 0) | (ref["upd"] != 0)
+            row.update(
+                loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                grad_rel=float(torch.linalg.vector_norm(grad - ref["grad"])
+                               / torch.linalg.vector_norm(ref["grad"])),
+                update_rel=float(torch.linalg.vector_norm(upd - ref["upd"])
+                                 / torch.linalg.vector_norm(ref["upd"])),
+                sign_miss=float(miss.sum() / nz.sum().clamp(min=1)))
+            del miss, nz
+        if way in HPZ_GATE_REF.values():
+            kept[way] = {"loss": loss, "grad": grad, "upd": upd}
+        if way == "bf16_hpz_zero3":
+            kept.pop("fp32_d4_zero3")
+        res[way] = row
+        del grad, upd, ref
+        dev_free(dev)
+    res["bf16_loss_bit_equal"] = res["bf16_hpz_zero3"]["loss"] == \
+        res["bf16_d4_zero3"]["loss"]
+    res["gate_layers"] = t["gate_layers"]
+    return res
+
+
+def hpz_gate_problems(g):
+    """H1: the fp32 hpZ steps (ZeRO-3 and ZeRO-2) against the same steps at
+    data = 4 by the training parity rule; H2: the bf16 hpZ ZeRO-3 loss
+    bit-equal to data = 4's, its update no further from the fp32 step than
+    BF16_VS_PLAIN times data = 4's bf16 update."""
+    out = []
+    for way in ("fp32_hpz_zero3", "fp32_hpz_zero2"):
+        z = g[way]
+        for m, lim in (("loss_rel", TRAIN_LOSS_REL),
+                       ("grad_rel", TRAIN_GRAD_REL),
+                       ("update_rel", TRAIN_UPDATE_REL),
+                       ("sign_miss", TRAIN_SIGN_MISS)):
+            if not z[m] <= lim:
+                out.append(f"H1 {way} {m} {z[m]:.3g} > {lim}")
+    b, d = g["bf16_hpz_zero3"], g["bf16_d4_zero3"]
+    if b["loss"] != d["loss"]:
+        out.append(f"H2 bf16 loss {b['loss']!r}, data = 4's {d['loss']!r}")
+    if not b["update_rel"] <= BF16_VS_PLAIN * d["update_rel"]:
+        out.append(f"H2 bf16 update_rel {b['update_rel']:.3g} > "
+                   f"{BF16_VS_PLAIN} x data = 4's {d['update_rel']:.3g}")
+    return out
+
+
+def train_llama_750m_hpz_dp4_rank(rank, world, seed, t):
+    """One rank of the hpZ phase (``t``: HPZ and the device): run (a) the
+    ZeRO++ trio — the main path and the replica-hop gate H3; run (b) MiCS
+    at stage 3 — the main path; then the H1-H2 gate steps."""
+    import torch
+    from deepspeed_tpu_torch.models import transformer as T
+
+    dev = torch.device(t["device"])
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, vocab, (t["micro"] * world, t["seq"]),
+                                    dtype=np.int32)}
+    out = {"rank": rank}
+    for run, zero in (("trio", HPZ_TRIO), ("mics", HPZ_MICS)):
+        engine, data, out[run] = hpz_run(t, dev, zero, batch)
+        if run == "trio":
+            out["replica_gate"] = replica_gate(engine, batch, dev)
+        engine.close()
+        del engine, data
+        dev_free(dev)
+    gate_batch = {"tokens": batch["tokens"][:t["gate_micro"] * world]}
+    out["gates"] = hpz_gates(t, dev, gate_batch)
     return out
 
 
@@ -1817,6 +2162,11 @@ class Smoke:
         del mag
         q, sc, row = self.quant_check("llama_750m_packed_dp2", x)
         rows.append(dict(row, W=W, n_sh=n_sh))
+        # hpZ's replica hop quantizes a rank's reduced shard [n_sh] (a
+        # zshard group of 2 shards as data = 2 does); its dequant-reduce is
+        # the [2, n_sh] sum below
+        rows.append(self.quant_check("llama_750m_replica_hop_dp4",
+                                     x[:n_sh])[2])
         del x
         torch.cuda.empty_cache()
         for mean in (True, False):
@@ -3253,6 +3603,138 @@ class Smoke:
                                 "per_rank": runs["b_zero3_qgz_qwz_loco"]}),
                          **r0["wire_profile"])}
 
+    def phase_train_llama_750m_hpz_dp4(self):
+        """Four ranks on the card, mesh data 2 x zshard 2: the ZeRO++ trio
+        and MiCS at stage 3 at the full width and depth of
+        zero3_llama_750m_bf16, gates H1-H5
+        (``train_llama_750m_hpz_dp4_rank``)."""
+        torch = self.torch
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+        from deepspeed_tpu_torch.parallel.overlap import even_chunk_bounds
+
+        build.build_all()
+        torch.cuda.empty_cache()
+        t = HPZ
+        world, gas, steps = t["world"], t["gas"], t["steps"]
+        cfg = T.get_model_config(t["model"])
+        L = cfg.num_layers
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("train_llama_750m_hpz_dp4_rank", world,
+                            self.seed, dict(t, device=str(self.dev)))
+        wall = time.perf_counter() - t0
+        bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
+        want = {"trio": zero3_launches_want(L, gas, steps, ZERO3_CHUNKS,
+                                            wire=True, loco=False,
+                                            replica=True),
+                "mics": zero3_launches_want(L, gas, steps, ZERO3_CHUNKS,
+                                            wire=False)}
+        problems, traffic_want = [], {}
+        for r in ranks:
+            tag = f"rank {r['rank']}"
+            for run in ("trio", "mics"):
+                m = r[run]
+                if (m["coords"], m["shard_world"], m["shard_rank"]) != (
+                        {"data": r["rank"] // HPZ_Z,
+                         "zshard": r["rank"] % HPZ_Z}, HPZ_Z,
+                        r["rank"] % HPZ_Z):
+                    problems.append(f"{tag} {run}: mesh {m['coords']}")
+                problems += [f"{tag} {run}: {k} launched {m['launches'][k]}"
+                             f" times, want {v}" for k, v in want[run].items()
+                             if m["launches"][k] != v]
+                problems += [f"{tag} {run}: {p}" for p in zero3_count_problems(
+                    m["zero3_counts"], gas, ZERO3_CHUNKS, run == "trio")]
+                if m["chunk_bounds"] != bounds:
+                    problems.append(f"{tag} {run}: chunks {m['chunk_bounds']}"
+                                    f", want {bounds}")
+                tw = hpz_traffic_want(m["n_rows"], m["n_sharded"],
+                                      m["n_replicated"], gas, steps,
+                                      wire=run == "trio")
+                traffic_want[run] = tw
+                problems += [f"{tag} {run}: H4 {p}" for p in
+                             hpz_traffic_problems(m["traffic"], tw)]
+                ls = m["losses"]
+                if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+                    problems.append(f"{tag}: {run} loss did not fall: {ls}")
+                if ls != ranks[0][run]["losses"]:
+                    problems.append(f"{tag}: the ranks' {run} losses differ")
+            rg = r["replica_gate"]
+            for k in ("q_bitwise_equal", "scales_bitwise_equal",
+                      "reduced_bitwise_equal"):
+                if not rg[k]:
+                    problems.append(f"{tag}: H3 replica hop {k} false")
+            if rg["two_hop_err_out_of_bound"]:
+                problems.append(f"{tag}: H3 {rg['two_hop_err_out_of_bound']}"
+                                " elements past half a step a hop")
+            problems += [f"{tag}: {p}" for p in hpz_gate_problems(
+                r["gates"])]
+        card_bytes = ranks[0]["trio"]["card_bytes"]
+        for run in ("trio", "mics"):
+            total = sum(r[run]["peak_memory_bytes"] for r in ranks)
+            if total > card_bytes:
+                problems.append(f"{run}: the ranks' peaks {total} bytes "
+                                f"past the card's {card_bytes}")
+        tokens = t["micro"] * t["seq"] * gas * world
+        flops = flops_per_token(cfg, t["seq"]) * tokens
+
+        def rates(runs):
+            step_s = runs[0]["step_ms"] / 1e3
+            peaks = [x["peak_memory_bytes"] for x in runs]
+            return {"step_ms": runs[0]["step_ms"],
+                    "step_ms_per_rank": [x["step_ms"] for x in runs],
+                    "tokens_per_s": tokens / step_s,
+                    "model_tflops_per_s": flops / step_s / 1e12,
+                    "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+                    "peak_memory_bytes_per_rank": peaks,
+                    "peak_memory_bytes_sum": sum(peaks),
+                    "card_memory_bytes": card_bytes,
+                    "wire_host_s_by_group_per_step": [
+                        {g: v / steps for g, v in
+                         hpz_wire_seconds(x["traffic"]).items()}
+                        for x in runs]}
+
+        runs = {"a_zero3_hpz_qwz_qgz": [r["trio"] for r in ranks],
+                "b_mics_zero3": [r["mics"] for r in ranks]}
+        r0 = ranks[0]
+        result = {"model": t["model"], "world": world,
+                  "mesh": {"data": world // HPZ_Z, "zshard": HPZ_Z},
+                  "micro": t["micro"], "seq": t["seq"], "gas": gas,
+                  "steps": steps, "zero_a": HPZ_TRIO, "zero_b": HPZ_MICS,
+                  "chunks": bounds, "params": cfg.num_params(),
+                  "phase_wall_s": wall, "card": self.card,
+                  "wire_note": "gloo through host memory, four ranks "
+                               "sharing one card: hpZ's gain, a gather "
+                               "that stays on a node's fast links, cannot "
+                               "show here",
+                  "launches_want_per_rank": want,
+                  "traffic_want_rank0": traffic_want,
+                  **{k: rates(v) for k, v in runs.items()},
+                  "per_rank": runs}
+        emit("train_llama_750m_hpz_dp4", **result)
+        emit("train_llama_750m_hpz_dp4/gates", card=self.card,
+             gate_depth=f"H1-H2 at {t['gate_layers']} layers, full width",
+             step_gates=[r["gates"] for r in ranks],
+             replica_gate=[r["replica_gate"] for r in ranks],
+             bounds={"loss_rel": TRAIN_LOSS_REL, "grad_rel": TRAIN_GRAD_REL,
+                     "update_rel": TRAIN_UPDATE_REL,
+                     "sign_miss": TRAIN_SIGN_MISS,
+                     "bf16_vs_data4": BF16_VS_PLAIN,
+                     "two_hop_err": "half a step a hop, / world"})
+        if problems:
+            raise AssertionError("train_llama_750m_hpz_dp4: "
+                                 + "; ".join(problems))
+        name = "train_llama_750m_hpz_dp4"
+        for run in ("trio", "mics"):
+            for k, v in want[run].items():
+                if v:
+                    self.launches.setdefault(k, {})[f"{name}/{run}"] = \
+                        r0[run]["launches"][k]
+            self.steps[f"{name}/{run}"] = steps
+        self.state["hpz"] = {
+            "n_sh": r0["trio"]["n_sharded"],
+            "trio": rates(runs["a_zero3_hpz_qwz_qgz"]),
+            "mics": rates(runs["b_mics_zero3"])}
+
     def phase_quantized_reduce_scatter(self):
         """The entry point at world 2 and 4, ranks on the one card."""
         from deepspeed_tpu_torch.ops import build
@@ -3290,8 +3772,11 @@ class Smoke:
         2 and dequant_reduce on its [2, n_sh] receive: kernel, plain, bound
         (each input read once, each output written once: quantize 4 + 1
         bytes an element and a scale a block; dequant-reduce W int8 rows,
-        their scales and the fp32 row). No single PyTorch call computes
-        per-block int8 with this scale rule, so library_ms is null."""
+        their scales and the fp32 row). Beside each, ``replica_hop``: the
+        same kernel in hpZ's replica hop (data 2 x zshard 2), quantizing a
+        rank's reduced shard [n_sh] and summing the two replicas' rows [2,
+        n_sh] (no mean). No single PyTorch call computes per-block int8
+        with this scale rule, so library_ms is null."""
         torch = self.torch
         from deepspeed_tpu_torch.ops import quant_kernels as QK
 
@@ -3305,6 +3790,11 @@ class Smoke:
         lib = "none: no single PyTorch call computes per-block int8 with " \
               "this scale rule"
         shape = {"W": W, "n_sh": n_sh, "block": B}
+        # hpZ's replica hop: a zshard group of 2 shards the layout as
+        # data = 2 does, so the rank's reduced shard has the same n_sh
+        D = HPZ["world"] // HPZ_Z
+        xr = x[:n_sh]
+        qr, scr = q.view(W, -1)[:D], sc.view(W, -1)[:D]
         out = {
             "quant_int8": dict(
                 self.bound(5.0 * N + 4.0 * N / B, 4.0 * N, "float32"),
@@ -3313,7 +3803,16 @@ class Smoke:
                 plain_ms=self.time_ms(lambda: QK.quantize_int8_blocks_ref(x),
                                       iters=5, flush=flush),
                 library_ms=None, library=lib,
-                shape=dict(shape, n=N, dtype="float32")),
+                shape=dict(shape, n=N, dtype="float32"),
+                replica_hop=dict(
+                    self.bound(5.0 * n_sh + 4.0 * n_sh / B, 4.0 * n_sh,
+                               "float32"),
+                    ms=self.time_ms(lambda: QK.quantize_int8_blocks(xr),
+                                    flush=flush),
+                    plain_ms=self.time_ms(
+                        lambda: QK.quantize_int8_blocks_ref(xr), iters=5,
+                        flush=flush),
+                    library_ms=None, shape={"n": n_sh, "dtype": "float32"})),
             "dequant_reduce": dict(
                 self.bound(N + 4.0 * N / W + 4.0 * N / B, 2.0 * N,
                            "float32"),
@@ -3323,8 +3822,17 @@ class Smoke:
                     q.view(W, -1), sc.view(W, -1), mean=True), iters=5,
                     flush=flush),
                 library_ms=None, library=lib,
-                shape=dict(shape, C=n_sh, mean=True))}
-        del x, q, sc
+                shape=dict(shape, C=n_sh, mean=True),
+                replica_hop=dict(
+                    self.bound(D * n_sh + 4.0 * n_sh + 4.0 * D * n_sh / B,
+                               2.0 * D * n_sh, "float32"),
+                    ms=self.time_ms(lambda: QK.dequant_reduce(qr, scr),
+                                    flush=flush),
+                    plain_ms=self.time_ms(lambda: QK.dequant_reduce_ref(
+                        qr, scr), iters=5, flush=flush),
+                    library_ms=None,
+                    shape={"W": D, "C": n_sh, "mean": False}))}
+        del x, q, sc, xr, qr, scr
         torch.cuda.empty_cache()
         return out
 
@@ -3709,6 +4217,10 @@ class Smoke:
             steps["llama_750m_exact_zero3_dp2"] = self.state["zero3"]["exact"]
             steps["llama_750m_zero3_qgz_qwz_loco_dp2"] = \
                 self.state["zero3"]["wire"]
+        if "hpz" in self.state:
+            steps["llama_750m_zero3_hpz_qwz_qgz_dp4"] = \
+                self.state["hpz"]["trio"]
+            steps["llama_750m_mics_zero3_dp4"] = self.state["hpz"]["mics"]
         if "evoformer" in self.state:
             ev["msa_row_attention_step_ms"] = self.evo_step_times()
         q8 = self.quant_times(flush)
@@ -3716,7 +4228,7 @@ class Smoke:
              grouped_gemm=gg, norm_backward=nb, block_sparse=sp,
              evoformer=ev, int8_wire=q8, steps=steps,
              wire_note="data-parallel step times: gloo through host "
-                       "memory, two ranks sharing one card")
+                       "memory, two (hpZ: four) ranks sharing one card")
         return {"pa": pa, "nm": nm, "fl": fl, "adam": adam, "gg": gg,
                 "sp": sp, "ev": ev, "q8": q8}
 
@@ -4330,7 +4842,8 @@ class Smoke:
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
-                          "tflops_per_s", "kernel_ms", "in_graph_kernel_ms"):
+                          "tflops_per_s", "kernel_ms", "in_graph_kernel_ms",
+                          "replica_hop"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         return {"kernels": out}

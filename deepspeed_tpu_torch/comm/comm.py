@@ -28,13 +28,23 @@ thread takes them in the order they were submitted, so every rank issues
 the same collectives in the same order; on gloo with CUDA tensors it
 stages them through its own pinned buffers, one set a slot, on a side
 stream. ``submit`` returns a :class:`Handle` to wait on.
+
+Every collective counts itself in :data:`traffic` under its group's label
+(``world``, or the ``zshard`` / ``data`` axis group of hpZ,
+``comm/mesh.group_label``) and its kind: calls, the elements this rank
+sends in, and the host seconds the calling thread spent in it (the
+queue's worker thread included). A call costs two clock reads and a few
+additions; the counts show which group carries what (no parameter gather
+on ``data`` under hpZ).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import datetime
 import enum
 import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -142,6 +152,27 @@ def barrier(group=None) -> None:
 _PinnedT = Dict[Tuple[str, int, torch.dtype], torch.Tensor]
 _pinned: _PinnedT = {}
 
+# "<group label>/<kind>" → [calls, elements sent in, host seconds], this
+# process's
+traffic: Dict[str, List[float]] = {}
+
+
+@contextlib.contextmanager
+def _traffic(group, kind: str, t: torch.Tensor):
+    c = traffic.setdefault(f"{mesh_mod.group_label(group)}/{kind}",
+                           [0, 0, 0.0])
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        c[0] += 1
+        c[1] += t.numel()
+        c[2] += time.perf_counter() - t0
+
+
+def reset_traffic() -> None:
+    traffic.clear()
+
 
 def _host_buffer(slot: str, like: torch.Tensor,
                  pool: Optional[_PinnedT] = None) -> torch.Tensor:
@@ -188,11 +219,12 @@ def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
     """In-place all-reduce; AVG is a SUM divided by the world size (gloo
     has no AVG)."""
     world = get_world_size(group)
-    if world <= 1:
-        return tensor
-    top = _TORCH_OPS[ReduceOp.SUM if op == ReduceOp.AVG else op]
-    _run(lambda o, i: dist.all_reduce(o, op=top, group=group), tensor,
-         tensor, group)
+    with _traffic(group, "all_reduce", tensor):
+        if world <= 1:
+            return tensor
+        top = _TORCH_OPS[ReduceOp.SUM if op == ReduceOp.AVG else op]
+        _run(lambda o, i: dist.all_reduce(o, op=top, group=group), tensor,
+             tensor, group)
     if op == ReduceOp.AVG:
         tensor.div_(torch.tensor(float(world), device=tensor.device))
     return tensor
@@ -202,10 +234,12 @@ def all_gather_into_tensor(output_tensor: torch.Tensor, tensor: torch.Tensor,
                            group=None) -> torch.Tensor:
     """``output_tensor`` [world × n] ← every rank's ``tensor`` [n], in rank
     order."""
-    if get_world_size(group) <= 1:
-        return output_tensor.copy_(tensor.reshape(output_tensor.shape))
-    return _run(lambda o, i: _all_gather_flat(
-        o.view(-1), i.reshape(-1), group=group), output_tensor, tensor, group)
+    with _traffic(group, "all_gather", tensor):
+        if get_world_size(group) <= 1:
+            return output_tensor.copy_(tensor.reshape(output_tensor.shape))
+        return _run(lambda o, i: _all_gather_flat(
+            o.view(-1), i.reshape(-1), group=group), output_tensor, tensor,
+            group)
 
 
 def all_gather(tensor: torch.Tensor, group=None, gather_axis: int = 0,
@@ -230,12 +264,13 @@ def reduce_scatter_tensor(output_tensor: torch.Tensor, tensor: torch.Tensor,
     if op not in (ReduceOp.SUM, ReduceOp.AVG):
         raise ValueError(f"reduce_scatter supports SUM/AVG, got {op}")
     world = get_world_size(group)
-    if world <= 1:
-        output_tensor.copy_(tensor.reshape(output_tensor.shape))
-    else:
-        _run(lambda o, i: _reduce_scatter_flat(
-            o.view(-1), i.reshape(-1), op=dist.ReduceOp.SUM, group=group),
-            output_tensor, tensor, group)
+    with _traffic(group, "reduce_scatter", tensor):
+        if world <= 1:
+            output_tensor.copy_(tensor.reshape(output_tensor.shape))
+        else:
+            _run(lambda o, i: _reduce_scatter_flat(
+                o.view(-1), i.reshape(-1), op=dist.ReduceOp.SUM,
+                group=group), output_tensor, tensor, group)
     if op == ReduceOp.AVG:
         output_tensor.div_(torch.tensor(float(world),
                                         device=output_tensor.device))
@@ -263,18 +298,20 @@ def all_to_all_single(tensor: torch.Tensor, group=None, split_axis: int = 0,
     (``split_axis = concat_axis = 0``, the tiled form)."""
     if split_axis != 0 or concat_axis != 0:
         raise ValueError("all_to_all_single splits and concatenates dim 0")
-    if get_world_size(group) <= 1:
-        return tensor.clone()
-    out = torch.empty_like(tensor)
-    return _run(lambda o, i: dist.all_to_all_single(o, i, group=group), out,
-                tensor.contiguous(), group)
+    with _traffic(group, "all_to_all", tensor):
+        if get_world_size(group) <= 1:
+            return tensor.clone()
+        out = torch.empty_like(tensor)
+        return _run(lambda o, i: dist.all_to_all_single(o, i, group=group),
+                    out, tensor.contiguous(), group)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
-    if get_world_size(group) <= 1:
-        return tensor
-    return _run(lambda o, i: dist.broadcast(o, src=src, group=group), tensor,
-                tensor, group)
+    with _traffic(group, "broadcast", tensor):
+        if get_world_size(group) <= 1:
+            return tensor
+        return _run(lambda o, i: dist.broadcast(o, src=src, group=group),
+                    tensor, tensor, group)
 
 
 # --------------------------------------------------------------------------- #
@@ -305,25 +342,29 @@ class Handle:
 class CommQueue:
     """Collectives that run while the card computes, in submission order.
 
-    ``submit(op, outs, ins, slot)`` runs ``op(outs, ins)`` — collectives of
-    the default group on those tensors — after every earlier submission.
-    gloo runs them in one worker thread, started at the first submission:
+    ``submit(op, outs, ins, slot, group)`` runs ``op(outs, ins)`` —
+    collectives on those tensors, of ``group`` (None: the default group)
+    or, for a two-hop op, of hpZ's ``zshard`` then ``data`` group — after
+    every earlier submission. gloo matches collectives by issue order in
+    each group; one worker thread that takes every submission in order on
+    every rank keeps that order for all groups at once. gloo runs them in
+    that worker thread, started at the first submission:
     on CPU tensors directly; on CUDA tensors through pinned host buffers
     kept per ``(slot, size, dtype)``, copied on a side stream that first
     waits for the work the submitting stream had queued (an event recorded
     at submission), so the copies never block the submitting thread. Each
     op finishes — its outputs copied back to the card and synchronised —
     before the next one starts; a slot a chunk keeps two consecutive
-    chunks' buffers apart all the same. NCCL needs no staging: the op runs
-    in the caller's thread, on NCCL's own stream.
+    chunks' buffers apart all the same, and the buffers are keyed by the
+    op's group too, so two groups' ops never share one. NCCL needs no
+    staging: the op runs in the caller's thread, on NCCL's own stream.
 
     The caller waits on every handle (or :meth:`drain`) before it issues a
     collective outside the queue: gloo matches collectives by issue order
     across ranks. :meth:`close` drains, stops the thread and frees the
     pinned buffers."""
 
-    def __init__(self, group=None):
-        self.group = group
+    def __init__(self):
         self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._stream = None
         self._pinned: _PinnedT = {}
@@ -338,10 +379,11 @@ class CommQueue:
     def submit(self, op: Callable[[List[torch.Tensor], List[torch.Tensor]],
                                   None],
                outs: Sequence[torch.Tensor], ins: Sequence[torch.Tensor],
-               slot: str) -> Handle:
+               slot: str, group=None) -> Handle:
         outs, ins = list(outs), list(ins)
         dev = ins[0].device
-        if dev.type == "cuda" and get_backend(self.group) != "gloo":
+        slot = f"{mesh_mod.group_label(group)}:{slot}"
+        if dev.type == "cuda" and get_backend(group) != "gloo":
             op(outs, ins)                       # NCCL: its own stream
             return Handle(outs)
         if dev.type != "cuda":
@@ -392,17 +434,27 @@ class CommQueue:
 
 def all_gather_op(group=None):
     """``CommQueue`` op: ``outs[i]`` [world × n_i] ← every rank's
-    ``ins[i]`` [n_i], for each pair (one gather, or q and its scales)."""
+    ``ins[i]`` [n_i] over ``group``, for each pair (one gather, or q and
+    its scales)."""
     def op(outs, ins):
         for o, i in zip(outs, ins):
-            _all_gather_flat(o.view(-1), i.reshape(-1), group=group)
+            with _traffic(group, "all_gather", i):
+                _all_gather_flat(o.view(-1), i.reshape(-1), group=group)
     return op
 
 
-def reduce_scatter_op(group=None):
+def reduce_scatter_op(group=None, replica_group=None, replicas=False):
     """``CommQueue`` op: ``outs[0]`` [n] ← this rank's chunk of the sum of
-    every rank's ``ins[0]`` [world × n]."""
+    every rank's ``ins[0]`` [world × n] over ``group``; with ``replicas``
+    (hpZ) that chunk then summed over ``replica_group`` too (the second
+    hop, exact)."""
     def op(outs, ins):
-        _reduce_scatter_flat(outs[0].view(-1), ins[0].reshape(-1),
-                             op=dist.ReduceOp.SUM, group=group)
+        with _traffic(group, "reduce_scatter", ins[0]):
+            _reduce_scatter_flat(outs[0].view(-1), ins[0].reshape(-1),
+                                 op=dist.ReduceOp.SUM, group=group)
+        if replicas:
+            with _traffic(replica_group, "all_reduce", outs[0]):
+                if get_world_size(replica_group) > 1:
+                    dist.all_reduce(outs[0], op=dist.ReduceOp.SUM,
+                                    group=replica_group)
     return op

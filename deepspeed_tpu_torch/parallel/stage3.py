@@ -1,4 +1,5 @@
-"""ZeRO-3 at the ``data`` axis: parameters sharded, gathered chunk by chunk.
+"""ZeRO-3 over ``data`` (and hpZ's ``zshard``): parameters sharded,
+gathered chunk by chunk.
 
 Stands for, in JAX:
 
@@ -49,6 +50,12 @@ Nothing keeps a gathered chunk alive but its users: the gather Function
 saves no tensor, and the coordinator's cache holds a chunk only between
 its first and last layer of one pass. Without remat the forward's chunks
 stay alive in autograd until the backward (correct, but no memory saved).
+
+hpZ / MiCS: the shards live on the engine's ``zshard`` group (Z ranks),
+so every gather runs there, with rows ``[Z, n_row]``, and never on the
+``data`` group; the exact wire's per-chunk reduce takes both hops in one
+queued op (the reduce-scatter over ``zshard``, then the all-reduce of the
+rank's piece over ``data``), then ÷ the whole world.
 """
 from __future__ import annotations
 
@@ -168,13 +175,15 @@ def unpack(group: Group, rows: torch.Tensor, world: int, dst) -> None:
 
 def gather_group(group: Group, engine, src: torch.Tensor, quant: bool,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One group's synchronous gather → rows [world, n_row]: the int8 wire
-    from the fp32 master (``out``: fp32 rows to dequantize into) or the
-    exact gather of the compute-dtype shard."""
+    """One group's synchronous gather over the engine's shard group → rows
+    [Z, n_row]: the int8 wire from the fp32 master (``out``: fp32 rows to
+    dequantize into) or the exact gather of the compute-dtype shard."""
     send = pack(group, engine, src)
     if quant:
-        return C._q_allgather(send, None, engine.world, out=out)
-    return C.gather_rows(send, None, engine.world, send.dtype, False)
+        return C._q_allgather(send, engine.shard_group, engine.shard_world,
+                              out=out)
+    return C.gather_rows(send, engine.shard_group, engine.shard_world,
+                         send.dtype, False)
 
 
 class _ChunkGather(torch.autograd.Function):
@@ -238,7 +247,7 @@ class Stage3Params(ParamHook):
     # ------------------------------------------------------------------ #
     def _issue(self, key: Tuple[int, str]) -> None:
         g = self.groups[key[0]]
-        W, e = self.e.world, self.e
+        W, e = self.e.shard_world, self.e
         with torch.no_grad(), telemetry.span("zero3_gather_issue"):
             if e._quant_weights():
                 q, s = C.quantize_int8(pack(g, e, e.flat_master),
@@ -253,8 +262,9 @@ class Stage3Params(ParamHook):
                 outs = [torch.empty(W, g.n_row, dtype=send.dtype,
                                     device=send.device)]
                 ins = [send]
-            handle = self.queue.submit(comm.all_gather_op(), outs, ins,
-                                       slot=f"z3g{key[0] % 2}")
+            handle = self.queue.submit(comm.all_gather_op(e.shard_group),
+                                       outs, ins, slot=f"z3g{key[0] % 2}",
+                                       group=e.shard_group)
         self._inflight[key] = handle
 
     def _materialize(self, key: Tuple[int, str]) -> List[torch.Tensor]:
@@ -272,7 +282,7 @@ class Stage3Params(ParamHook):
             if e._quant_weights():
                 qg, sg = outs
                 rows = C.dequant_reduce(qg.view(1, -1), sg.view(1, -1),
-                                        DEFAULT_BLOCK).view(e.world, -1)
+                                        DEFAULT_BLOCK).view(e.shard_world, -1)
             else:
                 rows = outs[0]
             full = {}
@@ -284,7 +294,7 @@ class Stage3Params(ParamHook):
                     if p.layers is not None:
                         loc = loc[p.layers[0]:p.layers[1]]
                     full[p.path].copy_(loc)
-            unpack(g, rows, e.world, lambda p: full[p.path])
+            unpack(g, rows, e.shard_world, lambda p: full[p.path])
             del rows, outs
         start = g.layers[0] if g.layers is not None else 0
         return [full[p.path] if l is None else full[p.path][l - start]
@@ -358,8 +368,8 @@ class Stage3Params(ParamHook):
                 self._to_full_grad(gi, grads)
                 return
             with telemetry.span("zero3_reduce_issue"):
-                rows = torch.zeros(e.world, g.n_row, dtype=torch.float32,
-                                   device=e.device)
+                rows = torch.zeros(e.shard_world, g.n_row,
+                                   dtype=torch.float32, device=e.device)
                 for (p, l), gr in zip(self._layout[gi], grads):
                     if gr is None:
                         continue
@@ -367,7 +377,7 @@ class Stage3Params(ParamHook):
                         rep = e._rep_view(p.shard)
                         (rep if l is None else rep[l]).add_(gr)
                         continue
-                    moved = p.moved(e.world)
+                    moved = p.moved(e.shard_world)
                     dst = rows[:, p.offset:p.offset + p.n].view(moved)
                     if l is not None:
                         dst = dst[:, :, l - g.layers[0]]
@@ -377,8 +387,10 @@ class Stage3Params(ParamHook):
                     dst.copy_(gr.reshape(dst.shape))
                 mine = torch.empty(g.n_row, dtype=torch.float32,
                                    device=e.device)
-                handle = self.queue.submit(comm.reduce_scatter_op(), [mine],
-                                           [rows], slot=f"z3r{gi % 2}")
+                handle = self.queue.submit(
+                    comm.reduce_scatter_op(e.shard_group, e.replica_group,
+                                           replicas=e.hpz),
+                    [mine], [rows], slot=f"z3r{gi % 2}", group=e.shard_group)
             self.counts["reduce"] += 1
             self._reduces.append((handle, gi))
             while len(self._reduces) > 2:       # bound what is in flight
@@ -395,7 +407,8 @@ class Stage3Params(ParamHook):
             dst.copy_(gr)
 
     def _land(self, handle, gi: int) -> None:
-        """A reduce has landed: its mean shard into the accumulator."""
+        """A reduce has landed: its sum (both hops under hpZ) ÷ the whole
+        world into the accumulator."""
         g, e = self.groups[gi], self.e
         with telemetry.span("zero3_reduce_wait"):
             mine, = handle.wait()

@@ -36,15 +36,18 @@ More than one process (the default process group up, world > 1) takes
 :class:`DataParallelEngine`: ZeRO stages 0-2 over ``torch.distributed``,
 with the exact wire or the ZeRO++ int8 wire (qgZ, qwZ, LoCo); at stage 3
 :class:`Zero3Engine`, whose parameters are sharded too and gathered per
-use, layer chunk by layer chunk (``parallel/stage3.py``). Every engine
-resolves JAX's overlap-scheduler plan (``_setup_overlap_scheduler``,
-``overlap_plan``): its layer chunks set qwZ's quantization blocks and
-ZeRO-3's gathers. One process at stage 3 shards nothing and runs the
-stage-0 step, as JAX at ``data = 1``.
+use, layer chunk by layer chunk (``parallel/stage3.py``). hpZ / MiCS
+(``zero_hpz_partition_size`` / ``mics_shard_size`` above 1) resolve onto
+the mesh's ``zshard`` axis, as in JAX (engine.py:87-131): ZeRO state is
+sharded within the subgroup and replicated across ``data``, at every
+stage. Every engine resolves JAX's overlap-scheduler plan
+(``_setup_overlap_scheduler``, ``overlap_plan``): its layer chunks set
+qwZ's quantization blocks and ZeRO-3's gathers. One process at stage 3
+shards nothing and runs the stage-0 step, as JAX at ``data = 1``.
 
-Out of this slice, raising ``NotImplementedError``: hpZ / MiCS subgroups,
-offload, ZenFlow, SuperOffload, remat policies other than none/full, and
-the config sections ``load_config`` refuses.
+Out of this slice, raising ``NotImplementedError``: offload, ZenFlow,
+SuperOffload, remat policies other than none/full, and the config
+sections ``load_config`` refuses.
 """
 from __future__ import annotations
 
@@ -77,7 +80,11 @@ from deepspeed_tpu_torch.runtime.config import (
     DeepSpeedTPUConfig,
     load_config,
 )
-from deepspeed_tpu_torch.runtime.config_utils import later_slice, logger
+from deepspeed_tpu_torch.runtime.config_utils import (
+    DeepSpeedConfigError,
+    later_slice,
+    logger,
+)
 from deepspeed_tpu_torch.runtime.dataloader import stack_micros
 from deepspeed_tpu_torch.runtime.loss_scaler import (
     DynamicLossScaler,
@@ -141,6 +148,7 @@ class DeepSpeedTPUEngine:
         self.config: DeepSpeedTPUConfig = load_config(config)
         self.device = resolve_device(device)
         self._check_slice()
+        self._resolve_subgroup()
         self.mesh_manager = mesh_mod.initialize_mesh(
             self.config.mesh.to_mesh_config())
         self.dp_world_size = self.mesh_manager.dp_world_size
@@ -213,9 +221,6 @@ class DeepSpeedTPUEngine:
             raise later_slice("zero_optimization.super_offload")
         if z.zenflow.enabled:
             raise later_slice("zero_optimization.zenflow")
-        if z.mics_shard_size > 1 or z.zero_hpz_partition_size > 1:
-            raise later_slice("ZeRO subgroups (mics_shard_size / "
-                              "zero_hpz_partition_size)")
         ac = cfg.activation_checkpointing
         if ac.policy not in T.REMAT_POLICIES:
             raise later_slice(f"activation_checkpointing.policy={ac.policy!r}"
@@ -227,6 +232,45 @@ class DeepSpeedTPUEngine:
         if cfg.precision_dtype == "bfloat16" and not cfg.bf16.fp32_master:
             raise later_slice("bf16.fp32_master=false (needs a "
                               "stochastic-rounding optimizer)")
+
+    def _resolve_subgroup(self) -> None:
+        """MiCS / ZeRO++ hpZ (JAX engine.py:87-131, with its messages): the
+        subgroup IS the ``zshard`` mesh axis. ``mics_shard_size`` wins over
+        ``zero_hpz_partition_size``; 0 and 1 mean off. A subgroup that
+        contradicts an explicit ``mesh.zshard``, does not divide the
+        process world or does not fit the mesh raises
+        ``DeepSpeedConfigError``: falling back to full-world collectives
+        would silently drop the secondary partition.
+        ``mics_hierarchical_params_gather`` is accepted and inert, as in
+        JAX (the gather's schedule is the backend's choice)."""
+        zcfg = self.config.zero_optimization
+        subgroup = zcfg.mics_shard_size or (
+            zcfg.zero_hpz_partition_size
+            if zcfg.zero_hpz_partition_size > 1 else 0)
+        if not subgroup:
+            return
+        key = ("mics_shard_size" if zcfg.mics_shard_size
+               else "zero_hpz_partition_size")
+        if self.config.mesh.zshard not in (1, subgroup):
+            raise DeepSpeedConfigError(
+                f"zero_optimization.{key}={subgroup} conflicts with "
+                f"mesh.zshard={self.config.mesh.zshard} — the subgroup IS "
+                "the 'zshard' axis; set one of them, or make them agree")
+        n_dev = _process_world()
+        if n_dev % subgroup != 0:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.{key}={subgroup} must divide the "
+                f"device world ({n_dev} devices) — a non-dividing hpZ "
+                "subgroup cannot form replica groups, and falling back "
+                "to exact full-world collectives would silently drop "
+                "the secondary partition")
+        self.config.mesh.zshard = subgroup
+        try:
+            self.config.mesh.to_mesh_config().resolve(n_dev)
+        except ValueError as e:
+            raise DeepSpeedConfigError(
+                f"zero_optimization.{key}={subgroup} does not fit the "
+                f"mesh: {e}") from None
 
     def _resolve_compressed_modes(self, zcfg) -> None:
         """Whether the step uses the ZeRO++ int8 wire (JAX
@@ -624,7 +668,18 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     up to reassociation, so one formulation serves both. With the overlap
     scheduler's plan holding more than one layer chunk, the qwZ publish
     quantizes each chunk's pieces on their own (the head group first), as
-    JAX's ``chunked_gather_tree_fn`` does; otherwise leaf by leaf."""
+    JAX's ``chunked_gather_tree_fn`` does; otherwise leaf by leaf.
+
+    hpZ / MiCS (a ``zshard`` axis of Z ranks, ``data`` of D): the shards,
+    the packed gradient rows ``[Z, n_sh]`` and the publish live on the
+    ``zshard`` group (``shard_world`` Z, ``shard_rank`` the rank's
+    coordinate there), replicated across ``data``. The gradient takes two
+    hops: the reduce-scatter (stage 1: all-reduce) over ``zshard`` sums,
+    then the rank's shard is summed over ``data`` (int8 under qgZ, exact on
+    the exact wire and under LoCo), then ÷ the whole world, JAX's order.
+    The batch rows, the loss mean and the replicated leaves' mean stay
+    over the whole world; the global norm sums the shards' squares over
+    ``zshard`` only (each shard is held D times)."""
 
     def __init__(self, model: ModelSpec, config: Any,
                  optimizer: Optional[TPUOptimizer] = None,
@@ -639,11 +694,28 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     # ------------------------------------------------------------------ #
     # state
     # ------------------------------------------------------------------ #
+    def _shard_topology(self) -> None:
+        """Where the ZeRO shards live: the ``zshard`` group under hpZ (its
+        ``data`` group for the replica hop), else the whole world."""
+        mm = self.mesh_manager
+        self.hpz = mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1
+        if self.hpz:
+            self.shard_world = mm.axis_size(mesh_mod.ZSHARD_AXIS)
+            self.shard_rank = mm.coords[mesh_mod.ZSHARD_AXIS]
+            self.shard_group = mm.group((mesh_mod.ZSHARD_AXIS,))
+            self.replica_world = mm.axis_size(mesh_mod.DATA_AXIS)
+            self.replica_group = mm.group((mesh_mod.DATA_AXIS,))
+        else:
+            self.shard_world, self.shard_rank = self.world, self.rank
+            self.shard_group = self.replica_group = None
+            self.replica_world = 1
+
     def _init_state(self, seed: int) -> None:
         if self.zero_stage >= 3:
             raise ValueError("ZeRO stage 3 between processes: build the "
                              "engine with deepspeed_tpu_torch.initialize "
                              "(Zero3Engine)")
+        self._shard_topology()
         tree = self._init_tree(seed)
         dev, cdt = self.device, self.compute_dtype
         self.flat_compute = torch.zeros(self._numel, dtype=cdt, device=dev)
@@ -656,14 +728,15 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self._publish_groups = S3.gather_groups(
             self._shards, bounds if self._quant_weights() and len(bounds) > 1
             else [])
-        # [world, n_sh] fp32: the packed gradient (both wires), the qwZ
+        # [Z, n_sh] fp32: the packed gradient (both wires), the qwZ
         # publish's dequantized rows
-        self._packed = torch.zeros(self.world, self._n_sh,
+        self._packed = torch.zeros(self.shard_world, self._n_sh,
                                    dtype=torch.float32, device=dev)
         self._params = self._leaves()
         self._compute_params()
         logger.info(
             f"rank {self.rank}/{self.world}: wire={self._wire_format()} "
+            f"shards over {self.shard_world} ranks, "
             f"sharded={self._n_sh} replicated={self._n_rep} elements per "
             "rank")
 
@@ -673,7 +746,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         accumulator, the compute-dtype shard Adam writes (bf16), the
         replicated leaves' gradient, LoCo's residual when armed, and the
         optimizer state."""
-        W, dev, cdt = self.world, self.device, self.compute_dtype
+        W, dev, cdt = self.shard_world, self.device, self.compute_dtype
         self._shards, sh_off, rep_off = zero_layout(
             self.model_spec, self._slots, W, self.zero_stage,
             self.mesh_manager.shape)
@@ -702,7 +775,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             start = self._n_sh + sh.offset
             return flat[start:start + sh.n_loc].view(sh.slot.shape)
         return flat[sh.offset:sh.offset + sh.n_loc].view(
-            sh.moved(self.world)[1:])
+            sh.moved(self.shard_world)[1:])
 
     def _master_tree(self) -> Dict[str, Any]:
         tree: Dict[str, Any] = {}
@@ -715,20 +788,20 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         full = full.to(device=self.device, dtype=torch.float32)
         if sh.dim is not None:
             full = torch.movedim(full, sh.dim, 0).reshape(
-                sh.moved(self.world))[self.rank]
+                sh.moved(self.shard_world))[self.shard_rank]
         self._local(self.flat_master, sh).copy_(full)
 
     def _rows(self, packed: torch.Tensor, sh: _Shard) -> torch.Tensor:
-        """Leaf ``sh``'s [world, shape[dim]/world, ...] rows in a packed
-        [world, n_sh] buffer."""
+        """Leaf ``sh``'s [Z, shape[dim]/Z, ...] rows in a packed [Z, n_sh]
+        buffer (Z the shard world)."""
         return packed[:, sh.offset:sh.offset + sh.n_loc].view(
-            sh.moved(self.world))
+            sh.moved(self.shard_world))
 
     def _moved(self, flat: torch.Tensor, sh: _Shard) -> torch.Tensor:
-        """Leaf ``sh`` of a full flat buffer as a [world, shape[dim]/world,
-        ...] view of ``moveaxis(leaf, dim, 0)``."""
+        """Leaf ``sh`` of a full flat buffer as a [Z, shape[dim]/Z, ...]
+        view of ``moveaxis(leaf, dim, 0)``."""
         return torch.movedim(self._view(flat, sh.slot), sh.dim, 0).view(
-            sh.moved(self.world))
+            sh.moved(self.shard_world))
 
     def _quant_weights(self) -> bool:
         return bool(self._compressed and self._compressed["quant_weights"])
@@ -745,8 +818,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         dequantized into ``_packed``) or the exact all-gather of the
         compute-dtype shards; replicated leaves are cast in place.
         ``shard_written``: Adam has just written the bf16 compute
-        shard."""
-        cdt, W = self.compute_dtype, self.world
+        shard. Under hpZ the gathers run on the ``zshard`` group only."""
+        cdt, W = self.compute_dtype, self.shard_world
         quant = self._quant_weights()
         with torch.no_grad(), telemetry.span("zero_publish"):
             if self._shard_compute is None:
@@ -803,21 +876,32 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         return self._rep_buf / torch.tensor(float(self.world),
                                             device=self.device)
 
+    def _replica_mean(self, mine: torch.Tensor, quant: bool) -> torch.Tensor:
+        """hpZ's second hop: the rank's summed shard over ``data`` (int8
+        or exact), then ÷ the whole world (JAX's order)."""
+        mine = C.replica_sum(mine, self.replica_group, self.replica_world,
+                             quant)
+        return mine / torch.tensor(float(self.world), device=self.device)
+
     def _reduce_micro_int8(self) -> None:
         """qgZ (and LoCo) for one micro-batch's gradient; the mean shard,
-        rounded to the compute dtype, is added to the accumulator."""
+        rounded to the compute dtype, is added to the accumulator. Under
+        hpZ the first hop sums over ``zshard`` and the replica hop (int8;
+        exact under LoCo) sums over ``data`` before the mean."""
         self._pack(accumulate=False)
         acc, cdt = self.flat_grad_acc, self.compute_dtype
+        Z, grp, mean = self.shard_world, self.shard_group, not self.hpz
         with torch.no_grad():
             if self.loco_err is not None:
                 self._packed.add_(self.loco_err)
                 mine, _ = C._q_reduce_scatter(
-                    self._packed, None, self.world, return_sent=True,
-                    mean=True, sent_out=self.loco_err)
+                    self._packed, grp, Z, return_sent=True, mean=mean,
+                    sent_out=self.loco_err)
                 torch.sub(self._packed, self.loco_err, out=self.loco_err)
             else:
-                mine = C._q_reduce_scatter(self._packed, None, self.world,
-                                           mean=True)
+                mine = C._q_reduce_scatter(self._packed, grp, Z, mean=mean)
+            if self.hpz:
+                mine = self._replica_mean(mine, self.loco_err is None)
             acc[:self._n_sh].add_(mine.to(cdt))
             if self._n_rep:
                 acc[self._n_sh:].add_(self._replicated_mean().to(cdt))
@@ -825,19 +909,24 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _reduce_exact(self) -> None:
         """The exact wire once per step: the packed fp32 gradient summed
         over gas → mean shard (reduce-scatter at stage 2, all-reduce at
-        stages 0-1) into the accumulator."""
+        stages 0-1; over ``zshard`` then ``data`` under hpZ) into the
+        accumulator."""
         acc, world = self.flat_grad_acc, torch.tensor(
             float(self.world), device=self.device)
+        grp = self.shard_group
         with torch.no_grad(), telemetry.span("zero_reduce_exact"):
             if self._n_sh:
                 if self.zero_stage >= 2:
                     mine = torch.empty(self._n_sh, dtype=torch.float32,
                                        device=self.device)
-                    comm.reduce_scatter_tensor(mine, self._packed)
+                    comm.reduce_scatter_tensor(mine, self._packed, group=grp)
                 else:
-                    comm.all_reduce(self._packed)
-                    mine = self._packed[self.rank]
-                acc[:self._n_sh].copy_(mine / world)
+                    comm.all_reduce(self._packed, group=grp)
+                    mine = self._packed[self.shard_rank]
+                if self.hpz:
+                    acc[:self._n_sh].copy_(self._replica_mean(mine, False))
+                else:
+                    acc[:self._n_sh].copy_(mine / world)
             if self._n_rep:
                 acc[self._n_sh:].copy_(self._replicated_mean())
 
@@ -926,9 +1015,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         g = grads.div_(scale_t) if grads.dtype == torch.float32 \
             else grads.float() / scale_t
         lr = self._lr_at(self.state["step"])
+        # each shard is held once a zshard group (hpZ: D times in the world)
         sq = torch.stack([g[:self._n_sh].square().sum(),
                           g[self._n_sh:].square().sum()])
-        comm.all_reduce(sq[:1])
+        comm.all_reduce(sq[:1], group=self.shard_group)
         norm = torch.sqrt(sq.sum())
         if self.config.gradient_clipping > 0:
             clip_by_global_norm([g], self.config.gradient_clipping, norm)
@@ -955,24 +1045,34 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     # ------------------------------------------------------------------ #
     def full_master(self) -> Dict[str, Any]:
         """The whole fp32 master as a tree of CPU tensors (JAX's keys and
-        shapes), gathered from every rank's shard."""
-        rows = torch.empty(self.world, self._n_sh, dtype=torch.float32,
+        shapes)."""
+        return self.full_tree(self.flat_master)
+
+    def full_tree(self, flat: torch.Tensor, device="cpu") -> Dict[str, Any]:
+        """A local buffer (the master's layout: the shards, then the
+        replicated leaves) as the tree of whole fp32 leaves on ``device``,
+        gathered from the shards of the rank's ``zshard`` group (the whole
+        world without hpZ)."""
+        rows = torch.empty(self.shard_world, self._n_sh, dtype=torch.float32,
                            device=self.device)
-        comm.all_gather_into_tensor(rows, self.flat_master[:self._n_sh])
+        comm.all_gather_into_tensor(rows, flat[:self._n_sh].float(),
+                                    group=self.shard_group)
         tree: Dict[str, Any] = {}
         for sh in self._shards:
             if sh.dim is None:
-                full = self._local(self.flat_master, sh)
+                full = self._local(flat, sh).float()
             else:
                 full = torch.movedim(self._rows(rows, sh).reshape(
-                    (-1,) + sh.moved(self.world)[2:]), 0, sh.dim)
-            _set_path(tree, sh.slot.path, full.detach().cpu().clone())
+                    (-1,) + sh.moved(self.shard_world)[2:]), 0, sh.dim)
+            _set_path(tree, sh.slot.path,
+                      full.detach().to(device, copy=True))
         return tree
 
     def full_loco_err(self) -> Dict[str, Any]:
         """Every rank's LoCo residual as JAX's ``state["loco_err"]``: per
         leaf [world, *shape] (row r = rank r's residual, the moved layout's
-        elements in the leaf's shape; zeros for replicated leaves)."""
+        elements in the leaf's shape — [Z, shape[dim]/Z, ...] under hpZ;
+        zeros for replicated leaves)."""
         rows = torch.empty((self.world,) + tuple(self.loco_err.shape),
                            dtype=torch.float32, device=self.device)
         comm.all_gather_into_tensor(rows, self.loco_err)
@@ -1023,6 +1123,7 @@ class Zero3Engine(DataParallelEngine):
             raise later_slice("ZeRO stage 3 for a model spec other than "
                               "causal_lm_spec's (its layer loop takes the "
                               "parameter hook)")
+        self._shard_topology()
         tree = self._init_tree(seed)
         self._init_shards(tree)
         del tree
@@ -1040,6 +1141,7 @@ class Zero3Engine(DataParallelEngine):
         logger.info(
             f"rank {self.rank}/{self.world}: ZeRO-3 wire="
             f"{self._wire_format()} groups={len(self._zero3.groups)} "
+            f"shards over {self.shard_world} ranks "
             f"sharded={self._n_sh} replicated={self._n_rep} elements per "
             "rank")
 
@@ -1081,13 +1183,13 @@ class Zero3Engine(DataParallelEngine):
     @contextlib.contextmanager
     def _step_buffers(self):
         """qgZ / LoCo: the full gradient (compute dtype) and the packed
-        [world, n_sh] fp32 rows, for one step."""
+        [Z, n_sh] fp32 rows, for one step."""
         if not self._quant_grads():
             yield
             return
         self.flat_grad = torch.zeros(self._numel, dtype=self.compute_dtype,
                                      device=self.device)
-        self._packed = torch.zeros(self.world, self._n_sh,
+        self._packed = torch.zeros(self.shard_world, self._n_sh,
                                    dtype=torch.float32, device=self.device)
         try:
             yield
@@ -1130,7 +1232,8 @@ def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,
                 zero_stage: int, sizes: Dict[str, int]
                 ) -> Tuple[List[_Shard], int, int]:
     """Each leaf's place in a rank's local buffers → (shards, sharded
-    elements, replicated elements). The sharded dim is JAX's
+    elements, replicated elements), ``world`` the ranks a shard is split
+    over (the ``zshard`` axis under hpZ). The sharded dim is JAX's
     (``parallel/partitioning.ShardingPolicy.state_spec`` from the model's
     logical axes); a spec without ``axes_fn`` replicates every leaf."""
     specs: Dict[Tuple[str, ...], Any] = {slot.path: () for slot in slots}
@@ -1144,7 +1247,8 @@ def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,
     shards: List[_Shard] = []
     sh_off = rep_off = 0
     for slot in slots:
-        dim = C.sharded_dim(specs[slot.path], (mesh_mod.DATA_AXIS,))
+        dim = C.sharded_dim(specs[slot.path], (mesh_mod.DATA_AXIS,
+                                               mesh_mod.ZSHARD_AXIS))
         if dim is None:
             shards.append(_Shard(slot, None, slot.numel, rep_off))
             rep_off += -(-slot.numel // _ALIGN) * _ALIGN

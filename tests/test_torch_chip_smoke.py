@@ -341,3 +341,106 @@ def test_zero3_phase_rank_rehearsal_on_cpu():
         assert r["gates"]["bf16_loss_bit_equal"]
         assert set(r["exposed"]) == {"overlap_on", "overlap_off"}
         assert r["baseline"]["losses"][0] == r["exact"]["losses"][0]
+
+
+# --------------------------------------------------------------------------- #
+# the hpZ phase's host-side logic
+# --------------------------------------------------------------------------- #
+
+def test_hpz_launches_want():
+    """The ZeRO++ trio (no LoCo) adds the replica hop's quantize and
+    dequant-reduce a micro-batch: 17 gathers + qgZ + the replica hop = 19
+    each, gas 4, 2 steps; MiCS at stage 3 (exact) launches neither."""
+    trio = C.zero3_launches_want(20, 4, 2, 8, wire=True, loco=False,
+                                 replica=True)
+    assert (trio["quant_int8"], trio["dequant_reduce"]) == (152, 152)
+    mics = C.zero3_launches_want(20, 4, 2, 8, wire=False)
+    assert mics == dict(trio, quant_int8=0, dequant_reduce=0)
+    assert C.HPZ["world"] == 4 and C.HPZ_Z == 2
+
+
+def test_hpz_traffic_want():
+    """H4's formula: a head group of 1,000 elements and two chunks of
+    4,096 (block 2048 in the int8 wire: scales a block), n_sh 8,192, gas
+    2, one step. No gather on the data group but the int8 replica hop's."""
+    rows, n_sh, n_rep = [2048, 4096, 4096], 8192, 64
+    exact = C.hpz_traffic_want(rows, n_sh, n_rep, 2, 1, wire=False)
+    assert exact == {
+        "zshard/all_gather": [2 * 5, 2 * (2048 + 4 * 4096)],
+        "zshard/reduce_scatter": [2 * 3, 2 * 2 * 10240],
+        "data/all_reduce": [2 * 3, 2 * 10240],
+        "world/all_reduce": [2, 64 + 1],
+        "zshard/all_reduce": [1, 1]}
+    wire = C.hpz_traffic_want(rows, n_sh, n_rep, 2, 1, wire=True)
+    assert wire == {
+        "zshard/all_gather": [2 * 10, 2 * (2048 + 1 + 4 * (4096 + 2))],
+        "zshard/all_to_all": [2 * 2, 2 * (16384 + 8)],
+        "data/all_gather": [2 * 2, 2 * (8192 + 4)],
+        "world/all_reduce": [2 + 1, 2 * 64 + 1],
+        "zshard/all_reduce": [1, 1]}
+    assert C.hpz_traffic_problems(
+        {k: v + [0.5] for k, v in wire.items()}, wire) == []
+    bad = dict(wire, **{"data/all_gather": [22, 2 * 18432]})
+    assert len(C.hpz_traffic_problems(bad, wire)) == 1
+    assert len(C.hpz_traffic_problems(
+        dict(wire, **{"data/reduce_scatter": [1, 1]}), wire)) == 1
+
+
+def _hpz_gates(**change):
+    row = {"loss": 6.0, "loss_rel": 0.0, "grad_rel": 1e-7,
+           "update_rel": 1e-6, "sign_miss": 0.0}
+    g = {"fp32_d4_zero3": {"loss": 6.0}, "fp32_d4_zero2": {"loss": 6.0},
+         "fp32_hpz_zero3": dict(row), "fp32_hpz_zero2": dict(row),
+         "bf16_d4_zero3": dict(row, loss=6.01, update_rel=0.05),
+         "bf16_hpz_zero3": dict(row, loss=6.01, update_rel=0.05)}
+    for key, value in change.items():
+        way, metric = key.split("__")
+        g[way][metric] = value
+    return g
+
+
+@pytest.mark.parametrize("change, n", [
+    ({}, 0), ({"fp32_hpz_zero3__grad_rel": 2e-4}, 1),
+    ({"fp32_hpz_zero2__update_rel": 2e-3}, 1),
+    ({"fp32_hpz_zero2__sign_miss": 2e-3, "fp32_hpz_zero3__loss_rel": 1.0}, 2),
+    ({"bf16_hpz_zero3__loss": 6.0100001}, 1),
+    ({"bf16_hpz_zero3__update_rel": 0.11}, 1)])
+def test_hpz_gate_problems(change, n):
+    """H1 holds both fp32 hpZ steps to the training rule; H2 the bf16
+    first loss bit-equal and the update within 2x data = 4's."""
+    assert len(C.hpz_gate_problems(_hpz_gates(**change))) == n
+
+
+def test_hpz_phase_rank_rehearsal_on_cpu():
+    """The hpZ phase's rank function at tiny size on four gloo ranks of
+    the CPU (the plain paths; the counters read 0 there): rank r at data
+    r // 2, zshard r % 2; both runs train with the ranks' losses equal;
+    the gathers and reduces a step are the plan's and each group's
+    collectives H4's formula; the replica hop's bits agree and its error
+    stays in bound (H3); H1-H2 pass."""
+    t = dict(C.HPZ, model="tiny", micro=2, seq=32, gas=2, steps=2,
+             gate_layers=2, device="cpu")
+    ranks = C.spawn_ranks("train_llama_750m_hpz_dp4_rank", 4, 0, t)
+    for r in ranks:
+        for run, wire in (("trio", True), ("mics", False)):
+            m = r[run]
+            assert m["coords"] == {"data": r["rank"] // 2,
+                                   "zshard": r["rank"] % 2}
+            assert m["zshard_ranks"] == [r["rank"] // 2 * 2,
+                                         r["rank"] // 2 * 2 + 1]
+            assert m["data_ranks"] == [r["rank"] % 2, r["rank"] % 2 + 2]
+            assert np.isfinite(m["losses"]).all()
+            assert m["losses"] == ranks[0][run]["losses"]
+            assert C.zero3_count_problems(m["zero3_counts"], 2,
+                                          len(m["chunk_bounds"]), wire) == []
+            want = C.hpz_traffic_want(m["n_rows"], m["n_sharded"],
+                                      m["n_replicated"], 2, 2, wire)
+            assert C.hpz_traffic_problems(m["traffic"], want) == []
+            assert "data/all_gather" in m["traffic"] if wire \
+                else "data/all_gather" not in m["traffic"]
+        g = r["replica_gate"]
+        assert g["q_bitwise_equal"] and g["scales_bitwise_equal"]
+        assert g["reduced_bitwise_equal"]
+        assert g["two_hop_err_out_of_bound"] == 0
+        assert C.hpz_gate_problems(r["gates"]) == []
+        assert r["gates"]["bf16_loss_bit_equal"]

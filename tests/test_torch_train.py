@@ -303,7 +303,7 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
 
 
 @pytest.mark.parametrize("extra,spec_kw", [
-    ({"zero_optimization": {"stage": 2, "mics_shard_size": 2}}, {}),
+    ({"mesh": {"expert": 2}}, {}),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
      {}),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, {}),
