@@ -116,7 +116,27 @@ kernel on them against its plain PyTorch version:
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
                chunks concatenating to the whole reduction;
-15. times    — kernels vs plain vs library calls vs their bounds (CUDA
+15. train_llama2_7b_super_offload — the host's facts (MemAvailable, cores,
+               threads, the NVMe directory's disk), then llama2_7b at full
+               width under SuperOffload (the fp32 master and Adam's moments
+               in host memory, the update on the host's cores; bf16, flash,
+               remat full, micro 2, seq 2048, gas 4) at the depth the
+               host's memory holds: gates S1 (one fp32 host step, overlap
+               off, against the device path: loss bit-equal, master within
+               1e-6), S2 (bf16: the update no further from S1's than 2x
+               the device bf16 step's), S3 (the overlap schedule's losses)
+               at 4 layers; then 3 steps with overlap and 2 without: step
+               time, tokens/s, MFU, the card's idle share, the host
+               update's seconds and GB/s against the host copy rate, the
+               copies' GB/s, device peak, pinned bytes, host RSS, the
+               flash and norm launches;
+16. train_llama_750m_offload — llama_750m at its training shape with
+               (a) offload_optimizer cpu, (b) nvme, each bit-equal to the
+               run without offload, (c) ZenFlow (top 1 %, a boundary every
+               2 steps) and its kernels-vs-plain step at 4 layers by the
+               training rule, (d) ZeRO-3 at world 1 on a spawned rank with
+               offload_param cpu and nvme at 8 layers, bit-equal;
+17. times    — kernels vs plain vs library calls vs their bounds (CUDA
                events; paged attention at a decode, a prefill and a mixed
                tick, each kernel's own time by the profiler, and the plan
                kernel), decode tokens/s, device ms, idle share, kernels and
@@ -141,9 +161,11 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,train_llama_750m_zero3_dp2,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_hpz_dp4,times
     python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
+    python3 chip_smoke.py --phases card,build,train_llama2_7b_super_offload,train_llama_750m_offload
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14) run right after the kernels phase. Wire times of the
+(11-14) and the offload phases (15-16) run right after the kernels phase,
+before the serving phases' engines take the card. Wire times of the
 data-parallel phases are gloo's through host memory, the ranks sharing
 one card: not NVLink's.
 """
@@ -169,11 +191,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 # The data-parallel phases run before the serving phases, whose engines
 # the parent holds until `times` (~23 GB beside two ranks' engines did not
-# fit 80 GB).
+# fit 80 GB); so do the offload phases (llama2_7b under SuperOffload needs
+# the empty card).
 PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
-          "quantized_reduce_scatter",
-          "llama2_7b", "gpt2_125m", "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
+          "quantized_reduce_scatter", "train_llama2_7b_super_offload",
+          "train_llama_750m_offload", "llama2_7b", "gpt2_125m",
+          "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
           "train_llama_750m_sparse", "evoformer", "times")
 
 # Tolerances of a kernel against its plain version on the same inputs.
@@ -214,10 +238,12 @@ FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 2.0 ** -7)}
 # give sqrt(2); measured 1.20-1.43. lse (fp32 in both) and every fp32
 # output keep FLASH_TOL.
 FLASH_BF16_RULE = ("o", "dq", "dk", "dv")
-# (label, B, S, N, K, D, causal): the two main-path shapes, then edges
+# (label, B, S, N, K, D, causal): the training main-path shapes (the first
+# three are timed), llama2_7b's under super_offload, then edges
 FLASH_CASES = (("gpt2_125m", 32, 1024, 12, 12, 64, True),
                ("llama_750m", 4, 2048, 12, 12, 128, True),
                ("moe_350m", 16, 1024, 12, 12, 64, True),
+               ("llama2_7b_train", 2, 2048, 32, 32, 128, True),
                ("unaligned_d64", 2, 1000, 4, 4, 64, True),
                ("unaligned_d128", 2, 1000, 4, 2, 128, True),
                ("gqa", 2, 512, 32, 8, 128, True),
@@ -238,9 +264,10 @@ GMM_CASES = (("moe_350m_up", 32768, 768, 3072, 4, 0),
              ("moe_1b_up", 32768, 1536, 6144, 8, 0),
              ("ragged", 1000, 264, 200, 8, 24))
 # (kind, H, rows): the serving sizes (a decode tick to a prefill chunk),
-# then the training main path's, micro x seq rows (llama_750m's H 1536 is
-# a masked BLOCK_H 2048 program)
-NORM_CASES = (("rms_norm", 4096, (1, 37, 256)), ("rms_norm", 1536, (8192,)),
+# then the training main paths', micro x seq rows (llama2_7b's 4096 under
+# super_offload; llama_750m's H 1536 is a masked BLOCK_H 2048 program)
+NORM_CASES = (("rms_norm", 4096, (1, 37, 256, 4096)),
+              ("rms_norm", 1536, (8192,)),
               ("layer_norm", 768, (1, 37, 256, 32768)))
 # Paged-attention ticks of the kernels phase beside the three main-path
 # shapes, (label, paged_tick kind, N, K, D, bs, MB): prefill runs of 1, 63,
@@ -778,6 +805,13 @@ def dev_peak(dev, reset=False):
     if reset:
         torch.cuda.reset_peak_memory_stats(dev)
     return torch.cuda.max_memory_allocated(dev)
+
+
+def dev_allocated(dev):
+    """Bytes allocated on ``dev`` now (0 on the CPU)."""
+    import torch
+
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
 
 
 def dev_free(dev):
@@ -1642,6 +1676,413 @@ def train_llama_750m_hpz_dp4_rank(rank, world, seed, t):
 
 # The kernel instantiations the launches reach, as sass_kernel_label names
 # them: (family, "dtype rest").
+# --------------------------------------------------------------------------- #
+# The offload phases (ZeRO-Offload, the NVMe tier, SuperOffload, ZenFlow)
+# --------------------------------------------------------------------------- #
+# train_llama2_7b_super_offload: llama2_7b at full width under
+# SuperOffload (zero_optimization {stage 1, super_offload}: the fp32 master
+# and Adam's moments in host memory, the update on the host's cores, the
+# card holding the bf16 compute copy, the bf16 gradient and the fp32
+# accumulator), bf16, flash, remat full, Adam lr 1e-4, micro 2, seq 2048,
+# gas 4, one fixed batch from the seed; 1 warm-up step, then 3 steps with
+# overlap_step on and 2 with it off. The host holds 18 B a parameter
+# (master, m, v, the fp32 landing buffer, the bf16 staging buffer): the
+# depth is the most layers, up to the preset's 32, whose host bytes times
+# SUPER_HOST_MARGIN fit the MemAvailable read at the phase's start.
+# Gates S1-S3 run SUPER["gate_layers"] layers at full width (micro 1,
+# gas 1): S1 one fp32 step with the host step (overlap off) against the
+# device path without offload, the loss bit-equal and the master within
+# SUPER_MASTER_REL (both run the same rounded fp32 operations, so
+# bit-equal is expected); S2 the bf16 host step's update no further from
+# S1's fp32 update than BF16_VS_PLAIN times the device bf16 step's; S3 the
+# overlap schedule: its step 2 loss bit-equal to its step 1 loss (both on
+# the initial parameters), its step 3 loss bit-equal to the sync run's
+# step 2 loss.
+SUPER = dict(model="llama2_7b", micro=2, seq=2048, gas=4, overlap_steps=3,
+             sync_steps=2, gate_layers=4, gate_micro=1, max_layers=None)
+SUPER_ZERO = {"stage": 1, "super_offload": True}
+SUPER_HOST_SYNC = {"stage": 1, "offload_optimizer": {
+    "device": "cpu", "host_step": True, "overlap_step": False}}
+SUPER_HOST_BYTES = 18
+SUPER_HOST_MARGIN = 1.25
+SUPER_MASTER_REL = 1e-6
+# the host Adam's bytes a parameter: p, g, m, v read (16), p, m, v and the
+# bf16 copy written (14)
+HOST_ADAM_BYTES = 30
+# train_llama_750m_offload: llama_750m at its training shape (micro 4, seq
+# 2048, gas 4, bf16, ZeRO-1, flash, remat full), 1 warm-up + 2 steps a run:
+# (a) offload_optimizer cpu, (b) offload_optimizer nvme, each bit-equal to
+# the run without offload (losses and master: the same fused Adam kernel
+# runs after the swap-in); (c) ZenFlow on the card (top 1 % a leaf, a
+# boundary every 2 steps, so one falls inside the run), with the training
+# rule's kernels-vs-plain step at OFFLOAD["gate_layers"] layers; (d)
+# ZeRO-3 at world 1 (one spawned rank) with offload_param cpu and nvme at
+# OFFLOAD["param_layers"] layers, bit-equal to the run without it.
+OFFLOAD = dict(model="llama_750m", micro=4, seq=2048, gas=4, steps=2,
+               gate_layers=4, gate_micro=1, param_layers=8)
+ZENFLOW = {"enabled": True, "topk_ratio": 0.01, "update_interval": 2}
+# ZenFlow's kernels-vs-plain step (the training rule): the whole gradient
+# (the applied hot part plus cold_acc) by TRAIN_GRAD_REL; coordinates hot
+# on one path and cold on the other at most ZENFLOW_HOT_MISS of all (a
+# mask flips only where |g| lies within the paths' last-digit difference
+# of its leaf's threshold: 40 of 1.07e9, 3.8e-8, in the first card run),
+# the update held where the masks agree.
+ZENFLOW_HOT_MISS = 1e-6
+NVME_MIN_FREE = 6e9
+
+
+def meminfo():
+    """/proc/meminfo's fields in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, rest = line.split(":", 1)
+            parts = rest.split()
+            out[key] = int(parts[0]) * (1024 if parts[1:] == ["kB"] else 1)
+    return out
+
+
+def process_memory():
+    """This process's resident set now and at its peak (bytes)."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith(("VmRSS:", "VmHWM:")):
+                key, rest = line.split(":", 1)
+                out[key] = int(rest.split()[0]) * 1024
+    return {"rss_bytes": out.get("VmRSS"), "rss_peak_bytes": out.get("VmHWM")}
+
+
+def cgroup_memory():
+    """This cgroup's (v2) memory limit and use in bytes, or Nones."""
+    out = {}
+    for key, name in (("limit", "memory.max"), ("current", "memory.current")):
+        try:
+            with open(os.path.join("/sys/fs/cgroup", name)) as f:
+                v = f.read().strip()
+            out[key] = None if v == "max" else int(v)
+        except (OSError, ValueError):
+            out[key] = None
+    return out
+
+
+def host_available(facts):
+    """The host bytes a phase may take: MemAvailable, and below this
+    cgroup's limit less its use where one is set."""
+    avail = facts["mem_available_bytes"]
+    if facts["cgroup_limit_bytes"] is not None:
+        avail = min(avail, facts["cgroup_limit_bytes"]
+                    - (facts["cgroup_current_bytes"] or 0))
+    return avail
+
+
+def nvme_dir():
+    """The NVMe tier's directory: ``DSTPU_NVME_PATH``, else
+    ``build/nvme_swap`` in the checkout (the machine's local disk)."""
+    return os.environ.get("DSTPU_NVME_PATH") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "nvme_swap")
+
+
+def host_facts(path):
+    """MemAvailable, cores, the intra-op threads and the disk under
+    ``path``."""
+    import torch
+
+    os.makedirs(path, exist_ok=True)
+    mi = meminfo()
+    du = shutil.disk_usage(path)
+    df = subprocess.run(["df", "-h", path], capture_output=True, text=True,
+                        timeout=60)
+    cg = cgroup_memory()
+    return {"mem_total_bytes": mi.get("MemTotal"),
+            "mem_available_bytes": mi.get("MemAvailable"),
+            "cgroup_limit_bytes": cg["limit"],
+            "cgroup_current_bytes": cg["current"],
+            "nproc": len(os.sched_getaffinity(0)), "cpu_count": os.cpu_count(),
+            "torch_threads": torch.get_num_threads(), "nvme_path": path,
+            "disk_free_bytes": du.free, "disk_total_bytes": du.total,
+            "df": df.stdout.strip()}
+
+
+def super_layers(model, mem_available, max_layers=None):
+    """The most layers (up to the preset's) whose host bytes under
+    SuperOffload, SUPER_HOST_BYTES a parameter, times SUPER_HOST_MARGIN fit
+    ``mem_available``."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    full = T.get_model_config(model).num_layers
+    fixed = T.get_model_config(model, num_layers=0).num_params()
+    per = T.get_model_config(model, num_layers=1).num_params() - fixed
+    fit = int((mem_available / SUPER_HOST_MARGIN / SUPER_HOST_BYTES - fixed)
+              // per)
+    return max(0, min(full, fit, max_layers or full))
+
+
+def host_copy_gbs(n=2 ** 28, reps=3):
+    """The host's copy rate: bytes moved (read + written) a second by one
+    ``copy_`` of ``n`` fp32 elements, the median of ``reps``."""
+    import torch
+
+    src = torch.rand(n)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        walls.append(time.perf_counter() - t0)
+    return 2 * 4 * n / float(np.median(walls)) / 1e9
+
+
+def offload_engine(t, dev, zero, precision, layers=None, use_kernels=True):
+    import deepspeed_tpu_torch as dtt
+
+    kw = {} if layers is None else {"num_layers": layers}
+    spec = dtt.causal_lm_spec(
+        t["model"], attention="flash", remat="full", use_kernels=use_kernels,
+        dtype="float32" if precision == "fp32" else "bfloat16", **kw)
+    engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
+        t["micro"], t["gas"], precision, zero), device=dev)
+    return engine
+
+
+def master_on(engine, dev):
+    """A copy of the engine's fp32 master on ``dev`` (the update in flight
+    of a host step done)."""
+    engine._materialize_master()
+    return engine.flat_master.detach().to(dev, copy=True)
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def super_gates(t, dev, seed):
+    """S1-S3 at ``t["gate_layers"]`` layers, full width, micro
+    ``t["gate_micro"]``, gas 1, on one batch from ``seed``: each way's
+    losses, its initial master against the first way's, and its master
+    after step 1 against the fp32 device step's."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    g = dict(t, micro=t["gate_micro"], gas=1)
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, vocab, (g["micro"], g["seq"]),
+                                    dtype=np.int32)}
+    res, master0, ref = {}, None, None
+    for way, prec, zero, steps in (
+            ("fp32_device", "fp32", {"stage": 1}, 1),
+            ("fp32_host", "fp32", SUPER_HOST_SYNC, 1),
+            ("bf16_device", "bf16", {"stage": 1}, 1),
+            ("bf16_host", "bf16", SUPER_HOST_SYNC, 2),
+            ("bf16_overlap", "bf16", SUPER_ZERO, 3)):
+        t0 = time.perf_counter()
+        engine = offload_engine(g, dev, zero, prec, layers=g["gate_layers"])
+        dev_sync(dev)
+        row = {"init_s": time.perf_counter() - t0, "losses": [],
+               "step_s": []}
+        m = master_on(engine, dev)
+        if master0 is None:
+            master0 = m
+        row["init_bit_equal"] = same_bits(m, master0)
+        for step in range(steps):
+            t0 = time.perf_counter()
+            row["losses"].append(float(engine.train_batch(iter([batch]))))
+            if engine._host_runner is not None:
+                engine._host_runner.wait()
+            dev_sync(dev)
+            row["step_s"].append(time.perf_counter() - t0)
+            if step == 0 and way != "bf16_overlap":
+                m = master_on(engine, dev)
+                if ref is None:
+                    ref = m
+                    grad = engine.flat_grad_acc.detach().clone()
+                elif prec == "fp32":
+                    row["master_rel_l2"] = rel_l2(m, ref)
+                    row["master_bit_equal"] = same_bits(m, ref)
+                    # the step's unscaled gradient as the host took it
+                    # (gas 1): a difference there is the backward's, not
+                    # the host Adam's
+                    land = engine._host_runner.landing.to(dev)
+                    row["grad_bit_equal"] = same_bits(land, grad)
+                    row["grad_rel_l2"] = rel_l2(land, grad)
+                    del grad, land
+                else:
+                    row["update_rel_vs_fp32"] = rel_l2(m - master0,
+                                                       ref - master0)
+                del m
+        if engine._host_runner is not None:
+            row["updates"] = engine._host_runner.stats()
+        engine.close()
+        del engine
+        dev_free(dev)
+        res[way] = row
+    res["layers"] = g["gate_layers"]
+    return res
+
+
+def super_gate_problems(g):
+    out = [f"{w}: initial master differs from fp32_device's"
+           for w in ("fp32_host", "bf16_device", "bf16_host", "bf16_overlap")
+           if not g[w]["init_bit_equal"]]
+    if g["fp32_host"]["losses"][0] != g["fp32_device"]["losses"][0]:
+        out.append(f"S1 loss {g['fp32_host']['losses'][0]!r} != "
+                   f"{g['fp32_device']['losses'][0]!r}")
+    if not g["fp32_host"]["master_rel_l2"] <= SUPER_MASTER_REL:
+        out.append(f"S1 master rel L2 {g['fp32_host']['master_rel_l2']:.3g}"
+                   f" > {SUPER_MASTER_REL}")
+    dev_err = g["bf16_device"]["update_rel_vs_fp32"]
+    host_err = g["bf16_host"]["update_rel_vs_fp32"]
+    if not host_err <= BF16_VS_PLAIN * dev_err:
+        out.append(f"S2 bf16 host update {host_err:.3g} from fp32, device "
+                   f"{dev_err:.3g}")
+    ov, sy = g["bf16_overlap"]["losses"], g["bf16_host"]["losses"]
+    if ov[1] != ov[0]:
+        out.append(f"S3 overlap step 2 loss {ov[1]!r} != step 1 {ov[0]!r}")
+    if ov[2] != sy[1]:
+        out.append(f"S3 overlap step 3 loss {ov[2]!r} != sync step 2 "
+                   f"{sy[1]!r}")
+    return out
+
+
+def offload_run(t, dev, zero, batch, precision="bf16", layers=None,
+                after_step=None, ref=None):
+    """One config's main path in this process: initialize, a warm-up step,
+    then ``t["steps"]`` timed steps with the counters set to 0 just before
+    and read just after; ``after_step(engine)`` after every step (its
+    results listed); the losses, and the final master: bit for bit against
+    ``ref`` when given (a master on ``dev``), else a copy of it on ``dev``
+    under ``"_master"`` (for the caller, not for the emitted line)."""
+    import itertools
+
+    held = dev_allocated(dev)
+    t0 = time.perf_counter()
+    engine = offload_engine(t, dev, zero, precision, layers=layers)
+    dev_sync(dev)
+    init_s = time.perf_counter() - t0
+    data = itertools.repeat(batch)
+    checks = []
+    t0 = time.perf_counter()
+    first = float(engine.train_batch(data))
+    warm_s = time.perf_counter() - t0
+    if after_step:
+        checks.append(after_step(engine))
+    reset_counts()
+    dev_peak(dev, reset=True)       # the timed steps' peak
+    losses, walls = [], []
+    for _ in range(t["steps"]):
+        t0 = time.perf_counter()
+        loss = engine.train_batch(data)
+        dev_sync(dev)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if after_step:
+            checks.append(after_step(engine))
+    counts = read_counts()
+    peak = dev_peak(dev) - held
+    res = {"losses": [first] + losses, "init_seconds": init_s,
+           "warmup_step_seconds": warm_s, "step_walls_s": walls,
+           "step_ms": float(np.median(walls)) * 1e3, "launches": counts,
+           "peak_memory_bytes": peak,
+           "peak_note": "the timed steps' peak less what the process held "
+                        "before the engine",
+           "checks": checks}
+    master = master_on(engine, dev)
+    if ref is None:
+        res["_master"] = master
+    else:
+        res["master_bit_equal"] = same_bits(master, ref)
+    return engine, res
+
+
+def moments_on_host(engine):
+    """Where the optimizer state lies between steps: every tensor a CPU
+    tensor, pinned when the engine is on the card."""
+    import torch
+
+    opt = [v for v in engine.state["opt"].values()
+           if isinstance(v, torch.Tensor)]
+    cuda = engine.device.type == "cuda"
+    return {"n": len(opt),
+            "all_host": all(v.device.type == "cpu" for v in opt),
+            "all_pinned": all(v.is_pinned() for v in opt) if cuda else None}
+
+
+def opt_swap_rate(engine, dev):
+    """One timed swap of the optimizer state in and out (host tier ↔ the
+    card), synchronised: seconds and GB/s each way."""
+    import torch
+
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in engine.state["opt"].values()
+                 if isinstance(v, torch.Tensor))
+    out = {"bytes": nbytes}
+    for way in ("in", "out"):
+        dev_sync(dev)
+        t0 = time.perf_counter()
+        engine._opt_swap(way)
+        dev_sync(dev)
+        s = time.perf_counter() - t0
+        out[f"{way}_s"], out[f"{way}_gbs"] = s, nbytes / s / 1e9
+    return out
+
+
+def nvme_swap_times(engine):
+    sw = engine._opt_swapper
+    if sw is None:
+        return None
+    last = dict(sw.swapper.last)
+    last["swapped"] = sw.swapped
+    for k in ("in", "out"):
+        if last.get(f"{k}_s"):
+            last[f"{k}_gbs"] = last["bytes"] / last[f"{k}_s"] / 1e9
+    return last
+
+
+def train_llama_750m_offload_param_rank(rank, world, seed, t):
+    """(d) of the 750m offload phase on one rank: ZeRO-3 at ``world``
+    (world 1: one process shards nothing) without offload, with
+    ``offload_param`` cpu and with nvme, at ``t["param_layers"]`` layers;
+    the losses, the master's digest and where the master lies between
+    steps."""
+    import torch
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.runtime.swap_tensor import Swapped
+
+    dev = torch.device(t["device"])
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, vocab, (t["micro"] * world, t["seq"]),
+                                    dtype=np.int32)}
+
+    def tier(engine):
+        m = engine.flat_master
+        if isinstance(m, Swapped):
+            return {"master": "file"}
+        return {"master": m.device.type,
+                "pinned": m.is_pinned() if m.device.type == "cpu"
+                and dev.type == "cuda" else None}
+
+    out, ref = {}, None
+    for run, off in (("none", None), ("cpu", {"device": "cpu"}),
+                     ("nvme", {"device": "nvme",
+                               "nvme_path": t["nvme_path"]})):
+        zero = {"stage": 3}
+        if off:
+            zero["offload_param"] = off
+        engine, res = offload_run(t, dev, zero, batch,
+                                  layers=t["param_layers"], after_step=tier,
+                                  ref=ref)
+        if ref is None:
+            ref = res.pop("_master")
+        res["engine"] = type(engine).__name__
+        out[run] = res
+        engine.close()
+        del engine
+        dev_free(dev)
+    return out
+
+
 DESIGN_INSTANTIATIONS = tuple(
     [(fam, f"{dt} {fam}_{kind}_kernel{sfx} D{d}")
      for fam in ("flash", "block_sparse")
@@ -3154,23 +3595,31 @@ class Smoke:
         del engine, data
         torch.cuda.empty_cache()
 
-    def train_gate(self, model, main, batch):
+    def train_gate(self, model, main, batch, zero=None, layers=None,
+                   label=None):
         """One optimizer step, four ways ({fp32, bf16} x {kernels, plain}),
         from the main path's fp32 master on the first ``gate_micro`` rows of
         its batch; each against the fp32 plain step. Every way runs the
         config's Adam (the kernel, held against its plain version in the
         kernels phase), so the paths differ only in the model's kernels;
         each way's update is also held against step 1 of Adam computed here
-        from its own gradient."""
+        from its own gradient. ``zero`` replaces the config's
+        ``zero_optimization``; with ``layers`` the model is cut to that
+        depth at full width and every way starts from the seed's master
+        (``main`` None)."""
         torch = self.torch
         import deepspeed_tpu_torch as dtt
+        from deepspeed_tpu_torch.models import transformer as T
         from deepspeed_tpu_torch.models.convert import load_master
 
         t = TRAIN[model]
         tokens = batch["tokens"][:t["gate_micro"]]
         attention = t.get("attention", "flash")
-        moe = main.model_spec.config.n_experts > 0
-        L = main.model_spec.config.num_layers
+        mcfg = T.get_model_config(t.get("model", model),
+                                  **({} if layers is None
+                                     else {"num_layers": layers}))
+        moe = mcfg.n_experts > 0
+        L = mcfg.num_layers
         ref = None
         res = {}
         for prec, path in (("fp32", "plain"), ("fp32", "kernels"),
@@ -3178,10 +3627,15 @@ class Smoke:
             spec = dtt.causal_lm_spec(
                 t.get("model", model), attention=attention, remat="full",
                 use_kernels=path == "kernels",
-                dtype="float32" if prec == "fp32" else "bfloat16")
-            engine, *_ = dtt.initialize(model=spec, config=self.train_config(
-                t["gate_micro"], 1, prec))
-            load_master(engine, main.state["master"])
+                dtype="float32" if prec == "fp32" else "bfloat16",
+                **({} if layers is None else {"num_layers": layers}))
+            config = self.train_config(t["gate_micro"], 1, prec)
+            if zero is not None:
+                config["zero_optimization"] = dict(zero)
+            engine, *_ = dtt.initialize(model=spec, config=config,
+                                        device=self.dev)
+            if main is not None:
+                load_master(engine, main.state["master"])
             before = engine.flat_master.clone()
             # routes: the forward's L layers, then the recompute's
             with recorded_routes() as routes:
@@ -3190,8 +3644,21 @@ class Smoke:
             grad = engine.flat_grad_acc.float()     # unscaled, gas 1
             update = engine.flat_master - before
             del before
+            hot = None
+            if "cold_acc" in engine.state["opt"]:
+                # ZenFlow's step 1 (no warm-up, no boundary) left the hot
+                # coordinates' gradient in the accumulator and the cold
+                # ones' in cold_acc: their sum is the whole gradient, bit
+                # for bit; the update is step 1 of Adam from the applied
+                # (hot) gradient
+                applied = grad
+                hot = applied != 0
+                grad = applied + engine.state["opt"]["cold_acc"]
+            else:
+                applied = grad
             # step 1 of Adam, no weight decay: m̂ = g, v̂ = g²
-            adam = -TRAIN_LR * grad / (grad.abs() + 1e-8)
+            adam = -TRAIN_LR * applied / (applied.abs() + 1e-8)
+            del applied
             row = {"loss": loss, "grad_norm": norm,
                    "adam_rel": float((update - adam).norm() / adam.norm())}
             del adam
@@ -3199,9 +3666,11 @@ class Smoke:
                 idx = torch.stack([r[0] for r in routes[:L]])
                 aux = float(sum(r[1] for r in routes[:L]))
                 row["aux_loss"] = aux
+            if hot is not None:
+                row["hot_share"] = float(hot.float().mean())
             if ref is None:
                 ref = {"loss": loss, "norm": norm, "grad": grad.clone(),
-                       "update": update.clone()}
+                       "update": update.clone(), "hot": hot}
                 if moe:
                     ref.update(idx=idx, aux=aux)
                     row["routed_pairs"] = idx.numel()
@@ -3211,16 +3680,24 @@ class Smoke:
                         route_agree=float((idx == ref["idx"]).float().mean()),
                         aux_rel=abs(aux - ref["aux"]) / abs(ref["aux"]))
                     row["route_miss"] = 1.0 - row["route_agree"]
+                ru = ref["update"]
+                if hot is not None:
+                    # a coordinate whose |g| lies at its leaf's threshold
+                    # may be hot on one path and cold on the other (the
+                    # gradients differ in their last digits): counted as
+                    # hot_miss, and the update held where both agree
+                    agree = hot == ref["hot"]
+                    row["hot_miss"] = 1.0 - float(agree.float().mean())
+                    update, ru = update * agree, ru * agree
                 row.update(
                     loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
                     norm_rel=abs(norm - ref["norm"]) / ref["norm"],
                     grad_rel=float((grad - ref["grad"]).norm()
                                    / ref["grad"].norm()),
-                    update_rel=float((update - ref["update"]).norm()
-                                     / ref["update"].norm()),
-                    sign_miss=float((torch.sign(update)
-                                     != torch.sign(ref["update"]))
+                    update_rel=float((update - ru).norm() / ru.norm()),
+                    sign_miss=float((torch.sign(update) != torch.sign(ru))
                                     .float().mean()))
+                del ru
             res[(prec, path)] = row
             del engine, grad, update
             torch.cuda.empty_cache()
@@ -3234,6 +3711,8 @@ class Smoke:
         if moe:
             limits.update(route_miss=1 - ROUTE_AGREE_MIN,
                           aux_rel=TRAIN_LOSS_REL)
+        if "hot_miss" in k32:
+            limits.update(hot_miss=ZENFLOW_HOT_MISS)
         problems = [f"fp32 {m} {k32[m]:.3g} > {lim}"
                     for m, lim in limits.items() if not k32[m] <= lim]
         floor = {m: limits[m] if m in BF16_FLOORED else 0.0 for m in limits}
@@ -3244,15 +3723,16 @@ class Smoke:
                      f"{r['adam_rel']:.3g} (relative L2)"
                      for (prec, path), r in res.items()
                      if not r["adam_rel"] <= TRAIN_ADAM_REL]
-        emit(f"train_{model}/step_gate", micro=t["gate_micro"],
+        emit(label or f"train_{model}/step_gate", micro=t["gate_micro"],
+             layers=L, zero=zero,
              seq=t["seq"], fp32_plain=res[("fp32", "plain")],
              fp32_kernels=k32, bf16_plain=pb, bf16_kernels=kb,
              bounds=dict(limits, bf16_vs_plain=BF16_VS_PLAIN,
                          bf16_floored=BF16_FLOORED, adam_rel=TRAIN_ADAM_REL),
              card=self.card)
         if problems:
-            raise AssertionError(f"train {model}: step kernel vs plain: "
-                                 + "; ".join(problems))
+            raise AssertionError(f"{label or 'train ' + model}: step kernel "
+                                 "vs plain: " + "; ".join(problems))
 
     def phase_train_gpt2_125m(self):
         self.train("gpt2_125m")
@@ -3734,6 +4214,333 @@ class Smoke:
             "n_sh": r0["trio"]["n_sharded"],
             "trio": rates(runs["a_zero3_hpz_qwz_qgz"]),
             "mics": rates(runs["b_mics_zero3"])}
+
+    # ------------------------------------------------------------------ #
+    # offload
+    # ------------------------------------------------------------------ #
+    def phase_train_llama2_7b_super_offload(self, t=None):
+        """llama2_7b at full width under SuperOffload on an empty card:
+        the host facts, gates S1-S3 at ``gate_layers`` layers, then the
+        main path (3 steps with overlap, 2 without), its host update,
+        copies, memory and idle share."""
+        torch = self.torch
+        import itertools
+
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        t = dict(SUPER, **(t or {}))
+        if self.dev.type == "cuda":
+            build.build_all()
+        dev_free(self.dev)
+        facts = host_facts(nvme_dir())
+        full = T.get_model_config(t["model"])
+        L = super_layers(t["model"], host_available(facts), t["max_layers"])
+        copy_gbs = host_copy_gbs(t.get("copy_elems", 2 ** 28))
+        emit("train_llama2_7b_super_offload/host", card=self.card,
+             host_copy_gbs=copy_gbs, layers=L, **facts)
+        if L < 1:
+            raise RuntimeError(f"no layer of {t['model']} fits "
+                               f"{facts['mem_available_bytes']} bytes")
+        t0 = time.perf_counter()
+        gates = super_gates(t, self.dev, self.seed)
+        gates_s = time.perf_counter() - t0
+        problems = [f"{p}" for p in super_gate_problems(gates)]
+        emit("train_llama2_7b_super_offload/gates", card=self.card,
+             seconds=gates_s, bounds={"master_rel": SUPER_MASTER_REL,
+                                      "bf16_vs_device": BF16_VS_PLAIN},
+             **gates)
+        if problems:
+            raise AssertionError("train_llama2_7b_super_offload: "
+                                 + "; ".join(problems))
+
+        # ---- the main path ------------------------------------------ #
+        dev_peak(self.dev, reset=True)
+        t0 = time.perf_counter()
+        engine = offload_engine(t, self.dev, SUPER_ZERO, "bf16", layers=L)
+        self.sync()
+        init_s = time.perf_counter() - t0
+        runner = engine._host_runner
+        cfg = engine.model_spec.config
+        n = engine._numel
+        rng = np.random.default_rng(self.seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                        (t["micro"], t["seq"]),
+                                        dtype=np.int32)}
+        data = itertools.repeat(batch)
+        placed = {"master": engine.flat_master.device.type,
+                  "moments": sorted({v.device.type for v in
+                                     engine.state["opt"].values()
+                                     if isinstance(v, torch.Tensor)}),
+                  "compute": engine.flat_compute.device.type,
+                  "grad_acc": engine.flat_grad_acc.device.type}
+        t0 = time.perf_counter()
+        first = float(engine.train_batch(data))
+        warm_s = time.perf_counter() - t0
+        self.reset_counts()
+        losses, walls, modes = [], [], []
+        profiles = {"overlap": {}, "sync": {}}
+        for overlap, steps in ((True, t["overlap_steps"]),
+                               (False, t["sync_steps"])):
+            if runner.overlap != overlap:
+                runner.drain()              # the schedule changes here
+                runner.overlap = overlap
+            mode = "overlap" if overlap else "sync"
+            for i in range(steps):
+                # the second step of each schedule is profiled (the card's
+                # activity only): its device time against the steps' wall
+                with (self.device_profile(profiles[mode]) if i == 1
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    loss = engine.train_batch(data)
+                    self.sync()
+                    walls.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+                modes.append(mode)
+        counts = self.read_counts()
+        upd = runner.stats()[-(t["overlap_steps"] + t["sync_steps"]):]
+        peak = dev_peak(self.dev)
+        mem = process_memory()
+        pinned = sum(b.numel() * b.element_size()
+                     for b in (runner.landing, runner.staging))
+        acc_b = n * engine.flat_grad_acc.element_size()
+        engine.close()
+        del engine, runner, data
+        dev_free(self.dev)
+        micros = t["gas"] * (t["overlap_steps"] + t["sync_steps"])
+        want = {"flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
+                "flash_bwd_dkv": L * micros, "rms_norm": (4 * L + 1) * micros,
+                "fused_adam": 0}
+        if self.dev.type == "cuda":
+            problems += [f"{k} launched {counts[k]} times, want {v}"
+                         for k, v in want.items() if counts[k] != v]
+        if not all(np.isfinite([first] + losses)):
+            problems.append(f"non-finite loss {[first] + losses}")
+        elif not losses[-1] < first:
+            problems.append(f"loss did not fall: {[first] + losses}")
+        if placed != {"master": "cpu", "moments": ["cpu"],
+                      "compute": self.dev.type, "grad_acc": self.dev.type}:
+            problems.append(f"state placed {placed}")
+        card_bytes = (torch.cuda.get_device_properties(self.dev).total_memory
+                      if self.dev.type == "cuda" else 0)
+        if card_bytes and not peak < card_bytes:
+            problems.append(f"device peak {peak} >= the card's {card_bytes}")
+
+        def median(key):
+            vals = [u[key] for u in upd if u.get(key) is not None]
+            return float(np.median(vals)) if vals else "not measured"
+
+        step_s = {m: float(np.median([w for w, mm in zip(walls, modes)
+                                      if mm == m])) for m in set(modes)}
+        tokens = t["micro"] * t["seq"] * t["gas"]
+        flops = flops_per_token(cfg, t["seq"]) * tokens
+        host_s = median("host_update_s")
+        d2h_ms, h2d_ms = median("d2h_ms"), median("h2d_ms")
+        bound_s = HOST_ADAM_BYTES * n / (copy_gbs * 1e9)
+
+        def gbs(nbytes, ms):
+            return nbytes / (ms / 1e3) / 1e9 if isinstance(ms, float) \
+                else "not measured"
+
+        result = {
+            "model": t["model"], "layers": L,
+            "layers_full": full.num_layers,
+            "reduced": (None if L == full.num_layers else
+                        f"{L} of {full.num_layers} layers: host bytes "
+                        f"{SUPER_HOST_BYTES} B a parameter x "
+                        f"{SUPER_HOST_MARGIN} must fit the host's "
+                        f"{host_available(facts)} B available (MemAvailable "
+                        f"{facts['mem_available_bytes']} B, cgroup limit "
+                        f"{facts['cgroup_limit_bytes']} B less its use)"),
+            "params": cfg.num_params(), "flat_elements": n,
+            "micro": t["micro"], "seq": t["seq"], "gas": t["gas"],
+            "zero": SUPER_ZERO, "placed": placed, "init_seconds": init_s,
+            "warmup_step_seconds": warm_s, "losses": [first] + losses,
+            "modes": modes, "step_walls_s": walls,
+            "step_s": step_s.get("overlap"), "step_s_sync": step_s.get("sync"),
+            "tokens_per_s": tokens / step_s["overlap"],
+            "tokens_per_s_sync": tokens / step_s["sync"],
+            "mfu": flops / step_s["overlap"] / PEAK_FLOPS["bfloat16"],
+            "mfu_sync": flops / step_s["sync"] / PEAK_FLOPS["bfloat16"],
+            "host_update_s": host_s,
+            "host_update_gbs": (HOST_ADAM_BYTES * n / host_s / 1e9
+                                if isinstance(host_s, float)
+                                else "not measured"),
+            "host_update_bound_s": bound_s, "host_copy_gbs": copy_gbs,
+            "d2h_s": d2h_ms / 1e3 if isinstance(d2h_ms, float) else d2h_ms,
+            "d2h_gbs": gbs(acc_b, d2h_ms),
+            "h2d_s": h2d_ms / 1e3 if isinstance(h2d_ms, float) else h2d_ms,
+            "h2d_gbs": gbs(n * 2, h2d_ms), "updates": upd,
+            "device_peak_bytes": peak, "card_bytes": card_bytes,
+            "no_offload_state_bytes": 20 * cfg.num_params(),
+            "pinned_host_bytes": pinned, **mem,
+            "torch_threads": torch.get_num_threads(),
+            "nproc": facts["nproc"], "launches": counts,
+            "launches_want": want, "profile_steps": profiles,
+            **{f"device_idle_share_{m}": (
+                1 - profiles[m]["device_ms"] / (step_s[m] * 1e3)
+                if isinstance(profiles[m].get("device_ms"), float)
+                else "not measured") for m in profiles},
+            "card": self.card}
+        emit("train_llama2_7b_super_offload", **result)
+        if problems:
+            raise AssertionError("train_llama2_7b_super_offload: "
+                                 + "; ".join(problems))
+        name = "train_llama2_7b_super_offload"
+        for k, v in want.items():
+            if v:
+                self.launches.setdefault(k, {})[name] = counts[k]
+        self.steps[name] = t["overlap_steps"] + t["sync_steps"]
+        self.state["super_offload"] = result
+
+    @contextlib.contextmanager
+    def device_profile(self, out):
+        """torch.profiler over the block, the card's activity only (the
+        host update's many CPU ops stay out of the trace): fills ``out``
+        with the device ms by kind and in all ("not measured" on the
+        CPU)."""
+        if self.dev.type != "cuda":
+            out["device_ms"] = "not measured"
+            yield
+            return
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield
+        kinds = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = float(getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "self_cuda_time_total", 0))
+            if getattr(e, "is_user_annotation", False) or not us:
+                continue
+            kind = "memcpy" if e.key.startswith("Memcpy") \
+                else kernel_kind(e.key)
+            kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+        device_ms = sum(kinds.values())
+        out.update(device_ms=device_ms if device_ms else "not measured",
+                   device_ms_by_kind=kinds or "not measured")
+
+    def phase_train_llama_750m_offload(self, t=None):
+        """llama_750m at its training shape: (a) offload_optimizer cpu,
+        (b) nvme, (c) ZenFlow, each against the run without offload; (d)
+        ZeRO-3 at world 1 with offload_param cpu and nvme."""
+        torch = self.torch
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        t = dict(OFFLOAD, **(t or {}))
+        if self.dev.type == "cuda":
+            build.build_all()
+        dev_free(self.dev)
+        path = os.path.join(nvme_dir(), "750m")
+        shutil.rmtree(path, ignore_errors=True)
+        facts = host_facts(path)
+        if facts["disk_free_bytes"] < NVME_MIN_FREE:
+            raise RuntimeError(f"{path}: {facts['disk_free_bytes']} bytes "
+                               f"free, the NVMe runs need {NVME_MIN_FREE}")
+        cfg = T.get_model_config(t["model"])
+        L = cfg.num_layers
+        rng = np.random.default_rng(self.seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                        (t["micro"], t["seq"]),
+                                        dtype=np.int32)}
+        runs, problems, ref = {}, [], None
+        for run, zero, check in (
+                ("none", {"stage": 1}, None),
+                ("a_cpu", {"stage": 1, "offload_optimizer":
+                           {"device": "cpu"}}, moments_on_host),
+                ("b_nvme", {"stage": 1, "offload_optimizer":
+                            {"device": "nvme", "nvme_path": path}},
+                 nvme_swap_times),
+                ("c_zenflow", {"stage": 1, "zenflow": ZENFLOW}, None)):
+            engine, res = offload_run(
+                t, self.dev, zero, batch, after_step=check,
+                ref=ref if run in ("a_cpu", "b_nvme") else None)
+            if run == "none":
+                ref = res.pop("_master")
+            res.pop("_master", None)
+            if run == "a_cpu":
+                res["swap"] = opt_swap_rate(engine, self.dev)
+            runs[run] = res
+            engine.close()
+            del engine
+            dev_free(self.dev)
+        del ref
+        base = runs["none"]
+        for run in ("a_cpu", "b_nvme"):
+            r = runs[run]
+            if r["losses"] != base["losses"]:
+                problems.append(f"({run}) losses {r['losses']} != "
+                                f"{base['losses']}")
+            if not r["master_bit_equal"]:
+                problems.append(f"({run}) master differs from no offload")
+        for c in runs["a_cpu"]["checks"]:
+            if not (c["all_host"] and c["all_pinned"] in (True, None)):
+                problems.append(f"(a) moments between steps: {c}")
+        for c in runs["b_nvme"]["checks"]:
+            if not c or not c["swapped"]:
+                problems.append(f"(b) moments not in their files: {c}")
+        zl = runs["c_zenflow"]["losses"]
+        if not all(np.isfinite(zl)) or not zl[-1] < zl[0]:
+            problems.append(f"(c) ZenFlow loss did not fall: {zl}")
+        micros = t["gas"] * t["steps"]
+        want = {"flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
+                "flash_bwd_dkv": L * micros, "rms_norm": (4 * L + 1) * micros,
+                "fused_adam": t["steps"]}
+        if self.dev.type == "cuda":
+            problems += [f"({run}) {k} launched {r['launches'][k]} times, "
+                         f"want {v}" for run, r in runs.items()
+                         for k, v in want.items() if r["launches"][k] != v]
+        # (d): ZeRO-3 at world 1 on a spawned rank
+        t0 = time.perf_counter()
+        (param,) = spawn_ranks("train_llama_750m_offload_param_rank", 1,
+                               self.seed, dict(t, device=str(self.dev),
+                                               nvme_path=path))
+        param_s = time.perf_counter() - t0
+        shutil.rmtree(path, ignore_errors=True)
+        for run, where in (("cpu", "cpu"), ("nvme", "file")):
+            r = param[run]
+            if r["losses"] != param["none"]["losses"]:
+                problems.append(f"(d) {run}: losses {r['losses']} != "
+                                f"{param['none']['losses']}")
+            if not r["master_bit_equal"]:
+                problems.append(f"(d) {run}: master differs")
+            bad = [c for c in r["checks"] if c["master"] != where
+                   or c.get("pinned") is False]
+            if bad:
+                problems.append(f"(d) {run}: master between steps {bad}")
+        tokens = t["micro"] * t["seq"] * t["gas"]
+        result = {"model": t["model"], "micro": t["micro"], "seq": t["seq"],
+                  "gas": t["gas"], "steps": t["steps"], "nvme_path": path,
+                  "disk_free_bytes": facts["disk_free_bytes"],
+                  "zenflow": ZENFLOW, "runs": runs,
+                  "tokens_per_s": {k: tokens / (r["step_ms"] / 1e3)
+                                   for k, r in runs.items()},
+                  "peak_vs_no_offload_bytes": {
+                      k: r["peak_memory_bytes"] - base["peak_memory_bytes"]
+                      for k, r in runs.items()},
+                  "d_param_layers": t["param_layers"], "d_world": 1,
+                  "d_seconds": param_s, "d_runs": param,
+                  "launches_want": want, "card": self.card}
+        emit("train_llama_750m_offload", **result)
+        if problems:
+            raise AssertionError("train_llama_750m_offload: "
+                                 + "; ".join(problems))
+        self.train_gate(t["model"], None, batch,
+                        zero={"stage": 1, "zenflow": ZENFLOW},
+                        layers=t["gate_layers"],
+                        label="train_llama_750m_offload/zenflow_gate")
+        name = "train_llama_750m_offload"
+        for run in ("a_cpu", "b_nvme", "c_zenflow"):
+            for k, v in want.items():
+                if v:
+                    self.launches.setdefault(k, {})[f"{name}/{run}"] = \
+                        runs[run]["launches"][k]
+            self.steps[f"{name}/{run}"] = t["steps"]
+        self.state["offload_750m"] = result
 
     def phase_quantized_reduce_scatter(self):
         """The entry point at world 2 and 4, ranks on the one card."""

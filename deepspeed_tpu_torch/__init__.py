@@ -25,7 +25,12 @@ Ported so far:
   quantize and dequant-reduce kernels (``ops/csrc/quantization.cu``); at
   stage 3 a ``Zero3Engine``, whose parameters are gathered per use by the
   overlap plan's layer chunks with the next chunk's gather in flight
-  (``parallel/stage3.py``, ``parallel/overlap.py``).
+  (``parallel/stage3.py``, ``parallel/overlap.py``);
+* offload — the optimizer state in pinned host memory or NVMe files
+  between steps, the ZeRO-3 master's host and NVMe tiers
+  (``runtime/swap_tensor.py`` over ``ops/aio.py``), ZenFlow's
+  importance-split update (``runtime/zenflow.py``) and SuperOffload's
+  host-executed step with its overlap schedule (``runtime/host_step.py``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no explicit device they raise.

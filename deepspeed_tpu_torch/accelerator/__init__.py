@@ -1,5 +1,6 @@
 """Device seam of the port (counterpart of ``deepspeed_tpu/accelerator``)."""
 from deepspeed_tpu_torch.accelerator.real_accelerator import (
+    PinnedHost,
     device_count,
     device_name,
     memory_stats,
@@ -8,5 +9,5 @@ from deepspeed_tpu_torch.accelerator.real_accelerator import (
     synchronize,
 )
 
-__all__ = ["device_count", "device_name", "memory_stats", "on_device",
+__all__ = ["PinnedHost", "device_count", "device_name", "memory_stats", "on_device",
            "resolve_device", "synchronize"]

@@ -78,3 +78,38 @@ def memory_stats(device: DeviceLike = None) -> Dict[str, int]:
     return {"bytes_in_use": torch.cuda.memory_allocated(dev),
             "peak_bytes_in_use": torch.cuda.max_memory_allocated(dev),
             "bytes_limit": torch.cuda.get_device_properties(dev).total_memory}
+
+
+class PinnedHost:
+    """A host buffer page-locked in place (``cudaHostRegister``) for a card
+    on ``device``; a plain host tensor for the CPU. Unlike
+    ``pin_memory=True``, whose caching allocator rounds a block up to a
+    power of two (an 18 GB buffer would lock 34 GB), it locks exactly the
+    buffer's bytes. ``release()`` (or the object's collection) unlocks it;
+    nothing may copy into or out of it after that."""
+
+    def __init__(self, n: int, dtype: torch.dtype, device: torch.device):
+        self.tensor = torch.empty(n, dtype=dtype)
+        self._registered = False
+        if device.type == "cuda" and n:
+            err = torch.cuda.cudart().cudaHostRegister(
+                self.tensor.data_ptr(),
+                self.tensor.numel() * self.tensor.element_size(), 0)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister of {n} {dtype} "
+                                   f"elements failed: cudaError {int(err)}")
+            self._registered = True
+
+    def release(self) -> None:
+        if self._registered:
+            torch.cuda.synchronize()
+            torch.cuda.cudart().cudaHostUnregister(self.tensor.data_ptr())
+            self._registered = False
+        self.tensor = None
+
+    def __del__(self):
+        try:
+            self.release()
+        # interpreter teardown: the CUDA runtime may already be gone
+        except Exception:                                   # noqa: BLE001
+            pass

@@ -91,6 +91,7 @@ def gather_master(engine) -> Dict[str, Any]:
     if hasattr(engine, "full_master"):
         tree = engine.full_master()
     else:
+        engine._materialize_master()
         tree = engine.state["master"]
 
     def walk(t):

@@ -16,6 +16,10 @@ takes seconds, not minutes.
 * Callers declare ``argtypes`` with ``ctypes.c_void_p`` for every pointer
   and the stream; left undeclared, ctypes passes Python ints as 32-bit
   C ints and cuts the pointers.
+* Host libraries (``ops/csrc/*.cpp``: the async file I/O of the NVMe
+  tier) build the same way with ``g++`` (:func:`load_host`), cached by a
+  hash of the source, the flags and the compiler path; a failed build
+  raises :class:`KernelBuildError` too.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -126,3 +131,44 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, ctypes.CDLL]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``ops/csrc/<name>.cu``, built at first use."""
     return build_all([name])[name]
+
+
+def find_cxx() -> str:
+    for cand in (os.environ.get("CXX", ""), shutil.which("g++") or "",
+                 "/usr/bin/g++"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise KernelBuildError("g++ not found (looked at $CXX, $PATH and "
+                           "/usr/bin/g++): the host libraries need a C++17 "
+                           "compiler")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of ``ops/csrc/<name>.cpp`` (a host library: no
+    CUDA), built with ``g++`` at first use and cached by source hash."""
+    key = f"host:{name}"
+    with _lock:
+        if key in _libs:
+            return _libs[key]
+        cxx = find_cxx()
+        src = CSRC / f"{name}.cpp"
+        h = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()
+                           + cxx.encode())
+        out = build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+        t0 = time.perf_counter()
+        cached = out.exists()
+        if not cached:
+            build_dir().mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([cxx, *CXX_FLAGS, str(src), "-o", str(tmp)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"g++ failed for {name}.cpp (exit {proc.returncode}):\n"
+                    f"{proc.stderr}{proc.stdout}")
+            os.replace(tmp, out)
+        build_log[key] = {"seconds": 0.0 if cached
+                          else time.perf_counter() - t0,
+                          "cached": cached, "path": str(out), "ptxas": ""}
+        _libs[key] = ctypes.CDLL(str(out))
+        return _libs[key]

@@ -22,6 +22,11 @@ from deepspeed_tpu_torch.accelerator import on_device
 from deepspeed_tpu_torch.ops import build
 
 launches: Dict[str, int] = {"fused_adam": 0}
+#: elements a chunk of the plain version over flat CPU buffers (and of
+#: the host step's other passes): its temporaries a few MB, in cache, at
+#: any model size (on the H100 machine's host a quarter of this took 2.2
+#: times as long: more per-op overhead)
+CHUNK = 1 << 20
 
 
 def bias_corrections(step: int, betas: Tuple[float, float],
@@ -39,23 +44,26 @@ def fused_adam_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                    eps: float, weight_decay: float, bc1: float, bc2: float,
                    adam_w: bool = True,
                    out: Optional[torch.Tensor] = None) -> None:
-    """The kernel's function as whole-tensor PyTorch, one rounded fp32
-    operation at a time (no fused multiply-add), updating p, m, v in place
-    and, when given, ``out`` with the compute-dtype copy of the new p.
-    The bias corrections divide as tensors: PyTorch's CUDA division by a
-    Python scalar multiplies by its reciprocal instead."""
+    """The kernel's function in plain PyTorch, one rounded fp32 operation
+    at a time (no fused multiply-add), updating p, m, v in place and, when
+    given, ``out`` with the compute-dtype copy of the new p; two scratch
+    tensors the size of p. The bias corrections divide as tensors:
+    PyTorch's CUDA division by a Python scalar multiplies by its
+    reciprocal instead."""
     b1, b2 = betas
     g = g.float()
     if not adam_w and weight_decay:
         g = g + weight_decay * p
-    m.copy_(b1 * m + (1.0 - b1) * g)
-    v.copy_(b2 * v + (1.0 - b2) * (g * g))
+    t1, t2 = torch.empty_like(p), torch.empty_like(p)
+    m.mul_(b1).add_(torch.mul(g, 1.0 - b1, out=t1))
+    v.mul_(b2).add_(torch.mul(g, g, out=t2).mul_(1.0 - b2))
     bc1_t = torch.tensor(bc1, dtype=torch.float32, device=p.device)
     bc2_t = torch.tensor(bc2, dtype=torch.float32, device=p.device)
-    upd = (m / bc1_t) / (torch.sqrt(v / bc2_t) + eps)
+    torch.div(v, bc2_t, out=t2).sqrt_().add_(eps)
+    upd = torch.div(m, bc1_t, out=t1).div_(t2)
     if adam_w and weight_decay:
-        upd = upd + weight_decay * p
-    p.copy_(p - lr * upd)
+        upd.add_(torch.mul(p, weight_decay, out=t2))
+    p.sub_(upd.mul_(lr))
     if out is not None:
         out.copy_(p)
 
@@ -103,10 +111,18 @@ def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                out: Optional[torch.Tensor] = None) -> None:
     """In-place Adam/AdamW step on flat fp32 p/m/v from fp32 g; ``out``
     (bf16, optional) receives the new p rounded to bf16. The plain version
-    on the CPU, the CUDA kernel on a GPU."""
+    on the CPU, ``CHUNK`` elements of the flattened buffers at a time (an
+    elementwise update: the same bits as one whole-tensor call, with no
+    temporary the size of the buffers), the CUDA kernel on a GPU."""
     if p.device.type == "cpu":
-        return fused_adam_ref(p, g, m, v, lr, betas, eps, weight_decay, bc1,
-                              bc2, adam_w, out)
+        flat = [t.view(-1) for t in (p, g, m, v)]
+        out = None if out is None else out.view(-1)
+        for i in range(0, p.numel(), CHUNK):
+            c = slice(i, i + CHUNK)
+            fused_adam_ref(*(t[c] for t in flat), lr, betas, eps,
+                           weight_decay, bc1, bc2, adam_w,
+                           None if out is None else out[c])
+        return
     if p.device.type != "cuda":
         raise ValueError(f"fused_adam: unsupported device {p.device}")
     _check(p, g, m, v, out)

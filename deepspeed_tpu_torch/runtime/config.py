@@ -94,8 +94,9 @@ class OffloadConfig:
 
 @dataclasses.dataclass
 class ZenFlowSectionConfig:
-    """``zero_optimization.zenflow`` (``deepspeed_tpu/runtime/zenflow.py``);
-    parsed for parity, run in a later slice."""
+    """``zero_optimization.zenflow`` (``deepspeed_tpu/runtime/zenflow.py``;
+    run by ``runtime/zenflow.py``). ``select_strategy`` is accepted and
+    inert, as in JAX (importance is |g|)."""
     enabled: bool = False
     topk_ratio: float = 0.01
     update_interval: int = 4
@@ -109,8 +110,10 @@ class ZeroConfig:
     """``zero_optimization`` (``deepspeed_tpu/runtime/config.py:89``), every
     key and its validation, JAX's defaults. The engines run stages 0-3,
     with the exact wire or the ZeRO++ int8 wire (qgZ / qwZ / LoCo) between
-    processes, and raise for hpZ / MiCS subgroups, offload, ZenFlow and
-    SuperOffload; one process partitions nothing. ``overlap_comm`` with
+    processes, hpZ / MiCS subgroups, the offload tiers, ZenFlow and
+    SuperOffload (``runtime/engine.py`` ``_resolve_offload``); one process
+    partitions nothing. ``pin_memory``, ``buffer_count``, ``buffer_size``
+    and ``ratio`` of the offload sections are accepted and inert. ``overlap_comm`` with
     ``allgather_bucket_size`` (stages 1-2) or ``stage3_prefetch_bucket_size``
     (stage 3) sets the overlap plan's layer chunks (``parallel/overlap.py``):
     qwZ's quantization blocks and ZeRO-3's gathers, the next chunk's gather

@@ -45,9 +45,20 @@ stage. Every engine resolves JAX's overlap-scheduler plan
 qwZ's quantization blocks and ZeRO-3's gathers. One process at stage 3
 shards nothing and runs the stage-0 step, as JAX at ``data = 1``.
 
-Out of this slice, raising ``NotImplementedError``: offload, ZenFlow,
-SuperOffload, remat policies other than none/full, and the config
-sections ``load_config`` refuses.
+The offload family, as JAX resolves it (engine.py:251-302): the
+optimizer tiers ``offload_optimizer`` cpu (each rank's moments in pinned
+host memory between steps, brought back just before the update) and nvme
+(the moments round-tripped through files, ``runtime/swap_tensor.py`` over
+``ops/aio.py``); the ZeRO-3 parameter tier ``offload_param`` cpu / nvme
+(the master, or a rank's master shard, parked in pinned host memory
+between steps, and through files under nvme: JAX's boundary-swap mode);
+``offload_states`` / ``reload_states``; ZenFlow's importance-split update
+(``runtime/zenflow.py``); and the host-executed step of SuperOffload
+(``host_step``, ``runtime/host_step.py``; ``super_offload`` is cpu +
+host_step + overlap_step), for the one-process engine.
+
+Out of this slice, raising ``NotImplementedError``: remat policies other
+than none/full, and the config sections ``load_config`` refuses.
 """
 from __future__ import annotations
 
@@ -60,7 +71,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch import telemetry
-from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.accelerator import PinnedHost, resolve_device
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.comm import mesh as mesh_mod
 from deepspeed_tpu_torch.models import transformer as T
@@ -94,6 +105,16 @@ from deepspeed_tpu_torch.runtime.loss_scaler import (
 from deepspeed_tpu_torch.runtime.lr_schedules import (
     LRSchedule,
     get_lr_schedule,
+)
+from deepspeed_tpu_torch.runtime.swap_tensor import (
+    OptimizerSwapper,
+    ParamSwapper,
+    Swapped,
+)
+from deepspeed_tpu_torch.runtime.zenflow import (
+    Segment,
+    ZenFlowOptimizer,
+    maybe_wrap_zenflow,
 )
 
 _ALIGN = 64            # elements: every parameter view starts 256-byte aligned
@@ -187,7 +208,9 @@ class DeepSpeedTPUEngine:
                 raise ValueError("config must define an optimizer (or pass "
                                  "one in)")
             optimizer = get_optimizer(opt_cfg.type, opt_cfg.params)
-        self.optimizer = optimizer
+        # ZenFlow: importance-split hot/cold updates (runtime/zenflow.py)
+        self.optimizer = maybe_wrap_zenflow(
+            optimizer, self.config.zero_optimization.zenflow)
         if lr_scheduler is None and self.config.scheduler \
                 and self.config.scheduler.type:
             lr_scheduler = get_lr_schedule(
@@ -195,8 +218,30 @@ class DeepSpeedTPUEngine:
                 base_lr=self.optimizer.lr)
         self.lr_scheduler = lr_scheduler
 
+        self._resolve_offload()
+        self._host_runner = None
+        if self._host_step:
+            from deepspeed_tpu_torch.runtime.host_step import HostStepRunner
+
+            if self._compressed:
+                raise DeepSpeedConfigError(
+                    "host_step cannot combine with compressed collectives")
+            self._host_runner = HostStepRunner(self)
+
         seed = self.config.seed if seed is None else seed
         self._init_state(seed)
+        if isinstance(self.optimizer, ZenFlowOptimizer):
+            self.optimizer.bind(self._zenflow_segments())
+        self._master_parked = False
+        self._opt_on_host = False
+        #: the host tiers' buffers, one a tensor, locked at first use
+        self._host_bufs: Dict[str, PinnedHost] = {}
+        self._opt_swapper: Optional[OptimizerSwapper] = None
+        self._param_swapper: Optional[ParamSwapper] = None
+        if self._offload_opt:
+            self._opt_swap("out")
+        if self._offload_param:
+            self._park_master()
 
         self.global_steps = 0
         self.micro_steps = 0
@@ -211,16 +256,7 @@ class DeepSpeedTPUEngine:
     def _check_slice(self) -> None:
         """Options of the JAX engine that this slice does not run."""
         cfg = self.config
-        z = cfg.zero_optimization
         _process_world()
-        for name, off in (("offload_optimizer", z.offload_optimizer),
-                          ("offload_param", z.offload_param)):
-            if off.device not in ("none", None) or off.host_step:
-                raise later_slice(f"zero_optimization.{name}")
-        if z.super_offload:
-            raise later_slice("zero_optimization.super_offload")
-        if z.zenflow.enabled:
-            raise later_slice("zero_optimization.zenflow")
         ac = cfg.activation_checkpointing
         if ac.policy not in T.REMAT_POLICIES:
             raise later_slice(f"activation_checkpointing.policy={ac.policy!r}"
@@ -232,6 +268,47 @@ class DeepSpeedTPUEngine:
         if cfg.precision_dtype == "bfloat16" and not cfg.bf16.fp32_master:
             raise later_slice("bf16.fp32_master=false (needs a "
                               "stochastic-rounding optimizer)")
+
+    def _resolve_offload(self) -> None:
+        """The offload tiers, with JAX's resolution and errors
+        (engine.py:251-302): ``super_offload`` is cpu + ``host_step`` +
+        ``overlap_step`` (an explicit ``overlap_step: false`` is kept, a
+        conflicting device raises); ``host_step`` needs ``device='cpu'``;
+        ``offload_param`` is a ZeRO-3 tier (below stage 3 it warns and is
+        off) on none|cpu|nvme."""
+        zcfg = self.config.zero_optimization
+        off = zcfg.offload_optimizer
+        if zcfg.super_offload:
+            if off.device not in ("none", "cpu"):
+                raise DeepSpeedConfigError(
+                    f"super_offload conflicts with offload_optimizer.device="
+                    f"{off.device!r}; it implies device='cpu'")
+            off.device, off.host_step = "cpu", True
+            if off.overlap_step is None:
+                off.overlap_step = True
+        if off.host_step and off.device != "cpu":
+            raise DeepSpeedConfigError(
+                "offload_optimizer.host_step requires device='cpu' (got "
+                f"{off.device!r}) — the host CPU backend runs the update")
+        self._host_step = off.device == "cpu" and off.host_step
+        self._offload_opt = off.device == "cpu" and not self._host_step
+        self._offload_nvme = off.device == "nvme"
+        pcfg = zcfg.offload_param
+        self._offload_param = self._offload_param_nvme = False
+        if pcfg.device not in ("none", None):
+            if pcfg.device not in ("cpu", "nvme"):
+                raise DeepSpeedConfigError(
+                    f"offload_param.device must be none|cpu|nvme, got "
+                    f"{pcfg.device!r}")
+            if self.zero_stage < 3:
+                logger.warning(
+                    "offload_param is a ZeRO-3 tier (reference "
+                    "zero/offload_config.py) but zero_optimization.stage="
+                    f"{self.zero_stage} — parameter offload is DISABLED. "
+                    "Set stage: 3 to enable it.")
+            elif not self._host_step:
+                self._offload_param = True
+                self._offload_param_nvme = pcfg.device == "nvme"
 
     def _resolve_subgroup(self) -> None:
         """MiCS / ZeRO++ hpZ (JAX engine.py:87-131, with its messages): the
@@ -396,6 +473,8 @@ class DeepSpeedTPUEngine:
         return tree
 
     def _init_state(self, seed: int) -> None:
+        if self._host_runner is not None:
+            return self._init_host_state(seed)
         tree = self._init_tree(seed)
         off = self._numel
         dev = self.device
@@ -414,11 +493,182 @@ class DeepSpeedTPUEngine:
         self._params = self._leaves()
         self._compute_params()
 
+    def _init_host_state(self, seed: int) -> None:
+        """``host_step``: the tree is drawn on the card (the same draws as
+        without offload), copied leaf by leaf into the fp32 master in host
+        memory and freed before the card's buffers are allocated; the
+        moments are made on the host too. The card keeps the compute copy,
+        the micro-batch gradient and the accumulator."""
+        tree = self._init_tree(seed)
+        n, dev = self._numel, self.device
+        self.flat_master = torch.zeros(n, dtype=torch.float32)
+        with torch.no_grad():
+            for slot, (_, t) in zip(self._slots, _flatten(tree)):
+                self._view(self.flat_master, slot).copy_(t)
+                _set_path(tree, slot.path, None)
+                del t
+        del tree
+        self.state = {"step": 0, "master": self._views(self.flat_master),
+                      "opt": self.optimizer.init(self.flat_master)}
+        self.flat_compute = torch.zeros(n, dtype=self.compute_dtype,
+                                        device=dev)
+        self.flat_grad = torch.zeros(n, dtype=self.compute_dtype, device=dev)
+        self.flat_grad_acc = torch.zeros(n, dtype=self._accum_dtype(),
+                                         device=dev)
+        self._host_runner.allocate(n)
+        self._params = self._leaves()
+        self._compute_params()
+
+    def _zenflow_segments(self) -> List[Segment]:
+        """ZenFlow's leaves in the flat master (the pads left out)."""
+        return [Segment(slot.offset, slot.numel) for slot in self._slots]
+
+    # ------------------------------------------------------------------ #
+    # the offload tiers (JAX engine.py:1655-1720, :2555-2610)
+    # ------------------------------------------------------------------ #
+    def _master_views(self):
+        return self._views(self.flat_master)
+
+    def _set_master(self, flat) -> None:
+        """Point the master (and its tree of views) at ``flat``: a tensor,
+        or a :class:`Swapped` placeholder while it lives in a file."""
+        self.flat_master = flat
+        self.state["master"] = flat if isinstance(flat, Swapped) \
+            else self._master_views()
+
+    def _host_buffer(self, key: str, like) -> torch.Tensor:
+        """The host tier's buffer for ``key``, shaped as ``like`` (a tensor
+        or :class:`Swapped`): page-locked in place for the card at its
+        first use (:class:`PinnedHost`) and reused by every later swap."""
+        buf = self._host_bufs.get(key)
+        if buf is None:
+            n = int(np.prod(like.shape))
+            buf = self._host_bufs[key] = PinnedHost(n, like.dtype,
+                                                    self.device)
+        return buf.tensor.view(like.shape)
+
+    def _host_copy(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` copied into its host buffer, ordered on the current
+        stream (after every copy out of that buffer queued before)."""
+        host = self._host_buffer(key, t)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    def _device_copy(self, t: torch.Tensor) -> torch.Tensor:
+        dev = torch.empty(t.shape, dtype=t.dtype, device=self.device)
+        dev.copy_(t, non_blocking=True)
+        return dev
+
+    def _opt_swap(self, direction: str) -> None:
+        """The optimizer state between its host tier ('out': pinned host
+        memory) and the card ('in')."""
+        if (direction == "out") == self._opt_on_host:
+            return
+        opt = self.state["opt"]
+        for k, v in list(opt.items()):
+            if isinstance(v, torch.Tensor):
+                opt[k] = (self._host_copy(f"opt/{k}", v)
+                          if direction == "out" else self._device_copy(v))
+        self._opt_on_host = direction == "out"
+
+    def _park_master(self) -> None:
+        """The master to its pinned-host tier (``offload_param``)."""
+        if not self._master_parked:
+            self._set_master(self._host_copy("master", self.flat_master))
+            self._master_parked = True
+
+    def _unpark_master(self) -> None:
+        if self._master_parked:
+            self._set_master(self._device_copy(self.flat_master))
+            self._master_parked = False
+
+    def _materialize_master(self) -> None:
+        """The master as a tensor on the card, from whichever tier holds
+        it (paths that read it directly: ``load_master``, checks); under
+        ``host_step`` it stays on the host, the update in flight done."""
+        if not hasattr(self, "_master_parked"):     # still initialising
+            return
+        if self._host_runner is not None:
+            self._host_runner.wait()
+            return
+        if self._param_swapper is not None:
+            self._param_swapper.swap_in_params()
+        self._unpark_master()
+
+    def _nvme_swapper(self) -> OptimizerSwapper:
+        if self._opt_swapper is None:
+            self._opt_swapper = OptimizerSwapper(self)
+            logger.info("NVMe optimizer offload active: "
+                        f"{self._opt_swapper.swapper.swap_dir}")
+        return self._opt_swapper
+
+    def _param_nvme_swapper(self) -> ParamSwapper:
+        if self._param_swapper is None:
+            self._param_swapper = ParamSwapper(self)
+            logger.info("NVMe parameter offload active: "
+                        f"{self._param_swapper.swapper.swap_dir}")
+        return self._param_swapper
+
+    def offload_states(self, include: Optional[List[str]] = None,
+                       device: str = "cpu") -> None:
+        """Move state tiers to pinned host memory on demand (JAX
+        ``offload_states``): ``include`` ⊆ {'optim_states', 'hp_params'},
+        None = both."""
+        if device != "cpu":
+            raise ValueError("offload_states supports device='cpu' (host "
+                             "memory); use OptimizerSwapper for the NVMe tier")
+        include = include or ["optim_states", "hp_params"]
+        if "optim_states" in include:
+            self._opt_swap("out")
+        if "hp_params" in include:
+            self._park_master()
+
+    def reload_states(self) -> None:
+        self._opt_swap("in")
+        self._unpark_master()
+
+    def _tiers_before_step(self) -> None:
+        """The master on the card for the step (its tiers otherwise)."""
+        if self._offload_param_nvme and self._param_swapper is not None:
+            self._param_swapper.swap_in_params()
+        self._unpark_master()
+
+    def _tiered_update(self, grad_scale: float) -> Dict[str, Any]:
+        """``_apply_update`` with the optimizer state brought to the card
+        just before it and sent back to its tier after, then the master
+        to its tier."""
+        if self._offload_nvme:
+            self._nvme_swapper().swap_in_optimizer()
+        self._opt_swap("in")
+        metrics = self._apply_update(self.flat_grad_acc, grad_scale)
+        if self._offload_opt:
+            self._opt_swap("out")
+        if self._offload_nvme:
+            self._nvme_swapper().swap_out_optimizer()
+        if self._offload_param:
+            self._park_master()
+        if self._offload_param_nvme:
+            self._param_nvme_swapper().swap_out_params()
+        return metrics
+
+    def close(self) -> None:
+        """Stop the host-step worker and unlock the host tiers' buffers
+        (idempotent)."""
+        if self._host_runner is not None:
+            self._host_runner.close()
+        for sw in (self._opt_swapper, self._param_swapper):
+            if sw is not None:
+                sw.swapper.close()
+        for buf in self._host_bufs.values():
+            buf.release()
+        self._host_bufs = {}
+
     def _view(self, flat: torch.Tensor, slot: _Slot) -> torch.Tensor:
         return flat[slot.offset:slot.offset + slot.numel].view(slot.shape)
 
     def _load_master_leaf(self, slot: _Slot, full: torch.Tensor) -> None:
         """Set one leaf of the master from its full fp32 value."""
+        self._materialize_master()
         self._view(self.flat_master, slot).copy_(full)
 
     def _views(self, flat: torch.Tensor) -> Dict[str, Any]:
@@ -477,7 +727,7 @@ class DeepSpeedTPUEngine:
         return [self.optimizer.lr]
 
     def get_global_grad_norm(self) -> Optional[float]:
-        norm = self._last_metrics.get("grad_norm")
+        norm = _resolved(self._last_metrics.get("grad_norm"))
         return None if norm is None else float(norm)
 
     @property
@@ -570,6 +820,15 @@ class DeepSpeedTPUEngine:
         return self._dispatch_train_step(stacked, gas)
 
     def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
+        if self._host_runner is not None:
+            # SuperOffload / ZenFlow host-executed update (host_step.py)
+            mean_loss, metrics = self._host_runner.train_step(stacked, gas)
+            metrics["loss"] = mean_loss
+            self.global_steps += 1
+            self.micro_steps += gas
+            self._after_step(metrics)
+            return mean_loss
+        self._tiers_before_step()
         batch = self._to_device(stacked)
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
@@ -577,7 +836,7 @@ class DeepSpeedTPUEngine:
             lambda mb: self._loss_and_grads(mb, scale), self.flat_grad_acc,
             self.flat_grad, batch, gas)
         grad_scale = float(gas) * (scale if scale is not None else 1.0)
-        metrics = self._apply_update(self.flat_grad_acc, grad_scale)
+        metrics = self._tiered_update(grad_scale)
         metrics["loss"] = mean_loss
         self.global_steps += 1
         self.micro_steps += gas
@@ -596,12 +855,17 @@ class DeepSpeedTPUEngine:
         if self.lr_scheduler is not None:
             self.lr_scheduler.step(self.global_steps)
         if self.global_steps % max(1, self.config.steps_per_print) == 0:
-            host = {k: float(v) for k, v in metrics.items()}
+            host = {k: float(_resolved(v)) for k, v in metrics.items()}
             logger.info(
                 f"step={self.global_steps} loss={host['loss']:.4f} "
                 f"lr={host['lr']:.3e} grad_norm={host['grad_norm']:.3f}"
                 + (f" loss_scale={host['loss_scale']:.0f}"
                    if self.fp16_enabled else ""))
+
+
+def _resolved(value):
+    """A metric's value; the host step's grad norm is a future."""
+    return value.result() if hasattr(value, "result") else value
 
 
 @dataclasses.dataclass
@@ -783,7 +1047,26 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             _set_path(tree, sh.slot.path, self._local(self.flat_master, sh))
         return tree
 
+    def _master_views(self):
+        return self._master_tree()
+
+    def _zenflow_segments(self) -> List[Segment]:
+        """ZenFlow's leaves in the local buffer: a sharded leaf's rows
+        gather the whole leaf's |g| over the shard group for its
+        threshold."""
+        def gather(a: torch.Tensor) -> torch.Tensor:
+            rows = torch.empty(self.shard_world * a.numel(), dtype=a.dtype,
+                               device=a.device)
+            comm.all_gather_into_tensor(rows, a.contiguous(),
+                                        group=self.shard_group)
+            return rows
+
+        return [Segment(sh.offset, sh.n_loc, gather) if sh.dim is not None
+                else Segment(self._n_sh + sh.offset, sh.n_loc)
+                for sh in self._shards]
+
     def _load_master_leaf(self, slot: _Slot, full: torch.Tensor) -> None:
+        self._materialize_master()
         sh = next(s for s in self._shards if s.slot is slot)
         full = full.to(device=self.device, dtype=torch.float32)
         if sh.dim is not None:
@@ -971,6 +1254,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             self._reduce_exact()
 
     def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
+        self._tiers_before_step()
         batch = self._to_device(self._local_rows(stacked))
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
@@ -999,7 +1283,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         mean_loss = comm.all_reduce(mean_loss.float().reshape(1),
                                     comm.ReduceOp.AVG)[0]
         grad_scale = float(gas) * (scale if scale is not None else 1.0)
-        metrics = self._apply_update(self.flat_grad_acc, grad_scale)
+        metrics = self._tiered_update(grad_scale)
         if self.loco_err is not None and metrics["overflow"]:
             self.loco_err.zero_()
         metrics["loss"] = mean_loss
@@ -1046,6 +1330,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def full_master(self) -> Dict[str, Any]:
         """The whole fp32 master as a tree of CPU tensors (JAX's keys and
         shapes)."""
+        self._materialize_master()
         return self.full_tree(self.flat_master)
 
     def full_tree(self, flat: torch.Tensor, device="cpu") -> Dict[str, Any]:
@@ -1226,6 +1511,7 @@ class Zero3Engine(DataParallelEngine):
     def close(self) -> None:
         """Stop the coordinator's communication thread."""
         self._zero3.close()
+        super().close()
 
 
 def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,

@@ -444,3 +444,109 @@ def test_hpz_phase_rank_rehearsal_on_cpu():
         assert g["two_hop_err_out_of_bound"] == 0
         assert C.hpz_gate_problems(r["gates"]) == []
         assert r["gates"]["bf16_loss_bit_equal"]
+
+
+# --------------------------------------------------------------------------- #
+# the offload phases
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("avail, layers", [
+    (90e9, 18), (103.08e9 - 5e9, 20), (200e9, 32), (5e9, 0)])
+def test_super_offload_depth_rule(avail, layers):
+    """(4.7 + 3.64 L) GB x 1.25 <= the host's available bytes: host state
+    18 B a parameter, the embedding and head 262 M parameters, a layer
+    202.4 M."""
+    assert C.super_layers("llama2_7b", avail) == layers
+    assert C.super_layers("llama2_7b", 200e9, max_layers=4) == 4
+
+
+def test_host_available_takes_the_cgroup_limit():
+    facts = {"mem_available_bytes": 103e9, "cgroup_limit_bytes": 96 * 2 ** 30,
+             "cgroup_current_bytes": 4e9}
+    assert C.host_available(facts) == 96 * 2 ** 30 - 4e9
+    assert C.host_available(dict(facts, cgroup_limit_bytes=None)) == 103e9
+
+
+def _super_gates(**change):
+    g = {"fp32_device": {"init_bit_equal": True, "losses": [11.0]},
+         "fp32_host": {"init_bit_equal": True, "losses": [11.0],
+                       "master_rel_l2": 5e-10},
+         "bf16_device": {"init_bit_equal": True, "losses": [11.0],
+                         "update_rel_vs_fp32": 0.4},
+         "bf16_host": {"init_bit_equal": True, "losses": [11.0, 3.0],
+                       "update_rel_vs_fp32": 0.4},
+         "bf16_overlap": {"init_bit_equal": True,
+                          "losses": [11.0, 11.0, 3.0]}}
+    for key, value in change.items():
+        way, metric = key.split("__")
+        g[way][metric] = value
+    return g
+
+
+@pytest.mark.parametrize("change, n", [
+    ({}, 0), ({"fp32_host__losses": [11.000001]}, 1),
+    ({"fp32_host__master_rel_l2": 2e-6}, 1),
+    ({"bf16_host__update_rel_vs_fp32": 0.81}, 1),
+    ({"bf16_overlap__losses": [11.0, 10.9, 3.0]}, 1),
+    ({"bf16_overlap__losses": [11.0, 11.0, 3.1]}, 1),
+    ({"bf16_host__init_bit_equal": False}, 1)])
+def test_super_gate_problems(change, n):
+    """S1 the fp32 loss bit-equal and the master within 1e-6; S2 the bf16
+    host update within 2x the device's from fp32; S3 the overlap
+    schedule's losses."""
+    assert len(C.super_gate_problems(_super_gates(**change))) == n
+
+
+def _cpu_smoke():
+    import torch
+
+    smoke = C.Smoke(torch, 0)
+    smoke.dev = torch.device("cpu")
+    return smoke
+
+
+def test_super_offload_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
+    """The phase at tiny size on the CPU: S1-S3 pass, the master and the
+    moments live on the host, the loss falls over the overlap and sync
+    steps (the counters read 0 there: the plain versions count
+    nothing)."""
+    monkeypatch.setenv("DSTPU_NVME_PATH", str(tmp_path))
+    smoke = _cpu_smoke()
+    smoke.phase_train_llama2_7b_super_offload(dict(
+        model="tiny_llama", micro=2, seq=32, gas=2, gate_layers=2,
+        copy_elems=2 ** 16))
+    r = smoke.state["super_offload"]
+    assert r["layers"] == 2 and r["reduced"] is None
+    assert r["modes"] == ["overlap"] * 3 + ["sync"] * 2
+    assert r["losses"][1] == r["losses"][0]   # steps 1, 2: initial params
+    assert r["losses"][2] != r["losses"][1]   # step 3: update 1's
+    assert r["placed"]["master"] == "cpu"
+    assert len(r["updates"]) == 5
+    assert all(u["host_update_s"] > 0 for u in r["updates"])
+
+
+def test_offload_750m_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
+    """(a)-(d) at tiny size on the CPU, (d) on one spawned gloo rank:
+    every tier bit-equal to no offload, the moments on the host or in
+    their files between steps, ZenFlow's loss falling and its step gate
+    passing."""
+    monkeypatch.setenv("DSTPU_NVME_PATH", str(tmp_path))
+    monkeypatch.setitem(C.TRAIN, "tiny_llama", dict(
+        micro=2, seq=32, gas=2, steps=2, norm="rms_norm", gate_micro=1))
+    smoke = _cpu_smoke()
+    smoke.phase_train_llama_750m_offload(dict(
+        model="tiny_llama", micro=2, seq=32, gas=2, gate_layers=2,
+        param_layers=2))
+    r = smoke.state["offload_750m"]
+    base = r["runs"]["none"]
+    for run in ("a_cpu", "b_nvme"):
+        assert r["runs"][run]["losses"] == base["losses"]
+        assert r["runs"][run]["master_bit_equal"]
+    assert all(c["all_host"] for c in r["runs"]["a_cpu"]["checks"])
+    assert all(c["swapped"] for c in r["runs"]["b_nvme"]["checks"])
+    d = r["d_runs"]
+    assert d["none"]["engine"] == "DeepSpeedTPUEngine"
+    for run in ("cpu", "nvme"):
+        assert d[run]["losses"] == d["none"]["losses"]
+        assert d[run]["master_bit_equal"]
+    assert {c["master"] for c in d["nvme"]["checks"]} == {"file"}

@@ -132,3 +132,47 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take(bad):
         out = torch.empty(64, dtype=torch.float16)
     with pytest.raises(ValueError):
         PA._check(p, g, m, v, out)
+
+
+def _expression_adam(p, g, m, v, lr, betas, eps, wd, bc1, bc2, adam_w,
+                     out):
+    """The update as whole-tensor expressions, each operation rounded
+    once: the oracle of the in-place plain version's bits."""
+    b1, b2 = betas
+    if not adam_w and wd:
+        g = g + wd * p
+    m.copy_(b1 * m + (1.0 - b1) * g)
+    v.copy_(b2 * v + (1.0 - b2) * (g * g))
+    upd = (m / torch.tensor(bc1)) / (torch.sqrt(v / torch.tensor(bc2)) + eps)
+    if adam_w and wd:
+        upd = upd + wd * p
+    p.copy_(p - lr * upd)
+    if out is not None:
+        out.copy_(p)
+
+
+@pytest.mark.parametrize("adam_w,wd", [(True, 0.0), (True, 0.01),
+                                       (False, 0.01)])
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16, torch.float32])
+def test_cpu_chunks_are_the_plain_version_bit_for_bit(adam_w, wd, out_dtype):
+    """Over a flat CPU buffer of several chunks (the host step's update)
+    the wrapper's chunk-by-chunk calls give one whole-tensor
+    ``fused_adam_ref``'s bits, and both the bits of the update written as
+    whole-tensor expressions: p, m, v and the compute-dtype copy."""
+    n = 2 * PA.CHUNK + 12345
+    gen = torch.Generator().manual_seed(3)
+    p, g = torch.randn(n, generator=gen), torch.randn(n, generator=gen)
+    m = 0.1 * torch.randn(n, generator=gen)
+    v = 0.01 * torch.rand(n, generator=gen)
+    runs = [[t.clone() for t in (p, g, m, v)] for _ in range(3)]
+    outs = [None if out_dtype is None else torch.empty(n, dtype=out_dtype)
+            for _ in range(3)]
+    args = (1e-3, (0.9, 0.999), 1e-8, wd, 0.1, 0.001, adam_w)
+    for fn, run, out in zip((_expression_adam, PA.fused_adam_ref,
+                             PA.fused_adam), runs, outs):
+        fn(*run, *args, out)
+    for run, out in zip(runs[1:], outs[1:]):
+        for x, y in zip(runs[0], run):
+            assert torch.equal(x, y)
+        if out is not None:
+            assert torch.equal(outs[0], out)

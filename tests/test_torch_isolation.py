@@ -53,7 +53,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     assert int(n) >= 39, out.stdout          # every module was walked
     for mod in ("moe.gating", "moe.layer", "ops.grouped_gemm", "comm.comm",
                 "comm.mesh", "parallel.partitioning", "parallel.compressed",
-                "ops.quantization", "ops.quant_kernels"):
+                "ops.quantization", "ops.quant_kernels", "ops.aio",
+                "runtime.swap_tensor", "runtime.zenflow",
+                "runtime.host_step"):
         assert f"deepspeed_tpu_torch.{mod}" in names.split(","), mod
     assert bad == "[]", bad
 
@@ -137,3 +139,25 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_importing_builds_nothing(tmp_path):
+    """Importing every module (the NVMe tier's ``ops/aio.py`` over
+    ``ops/csrc/aio.cpp`` among them) compiles and loads no library: the
+    host library is built at its first use, as the kernels are."""
+    code = textwrap.dedent("""
+        import importlib, os, pkgutil
+        import deepspeed_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        from deepspeed_tpu_torch.ops import build
+        print(len(build._libs), sorted(os.listdir(os.environ[
+            "DSTPU_TORCH_BUILD_DIR"])) if os.path.isdir(os.environ[
+            "DSTPU_TORCH_BUILD_DIR"]) else [])
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["DSTPU_TORCH_BUILD_DIR"] = str(tmp_path / "build")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []", out.stdout

@@ -1,0 +1,480 @@
+"""The offload family of the PyTorch port against the JAX engine.
+
+Counterparts of ``tests/unit/test_offload.py`` (``TestHostOffload``,
+``TestNvmeSwap::test_optimizer_swap_roundtrip``, ``TestHostStep`` without
+its checkpoint and ``eval_batch`` halves, ``TestOffloadParam`` without its
+checkpoint): tiny, fp32, one fixed batch of 16 rows (the JAX engine's 8
+CPU devices × micro 2; the port's one process × micro 16), Adam lr 1e-3,
+6 steps, the JAX initial master carried across with ``load_master``.
+
+* Each tier — ``offload_optimizer`` cpu and nvme at stage 2,
+  ``offload_param`` cpu and nvme at stage 3 — and the host step
+  (``host_step`` without overlap, and ``super_offload``'s overlap with
+  gradient clipping) against the JAX engine with the same config: losses,
+  every step's grad norm and the final master within
+  ``test_torch_train.TOL["float32"]``. Each tier and the sync host step
+  bit-equal to the port without offload; two overlap runs bit-equal; the
+  overlap schedule (step 2 on the initial parameters, step 3 on update
+  1's) against the sync run's losses.
+* Where the state lies between steps: the moments on the host tier or in
+  their files, the master parked or in its file, the host step's master
+  and moments on the host from init on.
+* ``offload_states`` / ``reload_states`` and the NVMe optimizer swapper's
+  round trip; every configuration error raised with JAX's message, and
+  the stage < 3 warning.
+* World 2 on gloo CPU ranks (``Zero3Engine``): every tier bit-equal to the
+  run without it; ``host_step`` refused at world 2 (JAX refuses more than
+  one process) and with the int8 wire, with JAX's messages.
+
+The CPU runs these with one intra-op thread (``single_thread``): the
+overlap runs a forward on the main thread beside the update on the
+worker, and a multi-threaded BLAS may then split a matmul otherwise.
+"""
+import itertools
+import logging
+import os
+import pickle
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_zero import _leaves, _spawn
+
+STEPS = 6
+ROWS, SEQ, VOCAB = 16, 32, 512
+JAX_MICRO, DP = 2, 8
+NVME = "__NVME__"          # replaced by the test's directory
+CASES = {
+    "base": {"stage": 2},
+    "opt_cpu": {"stage": 2, "offload_optimizer": {"device": "cpu"}},
+    "opt_nvme": {"stage": 2, "offload_optimizer": {"device": "nvme",
+                                                   "nvme_path": NVME}},
+    "param_cpu": {"stage": 3, "offload_param": {"device": "cpu"}},
+    "param_nvme": {"stage": 3, "offload_param": {"device": "nvme",
+                                                 "nvme_path": NVME}},
+    "host_sync": {"stage": 0, "offload_optimizer": {"device": "cpu",
+                                                    "host_step": True}},
+    "host_overlap": {"stage": 0, "super_offload": True},
+}
+# the overlap case also clips, so the host clip is held against JAX's
+CLIP = {"host_overlap": 1.0}
+
+
+def _config(zero, micro, nvme, clip=0.0):
+    zero = pickle.loads(pickle.dumps(zero))
+    for off in ("offload_optimizer", "offload_param"):
+        if zero.get(off, {}).get("nvme_path") == NVME:
+            zero[off]["nvme_path"] = str(nvme)
+    cfg = {"train_micro_batch_size_per_gpu": micro,
+           "gradient_accumulation_steps": 1,
+           "optimizer": {"type": "adam", "params": {"lr": 1e-3}},
+           "zero_optimization": zero, "steps_per_print": 10 ** 9}
+    if clip:
+        cfg["gradient_clipping"] = clip
+    return cfg
+
+
+def _tokens():
+    return np.random.default_rng(7).integers(0, VOCAB, (ROWS, SEQ)).astype(
+        np.int32)
+
+
+@pytest.fixture
+def single_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(tmp_path_factory):
+    """Each case's JAX engine: initial master, losses, grad norms, final
+    master (numpy)."""
+    import jax
+
+    import deepspeed_tpu as dst
+    from deepspeed_tpu.comm import mesh as mesh_mod
+
+    nvme = tmp_path_factory.mktemp("jax_nvme")
+    toks = _tokens()
+    out = {}
+    for case, zero in CASES.items():
+        mesh_mod.reset_mesh()
+        spec = dst.causal_lm_spec("tiny", dtype="float32", max_seq_len=SEQ)
+        cfg = dict(_config(zero, JAX_MICRO, nvme, CLIP.get(case, 0.0)),
+                   mesh={"data": DP})
+        engine, *_ = dst.initialize(model=spec, config=cfg)
+        master0 = jax.tree.map(np.asarray, engine.state["master"])
+        data = iter(lambda: {"tokens": toks}, None)
+        losses, norms = [], []
+        for _ in range(STEPS):
+            losses.append(float(engine.train_batch(data)))
+            norms.append(float(engine.get_global_grad_norm()))
+        if engine._offload_param_nvme:
+            engine._param_nvme_swapper().swap_in_params()
+        master = jax.tree.map(np.asarray, engine.state["master"])
+        out[case] = {"master0": master0, "losses": losses, "norms": norms,
+                     "master": master}
+    mesh_mod.reset_mesh()
+    return out
+
+
+def _port(case, master0, nvme, zero=None):
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import load_master
+
+    spec = dtt.causal_lm_spec("tiny", dtype="float32", max_seq_len=SEQ)
+    engine, *_ = dtt.initialize(model=spec, config=_config(
+        CASES[case] if zero is None else zero, ROWS, nvme,
+        CLIP.get(case, 0.0)), device="cpu")
+    if master0 is not None:
+        load_master(engine, master0)
+    return engine
+
+
+def _train(engine, steps=STEPS, after=None):
+    toks = _tokens()
+    data = itertools.repeat({"tokens": toks})
+    losses, norms, seen = [], [], []
+    for _ in range(steps):
+        losses.append(float(engine.train_batch(data)))
+        norms.append(engine.get_global_grad_norm())
+        if after is not None:
+            seen.append(after(engine))
+    return losses, norms, seen
+
+
+def _master(engine):
+    from deepspeed_tpu_torch.models.convert import gather_master
+
+    return gather_master(engine)
+
+
+@pytest.fixture(scope="module")
+def port_base(jax_runs, tmp_path_factory):
+    engine = _port("base", jax_runs["base"]["master0"],
+                   tmp_path_factory.mktemp("base"))
+    losses, norms, _ = _train(engine)
+    return {"losses": losses, "norms": norms,
+            "flat": engine.flat_master.clone(), "master": _master(engine)}
+
+
+def _where(engine):
+    """Where the state lies between steps."""
+    from deepspeed_tpu_torch.runtime.swap_tensor import Swapped
+
+    opt = {k: v for k, v in engine.state["opt"].items() if k != "step"}
+    return {"opt_on_host": engine._opt_on_host,
+            "opt_swapped": all(isinstance(v, Swapped) for v in opt.values()),
+            "master_parked": engine._master_parked,
+            "master_swapped": isinstance(engine.flat_master, Swapped),
+            "master_device": getattr(engine.flat_master, "device", None)}
+
+
+WHERE = {"opt_cpu": dict(opt_on_host=True, opt_swapped=False,
+                         master_parked=False, master_swapped=False),
+         "opt_nvme": dict(opt_on_host=False, opt_swapped=True,
+                          master_parked=False, master_swapped=False),
+         "param_cpu": dict(opt_on_host=False, opt_swapped=False,
+                           master_parked=True, master_swapped=False),
+         "param_nvme": dict(opt_on_host=False, opt_swapped=False,
+                            master_parked=True, master_swapped=True),
+         "host_sync": dict(opt_on_host=False, opt_swapped=False,
+                           master_parked=False, master_swapped=False)}
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c != "base"])
+def test_tier_matches_jax_and_the_port_without_it(case, jax_runs, port_base,
+                                                  tmp_path, single_thread):
+    from test_torch_train import TOL
+
+    tol = TOL["float32"]
+    want = jax_runs[case]
+    engine = _port(case, want["master0"], tmp_path)
+    losses, norms, seen = _train(engine, after=_where)
+    if engine._host_runner is not None:
+        engine._host_runner.wait()
+    np.testing.assert_allclose(losses, want["losses"], rtol=tol["loss"],
+                               atol=0)
+    np.testing.assert_allclose(norms, want["norms"], rtol=10 * tol["loss"])
+    got = dict(_leaves(_master(engine)))
+    for key, w in _leaves(want["master"]):
+        np.testing.assert_allclose(got[key], w, rtol=0, atol=tol["master"],
+                                   err_msg=key)
+        assert np.abs(got[key] - w).mean() <= tol["master_mean"], key
+    if case == "host_overlap":
+        # the schedule: steps 1 and 2 on the initial parameters
+        assert losses[1] == losses[0]
+        assert engine._host_runner.overlap
+        engine.close()
+        return
+    # every tier (and the sync host step) is bit-equal to no offload
+    assert losses == port_base["losses"], case
+    engine._materialize_master()
+    assert torch.equal(engine.flat_master.cpu(), port_base["flat"]), case
+    for w in seen:
+        for k, v in WHERE[case].items():
+            assert w[k] == v, (case, k, w)
+    if case.endswith("nvme"):
+        sub = "optimizer" if case.startswith("opt") else "param"
+        files = os.listdir(tmp_path / sub / "rank0")
+        assert any(f.endswith(".bin") for f in files), files
+    engine.close()
+
+
+def test_host_step_state_lives_on_the_host_and_overlap_is_deterministic(
+        jax_runs, tmp_path, single_thread):
+    """The host step's master and moments are host tensors from init on,
+    its card buffers the compute copy, the gradient and the accumulator;
+    two overlap runs give the same bits; the overlap run's step 3 loss is
+    the sync run's step 2 loss (both on update 1's parameters)."""
+    master0 = jax_runs["host_overlap"]["master0"]
+    runs = []
+    for _ in range(2):
+        engine = _port("host_overlap", master0, tmp_path)
+        runner = engine._host_runner
+        assert runner.overlap and engine.flat_master.device.type == "cpu"
+        assert runner.landing.dtype == torch.float32
+        assert runner.staging.dtype == engine.compute_dtype
+        losses, norms, _ = _train(engine, steps=4)
+        runner.wait()
+        runs.append((losses, norms, engine.flat_master.clone(),
+                     engine.state["opt"]["exp_avg"].clone()))
+        engine.close()
+    assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
+    assert torch.equal(runs[0][2], runs[1][2])
+    assert torch.equal(runs[0][3], runs[1][3])
+    sync = _port("host_overlap", master0, tmp_path, zero={
+        "stage": 0, "super_offload": True,
+        "offload_optimizer": {"overlap_step": False}})
+    assert not sync._host_runner.overlap        # explicit False wins
+    slosses, _, _ = _train(sync, steps=2)
+    sync.close()
+    assert runs[0][0][2] == slosses[1]
+
+
+def test_super_offload_and_zenflow_resolve_overlap(tmp_path):
+    """JAX's resolution: super_offload → cpu + host_step + overlap;
+    ZenFlow with host_step takes ZenFlow's overlap_step."""
+    from deepspeed_tpu_torch.runtime.zenflow import ZenFlowOptimizer
+
+    e = _port("host_sync", None, tmp_path, zero={"stage": 0,
+                                                 "super_offload": True})
+    off = e.config.zero_optimization.offload_optimizer
+    assert (off.device, off.host_step, off.overlap_step) == ("cpu", True,
+                                                             True)
+    assert e._host_step and not e._offload_opt and e._host_runner.overlap
+    e.close()
+    z = _port("host_sync", None, tmp_path, zero={
+        "stage": 0, "offload_optimizer": {"device": "cpu", "host_step": True},
+        "zenflow": {"enabled": True, "topk_ratio": 0.05,
+                    "update_interval": 2}})
+    assert isinstance(z.optimizer, ZenFlowOptimizer) and z._host_runner.overlap
+    losses, _, _ = _train(z, steps=4)
+    z.close()
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_offload_states_api(jax_runs, port_base, tmp_path):
+    """``offload_states`` parks the moments and the master in host memory,
+    ``reload_states`` brings them back; the run's bits do not change."""
+    engine = _port("base", jax_runs["base"]["master0"], tmp_path)
+    losses, _, _ = _train(engine, steps=1)
+    engine.offload_states()
+    assert engine._opt_on_host and engine._master_parked
+    engine.reload_states()
+    assert not engine._opt_on_host and not engine._master_parked
+    engine.offload_states(include=["optim_states"])
+    assert engine._opt_on_host and not engine._master_parked
+    more, _, _ = _train(engine, steps=STEPS - 1)
+    assert losses + more == port_base["losses"]
+    assert torch.equal(engine.flat_master, port_base["flat"])
+    with pytest.raises(ValueError, match="offload_states supports "
+                                         "device='cpu'"):
+        engine.offload_states(device="nvme")
+
+
+HOST_BUFS = {"opt_cpu": ["opt/exp_avg", "opt/exp_avg_sq"],
+             "param_cpu": ["master"], "param_nvme": ["master"]}
+
+
+@pytest.mark.parametrize("case", sorted(HOST_BUFS))
+def test_host_tiers_reuse_their_buffers(case, tmp_path):
+    """A host tier copies into one buffer a tensor, made at its first
+    swap-out and reused by every later swap (the NVMe master is read back
+    into it); ``close`` lets them go."""
+    engine = _port(case, None, tmp_path)
+
+    def ptrs(e):
+        if e._param_swapper is not None:
+            e._param_swapper.swap_in_params()
+        tiers = [e.flat_master] if case.startswith("param") else [
+            v for k, v in e.state["opt"].items() if k != "step"]
+        return [t.data_ptr() for t in tiers]
+
+    _, _, seen = _train(engine, steps=3, after=ptrs)
+    assert sorted(engine._host_bufs) == HOST_BUFS[case]
+    bufs = [engine._host_bufs[k].tensor.data_ptr() for k in HOST_BUFS[case]]
+    assert seen == [bufs] * 3
+    engine.close()
+    assert engine._host_bufs == {}
+
+
+def test_tensor_swapper_staging_and_into(tmp_path):
+    """A tensor that is not a contiguous CPU tensor is staged through one
+    buffer a key, reused by the next swap-out; ``swap_in(into=...)``
+    reads into the caller's buffer."""
+    from deepspeed_tpu_torch.runtime.swap_tensor import TensorSwapper
+
+    sw = TensorSwapper(str(tmp_path / "sw"))
+    a = torch.arange(24, dtype=torch.float32).view(4, 6)
+    sw.swap_out({"a": a.t(), "b": a[0]})
+    stage = sw._staging["a"].tensor.data_ptr()
+    sw.swap_out({"a": (a + 1).t(), "b": a[1]})
+    assert list(sw._staging) == ["a"]
+    assert sw._staging["a"].tensor.data_ptr() == stage
+    into = {"b": torch.empty(6)}
+    back = sw.swap_in(into=into)
+    assert back["b"] is into["b"] and torch.equal(into["b"], a[1])
+    assert torch.equal(back["a"], (a + 1).t())
+    sw.close()
+    assert sw._staging == {}
+
+
+def test_optimizer_swap_roundtrip(jax_runs, tmp_path):
+    """``OptimizerSwapper`` writes every moment and reads it back bit for
+    bit; training goes on after the swap-in."""
+    from deepspeed_tpu_torch.runtime.swap_tensor import (
+        OptimizerSwapper,
+        Swapped,
+    )
+
+    engine = _port("base", jax_runs["base"]["master0"], tmp_path)
+    _train(engine, steps=1)
+    want = engine.state["opt"]["exp_avg"].clone()
+    swapper = OptimizerSwapper(engine, swap_dir=str(tmp_path))
+    swapper.swap_out_optimizer()
+    assert isinstance(engine.state["opt"]["exp_avg"], Swapped)
+    assert swapper.swapper.last["bytes"] == 2 * want.numel() * 4
+    swapper.swap_in_optimizer()
+    assert torch.equal(engine.state["opt"]["exp_avg"], want)
+    losses, _, _ = _train(engine, steps=1)
+    assert np.isfinite(losses).all()
+
+
+BAD = {
+    "fp16_host_step": ({"stage": 0, "offload_optimizer": {
+        "device": "cpu", "host_step": True}}, {"fp16": {"enabled": True}}),
+    "host_step_nvme": ({"stage": 0, "offload_optimizer": {
+        "device": "nvme", "host_step": True}}, {}),
+    "super_offload_nvme": ({"stage": 0, "super_offload": True,
+                            "offload_optimizer": {"device": "nvme"}}, {}),
+    "offload_param_gpu": ({"stage": 3, "offload_param": {"device": "gpu"}},
+                          {}),
+}
+
+
+@pytest.mark.parametrize("name", list(BAD))
+def test_config_errors_match_jax(name, tmp_path):
+    import deepspeed_tpu as dst
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu.comm import mesh as mesh_mod
+    from deepspeed_tpu.runtime.config_utils import \
+        DeepSpeedConfigError as JErr
+    from deepspeed_tpu_torch.runtime.config_utils import \
+        DeepSpeedConfigError as PErr
+
+    zero, extra = BAD[name]
+    mesh_mod.reset_mesh()
+    with pytest.raises(JErr) as jerr:
+        dst.initialize(model=dst.causal_lm_spec("tiny", dtype="float32",
+                                                max_seq_len=SEQ),
+                       config=dict(_config(zero, JAX_MICRO, tmp_path),
+                                   mesh={"data": DP}, **extra))
+    mesh_mod.reset_mesh()
+    with pytest.raises(PErr) as perr:
+        dtt.initialize(model=dtt.causal_lm_spec("tiny", dtype="float32",
+                                                max_seq_len=SEQ),
+                       config=dict(_config(zero, ROWS, tmp_path), **extra),
+                       device="cpu")
+    assert str(perr.value) == str(jerr.value)
+
+
+def test_offload_param_below_stage3_warns_and_is_off(tmp_path, caplog):
+    with caplog.at_level(logging.WARNING, logger="deepspeed_tpu_torch"):
+        e = _port("base", None, tmp_path, zero={
+            "stage": 2, "offload_param": {"device": "cpu"}})
+    assert not e._offload_param and not e._master_parked
+    assert any("offload_param is a ZeRO-3 tier" in r.getMessage()
+               for r in caplog.records)
+    losses, _, _ = _train(e, steps=1)
+    assert np.isfinite(losses).all()
+
+
+# --------------------------------------------------------------------------- #
+# world 2 on gloo CPU ranks
+# --------------------------------------------------------------------------- #
+
+WORLD2 = {"none": {"stage": 3},
+          "param_cpu": {"stage": 3, "offload_param": {"device": "cpu"}},
+          "param_nvme": {"stage": 3, "offload_param": {"device": "nvme",
+                                                       "nvme_path": NVME}},
+          "opt_cpu": {"stage": 3, "offload_optimizer": {"device": "cpu"}},
+          "opt_nvme": {"stage": 3, "offload_optimizer": {"device": "nvme",
+                                                         "nvme_path": NVME}}}
+REFUSED2 = {"host_step": {"stage": 2, "offload_optimizer": {
+                "device": "cpu", "host_step": True}},
+            "host_step_qgz": {"stage": 2, "zero_quantized_gradients": True,
+                              "offload_optimizer": {"device": "cpu",
+                                                    "host_step": True}}}
+
+
+def _world2_rank(rank, world, nvme):
+    torch.set_num_threads(1)
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import gather_master
+    from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigError
+
+    out = {}
+    for name, zero in WORLD2.items():
+        spec = dtt.causal_lm_spec("tiny", dtype="float32", max_seq_len=SEQ)
+        engine, *_ = dtt.initialize(model=spec, config=_config(
+            zero, ROWS // world, nvme), device="cpu")
+        losses, _, seen = _train(engine, steps=3, after=_where)
+        out[name] = {"type": type(engine).__name__, "losses": losses,
+                     "seen": seen, "master": gather_master(engine)}
+        engine.close()
+    for name, zero in REFUSED2.items():
+        try:
+            dtt.initialize(model=dtt.causal_lm_spec("tiny", dtype="float32",
+                                                    max_seq_len=SEQ),
+                           config=_config(zero, ROWS // world, nvme),
+                           device="cpu")
+            out[name] = None
+        except DeepSpeedConfigError as e:
+            out[name] = str(e)
+    return out
+
+
+def test_world2_tiers_bit_equal_and_host_step_refused(tmp_path):
+    ranks = _spawn(_world2_rank, 2, tmp_path, str(tmp_path / "nvme"))
+    for r, res in enumerate(ranks):
+        base = res["none"]
+        assert base["type"] == "Zero3Engine"
+        for name in WORLD2:
+            assert res[name]["losses"] == base["losses"], name
+            for key, v in _leaves(base["master"]):
+                assert np.array_equal(dict(_leaves(res[name]["master"]))[key],
+                                      v), (name, key)
+        assert all(s["master_parked"] for s in res["param_cpu"]["seen"])
+        assert all(s["master_swapped"] for s in res["param_nvme"]["seen"])
+        assert all(s["opt_on_host"] for s in res["opt_cpu"]["seen"])
+        assert all(s["opt_swapped"] for s in res["opt_nvme"]["seen"])
+        assert os.listdir(tmp_path / "nvme" / "param" / f"rank{r}")
+        assert res["host_step"] == (
+            "host_step is single-host for now: the update runs on this "
+            "process's CPU backend and cannot address remote shards")
+        assert res["host_step_qgz"] == ("host_step cannot combine with "
+                                        "compressed collectives")

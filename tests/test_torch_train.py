@@ -304,11 +304,12 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
 
 @pytest.mark.parametrize("extra,spec_kw", [
     ({"mesh": {"expert": 2}}, {}),
-    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
-     {}),
-    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, {}),
-    ({"zero_optimization": {"stage": 1, "zenflow": {"enabled": True}}}, {}),
-    ({"zero_optimization": {"stage": 2, "super_offload": True}}, {}),
+    # (the offload tiers, ZenFlow and SuperOffload run: they are held in
+    # tests/test_torch_offload.py and tests/test_torch_zenflow.py)
+    ({"optimizer": {"type": "adafactor", "params": {"lr": 1e-3}}}, {}),
+    ({"mesh": {"tensor": 2}}, {}),
+    ({"mesh": {"seq": 2}}, {}),
+    ({"bf16": {"enabled": True, "fp32_master": False}}, {}),
     ({"pipeline": {"stages": 2}}, {}),
     ({"mesh": {"pipe": 2}}, {}),
     ({"sequence_parallel": {"auto": True}}, {}),
