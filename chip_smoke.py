@@ -13,7 +13,9 @@ kernel on them against its plain PyTorch version:
                attention kernels (paged prefill too) hold bf16 HMMA (fp32
                sums) and LDGSTS (cp.async), the paged decode kernels
                LDGSTS, the bf16 grouped GEMM bf16 HGMMA (wgmma, fp32 sums),
-               the fp32 kernels neither HMMA nor HGMMA;
+               the fp32 kernels neither HMMA nor HGMMA; the host library
+               of the host-executed step (``ops/csrc/cpu_adam.cpp``, g++
+               -O3 -march=native -ffp-contract=off), its seconds and flags;
 3. kernels   — paged attention (the three main-path shapes and PA_TICKS:
                prefill runs, mixed ticks, GQA with a chunk, a shared
                prefix, interleaved rows, unordered lengths, 2048-slot
@@ -79,7 +81,13 @@ kernel on them against its plain PyTorch version:
                plain within a tenth of the wire's own noise; bf16 no further
                from it than twice the plain bf16 path; the int8 error within
                half a quantization step a rank); then exact ZeRO-2 at world
-               2 as the baseline;
+               2 as the baseline, with overlap_comm and overlap_step (the
+               defaults: each layer chunk's gradient reduced when its
+               backward is done, the other leaves by reduce_bucket_size
+               buckets, the update and its publish by update_bucket_size
+               buckets; the reduces and publishes a step by formula), and
+               once more with the once-a-step reduce; one fp32 step of
+               each from one master by the training rule;
 12. train_llama_750m_zero3_dp2 — the same two ranks train llama_750m at
                full width and depth with ZeRO-3 (the repo's
                zero3_llama_750m_bf16 row, overlap_comm on: 8 layer chunks
@@ -93,10 +101,14 @@ kernel on them against its plain PyTorch version:
                further from fp32 than 2x ZeRO-2's), Z3 (each chunk's qwZ
                gather within half a step of the exact gather; the zeropp
                wire gate on (b)), Z4 ((a)'s peak >= 3 GB below (c)'s), Z5
-               (the launches and the 17 gathers a micro-batch);
+               (the launches and the 17 gathers a micro-batch); then ZeRO-3
+               for a spec without the parameter hook (a 4-layer MLP at width
+               4096, fp32, built here) at world 2 against the same spec at
+               world 1 without ZeRO by the training rule;
 13. train_llama_750m_hpz_dp4 — four ranks (mesh data 2 x zshard 2, rank
                r at data r // 2, zshard r % 2) train llama_750m at full
-               width and depth at the zero3_llama_750m_bf16 row's settings:
+               width, HPZ_LAYERS of its 20 layers, at the
+               zero3_llama_750m_bf16 row's settings:
                (a) the ZeRO++ trio, ZeRO-3 + hpZ (zero_hpz_partition_size
                2) + qwZ + qgZ, (b) MiCS at stage 3 (mics_shard_size 2,
                exact): step, tokens/s, MFU, each rank's peak and their sum
@@ -125,17 +137,27 @@ kernel on them against its plain PyTorch version:
                off, against the device path: loss bit-equal, master within
                1e-6), S2 (bf16: the update no further from S1's than 2x
                the device bf16 step's), S3 (the overlap schedule's losses)
-               at 4 layers; then 3 steps with overlap and 2 without: step
-               time, tokens/s, MFU, the card's idle share, the host
-               update's seconds and GB/s against the host copy rate, the
-               copies' GB/s, device peak, pinned bytes, host RSS, the
-               flash and norm launches;
+               at 4 layers; then 3 steps with overlap and 2 without, the
+               update in the compiled host library: step time, tokens/s,
+               MFU, the card's idle share, the host update's seconds and
+               GB/s against the host copy rate, the copies' GB/s, device
+               peak, pinned bytes, host RSS, the flash and norm launches
+               and the library's calls; S0 on a 64 M-element slice of the
+               step's real gradient, master and moments: the library
+               bit-equal to the CUDA fused-Adam kernel, m and v bit-equal
+               to fused_adam_ref (p off only where PyTorch's CPU sqrt is),
+               the norm's sum the same at 1 thread and at all;
 16. train_llama_750m_offload — llama_750m at its training shape with
                (a) offload_optimizer cpu, (b) nvme, each bit-equal to the
                run without offload, (c) ZenFlow (top 1 %, a boundary every
                2 steps) and its kernels-vs-plain step at 4 layers by the
                training rule, (d) ZeRO-3 at world 1 on a spawned rank with
-               offload_param cpu and nvme at 8 layers, bit-equal;
+               offload_param cpu and nvme at 8 layers in JAX's in-step
+               streaming mode (the master off the card through the step,
+               streamed a chunk at a time): bit-equal, the peak of the
+               forward and backward and of the step, the streamed pass's
+               GB/s; and the int8 wire at world 2 (two ranks), which keeps
+               the boundary swap, bit-equal;
 17. times    — kernels vs plain vs library calls vs their bounds (CUDA
                events; paged attention at a decode, a prefill and a mixed
                tick, each kernel's own time by the profiler, and the plan
@@ -515,6 +537,13 @@ ZEROPP_CHUNKS = [[0, 10], [10, 20]]
 ZEROPP_WIRE = {"stage": 2, "zero_quantized_gradients": True,
                "zero_quantized_weights": True, "loco_error_feedback": True}
 ZEROPP_EXACT = {"stage": 2}
+# exact ZeRO-2 with overlap_comm and overlap_step (the defaults): the
+# gradient summed over the micro-batches locally, each layer chunk's sum
+# reduced when the last micro-batch's backward is done with it, the other
+# leaves by reduce_bucket_size buckets, the update and its publish by
+# update_bucket_size buckets; against one reduce after the backward
+# (overlap_comm off) by the training rule on one fp32 step
+ZEROPP_EXACT_ONCE = {"stage": 2, "overlap_comm": False}
 # Gate 2 of the ZeRO++ phase: one fp32 step (gas 1), all kernels against
 # all plain versions (model kernels and the wire's): the reduced gradient
 # and the update no further apart than WIRE_NOISE_SHARE of the distance
@@ -538,6 +567,11 @@ ZERO3_WIRE = dict(ZEROPP_WIRE, stage=3)
 ZERO3_CHUNKS = 8
 # Z4: run (a)'s peak a rank at least this far below exact ZeRO-2's
 ZERO3_MEMORY_SAVED = 3e9
+# ZeRO-3 for a spec other than causal_lm_spec's: a 4-layer MLP at width
+# 4096 with a regression loss (built here, random from the seed), fp32, at
+# world 2 against the same spec at world 1 without ZeRO, by the training
+# rule: 2 steps, micro 64 rows a rank, gas 2
+ZERO3_MLP = dict(width=4096, layers=4, micro=64, gas=2, steps=2)
 ZERO3_SPANS = ("zero3_gather_issue", "zero3_gather_wait",
                "zero3_gather_unpack", "zero3_reduce_issue",
                "zero3_reduce_wait")
@@ -552,6 +586,10 @@ ZERO3_SPANS = ("zero3_gather_issue", "zero3_gather_wait",
 # run HPZ["gate_layers"] layers at full width (gas 1, micro 1 a rank), each
 # hpZ step against the same step at data = 4 (hpZ off).
 HPZ = dict(ZERO3, world=4)
+# the phase's main path runs this many of llama_750m's 20 layers (width
+# unchanged): the cut that keeps the whole script within its time; the
+# gates keep their own depth
+HPZ_LAYERS = 10
 HPZ_Z = 2
 HPZ_TRIO = {"stage": 3, "zero_hpz_partition_size": HPZ_Z,
             "zero_quantized_gradients": True, "zero_quantized_weights": True}
@@ -632,8 +670,10 @@ def nvidia_smi() -> str:
 
 
 def counter_dicts():
-    """Every kernel wrapper's launch counts."""
+    """Every kernel wrapper's launch counts (and the host library's
+    calls)."""
     from deepspeed_tpu_torch.ops import block_sparse as BS
+    from deepspeed_tpu_torch.ops import cpu_adam
     from deepspeed_tpu_torch.ops import evoformer as EV
     from deepspeed_tpu_torch.ops import flash_attention as PF
     from deepspeed_tpu_torch.ops import fused_adam as FA
@@ -643,7 +683,8 @@ def counter_dicts():
     from deepspeed_tpu_torch.ops import quant_kernels as QK
 
     return (PA.launches, norms.launches, PF.launches, FA.launches,
-            GG.launches, BS.launches, EV.launches, QK.launches)
+            GG.launches, BS.launches, EV.launches, QK.launches,
+            cpu_adam.calls)
 
 
 def reset_counts():
@@ -858,7 +899,9 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
     steps = t["steps"]
     dev_peak(dev, reset=True)
     t0 = time.perf_counter()
-    spec = dtt.causal_lm_spec(t["model"], attention="flash", remat="full")
+    depth = {"num_layers": t["layers"]} if t.get("layers") else {}
+    spec = dtt.causal_lm_spec(t["model"], attention="flash", remat="full",
+                              **depth)
     engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
         t["micro"], t["gas"], precision, zero), device=dev)
     dev_sync(dev)
@@ -884,6 +927,7 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
         "warmup_step_seconds": warm_s, "losses": [first] + losses,
         "step_walls_s": walls, "step_ms": float(np.median(walls)) * 1e3,
         "launches": counts, "traffic": traffic,
+        "adam_per_step": adam_launches_per_step(engine),
         "peak_memory_bytes": dev_peak(dev),
         "n_sharded": engine._n_sh, "n_replicated": engine._n_rep,
         "plan_chunks": [list(b) for b in
@@ -911,7 +955,7 @@ def zeropp_profile(engine, data, dev, profiled):
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = ("zero_pack", "zero_publish", "qgz_quantize", "qgz_sent",
              "qgz_all_to_all", "qgz_dequant_reduce", "qwz_publish",
-             "zero_reduce_exact") + ZERO3_SPANS
+             "zero_reduce_issue", "zero_reduce_wait") + ZERO3_SPANS
     hist = telemetry.get_registry().histogram("span_seconds")
     host_ms = {sp: hist.summary(span=sp).get("sum", 0.0) * 1e3
                for sp in spans}
@@ -947,7 +991,8 @@ def zeropp_profile(engine, data, dev, profiled):
             "wire_span_device_ms": dev_spans or "not measured",
             "host_span_ms": host_ms,
             "wire_host_ms_gloo": sum(host_ms[k] for k in (
-                "qgz_all_to_all", "qwz_publish", "zero_reduce_exact")),
+                "qgz_all_to_all", "qwz_publish", "zero_reduce_issue",
+                "zero_reduce_wait")),
             "device_idle_share": (1 - device_ms / wall_ms if device_ms
                                   else "not measured")}
 
@@ -968,7 +1013,7 @@ def wire_gates(engine, batch, dev):
     mb = {k: v[0] for k, v in mb.items()}
     with engine._step_buffers():        # ZeRO-3: the step's full gradient
         engine._loss_and_grads(mb, None)
-        engine._pack(accumulate=False)
+        engine._pack()
         x = engine._packed
         engine.flat_grad.zero_()
     if engine.loco_err is not None:
@@ -1010,9 +1055,11 @@ def wire_gates(engine, batch, dev):
 
 
 def zeropp_gate_step(t, dev, master, batch, zero, precision, kernels):
-    """One step (gas 1, the gate's micro) from ``master`` on this rank:
-    (sharded elements, loss, reduced gradient, update) — the gradient's and
+    """One step (the gate's micro; ``batch`` one micro-batch, or a list of
+    them: gas their number) from ``master`` on this rank: (sharded
+    elements, loss, reduced gradient, update) — the gradient's and
     update's local buffers stay on the device."""
+    batches = batch if isinstance(batch, list) else [batch]
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models.convert import load_master
 
@@ -1021,10 +1068,10 @@ def zeropp_gate_step(t, dev, master, batch, zero, precision, kernels):
         dtype="float32" if precision == "fp32" else "bfloat16")
     with (contextlib.nullcontext() if kernels else plain_wire()):
         engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
-            t["gate_micro"], 1, precision, zero), device=dev)
+            t["gate_micro"], len(batches), precision, zero), device=dev)
         load_master(engine, master)
         before = engine.flat_master.clone()
-        loss = float(engine.train_batch(iter([batch])))
+        loss = float(engine.train_batch(iter(batches)))
     grad = engine.flat_grad_acc.float()
     update = engine.flat_master - before
     n_sh = engine._n_sh
@@ -1079,6 +1126,79 @@ def zeropp_gates(t, dev, master, batch):
     return res, problems
 
 
+def overlap_counts_want(engine):
+    """The exact stage 1-2 wire's reduces and publishes a step by formula,
+    from the config's sizes and the model's leaves (not from the engine's
+    plan): under ``overlap_comm`` a reduce a layer chunk (``chunk_layers``
+    over ``allgather_bucket_size``) and a reduce a ``reduce_bucket_size``
+    bucket of the other leaves, each issued by the last micro-batch's
+    gradient hooks, and a publish an ``update_bucket_size`` bucket holding
+    a sharded leaf; off, one reduce after the backward and the publish in
+    one pass."""
+    from deepspeed_tpu_torch.parallel import stage3 as S3
+    from deepspeed_tpu_torch.parallel.overlap import (
+        chunk_layers,
+        leaf_count,
+        plan_buckets,
+    )
+
+    zcfg, shards = engine.config.zero_optimization, engine._shards
+    if not zcfg.overlap_comm:
+        return {"chunk": 0, "bucket": 1, "late": 1, "publish": 0}
+    sizes = [leaf_count(sh.slot.shape) for sh in shards]
+    L = engine.model_spec.config.num_layers
+    per_layer = sum(n for n, sh in zip(sizes, shards)
+                    if sh.slot.path[0] == "blocks") // L
+    chunked = S3.chunked_shards(shards)
+    head = [n for n, sh in zip(sizes, shards)
+            if all(sh is not c for c in chunked)]
+    upd = plan_buckets(sizes, update_bucket_elems(zcfg))
+    return {"chunk": len(chunk_layers(L, per_layer,
+                                      int(zcfg.allgather_bucket_size))),
+            "bucket": len(plan_buckets(head, int(zcfg.reduce_bucket_size))),
+            "late": 0,
+            "publish": sum(any(shards[i].dim is not None for i in b)
+                           for b in upd)}
+
+
+def update_bucket_elems(zcfg):
+    ub = zcfg.update_bucket_size
+    return int(zcfg.reduce_bucket_size if ub == "auto" else ub)
+
+
+def overlap_gate(t, dev, master, batches):
+    """One fp32 step over two different micro-batches (so the
+    micro-batches' reduces sum in another order than the once-a-step
+    reduce's) of exact ZeRO-2 with the chunk and bucket reduces and the
+    bucketed update against the once-a-step reduce, from ``master``, by
+    the training rule."""
+    ref = None
+    res = {}
+    for way, zero in (("once", ZEROPP_EXACT_ONCE), ("overlap", ZEROPP_EXACT)):
+        n_sh, loss, grad, upd = zeropp_gate_step(t, dev, master, batches,
+                                                 zero, "fp32", True)
+        if ref is None:
+            ref = {"loss": loss, "grad": grad, "upd": upd,
+                   "g2": gathered_sq(n_sh, grad), "u2": gathered_sq(n_sh, upd)}
+            res[way] = {"loss": loss}
+        else:
+            res[way] = {
+                "loss": loss,
+                "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                "grad_rel": (gathered_sq(n_sh, grad - ref["grad"])
+                             / ref["g2"]) ** 0.5,
+                "update_rel": (gathered_sq(n_sh, upd - ref["upd"])
+                               / ref["u2"]) ** 0.5}
+        del grad, upd
+        dev_free(dev)
+    del ref
+    g = res["overlap"]
+    problems = [f"overlap gate {m} {g[m]:.3g} > {lim}" for m, lim in (
+        ("loss_rel", TRAIN_LOSS_REL), ("grad_rel", TRAIN_GRAD_REL),
+        ("update_rel", TRAIN_UPDATE_REL)) if not g[m] <= lim]
+    return res, problems
+
+
 def train_llama_750m_zeropp_dp2_rank(rank, world, seed, t):
     """One rank of the ZeRO++ phase (``t``: ZEROPP and the device): the
     main path, its profile, the four gates, then exact ZeRO-2 as the
@@ -1102,12 +1222,31 @@ def train_llama_750m_zeropp_dp2_rank(rank, world, seed, t):
     gate_batch = {"tokens": batch["tokens"][:t["gate_micro"] * world]}
     out["gates"], out["gate_problems"] = zeropp_gates(t, dev, master,
                                                       gate_batch)
-    del master
+    # exact ZeRO-2: overlap_comm and overlap_step on (the defaults), then
+    # the once-a-step reduce, then one fp32 step of each by the rule
     engine, data, out["baseline"] = zeropp_run(t, dev, ZEROPP_EXACT, batch)
+    out["baseline"].update(reduce_counts=dict(engine.reduce_counts),
+                           reduce_counts_want=overlap_counts_want(engine),
+                           hooked=engine._grad_hooks,
+                           plan=engine.overlap_plan())
     out["baseline_profile"] = zeropp_profile(engine, data, dev,
                                              profiled=False)
+    engine.close()
     del engine, data
     dev_free(dev)
+    engine, data, out["once"] = zeropp_run(t, dev, ZEROPP_EXACT_ONCE, batch)
+    out["once"].update(reduce_counts=dict(engine.reduce_counts),
+                       reduce_counts_want=overlap_counts_want(engine),
+                       hooked=engine._grad_hooks)
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    rows = t["gate_micro"] * world
+    out["overlap_gate"], problems = overlap_gate(t, dev, master, [
+        {"tokens": batch["tokens"][i * rows:(i + 1) * rows]}
+        for i in range(2)])
+    out["gate_problems"] += problems
+    del master
     return out
 
 
@@ -1157,8 +1296,35 @@ def quantized_reduce_scatter_rank(rank, world, seed, p):
                                      + 1e-6 * exact.abs()).sum())}
 
 
+def adam_launches_per_step(engine):
+    """Fused-Adam launches a step of a data-parallel engine, from the
+    config's sizes and the local buffers' layout (not from the engine's
+    plan): under ``overlap_step`` on the exact stage 1-2 wire one a
+    contiguous run of each ``update_bucket_size`` bucket's leaves; else
+    one."""
+    from deepspeed_tpu_torch.ops.quant_kernels import DEFAULT_BLOCK
+    from deepspeed_tpu_torch.parallel.overlap import leaf_count, plan_buckets
+
+    zcfg = engine.config.zero_optimization
+    if not (zcfg.overlap_step and zcfg.overlap_comm and engine.world > 1
+            and zcfg.stage < 3 and not zcfg.zero_quantized_weights):
+        return 1
+    shards = engine._shards
+    runs = 0
+    for b in plan_buckets([leaf_count(sh.slot.shape) for sh in shards],
+                          update_bucket_elems(zcfg)):
+        spans = sorted(
+            (sh.offset, sh.offset + -(-sh.n_loc // DEFAULT_BLOCK)
+             * DEFAULT_BLOCK) if sh.dim is not None
+            else (engine._n_sh + sh.offset,
+                  engine._n_sh + sh.offset + -(-sh.n_loc // 64) * 64)
+            for sh in (shards[i] for i in b))
+        runs += 1 + sum(a[1] != c[0] for a, c in zip(spans, spans[1:]))
+    return runs
+
+
 def zero3_launches_want(L, gas, steps, chunks, wire, loco=True,
-                        replica=False):
+                        replica=False, adam_per_step=1):
     """Kernel launches a rank of a ZeRO-3 phase makes in ``steps`` steps:
     flash forward twice a layer (the forward and remat's recompute), dq
     and dkv once; the norms 4 a layer and the final one; Adam once a step.
@@ -1175,7 +1341,7 @@ def zero3_launches_want(L, gas, steps, chunks, wire, loco=True,
     return {"quant_int8": quant * micros if wire else 0,
             "dequant_reduce": dequant * micros if wire else 0,
             "flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
-            "flash_bwd_dkv": L * micros, "fused_adam": steps,
+            "flash_bwd_dkv": L * micros, "fused_adam": adam_per_step * steps,
             "rms_norm": (4 * L + 1) * micros, "block_sparse_fwd": 0,
             "gmm": 0, "tgmm": 0, "evoformer_fwd": 0, "paged_attention": 0}
 
@@ -1358,6 +1524,115 @@ def zero3_gates(t, dev, batch):
     return res
 
 
+def mlp_spec(width, layers):
+    """A spec without the parameter hook: ``layers`` dense layers of
+    ``width`` (GELU between them) with a mean-squared regression loss; the
+    ZeRO layout shards each leaf's largest dim."""
+    import torch
+
+    import deepspeed_tpu_torch as dtt
+
+    names = [f"layer{i}" for i in range(layers)]
+
+    def init_fn(gen, device):
+        return {n: {"w": torch.randn(width, width, generator=gen,
+                                     device=device) / width ** 0.5,
+                    "b": torch.zeros(width, device=device)} for n in names}
+
+    def loss_fn(p, batch):
+        h = batch["x"]
+        for i, n in enumerate(names):
+            h = h @ p[n]["w"] + p[n]["b"]
+            if i < layers - 1:
+                h = torch.nn.functional.gelu(h)
+        return torch.mean(torch.square(h - batch["y"]))
+
+    return dtt.ModelSpec(
+        init_fn=init_fn, loss_fn=loss_fn, name=f"mlp_{layers}x{width}",
+        num_params=layers * (width * width + width),
+        axes_fn=lambda: {n: {"w": (None, None), "b": (None,)}
+                         for n in names})
+
+
+def mlp_batches(seed, m, rows):
+    """``m["gas"]`` micro-batches of ``rows`` global rows, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [{k: rng.standard_normal((rows, m["width"]), dtype=np.float32)
+             for k in ("x", "y")} for _ in range(m["gas"])]
+
+
+def mlp_run(dev, zero, micro, seed, m, path=None):
+    """The MLP spec through ``initialize`` + ``train_batch`` in fp32: the
+    initial master, the losses and grad norms of ``m["steps"]`` steps and
+    the master after step 1 (whole trees on the CPU, flattened); saved to
+    ``path`` when given. Collective on a data-parallel engine."""
+    import torch
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import gather_master
+
+    def flat():
+        return torch.cat([torch.as_tensor(v).reshape(-1) for _, v in sorted(
+            _flat_items(gather_master(engine)))])
+
+    world = dtt.comm.get_world_size()
+    engine, *_ = dtt.initialize(model=mlp_spec(m["width"], m["layers"]),
+                                config=zeropp_config(micro, m["gas"], "fp32",
+                                                     zero), device=dev)
+    batches = mlp_batches(seed, m, micro * world)
+    out = {"type": type(engine).__name__, "m0": flat(), "losses": [],
+           "norms": [], "counts": []}
+    t0 = time.perf_counter()
+    for step in range(m["steps"]):
+        out["losses"].append(float(engine.train_batch(iter(batches))))
+        out["norms"].append(engine.get_global_grad_norm())
+        if hasattr(engine, "_zero3"):
+            out["counts"].append(dict(engine._zero3.counts))
+        if step == 0:
+            out["m1"] = flat()
+    dev_sync(dev)
+    out["seconds"] = time.perf_counter() - t0
+    if hasattr(engine, "close"):
+        engine.close()
+    del engine
+    dev_free(dev)
+    if path is not None:
+        torch.save(out, path)
+    return out
+
+
+def _flat_items(tree, prefix=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat_items(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def mlp_gate(got, ref):
+    """ZeRO-3 at world 2 against world 1 without ZeRO by the training
+    rule: the same initial master, every step's loss and grad norm, the
+    update of step 1."""
+    update = ((got["m1"] - got["m0"]) - (ref["m1"] - ref["m0"])).norm() \
+        / (ref["m1"] - ref["m0"]).norm()
+    res = {"init_bit_equal": bool(same_bits(got["m0"], ref["m0"])),
+           "loss_rel": [abs(a - b) / abs(b) for a, b in
+                        zip(got["losses"], ref["losses"])],
+           "norm_rel": [abs(a - b) / abs(b) for a, b in
+                        zip(got["norms"], ref["norms"])],
+           "update_rel": float(update)}
+    problems = []
+    if not res["init_bit_equal"]:
+        problems.append("MLP: initial master differs from world 1's")
+    if not max(res["loss_rel"]) <= TRAIN_LOSS_REL:
+        problems.append(f"MLP loss rel {res['loss_rel']}")
+    if not max(res["norm_rel"]) <= TRAIN_NORM_REL:
+        problems.append(f"MLP grad norm rel {res['norm_rel']}")
+    if not res["update_rel"] <= TRAIN_UPDATE_REL:
+        problems.append(f"MLP update rel {res['update_rel']:.3g}")
+    return res, problems
+
+
 def train_llama_750m_zero3_dp2_rank(rank, world, seed, t):
     """One rank of the ZeRO-3 phase (``t``: ZERO3, the device, whether to
     run the ZeRO-2 baseline): run (a) exact ZeRO-3 — the main path, the
@@ -1394,8 +1669,18 @@ def train_llama_750m_zero3_dp2_rank(rank, world, seed, t):
     if t["baseline"]:
         engine, data, out["baseline"] = zeropp_run(t, dev, ZEROPP_EXACT,
                                                    batch)
+        engine.close()
         del engine, data
         dev_free(dev)
+    if t.get("mlp_ref"):
+        import torch
+
+        m = t["mlp"]
+        got = mlp_run(dev, {"stage": 3}, m["micro"], seed, m)
+        out["mlp"], out["mlp_problems"] = mlp_gate(
+            got, torch.load(t["mlp_ref"]))
+        out["mlp"].update(type=got["type"], counts=got["counts"],
+                          losses=got["losses"], seconds=got["seconds"])
     return out
 
 
@@ -1505,7 +1790,7 @@ def replica_gate(engine, batch, dev):
     mb = {k: v[0] for k, v in mb.items()}
     with engine._step_buffers():        # the step's full gradient
         engine._loss_and_grads(mb, None)
-        engine._pack(accumulate=False)
+        engine._pack()
         x = engine._packed
     n = x.shape[1]
     with torch.no_grad():
@@ -1707,8 +1992,19 @@ SUPER_HOST_BYTES = 18
 SUPER_HOST_MARGIN = 1.25
 SUPER_MASTER_REL = 1e-6
 # the host Adam's bytes a parameter: p, g, m, v read (16), p, m, v and the
-# bf16 copy written (14)
+# bf16 copy written (14); its prep pass reads and writes g (8)
 HOST_ADAM_BYTES = 30
+HOST_PREP_BYTES = 8
+# S0: the compiled host Adam (ops/csrc/cpu_adam.cpp) on a 64 M-element
+# slice of the step's real gradient, master and moments, against the CUDA
+# fused-Adam kernel (both IEEE division and sqrt with no contraction: p,
+# m, v and the bf16 copy bit-equal expected; else p within S0_P_ULPS ulp on
+# at most S0_P_SHARE of the elements) and against fused_adam_ref (m and v
+# bit-equal, p different only where PyTorch's CPU sqrt is not correctly
+# rounded); the prep pass's norm bit-equal at 1 thread and at all
+S0_ELEMS = 1 << 26
+S0_P_ULPS = 1
+S0_P_SHARE = 1e-4
 # train_llama_750m_offload: llama_750m at its training shape (micro 4, seq
 # 2048, gas 4, bf16, ZeRO-1, flash, remat full), 1 warm-up + 2 steps a run:
 # (a) offload_optimizer cpu, (b) offload_optimizer nvme, each bit-equal to
@@ -1720,6 +2016,12 @@ HOST_ADAM_BYTES = 30
 # OFFLOAD["param_layers"] layers, bit-equal to the run without it.
 OFFLOAD = dict(model="llama_750m", micro=4, seq=2048, gas=4, steps=2,
                gate_layers=4, gate_micro=1, param_layers=8)
+# (d) at world 1 runs JAX's in-step streaming mode (the master in pinned
+# host memory through the step, streamed a chunk at a time); the int8
+# wire, which needs two ranks, keeps the boundary swap: ZeRO-3 + qgZ + qwZ
+# with and without offload_param cpu at world 2, bit-equal
+OFFLOAD_INT8 = {"stage": 3, "zero_quantized_gradients": True,
+                "zero_quantized_weights": True}
 ZENFLOW = {"enabled": True, "topk_ratio": 0.01, "update_interval": 2}
 # ZenFlow's kernels-vs-plain step (the training rule): the whole gradient
 # (the applied hot part plus cold_acc) by TRAIN_GRAD_REL; coordinates hot
@@ -1946,7 +2248,7 @@ def super_gate_problems(g):
 
 
 def offload_run(t, dev, zero, batch, precision="bf16", layers=None,
-                after_step=None, ref=None):
+                after_step=None, ref=None, probe=None):
     """One config's main path in this process: initialize, a warm-up step,
     then ``t["steps"]`` timed steps with the counters set to 0 just before
     and read just after; ``after_step(engine)`` after every step (its
@@ -1960,6 +2262,8 @@ def offload_run(t, dev, zero, batch, precision="bf16", layers=None,
     engine = offload_engine(t, dev, zero, precision, layers=layers)
     dev_sync(dev)
     init_s = time.perf_counter() - t0
+    if probe is not None:
+        probe(engine)
     data = itertools.repeat(batch)
     checks = []
     t0 = time.perf_counter()
@@ -1981,6 +2285,7 @@ def offload_run(t, dev, zero, batch, precision="bf16", layers=None,
     counts = read_counts()
     peak = dev_peak(dev) - held
     res = {"losses": [first] + losses, "init_seconds": init_s,
+           "held_bytes": held,
            "warmup_step_seconds": warm_s, "step_walls_s": walls,
            "step_ms": float(np.median(walls)) * 1e3, "launches": counts,
            "peak_memory_bytes": peak,
@@ -2039,6 +2344,158 @@ def nvme_swap_times(engine):
     return last
 
 
+def host_adam_gate(engine, dev, n=S0_ELEMS):
+    """S0 on the SuperOffload engine after its steps: a slice of the last
+    step's gradient (as the host took it), master and moments through the
+    host library, the CUDA kernel and the plain version on the same inputs;
+    each way's host seconds; the prep pass at 1 thread and at all."""
+    import torch
+    from deepspeed_tpu_torch.ops import cpu_adam
+    from deepspeed_tpu_torch.ops import fused_adam as FA
+
+    runner = engine._host_runner
+    runner.wait()
+    n = min(n, engine._numel)
+    opt, st = engine.optimizer, engine.state["opt"]
+    g = runner.landing[:n].float().clone()
+    p0, m0, v0 = (x[:n].clone() for x in (engine.flat_master,
+                                          st["exp_avg"], st["exp_avg_sq"]))
+    lr, bc1, bc2 = opt.begin_step(st, engine._lr_at(engine.state["step"]))
+    hyper = (lr, tuple(opt.betas), opt.eps, opt.weight_decay, bc1, bc2,
+             opt.adam_w_mode)
+    out = {"elements": n, "threads": torch.get_num_threads()}
+
+    def host_run(fn):
+        p, m, v = p0.clone(), m0.clone(), v0.clone()
+        o = torch.empty(n, dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        fn(p, m, v, o)
+        return (p, m, v, o), time.perf_counter() - t0
+
+    cpp, out["host_adam_s"] = host_run(
+        lambda p, m, v, o: cpu_adam.adam(p, g, m, v, *hyper, out=o))
+
+    def plain(p, m, v, o):
+        for i in range(0, n, FA.CHUNK):
+            c = slice(i, i + FA.CHUNK)
+            FA.fused_adam_ref(p[c], g[c], m[c], v[c], *hyper, out=o[c])
+
+    ref, out["plain_s"] = host_run(plain)
+    names = ("p", "m", "v", "bf16")
+    out["vs_plain_bit_equal"] = {k: bool(torch.equal(a, b))
+                                 for k, a, b in zip(names, cpp, ref)}
+    q = ref[2] / torch.tensor(bc2, dtype=torch.float32)
+    off = torch.sqrt(q) != torch.sqrt(q.double()).float()
+    differ = cpp[0] != ref[0]
+    out["vs_plain_p_max_abs"] = float((cpp[0] - ref[0]).abs().max())
+    out["vs_plain_p_differ"] = int(differ.sum())
+    out["vs_plain_p_differ_outside_sqrt"] = int((differ & ~off).sum())
+    del q, off, differ, ref
+    try:
+        # the library call: PyTorch's fused AdamW on the CPU, one step
+        param = torch.nn.Parameter(p0.clone())
+        param.grad = g.clone()
+        adamw = torch.optim.AdamW([param], lr=lr, betas=hyper[1],
+                                  eps=hyper[2], weight_decay=hyper[3],
+                                  fused=True)
+        t0 = time.perf_counter()
+        adamw.step()
+        out["library_s"] = time.perf_counter() - t0
+        del param, adamw
+    except (RuntimeError, TypeError) as e:
+        out["library_s"] = None
+        out["library_error"] = f"{type(e).__name__}: {e}"
+    if dev.type == "cuda":
+        d = [x.to(dev) for x in (p0, g, m0, v0)]
+        do = torch.empty(n, dtype=torch.bfloat16, device=dev)
+        FA.fused_adam(d[0], d[1], d[2], d[3], *hyper, out=do)
+        kern = [x.cpu() for x in (d[0], d[2], d[3], do)]
+        del d, do
+        out["vs_cuda_bit_equal"] = {k: bool(torch.equal(a, b))
+                                    for k, a, b in zip(names, cpp, kern)}
+        ulps = (cpp[0].view(torch.int32).long()
+                - kern[0].view(torch.int32).long()).abs()
+        out["vs_cuda_p_max_ulps"] = int(ulps.max())
+        out["vs_cuda_p_differ"] = int((ulps > 0).sum())
+        out["vs_cuda_differ"] = {k: int((a != b).sum()) for k, a, b in
+                                 zip(names, cpp, kern)}
+        del kern, ulps
+    else:
+        out["vs_cuda_bit_equal"] = "not measured"
+    sums = {}
+    for threads in (1, os.cpu_count() or 1):
+        gg = g.clone()
+        t0 = time.perf_counter()
+        sums[threads] = cpu_adam.grad_prep(
+            gg, float(engine.gradient_accumulation_steps()),
+            threads=threads)[0]
+        out[f"prep_s_threads_{threads}"] = time.perf_counter() - t0
+    out["norm_sums"] = sums
+    out["norm_bit_equal"] = len(set(sums.values())) == 1
+    return out
+
+
+def host_adam_gate_problems(g):
+    out = []
+    if g["vs_cuda_bit_equal"] != "not measured" and not all(
+            g["vs_cuda_bit_equal"].values()):
+        bad = {k: v for k, v in g["vs_cuda_differ"].items()
+               if k != "p" and v}
+        if bad:
+            out.append(f"S0 host vs CUDA kernel differ in {bad}")
+        if not (g["vs_cuda_p_max_ulps"] <= S0_P_ULPS and g["vs_cuda_p_differ"]
+                <= S0_P_SHARE * g["elements"]):
+            out.append(f"S0 host vs CUDA p: {g['vs_cuda_p_differ']} elements"
+                       f" differ, up to {g['vs_cuda_p_max_ulps']} ulp")
+    for k in ("m", "v"):
+        if not g["vs_plain_bit_equal"][k]:
+            out.append(f"S0 host vs plain: {k} differs")
+    if g["vs_plain_p_differ_outside_sqrt"]:
+        out.append(f"S0 host vs plain: p differs at "
+                   f"{g['vs_plain_p_differ_outside_sqrt']} elements where "
+                   "PyTorch's sqrt is correctly rounded")
+    if not g["norm_bit_equal"]:
+        out.append(f"S0 the norm's sum differs by threads: {g['norm_sums']}")
+    return out
+
+
+def stream_probe(engine, dev):
+    """Per step of a streaming ``offload_param`` engine: the device peak of
+    the forward and backward (before the update) and of the whole step
+    (each less nothing: raw bytes), and each streamed update pass's
+    seconds (CUDA events around it)."""
+    import torch
+
+    rec = {"fb_peak": [], "step_peak": [], "pass_ms": []}
+    tiers, update, stream = (engine._tiers_before_step,
+                             engine._tiered_update, engine._stream_pass)
+
+    def before():
+        dev_peak(dev, reset=True)
+        return tiers()
+
+    def tiered(scale):
+        rec["fb_peak"].append(dev_peak(dev))
+        res = update(scale)
+        rec["step_peak"].append(dev_peak(dev))
+        return res
+
+    def timed(g=None, lr=None, out=None):
+        if g is None or dev.type != "cuda":
+            return stream(g, lr, out)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = stream(g, lr, out)
+        ev[1].record()
+        ev[1].synchronize()
+        rec["pass_ms"].append(ev[0].elapsed_time(ev[1]))
+        return res
+
+    engine._tiers_before_step, engine._tiered_update = before, tiered
+    engine._stream_pass = timed
+    return rec
+
+
 def train_llama_750m_offload_param_rank(rank, world, seed, t):
     """(d) of the 750m offload phase on one rank: ZeRO-3 at ``world``
     (world 1: one process shards nothing) without offload, with
@@ -2064,18 +2521,38 @@ def train_llama_750m_offload_param_rank(rank, world, seed, t):
                 and dev.type == "cuda" else None}
 
     out, ref = {}, None
+    wire = t.get("wire") or {"stage": 3}
     for run, off in (("none", None), ("cpu", {"device": "cpu"}),
                      ("nvme", {"device": "nvme",
                                "nvme_path": t["nvme_path"]})):
-        zero = {"stage": 3}
+        if run not in t.get("runs", ("none", "cpu", "nvme")):
+            continue
+        zero = dict(wire)
         if off:
             zero["offload_param"] = off
+        probe = {}
         engine, res = offload_run(t, dev, zero, batch,
                                   layers=t["param_layers"], after_step=tier,
-                                  ref=ref)
+                                  ref=ref, probe=lambda e: probe.update(
+                                      stream_probe(e, dev)
+                                      if e._param_stream else {}))
         if ref is None:
             ref = res.pop("_master")
-        res["engine"] = type(engine).__name__
+        res.update(engine=type(engine).__name__, stream=engine._param_stream,
+                   wire=engine._wire_format(), stream_counts=dict(
+                       engine.stream_counts))
+        if probe:
+            held = res["held_bytes"]
+            nbytes = 4 * engine.flat_master.numel()
+            res.update(
+                fb_peak_bytes=[b - held for b in probe["fb_peak"]],
+                step_peak_bytes=[b - held for b in probe["step_peak"]],
+                stream_pass_ms=probe["pass_ms"],
+                stream_chunks=len(engine._stream_ranges()),
+                stream_staging_bytes=sum(b.numel() * 4
+                                         for b in engine._stream_bufs),
+                stream_gbs_each_way=[nbytes / (ms / 1e3) / 1e9
+                                     for ms in probe["pass_ms"]])
         out[run] = res
         engine.close()
         del engine
@@ -2239,6 +2716,7 @@ class Smoke:
         self.dev = torch.device("cuda:0")
         self.card = ""
         self.launches = {}       # kernel → {model: launches on its run}
+        self.host_rows = {}      # the host library's row of the kernels line
         self.ticks = {}          # model → ticks of its main-path run
         self.steps = {}          # train_<model> → steps of its main-path run
         self.errs = {}           # kernel → max abs err at the main-path shape
@@ -2268,13 +2746,21 @@ class Smoke:
         torch = self.torch
         from deepspeed_tpu_torch.ops import build, norms
 
+        from deepspeed_tpu_torch.ops import cpu_adam
+
         t0 = time.perf_counter()
         build.build_all()
         nvcc_s = time.perf_counter() - t0
+        cpu_adam.norm_block()           # the host library, with g++
+        host = build.build_log["host:cpu_adam"]
+        emit("build/host_library", name="cpu_adam",
+             seconds=host["seconds"], cached=host["cached"],
+             flags=host["flags"], path=host["path"])
         ptxas = {name: [ln.strip() for ln in str(log["ptxas"]).splitlines()
                         if "Used" in ln or "spill" in ln
                         or "entry function" in ln]
-                 for name, log in build.build_log.items()}
+                 for name, log in build.build_log.items()
+                 if not name.startswith("host:")}
         t0 = time.perf_counter()
         x = torch.randn(4, 4096, device=self.dev, dtype=torch.bfloat16)
         norms.rms_norm(x, torch.ones(4096, device=self.dev,
@@ -3882,7 +4368,8 @@ class Smoke:
         want = {"quant_int8": (gas + groups) * steps,
                 "dequant_reduce": (2 * gas + groups) * steps,
                 "flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
-                "flash_bwd_dkv": L * micros, "fused_adam": steps,
+                "flash_bwd_dkv": L * micros,
+                "fused_adam": ranks[0]["main"]["adam_per_step"] * steps,
                 "rms_norm": (4 * L + 1) * micros, "block_sparse_fwd": 0,
                 "gmm": 0, "tgmm": 0, "evoformer_fwd": 0,
                 "paged_attention": 0}
@@ -3902,6 +4389,19 @@ class Smoke:
                     problems.append(f"{tag}: {run} loss did not fall: {ls}")
             if r["main"]["losses"] != ranks[0]["main"]["losses"]:
                 problems.append(f"{tag}: the ranks' losses differ")
+            b = r["baseline"]
+            if not b["hooked"] or b["reduce_counts"] \
+                    != b["reduce_counts_want"]:
+                problems.append(f"{tag}: exact ZeRO-2 reduces "
+                                f"{b['reduce_counts']}, want "
+                                f"{b['reduce_counts_want']}")
+            if not b["plan"]["step_overlap"]:
+                problems.append(f"{tag}: exact ZeRO-2 without step overlap")
+            if r["once"]["hooked"] or r["once"]["reduce_counts"] \
+                    != r["once"]["reduce_counts_want"]:
+                problems.append(f"{tag}: the unhooked run's reduces "
+                                f"{r['once']['reduce_counts']}, want "
+                                f"{r['once']['reduce_counts_want']}")
             for k in ("q_bitwise_equal", "scales_bitwise_equal",
                       "reduced_bitwise_equal"):
                 if not wg[k]:
@@ -3934,13 +4434,19 @@ class Smoke:
                   "exact_zero2_baseline": dict(rates(r0["baseline"]),
                                                per_rank=[r["baseline"]
                                                          for r in ranks]),
+                  "exact_zero2_once_a_step": dict(rates(r0["once"]),
+                                                  per_rank=[r["once"]
+                                                            for r in ranks]),
                   "profile_rank0": r0["profile"],
                   "baseline_profile_rank0": r0["baseline_profile"]}
         emit("train_llama_750m_zeropp_dp2", **result)
         emit("train_llama_750m_zeropp_dp2/gates", card=self.card,
              wire_gate=[r["wire_gate"] for r in ranks],
              step_gate=r0["gates"],
+             overlap_gate=[r["overlap_gate"] for r in ranks],
              bounds={"loss_rel": TRAIN_LOSS_REL,
+                     "grad_rel": TRAIN_GRAD_REL,
+                     "update_rel": TRAIN_UPDATE_REL,
                      "wire_noise_share": WIRE_NOISE_SHARE,
                      "bf16_vs_plain": BF16_VS_PLAIN,
                      "quant_err": "sum_w scale_w / 2 / W + 1e-6 |exact|"})
@@ -3977,16 +4483,28 @@ class Smoke:
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"])
         L = cfg.num_layers
+        # the MLP's reference: the same spec at world 1 without ZeRO
+        mlp = dict(ZERO3_MLP, **t.get("mlp", {}))
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mlp_")
+        ref_path = os.path.join(tmp, "ref.pt")
+        mlp_ref = mlp_run(self.dev, {"stage": 0}, mlp["micro"] * world,
+                          self.seed, mlp, path=ref_path)
+        del mlp_ref["m0"], mlp_ref["m1"]
         t0 = time.perf_counter()
-        ranks = spawn_ranks("train_llama_750m_zero3_dp2_rank", world,
-                            self.seed, dict(t, device=str(self.dev)))
+        try:
+            ranks = spawn_ranks("train_llama_750m_zero3_dp2_rank", world,
+                                self.seed, dict(t, device=str(self.dev),
+                                                mlp=mlp, mlp_ref=ref_path))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         wall = time.perf_counter() - t0
         baselines = ([r["baseline"] for r in ranks] if t["baseline"]
                      else self.state["zeropp"]["baseline_runs"])
         bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
-        want = {run: zero3_launches_want(L, gas, steps, ZERO3_CHUNKS,
-                                         wire=run == "wire")
-                for run in ("exact", "wire")}
+        want = {run: zero3_launches_want(
+            L, gas, steps, ZERO3_CHUNKS, wire=run == "wire",
+            adam_per_step=ranks[0][run]["adam_per_step"])
+            for run in ("exact", "wire")}
         problems = []
         for r, base in zip(ranks, baselines):
             tag = f"rank {r['rank']}"
@@ -4020,6 +4538,16 @@ class Smoke:
                 r["gates"])]
             problems += [f"{tag}: {p}" for p in zero3_memory_problems(
                 r["exact"]["peak_memory_bytes"], base["peak_memory_bytes"])]
+            problems += [f"{tag}: {p}" for p in r["mlp_problems"]]
+            if r["mlp"]["type"] != "Zero3Engine" or mlp_ref["type"] \
+                    != "DeepSpeedTPUEngine":
+                problems.append(f"{tag}: MLP engines {r['mlp']['type']}, "
+                                f"{mlp_ref['type']}")
+            if r["mlp"]["counts"] != [{"gather_fwd": mlp["gas"],
+                                       "gather_bwd": 0,
+                                       "reduce": mlp["gas"]}] * mlp["steps"]:
+                problems.append(f"{tag}: MLP gathers and reduces "
+                                f"{r['mlp']['counts']}")
         tokens = t["micro"] * t["seq"] * gas * world
         flops = flops_per_token(cfg, t["seq"]) * tokens
 
@@ -4049,6 +4577,9 @@ class Smoke:
                      for k, v in runs.items()},
                   "per_rank": runs,
                   "exposed_wire_rank0": r0["exposed"],
+                  "any_spec_mlp": dict(config=mlp, world1_losses=mlp_ref[
+                      "losses"], world1_seconds=mlp_ref["seconds"],
+                      per_rank=[r["mlp"] for r in ranks]),
                   "profile_rank0": r0["exact_profile"],
                   "wire_profile_rank0": r0["wire_profile"]}
         emit("train_llama_750m_zero3_dp2", **result)
@@ -4085,8 +4616,8 @@ class Smoke:
 
     def phase_train_llama_750m_hpz_dp4(self):
         """Four ranks on the card, mesh data 2 x zshard 2: the ZeRO++ trio
-        and MiCS at stage 3 at the full width and depth of
-        zero3_llama_750m_bf16, gates H1-H5
+        and MiCS at stage 3 at the full width of zero3_llama_750m_bf16 and
+        HPZ_LAYERS of its layers, gates H1-H5
         (``train_llama_750m_hpz_dp4_rank``)."""
         torch = self.torch
         from deepspeed_tpu_torch.models import transformer as T
@@ -4095,20 +4626,22 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = HPZ
+        t = dict(HPZ, layers=HPZ_LAYERS)
         world, gas, steps = t["world"], t["gas"], t["steps"]
-        cfg = T.get_model_config(t["model"])
+        cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         L = cfg.num_layers
         t0 = time.perf_counter()
         ranks = spawn_ranks("train_llama_750m_hpz_dp4_rank", world,
                             self.seed, dict(t, device=str(self.dev)))
         wall = time.perf_counter() - t0
         bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
-        want = {"trio": zero3_launches_want(L, gas, steps, ZERO3_CHUNKS,
-                                            wire=True, loco=False,
-                                            replica=True),
-                "mics": zero3_launches_want(L, gas, steps, ZERO3_CHUNKS,
-                                            wire=False)}
+        want = {"trio": zero3_launches_want(
+                    L, gas, steps, ZERO3_CHUNKS, wire=True, loco=False,
+                    replica=True,
+                    adam_per_step=ranks[0]["trio"]["adam_per_step"]),
+                "mics": zero3_launches_want(
+                    L, gas, steps, ZERO3_CHUNKS, wire=False,
+                    adam_per_step=ranks[0]["mics"]["adam_per_step"])}
         problems, traffic_want = [], {}
         for r in ranks:
             tag = f"rank {r['rank']}"
@@ -4180,6 +4713,9 @@ class Smoke:
                   "mesh": {"data": world // HPZ_Z, "zshard": HPZ_Z},
                   "micro": t["micro"], "seq": t["seq"], "gas": gas,
                   "steps": steps, "zero_a": HPZ_TRIO, "zero_b": HPZ_MICS,
+                  "layers": L, "reduced": f"{L} of "
+                  f"{T.get_model_config(t['model']).num_layers} layers, to "
+                  "keep the whole script within its time",
                   "chunks": bounds, "params": cfg.num_params(),
                   "phase_wall_s": wall, "card": self.card,
                   "wire_note": "gloo through host memory, four ranks "
@@ -4277,6 +4813,7 @@ class Smoke:
         t0 = time.perf_counter()
         first = float(engine.train_batch(data))
         warm_s = time.perf_counter() - t0
+        runner.wait()           # the warm-up's host update, outside the count
         self.reset_counts()
         losses, walls, modes = [], [], []
         profiles = {"overlap": {}, "sync": {}}
@@ -4304,6 +4841,13 @@ class Smoke:
         pinned = sum(b.numel() * b.element_size()
                      for b in (runner.landing, runner.staging))
         acc_b = n * engine.flat_grad_acc.element_size()
+        runner_threads = runner.threads
+        t0 = time.perf_counter()
+        s0 = host_adam_gate(engine, self.dev)
+        s0["seconds"] = time.perf_counter() - t0
+        problems += host_adam_gate_problems(s0)
+        emit("train_llama2_7b_super_offload/s0", card=self.card,
+             bounds={"p_ulps": S0_P_ULPS, "p_share": S0_P_SHARE}, **s0)
         engine.close()
         del engine, runner, data
         dev_free(self.dev)
@@ -4314,6 +4858,12 @@ class Smoke:
         if self.dev.type == "cuda":
             problems += [f"{k} launched {counts[k]} times, want {v}"
                          for k, v in want.items() if counts[k] != v]
+        # every step's update ran in the host library, one call each pass
+        steps_run = t["overlap_steps"] + t["sync_steps"]
+        for k in ("host_grad_prep", "host_adam"):
+            if counts[k] != steps_run:
+                problems.append(f"{k} called {counts[k]} times, want "
+                                f"{steps_run}")
         if not all(np.isfinite([first] + losses)):
             problems.append(f"non-finite loss {[first] + losses}")
         elif not losses[-1] < first:
@@ -4336,7 +4886,8 @@ class Smoke:
         flops = flops_per_token(cfg, t["seq"]) * tokens
         host_s = median("host_update_s")
         d2h_ms, h2d_ms = median("d2h_ms"), median("h2d_ms")
-        bound_s = HOST_ADAM_BYTES * n / (copy_gbs * 1e9)
+        host_bytes = (HOST_ADAM_BYTES + HOST_PREP_BYTES) * n
+        bound_s = host_bytes / (copy_gbs * 1e9)
 
         def gbs(nbytes, ms):
             return nbytes / (ms / 1e3) / 1e9 if isinstance(ms, float) \
@@ -4358,15 +4909,25 @@ class Smoke:
             "warmup_step_seconds": warm_s, "losses": [first] + losses,
             "modes": modes, "step_walls_s": walls,
             "step_s": step_s.get("overlap"), "step_s_sync": step_s.get("sync"),
+            # the overlap steps after the first, whose update k-1 was done
+            # before it began (the warm-up's, waited for the counts)
+            "step_s_overlap_after_first": float(np.median(
+                walls[1:t["overlap_steps"]])),
             "tokens_per_s": tokens / step_s["overlap"],
             "tokens_per_s_sync": tokens / step_s["sync"],
             "mfu": flops / step_s["overlap"] / PEAK_FLOPS["bfloat16"],
             "mfu_sync": flops / step_s["sync"] / PEAK_FLOPS["bfloat16"],
             "host_update_s": host_s,
-            "host_update_gbs": (HOST_ADAM_BYTES * n / host_s / 1e9
+            "host_update_route": "host library ops/csrc/cpu_adam.cpp",
+            "host_prep_s": median("host_prep_s"),
+            "host_adam_s": median("host_adam_s"),
+            "host_threads": runner_threads,
+            "host_update_gbs": (host_bytes / host_s / 1e9
                                 if isinstance(host_s, float)
                                 else "not measured"),
+            "host_update_bytes_per_param": HOST_ADAM_BYTES + HOST_PREP_BYTES,
             "host_update_bound_s": bound_s, "host_copy_gbs": copy_gbs,
+            "s0": s0,
             "d2h_s": d2h_ms / 1e3 if isinstance(d2h_ms, float) else d2h_ms,
             "d2h_gbs": gbs(acc_b, d2h_ms),
             "h2d_s": h2d_ms / 1e3 if isinstance(h2d_ms, float) else h2d_ms,
@@ -4392,6 +4953,24 @@ class Smoke:
                 self.launches.setdefault(k, {})[name] = counts[k]
         self.steps[name] = t["overlap_steps"] + t["sync_steps"]
         self.state["super_offload"] = result
+        # the host library's row of the kernels line: its Adam pass on
+        # S0's slice against the plain version and PyTorch's fused AdamW
+        # on the same inputs
+        slice_bytes = HOST_ADAM_BYTES * s0["elements"]
+        self.host_rows["host_adam"] = {
+            "name": "host_adam", "route": "host",
+            "source": "deepspeed_tpu_torch/ops/csrc/cpu_adam.cpp",
+            "replaces": "deepspeed_tpu/runtime/host_step.py:160",
+            "launches": counts["host_adam"],
+            "max_abs_err": s0["vs_plain_p_max_abs"],
+            "ms": s0["host_adam_s"] * 1e3,
+            "plain_ms": s0["plain_s"] * 1e3,
+            "bound_ms": slice_bytes / (copy_gbs * 1e9) * 1e3,
+            "bound_by": "bytes",
+            "library_ms": None if s0["library_s"] is None
+            else s0["library_s"] * 1e3,
+            "step_update_s": host_s, "step_update_bound_s": bound_s,
+            "threads": runner_threads}
 
     @contextlib.contextmanager
     def device_profile(self, out):
@@ -4494,24 +5073,62 @@ class Smoke:
             problems += [f"({run}) {k} launched {r['launches'][k]} times, "
                          f"want {v}" for run, r in runs.items()
                          for k, v in want.items() if r["launches"][k] != v]
-        # (d): ZeRO-3 at world 1 on a spawned rank
+        # (d): ZeRO-3 at world 1 on a spawned rank, streaming; the int8
+        # wire at world 2, boundary swap
         t0 = time.perf_counter()
         (param,) = spawn_ranks("train_llama_750m_offload_param_rank", 1,
                                self.seed, dict(t, device=str(self.dev),
                                                nvme_path=path))
         param_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        int8 = spawn_ranks("train_llama_750m_offload_param_rank", 2,
+                           self.seed, dict(t, device=str(self.dev),
+                                           nvme_path=path, wire=OFFLOAD_INT8,
+                                           runs=("none", "cpu")))
+        int8_s = time.perf_counter() - t0
         shutil.rmtree(path, ignore_errors=True)
-        for run, where in (("cpu", "cpu"), ("nvme", "file")):
-            r = param[run]
-            if r["losses"] != param["none"]["losses"]:
-                problems.append(f"(d) {run}: losses {r['losses']} != "
-                                f"{param['none']['losses']}")
-            if not r["master_bit_equal"]:
-                problems.append(f"(d) {run}: master differs")
-            bad = [c for c in r["checks"] if c["master"] != where
-                   or c.get("pinned") is False]
-            if bad:
-                problems.append(f"(d) {run}: master between steps {bad}")
+        cuda = self.dev.type == "cuda"
+        for label, res, runs_where, stream in (
+                ("(d)", param, (("cpu", "cpu"), ("nvme", "file")), True),
+                *((f"(d) int8 rank {r}", x, (("cpu", "cpu"),), False)
+                  for r, x in enumerate(int8))):
+            for run, where in runs_where:
+                r = res[run]
+                if r["losses"] != res["none"]["losses"]:
+                    problems.append(f"{label} {run}: losses {r['losses']} "
+                                    f"!= {res['none']['losses']}")
+                if not r["master_bit_equal"]:
+                    problems.append(f"{label} {run}: master differs")
+                bad = [c for c in r["checks"] if c["master"] != where
+                       or c.get("pinned") is False]
+                if bad:
+                    problems.append(f"{label} {run}: master between steps "
+                                    f"{bad}")
+                if r["stream"] != stream:
+                    problems.append(f"{label} {run}: streaming "
+                                    f"{r['stream']}, want {stream}")
+        for x in int8:
+            if x["cpu"]["wire"] != "qz":
+                problems.append(f"(d) int8: wire {x['cpu']['wire']}")
+        d_mem = {}
+        if cuda:
+            none_peak = param["none"]["peak_memory_bytes"]
+            for run in ("cpu", "nvme"):
+                r = param[run]
+                d_mem[run] = {
+                    "fb_peak_gb": max(r["fb_peak_bytes"][1:]) / 1e9,
+                    "step_peak_gb": max(r["step_peak_bytes"][1:]) / 1e9,
+                    "no_offload_step_peak_gb": none_peak / 1e9,
+                    "stream_pass_ms": r["stream_pass_ms"],
+                    "stream_gbs_each_way": r["stream_gbs_each_way"],
+                    "stream_chunks": r["stream_chunks"],
+                    "staging_gb": r["stream_staging_bytes"] / 1e9}
+                # the master (4 B a parameter) off the card for the
+                # forward and backward, less the staging buffers
+                if not max(r["fb_peak_bytes"][1:]) < none_peak:
+                    problems.append(f"(d) {run}: forward-backward peak "
+                                    f"{max(r['fb_peak_bytes'][1:])} not "
+                                    f"below no offload's {none_peak}")
         tokens = t["micro"] * t["seq"] * t["gas"]
         result = {"model": t["model"], "micro": t["micro"], "seq": t["seq"],
                   "gas": t["gas"], "steps": t["steps"], "nvme_path": path,
@@ -4524,6 +5141,8 @@ class Smoke:
                       for k, r in runs.items()},
                   "d_param_layers": t["param_layers"], "d_world": 1,
                   "d_seconds": param_s, "d_runs": param,
+                  "d_stream_memory": d_mem, "d_int8_world": 2,
+                  "d_int8_seconds": int8_s, "d_int8_runs": int8,
                   "launches_want": want, "card": self.card}
         emit("train_llama_750m_offload", **result)
         if problems:
@@ -5653,7 +6272,10 @@ class Smoke:
                           "replica_hop"):
                 if extra in t:
                     out[-1][extra] = t[extra]
-        return {"kernels": out}
+        # the host library of the host-executed step (not a card kernel):
+        # the same keys, beside the kernels
+        return {"kernels": out,
+                "host_libraries": list(self.host_rows.values())}
 
 
 def main(argv=None) -> int:

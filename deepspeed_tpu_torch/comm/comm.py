@@ -23,11 +23,15 @@ buffers, runs the collective there and copies the result back — one path
 for every op. The compute stays on the device.
 
 :class:`CommQueue` runs collectives while the card computes (ZeRO-3's
-chunk gathers and gradient reduces, ``parallel/stage3.py``): one worker
+chunk gathers and gradient reduces, ``parallel/stage3.py``; the exact
+stage 1-2 wire's chunk and bucket reduces and the ``overlap_step``
+publish, ``runtime/engine.py``): one worker
 thread takes them in the order they were submitted, so every rank issues
 the same collectives in the same order; on gloo with CUDA tensors it
 stages them through its own pinned buffers, one set a slot, on a side
-stream. ``submit`` returns a :class:`Handle` to wait on.
+stream. ``submit`` returns a :class:`Handle` to wait on. An op left in
+flight past a step (:func:`leave_in_flight`) lands before any collective
+of this module outside a queue (:func:`settle`).
 
 Every collective counts itself in :data:`traffic` under its group's label
 (``world``, or the ``zshard`` / ``data`` axis group of hpZ,
@@ -109,11 +113,41 @@ def init_distributed(dist_backend: str = "nccl",
                     f"mesh={mesh_mod.get_mesh_manager()}")
 
 
+# --------------------------------------------------------------------------- #
+# ops an engine leaves in flight past its step
+# --------------------------------------------------------------------------- #
+
+# (handle, land): queued ops left in flight past a step (the overlap_step
+# publish), oldest first, each with what lands its outputs; they hold no
+# engine, so a dropped engine's ops are settled all the same
+_in_flight: List[Tuple["Handle", Callable[[List[torch.Tensor]], None]]] = []
+
+
+def leave_in_flight(handle: "Handle",
+                    land: Callable[[List[torch.Tensor]], None],
+                    keep: int = 2) -> None:
+    """Leave a :class:`CommQueue` op in flight: ``land(outputs)`` runs when
+    it is settled — before every collective this module issues outside a
+    queue, so gloo sees every rank's collectives in one order, or when more
+    than ``keep`` ops are in flight (the oldest first)."""
+    _in_flight.append((handle, land))
+    settle(keep)
+
+
+def settle(keep: int = 0) -> None:
+    """Wait for and land the ops left in flight, all but the ``keep``
+    newest."""
+    while len(_in_flight) > keep:
+        handle, land = _in_flight.pop(0)
+        land(handle.wait())
+
+
 def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
 def destroy_process_group() -> None:
+    settle()
     if is_initialized():
         dist.destroy_process_group()
     _pinned.clear()
@@ -141,6 +175,7 @@ def get_backend(group=None) -> Optional[str]:
 
 
 def barrier(group=None) -> None:
+    settle()
     if get_world_size(group) > 1:
         dist.barrier(group)
 
@@ -218,6 +253,7 @@ def all_reduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
                group=None) -> torch.Tensor:
     """In-place all-reduce; AVG is a SUM divided by the world size (gloo
     has no AVG)."""
+    settle()
     world = get_world_size(group)
     with _traffic(group, "all_reduce", tensor):
         if world <= 1:
@@ -234,6 +270,7 @@ def all_gather_into_tensor(output_tensor: torch.Tensor, tensor: torch.Tensor,
                            group=None) -> torch.Tensor:
     """``output_tensor`` [world × n] ← every rank's ``tensor`` [n], in rank
     order."""
+    settle()
     with _traffic(group, "all_gather", tensor):
         if get_world_size(group) <= 1:
             return output_tensor.copy_(tensor.reshape(output_tensor.shape))
@@ -263,6 +300,7 @@ def reduce_scatter_tensor(output_tensor: torch.Tensor, tensor: torch.Tensor,
     rank's ``tensor`` [world × n]; SUM or AVG."""
     if op not in (ReduceOp.SUM, ReduceOp.AVG):
         raise ValueError(f"reduce_scatter supports SUM/AVG, got {op}")
+    settle()
     world = get_world_size(group)
     with _traffic(group, "reduce_scatter", tensor):
         if world <= 1:
@@ -298,6 +336,7 @@ def all_to_all_single(tensor: torch.Tensor, group=None, split_axis: int = 0,
     (``split_axis = concat_axis = 0``, the tiled form)."""
     if split_axis != 0 or concat_axis != 0:
         raise ValueError("all_to_all_single splits and concatenates dim 0")
+    settle()
     with _traffic(group, "all_to_all", tensor):
         if get_world_size(group) <= 1:
             return tensor.clone()
@@ -307,6 +346,7 @@ def all_to_all_single(tensor: torch.Tensor, group=None, split_axis: int = 0,
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    settle()
     with _traffic(group, "broadcast", tensor):
         if get_world_size(group) <= 1:
             return tensor
@@ -452,6 +492,26 @@ def reduce_scatter_op(group=None, replica_group=None, replicas=False):
         with _traffic(group, "reduce_scatter", ins[0]):
             _reduce_scatter_flat(outs[0].view(-1), ins[0].reshape(-1),
                                  op=dist.ReduceOp.SUM, group=group)
+        if replicas:
+            with _traffic(replica_group, "all_reduce", outs[0]):
+                if get_world_size(replica_group) > 1:
+                    dist.all_reduce(outs[0], op=dist.ReduceOp.SUM,
+                                    group=replica_group)
+    return op
+
+
+def all_reduce_row_op(row: int, group=None, replica_group=None,
+                      replicas=False):
+    """``CommQueue`` op: ``outs[0]`` [n] ← row ``row`` of the sum of every
+    rank's ``ins[0]`` [world × n] over ``group`` (the exact stage-1
+    reduce: every rank sums everything and keeps its shard); with
+    ``replicas`` (hpZ) that row then summed over ``replica_group`` too.
+    ``ins[0]`` is summed in place."""
+    def op(outs, ins):
+        with _traffic(group, "all_reduce", ins[0]):
+            if get_world_size(group) > 1:
+                dist.all_reduce(ins[0], op=dist.ReduceOp.SUM, group=group)
+        outs[0].copy_(ins[0][row])
         if replicas:
             with _traffic(replica_group, "all_reduce", outs[0]):
                 if get_world_size(replica_group) > 1:

@@ -17,9 +17,11 @@ takes seconds, not minutes.
   and the stream; left undeclared, ctypes passes Python ints as 32-bit
   C ints and cuts the pointers.
 * Host libraries (``ops/csrc/*.cpp``: the async file I/O of the NVMe
-  tier) build the same way with ``g++`` (:func:`load_host`), cached by a
-  hash of the source, the flags and the compiler path; a failed build
-  raises :class:`KernelBuildError` too.
+  tier, the host Adam of the host-executed step) build the same way with
+  ``g++`` (:func:`load_host`), each with its flags (:data:`HOST_FLAGS`),
+  cached by a hash of the source, the flags and the compiler path, and,
+  for a ``-march=native`` build, of the host CPU's model and feature
+  flags; a failed build raises :class:`KernelBuildError` too.
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
+#: a host library's flags where they are not :data:`CXX_FLAGS`. The host
+#: Adam: vectorised for this host's CPU, no fused multiply-add (every fp32
+#: operation rounded as in the plain version), no errno from ``sqrt`` (so
+#: it vectorises; the results are IEEE all the same)
+HOST_FLAGS = {"cpu_adam": ("-O3", "-std=c++17", "-shared", "-fPIC",
+                           "-pthread", "-march=native", "-ffp-contract=off",
+                           "-fno-math-errno")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -134,13 +143,28 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def find_cxx() -> str:
-    for cand in (os.environ.get("CXX", ""), shutil.which("g++") or "",
-                 "/usr/bin/g++"):
+    """``$CXX`` when set (and then only it), else ``g++`` on ``$PATH`` or
+    ``/usr/bin/g++``."""
+    env = os.environ.get("CXX")
+    cands = (env,) if env else (shutil.which("g++") or "", "/usr/bin/g++")
+    for cand in cands:
         if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
-    raise KernelBuildError("g++ not found (looked at $CXX, $PATH and "
-                           "/usr/bin/g++): the host libraries need a C++17 "
-                           "compiler")
+    raise KernelBuildError(f"g++ not found (looked at {', '.join(cands)}): "
+                           "the host libraries need a C++17 compiler")
+
+
+def _host_cpu() -> bytes:
+    """The host CPU's model and feature flags (a ``-march=native`` build
+    runs on that CPU only)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = [ln for ln in f if ln.startswith(("model name", "flags"))]
+        return "".join(sorted(set(lines))).encode()
+    except OSError:
+        import platform
+
+        return platform.processor().encode()
 
 
 def load_host(name: str) -> ctypes.CDLL:
@@ -152,15 +176,18 @@ def load_host(name: str) -> ctypes.CDLL:
             return _libs[key]
         cxx = find_cxx()
         src = CSRC / f"{name}.cpp"
-        h = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()
-                           + cxx.encode())
+        flags = HOST_FLAGS.get(name, CXX_FLAGS)
+        h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                           + cxx.encode()
+                           + (_host_cpu() if "-march=native" in flags
+                              else b""))
         out = build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
         t0 = time.perf_counter()
         cached = out.exists()
         if not cached:
             build_dir().mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run([cxx, *CXX_FLAGS, str(src), "-o", str(tmp)],
+            proc = subprocess.run([cxx, *flags, str(src), "-o", str(tmp)],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise KernelBuildError(
@@ -169,6 +196,7 @@ def load_host(name: str) -> ctypes.CDLL:
             os.replace(tmp, out)
         build_log[key] = {"seconds": 0.0 if cached
                           else time.perf_counter() - t0,
-                          "cached": cached, "path": str(out), "ptxas": ""}
+                          "cached": cached, "path": str(out), "ptxas": "",
+                          "flags": " ".join(flags)}
         _libs[key] = ctypes.CDLL(str(out))
         return _libs[key]

@@ -22,10 +22,10 @@ from deepspeed_tpu_torch.accelerator import on_device
 from deepspeed_tpu_torch.ops import build
 
 launches: Dict[str, int] = {"fused_adam": 0}
-#: elements a chunk of the plain version over flat CPU buffers (and of
-#: the host step's other passes): its temporaries a few MB, in cache, at
-#: any model size (on the H100 machine's host a quarter of this took 2.2
-#: times as long: more per-op overhead)
+#: elements a chunk of the plain version over flat CPU buffers: its
+#: temporaries a few MB, in cache, at any model size (on the H100
+#: machine's host a quarter of this took 2.2 times as long: more per-op
+#: overhead)
 CHUNK = 1 << 20
 
 

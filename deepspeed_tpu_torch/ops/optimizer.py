@@ -11,6 +11,8 @@ State layout: the engine keeps master, gradients and each moment as one
 flat fp32 buffer (every parameter a view into them), so ``update`` is one
 in-place call of :func:`~deepspeed_tpu_torch.ops.fused_adam.fused_adam`:
 the CUDA kernel for CUDA state, its plain version for CPU state.
+``host_update`` is the host-executed step's: the same update through the
+compiled host library (``ops/cpu_adam.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch.ops import cpu_adam
 from deepspeed_tpu_torch.ops.fused_adam import bias_corrections, fused_adam
 from deepspeed_tpu_torch.runtime.config_utils import later_slice, logger
 
@@ -43,6 +46,16 @@ class TPUOptimizer:
                out: Optional[torch.Tensor] = None):
         raise NotImplementedError
 
+    def host_update(self, grads: torch.Tensor, state: Dict[str, Any],
+                    params: torch.Tensor, lr: Optional[float] = None,
+                    out: Optional[torch.Tensor] = None,
+                    clip: Optional[float] = None,
+                    threads: Optional[int] = None):
+        """``update`` on flat fp32 host buffers by the host step's
+        compiled library (``ops/cpu_adam.py``); ``clip`` scales the
+        gradient first."""
+        raise NotImplementedError
+
 
 @dataclasses.dataclass
 class FusedAdam(TPUOptimizer):
@@ -60,12 +73,46 @@ class FusedAdam(TPUOptimizer):
         """One step, in place, on flat fp32 ``params`` / ``state`` moments
         from flat fp32 ``grads``; ``out`` (bf16, optional) receives the new
         params rounded to bf16. Returns ``(params, state)``."""
+        hyper = self.begin_step(state, lr)
+        self.apply(params, grads, state["exp_avg"], state["exp_avg_sq"],
+                   hyper, out)
+        self.end_step(state)
+        return params, state
+
+    # the same step by parts (the engines' update buckets and streamed
+    # chunks): ``begin_step``, ``apply`` on each part, ``end_step``; an
+    # elementwise update, so the parts give the bits of one call
+    def begin_step(self, state, lr=None) -> Tuple[float, float, float]:
+        """(lr, bc1, bc2) of the step after ``state``'s."""
+        lr = self.lr if lr is None else lr
+        bc1, bc2 = bias_corrections(state["step"] + 1, self.betas,
+                                    self.bias_correction)
+        return float(lr), bc1, bc2
+
+    def apply(self, params, grads, m, v, hyper, out=None) -> None:
+        lr, bc1, bc2 = hyper
+        fused_adam(params, grads, m, v, lr, tuple(self.betas), self.eps,
+                   self.weight_decay, bc1, bc2, adam_w=self.adam_w_mode,
+                   out=out)
+
+    def end_step(self, state) -> None:
+        state["step"] += 1
+
+    def host_update(self, grads, state, params, lr=None, out=None,
+                    clip=None, threads=None):
+        """``update`` through the C++ host Adam (``ops/cpu_adam.adam``);
+        ``out`` of another dtype than bf16 is copied from the new params
+        after it."""
         lr = self.lr if lr is None else lr
         step = state["step"] + 1
         bc1, bc2 = bias_corrections(step, self.betas, self.bias_correction)
-        fused_adam(params, grads, state["exp_avg"], state["exp_avg_sq"],
-                   float(lr), tuple(self.betas), self.eps, self.weight_decay,
-                   bc1, bc2, adam_w=self.adam_w_mode, out=out)
+        bf16 = out is not None and out.dtype == torch.bfloat16
+        cpu_adam.adam(params, grads, state["exp_avg"], state["exp_avg_sq"],
+                      float(lr), tuple(self.betas), self.eps,
+                      self.weight_decay, bc1, bc2, adam_w=self.adam_w_mode,
+                      out=out if bf16 else None, clip=clip, threads=threads)
+        if out is not None and not bf16:
+            out.copy_(params)
         state["step"] = step
         return params, state
 

@@ -10,11 +10,19 @@ what the JAX engine plans.
 
 The engines read the plan (``runtime/engine.py``
 ``_setup_overlap_scheduler``): the layer chunks are the granularity at
-which the qwZ publish quantizes (stages 1-2) and at which ZeRO-3 gathers
-the parameters and reduces their gradients (``parallel/stage3.py``). The
+which the qwZ publish quantizes (stages 1-2), at which ZeRO-3 gathers the
+parameters and reduces their gradients (``parallel/stage3.py``), and at
+which the exact stage 1-2 wire reduces during the backward;
+:func:`plan_buckets` cuts the other leaves into ``reduce_bucket_size``
+buckets and the update into ``update_bucket_size`` buckets
+(``DataParallelEngine._reduce_units`` / ``_update_buckets``). The
 program-structuring transforms of the JAX module (``fenced_bucket_apply``,
-``make_grad_sync``) have no counterpart here: the port issues each chunk's
-collectives itself, in order, from one queue (``comm/comm.CommQueue``).
+``make_grad_sync``, ``fenced_update_chain``) are the order in which the
+port issues each unit's collectives itself, from one queue
+(``comm/comm.CommQueue``): a chunk's reduce when the leaves' gradient
+hooks say the last micro-batch's backward is done with it (the earlier
+micro-batches are summed locally, so the traffic is once a step), an
+update bucket's publish when its update is done.
 """
 from __future__ import annotations
 

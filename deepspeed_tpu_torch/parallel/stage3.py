@@ -44,6 +44,14 @@ its parameters (``models/transformer.ParamHook``). Per micro-batch:
   per-chunk qgZ would quantize other blocks). Replicated leaves add into
   the engine's replicated buffer, all-reduced once a step.
 
+A spec whose loss does not take the hook (anything but
+``causal_lm_spec``'s) gets its whole tree from :meth:`Stage3Params.tree`:
+one group, gathered each forward (autograd keeps it for the backward),
+its gradient reduced when the backward is done. Under the streaming
+``offload_param`` tier the fp32 exact wire packs each group straight from
+the master in pinned host memory (:func:`pack`: the group's host-to-device
+copy).
+
 Every collective goes through one ``comm.CommQueue``, in the same order on
 every rank; the engine drains it before any collective of its own.
 Nothing keeps a gathered chunk alive but its users: the gather Function
@@ -114,43 +122,59 @@ class Group:
     identity: bool                       # the row IS the local shard
 
 
+def make_group(items, layers=None) -> Group:
+    """A group of ``(shard, layers or None)`` items, each piece padded to
+    the quantization block in the packed row."""
+    pieces, off = [], 0
+    for sh, lay in items:
+        if sh.dim is None:
+            n = 0
+        elif lay is None:
+            n = sh.n_loc
+        else:
+            n = sh.n_loc // sh.slot.shape[0] * (lay[1] - lay[0])
+        pieces.append(Piece(sh, lay, off, n))
+        off += _pad(n)
+    identity = layers is None and all(
+        p.n == 0 or (p.layers is None and p.offset == p.shard.offset)
+        for p in pieces)
+    return Group(tuple(pieces), off, layers, identity)
+
+
+def chunked_shards(shards) -> List[Any]:
+    """The leaves a layer chunk takes: the ``blocks`` leaves not sharded on
+    their stacking dim 0 (the rest are the head group's)."""
+    return [sh for sh in shards if sh.slot.path[0] == BLOCKS and sh.dim != 0]
+
+
 def gather_groups(shards, chunk_bounds) -> List[Group]:
     """No bounds: one group, every leaf whole (its packed row is the
     sharded region of the local buffer). Bounds: the head group, then one
     group a chunk."""
-    def group(items, layers):
-        pieces, off = [], 0
-        for sh, lay in items:
-            if sh.dim is None:
-                n = 0
-            elif lay is None:
-                n = sh.n_loc
-            else:
-                n = sh.n_loc // sh.slot.shape[0] * (lay[1] - lay[0])
-            pieces.append(Piece(sh, lay, off, n))
-            off += _pad(n)
-        identity = layers is None and all(
-            p.n == 0 or (p.layers is None and p.offset == p.shard.offset)
-            for p in pieces)
-        return Group(tuple(pieces), off, layers, identity)
-
     bounds = [tuple(b) for b in chunk_bounds]
     if not bounds:
-        return [group([(sh, None) for sh in shards], None)]
-    chunked = [sh for sh in shards
-               if sh.slot.path[0] == BLOCKS and sh.dim != 0]
+        return [make_group([(sh, None) for sh in shards])]
+    chunked = chunked_shards(shards)
     head = [(sh, None) for sh in shards
             if not any(sh is c for c in chunked)]
-    return [group(head, None)] + [group([(sh, b) for sh in chunked], b)
-                                  for b in bounds]
+    return [make_group(head)] + [make_group([(sh, b) for sh in chunked], b)
+                                 for b in bounds]
 
 
-def pack(group: Group, engine, src: torch.Tensor) -> torch.Tensor:
+def pack(group: Group, engine, src: torch.Tensor,
+         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The rank's packed row of ``group`` from a local buffer (its pads
-    zero, so they quantize as JAX's padding does)."""
+    zero, so they quantize as JAX's padding does), on the engine's device
+    in ``dtype`` (default ``src``'s): from a master in pinned host memory
+    (the streaming ``offload_param`` tier) this is the group's
+    host-to-device copy."""
+    dtype = src.dtype if dtype is None else dtype
     if group.identity:
-        return src[:group.n_row]
-    out = torch.zeros(group.n_row, dtype=src.dtype, device=src.device)
+        row = src[:group.n_row]
+        if row.device == engine.device and row.dtype == dtype:
+            return row
+        return row.to(engine.device, dtype, non_blocking=True)
+    out = torch.zeros(group.n_row, dtype=dtype, device=engine.device)
     for p in group.pieces:
         if not p.n:
             continue
@@ -217,8 +241,12 @@ class Stage3Params(ParamHook):
         # a weak reference: the engine owns the coordinator, and a cycle
         # would keep a dropped engine's buffers until the next collection
         self.e = weakref.proxy(engine)
-        n_layers = engine.model_spec.config.num_layers
-        bounds = [tuple(b) for b in chunk_bounds] or [(0, n_layers)]
+        # a spec whose builder takes the hook (``causal_lm_spec``): the
+        # head group and its layer chunks; any other spec: the whole tree
+        # as one group (``tree``)
+        bounds = [tuple(b) for b in chunk_bounds] or (
+            [(0, engine.model_spec.config.num_layers)] if engine._hooked
+            else [])
         self.groups = gather_groups(engine._shards, bounds)
         self.chunk_of = {l: c for c, (s, e) in enumerate(bounds, start=1)
                          for l in range(s, e)}
@@ -258,7 +286,11 @@ class Stage3Params(ParamHook):
                                     device=s.device)]
                 ins = [q, s]
             else:
-                send = pack(g, e, e._gather_source())
+                src = e._gather_source()
+                if e._streaming() and src is e.flat_master:
+                    # fp32: the group streamed from the host master
+                    e.stream_counts["gather_h2d"] += 1
+                send = pack(g, e, src)
                 outs = [torch.empty(W, g.n_row, dtype=send.dtype,
                                     device=send.device)]
                 ins = [send]
@@ -334,6 +366,16 @@ class Stage3Params(ParamHook):
         for path, t in self._head.items():
             if path[0] != BLOCKS:
                 _set_path(tree, path, t)
+        return tree
+
+    def tree(self) -> Dict[str, Any]:
+        """A spec without the hook: the whole parameter tree, gathered as
+        one group for this forward (autograd keeps it for the backward;
+        its gradient is reduced when the backward is done)."""
+        outs = _ChunkGather.apply(self.anchor, self, (0, "fwd"))
+        tree: Dict[str, Any] = {}
+        for (p, _), t in zip(self._layout[0], outs):
+            _set_path(tree, p.path, t)
         return tree
 
     def layer(self, layer: int) -> Dict[str, Any]:
@@ -436,7 +478,8 @@ class Stage3Params(ParamHook):
 
     def gathers_per_micro(self) -> int:
         """Gathers a micro-batch: the head group, each chunk in the
-        forward, and again in the backward's recompute."""
+        forward, and again in the backward's recompute (a spec without
+        the hook: its one group)."""
         chunks = len(self.groups) - 1
         return 1 + chunks * (2 if self.recompute else 1)
 

@@ -42,29 +42,42 @@ the mesh's ``zshard`` axis, as in JAX (engine.py:87-131): ZeRO state is
 sharded within the subgroup and replicated across ``data``, at every
 stage. Every engine resolves JAX's overlap-scheduler plan
 (``_setup_overlap_scheduler``, ``overlap_plan``): its layer chunks set
-qwZ's quantization blocks and ZeRO-3's gathers. One process at stage 3
-shards nothing and runs the stage-0 step, as JAX at ``data = 1``.
+qwZ's quantization blocks, ZeRO-3's gathers and, on the exact stage 1-2
+wire, the reduces issued during the backward (the other leaves by
+``reduce_bucket_size`` buckets); ``overlap_step`` runs the update by
+``update_bucket_size`` buckets, each bucket's publish issued as its update
+is done. One process at stage 3 shards nothing and runs the stage-0 step,
+as JAX at ``data = 1``. ZeRO-3 takes any model spec: ``causal_lm_spec``'s
+layer loop gathers by chunks, any other spec gets its whole tree gathered
+as one group a forward.
 
 The offload family, as JAX resolves it (engine.py:251-302): the
 optimizer tiers ``offload_optimizer`` cpu (each rank's moments in pinned
 host memory between steps, brought back just before the update) and nvme
 (the moments round-tripped through files, ``runtime/swap_tensor.py`` over
 ``ops/aio.py``); the ZeRO-3 parameter tier ``offload_param`` cpu / nvme
-(the master, or a rank's master shard, parked in pinned host memory
-between steps, and through files under nvme: JAX's boundary-swap mode);
+(the master, or a rank's master shard, in pinned host memory, and through
+files between steps under nvme: on a card with the exact wire JAX's
+in-step mode, the master streamed to the card a chunk at a time where the
+step reads it, never whole there; with the int8 wires JAX's boundary
+swap, the master parked between steps);
 ``offload_states`` / ``reload_states``; ZenFlow's importance-split update
 (``runtime/zenflow.py``); and the host-executed step of SuperOffload
-(``host_step``, ``runtime/host_step.py``; ``super_offload`` is cpu +
+(``host_step``, ``runtime/host_step.py``, whose update runs in the
+compiled host library ``ops/cpu_adam.py``; ``super_offload`` is cpu +
 host_step + overlap_step), for the one-process engine.
 
 Out of this slice, raising ``NotImplementedError``: remat policies other
-than none/full, and the config sections ``load_config`` refuses.
+than none/full, and the config sections ``load_config`` refuses. The qwZ
+publish stays one pass after the (bucketed) update.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
+import weakref
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -77,13 +90,18 @@ from deepspeed_tpu_torch.comm import mesh as mesh_mod
 from deepspeed_tpu_torch.models import transformer as T
 from deepspeed_tpu_torch.models.api import ModelSpec
 from deepspeed_tpu_torch.ops import quant_kernels as QK
-from deepspeed_tpu_torch.ops.optimizer import TPUOptimizer, get_optimizer
+from deepspeed_tpu_torch.ops.optimizer import (
+    FusedAdam,
+    TPUOptimizer,
+    get_optimizer,
+)
 from deepspeed_tpu_torch.parallel import compressed as C
 from deepspeed_tpu_torch.parallel import stage3 as S3
 from deepspeed_tpu_torch.parallel.overlap import (
     OverlapConfig,
     chunk_layers,
     leaf_count,
+    plan_buckets,
 )
 from deepspeed_tpu_torch.parallel.partitioning import ShardingPolicy
 from deepspeed_tpu_torch.runtime.config import (
@@ -309,6 +327,26 @@ class DeepSpeedTPUEngine:
             elif not self._host_step:
                 self._offload_param = True
                 self._offload_param_nvme = pcfg.device == "nvme"
+        # JAX's in-step mode (engine.py:316-318): the master stays in pinned
+        # host memory through the step and streams to the card chunk by
+        # chunk where the step reads it (``_stream_pass``), on the exact
+        # wire; the int8 wires keep the boundary swap (the master parked
+        # between steps, whole on the card for the step). ZenFlow's split
+        # update reads whole leaves: boundary swap too. JAX streams on its
+        # accelerator only; the port on the CPU too (host-to-host copies,
+        # the same values), so that its CPU runs drive the mode.
+        self._param_stream = (
+            self._offload_param and self._compressed is None
+            and not isinstance(self.optimizer, ZenFlowOptimizer))
+        #: this step's chunk copies of the streamed master: host→device
+        #: for the update and for the derived compute copy, device→host of
+        #: the updated chunks, and ZeRO-3 fp32 gathers read from the host
+        #: master
+        self.stream_counts = {"update_h2d": 0, "update_d2h": 0,
+                              "derive_h2d": 0, "gather_h2d": 0}
+        self._stream_plan: Optional[List[Tuple[int, int]]] = None
+        self._stream_bufs: List[torch.Tensor] = []
+        self._stream_side = None
 
     def _resolve_subgroup(self) -> None:
         """MiCS / ZeRO++ hpZ (JAX engine.py:87-131, with its messages): the
@@ -406,16 +444,29 @@ class DeepSpeedTPUEngine:
         ``allgather_bucket_size`` (stages 1-2) over the ``blocks``
         elements a layer. JAX also marks mid-backward sync points at stage
         >= 2 (``chunk_bounds`` then holds even one chunk). The port gathers
-        (qwZ, ZeRO-3) and reduces (ZeRO-3) by these chunks; it keeps no
-        double-buffered publish, so ``step_overlap`` and ``param_buffer``
-        read False. Reads ``self._slots``."""
+        (qwZ, ZeRO-3) and reduces (ZeRO-3; the exact stage 1-2 wire, with
+        the other leaves in ``reduce_bucket_size`` buckets) by these
+        chunks. ``step_overlap`` (``overlap_step`` with the scheduler on
+        and more than one process, JAX :749-757) runs the update in
+        ``update_bucket_size`` buckets, each bucket's exact publish issued
+        as its update is done; ``param_buffer`` reads as JAX resolves it
+        (the port's compute copy is the publish's buffer). Reads
+        ``self._slots``."""
         zcfg = self.config.zero_optimization
         self._overlap = OverlapConfig.from_zero_config(zcfg, self.zero_stage)
         ub = zcfg.update_bucket_size
+        self._step_overlap = (bool(zcfg.overlap_step)
+                              and self._overlap.enabled
+                              and comm.get_world_size() > 1)
+        self._param_buffer = (self._step_overlap
+                              and self.mesh_manager.shape.get("pipe", 1) == 1
+                              and not self._offload_param
+                              and not self._host_step)
         self._overlap_plan: Dict[str, Any] = {
             "enabled": self._overlap.enabled, "scan_chunks": 1,
             "chunk_bounds": [], "grad_sync_points": False,
-            "step_overlap": False, "param_buffer": False,
+            "step_overlap": self._step_overlap,
+            "param_buffer": self._param_buffer,
             "update_bucket_elems": (self._overlap.reduce_bucket_elems
                                     if ub == "auto" else int(ub)),
             "wire_format": self._wire_format()}
@@ -588,12 +639,16 @@ class DeepSpeedTPUEngine:
         ``host_step`` it stays on the host, the update in flight done."""
         if not hasattr(self, "_master_parked"):     # still initialising
             return
+        self._finish_publish()
         if self._host_runner is not None:
             self._host_runner.wait()
             return
         if self._param_swapper is not None:
             self._param_swapper.swap_in_params()
         self._unpark_master()
+
+    def _finish_publish(self) -> None:
+        """The data-parallel engines land their publish here."""
 
     def _nvme_swapper(self) -> OptimizerSwapper:
         if self._opt_swapper is None:
@@ -628,10 +683,18 @@ class DeepSpeedTPUEngine:
         self._unpark_master()
 
     def _tiers_before_step(self) -> None:
-        """The master on the card for the step (its tiers otherwise)."""
+        """The master on the card for the step (its tiers otherwise); in
+        the streaming mode in its pinned host buffer, back from its file
+        under nvme and parked again after a direct use brought it to the
+        card (JAX's ``_ensure_master_tier_for_step``)."""
+        for k in self.stream_counts:
+            self.stream_counts[k] = 0
         if self._offload_param_nvme and self._param_swapper is not None:
             self._param_swapper.swap_in_params()
-        self._unpark_master()
+        if self._param_stream:
+            self._park_master()
+        else:
+            self._unpark_master()
 
     def _tiered_update(self, grad_scale: float) -> Dict[str, Any]:
         """``_apply_update`` with the optimizer state brought to the card
@@ -705,9 +768,146 @@ class DeepSpeedTPUEngine:
         return tree
 
     def _compute_params(self) -> None:
-        """``_compute_params``: the compute copy of the master."""
+        """``_compute_params``: the compute copy of the master (streamed
+        from the host chunk by chunk when the master lives there)."""
+        if self._streaming():
+            self._stream_pass()
+            return
         with torch.no_grad():
             self.flat_compute.copy_(self.flat_master)
+
+    # ------------------------------------------------------------------ #
+    # in-step offload_param streaming (JAX engine.py:278-287, :1786-1797)
+    # ------------------------------------------------------------------ #
+    def _streaming(self) -> bool:
+        return self._param_stream and getattr(self, "_master_parked", False)
+
+    def _layer_bounds(self) -> List[Tuple[int, int]]:
+        """The plan's layer chunks, else the chunks it would have at
+        ``stage3_prefetch_bucket_size`` (none for a spec without layers)."""
+        cfg = getattr(self.model_spec, "config", None)
+        if self._overlap_plan["chunk_bounds"]:
+            return self._overlap_plan["chunk_bounds"]
+        if not isinstance(cfg, T.TransformerConfig):
+            return []
+        per_layer = max(sum(leaf_count(s.shape) for s in self._slots
+                            if s.path[0] == _STACKED) // cfg.num_layers, 1)
+        return chunk_layers(cfg.num_layers, per_layer,
+                            self._overlap.prefetch_bucket_elems)
+
+    def _stream_ranges(self) -> List[Tuple[int, int]]:
+        """The streamed chunks of the local master: as many contiguous
+        ranges as the plan has gather groups (the head group and each
+        layer chunk), near-equal, 64-element aligned. (A layer chunk's
+        elements are strided in the sharded layout, so the chunks are cut
+        by size, not by layer.)"""
+        if self._stream_plan is None:
+            n = self.flat_master.numel()
+            units = 1 + len(self._layer_bounds())
+            step = -(-(-(-n // units)) // _ALIGN) * _ALIGN
+            self._stream_plan = [(lo, min(n, lo + step))
+                                 for lo in range(0, n, max(step, _ALIGN))]
+        return self._stream_plan
+
+    def _derived(self) -> Optional[torch.Tensor]:
+        """The buffer the compute copy derives from the master into (None:
+        the forward reads the master itself)."""
+        return self.flat_compute
+
+    def _stream_pass(self, g: Optional[torch.Tensor] = None,
+                     lr: Optional[float] = None,
+                     out: Optional[torch.Tensor] = None) -> None:
+        """One pass over the master in pinned host memory, chunk by chunk:
+        each chunk copied host→device on a side stream into one of two
+        staging buffers of the largest chunk, the next chunk's copy in
+        flight while this one is used; with ``g``, the fused Adam update
+        of the chunk (``out``: its bf16 copy) and the chunk copied back
+        device→host; the derived compute buffer written from it (unless
+        ``out`` holds it). The master is never whole on the card."""
+        host, dev = self.flat_master, self.device
+        ranges = self._stream_ranges()
+        if not self._stream_bufs:
+            size = max(hi - lo for lo, hi in ranges)
+            self._stream_bufs = [torch.empty(size, dtype=torch.float32,
+                                             device=dev) for _ in range(2)]
+        bufs, counts = self._stream_bufs, self.stream_counts
+        derived = self._derived() if out is None or g is None else None
+        cuda = dev.type == "cuda"
+        if g is not None:
+            opt = self.state["opt"]
+            hyper = self.optimizer.begin_step(opt, lr)
+        if cuda:
+            cur = torch.cuda.current_stream(dev)
+            if self._stream_side is None:
+                self._stream_side = torch.cuda.Stream(dev)
+            side = self._stream_side
+            side.wait_stream(cur)
+            loaded, freed = {}, [None, None]
+
+        def fetch(k):
+            lo, hi = ranges[k]
+            buf = bufs[k % 2][:hi - lo]
+            if cuda:
+                with torch.cuda.stream(side):
+                    if freed[k % 2] is not None:
+                        side.wait_event(freed[k % 2])
+                    buf.copy_(host[lo:hi], non_blocking=True)
+                    loaded[k] = side.record_event()
+            else:
+                buf.copy_(host[lo:hi])
+            counts["update_h2d" if g is not None else "derive_h2d"] += 1
+
+        with torch.no_grad(), telemetry.span("offload_param_stream"):
+            fetch(0)
+            for k, (lo, hi) in enumerate(ranges):
+                if k + 1 < len(ranges):
+                    fetch(k + 1)
+                buf = bufs[k % 2][:hi - lo]
+                if cuda:
+                    cur.wait_event(loaded.pop(k))
+                if g is not None:
+                    self.optimizer.apply(
+                        buf, g[lo:hi], opt["exp_avg"][lo:hi],
+                        opt["exp_avg_sq"][lo:hi], hyper,
+                        None if out is None else out[lo:hi])
+                if derived is not None:
+                    derived[lo:hi].copy_(buf)
+                if g is not None:
+                    host[lo:hi].copy_(buf, non_blocking=True)
+                    counts["update_d2h"] += 1
+                if cuda:
+                    freed[k % 2] = cur.record_event()
+        if g is not None:
+            self.optimizer.end_step(opt)
+
+    def _update_master(self, g: torch.Tensor, lr: float,
+                       out: Optional[torch.Tensor]) -> bool:
+        """The optimizer step on the master: streamed from the host tier,
+        or one call. True when the derived compute buffer is written
+        too."""
+        if self._streaming():
+            self._stream_pass(g, lr, out)
+            return True
+        self.optimizer.update(g, self.state["opt"], self.flat_master, lr=lr,
+                              out=out)
+        return False
+
+    def _bucketed_update(self, g, lr, out, publish) -> None:
+        """The update bucket by bucket (JAX's ``fenced_update_chain``):
+        ``publish(bucket)`` after each bucket's update."""
+        opt = self.state["opt"]
+        hyper = self.optimizer.begin_step(opt, lr)
+        for bucket in self._update_buckets():
+            for lo, hi in bucket.ranges:
+                self.optimizer.apply(
+                    self.flat_master[lo:hi], g[lo:hi], opt["exp_avg"][lo:hi],
+                    opt["exp_avg_sq"][lo:hi], hyper,
+                    None if out is None else out[lo:hi])
+            publish(bucket)
+        self.optimizer.end_step(opt)
+
+    def _update_buckets(self) -> List["_Bucket"]:
+        raise NotImplementedError       # the data-parallel engines
 
     # ------------------------------------------------------------------ #
     # public batch-size / state queries (reference engine API)
@@ -797,9 +997,8 @@ class DeepSpeedTPUEngine:
         if not overflow:
             out = self.flat_compute \
                 if self.flat_compute.dtype == torch.bfloat16 else None
-            self.optimizer.update(g, self.state["opt"], self.flat_master,
-                                  lr=lr, out=out)
-            if out is None:
+            derived = self._update_master(g, lr, out)
+            if out is None and not derived:
                 self._compute_params()
         else:
             self._skips += 1
@@ -863,9 +1062,49 @@ class DeepSpeedTPUEngine:
                    if self.fp16_enabled else ""))
 
 
+def _piece_view(flat: torch.Tensor, piece) -> torch.Tensor:
+    """A gather piece's place in a full flat buffer (leaf layout)."""
+    slot = piece.shard.slot
+    full = flat[slot.offset:slot.offset + slot.numel].view(slot.shape)
+    return full if piece.layers is None \
+        else full[piece.layers[0]:piece.layers[1]]
+
+
+def _land_publish(group, flat_compute: torch.Tensor, world: int,
+                  outs: List[torch.Tensor]) -> None:
+    """A bucket's publish has landed: its gathered rows into the compute
+    copy (holds no engine: a dropped engine's publish lands the same)."""
+    with torch.no_grad():
+        S3.unpack(group, outs[0], world,
+                  lambda p: _piece_view(flat_compute, p))
+
+
 def _resolved(value):
     """A metric's value; the host step's grad norm is a future."""
     return value.result() if hasattr(value, "result") else value
+
+
+@dataclasses.dataclass
+class _Bucket:
+    """One update bucket (``update_bucket_size``, JAX's plan): its leaves'
+    contiguous ranges of the local buffers (pads included) and the
+    publish group of its sharded leaves."""
+    ranges: List[Tuple[int, int]]
+    shards: List[Any]
+    group: Any
+
+
+@dataclasses.dataclass
+class _Unit:
+    """One reduce of the exact wire a step: a layer chunk or a bucket of
+    the other leaves; ``pending`` counts the leaves whose gradient has not
+    landed in the last micro-batch's backward."""
+    group: Any
+    kind: str                       # "chunk" or "bucket"
+    n_leaves: int
+    row_off: int = 0                # its rows' place in the packed buffer
+    pending: int = 0
+    issued: bool = False
 
 
 @dataclasses.dataclass
@@ -906,9 +1145,16 @@ class DataParallelEngine(DeepSpeedTPUEngine):
       stage 0 shards nothing), then the replicated leaves whole. Fused Adam
       is one launch over the local buffer and writes the bf16 compute
       shard;
-    * exact wire: accumulates the full gradient in fp32 over gas, packed
-      in the moved layout, then one mean reduce-scatter (stage 2) or
-      all-reduce (stage 1);
+    * exact wire: the gradient summed over gas in fp32 rows (the moved
+      layout), unit by unit, and each unit reduced once a step on the
+      engine's ``CommQueue``: reduce-scatter at stage 2, all-reduce
+      keeping the rank's row at stages 0-1; the mean shards into the fp32
+      accumulator. ``overlap_comm`` on (stages 1-2): a unit a layer chunk
+      and a unit a ``reduce_bucket_size`` bucket of the other leaves, each
+      issued as soon as the last micro-batch's backward has completed it
+      (the leaves' post-accumulate hooks); off: one unit after the
+      backward. (JAX constrains each micro-batch's gradient: the same
+      sums, in another order, for gas times the traffic.)
     * ZeRO++ wire (qgZ, with LoCo's per-rank fp32 residual when armed,
       reset after an fp16 overflow): per micro-batch, packs the gradient
       into one [world, Σ n_pad] fp32 buffer and reduces it through
@@ -919,7 +1165,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
       replicated leaves take an exact fp32 all-reduce mean;
     * publishes the compute copy once per step (and at start): qwZ through
       ``_q_allgather`` on the master shards, else an exact all-gather of
-      the compute-dtype shards;
+      the compute-dtype shards; under ``overlap_step`` on the exact wire
+      each update bucket's all-gather goes out on the queue when its update
+      is done (at most two in flight; the rest lands before the next
+      forward, or before any collective outside the queue);
     * global grad norm = sqrt of the all-reduced sum of the shards'
       squares, plus the replicated leaves' once; clip and the fp16
       overflow skip on it; the loss is the mean over ranks;
@@ -973,6 +1222,15 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             self.shard_world, self.shard_rank = self.world, self.rank
             self.shard_group = self.replica_group = None
             self.replica_world = 1
+        self._grad_hooks = self._issuing = False
+        self._units: List[_Unit] = []
+        self._queue: Optional[comm.CommQueue] = None
+        self._reduces: List[Tuple[Any, _Unit]] = []
+        #: this step's exact-wire reduces (chunk / bucket units; late:
+        #: issued after the backward, not by its leaves' hooks) and bucket
+        #: publishes
+        self.reduce_counts = {"chunk": 0, "bucket": 0, "late": 0,
+                              "publish": 0}
 
     def _init_state(self, seed: int) -> None:
         if self.zero_stage >= 3:
@@ -992,11 +1250,23 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self._publish_groups = S3.gather_groups(
             self._shards, bounds if self._quant_weights() and len(bounds) > 1
             else [])
-        # [Z, n_sh] fp32: the packed gradient (both wires), the qwZ
-        # publish's dequantized rows
-        self._packed = torch.zeros(self.shard_world, self._n_sh,
-                                   dtype=torch.float32, device=dev)
+        # the exact wire reduces once a step, unit by unit: under
+        # overlap_comm at stages 1-2 each layer chunk and each
+        # reduce_bucket_size bucket of the other leaves, issued as the last
+        # micro-batch's backward completes it (JAX's make_grad_sync and
+        # _constrain_grads_bucketed), else one unit after the backward
+        self._grad_hooks = (self._overlap.enabled and not self._quant_grads()
+                            and 1 <= self.zero_stage <= 2)
         self._params = self._leaves()
+        n_cols = self._n_sh
+        if not self._quant_grads():
+            self._units = self._reduce_units()
+            n_cols = max(n_cols, sum(u.group.n_row for u in self._units))
+        # [Z, n_sh] fp32: the int8 wire's packed gradient, the qwZ
+        # publish's dequantized rows; on the exact wire each unit's
+        # [Z, n_row] rows, one after another, summed over the micro-batches
+        self._packed = torch.zeros(self.shard_world, n_cols,
+                                   dtype=torch.float32, device=dev)
         self._compute_params()
         logger.info(
             f"rank {self.rank}/{self.world}: wire={self._wire_format()} "
@@ -1050,6 +1320,212 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _master_views(self):
         return self._master_tree()
 
+    # ------------------------------------------------------------------ #
+    # the overlap scheduler's step phase: chunk / bucket reduces on the
+    # exact stage 1-2 wire, update buckets and their publish
+    # ------------------------------------------------------------------ #
+    def _comm_queue(self) -> comm.CommQueue:
+        if self._queue is None:
+            self._queue = comm.CommQueue()
+        return self._queue
+
+    def _reduce_units(self) -> List[_Unit]:
+        """Hooked (``overlap_comm`` at stages 1-2): one unit a layer chunk
+        of the plan (its ``blocks`` leaves), then the other leaves in
+        ``reduce_bucket_size`` buckets planned over their sizes in reversed
+        flatten order (JAX engine.py:1754-1776), each leaf tensor of the
+        forward's tree hooked to its unit. Else one unit of every leaf."""
+        bounds = [tuple(b) for b in self._overlap_plan["chunk_bounds"]]
+        chunked = S3.chunked_shards(self._shards) if bounds else []
+        units = [_Unit(S3.make_group([(sh, b) for sh in chunked], b),
+                       "chunk", 0) for b in bounds]
+        head = [sh for sh in self._shards
+                if not any(sh is c for c in chunked)]
+        buckets = (plan_buckets([leaf_count(sh.slot.shape) for sh in head],
+                                self._overlap.reduce_bucket_elems)
+                   if self._grad_hooks else [range(len(head))])
+        for idxs in buckets:
+            units.append(_Unit(S3.make_group(
+                [(head[i], None) for i in sorted(idxs)]), "bucket", 0))
+        off = 0
+        for u in units:
+            u.row_off, off = off, off + self.shard_world * u.group.n_row
+        if not self._grad_hooks:
+            return units
+        unit_of: Dict[Tuple[Tuple[str, ...], Optional[int]], _Unit] = {}
+        for u in units:
+            for p in u.group.pieces:
+                if p.layers is None:
+                    unit_of[(p.path, None)] = u
+                else:
+                    for layer in range(*p.layers):
+                        unit_of[(p.path, layer)] = u
+
+        # a weak reference: the leaves' hooks must not keep a dropped
+        # engine's buffers alive until the next collection
+        engine = weakref.ref(self)
+
+        def hook_all(tree, path, layer):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    hook_all(v, path + (k,), layer)
+                    continue
+                full = path + (k,)
+                u = unit_of.get((full, layer)) or unit_of[(full, None)]
+                u.n_leaves += 1
+                v.register_post_accumulate_grad_hook(
+                    lambda _t, u=u: engine()._grad_landed(u))
+
+        hook_all({k: v for k, v in self._params.items() if k != _STACKED},
+                 (), None)
+        for layer, lp in enumerate(self._params.get(_STACKED, [])):
+            hook_all(lp, (_STACKED,), layer)
+        return units
+
+    def _grad_landed(self, unit: _Unit) -> None:
+        """A leaf's gradient is complete for the last micro-batch's
+        backward: its unit's reduce goes out when it was the unit's last
+        (earlier micro-batches are summed locally after their backward)."""
+        if not self._issuing:
+            return
+        if unit.issued:
+            raise RuntimeError("a leaf's gradient landed twice in one "
+                               "backward after its reduce was issued")
+        unit.pending -= 1
+        if unit.pending == 0:
+            self._issue_reduce(unit)
+
+    def _pack_unit(self, unit: _Unit) -> torch.Tensor:
+        """Add the micro-batch's gradient of the unit's leaves into its
+        fp32 rows (the wire's layout; zeroed at the step's start) and its
+        replicated leaves into the step's replicated buffer → the rows."""
+        g, W = unit.group, self.shard_world
+        with torch.no_grad(), telemetry.span("zero_pack"):
+            rows = self._packed.view(-1)[unit.row_off:unit.row_off
+                                         + W * g.n_row].view(W, g.n_row)
+            for p in g.pieces:
+                full = self._view(self.flat_grad, p.shard.slot)
+                if p.layers is not None:
+                    full = full[p.layers[0]:p.layers[1]]
+                if not p.n:
+                    self._rep_buf[p.shard.offset:p.shard.offset
+                                  + p.shard.n_loc].view(
+                        p.shard.slot.shape).add_(full)
+                    continue
+                moved = p.moved(W)
+                rows[:, p.offset:p.offset + p.n].view(moved).add_(
+                    torch.movedim(full, p.shard.dim, 0).reshape(moved))
+        return rows
+
+    def _issue_reduce(self, unit: _Unit) -> None:
+        """Pack the last micro-batch's gradient of the unit and submit the
+        reduce of its step sum (fp32 on the wire): reduce-scatter at stage
+        2, all-reduce keeping this rank's row at stages 0-1, each over
+        ``zshard`` then ``data`` under hpZ. A unit of replicated leaves
+        only has no rows to reduce (their mean is taken once a step)."""
+        g = unit.group
+        unit.issued = True
+        rows = self._pack_unit(unit)
+        self.reduce_counts[unit.kind] += 1
+        if not g.n_row:
+            return
+        with torch.no_grad(), telemetry.span("zero_reduce_issue"):
+            mine = torch.empty(g.n_row, dtype=torch.float32,
+                               device=self.device)
+            if self.zero_stage >= 2:
+                op = comm.reduce_scatter_op(self.shard_group,
+                                            self.replica_group,
+                                            replicas=self.hpz)
+            else:
+                op = comm.all_reduce_row_op(self.shard_rank,
+                                            self.shard_group,
+                                            self.replica_group,
+                                            replicas=self.hpz)
+            handle = self._comm_queue().submit(
+                op, [mine], [rows], slot=f"r{len(self._reduces) % 2}",
+                group=self.shard_group)
+        self._reduces.append((handle, unit))
+        while len(self._reduces) > 2:       # bound what is in flight
+            self._land_reduce(*self._reduces.pop(0))
+
+    def _land_reduce(self, handle, unit: _Unit) -> None:
+        """A unit's reduce has landed: its sum ÷ the whole world added into
+        the accumulator."""
+        with telemetry.span("zero_reduce_wait"):
+            mine, = handle.wait()
+        with torch.no_grad():
+            mine.div_(torch.tensor(float(self.world), device=self.device))
+            for p in unit.group.pieces:
+                if not p.n:
+                    continue
+                acc = self._local(self.flat_grad_acc, p.shard)
+                if p.layers is not None:
+                    acc = acc[:, p.layers[0]:p.layers[1]]
+                acc.add_(mine[p.offset:p.offset + p.n].view(acc.shape))
+
+    def _update_buckets(self) -> List[_Bucket]:
+        """JAX's update buckets (``_fence_update_buckets``): the leaves in
+        ``update_bucket_size`` buckets by their full sizes in reversed
+        flatten order; each bucket's ranges of the local buffers cover its
+        leaves and their pads (so the buckets cover every element), in
+        buffer order, adjacent leaves merged."""
+        if getattr(self, "_buckets", None) is None:
+            out = []
+            for idxs in plan_buckets(
+                    [leaf_count(sh.slot.shape) for sh in self._shards],
+                    self._overlap_plan["update_bucket_elems"]):
+                shards = [self._shards[i] for i in sorted(idxs)]
+                spans = []
+                for sh in shards:
+                    if sh.dim is None:
+                        lo = self._n_sh + sh.offset
+                        spans.append((lo, lo + -(-sh.n_loc // _ALIGN)
+                                      * _ALIGN))
+                    else:
+                        spans.append((sh.offset, sh.offset + -(
+                            -sh.n_loc // QK.DEFAULT_BLOCK) * QK.DEFAULT_BLOCK))
+                ranges: List[Tuple[int, int]] = []
+                for lo, hi in sorted(spans):
+                    if ranges and ranges[-1][1] == lo:
+                        ranges[-1] = (ranges[-1][0], hi)
+                    else:
+                        ranges.append((lo, hi))
+                out.append(_Bucket(ranges, shards, S3.make_group(
+                    [(sh, None) for sh in shards if sh.dim is not None])))
+            self._buckets = out
+        return self._buckets
+
+    def _publish_bucket(self, bucket: _Bucket) -> None:
+        """The exact publish of one updated bucket: the all-gather of its
+        compute-dtype shards submitted on the queue and left in flight
+        (``comm.leave_in_flight``: at most two, the rest landed before the
+        next forward or before any collective outside the queue); its
+        replicated leaves cast in place."""
+        src = self._shard_compute if self._shard_compute is not None \
+            else self.flat_master
+        with torch.no_grad(), telemetry.span("zero_publish"):
+            for sh in bucket.shards:
+                if sh.dim is None:
+                    self._view(self.flat_compute, sh.slot).copy_(
+                        self._local(src, sh))
+            if bucket.group.n_row:
+                send = S3.pack(bucket.group, self, src, self.compute_dtype)
+                rows = torch.empty(self.shard_world, bucket.group.n_row,
+                                   dtype=send.dtype, device=self.device)
+                handle = self._comm_queue().submit(
+                    comm.all_gather_op(self.shard_group), [rows], [send],
+                    slot=f"p{self.reduce_counts['publish'] % 2}",
+                    group=self.shard_group)
+                self.reduce_counts["publish"] += 1
+                comm.leave_in_flight(handle, functools.partial(
+                    _land_publish, bucket.group, self.flat_compute,
+                    self.shard_world))
+
+    def _finish_publish(self) -> None:
+        """Land every publish in flight (before the forward that reads the
+        compute copy)."""
+        comm.settle()
+
     def _zenflow_segments(self) -> List[Segment]:
         """ZenFlow's leaves in the local buffer: a sharded leaf's rows
         gather the whole leaf's |g| over the shard group for its
@@ -1089,12 +1565,6 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _quant_weights(self) -> bool:
         return bool(self._compressed and self._compressed["quant_weights"])
 
-    def _piece_view(self, flat: torch.Tensor, piece) -> torch.Tensor:
-        """A gather piece's place in a full flat buffer (leaf layout)."""
-        full = self._view(flat, piece.shard.slot)
-        return full if piece.layers is None \
-            else full[piece.layers[0]:piece.layers[1]]
-
     def _compute_params(self, shard_written: bool = False) -> None:
         """Publish the compute copy from the master shards, group by group
         (``_publish_groups``): qwZ (int8 all-gather of the fp32 master,
@@ -1117,7 +1587,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                 rows = S3.gather_group(grp, self, self.flat_master if quant
                                        else src, quant, out=out)
                 S3.unpack(grp, rows, W,
-                          lambda p: self._piece_view(self.flat_compute, p))
+                          lambda p: _piece_view(self.flat_compute, p))
                 if quant and not grp.identity:
                     # the qgZ send quantizes _packed's pads: keep them 0
                     self._packed.zero_()
@@ -1137,9 +1607,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         n = stacked.shape[1] // self.world
         return stacked[:, self.rank * n:(self.rank + 1) * n]
 
-    def _pack(self, accumulate: bool) -> None:
-        """The micro-batch gradient (compute dtype, full) into the packed
-        fp32 rows and the replicated buffer: copied, or added."""
+    def _pack(self) -> None:
+        """The micro-batch gradient (compute dtype, full) copied into the
+        packed fp32 rows ``[Z, n_sh]`` and the replicated buffer (the int8
+        wire's send)."""
         with torch.no_grad(), telemetry.span("zero_pack"):
             for sh in self._shards:
                 g = self._view(self.flat_grad, sh.slot)
@@ -1149,10 +1620,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                 else:
                     dst, g = self._rows(self._packed, sh), self._moved(
                         self.flat_grad, sh)
-                if accumulate:
-                    dst.add_(g)
-                else:
-                    dst.copy_(g)
+                dst.copy_(g)
 
     def _replicated_mean(self) -> torch.Tensor:
         comm.all_reduce(self._rep_buf)
@@ -1171,7 +1639,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         rounded to the compute dtype, is added to the accumulator. Under
         hpZ the first hop sums over ``zshard`` and the replica hop (int8;
         exact under LoCo) sums over ``data`` before the mean."""
-        self._pack(accumulate=False)
+        self._pack()
         acc, cdt = self.flat_grad_acc, self.compute_dtype
         Z, grp, mean = self.shard_world, self.shard_group, not self.hpz
         with torch.no_grad():
@@ -1188,30 +1656,6 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             acc[:self._n_sh].add_(mine.to(cdt))
             if self._n_rep:
                 acc[self._n_sh:].add_(self._replicated_mean().to(cdt))
-
-    def _reduce_exact(self) -> None:
-        """The exact wire once per step: the packed fp32 gradient summed
-        over gas → mean shard (reduce-scatter at stage 2, all-reduce at
-        stages 0-1; over ``zshard`` then ``data`` under hpZ) into the
-        accumulator."""
-        acc, world = self.flat_grad_acc, torch.tensor(
-            float(self.world), device=self.device)
-        grp = self.shard_group
-        with torch.no_grad(), telemetry.span("zero_reduce_exact"):
-            if self._n_sh:
-                if self.zero_stage >= 2:
-                    mine = torch.empty(self._n_sh, dtype=torch.float32,
-                                       device=self.device)
-                    comm.reduce_scatter_tensor(mine, self._packed, group=grp)
-                else:
-                    comm.all_reduce(self._packed, group=grp)
-                    mine = self._packed[self.shard_rank]
-                if self.hpz:
-                    acc[:self._n_sh].copy_(self._replica_mean(mine, False))
-                else:
-                    acc[:self._n_sh].copy_(mine / world)
-            if self._n_rep:
-                acc[self._n_sh:].copy_(self._replicated_mean())
 
     def _token_weights(self, stacked, batch) -> Optional[torch.Tensor]:
         """Exact wire, batches with a ``loss_mask``: each micro-batch's
@@ -1241,19 +1685,43 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         ones (ZeRO-2 keeps them all)."""
         yield
 
-    def _reduce_micro(self) -> None:
-        """After a micro-batch's backward: qgZ reduces it, the exact wire
-        adds it to the packed fp32 rows."""
+    def _reduce_micro(self, last: bool) -> None:
+        """After a micro-batch's backward: qgZ reduces it. The exact wire
+        adds it into its units' fp32 rows; after the last one it issues
+        the units no hook issued (every unit when unhooked, or a leaf
+        without a gradient) and lands every reduce."""
         if self._quant_grads():
             self._reduce_micro_int8()
-        else:
-            self._pack(accumulate=True)
+            return
+        if not last:
+            for u in self._units:
+                self._pack_unit(u)
+            return
+        self._issuing = False
+        for u in self._units:
+            if not u.issued:
+                self.reduce_counts["late"] += 1
+                self._issue_reduce(u)
+        while self._reduces:
+            self._land_reduce(*self._reduces.pop(0))
+        self._comm_queue().drain()
 
     def _reduce_step(self) -> None:
-        if not self._quant_grads():
-            self._reduce_exact()
+        if not self._quant_grads() and self._n_rep:
+            with torch.no_grad():
+                self.flat_grad_acc[self._n_sh:].copy_(self._replicated_mean())
+
+    def _begin_micro(self, last: bool) -> None:
+        """Before a micro-batch's backward: the leaves' hooks issue their
+        units' reduces in the last one only."""
+        self._issuing = self._grad_hooks and last
+        for u in self._units:
+            u.pending, u.issued = u.n_leaves, False
 
     def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
+        self._finish_publish()
+        for k in self.reduce_counts:
+            self.reduce_counts[k] = 0
         self._tiers_before_step()
         batch = self._to_device(self._local_rows(stacked))
         scale = self._scaler_state.scale if self.fp16_enabled else None
@@ -1262,7 +1730,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         # the int8 wire keeps the mean of the ranks' means, as JAX's pmean
         weights = None if quant_grads else self._token_weights(stacked, batch)
         if not quant_grads:
-            if self._packed is not None:
+            if self._packed is not None and self._units:
                 self._packed.zero_()
             self._rep_buf.zero_()
         losses = []
@@ -1270,6 +1738,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             for i in range(gas):
                 mb = ({k: v[i] for k, v in batch.items()}
                       if isinstance(batch, dict) else batch[i])
+                self._begin_micro(i == gas - 1)
                 if weights is None:
                     losses.append(self._loss_and_grads(mb, scale))
                 else:
@@ -1277,7 +1746,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                     loss = self._loss_and_grads(
                         mb, w if scale is None else w * scale)
                     losses.append(loss * w)
-                self._reduce_micro()
+                self._reduce_micro(i == gas - 1)
             self._reduce_step()
         mean_loss = losses[0] if gas == 1 else torch.stack(losses).mean()
         mean_loss = comm.all_reduce(mean_loss.float().reshape(1),
@@ -1310,9 +1779,15 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         if self.fp16_enabled:
             overflow = not bool(torch.isfinite(norm))   # host read
         if not overflow:
-            self.optimizer.update(g, self.state["opt"], self.flat_master,
-                                  lr=lr, out=self._shard_compute)
-            self._compute_params(shard_written=True)
+            if (self._step_overlap and self.zero_stage < 3
+                    and not self._quant_weights()
+                    and isinstance(self.optimizer, FusedAdam)):
+                # each bucket's publish goes out as its update is done
+                self._bucketed_update(g, lr, self._shard_compute,
+                                      publish=self._publish_bucket)
+            else:
+                self._update_master(g, lr, self._shard_compute)
+                self._compute_params(shard_written=True)
         else:
             self._skips += 1
         metrics: Dict[str, Any] = {"grad_norm": norm, "lr": lr,
@@ -1323,6 +1798,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             metrics["loss_scale"] = self._scaler_state.scale
         self.state["step"] += 1
         return metrics
+
+    def close(self) -> None:
+        """Land the publish in flight and stop the queue's thread."""
+        self._finish_publish()
+        if self._queue is not None:
+            self._queue.close()
+        super().close()
 
     # ------------------------------------------------------------------ #
     # full views, for checks (collective: every rank calls them)
@@ -1338,6 +1820,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         replicated leaves) as the tree of whole fp32 leaves on ``device``,
         gathered from the shards of the rank's ``zshard`` group (the whole
         world without hpZ)."""
+        self._finish_publish()
         rows = torch.empty(self.shard_world, self._n_sh, dtype=torch.float32,
                            device=self.device)
         comm.all_gather_into_tensor(rows, flat[:self._n_sh].float(),
@@ -1397,17 +1880,22 @@ class Zero3Engine(DataParallelEngine):
     backward is done and its mean shard added to the accumulator. qgZ /
     LoCo: as ZeRO-2 per micro-batch, on a full gradient held for the step
     only (JAX's wire step holds the same transient). The update is ZeRO-2's
-    over the shards; nothing is published after it: the next forward
+    over the shards (by ``update_bucket_size`` buckets under
+    ``overlap_step``); nothing is published after it: the next forward
     gathers what it uses. (JAX's ``overlap_step`` double buffer holds the
     values such a gather gives — ``compressed.publish_gather_tree_fn`` — so
-    gathering per use computes the same step.)"""
+    gathering per use computes the same step.) A spec whose loss does not
+    take the parameter hook (anything but ``causal_lm_spec``'s) is handed
+    its whole tree, gathered as one group each forward, its gradient
+    reduced when the backward is done. With ``offload_param`` streaming,
+    the fp32 exact wire gathers each group from the master in pinned host
+    memory."""
 
     def _init_state(self, seed: int) -> None:
-        if not isinstance(getattr(self.model_spec, "config", None),
-                          T.TransformerConfig):
-            raise later_slice("ZeRO stage 3 for a model spec other than "
-                              "causal_lm_spec's (its layer loop takes the "
-                              "parameter hook)")
+        # causal_lm_spec's layer loop takes the parameter hook; any other
+        # spec is handed the whole tree, gathered as one group
+        self._hooked = isinstance(getattr(self.model_spec, "config", None),
+                                  T.TransformerConfig)
         self._shard_topology()
         tree = self._init_tree(seed)
         self._init_shards(tree)
@@ -1419,8 +1907,8 @@ class Zero3Engine(DataParallelEngine):
         self.flat_compute = self.flat_grad = self._packed = None
         self._zero3 = S3.Stage3Params(
             self, self._stage3_bounds(), prefetch=self._overlap.enabled,
-            recompute=self.model_spec.config.remat in ("full",
-                                                       "save_nothing"))
+            recompute=self._hooked and self.model_spec.config.remat in (
+                "full", "save_nothing"))
         self._params = self._zero3
         self._compute_params()
         logger.info(
@@ -1438,11 +1926,7 @@ class Zero3Engine(DataParallelEngine):
             return self._overlap_plan["chunk_bounds"]
         if self._quant_weights():
             return []
-        cfg = self.model_spec.config
-        per_layer = max(sum(leaf_count(s.shape) for s in self._slots
-                            if s.path[0] == _STACKED) // cfg.num_layers, 1)
-        return chunk_layers(cfg.num_layers, per_layer,
-                            self._overlap.prefetch_bucket_elems)
+        return self._layer_bounds()
 
     def _gather_source(self) -> torch.Tensor:
         """The compute-dtype local shard the exact wire gathers."""
@@ -1456,9 +1940,20 @@ class Zero3Engine(DataParallelEngine):
         return self._rep_buf[sh.offset:sh.offset + sh.n_loc].view(
             sh.slot.shape)
 
+    def _derived(self) -> Optional[torch.Tensor]:
+        for t in (self._shard_compute, self._shard_cast):
+            if t is not None:
+                return t
+        return None
+
     def _compute_params(self, shard_written: bool = False) -> None:
         """Refresh the compute-dtype shard from the master (bf16 unless
-        Adam has just written it); nothing is gathered here."""
+        Adam has just written it; streamed from the host tier, where the
+        streamed update has written it); nothing is gathered here."""
+        if self._streaming():
+            if not shard_written:
+                self._stream_pass()
+            return
         with torch.no_grad():
             if self._shard_compute is not None and not shard_written:
                 self._shard_compute.copy_(self.flat_master)
@@ -1486,13 +1981,13 @@ class Zero3Engine(DataParallelEngine):
             self.flat_grad.zero_()
         z = self._zero3
         z.begin_forward()
-        loss = self.model_spec.loss_fn(z, mb)
+        loss = self.model_spec.loss_fn(z if self._hooked else z.tree(), mb)
         z.begin_backward()
         (loss * scale if scale is not None else loss).backward()
         z.finish_micro()
         return loss.detach()
 
-    def _reduce_micro(self) -> None:
+    def _reduce_micro(self, last: bool) -> None:
         """qgZ / LoCo once per micro-batch; the exact wire has reduced in
         the backward."""
         if self._quant_grads():

@@ -10,10 +10,13 @@ and the update runs on the host's cores. One step:
 
 1. the gas loop runs on the card into the accumulator;
 2. the accumulator streams device→host into a pinned landing buffer;
-3. the host update: unscale, global norm, clip, ``optimizer.update``
-   (the plain fused Adam, ``ops/fused_adam.fused_adam_ref``, ``CHUNK``
-   elements of the flat buffers at a time, in place), the compute-dtype
-   cast into a pinned staging buffer (by the same chunks);
+3. the host update, JAX's CPU-compiled program (``_build_update``
+   :160-191) as the compiled host library ``ops/cpu_adam.py``
+   (``csrc/cpu_adam.cpp``): one pass divides the gradient by gas and
+   gives the global norm's partials, one pass applies the clip factor and
+   Adam to the master and the moments in place and writes the bf16 copy
+   into a pinned staging buffer (``optimizer.host_update``), each on
+   ``threads`` host threads;
 4. the staging buffer streams host→device into the compute copy.
 
 The update runs in one worker thread. The copies go on the card's
@@ -35,7 +38,9 @@ the threads' timing. Without overlap, update k lands before step k+1.
 Refused as in JAX (``host_step.py:57-72``, ``engine.py:362-364``): fp16
 loss scaling, more than one process (the update addresses this process's
 host memory only) and the compressed wires; the port's mesh refuses a
-pipeline axis before.
+pipeline axis before. The host library is built when the runner is made:
+a missing compiler or a failed build raises ``KernelBuildError`` there,
+and nothing falls back to an eager update.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import PinnedHost
 from deepspeed_tpu_torch.comm import comm
-from deepspeed_tpu_torch.ops.fused_adam import CHUNK
+from deepspeed_tpu_torch.ops import cpu_adam
 from deepspeed_tpu_torch.runtime.config_utils import (
     DeepSpeedConfigError,
     logger,
@@ -78,6 +83,7 @@ class HostStepRunner:
         else:
             self.overlap = zcfg.zenflow.enabled and zcfg.zenflow.overlap_step
         self.threads = torch.get_num_threads()
+        cpu_adam.norm_block()           # builds the host library now
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="dstpu-host-step",
             initializer=torch.set_num_threads, initargs=(self.threads,))
@@ -167,23 +173,18 @@ class HostStepRunner:
             e = self.engine
             g = self.landing if self.landing.dtype == torch.float32 \
                 else self.landing.float()
-            scale = torch.tensor(gas_scale, dtype=torch.float32)
-            n = g.numel()
-            sq = []
-            for i in range(0, n, CHUNK):
-                c = g[i:i + CHUNK].div_(scale)   # true division, as JAX
-                sq.append(c.square().sum())
-            norm = torch.sqrt(torch.stack(sq).sum()) if sq \
-                else torch.zeros(())
+            sum_sq, _ = cpu_adam.grad_prep(g, gas_scale, self.threads)
+            t1 = time.perf_counter()
+            norm = cpu_adam.global_norm(sum_sq)
             norm_out.set_result(norm)
             clip = e.config.gradient_clipping
-            if clip > 0:
-                factor = torch.clamp(clip / (norm + 1e-6), max=1.0)
-                for i in range(0, n, CHUNK):
-                    g[i:i + CHUNK].mul_(factor)
-            e.optimizer.update(g, e.state["opt"], e.flat_master, lr=lr,
-                               out=self.staging)
-            rec["host_update_s"] = time.perf_counter() - t0
+            e.optimizer.host_update(
+                g, e.state["opt"], e.flat_master, lr=lr, out=self.staging,
+                clip=cpu_adam.clip_factor(norm, clip) if clip > 0 else None,
+                threads=self.threads)
+            t2 = time.perf_counter()
+            rec.update(host_update_s=t2 - t0, host_prep_s=t1 - t0,
+                       host_adam_s=t2 - t1, threads=self.threads)
             return rec
         except BaseException as exc:
             if not norm_out.done():
@@ -192,13 +193,15 @@ class HostStepRunner:
 
     def stats(self) -> List[Dict[str, float]]:
         """Per finished update: device→host and host→device ms (CUDA
-        events; None on the CPU) and the host update's seconds."""
+        events; None on the CPU), the host update's seconds (and its two
+        passes') and its threads."""
         self.wait()
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
         out = []
         for rec in self.records:
-            row = {"host_update_s": rec.get("host_update_s")}
+            row = {k: rec.get(k) for k in ("host_update_s", "host_prep_s",
+                                           "host_adam_s", "threads")}
             for k in ("d2h", "h2d"):
                 ev = rec.get(k)
                 row[f"{k}_ms"] = (ev[0].elapsed_time(ev[1])

@@ -83,6 +83,24 @@ class ZenFlowOptimizer(TPUOptimizer):
         """One step on flat fp32 ``grads`` (overwritten with the applied
         gradient), ``state`` and ``params``, in place; ``out`` as the inner
         optimizer's."""
+        return self._split_update(grads, state, params, lr, out,
+                                  self.inner.update)
+
+    def host_update(self, grads, state, params, lr=None, out=None,
+                    clip=None, threads=None):
+        """The host step's update: the clip applied to the whole gradient
+        first (the split reads the clipped gradient), then the split and
+        the inner optimizer's ``host_update``."""
+        if clip is not None:
+            grads.mul_(torch.tensor(clip, dtype=torch.float32))
+
+        def inner(g, st, p, lr=None, out=None):
+            return self.inner.host_update(g, st, p, lr=lr, out=out,
+                                          threads=threads)
+
+        return self._split_update(grads, state, params, lr, out, inner)
+
+    def _split_update(self, grads, state, params, lr, out, inner_update):
         if not self.segments:
             raise RuntimeError("ZenFlowOptimizer.update: no segments bound "
                                "(the engine binds its leaves)")
@@ -104,8 +122,7 @@ class ZenFlowOptimizer(TPUOptimizer):
         if warm or boundary:
             acc.zero_()
         inner = {k: v for k, v in state.items() if k != "cold_acc"}
-        params, inner = self.inner.update(grads, inner, params, lr=lr,
-                                          out=out)
+        params, inner = inner_update(grads, inner, params, lr=lr, out=out)
         state.update(inner)
         return params, state
 

@@ -319,13 +319,18 @@ def test_zero3_memory_problems():
     assert len(C.zero3_memory_problems(20e9, 17e9)) == 1
 
 
-def test_zero3_phase_rank_rehearsal_on_cpu():
+def test_zero3_phase_rank_rehearsal_on_cpu(tmp_path):
     """The phase's rank function at tiny size on two gloo ranks of the CPU
     (the plain paths; the counters read 0 there): both runs train, the
     gathers and reduces a step are the plan's, the qwZ groups stay within
     half a step, the wire gate's bits agree, and Z1-Z2 pass."""
+    import torch
+
+    m = dict(C.ZERO3_MLP, width=64, micro=4)
+    ref = str(tmp_path / "mlp_ref.pt")
+    C.mlp_run(torch.device("cpu"), {"stage": 0}, 2 * m["micro"], 0, m, ref)
     t = dict(C.ZERO3, model="tiny", micro=2, seq=32, gas=2, steps=2,
-             gate_layers=2, device="cpu", baseline=True)
+             gate_layers=2, device="cpu", baseline=True, mlp=m, mlp_ref=ref)
     ranks = C.spawn_ranks("train_llama_750m_zero3_dp2_rank", 2, 0, t)
     for r in ranks:
         for run, wire in (("exact", False), ("wire", True)):
@@ -341,6 +346,32 @@ def test_zero3_phase_rank_rehearsal_on_cpu():
         assert r["gates"]["bf16_loss_bit_equal"]
         assert set(r["exposed"]) == {"overlap_on", "overlap_off"}
         assert r["baseline"]["losses"][0] == r["exact"]["losses"][0]
+        # ZeRO-3 for a spec without the hook, against world 1 without ZeRO
+        assert r["mlp_problems"] == [], r["mlp_problems"]
+        assert r["mlp"]["type"] == "Zero3Engine"
+
+
+def test_zeropp_phase_rank_rehearsal_on_cpu():
+    """The ZeRO++ phase's rank function at tiny size on two gloo ranks:
+    besides the int8 main path and its gates, exact ZeRO-2 with the hooked
+    chunk and bucket reduces and the bucketed update (its reduces and
+    publishes a step by formula: once a step, whatever gas), the unhooked
+    run (one reduce after the backward), and the fp32 step of each by the
+    training rule."""
+    t = dict(C.ZEROPP, model="tiny", micro=2, seq=32, gas=2, steps=2,
+             device="cpu")
+    ranks = C.spawn_ranks("train_llama_750m_zeropp_dp2_rank", 2, 0, t)
+    for r in ranks:
+        b, once = r["baseline"], r["once"]
+        assert b["hooked"] and not once["hooked"]
+        assert b["reduce_counts"] == b["reduce_counts_want"]
+        assert b["reduce_counts"]["chunk"] == len(b["plan"]["chunk_bounds"])
+        assert b["plan"]["step_overlap"]
+        assert once["reduce_counts"] == once["reduce_counts_want"] == {
+            "chunk": 0, "bucket": 1, "late": 1, "publish": 0}
+        assert b["losses"][0] == once["losses"][0]
+        assert r["gate_problems"] == [], r["gate_problems"]
+        assert r["overlap_gate"]["overlap"]["loss_rel"] <= C.TRAIN_LOSS_REL
 
 
 # --------------------------------------------------------------------------- #
@@ -523,6 +554,16 @@ def test_super_offload_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
     assert r["placed"]["master"] == "cpu"
     assert len(r["updates"]) == 5
     assert all(u["host_update_s"] > 0 for u in r["updates"])
+    # the update ran in the host library; S0 on the step's real state:
+    # m and v bit-equal to the plain version, the norm's sum the same at
+    # one thread and at all
+    assert r["host_update_route"].endswith("cpu_adam.cpp")
+    assert r["launches"]["host_adam"] == r["launches"]["host_grad_prep"] == 5
+    assert C.host_adam_gate_problems(r["s0"]) == []
+    assert r["s0"]["vs_plain_bit_equal"]["m"]
+    assert r["s0"]["norm_bit_equal"]
+    row = smoke.host_rows["host_adam"]
+    assert row["launches"] == 5 and row["bound_by"] == "bytes"
 
 
 def test_offload_750m_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
@@ -550,3 +591,11 @@ def test_offload_750m_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
         assert d[run]["losses"] == d["none"]["losses"]
         assert d[run]["master_bit_equal"]
     assert {c["master"] for c in d["nvme"]["checks"]} == {"file"}
+    # (d) streamed the master chunk by chunk; the int8 wire at world 2
+    # kept the boundary swap, bit-equal
+    for run in ("cpu", "nvme"):
+        assert d[run]["stream"] and d[run]["stream_counts"]["update_h2d"] > 1
+    for x in r["d_int8_runs"]:
+        assert not x["cpu"]["stream"] and x["cpu"]["wire"] == "qz"
+        assert x["cpu"]["losses"] == x["none"]["losses"]
+        assert x["cpu"]["master_bit_equal"]

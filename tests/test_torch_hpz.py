@@ -27,6 +27,9 @@ limits, engine config and tolerances). Rank r sits at ``data = r // 2``,
   subgroup's config errors at world 4 (a subgroup that does not divide
   the world or does not fit the mesh) and at world 1 (one parametrised
   test against JAX's messages, with the spellings that mean off).
+* bf16 hpZ ZeRO-3 at (data 2, zshard 2) against JAX: each rank no
+  further from JAX's fp32 run than twice JAX's own bf16 run
+  (``test_torch_zero3.LOW_VS_JAX``).
 """
 import pickle
 
@@ -34,7 +37,7 @@ import numpy as np
 import pytest
 
 from test_torch_zero import SEQ, STEPS, TOL, _engine_config, _leaves, _spawn
-from test_torch_zero3 import _close_ulps
+from test_torch_zero3 import LOW_VS_JAX, _close_ulps, _precision
 
 WORLD = 4
 HPZ = {"zero_hpz_partition_size": 2}
@@ -57,6 +60,9 @@ CASES = {
     "d4_stage3_exact": ({"stage": 3}, (4, 1)),
     "d4_stage2_qgz_qwz": (dict(INT8, stage=2), (4, 1)),
 }
+# bf16 hpZ against JAX: name → (zero config, mesh, the fp32 case); held
+# as test_torch_zero3's low-precision runs are (LOW_VS_JAX)
+BF16 = {"bf16_stage3_exact": (dict(HPZ, stage=3), (2, 2), "stage3_exact")}
 # port-only: MiCS at stage 2, bit-equal to the hpZ key's run
 MICS_TWIN = ("stage2_mics", {"stage": 2, "mics_shard_size": 2},
              "stage2_exact")
@@ -111,18 +117,19 @@ def _leaf_inputs():
 # the JAX runs, then every port case in one spawn of four ranks
 # --------------------------------------------------------------------------- #
 
-def _jax_run(zero, mesh):
+def _jax_run(zero, mesh, dtype="float32"):
     import jax
 
     import deepspeed_tpu as dst
     from deepspeed_tpu.comm.mesh import MeshConfig, initialize_mesh
     from deepspeed_tpu.runtime.dataloader import synthetic_lm_data
 
-    spec = dst.causal_lm_spec("tiny", dtype="float32")
+    spec = dst.causal_lm_spec("tiny", dtype=dtype)
     mm = initialize_mesh(MeshConfig(data=mesh[0], zshard=mesh[1]),
                          devices=jax.devices()[:WORLD])
-    engine, *_ = dst.initialize(model=spec, config=_engine_config(zero),
-                                mesh_manager=mm)
+    engine, *_ = dst.initialize(
+        model=spec, config=_precision(_engine_config(zero), dtype),
+        mesh_manager=mm)
     master0 = jax.tree.map(np.asarray, engine.state["master"])
     data = synthetic_lm_data(WORLD, SEQ, 512, seed=3)
     losses, norms = [], []
@@ -143,20 +150,23 @@ def hpz_runs(tmp_path_factory):
     """→ (JAX runs by case, [rank results])."""
     runs = {name: _jax_run(zero, mesh) for name, (zero, mesh)
             in CASES.items()}
+    runs.update({name: _jax_run(zero, mesh, "bfloat16")
+                 for name, (zero, mesh, _) in BF16.items()})
     tmp = tmp_path_factory.mktemp("hpz")
     path = tmp / "runs.pkl"
     path.write_bytes(pickle.dumps(runs))
     return runs, _spawn(_hpz_rank, WORLD, tmp, str(path))
 
 
-def _port_run(zero, master0):
+def _port_run(zero, master0, dtype="float32"):
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models.convert import load_master
     from deepspeed_tpu_torch.runtime.dataloader import synthetic_lm_data
 
-    spec = dtt.causal_lm_spec("tiny", dtype="float32", remat="full")
-    engine, *_ = dtt.initialize(model=spec, config=_engine_config(zero),
-                                device="cpu")
+    spec = dtt.causal_lm_spec("tiny", dtype=dtype, remat="full")
+    engine, *_ = dtt.initialize(
+        model=spec, config=_precision(_engine_config(zero), dtype),
+        device="cpu")
     load_master(engine, master0)
     data = synthetic_lm_data(engine.world, SEQ, 512, seed=3)
     losses, norms = [], []
@@ -194,6 +204,8 @@ def _hpz_rank(rank, world, runs_path):
            for name, (zero, _) in CASES.items()}
     twin, zero, _ = MICS_TWIN
     out[twin] = _port_run(zero, runs[MICS_TWIN[2]]["master0"])
+    for name, (zero, _, _) in BF16.items():
+        out[name] = _port_run(zero, runs[name]["master0"], "bfloat16")
     # the mesh the (2, 2) engines left: coordinates and groups
     mm = M.get_mesh_manager()
     out["mesh"] = {"shape": dict(mm.shape), "coords": dict(mm.coords),
@@ -507,3 +519,34 @@ def test_subgroup_config_matches_jax(extra, error):
             dst.initialize(model=dst.causal_lm_spec("tiny", dtype="float32"),
                            config=cfg)
         assert str(jax_err.value) == str(port.value)
+
+
+@pytest.mark.parametrize("name", list(BF16))
+def test_bf16_hpz_matches_jax(hpz_runs, name):
+    """bf16 hpZ ZeRO-3 at (data 2, zshard 2): each rank's losses and
+    master shard no further from JAX's fp32 run of the same config than
+    ``LOW_VS_JAX`` times JAX's own bf16 run, metric by metric (a distance
+    below ``TOL["exact"]``'s limit counting as that limit)."""
+    runs, ranks = hpz_runs
+    _, (_, Z), ref = BF16[name]
+    want, fp32 = runs[name], dict(_leaves(runs[ref]["master"]))
+    floor = np.array([TOL["exact"]["loss"], TOL["exact"]["master"],
+                      TOL["exact"]["master_mean"]])
+
+    def dist(losses, shards):
+        loss = np.max(np.abs(np.asarray(losses) - runs[ref]["losses"])
+                      / np.abs(runs[ref]["losses"]))
+        diff = np.concatenate([np.abs(v - w).ravel() for v, w in shards])
+        return np.array([loss, diff.max(), diff.mean()])
+
+    for r, got in enumerate(x[name] for x in ranks):
+        assert got["losses"] == ranks[0][name]["losses"]
+        mine = dist(got["losses"], [
+            (v, _want_shard(fp32[k], dim, Z, r % Z))
+            for k, (dim, v) in got["shard"].items()])
+        jbf16 = dict(_leaves(want["master"]))
+        theirs = np.maximum(floor, dist(want["losses"], [
+            (_want_shard(jbf16[k], dim, Z, r % Z),
+             _want_shard(fp32[k], dim, Z, r % Z))
+            for k, (dim, _) in got["shard"].items()]))
+        assert np.all(mine <= LOW_VS_JAX * theirs), (name, r, mine, theirs)

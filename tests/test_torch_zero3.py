@@ -25,6 +25,13 @@ The ranks are spawned once, by a module fixture, for every world-2 case.
 * Memory: after ``train_batch`` the ZeRO-3 engine holds no full-size
   compute or gradient buffer: its persistent tensors' elements against
   the ZeRO-2 engine's; a dropped engine is freed at once.
+* bf16 ZeRO-3, and fp16 ZeRO-3 with the loss-scaled qgZ + qwZ wire, at
+  world 2 against JAX (``LOW_VS_JAX``): each no further from JAX's fp32
+  run than twice JAX's own run at that precision; the fp16 overflow skips
+  JAX's.
+* ZeRO-3 for a spec without the parameter hook (a two-layer MLP with a
+  regression loss, built in both packages): exact and int8 wires against
+  JAX at ``data = 2`` by ``TOL``, one gather and one reduce a micro-batch.
 * The per-leaf gathers of ``parallel/compressed.py`` (``gather_with_
   compressed_vjp`` forward and backward, exact and int8;
   ``chunked_gather_tree_fn`` and ``publish_gather_tree_fn``) against
@@ -64,10 +71,80 @@ ZERO3 = {
                                       stage3_prefetch_bucket_size=20000),
 }
 MASKED3 = "stage3_exact"
+# bf16 ZeRO-3 and fp16 with the loss-scaled int8 wire against JAX: name →
+# (zero config, dtype, the fp32 case of the same config)
+LOW = {"bf16_stage3_exact": ({"stage": 3}, "bfloat16", "stage3_exact"),
+       "fp16_stage3_qgz_qwz": (dict(INT8, stage=3), "float16",
+                               "stage3_qgz_qwz")}
+# A low-precision run against JAX's: both round every activation to 16 bits
+# in different places (XLA fuses, PyTorch does not), so each is held to
+# JAX's fp32 run of the same config instead: the port no further from it
+# than LOW_VS_JAX times JAX's own low-precision run, metric by metric
+# (the losses, the master's largest and mean distance), a distance below
+# TOL["exact"]'s limit counting as that limit.
+LOW_VS_JAX = 2.0
+# ZeRO-3 for a spec other than causal_lm_spec's: a two-layer MLP with a
+# regression loss, made the same way in both packages; the whole tree is
+# one gather group
+MLP_D, MLP_H = 64, 256
+MLP = {"mlp_exact": {"stage": 3}, "mlp_qgz_qwz": dict(INT8, stage=3)}
 # overlap_comm off against on (bit-equal): the exact chunked wire and the
 # one-chunk int8 wire
 OVERLAP_OFF = ("stage3_exact_chunked", "stage3_qgz_qwz")
 CHUNKS = [(0, 1), (1, 2)]
+
+
+def _mlp_axes():
+    return {"b1": (None,), "b2": (None,), "w1": (None, None),
+            "w2": (None, None)}
+
+
+def _jax_mlp_spec():
+    import jax
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.models.api import ModelSpec
+
+    def init_fn(rng):
+        k1, k2 = jax.random.split(rng)
+        return {"w1": jax.random.normal(k1, (MLP_D, MLP_H)) * 0.05,
+                "b1": jnp.zeros((MLP_H,)),
+                "w2": jax.random.normal(k2, (MLP_H, MLP_D)) * 0.05,
+                "b2": jnp.zeros((MLP_D,))}
+
+    def loss_fn(p, batch):
+        h = jnp.tanh(batch["x"] @ p["w1"] + p["b1"])
+        return jnp.mean(jnp.square(h @ p["w2"] + p["b2"] - batch["y"]))
+
+    return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, axes_fn=_mlp_axes,
+                     name="mlp")
+
+
+def _port_mlp_spec():
+    import deepspeed_tpu_torch as dtt
+
+    def init_fn(gen, device):
+        return {"w1": torch.randn(MLP_D, MLP_H, generator=gen,
+                                  device=device) * 0.05,
+                "b1": torch.zeros(MLP_H, device=device),
+                "w2": torch.randn(MLP_H, MLP_D, generator=gen,
+                                  device=device) * 0.05,
+                "b2": torch.zeros(MLP_D, device=device)}
+
+    def loss_fn(p, batch):
+        h = torch.tanh(batch["x"] @ p["w1"] + p["b1"])
+        return torch.mean(torch.square(h @ p["w2"] + p["b2"] - batch["y"]))
+
+    return dtt.ModelSpec(init_fn=init_fn, loss_fn=loss_fn, axes_fn=_mlp_axes,
+                         name="mlp")
+
+
+def _mlp_batches(world):
+    rng = np.random.default_rng(4)
+    gas = _engine_config({})["gradient_accumulation_steps"]
+    return [{"x": rng.normal(size=(world, MLP_D)).astype(np.float32),
+             "y": rng.normal(size=(world, MLP_D)).astype(np.float32)}
+            for _ in range(STEPS * gas)]
 
 
 # --------------------------------------------------------------------------- #
@@ -139,16 +216,26 @@ def test_overlap_functions_match_jax(fn):
 # the JAX runs, then every world-2 case in one spawn
 # --------------------------------------------------------------------------- #
 
-def _jax_engine(zero, data, dtype="float32"):
+def _precision(cfg, dtype):
+    """The engine config's precision section for a compute dtype."""
+    if dtype == "bfloat16":
+        cfg["bf16"] = {"enabled": True}
+    elif dtype == "float16":
+        cfg["fp16"] = {"enabled": True, "initial_scale_power": 8}
+    return cfg
+
+
+def _jax_engine(zero, data, dtype="float32", spec=None):
     import jax
 
     import deepspeed_tpu as dst
     from deepspeed_tpu.comm.mesh import MeshConfig, initialize_mesh
 
-    spec = dst.causal_lm_spec("tiny", dtype=dtype)
+    spec = spec or dst.causal_lm_spec("tiny", dtype=dtype)
     mm = initialize_mesh(MeshConfig(data=data), devices=jax.devices()[:data])
-    engine, *_ = dst.initialize(model=spec, config=_engine_config(zero),
-                                mesh_manager=mm)
+    engine, *_ = dst.initialize(
+        model=spec, config=_precision(_engine_config(zero), dtype),
+        mesh_manager=mm)
     return engine
 
 
@@ -162,7 +249,7 @@ def _jax_run(engine, data):
             "loco_err": (jax.tree.map(np.asarray, engine.state["loco_err"])
                          if "loco_err" in engine.state else None),
             "wire": engine._wire_format(), "compressed": engine._compressed,
-            "plan": engine.overlap_plan()}
+            "plan": engine.overlap_plan(), "skips": int(engine.skipped_steps)}
 
 
 @pytest.fixture(scope="module")
@@ -180,20 +267,24 @@ def zero3_runs(tmp_path_factory):
                               iter(_masked_batches(WORLD)))
     runs["world1"] = _jax_run(_jax_engine(ZERO3["stage3_exact"], 1),
                               synthetic_lm_data(1, SEQ, 512, seed=3))
+    for name, (zero, dtype, _) in LOW.items():
+        runs[name] = _jax_run(_jax_engine(zero, WORLD, dtype),
+                              synthetic_lm_data(WORLD, SEQ, 512, seed=3))
+    for name, zero in MLP.items():
+        runs[name] = _jax_run(_jax_engine(zero, WORLD, spec=_jax_mlp_spec()),
+                              iter(_mlp_batches(WORLD)))
     tmp = tmp_path_factory.mktemp("zero3")
     path = tmp / "runs.pkl"
     path.write_bytes(pickle.dumps(runs))
     return runs, _spawn(_zero3_rank, WORLD, tmp, str(path))
 
 
-def _port_run(zero, master0, data, dtype="float32", **overrides):
+def _port_run(zero, master0, data, dtype="float32", spec=None, **overrides):
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models.convert import gather_master, load_master
 
-    spec = dtt.causal_lm_spec("tiny", dtype=dtype, remat="full")
-    cfg = _engine_config(dict(zero, **overrides))
-    if dtype == "bfloat16":
-        cfg["bf16"] = {"enabled": True}
+    spec = spec or dtt.causal_lm_spec("tiny", dtype=dtype, remat="full")
+    cfg = _precision(_engine_config(dict(zero, **overrides)), dtype)
     engine, *_ = dtt.initialize(model=spec, config=cfg, device="cpu")
     load_master(engine, master0)
     losses = [float(engine.train_batch(data)) for _ in range(STEPS)]
@@ -204,7 +295,7 @@ def _port_run(zero, master0, data, dtype="float32", **overrides):
         "master": gather_master(engine),
         "loco_err": None if err is None else dict(_leaves(err)),
         "wire": engine._wire_format(), "compressed": engine._compressed,
-        "plan": engine.overlap_plan(),
+        "plan": engine.overlap_plan(), "skips": engine.skipped_steps,
         "counts": dict(getattr(engine, "_zero3", None).counts)
         if hasattr(engine, "_zero3") else None}
 
@@ -252,6 +343,14 @@ def _zero3_rank(rank, world, runs_path):
         ref = weakref.ref(engine)
         del engine
         out[f"bf16_stage{stage}"]["freed"] = ref() is None
+    for name, (zero, dtype, _) in LOW.items():
+        _, out[name] = _port_run(zero, runs[name]["master0"],
+                                 synthetic_lm_data(world, SEQ, 512, seed=3),
+                                 dtype=dtype)
+    for name, zero in MLP.items():
+        _, out[name] = _port_run(zero, runs[name]["master0"],
+                                 iter(_mlp_batches(world)),
+                                 spec=_port_mlp_spec())
     out["leaf_wire"] = _leaf_gathers(rank, world)
     out["groups"] = _group_gathers(rank, world, master0)
     return out
@@ -384,6 +483,8 @@ def test_stage3_world2_matches_jax_engine(zero3_runs, name):
     _check_run(want, got, name)
     assert {k: got["plan"][k] for k in PLAN_KEYS} == \
         {k: want["plan"][k] for k in PLAN_KEYS}
+    # the step phase's flags too (JAX engine.py:749-757)
+    assert got["plan"] == want["plan"]
     chunks = max(len(want["plan"]["chunk_bounds"]), 1)
     gas = _engine_config({})["gradient_accumulation_steps"]
     assert got["counts"] == {
@@ -565,3 +666,52 @@ def test_chunked_gathers_match_jax(zero3_runs):
         assert sorted(g["engine"]) == sorted(g["chunked"])
         for k, v in g["chunked"].items():
             np.testing.assert_array_equal(g["engine"][k], v, err_msg=k)
+
+
+def _distances(got, want):
+    """(largest relative loss distance, the master's largest and mean
+    absolute distance) of one run from another."""
+    loss = np.max(np.abs(np.asarray(got["losses"]) - want["losses"])
+                  / np.abs(want["losses"]))
+    mine, theirs = dict(_leaves(got["master"])), dict(_leaves(want["master"]))
+    diff = np.concatenate([np.abs(mine[k] - theirs[k]).ravel()
+                           for k in theirs])
+    return np.array([loss, diff.max(), diff.mean()])
+
+
+@pytest.mark.parametrize("name", list(LOW))
+def test_low_precision_stage3_matches_jax(zero3_runs, name):
+    """bf16 ZeRO-3 and fp16 ZeRO-3 with the loss-scaled qgZ + qwZ wire at
+    world 2: no further from JAX's fp32 run than ``LOW_VS_JAX`` times
+    JAX's own run at that precision, metric by metric."""
+    runs, ranks = zero3_runs
+    _, _, ref = LOW[name]
+    got, want = ranks[0][name], runs[name]
+    assert ranks[1][name]["losses"] == got["losses"]
+    assert (got["wire"], got["compressed"]) == (want["wire"],
+                                                want["compressed"])
+    # the same fp16 overflow skips as JAX's, and not every step skipped
+    assert got["skips"] == want["skips"] < STEPS
+    floor = np.array([TOL["exact"]["loss"], TOL["exact"]["master"],
+                      TOL["exact"]["master_mean"]])
+    theirs = np.maximum(_distances(want, runs[ref]), floor)
+    mine = _distances(got, runs[ref])
+    assert np.all(mine <= LOW_VS_JAX * theirs), (name, mine, theirs)
+
+
+@pytest.mark.parametrize("name", list(MLP))
+def test_stage3_any_spec_matches_jax(zero3_runs, name):
+    """ZeRO-3 for a spec without the parameter hook (an MLP built in the
+    test): its tree gathered as one group a forward and its gradient
+    reduced after the backward, against JAX at ``data = 2`` by ``TOL``;
+    a rank holds only its shards between steps."""
+    runs, ranks = zero3_runs
+    got = ranks[0][name]
+    assert got["type"] == "Zero3Engine"
+    assert ranks[1][name]["losses"] == got["losses"]
+    _check_run(runs[name], got, name)
+    gas = _engine_config({})["gradient_accumulation_steps"]
+    assert got["counts"] == {
+        "gather_fwd": gas, "gather_bwd": 0,
+        "reduce": gas if runs[name]["wire"] == "exact" else 0}
+    assert got["plan"] == runs[name]["plan"]
