@@ -48,6 +48,9 @@ kernel on them against its plain PyTorch version:
                has rows in both regimes, and its logits on the kernel path
                vs the plain path;
 5. gpt2_125m — the LayerNorm / learned-position / GELU path, same checks;
+5b. moe_350m — the MoE model at full size (4 experts, top-2, the dropless
+               dispatch over each tick's rows, 2 gmm launches a layer and
+               tick), the same checks, then its decode rate and TTFT;
 6. train_gpt2_125m  — ``initialize`` + ``train_batch`` at the repo's
                headline training settings (micro 32, seq 1024, gas 4, bf16,
                ZeRO-1, flash attention, remat full, Adam lr 1e-4), full
@@ -89,18 +92,19 @@ kernel on them against its plain PyTorch version:
                once more with the once-a-step reduce; one fp32 step of
                each from one master by the training rule;
 12. train_llama_750m_zero3_dp2 — the same two ranks train llama_750m at
-               full width and depth with ZeRO-3 (the repo's
-               zero3_llama_750m_bf16 row, overlap_comm on: 8 layer chunks
-               of JAX's plan, each gathered where the forward and the
-               recompute use it, the next in flight): (a) exact, (b) + qgZ
-               + qwZ + LoCo, (c) exact ZeRO-2 (the zeropp phase's when it
-               ran): step, tokens/s, MFU, peak a rank, the wire's host
+               full width, ZERO3_LAYERS of its 20 layers, with ZeRO-3 (the
+               repo's zero3_llama_750m_bf16 row, overlap_comm on: 8 layer
+               chunks of JAX's plan, each gathered where the forward and
+               the recompute use it, the next in flight): (a) exact, (b) +
+               qgZ + qwZ + LoCo, (c) exact ZeRO-2 at the same depth: step,
+               tokens/s, MFU, peak a rank, the wire's host
                waits with the prefetch on and off; gates Z1 (one fp32 step
                ZeRO-3 vs ZeRO-2 at 4 layers, full width, by the training
                rule), Z2 (bf16: the loss within 1e-5, the update no
                further from fp32 than 2x ZeRO-2's), Z3 (each chunk's qwZ
                gather within half a step of the exact gather; the zeropp
-               wire gate on (b)), Z4 ((a)'s peak >= 3 GB below (c)'s), Z5
+               wire gate on (b)), Z4 ((a)'s peak >= 3 GB x layers / 20
+               below (c)'s), Z5
                (the launches and the 17 gathers a micro-batch); then ZeRO-3
                for a spec without the parameter hook (a 4-layer MLP at width
                4096, fp32, built here) at world 2 against the same spec at
@@ -124,6 +128,18 @@ kernel on them against its plain PyTorch version:
                group's collectives and elements a step by formula: no
                parameter gather on the data group, which carries the
                replica hop only), H5 (the launches and gathers a step);
+13b. train_moe_350m_ep — moe_350m over the expert axis (MOE_EP,
+               MOE_EP_B): (a) two ranks at mesh {expert: 2}, full width and
+               depth, each holding 2 of the 4 experts, the choices sent to
+               their expert's rank by all-to-all; (b) four ranks at mesh
+               {data: 2, expert: 2}, 4 layers; gates E1-E5 (the fp32 step
+               by the training rule against the same ranks without the
+               expert axis, and against one process; bf16 within 2x the
+               plain bf16 path; the grouped GEMM on a rank's received
+               buffer; the all-to-alls and the aux loss's means a step by
+               formula, nothing dropped); step, tokens/s, MFU by active
+               parameters, peak a rank, the expert group's host seconds,
+               the idle share;
 14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
@@ -182,11 +198,13 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,quantized_reduce_scatter,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,train_llama_750m_zero3_dp2,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_hpz_dp4,times
+    python3 chip_smoke.py --phases card,build,train_moe_350m_ep,moe_350m
     python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
     python3 chip_smoke.py --phases card,build,train_llama2_7b_super_offload,train_llama_750m_offload
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14) and the offload phases (15-16) run right after the kernels phase,
+(11-14, 13b among them) and the offload phases (15-16) run right after the
+kernels phase,
 before the serving phases' engines take the card. Wire times of the
 data-parallel phases are gloo's through host memory, the ranks sharing
 one card: not NVLink's.
@@ -217,10 +235,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 # the empty card).
 PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
-          "quantized_reduce_scatter", "train_llama2_7b_super_offload",
-          "train_llama_750m_offload", "llama2_7b", "gpt2_125m",
-          "train_gpt2_125m", "train_llama_750m", "train_moe_350m",
-          "train_llama_750m_sparse", "evoformer", "times")
+          "train_moe_350m_ep", "quantized_reduce_scatter",
+          "train_llama2_7b_super_offload", "train_llama_750m_offload",
+          "llama2_7b", "gpt2_125m", "moe_350m", "train_gpt2_125m",
+          "train_llama_750m", "train_moe_350m", "train_llama_750m_sparse",
+          "evoformer", "times")
 
 # Tolerances of a kernel against its plain version on the same inputs.
 # fp32: both compute in fp32 and differ only in summation order (a few ulp
@@ -398,21 +417,26 @@ def prefill_rows(tables, min_run):
     return out
 
 
-def serving_launches_want(L, tick_rows, norm_kind, min_run):
+def serving_launches_want(L, tick_rows, norm_kind, min_run, moe_gmm=0):
     """Launch counts of a bf16 serving run of an L-layer model whose ticks
     had ``tick_rows`` rows each: each layer of each tick calls paged
     attention once, which launches the decode kernel (a tick with no decode
     row launches it all the same: its blocks find no work and exit); a tick
     of at least ``min_run`` rows, which may hold a run, launches the plan
     kernel once and the prefill kernel once a layer (a tick of fewer rows
-    launches neither); the norm kernel 2 L + 1 times a tick."""
+    launches neither); the norm kernel 2 L + 1 times a tick; an MoE model's
+    grouped GEMM ``moe_gmm`` times a layer and tick (one gmm an expert
+    weight), and no tgmm."""
     n_ticks = len(tick_rows)
     n_planned = sum(1 for t in tick_rows if t >= min_run)
-    return {"paged_attention": L * n_ticks,
-            "paged_attention_decode": L * n_ticks,
-            "paged_attention_prefill": L * n_planned,
-            "paged_attention_plan": n_planned,
-            norm_kind: (2 * L + 1) * n_ticks}
+    out = {"paged_attention": L * n_ticks,
+           "paged_attention_decode": L * n_ticks,
+           "paged_attention_prefill": L * n_planned,
+           "paged_attention_plan": n_planned,
+           norm_kind: (2 * L + 1) * n_ticks}
+    if moe_gmm:
+        out.update(gmm=moe_gmm * L * n_ticks, tgmm=0)
+    return out
 
 
 # Block-sparse attention against its plain version: the flash kernels'
@@ -565,7 +589,15 @@ ZERO3 = dict(ZEROPP, gate_layers=4)
 ZERO3_EXACT = {"stage": 3}
 ZERO3_WIRE = dict(ZEROPP_WIRE, stage=3)
 ZERO3_CHUNKS = 8
-# Z4: run (a)'s peak a rank at least this far below exact ZeRO-2's
+# the phase's main path runs this many of llama_750m's 20 layers (width
+# unchanged; JAX's plan still cuts them into 8 chunks): the cut that keeps
+# the whole script within its time beside the expert-parallel phase. Its
+# exact ZeRO-2 baseline then runs in this phase at the same depth, and the
+# gates keep their own depth.
+ZERO3_LAYERS = 10
+# Z4: run (a)'s peak a rank at least this far below exact ZeRO-2's at the
+# preset's 20 layers, and the same share of it at fewer (what ZeRO-3 saves
+# is the compute copy's and the gradient's shard of every layer)
 ZERO3_MEMORY_SAVED = 3e9
 # ZeRO-3 for a spec other than causal_lm_spec's: a 4-layer MLP at width
 # 4096 with a regression loss (built here, random from the seed), fp32, at
@@ -589,7 +621,7 @@ HPZ = dict(ZERO3, world=4)
 # the phase's main path runs this many of llama_750m's 20 layers (width
 # unchanged): the cut that keeps the whole script within its time; the
 # gates keep their own depth
-HPZ_LAYERS = 10
+HPZ_LAYERS = 8
 HPZ_Z = 2
 HPZ_TRIO = {"stage": 3, "zero_hpz_partition_size": HPZ_Z,
             "zero_quantized_gradients": True, "zero_quantized_weights": True}
@@ -659,6 +691,27 @@ def recorded_routes():
         yield routes
     finally:
         MoE._gate_indices = gate
+
+
+@contextlib.contextmanager
+def recorded_aux():
+    """Yields a list that receives every MoE layer's aux loss as the layer
+    returns it (over processes: the global one), detached, while the block
+    runs; ``moe_ffn`` is wrapped for its duration and restored after."""
+    from deepspeed_tpu_torch.moe import layer as MoE
+
+    fn, auxes = MoE.moe_ffn, []
+
+    def recording(*args, **kwargs):
+        y, aux = fn(*args, **kwargs)
+        auxes.append(aux.detach())
+        return y, aux
+
+    MoE.moe_ffn = recording
+    try:
+        yield auxes
+    finally:
+        MoE.moe_ffn = fn
 
 
 def nvidia_smi() -> str:
@@ -902,8 +955,10 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
     depth = {"num_layers": t["layers"]} if t.get("layers") else {}
     spec = dtt.causal_lm_spec(t["model"], attention="flash", remat="full",
                               **depth)
-    engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
-        t["micro"], t["gas"], precision, zero), device=dev)
+    config = zeropp_config(t["micro"], t["gas"], precision, zero)
+    if t.get("mesh"):
+        config["mesh"] = dict(t["mesh"])
+    engine, *_ = dtt.initialize(model=spec, config=config, device=dev)
     dev_sync(dev)
     init_s = time.perf_counter() - t0
     data = itertools.repeat(batch)
@@ -1380,12 +1435,13 @@ def zero3_gate_problems(g):
     return out
 
 
-def zero3_memory_problems(peak_zero3, peak_zero2):
+def zero3_memory_problems(peak_zero3, peak_zero2, layers=20):
     """Z4: exact ZeRO-3's peak a rank at least ZERO3_MEMORY_SAVED below
-    exact ZeRO-2's."""
-    if peak_zero3 <= peak_zero2 - ZERO3_MEMORY_SAVED:
+    exact ZeRO-2's at 20 layers, ``layers`` / 20 of it at ``layers``."""
+    saved = ZERO3_MEMORY_SAVED * layers / 20
+    if peak_zero3 <= peak_zero2 - saved:
         return []
-    return [f"Z4 peak {peak_zero3 / 1e9:.3f} GB, not {ZERO3_MEMORY_SAVED / 1e9:g}"
+    return [f"Z4 peak {peak_zero3 / 1e9:.3f} GB, not {saved / 1e9:g}"
             f" GB below exact ZeRO-2's {peak_zero2 / 1e9:.3f} GB"]
 
 
@@ -1956,6 +2012,423 @@ def train_llama_750m_hpz_dp4_rank(rank, world, seed, t):
         dev_free(dev)
     gate_batch = {"tokens": batch["tokens"][:t["gate_micro"] * world]}
     out["gates"] = hpz_gates(t, dev, gate_batch)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The expert-parallel phase (train_moe_350m_ep)
+# --------------------------------------------------------------------------- #
+# moe_350m at full width (hidden 768, 4 experts top-2, LayerNorm), bf16 with
+# an fp32 master, ZeRO-2 on the exact wire, flash, remat full, Adam lr 1e-4,
+# one fixed batch from the seed; the ranks share the one card over gloo.
+# (a) mesh {expert: 2} at world 2, all 12 layers: micro 8 a rank (the
+# one-process cell's micro 16 in all), seq 1024, gas 2, 1 warm-up + 2
+# steps; each rank holds 2 of the 4 experts, the choices travel by
+# all-to-all (at ep 2 the per-destination buffer holds every local choice:
+# dropless). (b) mesh {data: 2, expert: 2} at world 4, MOE_EP_B["layers"]
+# layers at full width, micro 4 a rank, gas 1: the expert leaves' gradient
+# reduced over the data group. Gates:
+# E1 one fp32 step of (a) (the gate's micro a rank, gas 1) by the training
+#    rule (loss, grad norm, gradient, update, sign misses, routing
+#    agreement, aux loss) against the same step of the same ranks without
+#    the expert axis (mesh {data: world}: each rank's rows through the same
+#    dense GEMM shapes), and against the one-process engine on the same
+#    global micro-batch and weights by the loss, the grad norm and the
+#    routing agreement. The one-process engine runs the dense GEMMs over
+#    twice the rows, which cuBLAS sums in another order; at full depth two
+#    of 49,152 (token, choice) pairs flipped at near-ties (chip call 1 of
+#    the PR that added this phase: route miss 4.1e-5, the flipped experts'
+#    weight gradients moved by a token's share: gradient 1.1e-4, update
+#    3.4e-3, aux 1.3e-5 relative), which the gradient, update and aux
+#    limits, set for identical routing, cannot hold across;
+# E2 the bf16 step of (a) no further from E1's fp32 step than BF16_VS_PLAIN
+#    times the one-process plain bf16 step from the one-process fp32 one;
+# E3 the grouped GEMM kernel (gmm, and tgmm of a seeded gradient) on a
+#    rank's real received buffer against its plain version on the routed
+#    rows, the buffer's empty tail written as zeros;
+# E4 the expert group's all-to-alls and the batch group's all-reduces a
+#    step by formula (moe_ep_traffic_want), the dropped share 0;
+# E5 one fp32 step of (b), the same two comparisons at its depth.
+MOE_EP = dict(model="moe_350m", world=2, mesh={"expert": 2}, micro=8,
+              seq=1024, gas=2, steps=2, gate_micro=1)
+MOE_EP_B = dict(MOE_EP, world=4, mesh={"data": 2, "expert": 2}, micro=4,
+                gas=1, layers=4)
+MOE_EP_ZERO = {"stage": 2}
+
+
+def moe_ep_traffic_want(L, gas, steps, micro, seq, k, ep, H, E):
+    """E4: a rank's MoE collectives in ``steps`` steps → {group/kind:
+    [calls, elements it sends in]}. Per layer and micro-batch, on the
+    expert group: the forward's rows, expert ids and rows back (a buffer
+    of ep · Cs rows, Cs = ep_shard_capacity(micro · seq · k, ep)), again
+    in remat's recompute, and the backward's two row exchanges. On the
+    batch group: the aux loss's mean of [me, ce] (2 E elements) in the
+    forward, the recompute and the backward, and the drop monitor's count
+    (2 elements) in the forward and the recompute."""
+    from deepspeed_tpu_torch.moe.layer import ep_shard_capacity
+
+    rows = ep * ep_shard_capacity(micro * seq * k, ep)
+    n = L * gas * steps
+    return {"expert/all_to_all": [8 * n, n * (6 * rows * H + 2 * rows)],
+            "batch/all_reduce": [5 * n, n * (3 * 2 * E + 2 * 2)]}
+
+
+def moe_ep_launches_want(L, gas, steps, n_w, adam_per_step):
+    """The kernel launches of an MoE rank in ``steps`` steps (remat full):
+    flash forward twice a layer, dq and dkv once; the LayerNorm 4 a layer
+    and the final one; each expert weight's gmm in the forward, the
+    recompute and the input gradient, its tgmm once; Adam by the plan."""
+    micros = gas * steps
+    return {"flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
+            "flash_bwd_dkv": L * micros, "layer_norm": (4 * L + 1) * micros,
+            "gmm": 3 * n_w * L * micros, "tgmm": n_w * L * micros,
+            "fused_adam": adam_per_step * steps, "quant_int8": 0,
+            "dequant_reduce": 0, "block_sparse_fwd": 0, "paged_attention": 0}
+
+
+def _flat_tree(tree):
+    import torch
+    from deepspeed_tpu_torch.runtime.engine import _flatten
+
+    return torch.cat([v.reshape(-1).float() for _, v in _flatten(tree)])
+
+
+def moe_ep_batch(t, seed):
+    from deepspeed_tpu_torch.models import transformer as T
+
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (t["micro"] * t["world"],
+                                              t["seq"]), dtype=np.int32)}
+
+
+def moe_ep_spec(t, precision, use_kernels=True):
+    import deepspeed_tpu_torch as dtt
+
+    depth = {"num_layers": t["layers"]} if t.get("layers") else {}
+    return dtt.causal_lm_spec(
+        t["model"], attention="flash", remat="full", use_kernels=use_kernels,
+        dtype="float32" if precision == "fp32" else "bfloat16", **depth)
+
+
+def moe_ep_step(engine, tokens, L, dev):
+    """One step of ``engine`` on ``tokens`` → loss, grad norm, the whole
+    gradient and update as flat fp32 vectors (every leaf, sorted keys),
+    the routes [L, rows, k] of this process's rows and the summed aux."""
+    import torch
+
+    before = engine.flat_master.clone()
+    with recorded_routes() as routes, recorded_aux() as auxes:
+        loss = float(engine.train_batch(iter([{"tokens": tokens}])))
+    norm = engine.get_global_grad_norm()
+    if hasattr(engine, "full_tree"):
+        grad = _flat_tree(engine.full_tree(engine.flat_grad_acc, dev))
+        upd = _flat_tree(engine.full_tree(engine.flat_master - before, dev))
+    else:
+        grad = _flat_tree(engine._views(engine.flat_grad_acc))
+        upd = _flat_tree(engine._views(engine.flat_master - before))
+    del before
+    idx = torch.stack([r[0] for r in routes[:L]])
+    aux = float(sum(float(a) for a in auxes[:L]))
+    return loss, norm, grad, upd, idx, aux
+
+
+def step_metrics(loss, norm, grad, upd, idx, aux, ref):
+    """The training rule's metrics of one step against ``ref`` (the same
+    keys; ``idx`` may be a slice of the reference's rows: ``ref_idx``)."""
+    import torch
+
+    miss = ((upd > 0) != (ref["upd"] > 0)) & ((upd != 0) | (ref["upd"] != 0))
+    nz = (upd != 0) | (ref["upd"] != 0)
+    out = {"loss": loss, "grad_norm": norm,
+           "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+           "norm_rel": abs(norm - ref["norm"]) / ref["norm"],
+           "grad_rel": float(torch.linalg.vector_norm(grad - ref["grad"])
+                             / torch.linalg.vector_norm(ref["grad"])),
+           "update_rel": float(torch.linalg.vector_norm(upd - ref["upd"])
+                               / torch.linalg.vector_norm(ref["upd"])),
+           "sign_miss": float(miss.sum() / nz.sum().clamp(min=1)),
+           "aux_rel": abs(aux - ref["aux"]) / abs(ref["aux"])}
+    ref_idx = ref["idx"] if ref.get("ref_idx") is None else ref["ref_idx"]
+    out["route_miss"] = float((idx != ref_idx.to(idx.device)).float().mean())
+    return out
+
+
+MOE_EP_LIMITS = {"loss_rel": TRAIN_LOSS_REL, "norm_rel": TRAIN_NORM_REL,
+                 "grad_rel": TRAIN_GRAD_REL, "update_rel": TRAIN_UPDATE_REL,
+                 "sign_miss": TRAIN_SIGN_MISS,
+                 "route_miss": 1 - ROUTE_AGREE_MIN, "aux_rel": TRAIN_LOSS_REL}
+# what E1 / E5 hold against the one-process engine (see E1 above)
+MOE_EP_ONE_PROCESS = ("loss_rel", "norm_rel", "route_miss")
+
+
+def moe_ep_reference(t, dev, seed, path, plain_bf16=True):
+    """The one-process engine's fp32 step on the gate's global micro-batch
+    (``gate_micro`` rows a rank of the phase, gas 1), from the seed's
+    weights; its whole gradient and update saved beside ``path`` (numpy
+    files the ranks map), and with ``plain_bf16`` the one-process plain
+    bf16 step's metrics against it (E2's yardstick). Returns what the
+    ranks read."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import transformer as T
+
+    L = T.get_model_config(t["model"], **({"num_layers": t["layers"]}
+                                          if t.get("layers") else {})
+                           ).num_layers
+    tokens = moe_ep_batch(t, seed)["tokens"][:t["gate_micro"] * t["world"]]
+    out = {"tokens_rows": len(tokens), "layers": L}
+    ref = None
+    for prec, use_kernels in (("fp32", True),) + (
+            (("bf16", False),) if plain_bf16 else ()):
+        config = Smoke.train_config(len(tokens), 1, prec)
+        config["zero_optimization"] = dict(MOE_EP_ZERO)
+        engine, *_ = dtt.initialize(model=moe_ep_spec(t, prec, use_kernels),
+                                    config=config, device=dev)
+        loss, norm, grad, upd, idx, aux = moe_ep_step(engine, tokens, L, dev)
+        del engine
+        dev_free(dev)
+        if ref is None:
+            ref = {"loss": loss, "norm": norm, "grad": grad, "upd": upd,
+                   "idx": idx, "aux": aux}
+            np.save(path + ".grad.npy", grad.cpu().numpy())
+            np.save(path + ".upd.npy", upd.cpu().numpy())
+            out.update(loss=loss, norm=norm, aux=aux, idx=idx.cpu(),
+                       grad_path=path + ".grad.npy",
+                       upd_path=path + ".upd.npy")
+        else:
+            out["plain_bf16"] = step_metrics(loss, norm, grad, upd, idx, aux,
+                                             ref)
+        del grad, upd
+    del ref
+    dev_free(dev)
+    return out
+
+
+def moe_ep_load_ref(ref, dev):
+    import torch
+
+    return dict(ref, grad=torch.from_numpy(np.load(ref["grad_path"])).to(dev),
+                upd=torch.from_numpy(np.load(ref["upd_path"])).to(dev),
+                idx=ref["idx"].to(dev))
+
+
+def moe_ep_gates(t, dev, ref, bf16=True):
+    """E1 (E5 at (b)): one fp32 EP step from the seed's weights on the
+    gate's rows against the same step at mesh {data: world} (the same
+    ranks without the expert axis) and against the one-process reference
+    ``ref``; with ``bf16``, E2's bf16 EP step against the fp32 EP step.
+    Every rank computes the same numbers (whole vectors; the routing
+    agreement over every rank's rows)."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.comm import comm
+
+    rank, world = comm.get_rank(), comm.get_world_size()
+    rows = t["gate_micro"] * world
+    tokens = moe_ep_batch(t, 0 if t.get("seed") is None else t["seed"])[
+        "tokens"][:rows]
+    n, seq = rows // world, tokens.shape[1]
+    L = ref["layers"]
+    one = moe_ep_load_ref(ref, dev)
+    # this rank's token rows of the reference's routes [L, T, k]
+    one["ref_idx"] = one["idx"][:, rank * n * seq:(rank + 1) * n * seq]
+    ways = [("ep32", "fp32", t["mesh"]), ("dp32", "fp32", {"data": world})]
+    if bf16:
+        ways.append(("ep16", "bf16", t["mesh"]))
+    kept, res = {}, {}
+
+    def metrics(step, against):
+        row = step_metrics(*step, against)
+        # the routing agreement over every rank's rows
+        miss = torch.tensor([row["route_miss"]], dtype=torch.float64,
+                            device=dev)
+        comm.all_reduce(miss, op=comm.ReduceOp.AVG)
+        row["route_miss"] = float(miss)
+        return row
+
+    for way, prec, mesh in ways:
+        config = zeropp_config(t["gate_micro"], 1, prec, MOE_EP_ZERO)
+        config["mesh"] = dict(mesh)
+        engine, *_ = dtt.initialize(model=moe_ep_spec(t, prec), config=config,
+                                    device=dev)
+        # every rank's iterator yields the global micro-batch; the engine
+        # takes its rows
+        step = moe_ep_step(engine, tokens, L, dev)
+        engine.close()
+        del engine
+        kept[way] = dict(zip(("loss", "norm", "grad", "upd", "idx", "aux"),
+                             step), ref_idx=None)
+        del step
+        dev_free(dev)
+    ep32 = kept["ep32"]
+    args = tuple(ep32[k] for k in ("loss", "norm", "grad", "upd", "idx",
+                                   "aux"))
+    res["fp32"] = metrics(args, kept.pop("dp32"))
+    res["fp32_one_process"] = metrics(args, one)
+    if bf16:
+        e16 = kept.pop("ep16")
+        res["bf16"] = metrics(tuple(e16[k] for k in (
+            "loss", "norm", "grad", "upd", "idx", "aux")), ep32)
+        res["plain_bf16"] = ref["plain_bf16"]
+    del kept, one, ep32, args
+    dev_free(dev)
+    return res
+
+
+def moe_ep_gate_problems(g, label):
+    """E1 / E5: the fp32 EP step by the training rule against the step
+    without the expert axis, and by MOE_EP_ONE_PROCESS against the
+    one-process engine; E2: the bf16 EP step's distance from the fp32 EP
+    step at most BF16_VS_PLAIN times the plain bf16 path's (the aux and
+    loss floored at the fp32 limit)."""
+    out = [f"{label} fp32 {m} {g['fp32'][m]:.3g} > {lim}"
+           for m, lim in MOE_EP_LIMITS.items() if not g["fp32"][m] <= lim]
+    one = g["fp32_one_process"]
+    out += [f"{label} fp32 against one process {m} {one[m]:.3g} > "
+            f"{MOE_EP_LIMITS[m]}" for m in MOE_EP_ONE_PROCESS
+            if not one[m] <= MOE_EP_LIMITS[m]]
+    if "bf16" in g:
+        kb, pb = g["bf16"], g["plain_bf16"]
+        floor = {m: MOE_EP_LIMITS[m] if m in BF16_FLOORED else 0.0
+                 for m in MOE_EP_LIMITS}
+        out += [f"E2 bf16 {m}: EP {kb[m]:.3g}, plain {pb[m]:.3g}"
+                for m in MOE_EP_LIMITS
+                if not kb[m] <= BF16_VS_PLAIN * max(pb[m], floor[m])]
+    return out
+
+
+@contextlib.contextmanager
+def ep_buffer_capture():
+    """Yields a dict that receives the first expert-parallel received
+    buffer the grouped GEMMs run on (the sorted rows, their group sizes,
+    the local w_up) while the block runs; the layer's function is
+    restored after."""
+    from deepspeed_tpu_torch.moe import layer as MoE
+
+    fn, cap = MoE.ragged_expert_ffn, {}
+
+    def capturing(x, group_sizes, experts, *args, **kwargs):
+        if not cap:
+            cap.update(x=x.detach().clone(), sizes=group_sizes.clone(),
+                       w_up=experts["w_up"].detach().to(x.dtype).clone())
+        return fn(x, group_sizes, experts, *args, **kwargs)
+
+    MoE.ragged_expert_ffn = capturing
+    try:
+        yield cap
+    finally:
+        MoE.ragged_expert_ffn = fn
+
+
+def ep_buffer_gate(cap, dev):
+    """E3 on the captured buffer: gmm (the up projection) and tgmm (of a
+    seeded gradient) kernel vs plain on the routed rows (GMM_TOL), the
+    empty tail's output rows zero; the kernel's and the plain version's
+    time there (CUDA events, median of 5)."""
+    import torch
+    from deepspeed_tpu_torch.ops import grouped_gemm as GG
+
+    x, sizes, w = cap["x"], cap["sizes"], cap["w_up"]
+    routed = int(sizes.sum())
+    out = GG.gmm(x, w, sizes)
+    plain = GG.gmm_ref(x, w, sizes)
+    g = torch.randn(out.shape, generator=torch.Generator(dev).manual_seed(3),
+                    device=dev).to(x.dtype)
+    g[routed:] = 0
+    tg, tg_plain = GG.tgmm(x, g, sizes), GG.tgmm_ref(x, g, sizes)
+    dt = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    atol, rtol = GMM_TOL[dt]
+    res = {"rows": x.shape[0], "routed_rows": routed,
+           "group_sizes": sizes.tolist(), "K": x.shape[1], "N": w.shape[2]}
+    for name, a, b in (("gmm", out[:routed], plain[:routed]),
+                       ("tgmm", tg, tg_plain)):
+        err = (a.float() - b.float()).abs()
+        res[f"{name}_max_abs_err"] = float(err.max()) if err.numel() else 0.0
+        res[f"{name}_close"] = bool(torch.allclose(a.float(), b.float(),
+                                                   atol=atol, rtol=rtol))
+    res["tail_zero"] = bool((out[routed:] == 0).all())
+    if dev.type == "cuda":
+        def ms(fn):
+            walls = []
+            for _ in range(5):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                walls.append(a.elapsed_time(b))
+            return float(np.median(walls))
+
+        res["gmm_ms"] = ms(lambda: GG.gmm(x, w, sizes))
+        res["gmm_plain_ms"] = ms(lambda: GG.gmm_ref(x, w, sizes))
+    return res
+
+
+def train_moe_350m_ep_rank(rank, world, seed, t):
+    """One rank of the expert-parallel phase (``t``: MOE_EP or MOE_EP_B,
+    the device and the reference): the main path (the counters and the
+    traffic to 0 just before the timed steps, read just after; the first
+    received buffer captured in the warm-up step for E3), one more step
+    profiled on rank 0, then the gate steps."""
+    import torch
+
+    dev = torch.device(t["device"])
+    batch = moe_ep_batch(t, seed)
+    out = {"rank": rank}
+    with ep_buffer_capture() as cap:
+        engine, data, run = zeropp_run(t, dev, MOE_EP_ZERO, batch)
+    cfg = engine.model_spec.config
+    mm = engine.mesh_manager
+    run.update(drop_frac_max=float(engine._moe_drop_max),
+               coords={a: mm.coords[a] for a in ("data", "expert")},
+               local_experts=next(sl.shape[1] for sl in engine._slots
+                                  if sl.path == ("blocks", "w_up")),
+               expert_ranks=list(mm.group_ranks(("expert",))),
+               card_bytes=(torch.cuda.get_device_properties(dev).total_memory
+                           if dev.type == "cuda" else 0))
+    run["traffic_want"] = moe_ep_traffic_want(
+        cfg.num_layers, t["gas"], t["steps"], t["micro"], t["seq"],
+        cfg.moe_top_k, mm.ep_world_size, cfg.hidden_size, cfg.n_experts)
+    out["main"] = run
+    out["e3"] = ep_buffer_gate(cap, dev)
+    del cap
+    out["profile"] = zeropp_profile(engine, data, dev, profiled=rank == 0)
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    out["gates"] = moe_ep_gates(dict(t, seed=seed), dev, t["ref"],
+                                bf16=t.get("layers") is None)
+    return out
+
+
+def moe_ep_problems(ranks, t, label):
+    """The parent's checks of one run's ranks: the launches, E3, E4 (the
+    traffic by formula, the dropped share 0), the losses, and E1/E2 (or
+    E5)."""
+    out = []
+    r0 = ranks[0]["main"]
+    for r in ranks:
+        tag = f"{label} rank {r['rank']}"
+        m = r["main"]
+        for k, v in m["traffic_want"].items():
+            got = [int(x) for x in m["traffic"].get(k, [0, 0])[:2]]
+            if got != v:
+                out.append(f"{tag}: E4 {k} {got}, want {v}")
+        if m["drop_frac_max"] != 0:
+            out.append(f"{tag}: E4 dropped share {m['drop_frac_max']}")
+        e3 = r["e3"]
+        for k in ("gmm_close", "tgmm_close", "tail_zero"):
+            if not e3[k]:
+                out.append(f"{tag}: E3 {k} false ({e3})")
+        ls = m["losses"]
+        if not all(np.isfinite(ls)) or not ls[-1] < ls[0]:
+            out.append(f"{tag}: loss did not fall: {ls}")
+        if ls != r0["losses"]:
+            out.append(f"{tag}: the ranks' losses differ")
+        out += [f"{tag}: {p}" for p in moe_ep_gate_problems(
+            r["gates"], "E5" if t.get("layers") else "E1")]
     return out
 
 
@@ -3593,7 +4066,10 @@ class Smoke:
                        if how != "warmup" for _ in range(n)]
         L = cfg.num_layers
         from deepspeed_tpu_torch.ops import paged_attention as PA
-        want = serving_launches_want(L, tick_rows, norm_kind, PA.MIN_RUN)
+        n_w = ((3 if cfg.activation == "swiglu" else 2) if cfg.n_experts
+               else 0)
+        want = serving_launches_want(L, tick_rows, norm_kind, PA.MIN_RUN,
+                                     moe_gmm=n_w)
         problems = []
         if len(served_rows) != n_ticks:
             problems.append(f"{len(served_rows)} device ticks, {n_ticks} "
@@ -3942,6 +4418,24 @@ class Smoke:
         self.serve("gpt2_125m", 8, 16, 480, 32, "layer_norm", n_blocks=512,
                    block_size=64, max_blocks_per_seq=16, token_budget=512,
                    max_seq_len=1024)
+
+    def phase_moe_350m(self):
+        """moe_350m at full size (4 experts top-2, the dropless dispatch
+        over each tick's rows), bf16, 8 requests of 16-1024 prompt tokens
+        and 32 new: the main path on the tick graphs with its launches
+        (2 gmm a layer and tick), G1-G5 and the mixed tick, then its decode
+        rate and TTFT here, and the engine freed (the later phases' would
+        not fit beside it and the two dense serving engines). The learned
+        position table has 2048 rows (random, from the seed) so a 1024-token
+        prompt and its 32 new tokens fit."""
+        self.serve("moe_350m", 8, 16, 1024, 32, "layer_norm", n_blocks=512,
+                   block_size=64, max_blocks_per_seq=32, token_budget=512,
+                   max_seq_len=2048)
+        rate = self.decode_rate("moe_350m")
+        emit("moe_350m/decode", **rate)
+        self.state["moe_350m_decode"] = rate
+        self.state.pop("moe_350m")
+        self.torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ #
     # training
@@ -4463,15 +4957,13 @@ class Smoke:
                                 "profile": dict(rates(r0["main"]),
                                                 **r0["profile"]),
                                 "baseline": dict(rates(r0["baseline"]),
-                                                 **r0["baseline_profile"]),
-                                "baseline_runs": [r["baseline"]
-                                                  for r in ranks]}
+                                                 **r0["baseline_profile"])}
 
     def phase_train_llama_750m_zero3_dp2(self):
         """Two ranks on the card: exact ZeRO-3 and ZeRO-3 + qgZ + qwZ +
-        LoCo at the full width and depth of zero3_llama_750m_bf16, gates
-        Z1-Z5 (``train_llama_750m_zero3_dp2_rank``); exact ZeRO-2 as the
-        baseline, the zeropp phase's when it ran in this call."""
+        LoCo at the full width of zero3_llama_750m_bf16, ZERO3_LAYERS
+        layers, gates Z1-Z5 (``train_llama_750m_zero3_dp2_rank``); exact
+        ZeRO-2 at the same depth as the baseline."""
         torch = self.torch
         from deepspeed_tpu_torch.models import transformer as T
         from deepspeed_tpu_torch.ops import build
@@ -4479,9 +4971,9 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = dict(ZERO3, baseline="zeropp" not in self.state)
+        t = dict(ZERO3, layers=ZERO3_LAYERS, baseline=True)
         world, gas, steps = t["world"], t["gas"], t["steps"]
-        cfg = T.get_model_config(t["model"])
+        cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         L = cfg.num_layers
         # the MLP's reference: the same spec at world 1 without ZeRO
         mlp = dict(ZERO3_MLP, **t.get("mlp", {}))
@@ -4498,8 +4990,7 @@ class Smoke:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         wall = time.perf_counter() - t0
-        baselines = ([r["baseline"] for r in ranks] if t["baseline"]
-                     else self.state["zeropp"]["baseline_runs"])
+        baselines = [r["baseline"] for r in ranks]
         bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
         want = {run: zero3_launches_want(
             L, gas, steps, ZERO3_CHUNKS, wire=run == "wire",
@@ -4537,7 +5028,8 @@ class Smoke:
             problems += [f"{tag}: {p}" for p in zero3_gate_problems(
                 r["gates"])]
             problems += [f"{tag}: {p}" for p in zero3_memory_problems(
-                r["exact"]["peak_memory_bytes"], base["peak_memory_bytes"])]
+                r["exact"]["peak_memory_bytes"], base["peak_memory_bytes"],
+                L)]
             problems += [f"{tag}: {p}" for p in r["mlp_problems"]]
             if r["mlp"]["type"] != "Zero3Engine" or mlp_ref["type"] \
                     != "DeepSpeedTPUEngine":
@@ -4565,11 +5057,13 @@ class Smoke:
                 "c_exact_zero2": baselines}
         result = {"model": t["model"], "world": world, "micro": t["micro"],
                   "seq": t["seq"], "gas": gas, "steps": steps,
+                  "layers": L, "reduced": f"{L} of "
+                  f"{T.get_model_config(t['model']).num_layers} layers, to "
+                  "keep the whole script within its time",
                   "zero_a": ZERO3_EXACT, "zero_b": ZERO3_WIRE,
                   "chunks": bounds, "params": cfg.num_params(),
                   "phase_wall_s": wall, "card": self.card,
-                  "baseline_from": "this phase" if t["baseline"]
-                  else "train_llama_750m_zeropp_dp2",
+                  "baseline_from": f"this phase, at {L} layers",
                   "wire_note": "gloo through host memory, two ranks "
                                "sharing one card",
                   "launches_want_per_rank": want,
@@ -4595,7 +5089,7 @@ class Smoke:
                      "update_rel": TRAIN_UPDATE_REL,
                      "sign_miss": TRAIN_SIGN_MISS,
                      "bf16_vs_zero2": BF16_VS_PLAIN,
-                     "memory_saved_gb": ZERO3_MEMORY_SAVED / 1e9})
+                     "memory_saved_gb": ZERO3_MEMORY_SAVED * L / 20 / 1e9})
         if problems:
             raise AssertionError("train_llama_750m_zero3_dp2: "
                                  + "; ".join(problems))
@@ -4750,6 +5244,132 @@ class Smoke:
             "n_sh": r0["trio"]["n_sharded"],
             "trio": rates(runs["a_zero3_hpz_qwz_qgz"]),
             "mics": rates(runs["b_mics_zero3"])}
+
+    # ------------------------------------------------------------------ #
+    # expert parallelism
+    # ------------------------------------------------------------------ #
+    def phase_train_moe_350m_ep(self):
+        """moe_350m over the expert axis on the one card (MOE_EP, MOE_EP_B):
+        the one-process references first (their whole fp32 gradient and
+        update in files the ranks map), then (a) two ranks and (b) four;
+        E1-E5, the launches, step ms, tokens/s, MFU by active parameters,
+        peaks a rank, the expert group's host seconds a step and the idle
+        share."""
+        torch = self.torch
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        dev_free(self.dev)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+        try:
+            refs = {"a": moe_ep_reference(MOE_EP, self.dev, self.seed,
+                                          os.path.join(tmp, "a")),
+                    "b": moe_ep_reference(MOE_EP_B, self.dev, self.seed,
+                                          os.path.join(tmp, "b"),
+                                          plain_bf16=False)}
+            runs = {}
+            for label, t in (("a", MOE_EP), ("b", MOE_EP_B)):
+                t0 = time.perf_counter()
+                ranks = spawn_ranks("train_moe_350m_ep_rank", t["world"],
+                                    self.seed, dict(t, device=str(self.dev),
+                                                    ref=refs[label]))
+                runs[label] = (ranks, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        problems, results = [], {}
+        for label, t in (("a", MOE_EP), ("b", MOE_EP_B)):
+            ranks, wall = runs[label]
+            cfg = T.get_model_config(t["model"], **(
+                {"num_layers": t["layers"]} if t.get("layers") else {}))
+            L, world = cfg.num_layers, t["world"]
+            n_w = 3 if cfg.activation == "swiglu" else 2
+            want = moe_ep_launches_want(
+                L, t["gas"], t["steps"], n_w,
+                ranks[0]["main"]["adam_per_step"])
+            problems += moe_ep_problems(ranks, t, label)
+            for r in ranks:
+                m = r["main"]
+                problems += [f"{label} rank {r['rank']}: {k} launched "
+                             f"{m['launches'][k]} times, want {v}"
+                             for k, v in want.items()
+                             if m["launches"][k] != v]
+                if m["local_experts"] != cfg.n_experts // t["mesh"]["expert"]:
+                    problems.append(f"{label} rank {r['rank']}: "
+                                    f"{m['local_experts']} local experts")
+            card_bytes = ranks[0]["main"]["card_bytes"]
+            peaks = [r["main"]["peak_memory_bytes"] for r in ranks]
+            if sum(peaks) > card_bytes:
+                problems.append(f"{label}: the ranks' peaks {sum(peaks)} past "
+                                f"the card's {card_bytes}")
+            tokens = t["micro"] * t["seq"] * t["gas"] * world
+            flops = flops_per_token(cfg, t["seq"]) * tokens
+
+            def rate(x):
+                step_s = x["step_ms"] / 1e3
+                return {"step_ms": x["step_ms"],
+                        "tokens_per_s": tokens / step_s,
+                        "mfu": flops / step_s / PEAK_FLOPS["bfloat16"]}
+
+            prof = ranks[0]["profile"]
+            results[label] = {
+                "model": t["model"], "mesh": t["mesh"], "world": world,
+                "layers": L, "micro": t["micro"], "seq": t["seq"],
+                "gas": t["gas"], "steps": t["steps"], "zero": MOE_EP_ZERO,
+                "reduced": (f"{L} of {T.get_model_config(t['model']).num_layers}"
+                            " layers, for the script's time" if t.get(
+                                "layers") else "none"),
+                "params": cfg.num_params(),
+                "active_params": active_params(cfg),
+                "phase_wall_s": wall,
+                "per_rank": [dict(rate(r["main"]), rank=r["rank"],
+                                  coords=r["main"]["coords"],
+                                  peak_memory_bytes=r["main"][
+                                      "peak_memory_bytes"],
+                                  losses=r["main"]["losses"],
+                                  step_walls_s=r["main"]["step_walls_s"],
+                                  expert_all_to_all_host_s_per_step=r[
+                                      "main"]["traffic"].get(
+                                      "expert/all_to_all", [0, 0, 0.0])[2]
+                                  / t["steps"],
+                                  wire_host_s_by_group_per_step={
+                                      g: v / t["steps"] for g, v in
+                                      hpz_wire_seconds(
+                                          r["main"]["traffic"]).items()})
+                             for r in ranks],
+                **rate(ranks[0]["main"]),
+                "peak_memory_bytes_sum": sum(peaks),
+                "card_memory_bytes": card_bytes,
+                "device_idle_share_rank0": prof.get("device_idle_share",
+                                                    "not measured"),
+                "profile_rank0": prof,
+                "launches_want_per_rank": want,
+                "launches_rank0": ranks[0]["main"]["launches"],
+                "traffic_want_per_rank": ranks[0]["main"]["traffic_want"],
+                "traffic_rank0": ranks[0]["main"]["traffic"],
+                "e3_received_buffer": [r["e3"] for r in ranks],
+                "gates": [r["gates"] for r in ranks],
+                "card": self.card,
+                "wire_note": "gloo through host memory, the ranks sharing "
+                             "one card: the all-to-alls' time, not NVLink's"}
+            emit(f"train_moe_350m_ep/{label}", **results[label])
+            name = f"train_moe_350m_ep/{label}"
+            for k, v in want.items():
+                if v:
+                    self.launches.setdefault(k, {})[name] = \
+                        ranks[0]["main"]["launches"][k]
+            self.steps[name] = t["steps"]
+        emit("train_moe_350m_ep/bounds", limits=MOE_EP_LIMITS,
+             bf16_vs_plain=BF16_VS_PLAIN, bf16_floored=BF16_FLOORED,
+             gmm_tol=GMM_TOL, card=self.card)
+        if problems:
+            raise AssertionError("train_moe_350m_ep: " + "; ".join(problems))
+        self.state["moe_ep"] = {
+            k: {"step_ms": v["step_ms"], "tokens_per_s": v["tokens_per_s"],
+                "mfu": v["mfu"], "idle": v["device_idle_share_rank0"],
+                "e3": v["e3_received_buffer"][0]}
+            for k, v in results.items()}
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ #
     # offload
@@ -5647,6 +6267,9 @@ class Smoke:
             steps["llama_750m_zero3_hpz_qwz_qgz_dp4"] = \
                 self.state["hpz"]["trio"]
             steps["llama_750m_mics_zero3_dp4"] = self.state["hpz"]["mics"]
+        if "moe_ep" in self.state:
+            steps["moe_350m_ep2"] = self.state["moe_ep"]["a"]
+            steps["moe_350m_data2_ep2"] = self.state["moe_ep"]["b"]
         if "evoformer" in self.state:
             ev["msa_row_attention_step_ms"] = self.evo_step_times()
         q8 = self.quant_times(flush)
@@ -6238,6 +6861,13 @@ class Smoke:
         for name, key in (("gmm", "gmm[up]"), ("tgmm", "tgmm[up]")):
             if gg is not None and name in self.errs:
                 timed[name] = dict(gg[key], max_abs_err=self.errs[name])
+                if "moe_ep" in self.state and name == "gmm":
+                    # the kernel on a rank's real received buffer (E3)
+                    e3 = self.state["moe_ep"]["a"]["e3"]
+                    timed[name]["ep_buffer"] = {
+                        k: e3.get(k) for k in (
+                            "rows", "routed_rows", "group_sizes",
+                            "gmm_max_abs_err", "gmm_ms", "gmm_plain_ms")}
         for name in sp:
             if name in self.errs:
                 timed[name] = dict(sp[name], max_abs_err=self.errs[name])
@@ -6269,7 +6899,7 @@ class Smoke:
                         "library_ms": t["library_ms"]})
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
                           "tflops_per_s", "kernel_ms", "in_graph_kernel_ms",
-                          "replica_hop"):
+                          "replica_hop", "ep_buffer"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         # the host library of the host-executed step (not a card kernel):

@@ -33,9 +33,17 @@ stream. ``submit`` returns a :class:`Handle` to wait on. An op left in
 flight past a step (:func:`leave_in_flight`) lands before any collective
 of this module outside a queue (:func:`settle`).
 
+The MoE layer's collectives differentiate: :func:`all_to_all_autograd`
+(the tiled all-to-all of dim 0, whose backward is the all-to-all of the
+gradient, JAX's transpose of ``lax.all_to_all(..., tiled=True)``) and
+:func:`all_reduce_mean_autograd` (the mean over a group, whose backward is
+the mean of the gradients, JAX's transpose of ``pmean``). They run on the
+MoE layer's own groups (``MeshManager.moe_group``) through the same gloo
+staging.
+
 Every collective counts itself in :data:`traffic` under its group's label
-(``world``, or the ``zshard`` / ``data`` axis group of hpZ,
-``comm/mesh.group_label``) and its kind: calls, the elements this rank
+(``world``, the ``zshard`` / ``data`` / ``expert`` axis groups, the MoE
+layer's ``batch`` group; ``comm/mesh.group_label``) and its kind: calls, the elements this rank
 sends in, and the host seconds the calling thread spent in it (the
 queue's worker thread included). A call costs two clock reads and a few
 additions; the counts show which group carries what (no parameter gather
@@ -343,6 +351,50 @@ def all_to_all_single(tensor: torch.Tensor, group=None, split_axis: int = 0,
         out = torch.empty_like(tensor)
         return _run(lambda o, i: dist.all_to_all_single(o, i, group=group),
                     out, tensor.contiguous(), group)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all of dim 0 over ``group``; backward: the
+    all-to-all of the gradient (the exchange is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all_single(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_single(g.contiguous(), ctx.group), None
+
+
+def all_to_all_autograd(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable :func:`all_to_all_single` (rows of dim 0 split
+    evenly over the group's ranks)."""
+    return _AllToAll.apply(x, group)
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """The mean over ``group`` of every rank's tensor; backward: the mean
+    of every rank's gradient. With each rank differentiating its own loss
+    L_r, rank r then receives d(Σ_s L_s)/dx_r, so the engine's sum (or
+    mean) of the ranks' gradients is the gradient of the ranks' summed (or
+    mean) loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = all_reduce(x.detach().clone(), group=group)
+        return out / float(get_world_size(group))
+
+    @staticmethod
+    def backward(ctx, g):
+        out = all_reduce(g.detach().clone(), group=ctx.group)
+        return out / float(get_world_size(ctx.group)), None
+
+
+def all_reduce_mean_autograd(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable mean of ``x`` over ``group``."""
+    return _AllReduceMean.apply(x, group)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

@@ -7,22 +7,34 @@ TPU the mesh's "devices" are chips; here they are the processes of the
 default ``torch.distributed`` process group (one process without one), each
 driving its own device.
 
-The ``data`` and ``zshard`` axes run (``data = -1`` absorbs the world
-size, as JAX's absorbs the device count; a shape that does not fit the
-world raises JAX's ``ValueError``); any other axis above 1 raises
+The ``data``, ``zshard`` and ``expert`` axes run (``data = -1`` absorbs
+the world size, as JAX's absorbs the device count; a shape that does not
+fit the world raises JAX's ``ValueError``); any other axis above 1 raises
 ``NotImplementedError`` (a later slice). Ranks take JAX's device order:
-``DEFAULT_AXIS_ORDER`` with ``zshard`` inside ``data``, so rank r sits at
-``data = r // zshard``, ``zshard = r % zshard``. With ``zshard`` above 1
-(hpZ / MiCS) the manager holds this rank's process group of each axis:
-the ``zshard`` group (ranks ``d·Z … d·Z + Z − 1``, where ZeRO state is
-sharded) and the ``data`` group (ranks ``z, z + Z, …``, the replicas),
-each built by ``torch.distributed.new_group`` on every rank in the same
-order, as gloo requires.
+``DEFAULT_AXIS_ORDER`` with ``expert`` inside ``zshard`` inside ``data``,
+so rank r sits at ``expert = r % X``, ``zshard = (r // X) % Z``,
+``data = r // (X·Z)``. The manager holds this rank's process group over a
+set of axes (:meth:`MeshManager.group`), each built by
+``torch.distributed.new_group`` on every rank in the same order, as gloo
+requires: under hpZ / MiCS (``zshard`` above 1) the ``zshard`` group (where
+ZeRO state is sharded) and the ``data`` group (its replicas); under an
+``expert`` axis the ``expert`` group and the ``(data, zshard)`` group (the
+replicas of an expert shard, JAX's ``EXPERT_GRAD_REDUCE_AXES``, where ZeRO
+shards). A group that spans every process is the default group (None).
+
+The MoE layer's collectives (the expert all-to-alls, the global aux loss's
+mean, the dense gate's counts) run in the forward and backward on the
+calling thread, while the engine's ``CommQueue`` worker may be running the
+hooked gradient reduces on the engine's groups. gloo matches collectives by
+issue order within a group, so the MoE layer has groups of its own
+(:meth:`MeshManager.moe_group`), built with ``new_group`` even where they
+span every process: the two threads never share a group.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.distributed as dist
@@ -37,6 +49,11 @@ SEQ_AXIS = "seq"
 TENSOR_AXIS = "tensor"
 DEFAULT_AXIS_ORDER: Tuple[str, ...] = (PIPE_AXIS, DATA_AXIS, ZSHARD_AXIS,
                                        EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
+# expert parameters are sharded over 'expert'; their gradients reduce over
+# the axes that replicate them (dense ones over every process)
+EXPERT_GRAD_REDUCE_AXES: Tuple[str, ...] = (DATA_AXIS, ZSHARD_AXIS, SEQ_AXIS)
+# the axes that shard the token stream's batch (JAX ``batch_spec``)
+BATCH_AXES: Tuple[str, ...] = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +92,12 @@ class MeshManager:
     process group over a set of axes (:meth:`group`)."""
 
     def __init__(self, sizes: Dict[str, int], rank: int = 0,
-                 groups: Optional[Dict[Tuple[int, ...], Any]] = None):
+                 groups: Optional[Dict[Tuple[int, ...], Any]] = None,
+                 moe_groups: Optional[Dict[Tuple[int, ...], Any]] = None):
         self.shape = dict(sizes)
+        self.rank = rank
         self._groups = dict(groups or {})
+        self._moe_groups = dict(moe_groups or {})
         self.coords: Dict[str, int] = {}
         rest = rank
         for axis in reversed(DEFAULT_AXIS_ORDER):
@@ -98,7 +118,8 @@ class MeshManager:
     def group(self, axes: Sequence[str]):
         """This rank's process group over ``axes``: None when it holds
         every process (the default group), else the group built for it
-        (``zshard``, or ``data``, at ``zshard`` above 1)."""
+        (``zshard`` and ``data`` under hpZ; ``expert`` and ``(data,
+        zshard)`` under an expert axis)."""
         ranks = self.group_ranks(axes)
         if len(ranks) == self.world_size:
             return None
@@ -106,6 +127,23 @@ class MeshManager:
             raise ValueError(f"no process group over axes {tuple(axes)} "
                              f"(ranks {ranks}) in {self}")
         return self._groups[ranks]
+
+    def moe_group(self, axes: Sequence[str], label: str):
+        """The MoE layer's own process group over ``axes``: ``label``
+        "batch" (the batch axes: the aux loss, the dense gate, the drop
+        count) or "expert" (the all-to-alls), a group of its own even
+        where it spans every process; None for this rank alone."""
+        ranks = self.group_ranks(axes)
+        if len(ranks) == 1:
+            return None
+        key = (label, ranks)
+        if key not in self._moe_groups:
+            raise ValueError(f"no MoE process group over axes {tuple(axes)} "
+                             f"(ranks {ranks}) in {self}")
+        return self._moe_groups[key]
+
+    def axes_size(self, axes: Sequence[str]) -> int:
+        return int(np.prod([self.axis_size(a) for a in axes]))
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -152,40 +190,103 @@ def process_world_size() -> int:
     return 1
 
 
-_RUNS = (DATA_AXIS, ZSHARD_AXIS)      # the axes this port runs
-# the axis groups built so far, by their ranks: dist.new_group is collective,
-# so every rank builds the same groups in the same order, once each
-_AXIS_GROUPS: Dict[Tuple[int, ...], Any] = {}
-_AXIS_OF: Dict[Tuple[int, ...], str] = {}
+_RUNS = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS)   # the axes this port runs
+# the process groups built so far, by (kind, label, ranks): dist.new_group
+# is collective, so every rank builds the same groups in the same order,
+# once each; kind "axis" the engine's, "moe" the MoE layer's (whose batch
+# and expert groups stay apart even over the same ranks)
+_GROUPS: Dict[Tuple[str, str, Tuple[int, ...]], Any] = {}
+_LABELS: List[Tuple[Any, str]] = []       # (group, its axes' label)
 
 
-def _axis_groups(sizes: Dict[str, int]) -> Dict[Tuple[int, ...], Any]:
-    """Every process group of the ``zshard`` axis, then of the ``data``
-    axis, built on this rank (each rank takes part in building all of
-    them); only at ``zshard`` above 1."""
-    if sizes[ZSHARD_AXIS] <= 1:
-        return {}
-    Z, D = sizes[ZSHARD_AXIS], sizes[DATA_AXIS]
-    want = [(ZSHARD_AXIS, tuple(d * Z + z for z in range(Z)))
-            for d in range(D)]
-    want += [(DATA_AXIS, tuple(d * Z + z for d in range(D)))
-             for z in range(Z)]
-    for axis, ranks in want:
-        if ranks not in _AXIS_GROUPS:
-            _AXIS_GROUPS[ranks] = dist.new_group(list(ranks))
-            _AXIS_OF[ranks] = axis
-    return {r: _AXIS_GROUPS[r] for _, r in want}
+def _all_groups(sizes: Dict[str, int], axes: Sequence[str]
+                ) -> List[Tuple[int, ...]]:
+    """Every group over ``axes`` (the ranks sharing all other coordinates),
+    in the order of their lowest rank."""
+    world = int(np.prod(list(sizes.values())))
+    out: List[Tuple[int, ...]] = []
+    for r in range(world):
+        ranks = MeshManager(sizes, r).group_ranks(axes)
+        if ranks not in out:
+            out.append(ranks)
+    return out
+
+
+def _build(kind: str, sizes: Dict[str, int], axes: Sequence[str],
+           label: str, spanning: bool) -> Dict[Tuple[int, ...], Any]:
+    """The groups of ``kind`` over ``axes`` (``spanning``: even one that
+    holds every process; never a group of one rank for "moe")."""
+    world = int(np.prod(list(sizes.values())))
+    out = {}
+    for ranks in _all_groups(sizes, axes):
+        if (len(ranks) == world and not spanning) or (
+                kind == "moe" and len(ranks) == 1):
+            continue
+        key = (kind, label, ranks)
+        if key not in _GROUPS:
+            _GROUPS[key] = dist.new_group(list(ranks))
+            _LABELS.append((_GROUPS[key], label))
+        out[(label, ranks) if kind == "moe" else ranks] = _GROUPS[key]
+    return out
+
+
+def _axis_groups(sizes: Dict[str, int]
+                 ) -> Tuple[Dict[Tuple[int, ...], Any],
+                            Dict[Tuple[int, ...], Any]]:
+    """The engine's and the MoE layer's process groups of a mesh, built on
+    this rank (each rank takes part in building all of them): under hpZ
+    the ``zshard`` then the ``data`` groups; under an expert axis the
+    ``expert`` then the ``(data, zshard)`` groups; for the MoE layer, at
+    more than one process, the batch group and the ``expert`` groups."""
+    world = int(np.prod(list(sizes.values())))
+    groups: Dict[Tuple[int, ...], Any] = {}
+    moe: Dict[Tuple[int, ...], Any] = {}
+    if world <= 1:
+        return groups, moe
+    if sizes[ZSHARD_AXIS] > 1:
+        groups.update(_build("axis", sizes, (ZSHARD_AXIS,), "zshard", False))
+        groups.update(_build("axis", sizes, (DATA_AXIS,), "data", False))
+    if sizes[EXPERT_AXIS] > 1:
+        groups.update(_build("axis", sizes, (EXPERT_AXIS,), "expert", False))
+        groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS), "data",
+                             False))
+    moe.update(_build("moe", sizes, BATCH_AXES, "batch", True))
+    if sizes[EXPERT_AXIS] > 1:
+        moe.update(_build("moe", sizes, (EXPERT_AXIS,), "expert", True))
+    return groups, moe
 
 
 def group_label(group) -> str:
-    """``world`` for the default group (None), else the axis an axis group
-    runs over (``zshard`` / ``data``); ``other`` for a group of neither."""
+    """``world`` for the default group (None), else the axes a group runs
+    over (``zshard``, ``data``, ``expert``; ``batch`` for the MoE layer's
+    group over the batch axes); ``other`` for a group of none."""
     if group is None:
         return "world"
-    for ranks, g in _AXIS_GROUPS.items():
+    for g, label in _LABELS:
         if g is group:
-            return _AXIS_OF[ranks]
+            return label
     return "other"
+
+
+_MANUAL: List[Tuple[str, ...]] = []
+
+
+@contextlib.contextmanager
+def manual_axes(axes: Sequence[str]):
+    """Marks ``axes`` as already per rank while the block runs: the
+    collective layers (the MoE layer) then treat the tokens and their
+    statistics as local on those axes, as a layer traced inside JAX's
+    manual ``shard_map`` does (the ZeRO++ int8 wire's step is manual over
+    ``data`` and ``zshard``)."""
+    _MANUAL.append(tuple(axes))
+    try:
+        yield
+    finally:
+        _MANUAL.pop()
+
+
+def current_manual_axes() -> Tuple[str, ...]:
+    return tuple(a for axes in _MANUAL for a in axes)
 
 
 def initialize_mesh(mesh_config: Optional[MeshConfig] = None) -> MeshManager:
@@ -200,9 +301,9 @@ def initialize_mesh(mesh_config: Optional[MeshConfig] = None) -> MeshManager:
                        if a not in _RUNS and s > 1)
     if wider:
         raise later_slice(f"mesh axes {wider} above 1 (this slice runs the "
-                          "'data' and 'zshard' axes)")
+                          "'data', 'zshard' and 'expert' axes)")
     rank = dist.get_rank() if process_world_size() > 1 else 0
-    _GLOBAL_MESH = MeshManager(sizes, rank, _axis_groups(sizes))
+    _GLOBAL_MESH = MeshManager(sizes, rank, *_axis_groups(sizes))
     logger.info(f"initialized process mesh: {_GLOBAL_MESH}")
     return _GLOBAL_MESH
 
@@ -221,5 +322,5 @@ def reset_mesh() -> None:
     """Forget the mesh and its axis groups (the process group is gone)."""
     global _GLOBAL_MESH
     _GLOBAL_MESH = None
-    _AXIS_GROUPS.clear()
-    _AXIS_OF.clear()
+    _GROUPS.clear()
+    _LABELS.clear()

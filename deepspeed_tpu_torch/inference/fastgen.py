@@ -137,7 +137,7 @@ class FastGenEngine:
             raise _later_slice("tensor-parallel FastGen serving (tp=True)")
         if isinstance(cfg, str):
             cfg = T.get_model_config(cfg, **overrides)
-        PG.check_servable(cfg)
+        T._check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = self._resolve_params(params, seed)

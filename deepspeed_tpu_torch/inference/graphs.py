@@ -43,11 +43,13 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops import grouped_gemm as GG
 from deepspeed_tpu_torch.ops import norms
 from deepspeed_tpu_torch.ops import paged_attention as PA
 
-#: the launch counters of the kernels a tick launches
-TICK_COUNTERS = (PA.launches, norms.launches)
+#: the launch counters of the kernels a tick launches (the grouped GEMM:
+#: an MoE model's experts)
+TICK_COUNTERS = (PA.launches, norms.launches, GG.launches)
 
 #: ``tick(tokens, positions, tables, generator) -> (logits, sampled)``
 TickFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor,

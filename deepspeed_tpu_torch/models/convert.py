@@ -9,8 +9,10 @@ PagedTransformer`. Floating leaves are cast to the compute dtype, as the JAX
 ``load_master(engine, jax.tree.map(np.asarray, jax_engine.state["master"]))``
 copies a JAX fp32 master tree into a training engine's master state, so both
 engines start from the same weights; a data-parallel rank keeps its shard
-of each leaf. ``gather_master(engine)`` reads a data-parallel engine's
-sharded master back as full numpy arrays (every rank calls it).
+of each leaf (under an ``expert`` axis, its experts of each expert leaf
+first: ``engine.local_leaf``). ``gather_master(engine)`` reads a
+data-parallel engine's sharded master back as whole numpy arrays, the
+experts of every rank included (every rank calls it).
 """
 from __future__ import annotations
 
@@ -66,8 +68,8 @@ def _leaves(tree: Dict[str, Any], prefix=()):
 
 def load_master(engine, tree: Dict[str, Any]) -> None:
     """Copy the fp32 master tree ``tree`` (numpy arrays or tensors, the JAX
-    keys and shapes) into ``engine``'s master — a data-parallel rank keeps
-    its shard — and refresh its compute copy. Keys or shapes that differ
+    keys and whole shapes) into ``engine``'s master — a data-parallel rank
+    keeps its shard of its experts — and refresh its compute copy. Keys or shapes that differ
     raise ``ValueError``."""
     slots = {slot.path: slot for slot in engine._slots}
     src = dict(_leaves(tree))
@@ -77,7 +79,8 @@ def load_master(engine, tree: Dict[str, Any]) -> None:
                          f"{len(slots)} leaves vs {len(src)}")
     with torch.no_grad():
         for path, slot in slots.items():
-            t = _to_tensor(src[path], torch.float32, engine.device)
+            t = engine.local_leaf(path, _to_tensor(src[path], torch.float32,
+                                                   engine.device))
             if tuple(t.shape) != slot.shape:
                 raise ValueError(f"master /{'/'.join(path)}: shape "
                                  f"{tuple(t.shape)}, want {slot.shape}")

@@ -29,24 +29,13 @@ from deepspeed_tpu_torch.ops import paged_attention as PA
 paged_attention_reference = PA.paged_attention_reference
 
 
-def check_servable(cfg: T.TransformerConfig) -> None:
-    """The model options this serving slice runs: ``_check_supported``'s,
-    less MoE — the MoE FFN trains (``models/transformer._ffn``) but MoE
-    serving through FastGen is a later slice."""
-    T._check_supported(cfg)
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE serving (n_experts > 0) through FastGen is not supported by "
-            "deepspeed_tpu_torch yet; it comes in a later slice of the port")
-
-
 def init_paged_kv(cfg: T.TransformerConfig, n_blocks: int, block_size: int,
                   dtype: Optional[torch.dtype] = None,
                   device: Optional[torch.device] = None
                   ) -> Dict[str, torch.Tensor]:
     """Block pool per layer. Block 0 is the trash block for pad writes.
     ``device`` as in :func:`resolve_device` (``None`` = the first GPU)."""
-    check_servable(cfg)
+    T._check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.compute_dtype
     shape = (cfg.num_layers, n_blocks, block_size, cfg.kv_heads, cfg.head_dim)
@@ -76,8 +65,7 @@ class _ParamTree(nn.Module):
 
 class PagedTransformer(_ParamTree):
     """The serving model's parameters under the JAX keys and shapes; a
-    tick is ``forward_paged(model.tree(), ..., model.cfg)``. It holds an
-    MoE model's leaves too; ``forward_paged`` refuses to serve them."""
+    tick is ``forward_paged(model.tree(), ..., model.cfg)``."""
 
     def __init__(self, cfg: T.TransformerConfig, params: Dict[str, object]):
         T._check_supported(cfg)
@@ -108,7 +96,7 @@ def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
     one paged-attention plan (``PA.build_plan``) for every layer of the
     tick where one is read (``PA.uses_plan``: bf16, at least ``MIN_RUN``
     rows); ``False`` takes the plain versions on any device."""
-    check_servable(cfg)
+    T._check_supported(cfg)
     dt = cfg.compute_dtype
     N, K, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     Tn = tokens.shape[0]
@@ -157,7 +145,7 @@ def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
         attn_out = proj(attn.reshape(Tn, N * D), lp, "o", 0)
         x = x + attn_out
         h2 = T._norm(x, lp["ln2"], cfg.norm, cfg.norm_eps, use_kernels)
-        x = x + T._ffn(h2, lp, cfg)[0]
+        x = x + T._ffn(h2, lp, cfg, use_kernels)[0]
     x = T._norm(x, params["final_norm"], cfg.norm, cfg.norm_eps, use_kernels)
     logits = T.head_matmul(x, T._lm_head_of(params, cfg).to(x.dtype))
     return logits, pool

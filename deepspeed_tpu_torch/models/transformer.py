@@ -370,9 +370,8 @@ def _check_supported(cfg: TransformerConfig) -> None:
     unsupported = [name for name, on in (
         ("mla", cfg.mla), ("alibi", cfg.pos_emb == "alibi"),
         ("qk_norm", cfg.qk_norm), ("parallel_block", cfg.parallel_block),
-        ("emb_norm", cfg.emb_norm), ("lm_head_bias", cfg.lm_head_bias),
-        ("moe_dispatch='dense'",
-         cfg.n_experts > 0 and cfg.moe_dispatch == "dense")) if on]
+        ("emb_norm", cfg.emb_norm), ("lm_head_bias", cfg.lm_head_bias))
+        if on]
     if unsupported:
         raise NotImplementedError(
             f"{', '.join(unsupported)}: not supported by deepspeed_tpu_torch "
@@ -521,13 +520,21 @@ def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
     if cfg.n_experts > 0:
         from deepspeed_tpu_torch.moe.layer import moe_ffn
 
+        if h.dim() == 2:
+            # a serving tick's flat token rows [T, H]: one row batch of T
+            # (JAX's paged forward hands moe_ffn the [T, H] rows, which its
+            # [B, S, H] unpacking refuses)
+            y, aux = _ffn(h[None], lp, cfg, use_kernels)
+            return y[0], aux
+
         experts = {k_: lp[k_] for k_ in ("w_up", "w_down", "w_gate")
                    if k_ in lp}
         shared = {k_: lp[k_] for k_ in ("sw_up", "sw_down", "sw_gate",
                                         "shared_gate_w") if k_ in lp}
         return moe_ffn(
             h, lp["gate_w"], experts, activation=cfg.activation,
-            k=cfg.moe_top_k, score_func=cfg.moe_score_func,
+            k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+            min_capacity=cfg.moe_min_capacity, score_func=cfg.moe_score_func,
             route_norm=cfg.moe_route_norm,
             route_scale=cfg.moe_route_scale, shared=shared or None,
             gate_bias=lp.get("gate_bias"), n_group=cfg.moe_n_group,

@@ -7,6 +7,12 @@ Ports the ZeRO half of ``deepspeed_tpu/parallel/partitioning.py``:
 name or a tuple of names — as ``PartitionSpec`` holds them; the mesh is its
 axis sizes (``comm/mesh.MeshManager.shape``).
 
+Under an ``expert`` axis a leaf's ``expert`` dim is sharded over it (the
+rule ``"expert"``), so ZeRO never picks it, and ZeRO shards over ``(data,
+zshard)`` only; the batch shards over ``(data, zshard, expert)`` (JAX's
+``batch_spec``): rank r, in that axis order, takes the r-th rows of each
+global micro-batch (``runtime/engine.DataParallelEngine._local_rows``).
+
 The ZeRO dim of a leaf is the largest dim that the tensor-parallel rules
 leave free and that the ZeRO world divides, ties going to the later dim
 (``max((shape[d], d))``), or none (the leaf is replicated). The TP rules

@@ -199,6 +199,7 @@ class DeepSpeedTPUEngine:
         self.config.resolve_batch_size(self.dp_world_size)
         self.zero_stage = self.config.zero_optimization.stage
         self._resolve_compressed_modes(self.config.zero_optimization)
+        self._check_expert_axis(model)
 
         # activation_checkpointing.policy → the spec's remat policy, rebuilt
         # through the spec's own builder (as the JAX engine does)
@@ -286,6 +287,25 @@ class DeepSpeedTPUEngine:
         if cfg.precision_dtype == "bfloat16" and not cfg.bf16.fp32_master:
             raise later_slice("bf16.fp32_master=false (needs a "
                               "stochastic-rounding optimizer)")
+
+    def _check_expert_axis(self, model: ModelSpec) -> None:
+        """Under an ``expert`` axis this slice runs the exact ZeRO 0-2 wire
+        with the ragged dispatch; what else JAX runs there is a later
+        slice."""
+        mm = self.mesh_manager
+        if mm.ep_world_size <= 1:
+            return
+        cfg = getattr(model, "config", None)
+        what = [name for name, on in (
+            ("the ZeRO++ int8 wire (qgZ / qwZ)", self._compressed is not None),
+            ("ZeRO-3", self.zero_stage >= 3),
+            ("hpZ / MiCS (zshard > 1)",
+             mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1),
+            ("the dense MoE dispatch", getattr(cfg, "n_experts", 0) > 0
+             and getattr(cfg, "moe_dispatch", "auto") == "dense")) if on]
+        if what:
+            raise later_slice(f"{', '.join(what)} under an 'expert' mesh "
+                              "axis")
 
     def _resolve_offload(self) -> None:
         """The offload tiers, with JAX's resolution and errors
@@ -478,7 +498,8 @@ class DeepSpeedTPUEngine:
                 or not hasattr(spec_cfg, "scan_chunks") or n_layers <= 1
                 or self.mesh_manager.shape.get("pipe", 1) > 1):
             return
-        per_layer = max(sum(leaf_count(s.shape) for s in self._slots
+        per_layer = max(sum(leaf_count(self._full_shapes[s.path])
+                            for s in self._slots
                             if s.path[0] == _STACKED) // n_layers, 1)
         chunk_elems = (self._overlap.prefetch_bucket_elems
                        if self.zero_stage >= 3
@@ -514,6 +535,9 @@ class DeepSpeedTPUEngine:
         of the flat buffers and resolves the overlap plan."""
         gen = torch.Generator(self.device).manual_seed(seed)
         tree = self.model_spec.init_fn(gen, self.device)
+        self._full_shapes = {path: tuple(t.shape)
+                             for path, t in _flatten(tree)}
+        tree = self._local_tree(tree)
         self._slots: List[_Slot] = []
         off = 0
         for path, t in _flatten(tree):
@@ -522,6 +546,15 @@ class DeepSpeedTPUEngine:
         self._numel = off
         self._setup_overlap_scheduler()
         return tree
+
+    def _local_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """The part of the model's tree this process holds (all of it)."""
+        return tree
+
+    def local_leaf(self, path: Tuple[str, ...],
+                   full: torch.Tensor) -> torch.Tensor:
+        """The part of a whole leaf this process holds (all of it)."""
+        return full
 
     def _init_state(self, seed: int) -> None:
         if self._host_runner is not None:
@@ -790,7 +823,8 @@ class DeepSpeedTPUEngine:
             return self._overlap_plan["chunk_bounds"]
         if not isinstance(cfg, T.TransformerConfig):
             return []
-        per_layer = max(sum(leaf_count(s.shape) for s in self._slots
+        per_layer = max(sum(leaf_count(self._full_shapes[s.path])
+                            for s in self._slots
                             if s.path[0] == _STACKED) // cfg.num_layers, 1)
         return chunk_layers(cfg.num_layers, per_layer,
                             self._overlap.prefetch_bucket_elems)
@@ -1055,6 +1089,15 @@ class DeepSpeedTPUEngine:
             self.lr_scheduler.step(self.global_steps)
         if self.global_steps % max(1, self.config.steps_per_print) == 0:
             host = {k: float(_resolved(v)) for k, v in metrics.items()}
+            drops = getattr(self, "_moe_drop_max", None)
+            if drops is not None and float(drops) > 0:
+                logger.warning(
+                    f"MoE expert-parallel dispatch dropped {float(drops):.2%}"
+                    " of token-choices (EP buffer overflow — router skew); "
+                    "dropped choices fall through to the residual. Consider "
+                    "a larger capacity headroom or rebalancing (aux loss "
+                    "weight).")
+                self._moe_drop_max = torch.zeros_like(drops)
             logger.info(
                 f"step={self.global_steps} loss={host['loss']:.4f} "
                 f"lr={host['lr']:.3e} grad_norm={host['grad_norm']:.3f}"
@@ -1105,6 +1148,7 @@ class _Unit:
     row_off: int = 0                # its rows' place in the packed buffer
     pending: int = 0
     issued: bool = False
+    expert: bool = False            # expert leaves: no replica hop
 
 
 @dataclasses.dataclass
@@ -1192,7 +1236,25 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     the exact wire and under LoCo), then ÷ the whole world, JAX's order.
     The batch rows, the loss mean and the replicated leaves' mean stay
     over the whole world; the global norm sums the shards' squares over
-    ``zshard`` only (each shard is held D times)."""
+    ``zshard`` only (each shard is held D times).
+
+    Expert parallelism (an ``expert`` axis of X ranks, JAX's
+    ``EXPERT_GRAD_REDUCE_AXES`` / ``DENSE_GRAD_REDUCE_AXES``): the leaves
+    with an ``expert`` logical axis hold this rank's E/X experts (its
+    ``expert`` coordinate's), a third class beside the ZeRO-sharded and the
+    replicated leaves. ZeRO shards over ``(data, zshard)`` only (JAX's
+    ``ZERO_SHARD_AXES``): that group is the shard group, the ``expert``
+    group the dense leaves' replica hop, as ``data`` is hpZ's. A dense
+    gradient is reduced over the whole world (the shard group, then the
+    ``expert`` hop; replicated dense leaves over the world), an expert
+    leaf's over the shard group only, each then ÷ the whole world: every
+    rank's loss is its own rows' mean, and the all-to-all's backward has
+    brought every rank's contribution to the expert's owner. The local
+    buffers hold the dense leaves first, then the expert leaves, in both
+    regions; the norm sums each expert shard once (over the world, or over
+    ``expert`` for a replicated one). The hooked units split into dense and
+    expert units. The MoE layers report the buffers' dropped choices
+    (``moe/layer.set_drop_monitor``), warned of at the print steps."""
 
     def __init__(self, model: ModelSpec, config: Any,
                  optimizer: Optional[TPUOptimizer] = None,
@@ -1212,7 +1274,35 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         ``data`` group for the replica hop), else the whole world."""
         mm = self.mesh_manager
         self.hpz = mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1
-        if self.hpz:
+        self.ep = mm.ep_world_size
+        # each expert leaf's expert dim (its logical axis "expert")
+        self._expert_dims: Dict[Tuple[str, ...], int] = {}
+        if self.ep > 1 and self.model_spec.axes_fn is not None:
+            for path, axes in _flatten(self.model_spec.axes_fn()):
+                if "expert" in axes:
+                    self._expert_dims[path] = axes.index("expert")
+        self._moe_drop_max = None
+        if self.ep > 1:
+            from deepspeed_tpu_torch.moe.layer import set_drop_monitor
+
+            axes = mesh_mod.EXPERT_GRAD_REDUCE_AXES
+            self.shard_world = mm.axes_size(axes)
+            self.shard_rank = mm.group_ranks(axes).index(self.rank)
+            self.shard_group = mm.group(axes)
+            self.replica_world = self.ep
+            self.replica_group = mm.group((mesh_mod.EXPERT_AXIS,))
+            self._moe_drop_max = torch.zeros((), device=self.device)
+            # a weak reference: the module's monitor must not keep a
+            # dropped engine alive
+            engine = weakref.ref(self)
+
+            def sink(frac):
+                e = engine()
+                if e is not None:
+                    e._record_moe_drops(frac)
+
+            set_drop_monitor(sink)
+        elif self.hpz:
             self.shard_world = mm.axis_size(mesh_mod.ZSHARD_AXIS)
             self.shard_rank = mm.coords[mesh_mod.ZSHARD_AXIS]
             self.shard_group = mm.group((mesh_mod.ZSHARD_AXIS,))
@@ -1231,6 +1321,34 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         #: publishes
         self.reduce_counts = {"chunk": 0, "bucket": 0, "late": 0,
                               "publish": 0}
+
+    def _record_moe_drops(self, frac: torch.Tensor) -> None:
+        """The drop monitor's sink: the worst dropped-choice fraction since
+        the last print step, kept on the device (no host read)."""
+        self._moe_drop_max = torch.maximum(self._moe_drop_max,
+                                           frac.detach().float())
+
+    def _local_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """Each expert leaf cut to this rank's E/X experts."""
+        for path, t in list(_flatten(tree)):
+            if path in self._expert_dims:
+                _set_path(tree, path, self.local_leaf(path, t))
+        return tree
+
+    def local_leaf(self, path: Tuple[str, ...],
+                   full: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of a whole expert leaf (other leaves whole;
+        a leaf already cut is returned as it is)."""
+        dim = self._expert_dims.get(path)
+        if dim is None or full.shape[dim] != self._full_shapes[path][dim]:
+            return full
+        E = full.shape[dim]
+        if E % self.ep:
+            raise ValueError(f"n_experts={E} not divisible by expert mesh "
+                             f"axis {self.ep}")
+        E_l = E // self.ep
+        c = self.mesh_manager.coords[mesh_mod.EXPERT_AXIS]
+        return full.narrow(dim, c * E_l, E_l).contiguous()
 
     def _init_state(self, seed: int) -> None:
         if self.zero_stage >= 3:
@@ -1283,8 +1401,14 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         W, dev, cdt = self.shard_world, self.device, self.compute_dtype
         self._shards, sh_off, rep_off = zero_layout(
             self.model_spec, self._slots, W, self.zero_stage,
-            self.mesh_manager.shape)
+            self.mesh_manager.shape, expert_paths=set(self._expert_dims))
         self._n_sh, self._n_rep = sh_off, rep_off
+        # the expert leaves lie after the dense ones in each region
+        ex = [sh for sh in self._shards if sh.slot.path in self._expert_dims]
+        self._n_sh_dense = min([sh.offset for sh in ex if sh.dim is not None]
+                               + [sh_off])
+        self._n_rep_dense = min([sh.offset for sh in ex if sh.dim is None]
+                                + [rep_off])
         n_local = sh_off + rep_off
         self.flat_master = torch.zeros(n_local, dtype=torch.float32,
                                        device=dev)
@@ -1347,6 +1471,18 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         for idxs in buckets:
             units.append(_Unit(S3.make_group(
                 [(head[i], None) for i in sorted(idxs)]), "bucket", 0))
+        if self._expert_dims:
+            # an expert unit reduces over the shard group only
+            split = []
+            for u in units:
+                for expert in (False, True):
+                    items = [(p.shard, p.layers) for p in u.group.pieces
+                             if (p.path in self._expert_dims) == expert]
+                    if items:
+                        split.append(_Unit(S3.make_group(
+                            items, u.group.layers), u.kind, 0,
+                            expert=expert))
+            units = split
         off = 0
         for u in units:
             u.row_off, off = off, off + self.shard_world * u.group.n_row
@@ -1432,15 +1568,16 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         with torch.no_grad(), telemetry.span("zero_reduce_issue"):
             mine = torch.empty(g.n_row, dtype=torch.float32,
                                device=self.device)
+            hop = self.hpz or (self.ep > 1 and not unit.expert)
             if self.zero_stage >= 2:
                 op = comm.reduce_scatter_op(self.shard_group,
                                             self.replica_group,
-                                            replicas=self.hpz)
+                                            replicas=hop)
             else:
                 op = comm.all_reduce_row_op(self.shard_rank,
                                             self.shard_group,
                                             self.replica_group,
-                                            replicas=self.hpz)
+                                            replicas=hop)
             handle = self._comm_queue().submit(
                 op, [mine], [rows], slot=f"r{len(self._reduces) % 2}",
                 group=self.shard_group)
@@ -1623,7 +1760,12 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                 dst.copy_(g)
 
     def _replicated_mean(self) -> torch.Tensor:
-        comm.all_reduce(self._rep_buf)
+        """The replicated leaves' gradient mean: dense leaves summed over
+        the world, expert leaves over the shard group, ÷ the world."""
+        nd = self._n_rep_dense
+        comm.all_reduce(self._rep_buf[:nd])
+        if nd < self._n_rep:
+            comm.all_reduce(self._rep_buf[nd:], group=self.shard_group)
         return self._rep_buf / torch.tensor(float(self.world),
                                             device=self.device)
 
@@ -1678,6 +1820,15 @@ class DataParallelEngine(DeepSpeedTPUEngine):
 
     def _quant_grads(self) -> bool:
         return bool(self._compressed and self._compressed["quant_grads"])
+
+    def _moe_axes(self):
+        """The int8 wire's step is JAX's manual ``shard_map`` over ``data``
+        and ``zshard``: the MoE layers' gate and aux loss are each rank's
+        own there (on the exact wire, GSPMD's global ones)."""
+        if self._compressed is None:
+            return contextlib.nullcontext()
+        return mesh_mod.manual_axes((mesh_mod.DATA_AXIS,
+                                     mesh_mod.ZSHARD_AXIS))
 
     @contextlib.contextmanager
     def _step_buffers(self):
@@ -1739,13 +1890,14 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                 mb = ({k: v[i] for k, v in batch.items()}
                       if isinstance(batch, dict) else batch[i])
                 self._begin_micro(i == gas - 1)
-                if weights is None:
-                    losses.append(self._loss_and_grads(mb, scale))
-                else:
-                    w = weights[i]
-                    loss = self._loss_and_grads(
-                        mb, w if scale is None else w * scale)
-                    losses.append(loss * w)
+                with self._moe_axes():
+                    if weights is None:
+                        losses.append(self._loss_and_grads(mb, scale))
+                    else:
+                        w = weights[i]
+                        loss = self._loss_and_grads(
+                            mb, w if scale is None else w * scale)
+                        losses.append(loss * w)
                 self._reduce_micro(i == gas - 1)
             self._reduce_step()
         mean_loss = losses[0] if gas == 1 else torch.stack(losses).mean()
@@ -1768,10 +1920,22 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         g = grads.div_(scale_t) if grads.dtype == torch.float32 \
             else grads.float() / scale_t
         lr = self._lr_at(self.state["step"])
-        # each shard is held once a zshard group (hpZ: D times in the world)
-        sq = torch.stack([g[:self._n_sh].square().sum(),
-                          g[self._n_sh:].square().sum()])
-        comm.all_reduce(sq[:1], group=self.shard_group)
+        # each shard is held once a zshard group (hpZ: D times in the
+        # world); an expert shard once in the world, a replicated expert
+        # leaf once an expert group
+        n_sh = self._n_sh
+        if self.ep > 1:
+            nsd, nrd = self._n_sh_dense, self._n_rep_dense
+            sq = torch.stack([g[:nsd].square().sum(),
+                              g[nsd:n_sh].square().sum(),
+                              g[n_sh + nrd:].square().sum(),
+                              g[n_sh:n_sh + nrd].square().sum()])
+            comm.all_reduce(sq[:2], group=self.shard_group)
+            comm.all_reduce(sq[1:3], group=self.replica_group)
+        else:
+            sq = torch.stack([g[:n_sh].square().sum(),
+                              g[n_sh:].square().sum()])
+            comm.all_reduce(sq[:1], group=self.shard_group)
         norm = torch.sqrt(sq.sum())
         if self.config.gradient_clipping > 0:
             clip_by_global_norm([g], self.config.gradient_clipping, norm)
@@ -1832,6 +1996,11 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             else:
                 full = torch.movedim(self._rows(rows, sh).reshape(
                     (-1,) + sh.moved(self.shard_world)[2:]), 0, sh.dim)
+            dim = self._expert_dims.get(sh.slot.path)
+            if dim is not None:
+                full = comm.all_gather(full.contiguous(),
+                                       group=self.replica_group,
+                                       gather_axis=dim)
             _set_path(tree, sh.slot.path,
                       full.detach().to(device, copy=True))
         return tree
@@ -2010,13 +2179,15 @@ class Zero3Engine(DataParallelEngine):
 
 
 def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,
-                zero_stage: int, sizes: Dict[str, int]
+                zero_stage: int, sizes: Dict[str, int], expert_paths=()
                 ) -> Tuple[List[_Shard], int, int]:
     """Each leaf's place in a rank's local buffers → (shards, sharded
     elements, replicated elements), ``world`` the ranks a shard is split
-    over (the ``zshard`` axis under hpZ). The sharded dim is JAX's
+    over (the ``zshard`` axis under hpZ, ``(data, zshard)`` under an expert
+    axis). The sharded dim is JAX's
     (``parallel/partitioning.ShardingPolicy.state_spec`` from the model's
-    logical axes); a spec without ``axes_fn`` replicates every leaf."""
+    logical axes); a spec without ``axes_fn`` replicates every leaf. The
+    leaves of ``expert_paths`` come after the others in each region."""
     specs: Dict[Tuple[str, ...], Any] = {slot.path: () for slot in slots}
     if model.axes_fn is not None:
         shapes: Dict[str, Any] = {}
@@ -2025,19 +2196,22 @@ def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,
         tree = ShardingPolicy(sizes, zero_stage).state_spec(model.axes_fn(),
                                                             shapes)
         specs = dict(_flatten(tree))
-    shards: List[_Shard] = []
+    placed: Dict[Tuple[str, ...], _Shard] = {}
     sh_off = rep_off = 0
-    for slot in slots:
-        dim = C.sharded_dim(specs[slot.path], (mesh_mod.DATA_AXIS,
-                                               mesh_mod.ZSHARD_AXIS))
-        if dim is None:
-            shards.append(_Shard(slot, None, slot.numel, rep_off))
-            rep_off += -(-slot.numel // _ALIGN) * _ALIGN
-        else:
-            n_loc = slot.numel // world
-            shards.append(_Shard(slot, dim, n_loc, sh_off))
-            sh_off += -(-n_loc // QK.DEFAULT_BLOCK) * QK.DEFAULT_BLOCK
-    return shards, sh_off, rep_off
+    for expert in (False, True):
+        for slot in slots:
+            if (slot.path in expert_paths) != expert:
+                continue
+            dim = C.sharded_dim(specs[slot.path], (mesh_mod.DATA_AXIS,
+                                                   mesh_mod.ZSHARD_AXIS))
+            if dim is None:
+                placed[slot.path] = _Shard(slot, None, slot.numel, rep_off)
+                rep_off += -(-slot.numel // _ALIGN) * _ALIGN
+            else:
+                n_loc = slot.numel // world
+                placed[slot.path] = _Shard(slot, dim, n_loc, sh_off)
+                sh_off += -(-n_loc // QK.DEFAULT_BLOCK) * QK.DEFAULT_BLOCK
+    return [placed[slot.path] for slot in slots], sh_off, rep_off
 
 
 def rank_device(device=None) -> torch.device:

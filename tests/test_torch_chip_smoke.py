@@ -17,6 +17,8 @@
 * The ZeRO-3 phase: its launch formula, the gathers and reduces a step,
   the Z1-Z2 gate arithmetic, the Z4 memory comparison, and its rank
   function rehearsed at tiny size on two gloo ranks of the CPU.
+* The expert-parallel phase: its traffic and launch formulas, and its
+  rank function rehearsed at tiny size on two gloo ranks (E1-E4).
 
 The names have the form nvcc and the demangler give these kernels, the
 anonymous namespace's per-file prefix included.
@@ -475,6 +477,48 @@ def test_hpz_phase_rank_rehearsal_on_cpu():
         assert g["two_hop_err_out_of_bound"] == 0
         assert C.hpz_gate_problems(r["gates"]) == []
         assert r["gates"]["bf16_loss_bit_equal"]
+
+
+def test_moe_ep_formulas():
+    """E4's collectives a step and the launches of an MoE rank: tiny_moe's
+    2 layers, gas 2, one step, 32 tokens of top-2 a micro-batch at ep 2
+    (buffers of 2 × 64 rows, dropless), H 64, E 4."""
+    want = C.moe_ep_traffic_want(2, 2, 1, 1, 32, 2, 2, 64, 4)
+    assert want == {"expert/all_to_all": [32, 4 * (6 * 128 * 64 + 2 * 128)],
+                    "batch/all_reduce": [20, 4 * (24 + 4)]}
+    launches = C.moe_ep_launches_want(12, 2, 2, 2, adam_per_step=2)
+    assert launches["gmm"] == 3 * 2 * 12 * 4
+    assert launches["tgmm"] == 2 * 12 * 4
+    assert launches["layer_norm"] == 49 * 4 and launches["fused_adam"] == 4
+
+
+def test_moe_ep_phase_rank_rehearsal_on_cpu(tmp_path):
+    """The expert-parallel phase's rank function at tiny size on two gloo
+    ranks of the CPU (bf16 main path; the plain paths, the counters read 0
+    there): each rank holds 2 of tiny_moe's 4 experts, the losses fall and
+    agree, E4's collectives a step match the formula with nothing dropped,
+    E3's received buffer gives the plain version's rows and a zero tail,
+    and E1-E2 pass (E1 against the same ranks without the expert axis and
+    against the one-process reference)."""
+    import torch
+
+    t = dict(C.MOE_EP, model="tiny_moe", micro=2, seq=32, gas=2, steps=2,
+             device="cpu")
+    t["ref"] = C.moe_ep_reference(t, torch.device("cpu"), 0,
+                                  str(tmp_path / "a"))
+    ranks = C.spawn_ranks("train_moe_350m_ep_rank", 2, 0, t)
+    assert C.moe_ep_problems(ranks, t, "a") == []
+    for r in ranks:
+        m = r["main"]
+        assert m["local_experts"] == 2
+        assert m["coords"] == {"data": 0, "expert": r["rank"]}
+        assert m["expert_ranks"] == [0, 1]
+        assert r["e3"]["rows"] == 2 * 128        # ep · Cs, Cs = 2 · 32 · 2
+        g = r["gates"]
+        assert g["fp32"]["route_miss"] == 0.0
+        assert set(g) == {"fp32", "fp32_one_process", "bf16", "plain_bf16"}
+    # dropless: every rank's 128 choices reached an expert
+    assert sum(r["e3"]["routed_rows"] for r in ranks) == 2 * 128
 
 
 # --------------------------------------------------------------------------- #

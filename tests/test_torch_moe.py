@@ -11,8 +11,8 @@
   the JAX engine's master via ``load_master``: losses (the aux term
   included) and grad norms over three steps match the JAX engine's.
 * MoE leaves carry across (``load_master``, ``params_from_numpy``), the
-  port's ``init_params`` has JAX's MoE keys and shapes, and FastGen refuses
-  an MoE model.
+  port's ``init_params`` has JAX's MoE keys and shapes, and FastGen takes
+  an MoE model (served against JAX in ``tests/test_torch_moe_serving.py``).
 
 The JAX ``moe_ffn`` lowers according to the process's global mesh, which a
 JAX engine run earlier in the same worker leaves behind (an expert axis
@@ -100,11 +100,18 @@ def test_topk_gating_indices_matches_jax(case):
 
 
 def test_gate_later_slices_raise():
+    """Noisy gating and the dense gate run (held against JAX in
+    ``tests/test_torch_moe_dense.py``); what stays for a later slice is
+    AutoEP on an HF model (the HF importer)."""
+    from deepspeed_tpu_torch.moe import auto_ep
+
     logits = torch.zeros(4, 4)
+    noisy = PGt.topk_gating_indices(logits, rng=torch.Generator(),
+                                    noise_std=1.0)
+    assert noisy.experts.shape == (4, 2)
+    assert PGt.topk_gating(logits).combine.shape == (4, 4, 4)
     with pytest.raises(NotImplementedError, match="later slice"):
-        PGt.topk_gating_indices(logits, rng=torch.Generator(), noise_std=1.0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PGt.topk_gating(logits)
+        auto_ep.auto_ep(object())
 
 
 def test_expert_sort_matches_jax():
@@ -195,7 +202,8 @@ def test_moe_ffn_and_grads_match_jax(case, one_device_mesh):
 
 def test_moe_ffn_plain_path_and_dispatch_modes(one_device_mesh):
     """``use_kernels=False`` is the same function on the CPU; 'auto'
-    resolves to ragged; 'dense' and noisy gating are later slices."""
+    resolves to ragged, and to dense with noisy gating; 'ragged' with
+    noisy gating raises JAX's error."""
     _, params, _ = _ffn_inputs("swiglu")
     tp = {k: torch.from_numpy(v) for k, v in params.items()}
     experts, _ = _split(tp)
@@ -206,17 +214,18 @@ def test_moe_ffn_plain_path_and_dispatch_modes(one_device_mesh):
         torch.testing.assert_close(u, v, rtol=0, atol=0)
     assert JL.resolve_dispatch("auto", None, 0.0, B, S, E) == "ragged"
     assert PL.resolve_dispatch("auto") == "ragged"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PL.moe_ffn(tp["x"], tp["gate_w"], experts, dispatch="dense")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    assert PL.resolve_dispatch("auto", torch.Generator(), 0.1) == "dense"
+    y, _ = PL.moe_ffn(tp["x"], tp["gate_w"], experts, dispatch="dense")
+    assert y.shape == tp["x"].shape
+    with pytest.raises(ValueError, match="noisy gating"):
         PL.moe_ffn(tp["x"], tp["gate_w"], experts, rng=torch.Generator(),
-                   noise_std=0.1)
+                   noise_std=0.1, dispatch="ragged")
     with pytest.raises(ValueError, match="auto\\|ragged\\|dense"):
         PL.moe_ffn(tp["x"], tp["gate_w"], experts, dispatch="nope")
 
 
 # --------------------------------------------------------------------------- #
-# the model: init, carrying weights across, serving refuses
+# the model: init, carrying weights across, serving
 # --------------------------------------------------------------------------- #
 
 MOE_VARIANT = dict(activation="swiglu", moe_shared_size=32,
@@ -270,17 +279,18 @@ def test_moe_leaves_carry_across_and_serving_refuses():
         np.testing.assert_array_equal(
             engine._params["blocks"][1][key].detach().numpy(),
             tree["blocks"][key][1], err_msg=key)
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        FastGenEngine(pcfg, params=tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        PPG.init_paged_kv(pcfg, 4, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        PPG.forward_paged(got, torch.zeros(1, dtype=torch.int32),
-                          torch.zeros(1, dtype=torch.int32),
-                          torch.zeros(1, 1, dtype=torch.int32),
-                          {"k": torch.zeros(1), "v": torch.zeros(1)}, pcfg)
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        FastGenEngine("tiny_moe", device="cpu")
+    # serving takes MoE models now (tokens against JAX's in
+    # tests/test_torch_moe_serving.py): a tick over one token runs
+    pool = PPG.init_paged_kv(pcfg, 4, 8, device="cpu")
+    logits, _ = PPG.forward_paged(got, torch.zeros(1, dtype=torch.int32),
+                                  torch.zeros(1, dtype=torch.int32),
+                                  torch.ones(1, 1, dtype=torch.int32),
+                                  pool, pcfg)
+    assert logits.shape == (1, pcfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    eng = FastGenEngine("tiny_moe", device="cpu", n_blocks=8, block_size=8,
+                        max_blocks_per_seq=4, token_budget=8)
+    assert len(eng.generate_all([1], [[1, 2, 3]], max_new_tokens=2)[1]) == 2
 
 
 # --------------------------------------------------------------------------- #

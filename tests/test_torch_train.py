@@ -303,7 +303,8 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
 
 
 @pytest.mark.parametrize("extra,spec_kw", [
-    ({"mesh": {"expert": 2}}, {}),
+    # (an expert axis runs: tests/test_torch_expert_parallel.py)
+    ({}, {"remat": "moe_selective"}),
     # (the offload tiers, ZenFlow and SuperOffload run: they are held in
     # tests/test_torch_offload.py and tests/test_torch_zenflow.py)
     ({"optimizer": {"type": "adafactor", "params": {"lr": 1e-3}}}, {}),
@@ -321,7 +322,8 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
     ({}, {"remat": "dots_saveable"}),
     ({}, {"loss_tiles": 4}),
     ({}, {"attention": "ring"}),
-    ({}, {"n_experts": 4, "moe_dispatch": "dense"}),
+    # (the dense MoE dispatch runs: tests/test_torch_moe_dense.py)
+    ({}, {"attention": "ulysses"}),
 ])
 def test_out_of_slice_options_raise(extra, spec_kw):
     with pytest.raises(NotImplementedError, match="later slice"):

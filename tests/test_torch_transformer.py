@@ -78,7 +78,7 @@ def test_init_params_keys_shapes_and_scale(name):
 
 @pytest.mark.parametrize("option", [
     dict(pos_emb="alibi"), dict(qk_norm=True), dict(parallel_block=True),
-    dict(emb_norm=True), dict(n_experts=4, moe_dispatch="dense"),
+    dict(emb_norm=True), dict(lm_head_bias=True),
     dict(mla=True, kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8,
          v_head_dim=8)])
 def test_unsupported_options_raise(option):

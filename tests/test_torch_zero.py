@@ -26,6 +26,11 @@ imported inside the fixtures and tests, never at the top.
   Then stage 1 / stage 2 exact and qgZ on batches whose ``loss_mask``
   keeps a different number of tokens on each rank: the exact wire takes
   JAX's global masked token mean, the int8 wire the ranks' mean.
+* ``tiny_moe`` at world 2 against the JAX engine at ``data = 2`` (stage 1
+  and stage 2 exact, stage 2 qgZ): the exact wire takes JAX's global aux
+  loss (the token means of the router probabilities and the first-choice
+  mask averaged over the ranks before their product), the int8 wire the
+  ranks' mean of their own aux values, as JAX's manual step does.
 """
 import pickle
 import queue
@@ -545,3 +550,87 @@ def test_a_rank_device_is_never_chosen_silently(monkeypatch):
     monkeypatch.setenv("LOCAL_RANK", str(torch.cuda.device_count()))
     with pytest.raises(RuntimeError, match="no CUDA device|does not exist"):
         rank_device(None)
+
+
+# tiny_moe at world 2: the aux loss of each wire. JAX's exact step is one
+# GSPMD program whose MoE layer averages the router statistics over the
+# data axis before their product; its int8 step is a manual shard_map over
+# data, where each rank takes its own aux and the step the ranks' mean.
+MOE_ZERO = ("stage1_exact", "stage2_exact", "stage2_qgz")
+
+
+@pytest.fixture(scope="module")
+def moe_runs(tmp_path_factory):
+    """The JAX engine at data = 2 and the port's world-2 engine (spawned
+    ranks) on tiny_moe, each config from the same initial master: {name:
+    (jax run, [rank runs])}."""
+    import jax
+
+    import deepspeed_tpu as dst
+    from deepspeed_tpu.comm import mesh as JM
+    from deepspeed_tpu.comm.mesh import MeshConfig, initialize_mesh
+    from deepspeed_tpu.runtime.dataloader import synthetic_lm_data
+
+    runs = {}
+    for name in MOE_ZERO:
+        spec = dst.causal_lm_spec("tiny_moe", dtype="float32")
+        mm = initialize_mesh(MeshConfig(data=WORLD),
+                             devices=jax.devices()[:WORLD])
+        engine, *_ = dst.initialize(model=spec,
+                                    config=_engine_config(ZERO[name]),
+                                    mesh_manager=mm)
+        JM.set_mesh(mm.mesh)          # the MoE layer lowers by it
+        master0 = jax.tree.map(np.asarray, engine.state["master"])
+        data = synthetic_lm_data(WORLD, SEQ, 512, seed=3)
+        losses = [float(engine.train_batch(data)) for _ in range(STEPS)]
+        runs[name] = {"master0": master0, "losses": losses,
+                      "master": jax.tree.map(np.asarray,
+                                             engine.state["master"]),
+                      "wire": engine._wire_format()}
+        JM.reset_mesh()
+    tmp = tmp_path_factory.mktemp("moe")
+    path = tmp / "runs.pkl"
+    path.write_bytes(pickle.dumps(runs))
+    ranks = _spawn(_moe_engine_rank, WORLD, tmp, str(path))
+    return {name: (runs[name], [r[name] for r in ranks]) for name in MOE_ZERO}
+
+
+def _moe_engine_rank(rank, world, runs_path):
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models.convert import gather_master, load_master
+    from deepspeed_tpu_torch.runtime.dataloader import synthetic_lm_data
+
+    runs = pickle.loads(open(runs_path, "rb").read())
+    out = {}
+    for name in MOE_ZERO:
+        spec = dtt.causal_lm_spec("tiny_moe", dtype="float32")
+        engine, *_ = dtt.initialize(model=spec,
+                                    config=_engine_config(ZERO[name]),
+                                    device="cpu")
+        load_master(engine, runs[name]["master0"])
+        data = synthetic_lm_data(world, SEQ, 512, seed=3)
+        losses = [float(engine.train_batch(data)) for _ in range(STEPS)]
+        out[name] = {"losses": losses, "master": gather_master(engine),
+                     "wire": engine._wire_format()}
+        engine.close()
+    return out
+
+
+@pytest.mark.parametrize("name", MOE_ZERO)
+def test_engine_world2_moe_aux_matches_jax(moe_runs, name):
+    """tiny_moe at world 2: losses and the final master within ``TOL`` of
+    the JAX engine at data = 2 — the exact wires with JAX's global aux
+    loss, the int8 wire with the ranks' mean of their own."""
+    want, got = moe_runs[name]
+    tol = TOL["exact" if want["wire"] == "exact" else "int8"]
+    assert got[0]["wire"] == want["wire"]
+    assert got[1]["losses"] == got[0]["losses"], name
+    np.testing.assert_allclose(got[0]["losses"], want["losses"],
+                               rtol=tol["loss"], atol=0, err_msg=name)
+    mine, theirs = dict(_leaves(got[0]["master"])), dict(
+        _leaves(want["master"]))
+    assert sorted(mine) == sorted(theirs)
+    diff = np.concatenate([np.abs(mine[k] - theirs[k]).ravel()
+                           for k in theirs])
+    assert diff.max() <= tol["master"], (name, diff.max())
+    assert diff.mean() <= tol["master_mean"], (name, diff.mean())
