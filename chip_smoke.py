@@ -60,6 +60,24 @@ kernel on them against its plain PyTorch version:
                further from that fp32 reference than the plain bf16 path;
 7. train_llama_750m — the same at micro 4, seq 2048, gas 4 (RMSNorm, RoPE,
                SwiGLU, head_dim 128);
+7b. checkpoint_llama_750m — checkpoints on that path (CKPT): C1 one
+               process at full width and depth, steps 1-2, a sync save,
+               steps 3-4, and a fresh engine from another seed that loads
+               the tag and runs steps 3-4 bit-equal (losses; fingerprints
+               of the master, both moments, the bf16 compute copy; lr and
+               the step counters), its kernels counted on the resumed
+               steps; C2 an async save in flight while steps run, its tag
+               verified and loaded to C1's bits; C3 two ranks, ZeRO-3 +
+               qgZ + qwZ + LoCo at ZERO3_LAYERS: a native reload at world 2
+               bit-equal, the universal conversion loaded into one process
+               bit-equal to the gathered leaves, LoCo folded
+               sum-preservingly, the first loss equal to an engine given
+               the same state directly; C4 the NVMe optimizer tier's reload
+               bit-equal; C5 the 16-bit export equal to the compute
+               params; each save's gather / write / fsync / CRC seconds,
+               GB and GB/s, each load's with its verify, the host RSS peak
+               of the save, the disk free before (three tags' size or it
+               fails); the tags deleted at the end;
 8. train_moe_350m — the same at micro 16, seq 1024, gas 4 for the MoE
                model (4 experts, top-2, dropless): the counters prove every
                step launched gmm 288 times and tgmm 96 times; the step gate
@@ -129,8 +147,9 @@ kernel on them against its plain PyTorch version:
                parameter gather on the data group, which carries the
                replica hop only), H5 (the launches and gathers a step);
 13b. train_moe_350m_ep — moe_350m over the expert axis (MOE_EP,
-               MOE_EP_B): (a) two ranks at mesh {expert: 2}, full width and
-               depth, each holding 2 of the 4 experts, the choices sent to
+               MOE_EP_B): (a) two ranks at mesh {expert: 2}, full width,
+               6 of 12 layers, each holding 2 of the 4 experts, the choices
+               sent to
                their expert's rank by all-to-all; (b) four ranks at mesh
                {data: 2, expert: 2}, 4 layers; gates E1-E5 (the fp32 step
                by the training rule against the same ranks without the
@@ -168,7 +187,8 @@ kernel on them against its plain PyTorch version:
                run without offload, (c) ZenFlow (top 1 %, a boundary every
                2 steps) and its kernels-vs-plain step at 4 layers by the
                training rule, (d) ZeRO-3 at world 1 on a spawned rank with
-               offload_param cpu and nvme at 8 layers in JAX's in-step
+               offload_param cpu and nvme at OFFLOAD["param_layers"]
+               layers in JAX's in-step
                streaming mode (the master off the card through the step,
                streamed a chunk at a time): bit-equal, the peak of the
                forward and backward and of the step, the streamed pass's
@@ -201,6 +221,7 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,train_moe_350m_ep,moe_350m
     python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
     python3 chip_smoke.py --phases card,build,train_llama2_7b_super_offload,train_llama_750m_offload
+    python3 chip_smoke.py --phases card,build,checkpoint_llama_750m
 
 The whole run takes the phases in PHASES order: the data-parallel phases
 (11-14, 13b among them) and the offload phases (15-16) run right after the
@@ -238,7 +259,8 @@ PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_moe_350m_ep", "quantized_reduce_scatter",
           "train_llama2_7b_super_offload", "train_llama_750m_offload",
           "llama2_7b", "gpt2_125m", "moe_350m", "train_gpt2_125m",
-          "train_llama_750m", "train_moe_350m", "train_llama_750m_sparse",
+          "train_llama_750m", "checkpoint_llama_750m", "train_moe_350m",
+          "train_llama_750m_sparse",
           "evoformer", "times")
 
 # Tolerances of a kernel against its plain version on the same inputs.
@@ -558,6 +580,10 @@ BF16_TOP1_SLACK = 0.05
 ZEROPP = dict(model="llama_750m", world=2, micro=4, seq=2048, gas=4, steps=2,
               gate_micro=1)
 ZEROPP_CHUNKS = [[0, 10], [10, 20]]
+# the phase's main-path runs take one timed step after the warm-up (2
+# before the checkpoint phase came): the cut that keeps the whole script
+# within its time beside it; depth and width stay full
+ZEROPP_STEPS = 1
 ZEROPP_WIRE = {"stage": 2, "zero_quantized_gradients": True,
                "zero_quantized_weights": True, "loco_error_feedback": True}
 ZEROPP_EXACT = {"stage": 2}
@@ -579,22 +605,25 @@ WIRE_NOISE_SHARE = 0.1
 # The ZeRO-3 phase: bench.py's zero3_llama_750m_bf16 row (llama_750m,
 # stage 3, micro 4 a rank, seq 2048, gas 4, bf16, flash, remat full, Adam)
 # at world 2 on the one card over gloo, overlap_comm on with the default
-# stage3_prefetch_bucket_size 5e7: JAX's plan of 8 layer chunks
-# (even_chunk_bounds(20, 8): 3, 3, 3, 3, 2, 2, 2, 2 layers). Run (a) exact
-# ZeRO-3, (b) ZeRO-3 + qgZ + qwZ + LoCo, (c) exact ZeRO-2 (the zeropp
-# phase's baseline when it ran in the same call); 1 warm-up + 2 steps
-# each. The gate steps Z1-Z2 run the model cut to ZERO3["gate_layers"]
+# stage3_prefetch_bucket_size 5e7: JAX's plan of min(layers, 8) layer
+# chunks (at all 20 layers even_chunk_bounds(20, 8): 3, 3, 3, 3, 2, 2, 2,
+# 2 layers; at ZERO3_LAYERS one layer each). Run (a) exact ZeRO-3, (b)
+# ZeRO-3 + qgZ + qwZ + LoCo, (c) exact ZeRO-2 at the same depth; 1 warm-up
+# + ZERO3_STEPS steps each. The gate steps Z1-Z2 run the model cut to ZERO3["gate_layers"]
 # layers at full width (gas 1, micro 1 a rank).
 ZERO3 = dict(ZEROPP, gate_layers=4)
 ZERO3_EXACT = {"stage": 3}
 ZERO3_WIRE = dict(ZEROPP_WIRE, stage=3)
 ZERO3_CHUNKS = 8
 # the phase's main path runs this many of llama_750m's 20 layers (width
-# unchanged; JAX's plan still cuts them into 8 chunks): the cut that keeps
-# the whole script within its time beside the expert-parallel phase. Its
-# exact ZeRO-2 baseline then runs in this phase at the same depth, and the
-# gates keep their own depth.
-ZERO3_LAYERS = 10
+# unchanged; JAX's plan cuts them into min(layers, 8) chunks, one layer
+# each here) and one timed step after the warm-up: the cuts that keep the
+# whole script within its time beside the expert-parallel and checkpoint
+# phases (10 layers and 2 steps before the checkpoint phase came). Its
+# exact ZeRO-2 baseline runs in this phase at the same depth; the gates
+# keep their own depth.
+ZERO3_LAYERS = 4
+ZERO3_STEPS = 1
 # Z4: run (a)'s peak a rank at least this far below exact ZeRO-2's at the
 # preset's 20 layers, and the same share of it at fewer (what ZeRO-3 saves
 # is the compute copy's and the gradient's shard of every layer)
@@ -619,9 +648,11 @@ ZERO3_SPANS = ("zero3_gather_issue", "zero3_gather_wait",
 # hpZ step against the same step at data = 4 (hpZ off).
 HPZ = dict(ZERO3, world=4)
 # the phase's main path runs this many of llama_750m's 20 layers (width
-# unchanged): the cut that keeps the whole script within its time; the
-# gates keep their own depth
-HPZ_LAYERS = 8
+# unchanged) and one timed step after the warm-up (8 layers and 2 steps
+# before the checkpoint phase came): the cuts that keep the whole script
+# within its time; the gates keep their own depth
+HPZ_LAYERS = 4
+HPZ_STEPS = 1
 HPZ_Z = 2
 HPZ_TRIO = {"stage": 3, "zero_hpz_partition_size": HPZ_Z,
             "zero_quantized_gradients": True, "zero_quantized_weights": True}
@@ -643,6 +674,181 @@ HPZ_GATE_REF = {"fp32_hpz_zero3": "fp32_d4_zero3",
 PG_TIMEOUT_S = 900               # the ranks' process group
 RANKS_TIMEOUT_S = 900            # a spawned phase's ranks, all together
 QRS = dict(n=2 ** 26, worlds=(2, 4))
+
+# The checkpoint phase (checkpoint_llama_750m), on the train_llama_750m
+# path's shapes (micro 4, seq 2048, gas 4, bf16, ZeRO-1, flash, remat
+# full): C1 one process at full width and depth — steps 1-2, a sync save,
+# steps 3-4; a fresh engine from another seed loads the tag and runs steps
+# 3-4 bit-equal (losses, fingerprints of the master, both moments and the
+# bf16 compute copy, lr and counters), the kernels counted on the resumed
+# steps; C2 an async save of the same state: it returns while the write is
+# in flight, steps run beside it, and after finalize_async the tag
+# verifies and loads to C1's bits; C3 two ranks over gloo, ZeRO-3 + qgZ +
+# qwZ + LoCo at ZERO3_LAYERS: a native reload at world 2 continues
+# bit-equal, and the port's universal conversion of the tag loaded into a
+# one-process engine gives the gathered master and moments bit for bit,
+# each LoCo leaf's rows folded sum-preservingly, and the first loss of an
+# engine given the same master and moments directly; C4 the NVMe
+# optimizer tier (750m offload (b) at CKPT["nvme_layers"] layers): a load
+# after two more steps, then those two steps again bit-equal; C5 the
+# 16-bit export bit-equal to the compute params. Tags live under
+# build/checkpoints/ (ignored by git) and are deleted at the end.
+CKPT = dict(model="llama_750m", micro=4, seq=2048, gas=4, layers=None,
+            zero3_layers=ZERO3_LAYERS, nvme_layers=8)
+# the disk under build/checkpoints/ must hold this many tags of C1's size
+# (12 bytes a parameter: the fp32 master and Adam's two moments)
+CKPT_TAGS_FREE = 3
+
+
+def ckpt_root():
+    """The phase's checkpoint root: ``DSTPU_CHECKPOINT_PATH``, else
+    ``build/checkpoints`` in the checkout (the machine's local disk)."""
+    return os.environ.get("DSTPU_CHECKPOINT_PATH") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "checkpoints")
+
+
+def fingerprint(t, chunk=2 ** 26) -> str:
+    """A tensor's 32-bit words summed twice on its own device, plain and
+    weighted by (position mod 2^31 - 1) + 1, each sum wrapping in int64:
+    any changed word changes it. (A hash of the bytes on the host would
+    read 10 GB a state.)"""
+    import torch
+
+    w = t.detach().reshape(-1)
+    if w.element_size() != 4:
+        w = w.view(torch.int16)
+        w = torch.cat([w, w.new_zeros(w.numel() % 2)]).view(torch.int32)
+    else:
+        w = w.view(torch.int32)
+    s1 = torch.zeros((), dtype=torch.int64, device=w.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=w.device)
+    for lo in range(0, w.numel(), chunk):
+        c = w[lo:lo + chunk].to(torch.int64)
+        idx = torch.arange(lo, lo + c.numel(), dtype=torch.int64,
+                           device=w.device) % 2147483647 + 1
+        s1 += c.sum()
+        s2 += (c * idx).sum()
+    mask = (1 << 64) - 1
+    return f"{int(s1) & mask:016x}{int(s2) & mask:016x}"
+
+
+def state_fingerprints(engine):
+    """The engine's local master, moments, compute copy and LoCo rows."""
+    engine._tiers_in()
+    out = {"master": fingerprint(engine.flat_master)}
+    for k in engine._opt_names():
+        out[k] = fingerprint(engine.state["opt"][k])
+    out["opt_step"] = int(engine.state["opt"]["step"])
+    for name in ("flat_compute", "loco_err"):
+        t = getattr(engine, name, None)
+        if t is not None:
+            out[name] = fingerprint(t)
+    engine._tiers_out()
+    return out
+
+
+class RssPeak:
+    """The process's resident set, sampled every ``period`` seconds by a
+    thread while the block runs: its peak in bytes."""
+
+    def __init__(self, period=0.02):
+        self.period, self.peak, self._stop = period, 0, False
+
+    @staticmethod
+    def rss():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _run(self):
+        while not self._stop:
+            self.peak = max(self.peak, self.rss())
+            time.sleep(self.period)
+
+    def __enter__(self):
+        import threading
+
+        self.before = self.rss()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop = True
+        self._t.join()
+        self.peak = max(self.peak, self.rss())
+
+
+def ckpt_rates(save=None, load=None):
+    """A save's seconds by part with its GB and GB/s, or a load's."""
+    out = {}
+    if save is not None:
+        gb = save.get("bytes", 0) / 1e9
+        out.update({k: save.get(k) for k in ("seconds", "gather_s", "write_s",
+                                             "fsync_s", "crc_s")},
+                   gb_written=gb,
+                   write_gbs=gb / save["write_s"] if save.get("write_s")
+                   else None,
+                   save_gbs=gb / save["seconds"] if save.get("seconds")
+                   else None)
+    if load is not None:
+        gb = load.get("bytes", 0) / 1e9
+        out.update(load_seconds=load["seconds"], verify_s=load["verify_s"],
+                   gb_read=gb, load_gbs=gb / load["seconds"])
+    return out
+
+
+def checkpoint_zero3_rank(rank, world, seed, t):
+    """C3 on one rank: ZeRO-3 + qgZ + qwZ + LoCo at ``t["zero3_layers"]``:
+    a warm-up step, a save, steps 2-3; a fresh engine from another seed
+    loads the tag and runs steps 2-3. Returns the losses,
+    the local state's fingerprints after each run, and the save's and
+    the load's timings."""
+    import itertools
+
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.models import transformer as T
+
+    dev = torch.device(t["device"])
+    depth = {"num_layers": t["zero3_layers"]}
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, vocab, (t["micro"] * world, t["seq"]),
+                                    dtype=np.int32)}
+
+    def build(s):
+        spec = dtt.causal_lm_spec(t["model"], attention="flash",
+                                  remat="full", **depth)
+        cfg = zeropp_config(t["micro"], t["gas"], "bf16", ZERO3_WIRE)
+        cfg["seed"] = s
+        return dtt.initialize(model=spec, config=cfg, device=dev)[0]
+
+    out = {"rank": rank}
+    engine = build(seed)
+    data = itertools.repeat(batch)
+    out["losses"] = [float(engine.train_batch(data))]
+    engine.save_checkpoint(t["root"], tag="c3")
+    out["save"] = dict(engine.checkpoint_timings["save"])
+    out["losses"] += [float(engine.train_batch(data)) for _ in range(2)]
+    out["wire"] = engine._wire_format()
+    out["want"] = state_fingerprints(engine)
+    engine.close()
+    del engine
+    dev_free(dev)
+    fresh = build(seed + 1)
+    fresh.load_checkpoint(t["root"], tag="c3")
+    out["load"] = dict(fresh.checkpoint_timings["load"])
+    out["resumed_steps"] = fresh.global_steps
+    out["resumed"] = [float(fresh.train_batch(data)) for _ in range(2)]
+    out["got"] = state_fingerprints(fresh)
+    out["type"] = type(fresh).__name__
+    fresh.close()
+    del fresh
+    dev_free(dev)
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -2021,7 +2227,8 @@ def train_llama_750m_hpz_dp4_rank(rank, world, seed, t):
 # moe_350m at full width (hidden 768, 4 experts top-2, LayerNorm), bf16 with
 # an fp32 master, ZeRO-2 on the exact wire, flash, remat full, Adam lr 1e-4,
 # one fixed batch from the seed; the ranks share the one card over gloo.
-# (a) mesh {expert: 2} at world 2, all 12 layers: micro 8 a rank (the
+# (a) mesh {expert: 2} at world 2, MOE_EP_LAYERS of its 12 layers at full
+# width: micro 8 a rank (the
 # one-process cell's micro 16 in all), seq 1024, gas 2, 1 warm-up + 2
 # steps; each rank holds 2 of the 4 experts, the choices travel by
 # all-to-all (at ep 2 the per-destination buffer holds every local choice:
@@ -2053,6 +2260,10 @@ MOE_EP = dict(model="moe_350m", world=2, mesh={"expert": 2}, micro=8,
               seq=1024, gas=2, steps=2, gate_micro=1)
 MOE_EP_B = dict(MOE_EP, world=4, mesh={"data": 2, "expert": 2}, micro=4,
                 gas=1, layers=4)
+# the phase runs (a) at this many of moe_350m's 12 layers, full width (all
+# 12 before the checkpoint phase came): the cut that keeps the whole
+# script within its time beside it
+MOE_EP_LAYERS = 4
 MOE_EP_ZERO = {"stage": 2}
 
 
@@ -2363,6 +2574,13 @@ def ep_buffer_gate(cap, dev):
 
         res["gmm_ms"] = ms(lambda: GG.gmm(x, w, sizes))
         res["gmm_plain_ms"] = ms(lambda: GG.gmm_ref(x, w, sizes))
+        # the library's grouped product over the same routed rows (it
+        # takes no empty tail: the kernel also writes the tail's zeros)
+        offs = torch.cumsum(sizes.to(dev), 0).to(torch.int32)
+        xr = x[:routed].contiguous()
+        res["gmm_library_ms"] = ms(lambda: torch._grouped_mm(xr, w,
+                                                             offs=offs))
+        res["gmm_library"] = "torch._grouped_mm (the routed rows)"
     return res
 
 
@@ -2488,7 +2706,7 @@ S0_P_SHARE = 1e-4
 # ZeRO-3 at world 1 (one spawned rank) with offload_param cpu and nvme at
 # OFFLOAD["param_layers"] layers, bit-equal to the run without it.
 OFFLOAD = dict(model="llama_750m", micro=4, seq=2048, gas=4, steps=2,
-               gate_layers=4, gate_micro=1, param_layers=8)
+               gate_layers=4, gate_micro=1, param_layers=4)
 # (d) at world 1 runs JAX's in-step streaming mode (the master in pinned
 # host memory through the step, streamed a chunk at a time); the int8
 # wire, which needs two ranks, keeps the boundary swap: ZeRO-3 + qgZ + qwZ
@@ -4720,6 +4938,311 @@ class Smoke:
     def phase_train_llama_750m(self):
         self.train("llama_750m")
 
+    def phase_checkpoint_llama_750m(self, t=None):
+        """C1-C5 (see CKPT): save, load and resume on the training path,
+        each tag's parts timed, the tags deleted at the end."""
+        torch = self.torch
+        import itertools
+
+        import deepspeed_tpu_torch as dtt
+        from deepspeed_tpu_torch.checkpoint import engine as CE
+        from deepspeed_tpu_torch.checkpoint import fault_tolerance as ft
+        from deepspeed_tpu_torch.checkpoint import universal as U
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.models.convert import load_master
+
+        t = dict(CKPT, **(t or {}))
+        depth = {} if t["layers"] is None else {"num_layers": t["layers"]}
+        cfg = T.get_model_config(t["model"], **depth)
+        L = cfg.num_layers
+        root = ckpt_root()
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        tag_bytes = 12 * cfg.num_params()
+        free = shutil.disk_usage(root).free
+        if free < CKPT_TAGS_FREE * tag_bytes:
+            raise RuntimeError(
+                f"{root}: {free} bytes free, the checkpoint phase needs "
+                f"{CKPT_TAGS_FREE} tags of {tag_bytes} bytes")
+        rng = np.random.default_rng(self.seed)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                        (t["micro"], t["seq"]),
+                                        dtype=np.int32)}
+        data = itertools.repeat(batch)
+        problems, res = [], {"disk_free_before_bytes": free,
+                             "tag_bytes_predicted": tag_bytes,
+                             "model": t["model"], "layers": L,
+                             "micro": t["micro"], "seq": t["seq"],
+                             "gas": t["gas"], "card": self.card}
+
+        def build(seed):
+            spec = dtt.causal_lm_spec(t["model"], attention="flash",
+                                      remat="full", **depth)
+            c = self.train_config(t["micro"], t["gas"], "bf16")
+            c["seed"] = seed
+            return dtt.initialize(model=spec, config=c, device=self.dev)[0]
+
+        def step(engine):
+            t0 = time.perf_counter()
+            loss = float(engine.train_batch(data))
+            return loss, time.perf_counter() - t0
+
+        try:
+            # ---- C1 / C2: one process, full width and depth ------------ #
+            c1 = os.path.join(root, "c1")
+            c2 = os.path.join(root, "c2")
+            eng = build(self.seed)
+            warm = step(eng)
+            s2 = step(eng)
+            with RssPeak() as rss:
+                eng.save_checkpoint(c1, tag="c1")
+            save1 = dict(eng.checkpoint_timings["save"])
+            t0 = time.perf_counter()
+            eng.save_checkpoint(c2, tag="c2", async_save=True)
+            blocking_s = time.perf_counter() - t0
+            thread = CE._async_thread
+            in_flight = thread is not None and thread.is_alive()
+            s3, s4 = step(eng), step(eng)
+            want = state_fingerprints(eng)
+            want_meta = (eng.get_lr(), eng.global_steps, eng.skipped_steps)
+            save2 = eng.checkpoint_timings["save"]   # the thread adds to it
+            eng.close()
+            del eng
+            dev_free(self.dev)
+            # the fresh engine is built while C2's commit is in flight
+            eng = build(self.seed + 1)
+            t0 = time.perf_counter()
+            CE.finalize_async()
+            finalize_s = time.perf_counter() - t0
+            save2 = dict(save2)
+            eng.load_checkpoint(c1, tag="c1")
+            load1 = dict(eng.checkpoint_timings["load"])
+            loaded = state_fingerprints(eng)
+            # the main path: counts to 0 just before the resumed steps
+            self.reset_counts()
+            r3, r4 = step(eng), step(eng)
+            counts = self.read_counts()
+            got = state_fingerprints(eng)
+            got_meta = (eng.get_lr(), eng.global_steps, eng.skipped_steps)
+            micros = 2 * t["gas"]
+            want_counts = {"flash_fwd": 2 * L * micros,
+                           "flash_bwd_dq": L * micros,
+                           "flash_bwd_dkv": L * micros,
+                           "rms_norm": (4 * L + 1) * micros,
+                           "fused_adam": 2}
+            if self.dev.type == "cuda":
+                problems += [f"C1: {k} launched {counts[k]} times on the "
+                             f"resumed steps, want {v}"
+                             for k, v in want_counts.items()
+                             if counts[k] != v]
+            if [r3[0], r4[0]] != [s3[0], s4[0]]:
+                problems.append(f"C1: resumed losses {[r3[0], r4[0]]} != "
+                                f"{[s3[0], s4[0]]}")
+            if got != want:
+                problems.append(f"C1: state after the resumed steps {got} "
+                                f"!= {want}")
+            if got_meta != want_meta:
+                problems.append(f"C1: lr / steps / skipped {got_meta} != "
+                                f"{want_meta}")
+            # C5: the 16-bit export against the compute params
+            d16 = os.path.join(root, "c5")
+            t0 = time.perf_counter()
+            eng.save_16bit_model(d16)
+            export_s = time.perf_counter() - t0
+            flat = CE.load_16bit_model(d16)
+            self.sync()
+            bad16 = [k for k, slot in (("/".join(s.path), s)
+                                       for s in eng._slots)
+                     if flat[k].dtype != torch.bfloat16 or not torch.equal(
+                         flat[k], eng._view(eng.flat_compute, slot).cpu())]
+            if bad16 or len(flat) != len(eng._slots):
+                problems.append(f"C5: 16-bit leaves differ from the compute "
+                                f"params: {bad16[:4]}")
+            c5 = {"leaves": len(flat), "export_seconds": export_s,
+                  "bytes": os.path.getsize(os.path.join(
+                      d16, "pytorch_model.npz")), "bit_equal": not bad16}
+            del flat
+            shutil.rmtree(d16, ignore_errors=True)
+            # C2's tag verifies (the load's CRC pass over every file; a
+            # named tag that fails raises) and loads to the bits C1's did,
+            # into the same engine two steps on from them
+            try:
+                eng.load_checkpoint(c2, tag="c2")
+                c2_ok = (True, "ok")
+            except ft.CheckpointCorruptError as e:
+                c2_ok = (False, str(e))
+            load2 = dict(eng.checkpoint_timings.get("load", {}))
+            c2_loaded = state_fingerprints(eng)
+            eng.close()
+            del eng
+            dev_free(self.dev)
+            shutil.rmtree(c1, ignore_errors=True)
+            shutil.rmtree(c2, ignore_errors=True)
+            if not in_flight:
+                problems.append("C2: the async save's write had drained "
+                                "before save_checkpoint returned")
+            if c2_ok != (True, "ok"):
+                problems.append(f"C2: tag does not verify: {c2_ok}")
+            if c2_loaded != loaded:
+                problems.append(f"C2: loaded state {c2_loaded} != C1's "
+                                f"{loaded}")
+            res["c1"] = dict(
+                ckpt_rates(save1, load1), losses=[warm[0], s2[0], s3[0],
+                                                  s4[0]],
+                resumed_losses=[r3[0], r4[0]], fingerprints=got,
+                lr=got_meta[0], global_steps=got_meta[1],
+                skipped_steps=got_meta[2], launches=counts,
+                launches_want=want_counts,
+                host_rss_before_bytes=rss.before,
+                host_rss_peak_bytes=rss.peak)
+            res["c2"] = dict(
+                ckpt_rates(save2, load2 if c2_ok[0] else None),
+                blocking_s=blocking_s, in_flight_at_return=in_flight,
+                finalize_wait_s=finalize_s, step_s_no_save=s2[1],
+                step_s_save_in_flight=[s3[1], s4[1]])
+            res["c5"] = c5
+            for k, v in want_counts.items():
+                self.launches.setdefault(k, {})[
+                    "checkpoint_llama_750m"] = counts[k]
+            self.steps["checkpoint_llama_750m"] = 2
+
+            # ---- C3: two ranks, ZeRO-3 + qgZ + qwZ + LoCo -------------- #
+            c3 = os.path.join(root, "c3")
+            t0 = time.perf_counter()
+            ranks = spawn_ranks("checkpoint_zero3_rank", 2, self.seed,
+                                dict(t, device=str(self.dev), root=c3))
+            c3_s = time.perf_counter() - t0
+            for r in ranks:
+                if r["resumed"] != r["losses"][1:]:
+                    problems.append(f"C3 rank {r['rank']}: resumed losses "
+                                    f"{r['resumed']} != {r['losses'][1:]}")
+                if r["got"] != r["want"]:
+                    problems.append(f"C3 rank {r['rank']}: shards after the"
+                                    f" resumed steps differ: {r['got']} != "
+                                    f"{r['want']}")
+                if r["wire"] != "qz+loco" or "loco_err" not in r["want"]:
+                    problems.append(f"C3 rank {r['rank']}: wire {r['wire']}")
+            uni = os.path.join(root, "c3_universal")
+            t0 = time.perf_counter()
+            U.convert_to_universal(c3, uni)
+            convert_s = time.perf_counter() - t0
+            native = CE.open_state(os.path.join(c3, "c3"))
+            manifest = U.read_manifest(uni)
+            zdepth = {"num_layers": t["zero3_layers"]}
+
+            def one(seed):
+                spec = dtt.causal_lm_spec(t["model"], attention="flash",
+                                          remat="full", **zdepth)
+                c = self.train_config(t["micro"], 1, "bf16")
+                c["seed"] = seed
+                return dtt.initialize(model=spec, config=c,
+                                      device=self.dev)[0]
+
+            u = one(self.seed + 3)
+            t0 = time.perf_counter()
+            u.load_universal_checkpoint(uni)
+            uload_s = time.perf_counter() - t0
+            self.sync()
+            moments = manifest["optimizer_moments"]
+            bad = []
+            for slot in u._slots:
+                p = "/".join(slot.path)
+                for key, flat in [(f"master/{p}", u.flat_master)] + [
+                        (f"opt/{m}/{p}", u.state["opt"][m]) for m in moments]:
+                    if not torch.equal(u._view(flat, slot).cpu(),
+                                       native[key]):
+                        bad.append(key)
+            folds = []
+            for p in manifest["params"]:
+                rows = U.load_atom(uni, p, "loco_err")
+                folded = U.repartition_rank_rows(rows, 1)
+                folds.append(bool(np.array_equal(folded[0],
+                                                 rows[0] + rows[1])))
+            first_u = float(u.train_batch(data))
+            u.close()
+            del u
+            dev_free(self.dev)
+            direct = one(self.seed + 4)
+            tree = {}
+            for p in manifest["params"]:
+                node = tree
+                keys = p.split("/")
+                for k in keys[:-1]:
+                    node = node.setdefault(k, {})
+                node[keys[-1]] = native[f"master/{p}"]
+            load_master(direct, tree)
+            del tree
+            for slot in direct._slots:
+                p = "/".join(slot.path)
+                for m in moments:
+                    direct._view(direct.state["opt"][m], slot).copy_(
+                        native[f"opt/{m}/{p}"])
+            direct.state["opt"]["step"] = int(native["opt/step"])
+            direct.state["step"] = int(native["step"])
+            first_d = float(direct.train_batch(data))
+            direct.close()
+            del direct
+            dev_free(self.dev)
+            shutil.rmtree(c3, ignore_errors=True)
+            shutil.rmtree(uni, ignore_errors=True)
+            if bad:
+                problems.append(f"C3: universal leaves differ from the "
+                                f"gathered ones: {bad[:4]}")
+            if not all(folds) or len(folds) != len(manifest["params"]):
+                problems.append("C3: a LoCo fold does not keep the rows' sum")
+            if first_u != first_d:
+                problems.append(f"C3: universal first loss {first_u} != "
+                                f"the direct engine's {first_d}")
+            r0 = ranks[0]
+            res["c3"] = dict(
+                ckpt_rates(r0["save"], r0["load"]), world=2,
+                layers=t["zero3_layers"], wire=r0["wire"],
+                losses=[r["losses"] for r in ranks],
+                resumed=[r["resumed"] for r in ranks],
+                spawn_seconds=c3_s, convert_seconds=convert_s,
+                universal_load_seconds=uload_s,
+                universal_first_loss=first_u, direct_first_loss=first_d,
+                loco_folds=len(folds))
+
+            # ---- C4: the NVMe optimizer tier --------------------------- #
+            path = os.path.join(nvme_dir(), "ckpt")
+            shutil.rmtree(path, ignore_errors=True)
+            c4 = os.path.join(root, "c4")
+            tt = dict(OFFLOAD, micro=t["micro"], seq=t["seq"], gas=t["gas"],
+                      model=t["model"])
+            eng = offload_engine(tt, self.dev, {
+                "stage": 1, "offload_optimizer": {"device": "nvme",
+                                                  "nvme_path": path}},
+                "bf16", layers=t["nvme_layers"])
+            first = [step(eng)[0] for _ in range(2)]
+            eng.save_checkpoint(c4, tag="c4")
+            save4 = dict(eng.checkpoint_timings["save"])
+            ran = [step(eng)[0] for _ in range(2)]
+            eng.load_checkpoint(c4, tag="c4")
+            load4 = dict(eng.checkpoint_timings["load"])
+            swapped = eng._opt_swapper is not None and eng._opt_swapper.swapped
+            again = [step(eng)[0] for _ in range(2)]
+            eng.close()
+            del eng
+            dev_free(self.dev)
+            shutil.rmtree(path, ignore_errors=True)
+            if again != ran:
+                problems.append(f"C4: losses after the load {again} != "
+                                f"{ran}")
+            if not swapped:
+                problems.append("C4: the restored moments are not in their "
+                                "files after the load")
+            res["c4"] = dict(ckpt_rates(save4, load4),
+                             layers=t["nvme_layers"], losses=first + ran,
+                             after_load=again, swapped_after_load=swapped)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        emit("checkpoint_llama_750m", **res)
+        if problems:
+            raise AssertionError("checkpoint_llama_750m: "
+                                 + "; ".join(problems))
+        self.state["checkpoint"] = res
+
     def phase_train_moe_350m(self):
         self.train("moe_350m")
 
@@ -4849,7 +5372,7 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = ZEROPP
+        t = dict(ZEROPP, steps=ZEROPP_STEPS)
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"])
         t0 = time.perf_counter()
@@ -4971,7 +5494,8 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = dict(ZERO3, layers=ZERO3_LAYERS, baseline=True)
+        t = dict(ZERO3, layers=ZERO3_LAYERS, steps=ZERO3_STEPS,
+                 baseline=True)
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         L = cfg.num_layers
@@ -4993,7 +5517,7 @@ class Smoke:
         baselines = [r["baseline"] for r in ranks]
         bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
         want = {run: zero3_launches_want(
-            L, gas, steps, ZERO3_CHUNKS, wire=run == "wire",
+            L, gas, steps, len(bounds), wire=run == "wire",
             adam_per_step=ranks[0][run]["adam_per_step"])
             for run in ("exact", "wire")}
         problems = []
@@ -5005,7 +5529,7 @@ class Smoke:
                              f" times, want {v}" for k, v in want[run].items()
                              if m["launches"][k] != v]
                 problems += [f"{tag} {run}: {p}" for p in zero3_count_problems(
-                    m["zero3_counts"], gas, ZERO3_CHUNKS, run == "wire")]
+                    m["zero3_counts"], gas, len(bounds), run == "wire")]
                 if m["chunk_bounds"] != bounds:
                     problems.append(f"{tag} {run}: chunks {m['chunk_bounds']}"
                                     f", want {bounds}")
@@ -5120,7 +5644,7 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = dict(HPZ, layers=HPZ_LAYERS)
+        t = dict(HPZ, layers=HPZ_LAYERS, steps=HPZ_STEPS)
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         L = cfg.num_layers
@@ -5130,11 +5654,11 @@ class Smoke:
         wall = time.perf_counter() - t0
         bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
         want = {"trio": zero3_launches_want(
-                    L, gas, steps, ZERO3_CHUNKS, wire=True, loco=False,
+                    L, gas, steps, len(bounds), wire=True, loco=False,
                     replica=True,
                     adam_per_step=ranks[0]["trio"]["adam_per_step"]),
                 "mics": zero3_launches_want(
-                    L, gas, steps, ZERO3_CHUNKS, wire=False,
+                    L, gas, steps, len(bounds), wire=False,
                     adam_per_step=ranks[0]["mics"]["adam_per_step"])}
         problems, traffic_want = [], {}
         for r in ranks:
@@ -5150,7 +5674,7 @@ class Smoke:
                              f" times, want {v}" for k, v in want[run].items()
                              if m["launches"][k] != v]
                 problems += [f"{tag} {run}: {p}" for p in zero3_count_problems(
-                    m["zero3_counts"], gas, ZERO3_CHUNKS, run == "trio")]
+                    m["zero3_counts"], gas, len(bounds), run == "trio")]
                 if m["chunk_bounds"] != bounds:
                     problems.append(f"{tag} {run}: chunks {m['chunk_bounds']}"
                                     f", want {bounds}")
@@ -5261,15 +5785,16 @@ class Smoke:
 
         build.build_all()
         dev_free(self.dev)
+        ep_a = dict(MOE_EP, layers=MOE_EP_LAYERS)
         tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
         try:
-            refs = {"a": moe_ep_reference(MOE_EP, self.dev, self.seed,
+            refs = {"a": moe_ep_reference(ep_a, self.dev, self.seed,
                                           os.path.join(tmp, "a")),
                     "b": moe_ep_reference(MOE_EP_B, self.dev, self.seed,
                                           os.path.join(tmp, "b"),
                                           plain_bf16=False)}
             runs = {}
-            for label, t in (("a", MOE_EP), ("b", MOE_EP_B)):
+            for label, t in (("a", ep_a), ("b", MOE_EP_B)):
                 t0 = time.perf_counter()
                 ranks = spawn_ranks("train_moe_350m_ep_rank", t["world"],
                                     self.seed, dict(t, device=str(self.dev),
@@ -5278,7 +5803,7 @@ class Smoke:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         problems, results = [], {}
-        for label, t in (("a", MOE_EP), ("b", MOE_EP_B)):
+        for label, t in (("a", ep_a), ("b", MOE_EP_B)):
             ranks, wall = runs[label]
             cfg = T.get_model_config(t["model"], **(
                 {"num_layers": t["layers"]} if t.get("layers") else {}))
@@ -6674,6 +7199,30 @@ class Smoke:
                            "dtype": "bfloat16"})
                 row["tflops_per_s"] = row["flops"] / row["ms"] / 1e9
             del x, w, dy
+        # MoE serving's decode tick (the kernel's serving role): 8 rows,
+        # top-k choices each, over the up projection's [E, H, Fe] weights,
+        # the routed rows spread evenly over the experts
+        M = 8 * cfg.moe_top_k
+        sizes = np.full(E, M // E, np.int32)
+        sizes[:M % E] += 1
+        gs = torch.from_numpy(sizes).to(self.dev)
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        x = torch.randn(M, H, generator=g, device=self.dev).to(bf)
+        w = (torch.randn(E, H, Fe, generator=g, device=self.dev)
+             / H ** 0.5).to(bf)
+        nbytes = 2 * (x.numel() + w.numel() + M * Fe) + 4 * E
+        row = out["gmm[serving_decode]"] = dict(
+            self.bound(nbytes, 2.0 * M * H * Fe),
+            ms=self.time_ms(lambda: GG.gmm(x, w, gs), flush=flush),
+            plain_ms=self.time_ms(lambda: GG.gmm_ref(x, w, gs), iters=5,
+                                  flush=flush),
+            library_ms=self.time_ms(
+                lambda: torch._grouped_mm(x, w, offs=offs), flush=flush),
+            library="torch._grouped_mm",
+            shape={"M": M, "K": H, "N": Fe, "E": E, "decode_rows": 8,
+                   "group_sizes": sizes.tolist(), "dtype": "bfloat16"})
+        row["tflops_per_s"] = row["flops"] / row["ms"] / 1e9
+        del x, w
         torch.cuda.empty_cache()
         return out
 
@@ -6867,7 +7416,10 @@ class Smoke:
                     timed[name]["ep_buffer"] = {
                         k: e3.get(k) for k in (
                             "rows", "routed_rows", "group_sizes",
-                            "gmm_max_abs_err", "gmm_ms", "gmm_plain_ms")}
+                            "gmm_max_abs_err", "gmm_ms", "gmm_plain_ms",
+                            "gmm_library_ms", "gmm_library")}
+                if name == "gmm":
+                    timed[name]["serving_decode"] = gg["gmm[serving_decode]"]
         for name in sp:
             if name in self.errs:
                 timed[name] = dict(sp[name], max_abs_err=self.errs[name])
@@ -6899,7 +7451,7 @@ class Smoke:
                         "library_ms": t["library_ms"]})
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
                           "tflops_per_s", "kernel_ms", "in_graph_kernel_ms",
-                          "replica_hop", "ep_buffer"):
+                          "replica_hop", "ep_buffer", "serving_decode"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         # the host library of the host-executed step (not a card kernel):

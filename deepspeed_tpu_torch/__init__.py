@@ -30,7 +30,10 @@ Ported so far:
   between steps, the ZeRO-3 master's host and NVMe tiers
   (``runtime/swap_tensor.py`` over ``ops/aio.py``), ZenFlow's
   importance-split update (``runtime/zenflow.py``) and SuperOffload's
-  host-executed step with its overlap schedule (``runtime/host_step.py``).
+  host-executed step with its overlap schedule (``runtime/host_step.py``);
+* checkpoints — ``engine.save_checkpoint`` / ``load_checkpoint`` in the JAX
+  package's per-leaf layout on every engine and tier, universal
+  checkpoints, preemption saves and auto-resume (``checkpoint/``).
 
 Entry points run on the GPU unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA device and no explicit device they raise.
@@ -89,4 +92,12 @@ def initialize(args: Any = None, model: Optional[ModelSpec] = None,
         cls = Zero3Engine if stage >= 3 else DataParallelEngine
     engine = cls(model=model, config=config, optimizer=optimizer,
                  lr_scheduler=lr_scheduler, device=device)
+    # fault tolerance (JAX __init__.py:73-79): arm the graceful-preemption
+    # SIGTERM handler and restore the newest committed checkpoint before
+    # handing the engine back
+    ft = engine.config.fault_tolerance
+    if ft.graceful_preemption and (ft.resume_dir or ft.auto_resume):
+        engine.enable_preemption_handler()
+    if ft.auto_resume:
+        engine.maybe_auto_resume()
     return engine, engine.optimizer, None, engine.lr_scheduler

@@ -11,8 +11,13 @@ The mesh resolves over the processes of the default process group; axes
 other than ``data`` above 1 raise ``NotImplementedError`` there
 (``comm/mesh.initialize_mesh``).
 
-The JAX package's other sections (telemetry, serving, fault tolerance, ...)
-are not read by this slice. :func:`load_config` accepts one only while it
+The sections ``checkpoint`` and ``fault_tolerance`` (JAX :904-975) and the
+legacy top-level ``checkpoint_writer`` are read as JAX reads them, with the
+environment defaults ``DSTPU_RESUME_DIR`` and ``DSTPU_AUTO_RESUME``;
+``fault_tolerance.on_stall`` other than ``"log"`` raises
+``NotImplementedError`` (it needs the stall watchdog and tracing). The JAX
+package's other sections (telemetry, serving, ...) are not read by this
+slice. :func:`load_config` accepts one only while it
 is inert — absent, empty or ``{"enabled": false}`` — and raises
 ``NotImplementedError`` naming the later slice otherwise; nothing is
 silently ignored. Keys
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Dict, Optional
 
 from deepspeed_tpu_torch.runtime.config_utils import (
@@ -276,6 +282,66 @@ class MeshSectionConfig:
                           expert=self.expert, seq=self.seq, tensor=self.tensor)
 
 
+@dataclasses.dataclass
+class CheckpointSectionConfig:
+    """Durable-checkpoint knobs (``checkpoint/fault_tolerance.py``; JAX
+    ``config.py:904``). Every save commits atomically: tmp-dir write →
+    fsync → ``COMMITTED`` manifest (per-file size + CRC32 + step) → rename
+    → ``latest``. ``writer`` supersedes the legacy top-level
+    ``checkpoint_writer`` when set (the port writes JAX's per-leaf
+    ``fast`` layout for either value). ``keep_n`` prunes all but the
+    newest N committed tags after each commit (0 = keep everything).
+    ``verify_checksums=False`` skips the CRC pass on load and walk-back.
+    Transient I/O errors retry ``save_retries`` times with exponential
+    backoff (``retry_backoff_s`` doubling) + uniform jitter
+    (``retry_jitter_s``)."""
+    writer: Optional[str] = None   # orbax | fast (None → checkpoint_writer)
+    keep_n: int = 0
+    verify_checksums: bool = True
+    fsync: bool = True
+    save_retries: int = 3
+    retry_backoff_s: float = 0.2
+    retry_jitter_s: float = 0.2
+
+    def validate(self) -> None:
+        if self.writer not in (None, "orbax", "fast"):
+            raise DeepSpeedConfigError(
+                f"checkpoint.writer must be orbax|fast, got {self.writer!r}"
+                " (a typo would silently fall back to the orbax path)")
+
+
+@dataclasses.dataclass
+class FaultToleranceConfig:
+    """Preemption-safe training (JAX ``config.py:931``; the engine's
+    preemption handler and ``maybe_auto_resume``). ``resume_dir`` is the
+    checkpoint root of ``auto_resume`` and of emergency saves (env
+    ``DSTPU_RESUME_DIR`` supplies a default). ``auto_resume=True`` makes
+    ``initialize`` restore the newest committed checkpoint there before
+    returning; a missing or empty dir is a cold start (env
+    ``DSTPU_AUTO_RESUME=1`` enables it too). ``graceful_preemption``
+    installs a SIGTERM handler that drains an in-flight async save,
+    writes an emergency checkpoint and exits 0; it arms only when
+    ``resume_dir`` or ``auto_resume`` is set. ``on_stall`` beyond
+    ``"log"`` escalates the stall watchdog, which comes with tracing in a
+    later slice."""
+    # tri-state: the env default cannot override an explicit false
+    auto_resume: Optional[bool] = None
+    resume_dir: Optional[str] = None
+    graceful_preemption: bool = True
+    emergency_tag_prefix: str = "emergency"
+    on_stall: str = "log"   # log | dump_trace | checkpoint
+
+    def validate(self) -> None:
+        if self.on_stall not in ("log", "dump_trace", "checkpoint"):
+            raise DeepSpeedConfigError(
+                f"fault_tolerance.on_stall must be log|dump_trace|"
+                f"checkpoint, got {self.on_stall!r}")
+        if self.on_stall != "log":
+            raise later_slice(
+                f"fault_tolerance.on_stall={self.on_stall!r} (the stall "
+                "watchdog and tracing, queue A.5)")
+
+
 # CUDA-only reference sections accepted and ignored (as in JAX)
 _IGNORED_SECTIONS = (
     "amp", "aio", "hybrid_engine", "compression_training",
@@ -287,8 +353,7 @@ _UNREAD_SECTIONS = (
     "comms_logger", "telemetry", "serving", "fleet", "tenancy", "slo",
     "hlolint", "memlint", "autotuning", "elasticity", "flops_profiler",
     "tensorboard", "csv_monitor", "wandb", "comet", "tensor_parallel",
-    "sequence_parallel", "pipeline", "checkpoint", "fault_tolerance",
-    "guardian", "data_efficiency", "curriculum_learning",
+    "sequence_parallel", "pipeline", "guardian", "data_efficiency", "curriculum_learning",
     "progressive_layer_drop",
 )
 # top-level scalars of the JAX config that this slice does not read, with
@@ -297,7 +362,6 @@ _UNREAD_KEYS = {
     "wall_clock_breakdown": False, "memory_breakdown": False,
     "gradient_predivide_factor": 1.0, "dump_state": False,
     "zero_force_ds_cpu_optimizer": False, "checkpoint_tag_validation": "Warn",
-    "checkpoint_writer": "orbax",
 }
 
 
@@ -327,6 +391,11 @@ class DeepSpeedTPUConfig:
     data_types: DataTypesConfig = dataclasses.field(default_factory=DataTypesConfig)
     mesh: MeshSectionConfig = dataclasses.field(default_factory=MeshSectionConfig)
     seed: int = 1234
+    checkpoint_writer: str = "orbax"  # orbax | fast (checkpoint_engine.py)
+    checkpoint: CheckpointSectionConfig = dataclasses.field(
+        default_factory=CheckpointSectionConfig)
+    fault_tolerance: FaultToleranceConfig = dataclasses.field(
+        default_factory=FaultToleranceConfig)
 
     # resolved fields (filled by resolve_batch_size)
     _dp_world_size: int = 1
@@ -334,6 +403,12 @@ class DeepSpeedTPUConfig:
     @property
     def zero_enabled(self) -> bool:
         return self.zero_optimization.stage > 0
+
+    @property
+    def effective_checkpoint_writer(self) -> str:
+        """``checkpoint.writer`` when set, else the legacy top-level
+        ``checkpoint_writer`` (both spellings stay valid)."""
+        return self.checkpoint.writer or self.checkpoint_writer
 
     @property
     def precision_dtype(self) -> str:
@@ -401,4 +476,13 @@ def load_config(config) -> DeepSpeedTPUConfig:
     for key, default in _UNREAD_KEYS.items():
         if key in config and config.pop(key) != default:
             raise later_slice(f"config key {key!r} (non-default)")
-    return config_from_dict(DeepSpeedTPUConfig, config)
+    cfg = config_from_dict(DeepSpeedTPUConfig, config)
+    # the launcher's environment defaults; explicit JSON settings win
+    env_dir = os.environ.get("DSTPU_RESUME_DIR")
+    if env_dir and cfg.fault_tolerance.resume_dir is None:
+        cfg.fault_tolerance.resume_dir = env_dir
+    if cfg.fault_tolerance.auto_resume is None and \
+            os.environ.get("DSTPU_AUTO_RESUME", "").lower() in \
+            ("1", "true", "yes"):
+        cfg.fault_tolerance.auto_resume = True
+    return cfg

@@ -67,6 +67,19 @@ swap, the master parked between steps);
 compiled host library ``ops/cpu_adam.py``; ``super_offload`` is cpu +
 host_step + overlap_step), for the one-process engine.
 
+Checkpoints (JAX engine.py:1084, :3084-3495; ``checkpoint/``):
+``save_checkpoint`` / ``load_checkpoint`` in JAX's ``writer="fast"`` tag
+layout, on every engine and tier. ``_checkpoint_leaves`` gives JAX's
+``_checkpoint_state`` tree leaf by leaf in its names (the data-parallel
+engines gather each leaf from the shards, a collective); a load reads
+whole leaves and each rank keeps its part (``_restore``), then the compute
+copy is republished from the restored master and every tier re-homed
+(the NVMe files written anew, so that no stale swap file wins; the host
+step's ``adopt_state``). ``load_universal_checkpoint``,
+``save_16bit_model``, ``get_fp32_params``, ``protect_checkpoint_tag``;
+the SIGTERM handler (deferred to the step or save boundary), the
+emergency save and ``maybe_auto_resume``.
+
 Out of this slice, raising ``NotImplementedError``: remat policies other
 than none/full, and the config sections ``load_config`` refuses. The qwZ
 publish stays one pass after the (bucketed) update.
@@ -77,6 +90,8 @@ import contextlib
 import dataclasses
 import functools
 import os
+import threading
+import time
 import weakref
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -117,6 +132,7 @@ from deepspeed_tpu_torch.runtime.config_utils import (
 from deepspeed_tpu_torch.runtime.dataloader import stack_micros
 from deepspeed_tpu_torch.runtime.loss_scaler import (
     DynamicLossScaler,
+    LossScaleState,
     clip_by_global_norm,
     global_grad_norm,
 )
@@ -266,6 +282,19 @@ class DeepSpeedTPUEngine:
         self.micro_steps = 0
         self._skips = 0
         self._last_metrics: Dict[str, Any] = {}
+        # the host RNG whose state rides every checkpoint (JAX engine.py:1147)
+        self._np_rng = np.random.default_rng(self.config.seed)
+        # fault tolerance (JAX engine.py:3084-3260)
+        self._in_step = self._saving = self._preempt_requested = False
+        self._ft_lock = threading.Lock()
+        self._prev_sig_handlers: Dict[int, Any] = {}
+        self._last_save_dir: Optional[str] = None
+        self._gc_protect_tags: set = set()
+        self._gc_protect_root: Optional[str] = None
+        self._gc_pin_stale = False
+        self._restored_client_state: Optional[Dict[str, Any]] = None
+        #: the last save's and load's seconds and bytes by part
+        self.checkpoint_timings: Dict[str, Dict[str, float]] = {}
         logger.info(
             f"engine up: model={model.name} params={model.num_params or '?'} "
             f"zero_stage={self.zero_stage} precision={self.precision} "
@@ -1050,7 +1079,14 @@ class DeepSpeedTPUEngine:
         mean loss (a 0-dim device tensor: reading it synchronises)."""
         gas = self.gradient_accumulation_steps()
         stacked = stack_micros([next(data_iter) for _ in range(gas)])
-        return self._dispatch_train_step(stacked, gas)
+        self._in_step = True    # a preemption signal now defers to the
+        try:                    # boundary check below
+            loss = self._dispatch_train_step(stacked, gas)
+        finally:
+            # a raising step re-enables immediate preemption handling
+            self._in_step = False
+        self._check_preemption_boundary()
+        return loss
 
     def _dispatch_train_step(self, stacked, gas: int) -> torch.Tensor:
         if self._host_runner is not None:
@@ -1103,6 +1139,480 @@ class DeepSpeedTPUEngine:
                 f"lr={host['lr']:.3e} grad_norm={host['grad_norm']:.3f}"
                 + (f" loss_scale={host['loss_scale']:.0f}"
                    if self.fp16_enabled else ""))
+
+    # ------------------------------------------------------------------ #
+    # checkpointing (JAX engine.py:1084, :3302-3495)
+    # ------------------------------------------------------------------ #
+    def _is_primary(self) -> bool:
+        return comm.get_rank() == 0
+
+    def world_for_rank_state(self) -> int:
+        """The world of per-rank state rows (LoCo's residual): 1 here."""
+        return 1
+
+    def _opt_names(self) -> List[str]:
+        """The optimizer state's per-element buffers (the moments, and
+        ZenFlow's ``cold_acc``), in JAX's flatten order."""
+        return sorted(k for k, v in self.state["opt"].items()
+                      if isinstance(v, (torch.Tensor, Swapped)))
+
+    def _tiers_in(self) -> None:
+        """Every state tier on the card (the host step: its update in
+        flight landed), so the master and the moments read as tensors: a
+        pending host update, the NVMe optimizer and parameter tiers, the
+        host optimizer tier, the parked master. The next step's own tier
+        moves work from here."""
+        self._materialize_master()
+        if self._offload_nvme and self._opt_swapper is not None:
+            self._opt_swapper.swap_in_optimizer()
+        self._opt_swap("in")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _tiers_out(self) -> None:
+        """Each tier back where the step leaves it: the optimizer state to
+        its host or NVMe tier and the master parked (its NVMe file
+        written anew), so that no stale swap file outlives a load (JAX
+        engine.py:3410-3446)."""
+        if self._offload_opt:
+            self._opt_swap("out")
+        if self._offload_nvme:
+            self._nvme_swapper().swap_out_optimizer()
+        if self._offload_param:
+            self._park_master()
+        if self._offload_param_nvme:
+            self._param_nvme_swapper().swap_out_params()
+
+    def _leaf(self, flat: torch.Tensor, slot: _Slot) -> torch.Tensor:
+        """Leaf ``slot`` of a state buffer, whole, on the host."""
+        return self._view(flat, slot).to("cpu")
+
+    def _rank_state_leaves(self):
+        return iter(())
+
+    def _checkpoint_leaves(self):
+        """The persisted train state as (name, host tensor) pairs in JAX's
+        names and flatten order (``_checkpoint_state``, engine.py:1084,
+        which leaves out the derived compute copy): ``loco_err/*`` where
+        LoCo is on, ``master/*``, ``opt/<moment>/*``, ``opt/step``, fp16's
+        ``scaler/.scale|.good_steps|.hysteresis`` and ``skips``, ``step``.
+        Shapes are global, dtypes JAX's (the steps and counters 0-d int32);
+        the flat buffers' pads are never written. A leaf at a time (a
+        data-parallel engine gathers it, a collective on every rank)."""
+        yield from self._rank_state_leaves()
+        for slot in self._slots:
+            yield "master/" + "/".join(slot.path), self._leaf(
+                self.flat_master, slot)
+        opt = self.state["opt"]
+        for name in self._opt_names():
+            for slot in self._slots:
+                yield f"opt/{name}/" + "/".join(slot.path), self._leaf(
+                    opt[name], slot)
+        yield "opt/step", torch.tensor(int(opt["step"]), dtype=torch.int32)
+        if self.fp16_enabled:
+            st = self._scaler_state
+            yield "scaler/.scale", torch.tensor(st.scale, dtype=torch.float32)
+            yield "scaler/.good_steps", torch.tensor(st.good_steps,
+                                                     dtype=torch.int32)
+            yield "scaler/.hysteresis", torch.tensor(st.hysteresis,
+                                                     dtype=torch.int32)
+            yield "skips", torch.tensor(self._skips, dtype=torch.int32)
+        yield "step", torch.tensor(int(self.state["step"]), dtype=torch.int32)
+
+    def _client_state(self, extra: Optional[Dict] = None) -> Dict[str, Any]:
+        """JAX's client state (engine.py:3320-3336)."""
+        cs = dict(extra or {})
+        cs.update({
+            "global_steps": self.global_steps,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler else None),
+            "curriculum": None,
+            "np_rng": self._np_rng.bit_generator.state,
+            "world_size": int(self.dp_world_size)})
+        return cs
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        save_latest: bool = True,
+                        async_save: bool = False) -> None:
+        """Save the train state under ``<save_dir>/<tag>`` (default
+        ``global_step<N>``) through the commit protocol (JAX
+        ``save_checkpoint``, engine.py:3302). Every rank calls it: the
+        leaves are gathered from the shards, rank 0 writes, and every
+        rank waits for the commit. ``async_save`` returns once every leaf
+        is in host memory; the write and the commit finish in a thread
+        (:func:`~deepspeed_tpu_torch.checkpoint.engine.finalize_async`)."""
+        from deepspeed_tpu_torch.checkpoint.engine import save_state
+
+        tag = tag or f"global_step{self.global_steps}"
+        if self._gc_pin_stale:
+            # an async save superseded the anchor; its commit has drained
+            # by now (save_state finalizes in-flight saves first)
+            self.protect_checkpoint_tag(None)
+        cs = self._client_state(client_state)
+        ck = self.config.checkpoint
+        timings: Dict[str, float] = {}
+        self._saving = True     # a preemption signal mid-save defers here
+        t0 = time.perf_counter()
+        try:
+            self._tiers_in()
+            save_state(save_dir, tag, self._checkpoint_leaves(), cs,
+                       save_latest=save_latest, async_save=async_save,
+                       writer=self.config.effective_checkpoint_writer,
+                       keep_n=ck.keep_n, fsync=ck.fsync,
+                       checksums=ck.verify_checksums,
+                       retries=ck.save_retries,
+                       retry_backoff_s=ck.retry_backoff_s,
+                       retry_jitter_s=ck.retry_jitter_s,
+                       protect=tuple(self._gc_protect_tags),
+                       primary=self._is_primary(), timings=timings)
+            self._tiers_out()
+            if comm.get_world_size() > 1 and not async_save:
+                comm.barrier()      # every rank waits on the commit
+        finally:
+            self._saving = False
+        timings["seconds"] = time.perf_counter() - t0
+        self.checkpoint_timings["save"] = timings
+        self._last_save_dir = save_dir
+        if (self._gc_protect_tags and tag not in self._gc_protect_tags
+                and self._gc_protect_root in (None,
+                                              os.path.abspath(save_dir))):
+            if async_save:
+                # the superseding tag's commit is still in flight: clear
+                # the pin at the next save, after it has drained
+                self._gc_pin_stale = True
+            else:
+                self.protect_checkpoint_tag(None)
+        logger.info(f"saved checkpoint {save_dir}/{tag}"
+                    + (" (async, commit in flight)" if async_save else ""))
+        self._check_preemption_boundary()
+
+    def _load_leaf(self, flat: torch.Tensor, slot: _Slot,
+                   full: torch.Tensor) -> None:
+        """Set leaf ``slot`` of a state buffer from its whole value."""
+        self._view(flat, slot).copy_(full)
+
+    def _load_rank_state(self, read) -> None:
+        """Per-rank state rows (LoCo's residual): none here."""
+
+    def _restore(self, read, client_state: Dict[str, Any],
+                 load_optimizer_states: bool = True,
+                 load_lr_scheduler_states: bool = True) -> None:
+        """Set the train state from ``read(name)`` (JAX's leaf names →
+        whole tensors, None where absent), then the client state. Each
+        rank keeps its part of each leaf; the compute copy is republished
+        from the restored master (JAX's ``_refresh_param_buffer``) and
+        every tier re-homed."""
+        self._tiers_in()
+        opt = self.state["opt"]
+        with torch.no_grad():
+            for slot in self._slots:
+                name = "master/" + "/".join(slot.path)
+                full = read(name)
+                if full is None:
+                    raise KeyError(f"checkpoint has no leaf {name!r}")
+                self._load_leaf(self.flat_master, slot,
+                                self._checked(name, slot, full))
+            if load_optimizer_states:
+                for m in self._opt_names():
+                    for slot in self._slots:
+                        name = f"opt/{m}/" + "/".join(slot.path)
+                        full = read(name)
+                        if full is not None:
+                            self._load_leaf(opt[m], slot,
+                                            self._checked(name, slot, full))
+                t = read("opt/step")
+                if t is not None:
+                    opt["step"] = int(t)
+                self._load_rank_state(read)
+        if self.fp16_enabled:
+            vals = [read(f"scaler/.{k}")
+                    for k in ("scale", "good_steps", "hysteresis")]
+            if all(v is not None for v in vals):
+                self._scaler_state = LossScaleState(
+                    scale=float(vals[0]), good_steps=int(vals[1]),
+                    hysteresis=int(vals[2]))
+        skips = read("skips")
+        self._skips = int(skips) if skips is not None else int(
+            client_state.get("skipped_steps", 0) or 0)
+        step = read("step")
+        if step is not None:
+            self.state["step"] = int(step)
+        if self._host_runner is not None:
+            self._host_runner.adopt_state()
+        else:
+            self._compute_params()      # from the master on the card
+        self._tiers_out()
+        self.global_steps = int(client_state.get("global_steps",
+                                                 self.state["step"]))
+        self.micro_steps = int(client_state.get("micro_steps", 0))
+        if load_lr_scheduler_states and self.lr_scheduler is not None \
+                and client_state.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+        if client_state.get("np_rng"):
+            try:
+                self._np_rng.bit_generator.state = client_state["np_rng"]
+            except (TypeError, ValueError) as e:
+                logger.warning(f"host RNG state in checkpoint not "
+                               f"restorable ({e}) — fresh stream")
+        self._restored_client_state = client_state
+
+    def _checked(self, name: str, slot: _Slot,
+                 full: torch.Tensor) -> torch.Tensor:
+        """A whole leaf read from a checkpoint, cut to this rank's experts
+        and held to the engine's shape."""
+        full = self.local_leaf(slot.path, full)
+        if tuple(full.shape) != slot.shape:
+            raise ValueError(f"checkpoint leaf {name!r}: shape "
+                             f"{tuple(full.shape)}, the engine's "
+                             f"{slot.shape}")
+        return full
+
+    def _agreed_tag(self, load_dir: str, tag: Optional[str]) -> str:
+        """The tag to restore, resolved and verified (CRC) by rank 0 and
+        shared with every rank (an error there is raised everywhere)."""
+        from deepspeed_tpu_torch.checkpoint.engine import (
+            finalize_async,
+            resolve_tag,
+        )
+
+        finalize_async()
+        if comm.get_world_size() == 1:
+            return resolve_tag(load_dir, tag,
+                               self.config.checkpoint.verify_checksums)
+        import torch.distributed as dist
+
+        comm.barrier()      # a save in flight on rank 0 has committed
+        msg: List[Any] = [None, None]
+        if self._is_primary():
+            try:
+                msg = [resolve_tag(load_dir, tag,
+                                   self.config.checkpoint.verify_checksums),
+                       None]
+            except Exception as e:                          # noqa: BLE001
+                msg = [None, (type(e).__name__, str(e))]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[1] is not None:
+            from deepspeed_tpu_torch.checkpoint import fault_tolerance as ft
+
+            kind = {"CheckpointCorruptError": ft.CheckpointCorruptError,
+                    "FileNotFoundError": FileNotFoundError,
+                    "NotImplementedError": NotImplementedError}.get(
+                        msg[1][0], RuntimeError)
+            raise kind(msg[1][1])
+        return msg[0]
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True):
+        """Restore ``<load_dir>/<tag>`` (``None``: the newest committed tag
+        that verifies, walking back over a torn or corrupt head; a named
+        tag that fails verification raises ``CheckpointCorruptError``) —
+        JAX ``load_checkpoint`` (engine.py:3405). Reads either package's
+        per-leaf layout; every rank reads the global leaves and keeps its
+        part. Returns ``(load_dir, client_state)``."""
+        from deepspeed_tpu_torch.checkpoint.engine import (
+            open_state,
+            read_client_state,
+        )
+
+        t0 = time.perf_counter()
+        tag = self._agreed_tag(load_dir, tag)
+        verify_s = time.perf_counter() - t0
+        path = os.path.abspath(os.path.join(load_dir, tag))
+        with telemetry.span("checkpoint/load"):
+            reader = open_state(path)
+            client_state = read_client_state(path)
+            self._restore(reader.get, client_state, load_optimizer_states,
+                          load_lr_scheduler_states)
+        if comm.get_world_size() > 1:
+            comm.barrier()
+        self.checkpoint_timings["load"] = {
+            "seconds": time.perf_counter() - t0, "verify_s": verify_s,
+            "bytes": reader.bytes_read}
+        logger.info(f"loaded checkpoint from {load_dir} (tag={tag})")
+        return load_dir, client_state
+
+    def load_universal_checkpoint(self, universal_dir: str,
+                                  load_optimizer_states: bool = True) -> None:
+        """Load a universal (per-parameter atom) checkpoint at any world
+        (JAX engine.py:3470): the master and the moments land on this
+        engine's layout; LoCo's rows are re-partitioned sum-preservingly
+        onto its world."""
+        from deepspeed_tpu_torch.checkpoint.engine import finalize_async
+        from deepspeed_tpu_torch.checkpoint.universal import (
+            load_universal_into_engine,
+        )
+
+        finalize_async()
+        if comm.get_world_size() > 1:
+            comm.barrier()
+        load_universal_into_engine(self, universal_dir,
+                                   load_optimizer_states)
+        logger.info(f"loaded universal checkpoint from {universal_dir} "
+                    f"(world {self.world_for_rank_state()})")
+
+    def get_fp32_params(self) -> Dict[str, Any]:
+        """The whole fp32 master as a tree of host tensors (JAX's keys and
+        shapes; the zero_to_fp32 consolidation analog). Collective on a
+        data-parallel engine."""
+        self._materialize_master()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        tree: Dict[str, Any] = {}
+        for slot in self._slots:
+            _set_path(tree, slot.path,
+                      self._view(self.flat_master, slot).to(
+                          "cpu", copy=True))
+        return tree
+
+    def save_16bit_model(self, save_dir: str,
+                         save_filename: str = "pytorch_model.npz") -> None:
+        """The master cast to the compute dtype, exported as JAX's npz
+        with its ``.dtypes.json`` sidecar (bf16 as raw 2-byte values; fp32
+        engines export fp32). Rank 0 writes."""
+        from deepspeed_tpu_torch.checkpoint.checkpoint_engine import (
+            flatten_with_paths,
+        )
+        from deepspeed_tpu_torch.checkpoint.engine import write_16bit_npz
+
+        params = self.get_fp32_params()
+        if self._is_primary():
+            write_16bit_npz(save_dir, save_filename, {
+                k: v.to(self.compute_dtype)
+                for k, v in flatten_with_paths(params)})
+        logger.info(f"saved 16-bit model to {save_dir}/{save_filename} "
+                    f"(dtype={self.precision})")
+
+    def protect_checkpoint_tag(self, tag: Optional[str],
+                               root: Optional[str] = None) -> None:
+        """Pin ``tag`` (in checkpoint dir ``root``) against ``keep_n``
+        retention GC; ``None`` clears the pins. A newer tag committed to
+        the same dir clears them at ``save_checkpoint``."""
+        if tag is None:
+            self._gc_protect_tags.clear()
+            self._gc_protect_root = None
+        else:
+            self._gc_protect_tags = {tag}
+            self._gc_protect_root = os.path.abspath(root) if root else None
+        self._gc_pin_stale = False
+
+    # ------------------------------------------------------------------ #
+    # fault tolerance: preemption and emergency checkpoints, auto-resume
+    # (JAX engine.py:3084-3260)
+    # ------------------------------------------------------------------ #
+    def enable_preemption_handler(self, signals=None) -> bool:
+        """Install the graceful-preemption handler (SIGTERM by default):
+        on delivery the engine drains an in-flight async save, writes an
+        emergency checkpoint and exits 0; a signal during a step or a save
+        defers to its boundary. Returns False off the main thread (the
+        comm queue and the I/O workers are threads)."""
+        import signal
+
+        signals = signals or (signal.SIGTERM,)
+        if threading.current_thread() is not threading.main_thread():
+            logger.warning("preemption handler not installed (not on the "
+                           "main thread)")
+            return False
+        for s in signals:
+            self._prev_sig_handlers[s] = signal.signal(
+                s, self._on_preempt_signal)
+        logger.info(f"graceful-preemption handler armed for "
+                    f"{[signal.Signals(s).name for s in signals]}")
+        return True
+
+    def _on_preempt_signal(self, signum, frame) -> None:
+        self._preempt_requested = True
+        busy = self._in_step or self._saving
+        logger.warning(
+            f"received signal {signum}: preemption imminent — will drain "
+            "saves, write an emergency checkpoint, and exit cleanly"
+            + (" (deferred to the step/save boundary)" if busy else ""))
+        if not busy:
+            self._preemption_exit()
+
+    def _preemption_exit(self) -> None:
+        """Drain → emergency save → clean exit (``SystemExit(0)``)."""
+        self._preempt_requested = False     # the exit runs: no recursion
+        from deepspeed_tpu_torch.checkpoint.engine import finalize_async
+
+        try:
+            finalize_async()
+        except Exception as e:                              # noqa: BLE001
+            logger.warning(f"async-save drain during preemption failed: {e}")
+        self._emergency_save("preemption")
+        logger.info("preemption: emergency checkpoint committed — exiting 0")
+        raise SystemExit(0)
+
+    def preemption_requested(self) -> bool:
+        """Cooperative check for loops that manage their own shutdown."""
+        return self._preempt_requested
+
+    def _emergency_save(self, reason: str) -> Optional[str]:
+        """A synchronous committed checkpoint into
+        ``fault_tolerance.resume_dir`` (else the last save's dir). A
+        second trigger while one runs is dropped, not deadlocked."""
+        if not self._ft_lock.acquire(blocking=False):
+            return None
+        try:
+            ftc = self.config.fault_tolerance
+            save_dir = ftc.resume_dir or self._last_save_dir
+            if not save_dir:
+                logger.error(
+                    f"emergency checkpoint ({reason}) skipped: no "
+                    "fault_tolerance.resume_dir and no prior save dir")
+                return None
+            tag = f"{ftc.emergency_tag_prefix}_step{self.global_steps}"
+            telemetry.counter(
+                "checkpoint_emergency_saves_total",
+                "emergency checkpoints by trigger (preemption/stall)"
+            ).inc(reason=reason)
+            try:
+                self.save_checkpoint(save_dir, tag=tag, async_save=False)
+            except Exception as e:                          # noqa: BLE001
+                logger.error(f"emergency checkpoint ({reason}) FAILED: {e}")
+                return None
+            return tag
+        finally:
+            self._ft_lock.release()
+
+    def _check_preemption_boundary(self) -> None:
+        """The step/save boundary half of the deferred preemption: main
+        thread only."""
+        if self._preempt_requested and \
+                threading.current_thread() is threading.main_thread():
+            self._preemption_exit()
+
+    def maybe_auto_resume(self) -> bool:
+        """``fault_tolerance.auto_resume``: restore the newest committed
+        checkpoint of ``resume_dir`` (``initialize`` calls it). A missing
+        or empty dir is a cold start."""
+        from deepspeed_tpu_torch.checkpoint.engine import read_latest_tag
+        from deepspeed_tpu_torch.checkpoint.fault_tolerance import (
+            find_restore_tag,
+        )
+
+        ftc = self.config.fault_tolerance
+        if not ftc.auto_resume:
+            return False
+        if not ftc.resume_dir:
+            logger.warning("auto_resume=true but no fault_tolerance."
+                           "resume_dir — cold start")
+            return False
+        has = (find_restore_tag(
+            ftc.resume_dir,
+            checksums=self.config.checkpoint.verify_checksums) is not None
+            or read_latest_tag(ftc.resume_dir) is not None)
+        if not has:
+            logger.info(f"auto_resume: no checkpoint in {ftc.resume_dir} — "
+                        "cold start")
+            return False
+        self.load_checkpoint(ftc.resume_dir)
+        logger.info(f"auto_resume: restored step {self.global_steps} from "
+                    f"{ftc.resume_dir}")
+        return True
 
 
 def _piece_view(flat: torch.Tensor, piece) -> torch.Tensor:
@@ -1680,12 +2190,18 @@ class DataParallelEngine(DeepSpeedTPUEngine):
 
     def _load_master_leaf(self, slot: _Slot, full: torch.Tensor) -> None:
         self._materialize_master()
+        self._load_leaf(self.flat_master, slot, full)
+
+    def _load_leaf(self, flat: torch.Tensor, slot: _Slot,
+                   full: torch.Tensor) -> None:
+        """A local buffer's part of a whole leaf: its shard (the moved
+        layout's row of this rank), or the whole replicated leaf."""
         sh = next(s for s in self._shards if s.slot is slot)
-        full = full.to(device=self.device, dtype=torch.float32)
+        full = full.to(device=flat.device, dtype=flat.dtype)
         if sh.dim is not None:
             full = torch.movedim(full, sh.dim, 0).reshape(
                 sh.moved(self.shard_world))[self.shard_rank]
-        self._local(self.flat_master, sh).copy_(full)
+        self._local(flat, sh).copy_(full)
 
     def _rows(self, packed: torch.Tensor, sh: _Shard) -> torch.Tensor:
         """Leaf ``sh``'s [Z, shape[dim]/Z, ...] rows in a packed [Z, n_sh]
@@ -2005,6 +2521,79 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                       full.detach().to(device, copy=True))
         return tree
 
+    # ------------------------------------------------------------------ #
+    # checkpoints: whole leaves gathered one at a time, each rank's part
+    # kept at load (collective: every rank calls them)
+    # ------------------------------------------------------------------ #
+    def world_for_rank_state(self) -> int:
+        return self.world
+
+    def _leaf(self, flat: torch.Tensor, slot: _Slot) -> torch.Tensor:
+        """Leaf ``slot`` of a local buffer, whole, on the host: its shards
+        gathered over the shard group (the ``zshard`` group under hpZ),
+        an expert leaf's experts over the expert group."""
+        sh = next(s for s in self._shards if s.slot is slot)
+        with torch.no_grad():
+            if sh.dim is None:
+                full = self._local(flat, sh)
+            else:
+                W = self.shard_world
+                rows = torch.empty(W, sh.n_loc, dtype=flat.dtype,
+                                   device=flat.device)
+                comm.all_gather_into_tensor(
+                    rows, flat[sh.offset:sh.offset + sh.n_loc].contiguous(),
+                    group=self.shard_group)
+                full = torch.movedim(rows.view(sh.moved(W)).reshape(
+                    (-1,) + sh.moved(W)[2:]), 0, sh.dim)
+            dim = self._expert_dims.get(slot.path)
+            if dim is not None:
+                full = comm.all_gather(full.contiguous(),
+                                       group=self.replica_group,
+                                       gather_axis=dim)
+            return full.to("cpu")
+
+    def _rank_state_leaves(self):
+        """LoCo's residual as JAX's ``loco_err`` leaves [world, *shape],
+        one leaf gathered at a time (``full_loco_err``'s layout)."""
+        if self.loco_err is None:
+            return
+        W = self.shard_world
+        for sh in self._shards:
+            name = "loco_err/" + "/".join(sh.slot.path)
+            shape = (self.world,) + sh.slot.shape
+            if sh.dim is None:
+                yield name, torch.zeros(shape)
+                continue
+            rows = torch.empty(self.world, W, sh.n_loc, dtype=torch.float32,
+                               device=self.device)
+            comm.all_gather_into_tensor(
+                rows, self.loco_err[:, sh.offset:sh.offset + sh.n_loc]
+                .contiguous())
+            yield name, rows.reshape(shape).to("cpu")
+
+    def _load_rank_state(self, read) -> None:
+        """This rank's row of each ``loco_err`` leaf (the rows of a
+        universal checkpoint already re-partitioned onto this world)."""
+        if self.loco_err is None:
+            return
+        W = self.shard_world
+        for sh in self._shards:
+            if sh.dim is None:
+                continue
+            name = "loco_err/" + "/".join(sh.slot.path)
+            full = read(name)
+            if full is None:
+                continue
+            if full.shape[0] != self.world:
+                raise ValueError(f"checkpoint leaf {name!r}: {full.shape[0]}"
+                                 f" rank rows, this world {self.world} (load "
+                                 "a universal checkpoint to change worlds)")
+            self.loco_err[:, sh.offset:sh.offset + sh.n_loc].copy_(
+                full[self.rank].reshape(W, sh.n_loc))
+
+    def get_fp32_params(self) -> Dict[str, Any]:
+        return self.full_master()
+
     def full_loco_err(self) -> Dict[str, Any]:
         """Every rank's LoCo residual as JAX's ``state["loco_err"]``: per
         leaf [world, *shape] (row r = rank r's residual, the moved layout's
@@ -2171,6 +2760,18 @@ class Zero3Engine(DataParallelEngine):
         for k in self._zero3.counts:
             self._zero3.counts[k] = 0
         return super()._dispatch_train_step(stacked, gas)
+
+    def _restore(self, read, client_state, load_optimizer_states=True,
+                 load_lr_scheduler_states=True) -> None:
+        """As the data-parallel engine's; the gather source (the
+        compute-dtype shard) is refreshed from the restored master, and no
+        gather is left in flight or cached between steps, so the next
+        chunk's prefetch reads the restored values."""
+        z = self._zero3
+        if z._inflight or z._cache:
+            raise RuntimeError("ZeRO-3: a gather is in flight at a load")
+        super()._restore(read, client_state, load_optimizer_states,
+                         load_lr_scheduler_states)
 
     def close(self) -> None:
         """Stop the coordinator's communication thread."""

@@ -139,6 +139,24 @@ class HostStepRunner:
         if self._pending is not None:
             self._pending.result()
 
+    def adopt_state(self) -> None:
+        """Re-home the state after a checkpoint load (JAX
+        ``host_step.py:122``): the update in flight finished and dropped
+        (its staged copy holds pre-load values and must never land), the
+        master and the moments kept as this process's host tensors, and
+        the card's compute copy written from the restored master."""
+        self.wait()
+        self._pending = None
+        e = self.engine
+        with torch.no_grad():
+            if e.flat_master.device.type != "cpu":
+                e._set_master(e.flat_master.cpu())
+            opt = e.state["opt"]
+            for k, v in opt.items():
+                if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+                    opt[k] = v.cpu()
+            e.flat_compute.copy_(e.flat_master)
+
     def train_step(self, stacked, gas: int):
         """One global step; returns (mean loss, metrics). The metrics'
         ``grad_norm`` is a future the update resolves."""

@@ -643,3 +643,35 @@ def test_offload_750m_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
         assert not x["cpu"]["stream"] and x["cpu"]["wire"] == "qz"
         assert x["cpu"]["losses"] == x["none"]["losses"]
         assert x["cpu"]["master_bit_equal"]
+
+
+def test_checkpoint_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
+    """C1-C5 at tiny size on the CPU (C3 on two spawned gloo ranks): the
+    resumed runs bit-equal, the async save in flight at its return, the
+    universal conversion's leaves and first loss bit-equal, the NVMe tier's
+    reload bit-equal, the 16-bit export the compute params; the tags gone
+    at the end."""
+    import torch
+
+    monkeypatch.setenv("DSTPU_NVME_PATH", str(tmp_path / "nvme"))
+    monkeypatch.setenv("DSTPU_CHECKPOINT_PATH", str(tmp_path / "ck"))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)       # as the phase's spawned CPU ranks run
+    smoke = _cpu_smoke()
+    try:
+        smoke.phase_checkpoint_llama_750m(dict(
+            model="tiny_llama", micro=2, seq=32, gas=2, zero3_layers=2,
+            nvme_layers=2))
+    finally:
+        torch.set_num_threads(n)
+    r = smoke.state["checkpoint"]
+    assert r["c1"]["resumed_losses"] == r["c1"]["losses"][2:]
+    assert r["c2"]["in_flight_at_return"]
+    assert r["c3"]["wire"] == "qz+loco" and r["c3"]["loco_folds"] > 0
+    assert r["c3"]["universal_first_loss"] == r["c3"]["direct_first_loss"]
+    assert r["c4"]["after_load"] == r["c4"]["losses"][2:]
+    assert r["c5"]["bit_equal"]
+    for part in ("c1", "c2", "c3", "c4"):
+        assert r[part]["gb_written"] > 0 and r[part]["crc_s"] >= 0
+    assert smoke.steps["checkpoint_llama_750m"] == 2
+    assert not (tmp_path / "ck").exists()

@@ -1,9 +1,12 @@
 """The PyTorch port stands alone and never falls back silently.
 
 * Importing every module of ``deepspeed_tpu_torch`` (the MoE modules, the
-  grouped GEMM, ``comm/``, ``parallel/`` and the int8 wire's kernels among
-  them) and ``chip_smoke.py`` imports neither jax nor anything of
-  ``deepspeed_tpu``.
+  grouped GEMM, ``comm/``, ``parallel/``, the int8 wire's kernels and
+  ``checkpoint/`` among them) and ``chip_smoke.py`` imports neither jax
+  nor anything of ``deepspeed_tpu``, nor ``ml_dtypes`` or ``orbax``, which
+  the card's machine does not have.
+* A process that never imports jax writes and reads bf16 and fp16
+  checkpoints and the 16-bit export (numpy has no bf16 there).
 * Without a CUDA device, entry points that default to the GPU raise; with
   one, they land on it. Whether a card is present is decided inside each
   test, never at import or collection time.
@@ -41,8 +44,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                                                       "chip_smoke.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith("jax.")
-                     or m == "deepspeed_tpu" or m.startswith("deepspeed_tpu."))
+                     if m.split(".")[0] in ("jax", "deepspeed_tpu",
+                                            "ml_dtypes", "orbax"))
         print(len(names), ",".join(names), bad)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -55,7 +58,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                 "comm.mesh", "parallel.partitioning", "parallel.compressed",
                 "ops.quantization", "ops.quant_kernels", "ops.aio",
                 "runtime.swap_tensor", "runtime.zenflow",
-                "runtime.host_step"):
+                "runtime.host_step", "checkpoint.fault_tolerance",
+                "checkpoint.checkpoint_engine", "checkpoint.engine",
+                "checkpoint.universal", "checkpoint.zero_to_fp32",
+                "checkpoint.reshard_cli"):
         assert f"deepspeed_tpu_torch.{mod}" in names.split(","), mod
     assert bad == "[]", bad
 
@@ -161,3 +167,57 @@ def test_importing_builds_nothing(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0 []", out.stdout
+
+
+def test_bf16_and_fp16_checkpoints_without_jax(tmp_path):
+    """In a process that never imports jax (so numpy knows no bf16): a bf16
+    and an fp16 engine save, a fresh engine of each loads and continues
+    bit-equal, and the 16-bit export reads back as the compute dtype."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        import deepspeed_tpu_torch as dtt
+        from deepspeed_tpu_torch.checkpoint.engine import load_16bit_model
+        from deepspeed_tpu_torch.runtime.dataloader import synthetic_lm_data
+
+        root = sys.argv[1]
+        for prec, extra in (("bfloat16", {"bf16": {"enabled": True}}),
+                            ("float16", {"fp16": {
+                                "enabled": True,
+                                "initial_scale_power": 8}})):
+            cfg = dict({"train_micro_batch_size_per_gpu": 2,
+                        "optimizer": {"type": "adam",
+                                      "params": {"lr": 1e-3}},
+                        "steps_per_print": 10 ** 6}, **extra)
+
+            def build(seed):
+                return dtt.initialize(
+                    model=dtt.causal_lm_spec("tiny", dtype=prec),
+                    config=dict(cfg, seed=seed), device="cpu")[0]
+
+            e = build(1)
+            data = synthetic_lm_data(2, 16, 512, seed=1)
+            e.train_batch(data)
+            e.save_checkpoint(f"{root}/{prec}")
+            e.save_16bit_model(f"{root}/{prec}_16")
+            want = [float(e.train_batch(data)) for _ in range(2)]
+            f = build(2)
+            f.load_checkpoint(f"{root}/{prec}")
+            data = synthetic_lm_data(2, 16, 512, seed=1)
+            next(data)
+            got = [float(f.train_batch(data)) for _ in range(2)]
+            assert got == want, (prec, got, want)
+            assert torch.equal(f.flat_compute, e.flat_compute), prec
+            flat = load_16bit_model(f"{root}/{prec}_16")
+            assert flat["tok_emb"].dtype == getattr(torch, prec), prec
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "deepspeed_tpu",
+                                            "ml_dtypes", "orbax"))
+        print("ok", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok []", out.stdout

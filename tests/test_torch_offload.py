@@ -587,3 +587,125 @@ def test_world2_tiers_bit_equal_and_host_step_refused(tmp_path):
             "process's CPU backend and cannot address remote shards")
         assert res["host_step_qgz"] == ("host_step cannot combine with "
                                         "compressed collectives")
+
+
+# --------------------------------------------------------------------------- #
+# checkpoints through the tiers (the checkpoint halves of tests/unit/
+# test_offload.py)
+# --------------------------------------------------------------------------- #
+
+def test_nvme_checkpoint_reload_does_not_clobber_restored_moments(
+        jax_runs, port_base, tmp_path, single_thread):
+    """``TestNvmeSwap::test_checkpoint_reload_does_not_clobber_restored_
+    moments``: a load into an NVMe-tier engine leaves the restored moments
+    authoritative (the next step's swap-in must not bring back the swap
+    files of the steps after the save: they equal the tag's leaves), and
+    the run goes on bit-equal to the port without offload, within TOL of
+    JAX's."""
+    from test_torch_train import TOL
+
+    from deepspeed_tpu_torch.checkpoint.engine import open_state
+
+    want = jax_runs["opt_nvme"]
+    engine = _port("opt_nvme", want["master0"], tmp_path)
+    _train(engine, steps=1)
+    engine.save_checkpoint(str(tmp_path / "ck"))
+    _train(engine, steps=1)         # the swap files move past the save
+    engine.load_checkpoint(str(tmp_path / "ck"))
+    assert engine.global_steps == 1
+    assert _where(engine)["opt_swapped"]
+    engine._nvme_swapper().swap_in_optimizer()
+    saved = open_state(str(tmp_path / "ck" / "global_step1"))
+    for slot in engine._slots:
+        name = "/".join(slot.path)
+        assert torch.equal(engine._view(engine.state["opt"]["exp_avg"], slot),
+                           saved[f"opt/exp_avg/{name}"]), name
+    engine._nvme_swapper().swap_out_optimizer()
+    losses, _, _ = _train(engine, steps=3)
+    assert losses == port_base["losses"][1:4]
+    np.testing.assert_allclose(losses, want["losses"][1:4],
+                               rtol=TOL["float32"]["loss"], atol=0)
+    engine.close()
+
+
+def test_host_step_checkpoint_lands_the_update_and_adopts(
+        jax_runs, port_base, tmp_path, single_thread):
+    """The checkpoint half of ``TestHostStep::test_gas_and_eval_and_
+    checkpoint``: a save lands the pending host update first (the overlap
+    schedule leaves one in flight after every step), a load re-homes the
+    state (``HostStepRunner.adopt_state``: the update in flight dropped,
+    master and moments on the host, the compute copy from the restored
+    master); a fresh sync host-step engine resumes bit-equal to the
+    uninterrupted run, within HOST_SYNC_VS_PLAIN of the port without
+    offload and TOL of JAX."""
+    from test_torch_train import TOL
+
+    over = _port("host_overlap", jax_runs["host_overlap"]["master0"],
+                 tmp_path)
+    _train(over, steps=3)
+    runner = over._host_runner
+    assert runner._pending is not None          # update 3 in flight
+    over.save_checkpoint(str(tmp_path / "over"))
+    assert runner._pending.done()
+    with open(tmp_path / "over" / "global_step3" / "state_fast" /
+              "master__tok_emb.bin", "rb") as f:
+        saved = np.frombuffer(f.read(), np.float32)
+    assert np.array_equal(saved, over.state["master"]["tok_emb"].reshape(-1)
+                          .numpy())
+    over.load_checkpoint(str(tmp_path / "over"))
+    assert runner._pending is None
+    assert over.flat_master.device.type == "cpu"
+    assert all(v.device.type == "cpu" for k, v in over.state["opt"].items()
+               if k != "step")
+    assert torch.equal(over.flat_compute, over.flat_master.to(
+        over.compute_dtype))
+    over.close()
+
+    want = jax_runs["host_sync"]
+    whole = _port("host_sync", want["master0"], tmp_path)
+    wlosses, _, _ = _train(whole)
+    whole._host_runner.wait()
+    first = _port("host_sync", want["master0"], tmp_path)
+    _train(first, steps=3)
+    first.save_checkpoint(str(tmp_path / "sync"))
+    first.close()
+    resumed = _port("host_sync", None, tmp_path)
+    resumed.load_checkpoint(str(tmp_path / "sync"))
+    assert resumed.global_steps == 3
+    losses, _, _ = _train(resumed, steps=STEPS - 3)
+    resumed._host_runner.wait()
+    assert losses == wlosses[3:]
+    assert torch.equal(resumed.flat_master, whole.flat_master)
+    np.testing.assert_allclose(losses, port_base["losses"][3:],
+                               rtol=HOST_SYNC_VS_PLAIN["loss"], atol=0)
+    np.testing.assert_allclose(losses, want["losses"][3:],
+                               rtol=TOL["float32"]["loss"], atol=0)
+    whole.close()
+    resumed.close()
+
+
+def test_param_nvme_tier_checkpoint_roundtrip(jax_runs, port_base, tmp_path,
+                                              single_thread):
+    """The checkpoint half of ``TestOffloadParam::test_nvme_tier_roundtrip_
+    and_checkpoint``: a save swaps the master in from its file, a load
+    writes the restored master to the file anew (no stale file wins), and
+    the run goes on bit-equal to the port without offload, within TOL of
+    JAX's."""
+    from test_torch_train import TOL
+
+    want = jax_runs["param_nvme"]
+    engine = _port("param_nvme", want["master0"], tmp_path)
+    _train(engine, steps=2)
+    assert _where(engine)["master_swapped"]
+    engine.save_checkpoint(str(tmp_path / "ck"))
+    assert _where(engine)["master_swapped"]
+    _train(engine, steps=1)
+    engine.load_checkpoint(str(tmp_path / "ck"))
+    assert engine.global_steps == 2
+    where = _where(engine)
+    assert where["master_parked"] and where["master_swapped"]
+    losses, _, _ = _train(engine, steps=2)
+    assert losses == port_base["losses"][2:4]
+    np.testing.assert_allclose(losses, want["losses"][2:4],
+                               rtol=TOL["float32"]["loss"], atol=0)
+    engine.close()
