@@ -61,14 +61,15 @@ kernel on them against its plain PyTorch version:
 7. train_llama_750m — the same at micro 4, seq 2048, gas 4 (RMSNorm, RoPE,
                SwiGLU, head_dim 128);
 7b. checkpoint_llama_750m — checkpoints on that path (CKPT): C1 one
-               process at full width and depth, steps 1-2, a sync save,
+               process at full width, CKPT["layers"] layers, steps 1-2, a
+               sync save,
                steps 3-4, and a fresh engine from another seed that loads
                the tag and runs steps 3-4 bit-equal (losses; fingerprints
                of the master, both moments, the bf16 compute copy; lr and
                the step counters), its kernels counted on the resumed
                steps; C2 an async save in flight while steps run, its tag
                verified and loaded to C1's bits; C3 two ranks, ZeRO-3 +
-               qgZ + qwZ + LoCo at ZERO3_LAYERS: a native reload at world 2
+               qgZ + qwZ + LoCo at CKPT["zero3_layers"]: a native reload at world 2
                bit-equal, the universal conversion loaded into one process
                bit-equal to the gathered leaves, LoCo folded
                sum-preservingly, the first loss equal to an engine given
@@ -95,11 +96,12 @@ kernel on them against its plain PyTorch version:
                on the one card by explicit device) train llama_750m at full
                width and depth with ZeRO-2 + qgZ + qwZ + LoCo (the repo's
                zero2_qgz_llama_750m_bf16 row: micro 4 a rank, seq 2048, gas
-               4, bf16, flash, remat full, Adam): the loss falls, the
-               counters prove every step launched the int8 quantize and
+               ZEROPP_GAS, bf16, flash, remat full, Adam): the loss falls,
+               the counters prove every step launched the int8 quantize and
                dequant-reduce kernels; four gates (the wire bit-exact on the
-               step's real packed gradient; one fp32 step all kernels vs all
-               plain within a tenth of the wire's own noise; bf16 no further
+               step's real packed gradient; one fp32 step at
+               ZEROPP_GATE_LAYERS layers all kernels vs all plain within a
+               tenth of the wire's own noise; bf16 no further
                from it than twice the plain bf16 path; the int8 error within
                half a quantization step a rank); then exact ZeRO-2 at world
                2 as the baseline, with overlap_comm and overlap_step (the
@@ -159,6 +161,19 @@ kernel on them against its plain PyTorch version:
                formula, nothing dropped); step, tokens/s, MFU by active
                parameters, peak a rank, the expert group's host seconds,
                the idle share;
+13c. train_moe_350m_ep_zero — the expert axis on every engine (MOE_EPZ):
+               four ranks train moe_350m at full width, 4 layers, with (b)
+               exact ZeRO-2, (c) ZeRO-3, (d) ZeRO-2 + qgZ + qwZ + LoCo, (e)
+               ZeRO-3 + qgZ + qwZ at {data: 2, expert: 2} and (f) hpZ
+               ZeRO-3 at {zshard: 2, expert: 2}; two ranks with (g) the
+               dense dispatch across experts at {expert: 2}; gates E6 (one
+               fp32 step of (c) and (f) against exact ZeRO-2 by the
+               training rule, bf16 within 2x ZeRO-2's), E7 (the int8
+               kernels bit-equal on the step's real rows, one fp32 step
+               kernels vs plain within a tenth of the wire's noise), E8
+               (each group's collectives a step by formula), E9 ((g)
+               against one process), E10 ((c)'s peak below (b)'s); step,
+               tokens/s, MFU, peak a rank, the idle share of rank 0;
 14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
@@ -168,7 +183,8 @@ kernel on them against its plain PyTorch version:
                width under SuperOffload (the fp32 master and Adam's moments
                in host memory, the update on the host's cores; bf16, flash,
                remat full, micro 2, seq 2048, gas 4) at the depth the
-               host's memory holds: gates S1 (one fp32 host step, overlap
+               host's memory holds, at most SUPER["max_layers"]: gates S1
+               (one fp32 host step, overlap
                off, against the device path: loss bit-equal, master within
                1e-6), S2 (bf16: the update no further from S1's than 2x
                the device bf16 step's), S3 (the overlap schedule's losses)
@@ -219,12 +235,13 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_zeropp_dp2,train_llama_750m_zero3_dp2,times
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_hpz_dp4,times
     python3 chip_smoke.py --phases card,build,train_moe_350m_ep,moe_350m
+    python3 chip_smoke.py --phases card,build,train_moe_350m_ep_zero
     python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
     python3 chip_smoke.py --phases card,build,train_llama2_7b_super_offload,train_llama_750m_offload
     python3 chip_smoke.py --phases card,build,checkpoint_llama_750m
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14, 13b among them) and the offload phases (15-16) run right after the
+(11-14, 13b and 13c among them) and the offload phases (15-16) run right after the
 kernels phase,
 before the serving phases' engines take the card. Wire times of the
 data-parallel phases are gloo's through host memory, the ranks sharing
@@ -256,7 +273,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 # the empty card).
 PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
-          "train_moe_350m_ep", "quantized_reduce_scatter",
+          "train_moe_350m_ep", "train_moe_350m_ep_zero",
+          "quantized_reduce_scatter",
           "train_llama2_7b_super_offload", "train_llama_750m_offload",
           "llama2_7b", "gpt2_125m", "moe_350m", "train_gpt2_125m",
           "train_llama_750m", "checkpoint_llama_750m", "train_moe_350m",
@@ -581,9 +599,16 @@ ZEROPP = dict(model="llama_750m", world=2, micro=4, seq=2048, gas=4, steps=2,
               gate_micro=1)
 ZEROPP_CHUNKS = [[0, 10], [10, 20]]
 # the phase's main-path runs take one timed step after the warm-up (2
-# before the checkpoint phase came): the cut that keeps the whole script
-# within its time beside it; depth and width stay full
+# before the checkpoint phase came) of ZEROPP_GAS micro-batches (4 before
+# the expert-axis phase train_moe_350m_ep_zero came): the cuts that keep
+# the whole script within its time beside them; depth and width stay full
 ZEROPP_STEPS = 1
+ZEROPP_GAS = 2
+# the phase's gate steps (gates 2-3 and the overlap gate) run this many
+# layers at full width from the seed's initial weights (the main path's
+# trained master at all 20 before the expert-axis phase came), as the
+# ZeRO-3 and hpZ gates do
+ZEROPP_GATE_LAYERS = 4
 ZEROPP_WIRE = {"stage": 2, "zero_quantized_gradients": True,
                "zero_quantized_weights": True, "loco_error_feedback": True}
 ZEROPP_EXACT = {"stage": 2}
@@ -677,7 +702,8 @@ QRS = dict(n=2 ** 26, worlds=(2, 4))
 
 # The checkpoint phase (checkpoint_llama_750m), on the train_llama_750m
 # path's shapes (micro 4, seq 2048, gas 4, bf16, ZeRO-1, flash, remat
-# full): C1 one process at full width and depth — steps 1-2, a sync save,
+# full): C1 one process at full width, CKPT["layers"] layers — steps 1-2,
+# a sync save,
 # steps 3-4; a fresh engine from another seed loads the tag and runs steps
 # 3-4 bit-equal (losses, fingerprints of the master, both moments and the
 # bf16 compute copy, lr and counters), the kernels counted on the resumed
@@ -693,8 +719,12 @@ QRS = dict(n=2 ** 26, worlds=(2, 4))
 # after two more steps, then those two steps again bit-equal; C5 the
 # 16-bit export bit-equal to the compute params. Tags live under
 # build/checkpoints/ (ignored by git) and are deleted at the end.
-CKPT = dict(model="llama_750m", micro=4, seq=2048, gas=4, layers=None,
-            zero3_layers=ZERO3_LAYERS, nvme_layers=8)
+# C1-C2 run CKPT["layers"] of llama_750m's 20 layers and C3
+# CKPT["zero3_layers"] (20 and ZERO3_LAYERS before the expert-axis phase
+# train_moe_350m_ep_zero came: the cuts that keep the whole script within
+# its time)
+CKPT = dict(model="llama_750m", micro=4, seq=2048, gas=4, layers=8,
+            zero3_layers=2, nvme_layers=8)
 # the disk under build/checkpoints/ must hold this many tags of C1's size
 # (12 bytes a parameter: the fp32 master and Adam's two moments)
 CKPT_TAGS_FREE = 3
@@ -880,23 +910,31 @@ def flops_per_token(cfg, seq_len: int) -> float:
 
 @contextlib.contextmanager
 def recorded_routes():
-    """Yields a list that receives every routed MoE layer's (experts [T, k],
-    aux loss), detached, while the block runs: the layer's gate is wrapped
-    for its duration and restored after."""
+    """Yields a list that receives every routed MoE layer's (routes, aux
+    loss), detached, while the block runs: the ragged dispatch's experts
+    [T, k], or the dense dispatch's kept choices [T, E] (a token's
+    dispatch to an expert within its capacity). The layer's gates are
+    wrapped for the block's duration and restored after."""
     from deepspeed_tpu_torch.moe import layer as MoE
 
-    gate, routes = MoE._gate_indices, []
+    gate, dense, routes = MoE._gate_indices, MoE.topk_gating, []
 
     def recording_gate(*args, **kwargs):
         out = gate(*args, **kwargs)
         routes.append((out.experts.detach(), out.aux_loss.detach()))
         return out
 
-    MoE._gate_indices = recording_gate
+    def recording_dense(*args, **kwargs):
+        out = dense(*args, **kwargs)
+        routes.append((out.dispatch.detach().any(dim=-1),
+                       out.aux_loss.detach()))
+        return out
+
+    MoE._gate_indices, MoE.topk_gating = recording_gate, recording_dense
     try:
         yield routes
     finally:
-        MoE._gate_indices = gate
+        MoE._gate_indices, MoE.topk_gating = gate, dense
 
 
 @contextlib.contextmanager
@@ -1160,7 +1198,7 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
     t0 = time.perf_counter()
     depth = {"num_layers": t["layers"]} if t.get("layers") else {}
     spec = dtt.causal_lm_spec(t["model"], attention="flash", remat="full",
-                              **depth)
+                              **depth, **t.get("spec", {}))
     config = zeropp_config(t["micro"], t["gas"], precision, zero)
     if t.get("mesh"):
         config["mesh"] = dict(t["mesh"])
@@ -1269,13 +1307,22 @@ def wire_gates(engine, batch, dev):
     from deepspeed_tpu_torch.ops import quant_kernels as QK
     from deepspeed_tpu_torch.runtime.dataloader import stack_micros
 
-    W, B = engine.world, QK.DEFAULT_BLOCK
+    from deepspeed_tpu_torch.parallel import stage3 as S3
+
+    W, B, grp = engine.shard_world, QK.DEFAULT_BLOCK, engine.shard_group
     mb = engine._to_device(engine._local_rows(stack_micros([batch])))
     mb = {k: v[0] for k, v in mb.items()}
     with engine._step_buffers():        # ZeRO-3: the step's full gradient
-        engine._loss_and_grads(mb, None)
+        with engine._moe_axes():
+            engine._loss_and_grads(mb, None)
         engine._pack()
         x = engine._packed
+        if engine.ep > 1:
+            # the rows as the wire sends them: the dense rows summed over
+            # the expert group, the expert leaves in JAX's blocks
+            engine._expert_sum()
+            x = S3.to_wire(engine, engine._wire_group,
+                           x[:, :engine._n_sh]).contiguous()
         engine.flat_grad.zero_()
     if engine.loco_err is not None:
         x.add_(engine.loco_err)
@@ -1289,15 +1336,15 @@ def wire_gates(engine, batch, dev):
         q_equal &= same_bits(q[i:i + step], rq)
         s_equal &= same_bits(sc[i // B:(i + step) // B], rsc)
     del rq, rsc
-    qa = comm.all_to_all_single(q.view(W, -1))
-    sa = comm.all_to_all_single(sc.view(W, -1))
+    qa = comm.all_to_all_single(q.view(W, -1), grp)
+    sa = comm.all_to_all_single(sc.view(W, -1), grp)
     del q, sc
     red = QK.dequant_reduce(qa, sa, mean=True)
     for i in range(0, red.numel(), step):
         red_equal &= same_bits(red[i:i + step], QK.dequant_reduce_ref(
             qa[:, i:i + step].contiguous(),
             sa[:, i // B:(i + step) // B].contiguous(), mean=True))
-    xa = comm.all_to_all_single(x)
+    xa = comm.all_to_all_single(x, grp)
     exact = xa[0].clone()
     for w in range(1, W):
         exact.add_(xa[w])
@@ -1316,21 +1363,26 @@ def wire_gates(engine, batch, dev):
 
 
 def zeropp_gate_step(t, dev, master, batch, zero, precision, kernels):
-    """One step (the gate's micro; ``batch`` one micro-batch, or a list of
-    them: gas their number) from ``master`` on this rank: (sharded
-    elements, loss, reduced gradient, update) — the gradient's and
-    update's local buffers stay on the device."""
+    """One step (the gate's micro, ``t["gate_layers"]`` layers when set;
+    ``batch`` one micro-batch, or a list of them: gas their number) from
+    ``master`` (None: the seed's initial weights, the same in every gate
+    engine) on this rank: (sharded elements, loss, reduced gradient,
+    update) — the gradient's and update's local buffers stay on the
+    device."""
     batches = batch if isinstance(batch, list) else [batch]
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.models.convert import load_master
 
+    depth = ({"num_layers": t["gate_layers"]} if t.get("gate_layers")
+             else {})
     spec = dtt.causal_lm_spec(
         t["model"], attention="flash", remat="full", use_kernels=kernels,
-        dtype="float32" if precision == "fp32" else "bfloat16")
+        dtype="float32" if precision == "fp32" else "bfloat16", **depth)
     with (contextlib.nullcontext() if kernels else plain_wire()):
         engine, *_ = dtt.initialize(model=spec, config=zeropp_config(
             t["gate_micro"], len(batches), precision, zero), device=dev)
-        load_master(engine, master)
+        if master is not None:
+            load_master(engine, master)
         before = engine.flat_master.clone()
         loss = float(engine.train_batch(iter(batches)))
     grad = engine.flat_grad_acc.float()
@@ -1477,7 +1529,8 @@ def train_llama_750m_zeropp_dp2_rank(rank, world, seed, t):
     out["profile"] = zeropp_profile(engine, data, dev,
                                     profiled=rank == 0 and dev.type == "cuda")
     out["wire_gate"] = wire_gates(engine, batch, dev)
-    master = engine.full_master()
+    # the gates' master: the main path's, or the seed's at gate depth
+    master = None if t.get("gate_layers") else engine.full_master()
     del engine, data
     dev_free(dev)
     gate_batch = {"tokens": batch["tokens"][:t["gate_micro"] * world]}
@@ -2229,8 +2282,10 @@ def train_llama_750m_hpz_dp4_rank(rank, world, seed, t):
 # one fixed batch from the seed; the ranks share the one card over gloo.
 # (a) mesh {expert: 2} at world 2, MOE_EP_LAYERS of its 12 layers at full
 # width: micro 8 a rank (the
-# one-process cell's micro 16 in all), seq 1024, gas 2, 1 warm-up + 2
-# steps; each rank holds 2 of the 4 experts, the choices travel by
+# one-process cell's micro 16 in all), seq 1024, gas 1, 1 warm-up + 1
+# step (gas 2 and 2 steps before the expert-axis phase
+# train_moe_350m_ep_zero came: the cut that keeps the whole script within
+# its time); each rank holds 2 of the 4 experts, the choices travel by
 # all-to-all (at ep 2 the per-destination buffer holds every local choice:
 # dropless). (b) mesh {data: 2, expert: 2} at world 4, MOE_EP_B["layers"]
 # layers at full width, micro 4 a rank, gas 1: the expert leaves' gradient
@@ -2257,7 +2312,7 @@ def train_llama_750m_hpz_dp4_rank(rank, world, seed, t):
 #    step by formula (moe_ep_traffic_want), the dropped share 0;
 # E5 one fp32 step of (b), the same two comparisons at its depth.
 MOE_EP = dict(model="moe_350m", world=2, mesh={"expert": 2}, micro=8,
-              seq=1024, gas=2, steps=2, gate_micro=1)
+              seq=1024, gas=1, steps=1, gate_micro=1)
 MOE_EP_B = dict(MOE_EP, world=4, mesh={"data": 2, "expert": 2}, micro=4,
                 gas=1, layers=4)
 # the phase runs (a) at this many of moe_350m's 12 layers, full width (all
@@ -2319,7 +2374,8 @@ def moe_ep_spec(t, precision, use_kernels=True):
     depth = {"num_layers": t["layers"]} if t.get("layers") else {}
     return dtt.causal_lm_spec(
         t["model"], attention="flash", remat="full", use_kernels=use_kernels,
-        dtype="float32" if precision == "fp32" else "bfloat16", **depth)
+        dtype="float32" if precision == "fp32" else "bfloat16", **depth,
+        **t.get("spec", {}))
 
 
 def moe_ep_step(engine, tokens, L, dev):
@@ -2424,7 +2480,7 @@ def moe_ep_load_ref(ref, dev):
                 idx=ref["idx"].to(dev))
 
 
-def moe_ep_gates(t, dev, ref, bf16=True):
+def moe_ep_gates(t, dev, ref, bf16=True, ways=("ep32", "dp32")):
     """E1 (E5 at (b)): one fp32 EP step from the seed's weights on the
     gate's rows against the same step at mesh {data: world} (the same
     ranks without the expert axis) and against the one-process reference
@@ -2444,9 +2500,9 @@ def moe_ep_gates(t, dev, ref, bf16=True):
     one = moe_ep_load_ref(ref, dev)
     # this rank's token rows of the reference's routes [L, T, k]
     one["ref_idx"] = one["idx"][:, rank * n * seq:(rank + 1) * n * seq]
-    ways = [("ep32", "fp32", t["mesh"]), ("dp32", "fp32", {"data": world})]
-    if bf16:
-        ways.append(("ep16", "bf16", t["mesh"]))
+    meshes = {"ep32": ("fp32", t["mesh"]), "dp32": ("fp32", {"data": world}),
+              "ep16": ("bf16", t["mesh"])}
+    ways = [(w,) + meshes[w] for w in ways + (("ep16",) if bf16 else ())]
     kept, res = {}, {}
 
     def metrics(step, against):
@@ -2459,7 +2515,8 @@ def moe_ep_gates(t, dev, ref, bf16=True):
         return row
 
     for way, prec, mesh in ways:
-        config = zeropp_config(t["gate_micro"], 1, prec, MOE_EP_ZERO)
+        config = zeropp_config(t["gate_micro"], 1, prec,
+                               t.get("zero", MOE_EP_ZERO))
         config["mesh"] = dict(mesh)
         engine, *_ = dtt.initialize(model=moe_ep_spec(t, prec), config=config,
                                     device=dev)
@@ -2475,8 +2532,16 @@ def moe_ep_gates(t, dev, ref, bf16=True):
     ep32 = kept["ep32"]
     args = tuple(ep32[k] for k in ("loss", "norm", "grad", "upd", "idx",
                                    "aux"))
-    res["fp32"] = metrics(args, kept.pop("dp32"))
+    if "dp32" in kept:
+        res["fp32"] = metrics(args, kept.pop("dp32"))
     res["fp32_one_process"] = metrics(args, one)
+    if ep32["idx"].dtype == torch.bool:
+        # the dense dispatch's kept choices over every rank's rows
+        n = torch.tensor([float(ep32["idx"].sum())], dtype=torch.float64,
+                         device=dev)
+        comm.all_reduce(n)
+        res["fp32_one_process"].update(kept=int(n),
+                                       ref_kept=int(one["idx"].sum()))
     if bf16:
         e16 = kept.pop("ep16")
         res["bf16"] = metrics(tuple(e16[k] for k in (
@@ -2650,6 +2715,467 @@ def moe_ep_problems(ranks, t, label):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# The expert axis on every engine (train_moe_350m_ep_zero)
+# --------------------------------------------------------------------------- #
+# moe_350m at full width (H 768, 4 experts top-2, bf16 with the fp32
+# master, flash, remat full), MOE_EP_LAYERS of its 12 layers, micro 4 a
+# rank, seq 1024, gas 1, on four ranks sharing the card over gloo: (b) exact
+# ZeRO-2 at {data: 2, expert: 2} (train_moe_350m_ep's (b), E10's
+# baseline), (c) exact ZeRO-3, (d) ZeRO-2 + qgZ + qwZ + LoCo, (e) ZeRO-3 +
+# qgZ + qwZ, all at
+# {data: 2, expert: 2}, (f) hpZ ZeRO-3 at {zshard: 2, expert: 2}; 1 warm-up
+# + MOE_EPZ["steps"] timed steps each, one more profiled on rank 0. (g) two
+# ranks at {expert: 2} with moe_dispatch "dense" (the GShard [E, C, H]
+# buffers by all-to-all across the experts), in a second spawn.
+# Gates, all at MOE_EPZ["layers"] layers, full width, gate_micro 1 a rank,
+# gas 1, from the seed's weights:
+# E6 one fp32 step of (c) and (f) against the exact ZeRO-2 step at the
+#    same ranks ({data: 2, expert: 2}: the same rows a rank) by the
+#    training rule (MOE_EP_LIMITS); bf16: the first loss within 1e-5 of the
+#    bf16 ZeRO-2 step's, the update no further from the fp32 ZeRO-2 step
+#    than BF16_VS_PLAIN x the bf16 ZeRO-2 step's. (e)'s fp32 step, an int8
+#    wire, is held by E7's rule instead;
+# E7 (d) and (e): on the step's real packed gradient (the dense rows
+#    summed over the expert group, the expert leaves in JAX's blocks), the
+#    kernels' q, scales and reduced chunk bit-equal to the plain versions;
+#    one fp32 step all kernels vs all plain: the loss within 1e-5, the
+#    reduced gradient and the update no further apart than WIRE_NOISE_SHARE
+#    x the plain step's distance from the exact ZeRO-2 step;
+# E8 each group's collectives and elements a step (comm.traffic) by
+#    formula from the layout (epz_traffic_want): the dense replica hop on
+#    the expert group (on (data, expert) under hpZ: the expert group at
+#    data = 1); on the exact wire no expert leaf crosses the expert group;
+#    on the int8 wire an expert piece is all-gathered over it before its
+#    quantization (JAX's blocks span every expert);
+# E9 (g)'s fp32 step against one process with the dense dispatch by the
+#    training rule, the kept choices agreeing on >= ROUTE_AGREE_MIN, their
+#    number over the ranks equal to one process's (the exchange drops
+#    none);
+# E10 (c)'s peak a rank below (b)'s by at least 0.75 x the reckoned margin
+#    (epz_memory_margin: the bytes ZeRO-2 keeps that ZeRO-3 does not, less
+#    the gathers and reduce rows ZeRO-3 holds at once).
+MOE_EPZ = dict(model="moe_350m", world=4, micro=4, seq=1024, gas=1, steps=1,
+               layers=MOE_EP_LAYERS, gate_micro=1)
+MOE_EPZ_INT8 = {"zero_quantized_gradients": True,
+                "zero_quantized_weights": True}
+MOE_EPZ_D2E2 = {"data": 2, "expert": 2}
+MOE_EPZ_WAYS = (
+    ("b_zero2", MOE_EPZ_D2E2, {"stage": 2}),
+    ("c_zero3", MOE_EPZ_D2E2, {"stage": 3}),
+    ("d_zero2_int8_loco", MOE_EPZ_D2E2,
+     dict(MOE_EPZ_INT8, stage=2, loco_error_feedback=True)),
+    ("e_zero3_int8", MOE_EPZ_D2E2, dict(MOE_EPZ_INT8, stage=3)),
+    ("f_hpz_zero3", {"zshard": 2, "expert": 2},
+     {"stage": 3, "zero_hpz_partition_size": 2}))
+MOE_EPZ_DENSE = dict(MOE_EPZ, world=2, mesh={"expert": 2},
+                     spec={"moe_dispatch": "dense"})
+MOE_EPZ_MEMORY_SHARE = 0.75
+
+
+def epz_way(label):
+    return next(w for w in MOE_EPZ_WAYS if w[0] == label)
+
+
+def _add(want, key, calls, elems):
+    c = want.setdefault(key, [0, 0])
+    c[0] += calls
+    c[1] += elems
+
+
+def epz_traffic_want(engine, t):
+    """E8: the collectives a rank of ``engine`` runs in ``t["steps"]``
+    steps → {group label/kind: [calls, elements it sends in]}, from its
+    layout: the MoE layer's (``moe_ep_traffic_want``; the dense
+    dispatch's per layer and micro-batch: the gate's counts gathered on
+    the batch group in the
+    forward and the recompute, the aux loss's mean there and in the
+    backward, the [E, C, H] buffers to the experts and back in each of
+    the three passes), then the engine's: ZeRO-3's gathers (each group in
+    the forward, each chunk in the recompute) and exact reduces (each
+    group's reduce-scatter on the shard group, its dense part's hop on
+    the dense replica group, its expert part's on the expert leaves'),
+    the int8 wire's dense rows summed on the expert group, its expert
+    pieces all-gathered there (JAX's blocks), its all-to-all of q and the
+    scales; the qwZ publish; the replicated leaves' mean, the norm's two
+    sums and the loss's mean."""
+    from deepspeed_tpu_torch.comm import mesh as M
+    from deepspeed_tpu_torch.moe import gating as G
+    from deepspeed_tpu_torch.ops.quant_kernels import DEFAULT_BLOCK as B
+
+    cfg = engine.model_spec.config
+    L, gas = cfg.num_layers, t["gas"]
+    mm = engine.mesh_manager
+    X, W = engine.ep, engine.shard_world
+    want = {}
+    if cfg.moe_dispatch == "dense":
+        world = mm.axes_size(M.BATCH_AXES)
+        E, k, H = cfg.n_experts, cfg.moe_top_k, cfg.hidden_size
+        C = G.gate_capacity(t["micro"] * t["seq"] * world, E, k,
+                            cfg.moe_capacity_factor, cfg.moe_min_capacity)
+        n = L * gas
+        _add(want, "expert/all_to_all", 6 * n, 6 * n * E * C * H)
+        _add(want, "batch/all_reduce", 3 * n, 3 * n * 2 * E)
+        _add(want, "batch/all_gather", 2 * n, 2 * n * k * E)
+    else:
+        want.update(moe_ep_traffic_want(L, gas, 1, t["micro"], t["seq"],
+                                        cfg.moe_top_k, X, cfg.hidden_size,
+                                        cfg.n_experts))
+    shard = M.group_label(engine.shard_group)
+    expert = M.group_label(engine.expert_group)
+    world = M.group_label(None)
+    int8 = engine._quant_grads()
+
+    def wire(group, quantized):
+        """(expert pieces' gather elements, the wire row's length)."""
+        ex = engine.expert_rows(group) if quantized else None
+        if ex is None:
+            return 0, group.n_row
+        return ex.n_local, ex.n_dense + ex.n_global
+
+    for _ in range(gas):
+        if engine.zero_stage >= 3:
+            groups = engine._zero3.groups
+            for g in list(groups) + list(groups[1:]):    # fwd, recompute
+                n_ex, n_wire = wire(g, engine._quant_weights())
+                if engine._quant_weights():
+                    if n_ex:
+                        _add(want, f"{expert}/all_gather", 1, n_ex)
+                    _add(want, f"{shard}/all_gather", 2, n_wire
+                         + n_wire // B)
+                else:
+                    _add(want, f"{shard}/all_gather", 1, g.n_row)
+            if not int8:
+                for g in groups:
+                    _add(want, f"{shard}/reduce_scatter", 1, W * g.n_row)
+                    for grp, lo, hi in engine.hops(g.n_dense, g.n_row):
+                        _add(want, f"{M.group_label(grp)}/all_reduce", 1,
+                             hi - lo)
+        if int8:
+            nsd = engine._n_sh_dense
+            if X > 1:
+                _add(want, f"{expert}/all_reduce", 1, W * nsd)
+            n_ex, n_wire = wire(engine._wire_group, True)
+            if n_ex:
+                _add(want, f"{expert}/all_gather", 1, W * n_ex)
+            _add(want, f"{shard}/all_to_all", 2, W * n_wire
+                 + W * n_wire // B)
+        if int8 and engine._n_rep:
+            _add(want, f"{world}/all_reduce", 1, engine._n_rep_dense)
+    if not int8 and engine._n_rep:
+        _add(want, f"{world}/all_reduce", 1, engine._n_rep_dense)
+    if engine._n_rep_dense < engine._n_rep:
+        for grp, size in ((engine.shard_group, engine.shard_world),
+                          (engine.data_group, engine.data_world)):
+            if size > 1:
+                _add(want, f"{M.group_label(grp)}/all_reduce",
+                     gas if int8 else 1,
+                     (gas if int8 else 1) * (engine._n_rep
+                                             - engine._n_rep_dense))
+    if engine.zero_stage < 3 and engine._quant_weights():
+        for g in engine._publish_groups:
+            n_ex, n_wire = wire(g, True)
+            if n_ex:
+                _add(want, f"{expert}/all_gather", 1, n_ex)
+            _add(want, f"{shard}/all_gather", 2, n_wire + n_wire // B)
+    _add(want, f"{shard}/all_reduce", 1, 2)          # the norm's sums
+    _add(want, f"{expert}/all_reduce", 1, 2)
+    _add(want, f"{world}/all_reduce", 1, 1)          # the loss's mean
+    return {k: [c * t["steps"], e * t["steps"]] for k, (c, e) in want.items()}
+
+
+def epz_traffic_problems(label, traffic, want):
+    """E8: every key's calls and elements equal the formula's, and no
+    other group moved anything."""
+    got = {k: [int(v[0]), int(v[1])] for k, v in traffic.items()
+           if int(v[0])}
+    if got != want:
+        keys = sorted(set(got) | set(want))
+        return [f"E8 {label}: " + "; ".join(
+            f"{k} {got.get(k)} want {want.get(k)}" for k in keys
+            if got.get(k) != want.get(k))]
+    return []
+
+
+def epz_memory_margin(zero2, zero3):
+    """E10's reckoned margin, bytes a rank: what exact ZeRO-2 holds through
+    the step and ZeRO-3 does not — the full compute copy and micro-batch
+    gradient (compute dtype) and the packed fp32 rows — less what ZeRO-3
+    holds at once instead: two groups gathered (the one in use and the
+    next in flight, compute dtype) and two groups' reduce rows ([shard
+    world, n_row] fp32), the largest ones."""
+    el = zero2["compute_bytes_per_element"]
+    keep = (2 * zero2["numel"] * el + 4 * zero2["packed_numel"])
+    rows = sorted(zero3["group_rows"], reverse=True)[:2]
+    held = sum(r * zero3["shard_world"] * (el + 4) for r in rows)
+    return keep - held
+
+
+def epz_layout(engine):
+    return {"numel": engine._numel,
+            "compute_bytes_per_element": engine.compute_dtype.itemsize,
+            "packed_numel": (engine._packed.numel()
+                             if getattr(engine, "_packed", None) is not None
+                             else 0),
+            "group_rows": [g.n_row for g in engine._zero3.groups]
+            if hasattr(engine, "_zero3") else [],
+            "shard_world": engine.shard_world,
+            "n_sharded": engine._n_sh, "n_sharded_dense": engine._n_sh_dense,
+            "n_replicated": engine._n_rep,
+            "local_experts": next(sl.shape[1] for sl in engine._slots
+                                  if sl.path == ("blocks", "w_up"))}
+
+
+def epz_gate_step(t, dev, tokens, L, mesh, zero, precision, kernels=True):
+    """One step of ``zero`` at ``mesh`` from the seed's weights on the
+    gate's rows → {loss, norm, grad, upd, idx, aux, total}: the reduced
+    gradient and the update as this rank's local buffers (every way of
+    the phase lays them out alike: shard world 2, the same ZeRO dims, a
+    rank's shard index r // 2), its routes, the summed aux, and
+    ``total(x)``: the model-wide sum of a per-element quantity in that
+    layout, each element once (the shards over the shard group, expert
+    shards over the expert group too, a replicated expert leaf over the
+    expert group), as the engine's norm sums squares."""
+    import torch
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.comm import comm
+
+    config = zeropp_config(t["gate_micro"], 1, precision, zero)
+    config["mesh"] = dict(mesh)
+    with (contextlib.nullcontext() if kernels else plain_wire()):
+        engine, *_ = dtt.initialize(model=moe_ep_spec(t, precision),
+                                    config=config, device=dev)
+        before = engine.flat_master.clone()
+        with recorded_routes() as routes, recorded_aux() as auxes:
+            loss = float(engine.train_batch(iter([{"tokens": tokens}])))
+    nsd, ns, nrd = engine._n_sh_dense, engine._n_sh, engine._n_rep_dense
+    groups = engine.shard_group, engine.expert_group
+
+    def total(x):
+        x = x.double()
+        parts = torch.stack([x[:nsd].sum(), x[nsd:ns].sum(),
+                             x[ns + nrd:].sum(), x[ns:ns + nrd].sum()])
+        comm.all_reduce(parts[:2], group=groups[0])
+        comm.all_reduce(parts[1:3], group=groups[1])
+        return float(parts.sum())
+
+    step = {"loss": loss, "norm": engine.get_global_grad_norm(),
+            "grad": engine.flat_grad_acc.float().clone(),
+            "upd": engine.flat_master - before,
+            "idx": torch.stack([r[0] for r in routes[:L]]),
+            "aux": float(sum(float(a) for a in auxes[:L])), "total": total}
+    engine.close()
+    del engine, before
+    dev_free(dev)
+    return step
+
+
+def epz_gates(t, dev, seed):
+    """E6 and E7's steps on every rank (the same numbers on each: the
+    local buffers' differences summed over the model; the routing
+    agreement over every rank's rows)."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+
+    rows = t["gate_micro"] * comm.get_world_size()
+    tokens = moe_ep_batch(t, seed)["tokens"][:rows]
+    L = t["layers"]
+
+    def run(label, precision, kernels=True):
+        _, mesh, zero = epz_way(label)
+        return epz_gate_step(t, dev, tokens, L, mesh, zero, precision,
+                             kernels)
+
+    def dist(a, b, key):
+        return a["total"]((a[key] - b[key]).square()) ** 0.5
+
+    def metrics(step, ref):
+        """The training rule's metrics (``step_metrics``'s) on the local
+        buffers."""
+        total = step["total"]
+        upd, rupd = step["upd"], ref["upd"]
+        nz = (upd != 0) | (rupd != 0)
+        miss = ((upd > 0) != (rupd > 0)) & nz
+        route = torch.tensor([float((step["idx"] != ref["idx"]).float()
+                                    .mean())], dtype=torch.float64,
+                             device=dev)
+        comm.all_reduce(route, op=comm.ReduceOp.AVG)
+        return {"loss": step["loss"], "grad_norm": step["norm"],
+                "loss_rel": abs(step["loss"] - ref["loss"]) / abs(
+                    ref["loss"]),
+                "norm_rel": abs(step["norm"] - ref["norm"]) / ref["norm"],
+                "grad_rel": dist(step, ref, "grad") / total(
+                    ref["grad"].square()) ** 0.5,
+                "update_rel": dist(step, ref, "upd") / total(
+                    rupd.square()) ** 0.5,
+                "sign_miss": total(miss) / max(total(nz), 1.0),
+                "aux_rel": abs(step["aux"] - ref["aux"]) / abs(ref["aux"]),
+                "route_miss": float(route)}
+
+    res = {}
+    ref32 = run("b_zero2", "fp32")
+    for label in ("c_zero3", "f_hpz_zero3"):
+        res[f"fp32_{label}"] = metrics(run(label, "fp32"), ref32)
+    for label in ("d_zero2_int8_loco", "e_zero3_int8"):
+        plain = run(label, "fp32", kernels=False)
+        kern = run(label, "fp32")
+        res[f"fp32_{label}"] = {
+            "loss_rel": abs(kern["loss"] - plain["loss"]) / abs(
+                plain["loss"]),
+            "grad_dist": dist(kern, plain, "grad"),
+            "update_dist": dist(kern, plain, "upd"),
+            "noise_grad_dist": dist(plain, ref32, "grad"),
+            "noise_update_dist": dist(plain, ref32, "upd"),
+            "against_exact": metrics(kern, ref32)}
+        del plain, kern
+    ref16 = run("b_zero2", "bf16")
+    res["bf16_b_zero2"] = metrics(ref16, ref32)
+    for label in ("c_zero3", "f_hpz_zero3"):
+        b = run(label, "bf16")
+        row = metrics(b, ref32)
+        row["loss_rel_to_zero2"] = abs(b["loss"] - ref16["loss"]) / abs(
+            ref16["loss"])
+        res[f"bf16_{label}"] = row
+        del b
+    del ref32, ref16
+    dev_free(dev)
+    return res
+
+
+def epz_gate_problems(g):
+    out = []
+    for label in ("c_zero3", "f_hpz_zero3"):
+        row = g[f"fp32_{label}"]
+        out += [f"E6 fp32 {label} {m} {row[m]:.3g} > {lim}"
+                for m, lim in MOE_EP_LIMITS.items() if not row[m] <= lim]
+        b, b2 = g[f"bf16_{label}"], g["bf16_b_zero2"]
+        if not b["loss_rel_to_zero2"] <= TRAIN_LOSS_REL:
+            out.append(f"E6 bf16 {label} loss {b['loss_rel_to_zero2']:.3g} "
+                       "from ZeRO-2's")
+        if not b["update_rel"] <= BF16_VS_PLAIN * b2["update_rel"]:
+            out.append(f"E6 bf16 {label} update_rel {b['update_rel']:.3g} >"
+                       f" {BF16_VS_PLAIN} x ZeRO-2's {b2['update_rel']:.3g}")
+    for label in ("d_zero2_int8_loco", "e_zero3_int8"):
+        row = g[f"fp32_{label}"]
+        if not row["loss_rel"] <= TRAIN_LOSS_REL:
+            out.append(f"E7 {label} loss rel {row['loss_rel']:.3g}")
+        for m in ("grad_dist", "update_dist"):
+            if not row[m] <= WIRE_NOISE_SHARE * row[f"noise_{m}"]:
+                out.append(f"E7 {label} {m} {row[m]:.3g} > "
+                           f"{WIRE_NOISE_SHARE} x the wire's noise "
+                           f"{row[f'noise_{m}']:.3g}")
+    return out
+
+
+def train_moe_350m_ep_zero_rank(rank, world, seed, t):
+    """One rank of the phase's first spawn: each way's main path (the
+    counters and traffic to 0 just before the timed step, read just after;
+    E7's wire gate on (d) and (e); a profiled step on rank 0), then the
+    gate steps."""
+    import torch
+
+    dev = torch.device(t["device"])
+    batch = moe_ep_batch(t, seed)
+    out = {"rank": rank, "main": {}}
+    for label, mesh, zero in MOE_EPZ_WAYS:
+        engine, data, run = zeropp_run(dict(t, mesh=mesh), dev, zero, batch)
+        run.update(epz_layout(engine), traffic_want=epz_traffic_want(
+            engine, t), drop_frac_max=float(engine._moe_drop_max),
+            coords=dict(engine.mesh_manager.coords),
+            card_bytes=(torch.cuda.get_device_properties(dev).total_memory
+                        if dev.type == "cuda" else 0))
+        if hasattr(engine, "_zero3"):
+            run["counts"] = dict(engine._zero3.counts)
+        if engine._quant_grads():
+            run["e7_wire"] = wire_gates(engine, batch, dev)
+        run["profile"] = zeropp_profile(engine, data, dev,
+                                        profiled=rank == 0)
+        engine.close()
+        del engine, data
+        dev_free(dev)
+        out["main"][label] = run
+    out["gates"] = epz_gates(t, dev, seed)
+    return out
+
+
+def train_moe_350m_ep_dense_rank(rank, world, seed, t):
+    """One rank of (g): the main path at {expert: 2} with the dense
+    dispatch, a profiled step on rank 0, then E9's fp32 step against the
+    one-process reference ``t["ref"]``."""
+    import torch
+
+    dev = torch.device(t["device"])
+    batch = moe_ep_batch(t, seed)
+    engine, data, run = zeropp_run(t, dev, {"stage": 2}, batch)
+    run.update(epz_layout(engine), traffic_want=epz_traffic_want(engine, t),
+               card_bytes=(torch.cuda.get_device_properties(dev).total_memory
+                           if dev.type == "cuda" else 0))
+    run["profile"] = zeropp_profile(engine, data, dev, profiled=rank == 0)
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    gates = moe_ep_gates(dict(t, seed=seed, zero={"stage": 2}), dev,
+                         t["ref"], bf16=False, ways=("ep32",))
+    return {"rank": rank, "main": run, "gates": gates}
+
+
+def epz_problems(ranks, dense, t):
+    """The parent's checks of both spawns' ranks: the losses, E6-E10, the
+    ZeRO-3 gathers, nothing dropped."""
+    out = []
+    gas = t["gas"]
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        for label, m in r["main"].items():
+            ls = m["losses"]
+            if not all(np.isfinite(ls)):
+                out.append(f"{tag} {label}: losses {ls}")
+            if ls != ranks[0]["main"][label]["losses"]:
+                out.append(f"{tag} {label}: the ranks' losses differ")
+            if m["drop_frac_max"] != 0:
+                out.append(f"{tag} {label}: dropped {m['drop_frac_max']}")
+            if label != "b_zero2":
+                out += epz_traffic_problems(f"{tag} {label}", m["traffic"],
+                                            m["traffic_want"])
+            if "counts" in m:
+                chunks = len(m["group_rows"]) - 1
+                out += [f"{tag} {label}: {p}" for p in zero3_count_problems(
+                    m["counts"], gas, chunks,
+                    "zero_quantized_gradients" in epz_way(label)[2])]
+            if "e7_wire" in m:
+                w = m["e7_wire"]
+                for k in ("q_bitwise_equal", "scales_bitwise_equal",
+                          "reduced_bitwise_equal"):
+                    if not w[k]:
+                        out.append(f"{tag} {label}: E7 {k} false")
+                n_out = w["quant_err_out_of_bound"]
+                if n_out:
+                    out.append(f"{tag} {label}: E7 {n_out} elements past "
+                               "half a step")
+        out += [f"{tag}: {p}" for p in epz_gate_problems(r["gates"])]
+        m2, m3 = r["main"]["b_zero2"], r["main"]["c_zero3"]
+        margin = epz_memory_margin(m2, m3)
+        if m2["card_bytes"] and not m3["peak_memory_bytes"] <= (
+                m2["peak_memory_bytes"]
+                                           - MOE_EPZ_MEMORY_SHARE * margin):
+            out.append(f"{tag}: E10 ZeRO-3 peak {m3['peak_memory_bytes']} "
+                       f"not {MOE_EPZ_MEMORY_SHARE} x {margin} below "
+                       f"ZeRO-2's {m2['peak_memory_bytes']}")
+    for r in dense:
+        tag = f"(g) rank {r['rank']}"
+        m = r["main"]
+        if not all(np.isfinite(m["losses"])):
+            out.append(f"{tag}: losses {m['losses']}")
+        out += epz_traffic_problems(tag, m["traffic"], m["traffic_want"])
+        g = r["gates"]["fp32_one_process"]
+        out += [f"{tag}: E9 {k} {g[k]:.3g} > {lim}"
+                for k, lim in MOE_EP_LIMITS.items() if not g[k] <= lim]
+        if g["kept"] != g["ref_kept"]:
+            out.append(f"{tag}: E9 kept choices {g['kept']}, one process "
+                       f"{g['ref_kept']}")
+    return out
+
+
 # The kernel instantiations the launches reach, as sass_kernel_label names
 # them: (family, "dtype rest").
 # --------------------------------------------------------------------------- #
@@ -2674,8 +3200,12 @@ def moe_ep_problems(ranks, t, label):
 # overlap schedule: its step 2 loss bit-equal to its step 1 loss (both on
 # the initial parameters), its step 3 loss bit-equal to the sync run's
 # step 2 loss.
+# the main path runs at most max_layers of llama2_7b's 32 layers (the
+# most the host's memory held, 20-21, before the expert-axis phase
+# train_moe_350m_ep_zero came: the cut that keeps the whole script within
+# its time)
 SUPER = dict(model="llama2_7b", micro=2, seq=2048, gas=4, overlap_steps=3,
-             sync_steps=2, gate_layers=4, gate_micro=1, max_layers=None)
+             sync_steps=2, gate_layers=4, gate_micro=1, max_layers=4)
 SUPER_ZERO = {"stage": 1, "super_offload": True}
 SUPER_HOST_SYNC = {"stage": 1, "offload_optimizer": {
     "device": "cpu", "host_step": True, "overlap_step": False}}
@@ -2705,8 +3235,11 @@ S0_P_SHARE = 1e-4
 # rule's kernels-vs-plain step at OFFLOAD["gate_layers"] layers; (d)
 # ZeRO-3 at world 1 (one spawned rank) with offload_param cpu and nvme at
 # OFFLOAD["param_layers"] layers, bit-equal to the run without it.
+# (a)-(c) run OFFLOAD["layers"] of llama_750m's 20 layers (all 20 before
+# the expert-axis phase train_moe_350m_ep_zero came: the cut that keeps
+# the whole script within its time)
 OFFLOAD = dict(model="llama_750m", micro=4, seq=2048, gas=4, steps=2,
-               gate_layers=4, gate_micro=1, param_layers=4)
+               gate_layers=4, gate_micro=1, param_layers=4, layers=8)
 # (d) at world 1 runs JAX's in-step streaming mode (the master in pinned
 # host memory through the step, streamed a chunk at a time); the int8
 # wire, which needs two ranks, keeps the boundary swap: ZeRO-3 + qgZ + qwZ
@@ -4988,7 +5521,7 @@ class Smoke:
             return loss, time.perf_counter() - t0
 
         try:
-            # ---- C1 / C2: one process, full width and depth ------------ #
+            # ---- C1 / C2: one process, full width, CKPT["layers"] ------- #
             c1 = os.path.join(root, "c1")
             c2 = os.path.join(root, "c2")
             eng = build(self.seed)
@@ -5372,7 +5905,8 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = dict(ZEROPP, steps=ZEROPP_STEPS)
+        t = dict(ZEROPP, steps=ZEROPP_STEPS, gas=ZEROPP_GAS,
+                 gate_layers=ZEROPP_GATE_LAYERS)
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"])
         t0 = time.perf_counter()
@@ -5896,6 +6430,137 @@ class Smoke:
             for k, v in results.items()}
         torch.cuda.empty_cache()
 
+    def phase_train_moe_350m_ep_zero(self):
+        """The expert axis on every engine (MOE_EPZ, MOE_EPZ_WAYS,
+        MOE_EPZ_DENSE): (g)'s one-process dense reference first, then
+        the four ranks' ways (b)-(f) with their gates, then (g)'s two
+        ranks; E6-E10, the launches, step ms, tokens/s, MFU by active
+        parameters, peak a rank, the idle share of rank 0."""
+        torch = self.torch
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        dev_free(self.dev)
+        t = dict(MOE_EPZ)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_epz_")
+        walls = {}
+        try:
+            ref = moe_ep_reference(MOE_EPZ_DENSE, self.dev, self.seed,
+                                   os.path.join(tmp, "g"), plain_bf16=False)
+            t0 = time.perf_counter()
+            ranks = spawn_ranks("train_moe_350m_ep_zero_rank", t["world"],
+                                self.seed, dict(t, device=str(self.dev)))
+            walls["b-f"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dense = spawn_ranks("train_moe_350m_ep_dense_rank",
+                                MOE_EPZ_DENSE["world"], self.seed,
+                                dict(MOE_EPZ_DENSE, device=str(self.dev),
+                                     ref=ref))
+            walls["g"] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        problems = epz_problems(ranks, dense, t)
+        cfg = T.get_model_config(t["model"], num_layers=t["layers"])
+        L = cfg.num_layers
+        n_w = 3 if cfg.activation == "swiglu" else 2
+        runs = {label: [r["main"][label] for r in ranks]
+                for label, _, _ in MOE_EPZ_WAYS}
+        runs["g_dense"] = [r["main"] for r in dense]
+        results = {}
+        for label, per_rank in runs.items():
+            world = len(per_rank)
+            r0 = per_rank[0]
+            want = moe_ep_launches_want(L, t["gas"], t["steps"], n_w,
+                                        r0["adam_per_step"])
+            if label == "g_dense":
+                want.update(gmm=0, tgmm=0)
+            int8 = label in ("d_zero2_int8_loco", "e_zero3_int8")
+            for i, m in enumerate(per_rank):
+                for k, v in want.items():
+                    got = m["launches"][k]
+                    if k in ("quant_int8", "dequant_reduce") and int8:
+                        bad = got < 1
+                    else:
+                        bad = got != v
+                    if bad:
+                        problems.append(f"{label} rank {i}: {k} launched "
+                                        f"{got} times, want "
+                                        f"{'> 0' if int8 else v}")
+            tokens = t["micro"] * t["seq"] * t["gas"] * world
+            flops = flops_per_token(cfg, t["seq"]) * tokens
+            step_s = r0["step_ms"] / 1e3
+            peaks = [m["peak_memory_bytes"] for m in per_rank]
+            if sum(peaks) > r0["card_bytes"]:
+                problems.append(f"{label}: the ranks' peaks {sum(peaks)} "
+                                f"past the card's {r0['card_bytes']}")
+            mesh = (MOE_EPZ_DENSE["mesh"] if label == "g_dense"
+                    else epz_way(label)[1])
+            prof = r0["profile"]
+            results[label] = {
+                "mesh": mesh, "world": world,
+                "zero": ({"stage": 2} if label == "g_dense"
+                         else epz_way(label)[2]),
+                "wire": r0["wire"], "step_ms": r0["step_ms"],
+                "step_ms_per_rank": [m["step_ms"] for m in per_rank],
+                "tokens_per_s": tokens / step_s,
+                "model_tflops_per_s": flops / step_s / 1e12,
+                "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+                "peak_memory_bytes_per_rank": peaks,
+                "device_idle_share_rank0": prof.get("device_idle_share",
+                                                    "not measured"),
+                "profile_rank0": prof, "losses_rank0": r0["losses"],
+                "local_experts": r0["local_experts"],
+                "n_sharded": r0["n_sharded"],
+                "n_replicated": r0["n_replicated"],
+                "launches_rank0": r0["launches"],
+                "launches_want_per_rank": want,
+                "traffic_rank0": r0["traffic"],
+                "traffic_want_rank0": r0["traffic_want"],
+                "wire_host_s_by_group_per_step": {
+                    g: v / t["steps"] for g, v in
+                    hpz_wire_seconds(r0["traffic"]).items()}}
+            if "e7_wire" in r0:
+                results[label]["e7_wire"] = [m["e7_wire"] for m in per_rank]
+            name = f"train_moe_350m_ep_zero/{label}"
+            for k, v in want.items():
+                if v or (int8 and k in ("quant_int8", "dequant_reduce")):
+                    self.launches.setdefault(k, {})[name] = \
+                        r0["launches"][k]
+            self.steps[name] = t["steps"]
+        m2, m3 = runs["b_zero2"][0], runs["c_zero3"][0]
+        margin = epz_memory_margin(m2, m3)
+        emit("train_moe_350m_ep_zero", model=t["model"], layers=L,
+             reduced=f"{L} of {T.get_model_config(t['model']).num_layers} "
+                     "layers, for the script's time",
+             micro=t["micro"], seq=t["seq"], gas=t["gas"], steps=t["steps"],
+             params=cfg.num_params(), active_params=active_params(cfg),
+             phase_wall_s=walls, card=self.card,
+             wire_note="gloo through host memory, the ranks sharing one "
+                       "card: the wires' time, not NVLink's",
+             e10={"peak_zero3": m3["peak_memory_bytes"],
+                  "peak_zero2": m2["peak_memory_bytes"],
+                  "reckoned_margin": margin,
+                  "gate": MOE_EPZ_MEMORY_SHARE * margin},
+             **results)
+        emit("train_moe_350m_ep_zero/gates", card=self.card,
+             gate_depth=f"{L} layers, full width, gate_micro "
+                        f"{t['gate_micro']}, gas 1",
+             e6_e7=[r["gates"] for r in ranks],
+             e9=[r["gates"] for r in dense],
+             bounds={"training_rule": MOE_EP_LIMITS,
+                     "bf16_vs_zero2": BF16_VS_PLAIN,
+                     "wire_noise_share": WIRE_NOISE_SHARE,
+                     "memory_share": MOE_EPZ_MEMORY_SHARE})
+        if problems:
+            raise AssertionError("train_moe_350m_ep_zero: "
+                                 + "; ".join(problems))
+        self.state["moe_ep_zero"] = {
+            k: {"step_ms": v["step_ms"], "tokens_per_s": v["tokens_per_s"],
+                "mfu": v["mfu"], "idle": v["device_idle_share_rank0"]}
+            for k, v in results.items()}
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ #
     # offload
     # ------------------------------------------------------------------ #
@@ -6165,7 +6830,8 @@ class Smoke:
         if facts["disk_free_bytes"] < NVME_MIN_FREE:
             raise RuntimeError(f"{path}: {facts['disk_free_bytes']} bytes "
                                f"free, the NVMe runs need {NVME_MIN_FREE}")
-        cfg = T.get_model_config(t["model"])
+        cfg = T.get_model_config(t["model"], **(
+            {"num_layers": t["layers"]} if t.get("layers") else {}))
         L = cfg.num_layers
         rng = np.random.default_rng(self.seed)
         batch = {"tokens": rng.integers(0, cfg.vocab_size,
@@ -6181,7 +6847,8 @@ class Smoke:
                  nvme_swap_times),
                 ("c_zenflow", {"stage": 1, "zenflow": ZENFLOW}, None)):
             engine, res = offload_run(
-                t, self.dev, zero, batch, after_step=check,
+                t, self.dev, zero, batch, layers=t.get("layers"),
+                after_step=check,
                 ref=ref if run in ("a_cpu", "b_nvme") else None)
             if run == "none":
                 ref = res.pop("_master")
@@ -6275,8 +6942,9 @@ class Smoke:
                                     f"{max(r['fb_peak_bytes'][1:])} not "
                                     f"below no offload's {none_peak}")
         tokens = t["micro"] * t["seq"] * t["gas"]
-        result = {"model": t["model"], "micro": t["micro"], "seq": t["seq"],
-                  "gas": t["gas"], "steps": t["steps"], "nvme_path": path,
+        result = {"model": t["model"], "layers": L, "micro": t["micro"],
+                  "seq": t["seq"], "gas": t["gas"], "steps": t["steps"],
+                  "nvme_path": path,
                   "disk_free_bytes": facts["disk_free_bytes"],
                   "zenflow": ZENFLOW, "runs": runs,
                   "tokens_per_s": {k: tokens / (r["step_ms"] / 1e3)

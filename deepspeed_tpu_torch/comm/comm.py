@@ -535,38 +535,40 @@ def all_gather_op(group=None):
     return op
 
 
-def reduce_scatter_op(group=None, replica_group=None, replicas=False):
+def _hops(out: torch.Tensor, hops) -> None:
+    """The replica hops of a reduced row ``out``: each ``(group, lo,
+    hi)`` sums ``out[lo:hi]`` over ``group`` in place (exact), in order
+    (hpZ's ``data`` hop; under an expert axis the dense leaves' and the
+    expert leaves' parts over their own replicas)."""
+    for group, lo, hi in hops:
+        part = out[lo:hi]
+        with _traffic(group, "all_reduce", part):
+            if get_world_size(group) > 1:
+                dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+
+
+def reduce_scatter_op(group=None, hops=()):
     """``CommQueue`` op: ``outs[0]`` [n] ← this rank's chunk of the sum of
-    every rank's ``ins[0]`` [world × n] over ``group``; with ``replicas``
-    (hpZ) that chunk then summed over ``replica_group`` too (the second
-    hop, exact)."""
+    every rank's ``ins[0]`` [world × n] over ``group``, then summed over
+    each of ``hops`` (:func:`_hops`)."""
     def op(outs, ins):
         with _traffic(group, "reduce_scatter", ins[0]):
             _reduce_scatter_flat(outs[0].view(-1), ins[0].reshape(-1),
                                  op=dist.ReduceOp.SUM, group=group)
-        if replicas:
-            with _traffic(replica_group, "all_reduce", outs[0]):
-                if get_world_size(replica_group) > 1:
-                    dist.all_reduce(outs[0], op=dist.ReduceOp.SUM,
-                                    group=replica_group)
+        _hops(outs[0].view(-1), hops)
     return op
 
 
-def all_reduce_row_op(row: int, group=None, replica_group=None,
-                      replicas=False):
+def all_reduce_row_op(row: int, group=None, hops=()):
     """``CommQueue`` op: ``outs[0]`` [n] ← row ``row`` of the sum of every
     rank's ``ins[0]`` [world × n] over ``group`` (the exact stage-1
-    reduce: every rank sums everything and keeps its shard); with
-    ``replicas`` (hpZ) that row then summed over ``replica_group`` too.
-    ``ins[0]`` is summed in place."""
+    reduce: every rank sums everything and keeps its shard), then summed
+    over each of ``hops`` (:func:`_hops`). ``ins[0]`` is summed in
+    place."""
     def op(outs, ins):
         with _traffic(group, "all_reduce", ins[0]):
             if get_world_size(group) > 1:
                 dist.all_reduce(ins[0], op=dist.ReduceOp.SUM, group=group)
         outs[0].copy_(ins[0][row])
-        if replicas:
-            with _traffic(replica_group, "all_reduce", outs[0]):
-                if get_world_size(replica_group) > 1:
-                    dist.all_reduce(outs[0], op=dist.ReduceOp.SUM,
-                                    group=replica_group)
+        _hops(outs[0].view(-1), hops)
     return op

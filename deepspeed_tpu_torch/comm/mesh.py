@@ -18,9 +18,12 @@ set of axes (:meth:`MeshManager.group`), each built by
 ``torch.distributed.new_group`` on every rank in the same order, as gloo
 requires: under hpZ / MiCS (``zshard`` above 1) the ``zshard`` group (where
 ZeRO state is sharded) and the ``data`` group (its replicas); under an
-``expert`` axis the ``expert`` group and the ``(data, zshard)`` group (the
-replicas of an expert shard, JAX's ``EXPERT_GRAD_REDUCE_AXES``, where ZeRO
-shards). A group that spans every process is the default group (None).
+``expert`` axis the ``expert`` group and, without hpZ, the ``(data,
+zshard)`` group (the replicas of an expert shard, JAX's
+``EXPERT_GRAD_REDUCE_AXES``, where ZeRO shards), with it the ``(data,
+expert)`` group (the dense leaves' replica hop, JAX's ZeRO axes being
+``zshard`` alone then). A group that spans every process is the default
+group (None).
 
 The MoE layer's collectives (the expert all-to-alls, the global aux loss's
 mean, the dense gate's counts) run in the forward and backward on the
@@ -119,7 +122,7 @@ class MeshManager:
         """This rank's process group over ``axes``: None when it holds
         every process (the default group), else the group built for it
         (``zshard`` and ``data`` under hpZ; ``expert`` and ``(data,
-        zshard)`` under an expert axis)."""
+        zshard)`` under an expert axis, ``(data, expert)`` under both)."""
         ranks = self.group_ranks(axes)
         if len(ranks) == self.world_size:
             return None
@@ -234,32 +237,46 @@ def _axis_groups(sizes: Dict[str, int]
                  ) -> Tuple[Dict[Tuple[int, ...], Any],
                             Dict[Tuple[int, ...], Any]]:
     """The engine's and the MoE layer's process groups of a mesh, built on
-    this rank (each rank takes part in building all of them): under hpZ
-    the ``zshard`` then the ``data`` groups; under an expert axis the
-    ``expert`` then the ``(data, zshard)`` groups; for the MoE layer, at
-    more than one process, the batch group and the ``expert`` groups."""
+    this rank (each rank takes part in building all of them, in this
+    order): under hpZ the ``zshard`` then the ``data`` groups; under an
+    expert axis the ``expert`` groups, then the ``(data, zshard)`` groups
+    (the shard group) without hpZ, or the ``(data, expert)`` groups (the
+    dense leaves' replica hop, where ``data`` is above 1) with it; for the
+    MoE layer, at more than one process, the batch group, and under an
+    expert axis the ``expert`` groups and, where ``data`` × ``zshard`` is
+    above 1, the batch group over ``expert`` (the int8 wire's manual step
+    leaves only that batch axis to the layer)."""
     world = int(np.prod(list(sizes.values())))
     groups: Dict[Tuple[int, ...], Any] = {}
     moe: Dict[Tuple[int, ...], Any] = {}
     if world <= 1:
         return groups, moe
-    if sizes[ZSHARD_AXIS] > 1:
+    D, Z, X = sizes[DATA_AXIS], sizes[ZSHARD_AXIS], sizes[EXPERT_AXIS]
+    if Z > 1:
         groups.update(_build("axis", sizes, (ZSHARD_AXIS,), "zshard", False))
         groups.update(_build("axis", sizes, (DATA_AXIS,), "data", False))
-    if sizes[EXPERT_AXIS] > 1:
+    if X > 1:
         groups.update(_build("axis", sizes, (EXPERT_AXIS,), "expert", False))
-        groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS), "data",
-                             False))
+        if Z == 1:
+            groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
+                                 "data", False))
+        elif D > 1:
+            groups.update(_build("axis", sizes, (DATA_AXIS, EXPERT_AXIS),
+                                 "data_expert", False))
     moe.update(_build("moe", sizes, BATCH_AXES, "batch", True))
-    if sizes[EXPERT_AXIS] > 1:
+    if X > 1:
         moe.update(_build("moe", sizes, (EXPERT_AXIS,), "expert", True))
+        if D * Z > 1:
+            # the batch axes left inside the int8 wire's manual step
+            moe.update(_build("moe", sizes, (EXPERT_AXIS,), "batch", True))
     return groups, moe
 
 
 def group_label(group) -> str:
     """``world`` for the default group (None), else the axes a group runs
-    over (``zshard``, ``data``, ``expert``; ``batch`` for the MoE layer's
-    group over the batch axes); ``other`` for a group of none."""
+    over (``zshard``, ``data``, ``expert``, ``data_expert``; ``batch`` for
+    the MoE layer's group over the batch axes); ``other`` for a group of
+    none."""
     if group is None:
         return "world"
     for g, label in _LABELS:

@@ -4,9 +4,11 @@
   loss, and the index-form gate of the dropless dispatch.
 * :mod:`layer` — the dropless ragged dispatch (counting sort, grouped
   GEMMs of ``ops/grouped_gemm.py``, gather-only combine; the fixed-capacity
-  all-to-all under expert parallelism) and the dense GShard dispatch.
+  all-to-all under expert parallelism) and the dense GShard dispatch (its
+  [E, C, H] buffers by all-to-all across the experts under expert
+  parallelism).
 * :mod:`presets`, :mod:`auto_ep` — AutoEP's model-family presets,
-  topology math and planning.
+  topology math, planning and ``auto_ep`` of a model spec.
 
 Model integration: ``n_experts > 0`` on a ``TransformerConfig`` (the
 ``tiny_moe`` and ``moe_350m`` presets).

@@ -7,8 +7,9 @@ device count that also divides the expert count, capped by ``max_ep``; the
 rest of the width is expert-data parallelism). Here the "devices" are the
 processes of the default process group.
 
-``auto_ep`` (:125) imports the model through the HF importer
-(``models/hf_import.py``), a later slice: it raises
+``auto_ep`` (:125) for a zoo ``ModelSpec``: the spec, its mesh section
+and the plan. An HF model needs the HF importer (``models/hf_import.py``)
+and ``etp_size`` above 1 the ``tensor`` axis, later slices: both raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 from deepspeed_tpu_torch.moe.presets import (EPTopology,
                                              preset_for_model_type,
                                              resolve_preset)
-from deepspeed_tpu_torch.runtime.config_utils import later_slice
+from deepspeed_tpu_torch.runtime.config_utils import later_slice, logger
 
 # Generic HF config attribute names marking MoE archs (the fallback when no
 # preset matches the model_type)
@@ -112,7 +113,27 @@ def plan_ep(config: Any, n_devices: Optional[int] = None,
 def auto_ep(model_or_spec, n_devices: Optional[int] = None,
             max_ep: Optional[int] = None, etp_size: int = 1,
             **spec_kwargs) -> Tuple[Any, Dict[str, int], EPPlan]:
-    """JAX's detect + plan + inject (:125): it imports the model through
-    the HF importer (``models/hf_import.py``), a later slice."""
-    raise later_slice("auto_ep (it imports the model through "
-                      "models/hf_import.py)")
+    """Detect + plan (JAX :125) for a zoo ``ModelSpec`` → (model_spec,
+    mesh_section, plan); pass ``config={'mesh': mesh_section, ...}`` to
+    ``initialize``. ``spec_kwargs`` belong to the HF importer (JAX
+    ignores them for a spec). An HF model goes through the HF importer
+    (``models/hf_import.py``, queue A.8) and ``etp_size`` above 1 needs
+    the ``tensor`` mesh axis (queue A.4): both raise
+    ``NotImplementedError``, a later slice."""
+    from deepspeed_tpu_torch.models.api import ModelSpec
+
+    if not isinstance(model_or_spec, ModelSpec):
+        raise later_slice("auto_ep of an HF model (it imports the model "
+                          "through models/hf_import.py, queue A.8)")
+    if etp_size > 1:
+        raise later_slice(f"auto_ep with etp_size={etp_size} (expert tensor "
+                          "parallelism needs the 'tensor' mesh axis, queue "
+                          "A.4)")
+    spec = model_or_spec
+    plan = plan_ep(spec.config, n_devices=n_devices, max_ep=max_ep,
+                   etp_size=etp_size)
+    logger.info(plan.describe())
+    mesh_section: Dict[str, int] = {}
+    if plan.enabled:
+        mesh_section["expert"] = plan.ep_size
+    return spec, mesh_section, plan

@@ -52,8 +52,14 @@ every rank. Over a sharded batch the gate is JAX's global one: C from the
 global token count and each choice's locations after the earlier ranks'
 (an all-gather of the [k, E] counts); a slot is filled by at most one
 token, so each rank's buffer holds only its own tokens and the expert FFN,
-row by row, needs no other rank's. The dense dispatch under an ``expert``
-axis raises ``NotImplementedError`` (a later slice).
+row by row, needs no other rank's. Under an ``expert`` axis of X ranks
+each rank holds E/X experts: its [E, C, H] buffer goes by all-to-all to
+the experts' ranks of its expert group, which sum the senders' slices
+(a slot holds at most one token) and run their experts over all C slots;
+the outputs come back by a second all-to-all (JAX's ``_expert_constraint``
+resharding of the buffers onto ``expert``). A rank sees only its expert
+group's tokens in the buffer, which are the only rows its tokens' combine
+reads, so no ``data`` or ``zshard`` collective is needed.
 
 Casts follow the JAX package: router logits in fp32 from fp32 upcasts,
 expert weights cast to the compute dtype before the GEMMs, combine weights
@@ -80,7 +86,6 @@ from deepspeed_tpu_torch.moe.gating import (
     topk_gating_indices,
 )
 from deepspeed_tpu_torch.ops import grouped_gemm as GG
-from deepspeed_tpu_torch.runtime.config_utils import later_slice
 
 # the installed observer of the expert-parallel buffers' dropped choices
 # (None: nothing is counted, no collective runs for it)
@@ -554,14 +559,18 @@ def _dense_routed(xt: torch.Tensor, gate_w: torch.Tensor,
     gate."""
     T, E = xt.shape[0], gate_w.shape[1]
     logits = xt.float() @ gate_w.float()
-    global_counts = aux_fn = None
+    global_counts = aux_fn = expert_group = None
     W = r = 0
+    ep = 1
     if plan is not None:
         batch_axes, ep = plan
-        if ep > 1:
-            raise later_slice("the dense MoE dispatch under an 'expert' "
-                              "mesh axis")
         mm = _mesh()
+        if ep > 1:
+            if experts["w_up"].shape[0] != E // ep:
+                raise ValueError(
+                    f"expert axis {ep}: each rank holds {E // ep} of the "
+                    f"{E} experts, got {experts['w_up'].shape[0]}")
+            expert_group = mm.moe_group((mesh_mod.EXPERT_AXIS,), "expert")
         group = mm.moe_group(batch_axes, "batch")
         ranks = mm.group_ranks(batch_axes)
         W, r = len(ranks), ranks.index(mm.rank)
@@ -588,14 +597,44 @@ def _dense_routed(xt: torch.Tensor, gate_w: torch.Tensor,
         n_group=n_group, topk_group=topk_group, global_counts=global_counts,
         noise=noise, aux_fn=aux_fn)
     dt = xt.dtype
-    xe = torch.einsum("tec,th->ech", gate.dispatch.to(dt), xt)
+    with record_function("moe_dispatch"):
+        xe = torch.einsum("tec,th->ech", gate.dispatch.to(dt), xt)
+        if ep > 1:
+            xe = _to_experts(xe, ep, expert_group)
     up = torch.einsum("ech,ehf->ecf", xe, experts["w_up"].to(dt))
     g = (torch.einsum("ech,ehf->ecf", xe, experts["w_gate"].to(dt))
          if "w_gate" in experts else None)
     act = _expert_act(up, g, activation)
     ye = torch.einsum("ecf,efh->ech", act, experts["w_down"].to(dt))
-    y = torch.einsum("tec,ech->th", gate.combine.to(dt), ye)
+    with record_function("moe_combine"):
+        if ep > 1:
+            ye = _from_experts(ye, ep, expert_group)
+        y = torch.einsum("tec,ech->th", gate.combine.to(dt), ye)
     return y, gate.aux_loss
+
+
+def _to_experts(xe: torch.Tensor, ep: int, group) -> torch.Tensor:
+    """The dense dispatch's [E, C, H] buffer of this rank's tokens (each
+    in its global slot, the other slots zero) → its expert group's
+    buffer of this rank's E/X experts [E/X, C, H]: the expert slices by
+    all-to-all over the MoE layer's expert group, summed over the
+    senders. A slot holds at most one token, so the sum is that token's
+    row, exactly: JAX's ``_expert_constraint`` resharding of the buffer
+    onto ``expert`` (``moe/layer.py:83``), for the slots of this rank's
+    expert group (the only slots its tokens' combine reads)."""
+    E, C, H = xe.shape
+    recv = comm.all_to_all_autograd(xe.reshape(ep, E // ep, C, H), group)
+    return recv.sum(dim=0)
+
+
+def _from_experts(ye: torch.Tensor, ep: int, group) -> torch.Tensor:
+    """This rank's experts' outputs [E/X, C, H] → every expert's [E, C,
+    H] on each rank of the expert group: the slice sent to each rank by
+    all-to-all (an all-gather whose backward sums each rank's gradient
+    of the slice: the all-to-all's transpose, then the expand's sum)."""
+    E_l, C, H = ye.shape
+    send = ye.unsqueeze(0).expand(ep, E_l, C, H)
+    return comm.all_to_all_autograd(send, group).reshape(ep * E_l, C, H)
 
 
 def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor,

@@ -64,6 +64,14 @@ so every gather runs there, with rows ``[Z, n_row]``, and never on the
 ``data`` group; the exact wire's per-chunk reduce takes both hops in one
 queued op (the reduce-scatter over ``zshard``, then the all-reduce of the
 rank's piece over ``data``), then ÷ the whole world.
+
+Under an ``expert`` axis a group's expert pieces (this rank's E/X experts
+of each expert leaf) come after its dense ones, from ``n_dense`` on: they
+are gathered over the shard group with the dense ones, by the same
+chunks, and a reduce's second hop runs in two parts (the dense part over
+the engine's dense replica group, the expert part over its expert
+leaves' replica group, ``engine.hops``). The int8 wire quantizes the
+expert pieces in JAX's blocks (:class:`ExpertRows`).
 """
 from __future__ import annotations
 
@@ -120,13 +128,19 @@ class Group:
     n_row: int                           # the packed row, block multiple
     layers: Optional[Tuple[int, int]]    # a chunk's layers; None: head
     identity: bool                       # the row IS the local shard
+    n_dense: int                         # the dense pieces' part of the
+    #                                      row (the expert pieces after)
 
 
-def make_group(items, layers=None) -> Group:
+def make_group(items, layers=None, expert=frozenset()) -> Group:
     """A group of ``(shard, layers or None)`` items, each piece padded to
-    the quantization block in the packed row."""
-    pieces, off = [], 0
+    the quantization block in the packed row; the pieces of the leaves in
+    ``expert`` (paths) after the others, from ``n_dense`` on."""
+    items = sorted(items, key=lambda it: it[0].slot.path in expert)
+    pieces, off, n_dense = [], 0, None
     for sh, lay in items:
+        if n_dense is None and sh.slot.path in expert:
+            n_dense = off
         if sh.dim is None:
             n = 0
         elif lay is None:
@@ -138,7 +152,8 @@ def make_group(items, layers=None) -> Group:
     identity = layers is None and all(
         p.n == 0 or (p.layers is None and p.offset == p.shard.offset)
         for p in pieces)
-    return Group(tuple(pieces), off, layers, identity)
+    return Group(tuple(pieces), off, layers, identity,
+                 off if n_dense is None else n_dense)
 
 
 def chunked_shards(shards) -> List[Any]:
@@ -147,18 +162,116 @@ def chunked_shards(shards) -> List[Any]:
     return [sh for sh in shards if sh.slot.path[0] == BLOCKS and sh.dim != 0]
 
 
-def gather_groups(shards, chunk_bounds) -> List[Group]:
+def gather_groups(shards, chunk_bounds, expert=frozenset()) -> List[Group]:
     """No bounds: one group, every leaf whole (its packed row is the
-    sharded region of the local buffer). Bounds: the head group, then one
-    group a chunk."""
+    sharded region of the local buffer, whose expert leaves lie after the
+    dense ones too). Bounds: the head group, then one group a chunk. Each
+    group's expert pieces (``expert``: their paths) after its dense
+    ones."""
     bounds = [tuple(b) for b in chunk_bounds]
     if not bounds:
-        return [make_group([(sh, None) for sh in shards])]
+        return [make_group([(sh, None) for sh in shards], expert=expert)]
     chunked = chunked_shards(shards)
     head = [(sh, None) for sh in shards
             if not any(sh is c for c in chunked)]
-    return [make_group(head)] + [make_group([(sh, b) for sh in chunked], b)
-                                 for b in bounds]
+    return [make_group(head, expert=expert)] + [
+        make_group([(sh, b) for sh in chunked], b, expert)
+        for b in bounds]
+
+
+class ExpertRows:
+    """The int8 wire's blocks of a packed row's expert pieces under an
+    ``expert`` axis of X ranks. JAX's int8 step is manual over ``data``
+    and ``zshard`` only, so it quantizes an expert leaf's piece with every
+    expert in it (``moveaxis(shard, dim, 0)`` of the leaf whose ``expert``
+    dim is whole), in blocks that span experts held on other ranks. A
+    rank holds its E/X experts: before quantizing, the expert pieces
+    ``[n_dense, n_row)`` of a row (each padded to the block) are
+    all-gathered over the expert group and laid out as JAX's (each piece
+    with every expert, padded to the block: :meth:`to_global`); after
+    the wire, this rank's experts are taken back (:meth:`to_local`). The
+    dense pieces never leave the row.
+
+    ``src[j]``: where global position j comes from in the gathered
+    ``[X · n_local]`` (expert-coordinate major), ``X · n_local`` (a zero)
+    for a pad; ``own[i]``: where local position i lies in the global
+    part, ``n_global`` (a zero) for a pad."""
+
+    def __init__(self, group: Group, expert_dims: Dict[Tuple[str, ...], int],
+                 world: int, X: int, x: int, device):
+        self.n_dense, self.X = group.n_dense, X
+        self.n_local = group.n_row - group.n_dense
+        #: each expert piece's (offset, length) in the global part
+        self.spans: Dict[Tuple[str, ...], Tuple[int, int]] = {}
+        src, own, g_off = [], [], 0
+        for p in group.pieces:
+            if not p.n or p.path not in expert_dims:
+                continue
+            lo = p.offset - group.n_dense
+            local = p.moved(world)[1:]
+            edim, dim = expert_dims[p.path], p.shard.dim
+            ax = edim if edim < dim else edim - 1
+            glob = list(local)
+            glob[1 + ax] *= X
+            # each expert coordinate's elements in the global piece
+            pos = torch.arange(p.n * X).view(glob).split(local[1 + ax],
+                                                          dim=1 + ax)
+            n_pad = _pad(p.n * X)
+            piece_src = torch.full((n_pad,), X * self.n_local,
+                                   dtype=torch.long)
+            for xx in range(X):
+                piece_src[pos[xx].reshape(-1)] = (xx * self.n_local + lo
+                                                  + torch.arange(p.n))
+            src.append(piece_src)
+            own.append((lo, g_off + pos[x].reshape(-1)))
+            self.spans[p.path] = (g_off, p.n * X)
+            g_off += n_pad
+        self.n_global = g_off
+        self.src = (torch.cat(src) if src
+                    else torch.zeros(0, dtype=torch.long)).to(device)
+        own_idx = torch.full((self.n_local,), g_off, dtype=torch.long)
+        for lo, positions in own:
+            own_idx[lo:lo + positions.numel()] = positions
+        self.own = own_idx.to(device)
+
+    def to_global(self, rows: torch.Tensor, group) -> torch.Tensor:
+        """A row's expert part ``[..., n_local]`` (this rank's experts) →
+        ``[..., n_global]``, every expert of the expert group (``group``)
+        in JAX's layout (an all-gather over it)."""
+        lead = tuple(rows.shape[:-1])
+        gathered = comm.all_gather(rows.contiguous(), group, tiled=False)
+        flat = torch.movedim(gathered, 0, -2).reshape(
+            lead + (self.X * self.n_local,))
+        flat = torch.nn.functional.pad(flat, (0, 1))
+        return flat.index_select(-1, self.src)
+
+    def to_local(self, rows: torch.Tensor) -> torch.Tensor:
+        """``[..., n_global]`` → this rank's experts ``[..., n_local]``
+        (its pads zero)."""
+        return torch.nn.functional.pad(rows, (0, 1)).index_select(
+            -1, self.own)
+
+
+def to_wire(engine, group: Group, row: torch.Tensor) -> torch.Tensor:
+    """A packed row [..., n_row] as the int8 wire quantizes it: unchanged
+    without an expert axis, else its expert pieces in JAX's layout
+    (:class:`ExpertRows`)."""
+    ex = engine.expert_rows(group)
+    if ex is None:
+        return row
+    return torch.cat([row[..., :ex.n_dense],
+                      ex.to_global(row[..., ex.n_dense:],
+                                   engine.expert_group)], dim=-1)
+
+
+def from_wire(engine, group: Group, rows: torch.Tensor) -> torch.Tensor:
+    """Rows [..., n_wire] in the wire's layout → [..., n_row] (this
+    rank's experts)."""
+    ex = engine.expert_rows(group)
+    if ex is None:
+        return rows
+    return torch.cat([rows[..., :ex.n_dense],
+                      ex.to_local(rows[..., ex.n_dense:])], dim=-1)
 
 
 def pack(group: Group, engine, src: torch.Tensor,
@@ -204,6 +317,10 @@ def gather_group(group: Group, engine, src: torch.Tensor, quant: bool,
     dequantize into) or the exact gather of the compute-dtype shard."""
     send = pack(group, engine, src)
     if quant:
+        if engine.expert_rows(group) is not None:
+            rows = C._q_allgather(to_wire(engine, group, send),
+                                  engine.shard_group, engine.shard_world)
+            return from_wire(engine, group, rows)
         return C._q_allgather(send, engine.shard_group, engine.shard_world,
                               out=out)
     return C.gather_rows(send, engine.shard_group, engine.shard_world,
@@ -247,7 +364,8 @@ class Stage3Params(ParamHook):
         bounds = [tuple(b) for b in chunk_bounds] or (
             [(0, engine.model_spec.config.num_layers)] if engine._hooked
             else [])
-        self.groups = gather_groups(engine._shards, bounds)
+        self.groups = gather_groups(engine._shards, bounds,
+                                    frozenset(engine._expert_dims))
         self.chunk_of = {l: c for c, (s, e) in enumerate(bounds, start=1)
                          for l in range(s, e)}
         self.prefetch = prefetch
@@ -278,7 +396,8 @@ class Stage3Params(ParamHook):
         W, e = self.e.shard_world, self.e
         with torch.no_grad(), telemetry.span("zero3_gather_issue"):
             if e._quant_weights():
-                q, s = C.quantize_int8(pack(g, e, e.flat_master),
+                q, s = C.quantize_int8(to_wire(e, g, pack(g, e,
+                                                          e.flat_master)),
                                        DEFAULT_BLOCK)
                 outs = [torch.empty((W,) + tuple(q.shape), dtype=q.dtype,
                                     device=q.device),
@@ -313,8 +432,9 @@ class Stage3Params(ParamHook):
         with telemetry.span("zero3_gather_unpack"):
             if e._quant_weights():
                 qg, sg = outs
-                rows = C.dequant_reduce(qg.view(1, -1), sg.view(1, -1),
-                                        DEFAULT_BLOCK).view(e.shard_world, -1)
+                rows = from_wire(e, g, C.dequant_reduce(
+                    qg.view(1, -1), sg.view(1, -1),
+                    DEFAULT_BLOCK).view(e.shard_world, -1))
             else:
                 rows = outs[0]
             full = {}
@@ -430,8 +550,8 @@ class Stage3Params(ParamHook):
                 mine = torch.empty(g.n_row, dtype=torch.float32,
                                    device=e.device)
                 handle = self.queue.submit(
-                    comm.reduce_scatter_op(e.shard_group, e.replica_group,
-                                           replicas=e.hpz),
+                    comm.reduce_scatter_op(e.shard_group,
+                                           e.hops(g.n_dense, g.n_row)),
                     [mine], [rows], slot=f"z3r{gi % 2}", group=e.shard_group)
             self.counts["reduce"] += 1
             self._reduces.append((handle, gi))

@@ -40,7 +40,8 @@ use, layer chunk by layer chunk (``parallel/stage3.py``). hpZ / MiCS
 (``zero_hpz_partition_size`` / ``mics_shard_size`` above 1) resolve onto
 the mesh's ``zshard`` axis, as in JAX (engine.py:87-131): ZeRO state is
 sharded within the subgroup and replicated across ``data``, at every
-stage. Every engine resolves JAX's overlap-scheduler plan
+stage. An ``expert`` mesh axis composes with every engine and wire: each
+rank holds E/X of the experts (``DataParallelEngine``). Every engine resolves JAX's overlap-scheduler plan
 (``_setup_overlap_scheduler``, ``overlap_plan``): its layer chunks set
 qwZ's quantization blocks, ZeRO-3's gathers and, on the exact stage 1-2
 wire, the reduces issued during the backward (the other leaves by
@@ -215,7 +216,6 @@ class DeepSpeedTPUEngine:
         self.config.resolve_batch_size(self.dp_world_size)
         self.zero_stage = self.config.zero_optimization.stage
         self._resolve_compressed_modes(self.config.zero_optimization)
-        self._check_expert_axis(model)
 
         # activation_checkpointing.policy → the spec's remat policy, rebuilt
         # through the spec's own builder (as the JAX engine does)
@@ -316,25 +316,6 @@ class DeepSpeedTPUEngine:
         if cfg.precision_dtype == "bfloat16" and not cfg.bf16.fp32_master:
             raise later_slice("bf16.fp32_master=false (needs a "
                               "stochastic-rounding optimizer)")
-
-    def _check_expert_axis(self, model: ModelSpec) -> None:
-        """Under an ``expert`` axis this slice runs the exact ZeRO 0-2 wire
-        with the ragged dispatch; what else JAX runs there is a later
-        slice."""
-        mm = self.mesh_manager
-        if mm.ep_world_size <= 1:
-            return
-        cfg = getattr(model, "config", None)
-        what = [name for name, on in (
-            ("the ZeRO++ int8 wire (qgZ / qwZ)", self._compressed is not None),
-            ("ZeRO-3", self.zero_stage >= 3),
-            ("hpZ / MiCS (zshard > 1)",
-             mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1),
-            ("the dense MoE dispatch", getattr(cfg, "n_experts", 0) > 0
-             and getattr(cfg, "moe_dispatch", "auto") == "dense")) if on]
-        if what:
-            raise later_slice(f"{', '.join(what)} under an 'expert' mesh "
-                              "axis")
 
     def _resolve_offload(self) -> None:
         """The offload tiers, with JAX's resolution and errors
@@ -443,7 +424,11 @@ class DeepSpeedTPUEngine:
         > 1; LoCo needs an active qgZ. Every accepted but inapplicable flag
         warns."""
         shape = self.mesh_manager.shape
-        eligible = (self.dp_world_size > 1 and shape.get("seq", 1) == 1
+        # the manual axes (data, zshard) must hold more than one rank; an
+        # expert axis stays automatic inside JAX's manual step
+        # (engine.py:520-525)
+        manual_world = shape.get("data", 1) * shape.get("zshard", 1)
+        eligible = (manual_world > 1 and shape.get("seq", 1) == 1
                     and shape.get("pipe", 1) == 1)
         quant_w = bool(zcfg.zero_quantized_weights
                        or zcfg.zero_quantized_nontrainable_weights)
@@ -1187,37 +1172,60 @@ class DeepSpeedTPUEngine:
         """Leaf ``slot`` of a state buffer, whole, on the host."""
         return self._view(flat, slot).to("cpu")
 
-    def _rank_state_leaves(self):
+    def _rank_state_items(self):
+        """Per-rank state rows (LoCo's residual) as (name, thunk): none
+        here."""
         return iter(())
 
-    def _checkpoint_leaves(self):
-        """The persisted train state as (name, host tensor) pairs in JAX's
-        names and flatten order (``_checkpoint_state``, engine.py:1084,
-        which leaves out the derived compute copy): ``loco_err/*`` where
-        LoCo is on, ``master/*``, ``opt/<moment>/*``, ``opt/step``, fp16's
+    def _checkpoint_items(self):
+        """The persisted train state as (name, thunk) pairs in JAX's names
+        and flatten order (``_checkpoint_state``, engine.py:1084, which
+        leaves out the derived compute copy): ``loco_err/*`` where LoCo is
+        on, ``master/*``, ``opt/<moment>/*``, ``opt/step``, fp16's
         ``scaler/.scale|.good_steps|.hysteresis`` and ``skips``, ``step``.
-        Shapes are global, dtypes JAX's (the steps and counters 0-d int32);
-        the flat buffers' pads are never written. A leaf at a time (a
-        data-parallel engine gathers it, a collective on every rank)."""
-        yield from self._rank_state_leaves()
+        A thunk gives its leaf as a host tensor: global shape, JAX's dtype
+        (the steps and counters 0-d int32), the flat buffers' pads never
+        written. On a data-parallel engine a thunk gathers its leaf, a
+        collective on every rank: call them in order, on every rank."""
+        yield from self._rank_state_items()
         for slot in self._slots:
-            yield "master/" + "/".join(slot.path), self._leaf(
-                self.flat_master, slot)
-        opt = self.state["opt"]
+            yield ("master/" + "/".join(slot.path),
+                   functools.partial(self._leaf_of, None, slot))
         for name in self._opt_names():
             for slot in self._slots:
-                yield f"opt/{name}/" + "/".join(slot.path), self._leaf(
-                    opt[name], slot)
-        yield "opt/step", torch.tensor(int(opt["step"]), dtype=torch.int32)
+                yield (f"opt/{name}/" + "/".join(slot.path),
+                       functools.partial(self._leaf_of, name, slot))
+        opt = self.state["opt"]
+        yield "opt/step", lambda: torch.tensor(int(opt["step"]),
+                                               dtype=torch.int32)
         if self.fp16_enabled:
-            st = self._scaler_state
-            yield "scaler/.scale", torch.tensor(st.scale, dtype=torch.float32)
-            yield "scaler/.good_steps", torch.tensor(st.good_steps,
-                                                     dtype=torch.int32)
-            yield "scaler/.hysteresis", torch.tensor(st.hysteresis,
-                                                     dtype=torch.int32)
-            yield "skips", torch.tensor(self._skips, dtype=torch.int32)
-        yield "step", torch.tensor(int(self.state["step"]), dtype=torch.int32)
+            yield "scaler/.scale", lambda: torch.tensor(
+                self._scaler_state.scale, dtype=torch.float32)
+            yield "scaler/.good_steps", lambda: torch.tensor(
+                self._scaler_state.good_steps, dtype=torch.int32)
+            yield "scaler/.hysteresis", lambda: torch.tensor(
+                self._scaler_state.hysteresis, dtype=torch.int32)
+            yield "skips", lambda: torch.tensor(self._skips,
+                                                dtype=torch.int32)
+        yield "step", lambda: torch.tensor(int(self.state["step"]),
+                                           dtype=torch.int32)
+
+    def _leaf_of(self, moment: Optional[str], slot: _Slot) -> torch.Tensor:
+        """Leaf ``slot`` of the master (``moment`` None) or of an optimizer
+        moment, whole, on the host."""
+        flat = self.flat_master if moment is None \
+            else self.state["opt"][moment]
+        return self._leaf(flat, slot)
+
+    def _checkpoint_leaves(self):
+        """The persisted train state as (name, host tensor) pairs
+        (:meth:`_checkpoint_items`), a leaf at a time."""
+        for name, value in self._checkpoint_items():
+            yield name, value()
+
+    def _checkpoint_names(self) -> List[str]:
+        """The names of :meth:`_checkpoint_leaves`, nothing gathered."""
+        return [name for name, _ in self._checkpoint_items()]
 
     def _client_state(self, extra: Optional[Dict] = None) -> Dict[str, Any]:
         """JAX's client state (engine.py:3320-3336)."""
@@ -1299,12 +1307,27 @@ class DeepSpeedTPUEngine:
 
     def _restore(self, read, client_state: Dict[str, Any],
                  load_optimizer_states: bool = True,
-                 load_lr_scheduler_states: bool = True) -> None:
+                 load_lr_scheduler_states: bool = True,
+                 names=None) -> None:
         """Set the train state from ``read(name)`` (JAX's leaf names →
         whole tensors, None where absent), then the client state. Each
         rank keeps its part of each leaf; the compute copy is republished
         from the restored master (JAX's ``_refresh_param_buffer``) and
-        every tier re-homed."""
+        every tier re-homed.
+
+        ``names`` (the native load: the tag's leaf names) makes the load
+        strict, as JAX's ``_unflatten_like`` takes every leaf of the state
+        tree from the tag: the first of :meth:`_checkpoint_names` that the
+        tag lacks raises ``KeyError`` before anything is set, also under
+        ``load_optimizer_states=False``. None (the universal load) keeps
+        the live moments, LoCo rows, scaler and step where the reader has
+        none, as JAX's ``load_universal_into_engine`` does. The master is
+        required either way."""
+        if names is not None:
+            missing = next((n for n in self._checkpoint_names()
+                            if n not in names), None)
+            if missing is not None:
+                raise KeyError(missing)
         self._tiers_in()
         opt = self.state["opt"]
         with torch.no_grad():
@@ -1426,7 +1449,7 @@ class DeepSpeedTPUEngine:
             reader = open_state(path)
             client_state = read_client_state(path)
             self._restore(reader.get, client_state, load_optimizer_states,
-                          load_lr_scheduler_states)
+                          load_lr_scheduler_states, names=reader)
         if comm.get_world_size() > 1:
             comm.barrier()
         self.checkpoint_timings["load"] = {
@@ -1729,7 +1752,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     * the loss each rank differentiates: on the exact wire, with a
       ``loss_mask``, its masked mean weighted so that the ranks' mean is
       the global masked token mean (``_token_weights``); on the int8 wire
-      its own masked mean, as JAX's int8 steps take the ranks' mean.
+      its own masked mean, as JAX's int8 steps take the ranks' mean (its
+      expert group's masked token mean under an expert axis).
 
     JAX's straight-through ``_build_train_step_qz`` gives the same values
     up to reassociation, so one formulation serves both. With the overlap
@@ -1749,21 +1773,29 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     ``zshard`` only (each shard is held D times).
 
     Expert parallelism (an ``expert`` axis of X ranks, JAX's
-    ``EXPERT_GRAD_REDUCE_AXES`` / ``DENSE_GRAD_REDUCE_AXES``): the leaves
-    with an ``expert`` logical axis hold this rank's E/X experts (its
-    ``expert`` coordinate's), a third class beside the ZeRO-sharded and the
-    replicated leaves. ZeRO shards over ``(data, zshard)`` only (JAX's
-    ``ZERO_SHARD_AXES``): that group is the shard group, the ``expert``
-    group the dense leaves' replica hop, as ``data`` is hpZ's. A dense
-    gradient is reduced over the whole world (the shard group, then the
-    ``expert`` hop; replicated dense leaves over the world), an expert
-    leaf's over the shard group only, each then ÷ the whole world: every
-    rank's loss is its own rows' mean, and the all-to-all's backward has
-    brought every rank's contribution to the expert's owner. The local
+    ``EXPERT_GRAD_REDUCE_AXES`` / ``DENSE_GRAD_REDUCE_AXES``), on every
+    engine and wire: the leaves with an ``expert`` logical axis hold this
+    rank's E/X experts (its ``expert`` coordinate's), a third class beside
+    the ZeRO-sharded and the replicated leaves. ZeRO shards over JAX's
+    ZeRO axes, ``(data, zshard)``, or ``zshard`` alone under hpZ: that
+    group is the shard group (:meth:`_shard_topology`). On the exact wire
+    a dense gradient is reduced over every batch rank (the shard group,
+    then its replica hop over ``expert``, or ``(data, expert)`` under
+    hpZ), an expert leaf's over the ranks of its expert (the shard group,
+    then ``data`` under hpZ), each then ÷ the whole world: every rank's
+    loss is its own rows' mean, and the all-to-all's backward has brought
+    every rank's contribution to the expert's owner. The int8 wire follows
+    JAX's manual step over ``data`` and ``zshard``: the dense rows summed
+    over ``expert`` and every row ÷ X before the first hop
+    (:meth:`_expert_sum`), the expert pieces in JAX's blocks
+    (``parallel/stage3.ExpertRows``), ÷ ``data`` × ``zshard`` after, and
+    each rank's MoE aux its expert group's (:meth:`_moe_axes`). The local
     buffers hold the dense leaves first, then the expert leaves, in both
-    regions; the norm sums each expert shard once (over the world, or over
-    ``expert`` for a replicated one). The hooked units split into dense and
-    expert units. The MoE layers report the buffers' dropped choices
+    regions; the norm sums each shard's squares once (a dense shard over
+    the shard group, an expert one over the shard and expert groups, a
+    replicated expert leaf over ``expert``). The hooked units split into
+    dense and expert units; ZeRO-3's groups put their expert pieces last.
+    The MoE layers report the buffers' dropped choices
     (``moe/layer.set_drop_monitor``), warned of at the print steps."""
 
     def __init__(self, model: ModelSpec, config: Any,
@@ -1780,10 +1812,19 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     # state
     # ------------------------------------------------------------------ #
     def _shard_topology(self) -> None:
-        """Where the ZeRO shards live: the ``zshard`` group under hpZ (its
-        ``data`` group for the replica hop), else the whole world."""
+        """Where the ZeRO shards live and the hops of a reduced shard
+        (JAX's ``ZERO_SHARD_AXES``, ``(zshard,)`` under hpZ / MiCS,
+        ``partitioning.py:101-110``): the shard group over ``(data,
+        zshard)``, or ``zshard`` alone under hpZ; the dense leaves'
+        replica hop over the other batch axes (``expert``; ``(data,
+        expert)`` under hpZ; ``data`` under hpZ alone); an expert leaf's
+        over ``data`` under hpZ, none without. The int8 wire sums the
+        dense gradient over ``expert`` before its first hop and takes its
+        replica hop over ``data`` (:meth:`_reduce_micro_int8`)."""
         mm = self.mesh_manager
-        self.hpz = mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1
+        D, Z = (mm.axis_size(mesh_mod.DATA_AXIS),
+                mm.axis_size(mesh_mod.ZSHARD_AXIS))
+        self.hpz = Z > 1
         self.ep = mm.ep_world_size
         # each expert leaf's expert dim (its logical axis "expert")
         self._expert_dims: Dict[Tuple[str, ...], int] = {}
@@ -1791,16 +1832,30 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             for path, axes in _flatten(self.model_spec.axes_fn()):
                 if "expert" in axes:
                     self._expert_dims[path] = axes.index("expert")
+        shard_axes = ((mesh_mod.ZSHARD_AXIS,) if self.hpz
+                      else (mesh_mod.DATA_AXIS, mesh_mod.ZSHARD_AXIS))
+        dense_hop = tuple(a for a in (mesh_mod.DATA_AXIS, mesh_mod.EXPERT_AXIS)
+                          if a not in shard_axes)
+        self.shard_world = mm.axes_size(shard_axes)
+        self.shard_rank = mm.group_ranks(shard_axes).index(self.rank)
+        self.shard_group = mm.group(shard_axes)
+        self.replica_world = mm.axes_size(dense_hop)
+        self.replica_group = (mm.group(dense_hop) if self.replica_world > 1
+                              else None)
+        self.expert_group = (mm.group((mesh_mod.EXPERT_AXIS,))
+                             if self.ep > 1 else None)
+        # hpZ's `data` hop: the expert leaves' on the exact wire, every
+        # leaf's on the int8 wire (which JAX takes at data = 1 too, an int8
+        # round trip on a group of one)
+        self.data_world = D if self.hpz else 1
+        self.data_group = (mm.group((mesh_mod.DATA_AXIS,)) if self.hpz
+                           else None)
+        self.manual_world = D * Z
+        self._ex_rows: Dict[int, Tuple[Any, Any]] = {}
         self._moe_drop_max = None
         if self.ep > 1:
             from deepspeed_tpu_torch.moe.layer import set_drop_monitor
 
-            axes = mesh_mod.EXPERT_GRAD_REDUCE_AXES
-            self.shard_world = mm.axes_size(axes)
-            self.shard_rank = mm.group_ranks(axes).index(self.rank)
-            self.shard_group = mm.group(axes)
-            self.replica_world = self.ep
-            self.replica_group = mm.group((mesh_mod.EXPERT_AXIS,))
             self._moe_drop_max = torch.zeros((), device=self.device)
             # a weak reference: the module's monitor must not keep a
             # dropped engine alive
@@ -1812,16 +1867,6 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                     e._record_moe_drops(frac)
 
             set_drop_monitor(sink)
-        elif self.hpz:
-            self.shard_world = mm.axis_size(mesh_mod.ZSHARD_AXIS)
-            self.shard_rank = mm.coords[mesh_mod.ZSHARD_AXIS]
-            self.shard_group = mm.group((mesh_mod.ZSHARD_AXIS,))
-            self.replica_world = mm.axis_size(mesh_mod.DATA_AXIS)
-            self.replica_group = mm.group((mesh_mod.DATA_AXIS,))
-        else:
-            self.shard_world, self.shard_rank = self.world, self.rank
-            self.shard_group = self.replica_group = None
-            self.replica_world = 1
         self._grad_hooks = self._issuing = False
         self._units: List[_Unit] = []
         self._queue: Optional[comm.CommQueue] = None
@@ -1837,6 +1882,34 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         the last print step, kept on the device (no host read)."""
         self._moe_drop_max = torch.maximum(self._moe_drop_max,
                                            frac.detach().float())
+
+    def hops(self, n_dense: int, n_row: int) -> List[Tuple[Any, int, int]]:
+        """The exact wire's replica hops of a reduced row whose dense
+        leaves fill ``[0, n_dense)`` and expert leaves ``[n_dense,
+        n_row)``: the dense part over the dense replica group, the expert
+        part over the expert leaves' (``comm.reduce_scatter_op``)."""
+        out = []
+        if self.replica_world > 1 and n_dense:
+            out.append((self.replica_group, 0, n_dense))
+        if self.data_world > 1 and n_row > n_dense:
+            out.append((self.data_group, n_dense, n_row))
+        return out
+
+    def expert_rows(self, group) -> Optional[S3.ExpertRows]:
+        """The int8 wire's JAX-layout blocks of ``group``'s expert pieces
+        (:class:`~deepspeed_tpu_torch.parallel.stage3.ExpertRows`), None
+        without an expert axis or expert pieces; built once a group."""
+        if self.ep <= 1:
+            return None
+        hit = self._ex_rows.get(id(group))
+        if hit is None:
+            ex = S3.ExpertRows(group, self._expert_dims, self.shard_world,
+                               self.ep, self.mesh_manager.coords[
+                                   mesh_mod.EXPERT_AXIS], self.device)
+            # the group rides along: its id is never reused meanwhile
+            hit = self._ex_rows[id(group)] = (group, ex if ex.n_local
+                                              else None)
+        return hit[1]
 
     def _local_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
         """Each expert leaf cut to this rank's E/X experts."""
@@ -1877,7 +1950,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         bounds = self._overlap_plan["chunk_bounds"]
         self._publish_groups = S3.gather_groups(
             self._shards, bounds if self._quant_weights() and len(bounds) > 1
-            else [])
+            else [], frozenset(self._expert_dims))
         # the exact wire reduces once a step, unit by unit: under
         # overlap_comm at stages 1-2 each layer chunk and each
         # reduce_bucket_size bucket of the other leaves, issued as the last
@@ -1927,7 +2000,14 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self._shard_compute = (torch.zeros(n_local, dtype=cdt, device=dev)
                                if cdt == torch.bfloat16 else None)
         self._rep_buf = torch.zeros(rep_off, dtype=torch.float32, device=dev)
-        self.loco_err = (torch.zeros(W, sh_off, dtype=torch.float32,
+        # the sharded region as the int8 gradient wire sends it (its expert
+        # leaves in JAX's blocks under an expert axis: S3.ExpertRows)
+        self._wire_group = S3.gather_groups(
+            self._shards, [], frozenset(self._expert_dims))[0]
+        ex = self.expert_rows(self._wire_group) if self._quant_grads() \
+            else None
+        self._n_wire = sh_off if ex is None else ex.n_dense + ex.n_global
+        self.loco_err = (torch.zeros(W, self._n_wire, dtype=torch.float32,
                                      device=dev)
                          if self._wire_format() == "qz+loco" else None)
         for sh, (_, t) in zip(self._shards, _flatten(tree)):
@@ -2078,16 +2158,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         with torch.no_grad(), telemetry.span("zero_reduce_issue"):
             mine = torch.empty(g.n_row, dtype=torch.float32,
                                device=self.device)
-            hop = self.hpz or (self.ep > 1 and not unit.expert)
+            hops = (self.hops(0, g.n_row) if unit.expert
+                    else self.hops(g.n_row, g.n_row))
             if self.zero_stage >= 2:
-                op = comm.reduce_scatter_op(self.shard_group,
-                                            self.replica_group,
-                                            replicas=hop)
+                op = comm.reduce_scatter_op(self.shard_group, hops)
             else:
                 op = comm.all_reduce_row_op(self.shard_rank,
-                                            self.shard_group,
-                                            self.replica_group,
-                                            replicas=hop)
+                                            self.shard_group, hops)
             handle = self._comm_queue().submit(
                 op, [mine], [rows], slot=f"r{len(self._reduces) % 2}",
                 group=self.shard_group)
@@ -2277,62 +2354,115 @@ class DataParallelEngine(DeepSpeedTPUEngine):
 
     def _replicated_mean(self) -> torch.Tensor:
         """The replicated leaves' gradient mean: dense leaves summed over
-        the world, expert leaves over the shard group, ÷ the world."""
+        the world, expert leaves over the ranks of their expert (the
+        shard group, then ``data`` under hpZ), ÷ the world."""
         nd = self._n_rep_dense
         comm.all_reduce(self._rep_buf[:nd])
         if nd < self._n_rep:
-            comm.all_reduce(self._rep_buf[nd:], group=self.shard_group)
+            for group, size in ((self.shard_group, self.shard_world),
+                                (self.data_group, self.data_world)):
+                if size > 1:
+                    comm.all_reduce(self._rep_buf[nd:], group=group)
         return self._rep_buf / torch.tensor(float(self.world),
                                             device=self.device)
 
     def _replica_mean(self, mine: torch.Tensor, quant: bool) -> torch.Tensor:
-        """hpZ's second hop: the rank's summed shard over ``data`` (int8
-        or exact), then ÷ the whole world (JAX's order)."""
-        mine = C.replica_sum(mine, self.replica_group, self.replica_world,
-                             quant)
-        return mine / torch.tensor(float(self.world), device=self.device)
+        """The int8 wire's second hop under hpZ: the rank's summed shard
+        over ``data`` (int8 or exact), then ÷ the manual world (JAX's
+        order; the expert axis was summed and averaged before the first
+        hop)."""
+        mine = C.replica_sum(mine, self.data_group, self.data_world, quant)
+        return mine / torch.tensor(float(self.manual_world),
+                                   device=self.device)
 
     def _reduce_micro_int8(self) -> None:
         """qgZ (and LoCo) for one micro-batch's gradient; the mean shard,
         rounded to the compute dtype, is added to the accumulator. Under
         hpZ the first hop sums over ``zshard`` and the replica hop (int8;
-        exact under LoCo) sums over ``data`` before the mean."""
+        exact under LoCo) sums over ``data`` before the mean. Under an
+        expert axis the packed rows are first made JAX's
+        (:meth:`_expert_sum`) and the expert leaves go in JAX's blocks
+        (``S3.to_wire``: gathered over the expert group, every expert of a
+        piece in it; this rank's taken back after the wire)."""
         self._pack()
         acc, cdt = self.flat_grad_acc, self.compute_dtype
         Z, grp, mean = self.shard_world, self.shard_group, not self.hpz
         with torch.no_grad():
+            rows = self._packed
+            if self.ep > 1:
+                self._expert_sum()
+                rows = S3.to_wire(self, self._wire_group,
+                                  rows[:, :self._n_sh])
             if self.loco_err is not None:
-                self._packed.add_(self.loco_err)
+                rows.add_(self.loco_err)
                 mine, _ = C._q_reduce_scatter(
-                    self._packed, grp, Z, return_sent=True, mean=mean,
+                    rows, grp, Z, return_sent=True, mean=mean,
                     sent_out=self.loco_err)
-                torch.sub(self._packed, self.loco_err, out=self.loco_err)
+                torch.sub(rows, self.loco_err, out=self.loco_err)
             else:
-                mine = C._q_reduce_scatter(self._packed, grp, Z, mean=mean)
+                mine = C._q_reduce_scatter(rows, grp, Z, mean=mean)
+            del rows
             if self.hpz:
                 mine = self._replica_mean(mine, self.loco_err is None)
+            mine = S3.from_wire(self, self._wire_group, mine)
             acc[:self._n_sh].add_(mine.to(cdt))
             if self._n_rep:
                 acc[self._n_sh:].add_(self._replicated_mean().to(cdt))
 
+    def _expert_sum(self) -> None:
+        """The int8 wire under an expert axis: JAX's step is manual over
+        ``data`` and ``zshard`` only (``_build_train_step_qz``,
+        ``_build_train_step_bucketed_wire``), so inside it GSPMD sums the
+        dense gradient over ``expert`` exactly, before any int8 hop, and a
+        manual rank's loss is the mean over its expert group's rows (its
+        aux loss that group's). Here each rank differentiates its own
+        rows' mean: the dense rows are summed over the expert group
+        (fp32, exact) and every row ÷ X, which gives JAX's packed
+        gradient (bit for bit where X is a power of 2), its int8 blocks
+        and LoCo's residual in JAX's units."""
+        nd = self._n_sh_dense
+        with telemetry.span("qgz_expert_sum"):
+            if nd:
+                dense = self._packed[:, :nd].contiguous()
+                comm.all_reduce(dense, group=self.expert_group)
+                self._packed[:, :nd].copy_(dense)
+                del dense
+            self._packed.div_(torch.tensor(float(self.ep),
+                                           device=self.device))
+
     def _token_weights(self, stacked, batch) -> Optional[torch.Tensor]:
-        """Exact wire, batches with a ``loss_mask``: each micro-batch's
-        loss weight max(n_rank, 1) · W / max(n_global, 1), with n the valid
-        tokens (``loss_mask[:, 1:]`` summed, as ``causal_lm_loss`` counts
-        them). The mean over ranks of the weighted masked means is then the
-        global masked token mean, which JAX's exact step (one GSPMD step
-        over the data-sharded micro-batch) takes. Every rank holds the
-        global batch, so n_global needs no collective. None without a
-        ``loss_mask``: every rank counts the same."""
-        if not isinstance(stacked, dict) or stacked.get("loss_mask") is None:
+        """Batches with a ``loss_mask``: each micro-batch's loss weight
+        n_rank · S / n_span (1 where n_span is 0), with n the valid tokens
+        (``loss_mask[:, 1:]`` summed, as ``causal_lm_loss`` counts them)
+        over this rank's rows and over the rows of the S ranks that share
+        one mean: every rank on the exact wire (JAX's exact step is one
+        GSPMD step over the data-sharded micro-batch: the global masked
+        token mean), the expert group on the int8 wire (JAX's manual step
+        over ``data`` and ``zshard`` keeps ``expert`` automatic: a manual
+        rank's loss is its expert group's masked token mean, and the step
+        takes the mean of those). The mean over the span of the weighted
+        means is then that masked token mean, and the weights sum to S, so
+        an MoE aux loss (the same on every rank of the span) keeps weight
+        one, as in JAX's loss, even where a rank holds no valid token.
+        Every rank holds the global batch, so n_span needs no collective.
+        None without a ``loss_mask`` or for a span of one rank (its own
+        mean)."""
+        span = self.ep if self._quant_grads() else self.world
+        if (span == 1 or not isinstance(stacked, dict)
+                or stacked.get("loss_mask") is None):
             return None
 
         def counts(mask):
-            return mask[:, :, 1:].float().sum(dim=(1, 2)).clamp(min=1.0)
+            return mask[:, :, 1:].float().sum(dim=(1, 2))
 
-        n_global = counts(torch.as_tensor(stacked["loss_mask"]))
-        return (counts(batch["loss_mask"]) * float(self.world)
-                / n_global.to(self.device))
+        mask = torch.as_tensor(stacked["loss_mask"])
+        n = mask.shape[1] // self.world
+        lo = self.rank // span * span * n
+        n_span = counts(mask[:, lo:lo + span * n]).to(self.device)
+        mine = counts(batch["loss_mask"])
+        return torch.where(n_span > 0,
+                           mine * float(span) / n_span.clamp(min=1.0),
+                           torch.ones_like(mine))
 
     def _quant_grads(self) -> bool:
         return bool(self._compressed and self._compressed["quant_grads"])
@@ -2394,8 +2524,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
         quant_grads = self._quant_grads()
-        # the int8 wire keeps the mean of the ranks' means, as JAX's pmean
-        weights = None if quant_grads else self._token_weights(stacked, batch)
+        weights = self._token_weights(stacked, batch)
         if not quant_grads:
             if self._packed is not None and self._units:
                 self._packed.zero_()
@@ -2436,9 +2565,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         g = grads.div_(scale_t) if grads.dtype == torch.float32 \
             else grads.float() / scale_t
         lr = self._lr_at(self.state["step"])
-        # each shard is held once a zshard group (hpZ: D times in the
-        # world); an expert shard once in the world, a replicated expert
-        # leaf once an expert group
+        # a dense shard is held once a shard group (D × X times in the
+        # world under hpZ, X without); an expert shard once a shard group
+        # of each expert coordinate; a replicated expert leaf once an
+        # expert group
         n_sh = self._n_sh
         if self.ep > 1:
             nsd, nrd = self._n_sh_dense, self._n_rep_dense
@@ -2447,7 +2577,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                               g[n_sh + nrd:].square().sum(),
                               g[n_sh:n_sh + nrd].square().sum()])
             comm.all_reduce(sq[:2], group=self.shard_group)
-            comm.all_reduce(sq[1:3], group=self.replica_group)
+            comm.all_reduce(sq[1:3], group=self.expert_group)
         else:
             sq = torch.stack([g[:n_sh].square().sum(),
                               g[n_sh:].square().sum()])
@@ -2515,7 +2645,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             dim = self._expert_dims.get(sh.slot.path)
             if dim is not None:
                 full = comm.all_gather(full.contiguous(),
-                                       group=self.replica_group,
+                                       group=self.expert_group,
                                        gather_axis=dim)
             _set_path(tree, sh.slot.path,
                       full.detach().to(device, copy=True))
@@ -2526,7 +2656,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     # kept at load (collective: every rank calls them)
     # ------------------------------------------------------------------ #
     def world_for_rank_state(self) -> int:
-        return self.world
+        """The rows of LoCo's residual: the ranks of the int8 wire's
+        manual axes (``data`` × ``zshard``; the world without an expert
+        axis)."""
+        return self.world // self.ep
 
     def _leaf(self, flat: torch.Tensor, slot: _Slot) -> torch.Tensor:
         """Leaf ``slot`` of a local buffer, whole, on the host: its shards
@@ -2548,35 +2681,58 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             dim = self._expert_dims.get(slot.path)
             if dim is not None:
                 full = comm.all_gather(full.contiguous(),
-                                       group=self.replica_group,
+                                       group=self.expert_group,
                                        gather_axis=dim)
             return full.to("cpu")
 
-    def _rank_state_leaves(self):
-        """LoCo's residual as JAX's ``loco_err`` leaves [world, *shape],
-        one leaf gathered at a time (``full_loco_err``'s layout)."""
+    def _rank_state_items(self):
+        """LoCo's residual as JAX's ``loco_err`` leaves, one leaf gathered
+        at a time (:meth:`_loco_leaf`)."""
         if self.loco_err is None:
             return
-        W = self.shard_world
         for sh in self._shards:
-            name = "loco_err/" + "/".join(sh.slot.path)
-            shape = (self.world,) + sh.slot.shape
-            if sh.dim is None:
-                yield name, torch.zeros(shape)
-                continue
-            rows = torch.empty(self.world, W, sh.n_loc, dtype=torch.float32,
-                               device=self.device)
-            comm.all_gather_into_tensor(
-                rows, self.loco_err[:, sh.offset:sh.offset + sh.n_loc]
-                .contiguous())
-            yield name, rows.reshape(shape).to("cpu")
+            yield ("loco_err/" + "/".join(sh.slot.path),
+                   functools.partial(self._loco_leaf, sh))
+
+    def _wire_span(self, sh: _Shard) -> Tuple[int, int]:
+        """Leaf ``sh``'s columns in the int8 gradient wire's rows (and
+        LoCo's residual): its local columns, or under an expert axis the
+        columns of its piece with every expert (``S3.ExpertRows``)."""
+        ex = self.expert_rows(self._wire_group)
+        if ex is not None and sh.slot.path in ex.spans:
+            off, n = ex.spans[sh.slot.path]
+            return ex.n_dense + off, ex.n_dense + off + n
+        return sh.offset, sh.offset + sh.n_loc
+
+    def _loco_leaf(self, sh: _Shard) -> torch.Tensor:
+        """JAX's ``loco_err`` leaf of ``sh`` [M, *full shape], M the ranks
+        of the int8 wire's manual axes (``data`` × ``zshard``): row m is
+        the residual of manual rank m, the moved layout's elements in the
+        leaf's shape. Under an expert axis the ranks of one expert group
+        hold the same residual (an expert leaf's with every expert, as
+        JAX's wire quantizes it): the group's first rank's row is taken.
+        Zeros for a replicated leaf. Collective (every rank calls it)."""
+        M, X = self.world_for_rank_state(), self.ep
+        full = self._full_shapes[sh.slot.path]
+        if sh.dim is None:
+            return torch.zeros((M,) + full)
+        lo, hi = self._wire_span(sh)
+        W = self.shard_world
+        rows = torch.empty(self.world, W, hi - lo, dtype=torch.float32,
+                           device=self.device)
+        comm.all_gather_into_tensor(rows, self.loco_err[:, lo:hi]
+                                    .contiguous())
+        return rows.view(M, X, W, hi - lo)[:, 0].reshape(
+            (M,) + full).to("cpu")
 
     def _load_rank_state(self, read) -> None:
-        """This rank's row of each ``loco_err`` leaf (the rows of a
-        universal checkpoint already re-partitioned onto this world)."""
+        """This rank's row of each ``loco_err`` leaf (:meth:`_loco_leaf`'s
+        layout; the rows of a universal checkpoint already re-partitioned
+        onto this world). A leaf the reader lacks keeps the live residual
+        (the universal load; the native load has required every leaf)."""
         if self.loco_err is None:
             return
-        W = self.shard_world
+        M, W = self.world_for_rank_state(), self.shard_world
         for sh in self._shards:
             if sh.dim is None:
                 continue
@@ -2584,33 +2740,25 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             full = read(name)
             if full is None:
                 continue
-            if full.shape[0] != self.world:
+            if full.shape[0] != M:
                 raise ValueError(f"checkpoint leaf {name!r}: {full.shape[0]}"
-                                 f" rank rows, this world {self.world} (load "
-                                 "a universal checkpoint to change worlds)")
-            self.loco_err[:, sh.offset:sh.offset + sh.n_loc].copy_(
-                full[self.rank].reshape(W, sh.n_loc))
+                                 f" rank rows, this world {M} (load a "
+                                 "universal checkpoint to change worlds)")
+            lo, hi = self._wire_span(sh)
+            self.loco_err[:, lo:hi].copy_(
+                full[self.rank // self.ep].reshape(W, hi - lo))
 
     def get_fp32_params(self) -> Dict[str, Any]:
         return self.full_master()
 
     def full_loco_err(self) -> Dict[str, Any]:
-        """Every rank's LoCo residual as JAX's ``state["loco_err"]``: per
-        leaf [world, *shape] (row r = rank r's residual, the moved layout's
-        elements in the leaf's shape — [Z, shape[dim]/Z, ...] under hpZ;
-        zeros for replicated leaves)."""
-        rows = torch.empty((self.world,) + tuple(self.loco_err.shape),
-                           dtype=torch.float32, device=self.device)
-        comm.all_gather_into_tensor(rows, self.loco_err)
+        """Every rank's LoCo residual as JAX's ``state["loco_err"]``: the
+        tree of :meth:`_loco_leaf` (row m = manual rank m's residual, the
+        moved layout's elements in the leaf's shape — [Z, shape[dim]/Z,
+        ...] under hpZ; zeros for replicated leaves). Collective."""
         tree: Dict[str, Any] = {}
         for sh in self._shards:
-            shape = (self.world,) + sh.slot.shape
-            if sh.dim is None:
-                err = torch.zeros(shape)
-            else:
-                err = rows[:, :, sh.offset:sh.offset + sh.n_loc].reshape(
-                    shape).cpu().clone()
-            _set_path(tree, sh.slot.path, err)
+            _set_path(tree, sh.slot.path, self._loco_leaf(sh))
         return tree
 
 
@@ -2762,7 +2910,7 @@ class Zero3Engine(DataParallelEngine):
         return super()._dispatch_train_step(stacked, gas)
 
     def _restore(self, read, client_state, load_optimizer_states=True,
-                 load_lr_scheduler_states=True) -> None:
+                 load_lr_scheduler_states=True, names=None) -> None:
         """As the data-parallel engine's; the gather source (the
         compute-dtype shard) is refreshed from the restored master, and no
         gather is left in flight or cached between steps, so the next
@@ -2771,7 +2919,7 @@ class Zero3Engine(DataParallelEngine):
         if z._inflight or z._cache:
             raise RuntimeError("ZeRO-3: a gather is in flight at a load")
         super()._restore(read, client_state, load_optimizer_states,
-                         load_lr_scheduler_states)
+                         load_lr_scheduler_states, names)
 
     def close(self) -> None:
         """Stop the coordinator's communication thread."""

@@ -18,9 +18,15 @@ each package reads the other's tags with no conversion step.
   state names, shapes and dtypes equal JAX's (engine init only: the fp16
   scaler's ``scaler/.scale``, ``.good_steps``, ``.hysteresis`` and
   ``skips``), and each package reads the other's 16-bit export.
+* A native tag that lacks a leaf of the engine's state raises
+  ``KeyError`` in both packages, also under ``load_optimizer_states=False``:
+  engine A's fp32 tag loaded into an fp16 engine (``scaler/.scale``), a
+  tag written without its ``opt/*`` leaves.
 * Port ↔ port on gloo CPU ranks: at world 2 ZeRO-2 exact, ZeRO-3 with
   qgZ + qwZ + LoCo (its save async) and ``tiny_moe`` at ``{expert: 2}``;
-  at world 4 hpZ at (data 2, zshard 2) with qgZ + qwZ + LoCo. Each case
+  at world 4 hpZ at (data 2, zshard 2) with qgZ + qwZ + LoCo, and
+  ``tiny_moe`` at ``{data: 2, expert: 2}`` under ZeRO-3 and under ZeRO-2
+  with qgZ + qwZ + LoCo (its residual's expert leaves in JAX's layout). Each case
   trains 2 steps, saves, trains 2 more; a fresh engine from another seed
   loads the tag and trains the same 2: losses, each rank's master and
   moment shards and its LoCo rows bit-equal. Each world's cases run in one
@@ -256,6 +262,67 @@ def test_low_precision_state_names_match_jax(precision, tmp_path):
                               cast.view(torch.int16).numpy().view(np.uint16))
 
 
+def _jax_engine(precision):
+    import deepspeed_tpu as dst
+    from deepspeed_tpu.comm import mesh as mesh_mod
+
+    mesh_mod.reset_mesh()
+    engine, *_ = dst.initialize(
+        model=dst.causal_lm_spec("tiny", dtype=precision),
+        config=_config(JAX_MICRO, precision, writer="fast"))
+    return engine
+
+
+def test_fp32_tag_into_fp16_engine_raises_in_both_packages(jax_a):
+    """A native load takes every leaf of the engine's state from the tag
+    (JAX's ``_unflatten_like``): engine A's fp32 tag holds no fp16 scaler,
+    so an fp16 engine's load raises ``KeyError`` naming ``scaler/.scale``
+    in both packages, also without the optimizer states; the port's own
+    fp16 tag loads."""
+    from deepspeed_tpu.comm import mesh as mesh_mod
+
+    tag = str(jax_a["root"] / "jax")
+    jeng = _jax_engine("float16")
+    try:
+        with pytest.raises(KeyError, match="scaler/.scale"):
+            jeng.load_checkpoint(tag)
+    finally:
+        mesh_mod.reset_mesh()
+    engine = _port_engine(jax_a["master0"], "float16")
+    for opt in (True, False):
+        with pytest.raises(KeyError, match="scaler/.scale"):
+            engine.load_checkpoint(tag, load_optimizer_states=opt)
+    assert engine._scaler_state.scale == 2.0 ** 12      # left as it was
+    root = str(jax_a["root"] / "port_fp16")
+    engine.save_checkpoint(root)
+    _port_engine(precision="float16", seed=5).load_checkpoint(root)
+
+
+def test_tag_without_opt_raises_without_optimizer_states(jax_a, tmp_path):
+    """A committed tag whose optimizer leaves are gone: the native load
+    raises ``KeyError`` for the first ``opt/*`` leaf under
+    ``load_optimizer_states=False`` too, in both packages (JAX reads the
+    whole state tree, then puts the live moments back)."""
+    from deepspeed_tpu.comm import mesh as mesh_mod
+
+    from deepspeed_tpu_torch.checkpoint.engine import save_state
+
+    engine = _port_engine(jax_a["master0"])
+    save_state(str(tmp_path), "no_opt",
+               ((n, t) for n, t in engine._checkpoint_leaves()
+                if not n.startswith("opt/")), engine._client_state())
+    tag = str(tmp_path)
+    for opt in (True, False):
+        with pytest.raises(KeyError, match="opt/"):
+            engine.load_checkpoint(tag, load_optimizer_states=opt)
+    jeng = _jax_engine("float32")
+    try:
+        with pytest.raises(KeyError, match="opt"):
+            jeng.load_checkpoint(tag, load_optimizer_states=False)
+    finally:
+        mesh_mod.reset_mesh()
+
+
 # --------------------------------------------------------------------------- #
 # port ↔ port at world 2 and 4 (gloo CPU ranks)
 # --------------------------------------------------------------------------- #
@@ -273,7 +340,13 @@ WORLD_CASES = {
                                       "zero_quantized_gradients": True,
                                       "zero_quantized_weights": True,
                                       "loco_error_feedback": True},
-                             None, False)},
+                             None, False),
+        "moe_d2e2_zero3": ("tiny_moe", {"stage": 3},
+                           {"data": 2, "expert": 2}, False),
+        "moe_d2e2_qgz_qwz_loco": ("tiny_moe", {
+            "stage": 2, "zero_quantized_gradients": True,
+            "zero_quantized_weights": True, "loco_error_feedback": True},
+            {"data": 2, "expert": 2}, False)},
 }
 
 

@@ -521,6 +521,44 @@ def test_moe_ep_phase_rank_rehearsal_on_cpu(tmp_path):
     assert sum(r["e3"]["routed_rows"] for r in ranks) == 2 * 128
 
 
+def test_moe_ep_zero_phase_rank_rehearsal_on_cpu(tmp_path):
+    """The expert axis on every engine, at tiny size on gloo ranks of the
+    CPU (the plain paths, the counters read 0 there): four ranks through
+    ways (b)-(f) — ZeRO-2, ZeRO-3, ZeRO-2 + qgZ + qwZ + LoCo, ZeRO-3 +
+    int8, hpZ ZeRO-3 — then two through (g), the dense dispatch at
+    {expert: 2}. Every problem the parent checks is absent: each way's
+    collectives a step equal ``epz_traffic_want`` by group and kind
+    (E8), ZeRO-3's gathers, E6-E7's steps (exact against ZeRO-2 by the
+    training rule; the int8 wire's kernels-vs-plain within its noise), E9
+    against the one-process dense step with the same kept choices; E10's
+    peaks are the card's only."""
+    import torch
+
+    t = dict(C.MOE_EPZ, model="tiny_moe", micro=2, seq=32, layers=2,
+             device="cpu")
+    ranks = C.spawn_ranks("train_moe_350m_ep_zero_rank", 4, 0, t)
+    td = dict(C.MOE_EPZ_DENSE, model="tiny_moe", micro=2, seq=32, layers=2,
+              device="cpu")
+    td["ref"] = C.moe_ep_reference(td, torch.device("cpu"), 0,
+                                   str(tmp_path / "g"), plain_bf16=False)
+    dense = C.spawn_ranks("train_moe_350m_ep_dense_rank", 2, 0, td)
+    assert C.epz_problems(ranks, dense, t) == []
+    for r in ranks:
+        main = r["main"]
+        assert [w for w, _, _ in C.MOE_EPZ_WAYS] == list(main)
+        assert all(m["local_experts"] == 2 for m in main.values())
+        # the exact wires: no expert leaf crosses the expert group
+        for label in ("c_zero3", "f_hpz_zero3"):
+            assert "expert/all_gather" not in main[label]["traffic"]
+        # the int8 wire: its expert pieces, gathered there (JAX's blocks)
+        for label in ("d_zero2_int8_loco", "e_zero3_int8"):
+            assert main[label]["traffic"]["expert/all_gather"][0] > 0
+            assert main[label]["e7_wire"]["reduced_bitwise_equal"]
+        assert "zshard/reduce_scatter" in main["f_hpz_zero3"]["traffic"]
+    g = dense[0]["gates"]["fp32_one_process"]
+    assert g["kept"] == g["ref_kept"] and g["route_miss"] == 0.0
+
+
 # --------------------------------------------------------------------------- #
 # the offload phases
 # --------------------------------------------------------------------------- #

@@ -29,11 +29,12 @@ spawn a world runs every port case:
   where the sums are cut (the same math within ``TOL["exact"]``,
   ``test_torch_zero.py`` holds both JAX stages at ``data = 2``): both port
   stages are held against JAX's one run, which keeps the file's time.
-* The drop monitor the engine installs fires; the int8 wire, ZeRO-3, hpZ
-  (``zshard`` 2) and the dense dispatch under an expert axis raise
-  ``NotImplementedError``; the mesh's groups and labels.
-* Presets, ``ep_topology`` / ``fold_group_tables`` and ``plan_ep`` against
-  JAX's (no ranks).
+* The drop monitor the engine installs fires; the mesh's groups and
+  labels. (ZeRO-3, the int8 wire, hpZ and the dense dispatch under an
+  expert axis: ``tests/test_torch_expert_zero.py``.)
+* Presets, ``ep_topology`` / ``fold_group_tables``, ``plan_ep`` and
+  ``auto_ep`` of a model spec against JAX's (no ranks); ``auto_ep`` with
+  ``etp_size`` above 1 or of an HF model raises, a later slice.
 
 jax is imported inside the fixtures and tests, never at the top: a spawned
 rank imports this module to find its function.
@@ -319,29 +320,6 @@ def _engine_rank(rank, world, runs_path, name):
     return out
 
 
-def _refusals(mesh):
-    """The expert-axis combinations this slice leaves to later ones."""
-    import deepspeed_tpu_torch as dtt
-
-    cases = {"int8": ({"stage": 2, "zero_quantized_gradients": True}, {}),
-             "zero3": ({"stage": 3}, {}),
-             "dense": ({"stage": 2}, {"moe_dispatch": "dense"})}
-    if "data" in mesh:
-        cases["hpz"] = ({"stage": 2}, {})
-    out = {}
-    for case, (zero, spec_kw) in cases.items():
-        cfg_mesh = ({"zshard": 2, "expert": 2} if case == "hpz" else mesh)
-        try:
-            dtt.initialize(model=dtt.causal_lm_spec(
-                "tiny_moe", dtype="float32", **spec_kw),
-                config=dict(_engine_config(zero), mesh=cfg_mesh),
-                device="cpu")
-            out[case] = "ran"
-        except NotImplementedError as e:
-            out[case] = str(e)
-    return out
-
-
 def _mesh_facts(rank, mesh):
     from deepspeed_tpu_torch.comm import mesh as M
 
@@ -369,7 +347,6 @@ def _world_rank(rank, world, runs_path):
                                                    {"expert": 4}, skew=True)
     out["engine"] = {n: _engine_rank(rank, world, runs_path, n)
                      for n in engines}
-    out["refusals"] = _refusals(mesh)
     return out
 
 
@@ -489,15 +466,60 @@ def test_engine_installs_the_drop_monitor(runs):
                     assert run["drop_max"] == max(run["seen"]) == 0.0
 
 
-@pytest.mark.parametrize("world", [2, 4])
-def test_expert_axis_later_slices_raise(world, runs):
-    _, port_runs = runs
-    refusals = port_runs[world][0]["refusals"]
-    for case, msg in refusals.items():
-        assert "later slice" in msg and "'expert' mesh axis" in msg, (case,
-                                                                     msg)
-    assert set(refusals) == ({"int8", "zero3", "dense", "hpz"} if world == 4
-                             else {"int8", "zero3", "dense"})
+@pytest.mark.parametrize("case", ["etp", "hf"])
+def test_expert_axis_later_slices_raise(case):
+    """What stays a later slice of the expert axis: ``auto_ep`` with
+    ``etp_size`` above 1 (expert tensor parallelism, the ``tensor`` axis of
+    queue A.4) and ``auto_ep`` of an HF model (the HF importer of queue
+    A.8). Every engine and wire composes with the axis
+    (``tests/test_torch_expert_zero.py``)."""
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.moe.auto_ep import auto_ep
+
+    if case == "etp":
+        spec = dtt.causal_lm_spec("tiny_moe", dtype="float32")
+        with pytest.raises(NotImplementedError,
+                           match="later slice") as e:
+            auto_ep(spec, n_devices=8, etp_size=2)
+        assert "'tensor' mesh axis" in str(e.value) and "A.4" in str(e.value)
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="later slice") as e:
+            auto_ep((None, HF_CONFIGS["mixtral"]), n_devices=8)
+        assert "models/hf_import.py" in str(e.value) and "A.8" in str(
+            e.value)
+
+
+# JAX's tests/unit/test_auto_sp_ep.py:79-107: a zoo spec's plan (n_devices,
+# max_ep) and a dense spec (no MoE layers)
+AUTO_EP_CASES = {"tiny_moe_8_max4": ("tiny_moe", 8, 4),
+                 "tiny_moe_8": ("tiny_moe", 8, None),
+                 "tiny_moe_6": ("tiny_moe", 6, None),
+                 "dense_8": ("tiny", 8, None)}
+
+
+@pytest.mark.parametrize("case", list(AUTO_EP_CASES))
+def test_auto_ep_of_a_model_spec_matches_jax(case):
+    """``auto_ep(ModelSpec)`` → the spec itself, JAX's mesh section and
+    plan (JAX's ``test_auto_ep_on_zoo_spec_trains`` builds its spec with
+    n_experts=4, top-2, as ``tiny_moe`` is)."""
+    import deepspeed_tpu as dst
+    from deepspeed_tpu.moe import auto_ep as JA
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.moe import auto_ep as PA
+
+    model, n_dev, max_ep = AUTO_EP_CASES[case]
+    spec = dtt.causal_lm_spec(model, dtype="float32")
+    got_spec, got_mesh, got_plan = PA.auto_ep(spec, n_devices=n_dev,
+                                              max_ep=max_ep)
+    _, want_mesh, want_plan = JA.auto_ep(
+        dst.causal_lm_spec(model, dtype="float32"), n_devices=n_dev,
+        max_ep=max_ep)
+    assert got_spec is spec
+    assert got_mesh == want_mesh
+    assert got_plan.__dict__ == want_plan.__dict__
+    assert got_plan.describe() == want_plan.describe()
 
 
 def test_mesh_expert_axis_groups(runs):

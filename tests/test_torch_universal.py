@@ -21,7 +21,8 @@ a manifest, a ``COMMITTED`` marker with every atom's CRC32.
   converts with the port's ``convert_to_universal``; B loads that dir with
   its ``load_universal_checkpoint`` (no new compile): master and LoCo rows
   bit-equal to the port's. A universal dir converted at world 1 loads at
-  world 2 (the rows grow zero-filled, sum-preserving).
+  world 2 (the rows grow zero-filled, sum-preserving), and into B: a dir
+  without LoCo rows loads in both packages.
 * A corrupt atom raises ``CheckpointCorruptError`` naming it; ``reshard``
   converts and its ``--dry-run`` names its later slice; ``zero_to_fp32``
   reads the native layout.
@@ -219,6 +220,21 @@ def test_world1_universal_dir_loads_at_world2(port_runs):
         mine = dict(_leaves(got["master"]))
         for key, v in port_runs["want1"].items():
             assert np.array_equal(mine[key], v), key
+
+
+def test_jax_loads_a_universal_dir_without_loco_rows(jax_b, port_runs):
+    """The dir converted at world 1 holds no LoCo rows: JAX's LoCo engine B
+    loads it all the same (its ``load_universal_into_engine`` keeps the
+    live rows), with the dir's master, as the port's world-2 LoCo engines
+    do (``test_world1_universal_dir_loads_at_world2``)."""
+    import jax
+
+    engine = jax_b["engine"]
+    engine.load_universal_checkpoint(str(port_runs["root"] / "uni1"))
+    assert engine.global_steps == 2
+    got = dict(_leaves(jax.tree.map(np.asarray, engine.state["master"])))
+    for key, v in port_runs["want1"].items():
+        assert np.array_equal(got[key], v), key
 
 
 def test_world1_load_is_bit_equal_to_direct_state(jax_b):
