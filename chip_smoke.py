@@ -174,6 +174,20 @@ kernel on them against its plain PyTorch version:
                (each group's collectives a step by formula), E9 ((g)
                against one process), E10 ((c)'s peak below (b)'s); step,
                tokens/s, MFU, peak a rank, the idle share of rank 0;
+13d. train_llama_750m_sp2 — sequence parallelism (SP2): two ranks train
+               llama_750m at full width, 4 layers, at mesh {seq: 2} (each
+               1,024 positions of the same 4 rows) with (a) Ulysses around
+               the flash kernels and (b) the K/V ring, four ranks with (c)
+               Ulysses at {data: 2, seq: 2}; gates SP1-SP2 and SP1c (one
+               fp32 step against one process with flash by the training
+               rule), SP3 (bf16 within 2x the plain bf16 path), SP4 (the
+               flash launches at the head-sharded shape and the seq
+               group's all-to-alls / permutes a step by formula), SP5 (a
+               rank's forward-backward peak below one process's), SP6
+               (FPDT with K/V in pinned host memory against chunked
+               attention, its device peak lower); step, tokens/s, MFU,
+               peak a rank, rank 0's idle share, the seq group's host
+               seconds;
 14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
@@ -239,13 +253,16 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,llama2_7b,gpt2_125m,times
     python3 chip_smoke.py --phases card,build,train_llama2_7b_super_offload,train_llama_750m_offload
     python3 chip_smoke.py --phases card,build,checkpoint_llama_750m
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sp2
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14, 13b and 13c among them) and the offload phases (15-16) run right after the
-kernels phase,
-before the serving phases' engines take the card. Wire times of the
-data-parallel phases are gloo's through host memory, the ranks sharing
-one card: not NVLink's.
+(11-14, 13b-13d among them) and the offload phases (15-16) run right after
+the kernels phase, before the serving phases' engines take the card.
+Their ranks run in one spawn a world size (MERGED_SPAWNS: the first of
+them prepares every selected phase's jobs of its world, the checkpoint
+phase's C3 and the offload phase's int8 ranks among them, and each phase
+then checks its own results). Wire times of the data-parallel phases are
+gloo's through host memory, the ranks sharing one card: not NVLink's.
 """
 from __future__ import annotations
 
@@ -262,6 +279,7 @@ import sys
 import tempfile
 import time
 import traceback
+import typing
 
 import numpy as np
 
@@ -274,7 +292,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
           "train_moe_350m_ep", "train_moe_350m_ep_zero",
-          "quantized_reduce_scatter",
+          "train_llama_750m_sp2", "quantized_reduce_scatter",
           "train_llama2_7b_super_offload", "train_llama_750m_offload",
           "llama2_7b", "gpt2_125m", "moe_350m", "train_gpt2_125m",
           "train_llama_750m", "checkpoint_llama_750m", "train_moe_350m",
@@ -329,7 +347,11 @@ FLASH_CASES = (("gpt2_125m", 32, 1024, 12, 12, 64, True),
                ("unaligned_d128", 2, 1000, 4, 2, 128, True),
                ("gqa", 2, 512, 32, 8, 128, True),
                ("full_d64", 2, 512, 4, 4, 64, False),
-               ("full_d128_unaligned", 1, 300, 4, 2, 128, False))
+               ("full_d128_unaligned", 1, 300, 4, 2, 128, False),
+               # Ulysses' head-sharded blocks on train_llama_750m_sp2: ways
+               # (a)-(b) at {seq: 2}, way (c) at {data: 2, seq: 2}
+               ("llama_750m_ulysses", 4, 2048, 6, 6, 128, True),
+               ("llama_750m_ulysses_d2", 2, 2048, 6, 6, 128, True))
 # Grouped GEMM against its plain version: both sum exact products in fp32,
 # over up to K = 3072 terms (gmm) and a whole group's rows (tgmm, ~16k), in
 # other orders, so fp32 gets flash attention's 1e-4 on outputs of O(1)
@@ -1058,26 +1080,54 @@ def rank_entry(fn_name, rank, world, init_method, out, args):
     under 6 runs at once that was 2 of 72 runs with the default pool, 1 of
     24 with two threads, none of 72 with one: one thread leaves the
     library no split of the work to choose."""
+    fixed = {"entered": time.time()}
     try:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         import torch
 
+        fixed["torch_imported"] = time.time()
         if not torch.cuda.is_available():
             torch.set_num_threads(1)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         if torch.cuda.is_available():
             torch.cuda.set_device(0)
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        fixed["cuda_context"] = time.time()
         import deepspeed_tpu_torch as dtt
 
+        fixed["port_imported"] = time.time()
         dtt.init_distributed(dist_backend="gloo", init_method=init_method,
                              rank=rank, world_size=world,
                              timeout=PG_TIMEOUT_S, verbose=False)
-        result = globals()[fn_name](rank, world, *args)
+        fixed["group_joined"] = time.time()
+        builds = []
+        real_init = dtt.initialize
+
+        def timed_init(*a, **k):
+            t0 = time.time()
+            res = real_init(*a, **k)
+            builds.append(time.time() - t0)
+            return res
+
+        dtt.initialize = timed_init
+        try:
+            result = globals()[fn_name](rank, world, *args)
+        finally:
+            dtt.initialize = real_init
+        fixed["returned"] = time.time()
+        fixed["engine_builds_s"] = builds
         dtt.comm.destroy_process_group()
-        out.put((rank, "ok", result))
+        out.put((rank, "ok", result, fixed))
     except Exception:                                   # noqa: BLE001
-        out.put((rank, "error", traceback.format_exc()))
+        out.put((rank, "error", traceback.format_exc(), fixed))
+    # the result flushed to the parent, the process ends at once: freeing
+    # a rank's pinned staging buffers and engines one by one took 2-22 s a
+    # spawn (spawn_costs' teardown_s); the process's exit frees them whole
+    out.close()
+    out.join_thread()
+    os._exit(0)
 
 
 def spawn_ranks(fn_name, world, *args):
@@ -1092,14 +1142,15 @@ def spawn_ranks(fn_name, world, *args):
     procs = [ctx.Process(target=rank_entry, args=(
         fn_name, r, world, f"file://{os.path.join(tmp, 'pg')}", out, args))
         for r in range(world)]
+    spawned = time.time()
     for p in procs:
         p.start()
-    results, errors = {}, []
+    results, errors, fixed = {}, [], {}
     deadline = time.time() + RANKS_TIMEOUT_S
     try:
         while len(results) < world and not errors:
             try:
-                rank, status, value = out.get(
+                rank, status, value, fixed[rank] = out.get(
                     timeout=max(1.0, deadline - time.time()))
             except queue.Empty:
                 errors.append(f"no result from ranks "
@@ -1119,7 +1170,74 @@ def spawn_ranks(fn_name, world, *args):
         shutil.rmtree(tmp, ignore_errors=True)
     if errors:
         raise RuntimeError("; ".join(errors))
+    emit("spawn", **spawn_costs(fn_name, world, spawned, fixed, time.time()))
     return [results[r] for r in range(world)]
+
+# The data-parallel phases whose ranks share a spawn, by world size: a
+# spawn's fixed cost (process start, torch's import, the CUDA context, the
+# group) is 9-12 s and its teardown 1.5-7 s (the spawn lines of the chip
+# run that measured them), paid once a world instead of once a phase.
+MERGED_SPAWNS = {
+    2: ("train_llama_750m_zeropp_dp2", "train_llama_750m_zero3_dp2",
+        "train_llama_750m_sp2", "train_moe_350m_ep",
+        "train_moe_350m_ep_zero", "quantized_reduce_scatter",
+        "train_llama_750m_offload", "checkpoint_llama_750m"),
+    4: ("train_llama_750m_hpz_dp4", "train_moe_350m_ep",
+        "train_moe_350m_ep_zero", "train_llama_750m_sp2",
+        "quantized_reduce_scatter")}
+
+
+class Job(typing.NamedTuple):
+    """One rank function's run in a spawn: ``fn(rank, world, seed,
+    args)``, its results kept under ``key``."""
+    key: str
+    fn: str
+    world: int
+    args: dict
+
+
+def jobs_rank(rank, world, seed, jobs):
+    """Several phases' rank functions in turn in one spawn: {key: (result,
+    seconds)}; what a job's engines held is returned to the card before
+    the next starts."""
+    import torch
+
+    out = {}
+    for key, fn, args in jobs:
+        t0 = time.perf_counter()
+        out[key] = (globals()[fn](rank, world, seed, args),
+                    time.perf_counter() - t0)
+        # the job's pinned staging buffers (sized by its model) go too
+        comm_mod = sys.modules.get("deepspeed_tpu_torch.comm.comm")
+        if comm_mod is not None:
+            comm_mod.settle()
+            comm_mod._pinned.clear()
+        dev_free(torch.device(args.get("device", "cpu")))
+    return out
+
+
+def spawn_costs(fn_name, world, spawned, fixed, joined):
+    """A spawn's fixed costs from its ranks' wall-clock marks (the slowest
+    rank's): process start to the rank's entry, importing torch, the CUDA
+    context, importing the port, joining the group, each engine build,
+    and from the last rank's return to every process joined."""
+    def worst(a, b):
+        return max(f[b] - (spawned if a is None else f[a])
+                   for f in fixed.values())
+
+    return {"fn": fn_name, "world": world,
+            "process_start_s": worst(None, "entered"),
+            "import_torch_s": worst("entered", "torch_imported"),
+            "cuda_context_s": worst("torch_imported", "cuda_context"),
+            "import_port_s": worst("cuda_context", "port_imported"),
+            "join_group_s": worst("port_imported", "group_joined"),
+            "to_fn_start_s": worst(None, "group_joined"),
+            "engine_builds_s": [max(b) for b in zip(*(
+                f["engine_builds_s"] for f in fixed.values()))],
+            "run_s": worst("group_joined", "returned"),
+            "teardown_s": joined - max(f["returned"]
+                                       for f in fixed.values()),
+            "wall_s": joined - spawned}
 
 
 def digest(t) -> str:
@@ -2379,14 +2497,16 @@ def moe_ep_spec(t, precision, use_kernels=True):
 
 
 def moe_ep_step(engine, tokens, L, dev):
-    """One step of ``engine`` on ``tokens`` → loss, grad norm, the whole
-    gradient and update as flat fp32 vectors (every leaf, sorted keys),
-    the routes [L, rows, k] of this process's rows and the summed aux."""
+    """One step of ``engine`` on ``tokens`` (or a batch dict) → loss, grad
+    norm, the whole gradient and update as flat fp32 vectors (every leaf,
+    sorted keys), the routes [L, rows, k] of this process's rows and the
+    summed aux (None, None for a dense model: ``L`` 0)."""
     import torch
 
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     before = engine.flat_master.clone()
     with recorded_routes() as routes, recorded_aux() as auxes:
-        loss = float(engine.train_batch(iter([{"tokens": tokens}])))
+        loss = float(engine.train_batch(iter([batch])))
     norm = engine.get_global_grad_norm()
     if hasattr(engine, "full_tree"):
         grad = _flat_tree(engine.full_tree(engine.flat_grad_acc, dev))
@@ -2395,6 +2515,8 @@ def moe_ep_step(engine, tokens, L, dev):
         grad = _flat_tree(engine._views(engine.flat_grad_acc))
         upd = _flat_tree(engine._views(engine.flat_master - before))
     del before
+    if not L:
+        return loss, norm, grad, upd, None, None
     idx = torch.stack([r[0] for r in routes[:L]])
     aux = float(sum(float(a) for a in auxes[:L]))
     return loss, norm, grad, upd, idx, aux
@@ -2402,7 +2524,8 @@ def moe_ep_step(engine, tokens, L, dev):
 
 def step_metrics(loss, norm, grad, upd, idx, aux, ref):
     """The training rule's metrics of one step against ``ref`` (the same
-    keys; ``idx`` may be a slice of the reference's rows: ``ref_idx``)."""
+    keys; ``idx`` may be a slice of the reference's rows: ``ref_idx``; a
+    dense model's ``idx`` and ``aux`` None: no routing or aux metric)."""
     import torch
 
     miss = ((upd > 0) != (ref["upd"] > 0)) & ((upd != 0) | (ref["upd"] != 0))
@@ -2414,8 +2537,10 @@ def step_metrics(loss, norm, grad, upd, idx, aux, ref):
                              / torch.linalg.vector_norm(ref["grad"])),
            "update_rel": float(torch.linalg.vector_norm(upd - ref["upd"])
                                / torch.linalg.vector_norm(ref["upd"])),
-           "sign_miss": float(miss.sum() / nz.sum().clamp(min=1)),
-           "aux_rel": abs(aux - ref["aux"]) / abs(ref["aux"])}
+           "sign_miss": float(miss.sum() / nz.sum().clamp(min=1))}
+    if idx is None:
+        return out
+    out["aux_rel"] = abs(aux - ref["aux"]) / abs(ref["aux"])
     ref_idx = ref["idx"] if ref.get("ref_idx") is None else ref["ref_idx"]
     out["route_miss"] = float((idx != ref_idx.to(idx.device)).float().mean())
     return out
@@ -3178,6 +3303,404 @@ def epz_problems(ranks, dense, t):
 
 # The kernel instantiations the launches reach, as sass_kernel_label names
 # them: (family, "dtype rest").
+# --------------------------------------------------------------------------- #
+# The sequence-parallel phase (train_llama_750m_sp2)
+# --------------------------------------------------------------------------- #
+# llama_750m at full width (hidden 1536, 12 heads of 128, SwiGLU 4096,
+# RMSNorm, RoPE), SP2_LAYERS of its 20 layers, bf16 with an fp32 master,
+# remat full, Adam lr 1e-4, exact ZeRO-1; global micro 4 (the rows every
+# seq rank shares), seq 2048, gas 2; two ranks at mesh {seq: 2} over gloo on
+# the one card, each holding 1,024 positions of the same 4 rows. Ways,
+# each timed one step after a warm-up, then one more step profiled on rank
+# 0: (a) attention="ulysses_flash" (the flash kernels on [4, 2048, 6, 128]
+# head-sharded blocks between Ulysses' all-to-alls), (b) attention="ring".
+# Gates, on SP2_GATE batch (the same rows with a loss mask that keeps every
+# token of rank 0's positions and a third of rank 1's):
+# SP1 one fp32 step of (a) against one process with attention="flash" on
+#     the same global batch and weights, by the training rule (loss, grad
+#     norm, gradient and update relative L2, sign misses);
+# SP2 the same for (b);
+# SP3 bf16 (a): its first loss within TRAIN_LOSS_REL of one process's bf16
+#     loss (flash), its update no further from the one-process fp32 update
+#     than BF16_VS_PLAIN times the one-process plain bf16 path's;
+# SP4 launches and traffic a step by formula: flash fwd 2·L·gas and dq,
+#     dkv L·gas each at the head-sharded shape; Ulysses' all-to-alls on the
+#     seq group 4 a layer in the forward, 4 in the recompute and 4 in the
+#     backward, each of B·(S/sp)·N·D elements; (b)'s permutes 2·(sp − 1) a
+#     layer in each of the three, of B·(S/sp)·K·D elements;
+# SP5 each rank's forward-backward peak above its resident state below
+#     one process's at the same global batch and depth;
+# (c) attention="ulysses_flash" at mesh {data: 2, seq: 2} on four ranks
+#     (the same global batch: 2 rows a data rank), timed the same way, its
+#     fp32 step held against the same one process by SP1's rule (SP1c),
+#     its launches and traffic by SP4's formula, its peak by SP5's;
+# SP6 (one process) FPDT at [1, 8192, 12, 128] bf16, forward and backward
+#     with K/V in pinned host memory, against chunked attention at the same
+#     chunks: fp32 at FLASH_TOL, bf16 by the flash rule (relative L2 from
+#     the fp32 chunked reference ≤ BF16_VS_PLAIN × chunked bf16's), its
+#     device peak below chunked's.
+SP2 = dict(model="llama_750m", world=2, mesh={"seq": 2}, micro=4, seq=2048,
+           gas=2, steps=1, zero={"stage": 1})
+SP2_LAYERS = 4
+SP2_WAYS = (("a_ulysses_flash", "ulysses_flash"), ("b_ring", "ring"))
+SP2_C = dict(world=4, mesh={"data": 2, "seq": 2},
+             ways=(("c_d2_ulysses_flash", "ulysses_flash"),),
+             gates=("sp1c_fp32_ulysses_flash",))
+SP2_GATES = {"sp1_fp32_ulysses_flash": ("fp32", "ulysses_flash"),
+             "sp2_fp32_ring": ("fp32", "ring"),
+             "sp3_bf16_ulysses_flash": ("bf16", "ulysses_flash"),
+             "sp1c_fp32_ulysses_flash": ("fp32", "ulysses_flash")}
+SP2_LIMITS = {"loss_rel": TRAIN_LOSS_REL, "norm_rel": TRAIN_NORM_REL,
+              "grad_rel": TRAIN_GRAD_REL, "update_rel": TRAIN_UPDATE_REL,
+              "sign_miss": TRAIN_SIGN_MISS}
+FPDT = dict(B=1, S=8192, N=12, D=128, num_chunks=4, kv_chunks=4)
+
+
+def sp2_c(t):
+    """Way (c)'s settings from the phase's: SP2_C's mesh, the same global
+    batch (``micro`` split over the data ranks)."""
+    return dict(t, **SP2_C, micro=t["micro"] // SP2_C["mesh"]["data"])
+
+
+def sp2_batch(t, seed, masked=False):
+    """The phase's global micro-batch (``micro`` rows of ``seq`` tokens a
+    batch rank, from the seed); ``masked``: a loss mask keeping every
+    target of the first half of the positions and every third of the
+    second."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    vocab = T.get_model_config(t["model"]).vocab_size
+    rows = t["micro"] * t["world"] // t["mesh"]["seq"]
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, vocab, (rows, t["seq"]),
+                                  dtype=np.int32)}
+    if masked:
+        mask = np.ones((rows, t["seq"]), np.float32)
+        half = t["seq"] // 2
+        mask[:, half:] = np.arange(half, t["seq"]) % 3 == 0
+        out["loss_mask"] = mask
+    return out
+
+
+def sp2_spec(t, precision, attention, use_kernels=True):
+    import deepspeed_tpu_torch as dtt
+
+    return dtt.causal_lm_spec(
+        t["model"], attention=attention, remat="full",
+        use_kernels=use_kernels, num_layers=t["layers"],
+        dtype="float32" if precision == "fp32" else "bfloat16")
+
+
+def sp2_engine(t, dev, precision, attention, micro, gas, mesh=None,
+               use_kernels=True):
+    import deepspeed_tpu_torch as dtt
+
+    config = zeropp_config(micro, gas, precision, t["zero"])
+    if mesh:
+        config["mesh"] = dict(mesh)
+    engine, *_ = dtt.initialize(
+        model=sp2_spec(t, precision, attention, use_kernels), config=config,
+        device=dev)
+    return engine
+
+
+def sp2_reference(t, dev, seed, path):
+    """One process at the phase's depth (what the ranks read): the fp32
+    step with the flash kernels on the gate batch (its whole gradient and
+    update in numpy files beside ``path``), the bf16 kernels' loss, the
+    plain bf16 path's metrics against the fp32 step (SP3's yardstick), and
+    the bf16 main path's forward-backward peak above its resident state
+    (SP5)."""
+    import itertools
+
+    gate = sp2_batch(t, seed, masked=True)
+    out = {}
+    ref = None
+    for label, prec, use_kernels in (("fp32", "fp32", True),
+                                     ("bf16", "bf16", True),
+                                     ("bf16_plain", "bf16", False)):
+        engine = sp2_engine(t, dev, prec, "flash", t["micro"], 1,
+                            use_kernels=use_kernels)
+        loss, norm, grad, upd, _, _ = moe_ep_step(engine, gate, 0, dev)
+        del engine
+        dev_free(dev)
+        if ref is None:
+            ref = {"loss": loss, "norm": norm, "grad": grad, "upd": upd}
+            np.save(path + ".grad.npy", grad.cpu().numpy())
+            np.save(path + ".upd.npy", upd.cpu().numpy())
+            out.update(loss=loss, norm=norm, grad_path=path + ".grad.npy",
+                       upd_path=path + ".upd.npy")
+        else:
+            out[label] = step_metrics(loss, norm, grad, upd, None, None,
+                                      ref)
+        del grad, upd
+    del ref
+    dev_free(dev)
+    engine = sp2_engine(t, dev, "bf16", "flash", t["micro"], t["gas"])
+    data = itertools.repeat(sp2_batch(t, seed))
+    engine.train_batch(data)
+    dev_sync(dev)
+    resident = dev_allocated(dev)
+    dev_peak(dev, reset=True)
+    engine.train_batch(data)
+    dev_sync(dev)
+    out["one_process_fwd_bwd_peak_bytes"] = dev_peak(dev) - resident
+    out["one_process_resident_bytes"] = resident
+    del engine, data
+    dev_free(dev)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_flash_shapes():
+    """Yields a dict {kernel: set of q shapes} the flash wrappers are
+    called with while the block runs (the module's functions wrapped for
+    the block's duration and restored after)."""
+    from deepspeed_tpu_torch.ops import flash_attention as PF
+
+    shapes = {"flash_fwd": set(), "flash_bwd_dq": set(),
+              "flash_bwd_dkv": set()}
+    saved = {name: getattr(PF, name) for name in shapes}
+
+    def wrap(name):
+        def fn(q, *args, **kwargs):
+            shapes[name].add(tuple(q.shape))
+            return saved[name](q, *args, **kwargs)
+        return fn
+
+    for name in shapes:
+        setattr(PF, name, wrap(name))
+    try:
+        yield shapes
+    finally:
+        for name, fn in saved.items():
+            setattr(PF, name, fn)
+
+
+def sp2_run(t, dev, attention, batch):
+    """One way's main path on this rank: initialize at mesh {seq: 2}, a
+    warm-up step, ``t["steps"]`` timed steps with the counters and the
+    traffic set to 0 just before and read just after (the flash wrappers'
+    shapes recorded meanwhile), the peak above the resident state."""
+    import itertools
+
+    import deepspeed_tpu_torch as dtt
+    from deepspeed_tpu_torch.comm import comm
+
+    t0 = time.perf_counter()
+    engine = sp2_engine(t, dev, "bf16", attention, t["micro"], t["gas"],
+                        mesh=t["mesh"])
+    dev_sync(dev)
+    init_s = time.perf_counter() - t0
+    data = itertools.repeat(batch)
+    t0 = time.perf_counter()
+    first = float(engine.train_batch(data))
+    warm_s = time.perf_counter() - t0
+    comm.barrier()
+    resident = dev_allocated(dev)
+    dev_peak(dev, reset=True)
+    reset_counts()
+    comm.reset_traffic()
+    losses, walls = [], []
+    with recorded_flash_shapes() as shapes:
+        for _ in range(t["steps"]):
+            t0 = time.perf_counter()
+            loss = engine.train_batch(data)
+            dev_sync(dev)
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    counts = read_counts()
+    traffic = {k: list(v) for k, v in comm.traffic.items()}
+    return engine, data, {
+        "attention": attention, "init_seconds": init_s,
+        "warmup_step_seconds": warm_s, "losses": [first] + losses,
+        "step_walls_s": walls, "step_ms": float(np.median(walls)) * 1e3,
+        "launches": counts, "traffic": traffic,
+        "flash_shapes": {k: sorted(v) for k, v in shapes.items()},
+        "seq_host_s_per_step": sum(v[2] for k, v in traffic.items()
+                                   if k.startswith("seq/")) / t["steps"],
+        "adam_per_step": adam_launches_per_step(engine),
+        "resident_bytes": resident,
+        "fwd_bwd_peak_bytes": dev_peak(dev) - resident,
+        "coords": dict(engine.mesh_manager.coords)}
+
+
+def sp2_gates(t, dev, ref):
+    """SP1-SP3 (SP1c at (c)'s mesh) on this rank: one step of each of
+    ``t["gates"]`` from the seed's weights on the masked gate batch,
+    against the one-process reference (whole vectors, gathered over the
+    shard group)."""
+    import torch
+
+    gate = sp2_batch(t, 0 if t.get("seed") is None else t["seed"],
+                     masked=True)
+    one = dict(ref, grad=torch.from_numpy(np.load(ref["grad_path"])).to(dev),
+               upd=torch.from_numpy(np.load(ref["upd_path"])).to(dev))
+    out = {}
+    for label in t.get("gates", ("sp1_fp32_ulysses_flash", "sp2_fp32_ring",
+                                 "sp3_bf16_ulysses_flash")):
+        prec, attention = SP2_GATES[label]
+        engine = sp2_engine(t, dev, prec, attention, t["micro"], 1,
+                            mesh=t["mesh"])
+        loss, norm, grad, upd, _, _ = moe_ep_step(engine, gate, 0, dev)
+        del engine
+        dev_free(dev)
+        out[label] = step_metrics(loss, norm, grad, upd, None, None, one)
+        del grad, upd
+    del one
+    dev_free(dev)
+    return out
+
+
+def sp2_gate_problems(g, ref):
+    """SP1-SP3's verdicts."""
+    problems = []
+    for label in ("sp1_fp32_ulysses_flash", "sp2_fp32_ring",
+                  "sp1c_fp32_ulysses_flash"):
+        if label in g:
+            problems += [f"{label}: {k} {g[label][k]:.3g} > {v}"
+                         for k, v in SP2_LIMITS.items()
+                         if not g[label][k] <= v]
+    if "sp3_bf16_ulysses_flash" not in g:
+        return problems
+    b = g["sp3_bf16_ulysses_flash"]
+    loss_rel = abs(b["loss"] - ref["bf16"]["loss"]) / abs(ref["bf16"]["loss"])
+    if not loss_rel <= TRAIN_LOSS_REL:
+        problems.append(f"sp3: first loss {loss_rel:.3g} from one process's "
+                        f"bf16 loss > {TRAIN_LOSS_REL}")
+    limit = BF16_VS_PLAIN * ref["bf16_plain"]["update_rel"]
+    if not b["update_rel"] <= limit:
+        problems.append(f"sp3: update {b['update_rel']:.4g} from fp32 > "
+                        f"{BF16_VS_PLAIN} x the plain bf16 path's")
+    return problems
+
+
+def sp2_want(t, L, attention, cfg, adam_per_step):
+    """SP4: a step's launches and seq-group traffic by formula."""
+    gas, sp = t["gas"], t["mesh"]["seq"]
+    B, S_l, N, K, D = (t["micro"], t["seq"] // sp, cfg.num_heads,
+                       cfg.kv_heads, cfg.head_dim)
+    flash = attention == "ulysses_flash"
+    launches = {"flash_fwd": 2 * L * gas if flash else 0,
+                "flash_bwd_dq": L * gas if flash else 0,
+                "flash_bwd_dkv": L * gas if flash else 0,
+                "rms_norm": (4 * L + 1) * gas,
+                "fused_adam": adam_per_step, "quant_int8": 0,
+                "dequant_reduce": 0, "block_sparse_fwd": 0, "gmm": 0,
+                "tgmm": 0, "evoformer_fwd": 0, "paged_attention": 0}
+    if flash:
+        # q, k, v scattered and o gathered, in the forward, the recompute
+        # and the backward (K/V heads repeated up to sp where sp does not
+        # divide them)
+        K_a2a = K if K % sp == 0 else -(-sp // K) * K
+        n = 3 * L * gas
+        traffic = {"seq/all_to_all": (4 * n,
+                                      n * B * S_l * (2 * N + 2 * K_a2a) * D)}
+        shapes = [(B, t["seq"], N // sp, D)]
+    else:
+        # K and V (their heads repeated up to N first) sent on sp - 1
+        # times in the forward, the recompute and the backward
+        n = 3 * 2 * (sp - 1) * L * gas
+        traffic = {"seq/permute": (n, n * B * S_l * N * D)}
+        shapes = []
+    return launches, traffic, shapes
+
+
+def train_llama_750m_sp2_rank(rank, world, seed, t):
+    """One rank of the sequence-parallel phase (``t``: SP2, its depth, the
+    device and the one-process reference): ways (a) and (b) — the main
+    path and a profiled step — then the SP1-SP3 gate steps."""
+    import torch
+
+    dev = torch.device(t["device"])
+    batch = sp2_batch(t, seed)
+    out = {"rank": rank}
+    for label, attention in t.get("ways", SP2_WAYS):
+        engine, data, out[label] = sp2_run(t, dev, attention, batch)
+        out[label]["profile"] = zeropp_profile(
+            engine, data, dev, profiled=rank == 0 and dev.type == "cuda")
+        engine.close()
+        del engine, data
+        dev_free(dev)
+    out["gates"] = sp2_gates(t, dev, t["ref"])
+    return out
+
+
+def fpdt_gate(dev):
+    """SP6: FPDT (K/V in pinned host memory, streamed a chunk at a time)
+    against chunked attention at the same query chunks, forward and
+    backward, fp32 and bf16, and their device peaks."""
+    import torch
+
+    from deepspeed_tpu_torch.sequence.tiled import (
+        chunked_attention,
+        fpdt_attention,
+    )
+
+    B, S, N, D = FPDT["B"], FPDT["S"], FPDT["N"], FPDT["D"]
+    g = torch.Generator(dev).manual_seed(5)
+    base = [torch.randn(B, S, N, D, generator=g, device=dev)
+            for _ in range(4)]
+    out = {}
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, fn in (("chunked", lambda q, k, v: chunked_attention(
+                q, k, v, causal=True, num_chunks=FPDT["num_chunks"])),
+                         ("fpdt", lambda q, k, v: fpdt_attention(
+                             q, k, v, causal=True,
+                             num_chunks=FPDT["num_chunks"],
+                             kv_chunks=FPDT["kv_chunks"], offload_kv=True))):
+            q, k, v = (x.detach().to(dt).clone().requires_grad_()
+                       for x in base[:3])
+            do = base[3].to(dt)
+            dev_sync(dev)
+            resident = dev_allocated(dev)
+            dev_peak(dev, reset=True)
+            t0 = time.perf_counter()
+            o = fn(q, k, v)
+            o.backward(do)
+            dev_sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            res[(dtype, name)] = {"o": o.detach(), "dq": q.grad,
+                                  "dk": k.grad, "dv": v.grad}
+            out[f"{name}_{dtype}"] = {
+                "fwd_bwd_ms": ms,
+                "peak_above_inputs_bytes": dev_peak(dev) - resident}
+            del q, k, v, o, do
+    kv_bytes = 2 * B * S * N * D * 2
+    problems = []
+    for key in ("o", "dq", "dk", "dv"):
+        f32, c32 = res[("float32", "fpdt")][key], res[("float32", "chunked")][key]
+        err = float((f32 - c32).abs().max())
+        atol, rtol = FLASH_TOL["float32"]
+        if not bool(((f32 - c32).abs() <= atol + rtol * c32.abs()).all()):
+            problems.append(f"sp6: fp32 {key} max err {err:.3g} past "
+                            f"FLASH_TOL")
+        fb, cb = (res[("bfloat16", n)][key].float() for n in ("fpdt",
+                                                              "chunked"))
+        norm = float(c32.norm()) or 1.0
+        rel, plain = float((fb - c32).norm()) / norm, \
+            float((cb - c32).norm()) / norm
+        limit = max(BF16_VS_PLAIN * plain, FLASH_TOL["float32"][1])
+        out[f"bf16_{key}"] = {"rel_l2_vs_fp32": rel,
+                              "chunked_rel_l2_vs_fp32": plain,
+                              "limit": limit, "fp32_max_abs_err": err}
+        if not (bool(torch.isfinite(fb).all()) and rel <= limit):
+            problems.append(f"sp6: bf16 {key} {rel:.4g} > {limit:.4g}")
+    for dtype in ("float32", "bfloat16"):
+        pf = out[f"fpdt_{dtype}"]["peak_above_inputs_bytes"]
+        pc = out[f"chunked_{dtype}"]["peak_above_inputs_bytes"]
+        if not pf < pc:
+            problems.append(f"sp6: {dtype} FPDT peak {pf} not below "
+                            f"chunked's {pc}")
+    out["kv_bytes_bf16_in_pinned_host"] = kv_bytes
+    out["shape"] = dict(FPDT)
+    del res
+    dev_free(dev)
+    return out, problems
+
+
 # --------------------------------------------------------------------------- #
 # The offload phases (ZeRO-Offload, the NVMe tier, SuperOffload, ZenFlow)
 # --------------------------------------------------------------------------- #
@@ -3945,6 +4468,14 @@ class Smoke:
         self.steps = {}          # train_<model> → steps of its main-path run
         self.errs = {}           # kernel → max abs err at the main-path shape
         self.state = {}          # engine, prompts of each model's run
+        self.phases = []             # the phases this run selected (main)
+        self.current = None          # the phase running
+        self._ran = set()            # the phases run so far
+        self._prepared = {}          # phase → its jobs and inputs
+        self._done = {}              # job key → (rank results, seconds)
+        self.job_phase = {}          # job key → (its phase, its host phase)
+        self.job_seconds = {}        # job key → its seconds in its spawn
+        self.phase_parts = {}        # phase → prepare seconds
 
     # ------------------------------------------------------------------ #
     def sync(self):
@@ -5484,19 +6015,12 @@ class Smoke:
         from deepspeed_tpu_torch.models import transformer as T
         from deepspeed_tpu_torch.models.convert import load_master
 
-        t = dict(CKPT, **(t or {}))
+        prep = self.prepared("checkpoint_llama_750m", t)
+        t, root, free, tag_bytes = (prep["t"], prep["root"], prep["free"],
+                                    prep["tag_bytes"])
         depth = {} if t["layers"] is None else {"num_layers": t["layers"]}
         cfg = T.get_model_config(t["model"], **depth)
         L = cfg.num_layers
-        root = ckpt_root()
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(root)
-        tag_bytes = 12 * cfg.num_params()
-        free = shutil.disk_usage(root).free
-        if free < CKPT_TAGS_FREE * tag_bytes:
-            raise RuntimeError(
-                f"{root}: {free} bytes free, the checkpoint phase needs "
-                f"{CKPT_TAGS_FREE} tags of {tag_bytes} bytes")
         rng = np.random.default_rng(self.seed)
         batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                         (t["micro"], t["seq"]),
@@ -5640,11 +6164,8 @@ class Smoke:
             self.steps["checkpoint_llama_750m"] = 2
 
             # ---- C3: two ranks, ZeRO-3 + qgZ + qwZ + LoCo -------------- #
-            c3 = os.path.join(root, "c3")
-            t0 = time.perf_counter()
-            ranks = spawn_ranks("checkpoint_zero3_rank", 2, self.seed,
-                                dict(t, device=str(self.dev), root=c3))
-            c3_s = time.perf_counter() - t0
+            c3 = prep["c3"]
+            ranks, c3_s = self.spawn_job(prep["jobs"][0])
             for r in ranks:
                 if r["resumed"] != r["losses"][1:]:
                     problems.append(f"C3 rank {r['rank']}: resumed losses "
@@ -5894,6 +6415,299 @@ class Smoke:
     # ------------------------------------------------------------------ #
     # data parallel on the one card
     # ------------------------------------------------------------------ #
+    # ------------------------------------------------------------------ #
+    # spawns merged across phases (MERGED_SPAWNS)
+    # ------------------------------------------------------------------ #
+    def prepared(self, phase, *args):
+        """``phase``'s spawn jobs and parent-side inputs (its
+        ``prepare_<phase>(*args)``), prepared once: by the phase itself,
+        or by an earlier phase whose merged spawn ran its jobs (with no
+        arguments: the script's own settings)."""
+        if phase not in self._prepared:
+            t0 = time.perf_counter()
+            self._prepared[phase] = getattr(self, f"prepare_{phase}")(*args)
+            for j in self._prepared[phase]["jobs"]:
+                self.job_phase[j.key] = (phase, self.current)
+            self.phase_parts[phase] = {"prepare_s": time.perf_counter() - t0,
+                                       "prepared_in": self.current}
+        return self._prepared[phase]
+
+    def phase_seconds(self, done):
+        """Each phase's seconds with its jobs' seconds where they ran:
+        ``done`` (the wall of each phase) less the jobs of other phases
+        its spawn ran, plus its own jobs run in another phase's spawn (the
+        spawn's fixed cost stays with the phase that started it)."""
+        out = dict(done)
+        moved = [(phase, host, self.job_seconds.get(key))
+                 for key, (phase, host) in self.job_phase.items()]
+        moved += [(phase, v["prepared_in"], v["prepare_s"])
+                  for phase, v in self.phase_parts.items()]
+        for phase, host, sec in moved:
+            if sec is None or phase == host:
+                continue
+            if host in out:
+                out[host] -= sec
+            if phase in out:
+                out[phase] += sec
+        return out
+
+    def cleanup(self, phase):
+        """Remove the directories ``phase``'s preparation made."""
+        for path in self._prepared.get(phase, {}).get("tmp", ()):
+            shutil.rmtree(path, ignore_errors=True)
+
+    def spawn_job(self, job):
+        """``job``'s ranks' results and their seconds. The first job of a
+        world in MERGED_SPAWNS starts one spawn for every job of that world
+        of the phases selected in this run (this phase's and the later
+        ones', prepared here); the later phases take their results."""
+        if job.key not in self._done:
+            jobs = [job]
+            if job.world in MERGED_SPAWNS:
+                for phase in self.phases:
+                    if phase in MERGED_SPAWNS[job.world] and \
+                            phase not in self._ran:
+                        jobs += [j for j in self.prepared(phase)["jobs"]
+                                 if j.world == job.world and j is not job
+                                 and j.key not in self._done]
+            t0 = time.perf_counter()
+            ranks = spawn_ranks("jobs_rank", job.world, self.seed,
+                                [(j.key, j.fn, j.args) for j in jobs])
+            wall = time.perf_counter() - t0
+            emit("spawn/jobs", world=job.world, keys=[j.key for j in jobs],
+                 wall_s=wall, job_seconds={
+                     j.key: max(r[j.key][1] for r in ranks) for j in jobs})
+            for j in jobs:
+                self._done[j.key] = ([r[j.key][0] for r in ranks],
+                                     max(r[j.key][1] for r in ranks))
+                self.job_seconds[j.key] = self._done[j.key][1]
+                self.job_phase[j.key] = (self.job_phase[j.key][0],
+                                         self.current)
+        return self._done.pop(job.key)
+
+    def prepare_train_llama_750m_zeropp_dp2(self):
+        t = dict(ZEROPP, steps=ZEROPP_STEPS, gas=ZEROPP_GAS,
+                 gate_layers=ZEROPP_GATE_LAYERS)
+        return {"t": t, "jobs": [Job("zeropp", "train_llama_750m_zeropp_dp2_rank",
+                                     t["world"], dict(t, device=str(self.dev)))]}
+
+    def prepare_train_llama_750m_zero3_dp2(self):
+        """The ZeRO-3 ranks' job and the MLP's reference (the same spec at
+        world 1 without ZeRO), in a file the ranks read."""
+        t = dict(ZERO3, layers=ZERO3_LAYERS, steps=ZERO3_STEPS,
+                 baseline=True)
+        mlp = dict(ZERO3_MLP, **t.get("mlp", {}))
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mlp_")
+        ref_path = os.path.join(tmp, "ref.pt")
+        mlp_ref = mlp_run(self.dev, {"stage": 0}, mlp["micro"] * t["world"],
+                          self.seed, mlp, path=ref_path)
+        del mlp_ref["m0"], mlp_ref["m1"]
+        dev_free(self.dev)
+        return {"t": t, "mlp": mlp, "mlp_ref": mlp_ref, "tmp": [tmp],
+                "jobs": [Job("zero3", "train_llama_750m_zero3_dp2_rank",
+                             t["world"], dict(t, device=str(self.dev),
+                                              mlp=mlp, mlp_ref=ref_path))]}
+
+    def prepare_train_llama_750m_hpz_dp4(self):
+        t = dict(HPZ, layers=HPZ_LAYERS, steps=HPZ_STEPS)
+        return {"t": t, "jobs": [Job("hpz", "train_llama_750m_hpz_dp4_rank",
+                                     t["world"], dict(t, device=str(self.dev)))]}
+
+    def prepare_train_moe_350m_ep(self):
+        """The one-process references of (a) and (b) (their whole fp32
+        gradient and update in files the ranks map) and the two jobs."""
+        ep_a = dict(MOE_EP, layers=MOE_EP_LAYERS)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+        refs = {"a": moe_ep_reference(ep_a, self.dev, self.seed,
+                                      os.path.join(tmp, "a")),
+                "b": moe_ep_reference(MOE_EP_B, self.dev, self.seed,
+                                      os.path.join(tmp, "b"),
+                                      plain_bf16=False)}
+        return {"ep_a": ep_a, "refs": refs, "tmp": [tmp], "jobs": [
+            Job(f"moe_ep/{label}", "train_moe_350m_ep_rank", t["world"],
+                dict(t, device=str(self.dev), ref=refs[label]))
+            for label, t in (("a", ep_a), ("b", MOE_EP_B))]}
+
+    def prepare_train_moe_350m_ep_zero(self):
+        """(g)'s one-process dense reference and the two jobs."""
+        t = dict(MOE_EPZ)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_epz_")
+        ref = moe_ep_reference(MOE_EPZ_DENSE, self.dev, self.seed,
+                               os.path.join(tmp, "g"), plain_bf16=False)
+        return {"t": t, "ref": ref, "tmp": [tmp], "jobs": [
+            Job("moe_ep_zero/b-f", "train_moe_350m_ep_zero_rank", t["world"],
+                dict(t, device=str(self.dev))),
+            Job("moe_ep_zero/g", "train_moe_350m_ep_dense_rank",
+                MOE_EPZ_DENSE["world"], dict(MOE_EPZ_DENSE,
+                                             device=str(self.dev), ref=ref))]}
+
+    def prepare_train_llama_750m_sp2(self):
+        """The one-process reference (``sp2_reference``) and the job."""
+        t = dict(SP2, layers=SP2_LAYERS)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_sp2_")
+        ref = sp2_reference(t, self.dev, self.seed, os.path.join(tmp, "one"))
+        return {"t": t, "ref": ref, "tmp": [tmp], "jobs": [
+            Job("sp2", "train_llama_750m_sp2_rank", t["world"],
+                dict(t, device=str(self.dev), ref=ref)),
+            Job("sp2/c", "train_llama_750m_sp2_rank", SP2_C["world"],
+                dict(sp2_c(t), device=str(self.dev), ref=ref))]}
+
+    def phase_train_llama_750m_sp2(self):
+        """Two ranks at mesh {seq: 2} (SP2): ways (a) ulysses_flash and (b)
+        ring, gates SP1-SP5 (``train_llama_750m_sp2_rank``), then SP6 in
+        this process; step ms, tokens/s, MFU (attention over the whole
+        sequence), peak a rank, rank 0's idle share and the seq group's
+        host seconds a step."""
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        dev_free(self.dev)
+        prep = self.prepared("train_llama_750m_sp2")
+        t, ref = prep["t"], prep["ref"]
+        try:
+            ranks, wall = self.spawn_job(prep["jobs"][0])
+            ranks_c, wall_c = self.spawn_job(prep["jobs"][1])
+        finally:
+            self.cleanup("train_llama_750m_sp2")
+        cfg = T.get_model_config(t["model"], num_layers=t["layers"])
+        L = cfg.num_layers
+        tokens = t["micro"] * t["seq"] * t["gas"]
+        tc = sp2_c(t)
+        problems, results = [], {}
+        for label, attention, rs, tw in (
+                [(lab, att, ranks, t) for lab, att in SP2_WAYS]
+                + [(lab, att, ranks_c, tc) for lab, att in SP2_C["ways"]]):
+            launches, traffic, shapes = sp2_want(
+                tw, L, attention, cfg, rs[0][label]["adam_per_step"])
+            for r in rs:
+                m, tag = r[label], f"{label} rank {r['rank']}"
+                problems += [f"{tag}: {k} launched {m['launches'][k]} "
+                             f"times, want {v}" for k, v in launches.items()
+                             if m["launches"][k] != v]
+                for key, (calls, elems) in traffic.items():
+                    got = m["traffic"].get(key, [0, 0])[:2]
+                    if got != [calls, elems]:
+                        problems.append(f"{tag}: {key} {got}, want "
+                                        f"{[calls, elems]}")
+                if shapes and any(m["flash_shapes"][k] != shapes
+                                  for k in m["flash_shapes"]):
+                    problems.append(f"{tag}: flash shapes "
+                                    f"{m['flash_shapes']}, want {shapes}")
+                if m["losses"][-1] >= m["losses"][0] or not all(
+                        np.isfinite(m["losses"])):
+                    problems.append(f"{tag}: losses {m['losses']}")
+                # SP5: the forward-backward peak above the resident state
+                if not m["fwd_bwd_peak_bytes"] < \
+                        ref["one_process_fwd_bwd_peak_bytes"]:
+                    problems.append(
+                        f"{tag}: forward-backward peak "
+                        f"{m['fwd_bwd_peak_bytes']} not below one "
+                        f"process's {ref['one_process_fwd_bwd_peak_bytes']}")
+            r0 = rs[0][label]
+            step_s = r0["step_ms"] / 1e3
+            results[label] = {
+                "attention": attention, "mesh": tw["mesh"],
+                "world": tw["world"], "micro_a_batch_rank": tw["micro"],
+                "step_ms": r0["step_ms"],
+                "step_ms_per_rank": [r[label]["step_ms"] for r in rs],
+                "tokens_per_s": tokens / step_s,
+                "mfu": tokens / step_s * flops_per_token(cfg, t["seq"])
+                / PEAK_FLOPS["bfloat16"],
+                "peak_bytes_per_rank": [r[label]["resident_bytes"]
+                                        + r[label]["fwd_bwd_peak_bytes"]
+                                        for r in rs],
+                "fwd_bwd_peak_bytes_per_rank": [
+                    r[label]["fwd_bwd_peak_bytes"] for r in rs],
+                "fwd_bwd_peak_vs_one_process": [
+                    r[label]["fwd_bwd_peak_bytes"]
+                    / ref["one_process_fwd_bwd_peak_bytes"] for r in rs],
+                "idle_share_rank0": r0["profile"].get("device_idle_share"),
+                "seq_host_s_per_step": [r[label]["seq_host_s_per_step"]
+                                        for r in rs],
+                "launches_want": launches, "traffic_want": traffic,
+                "flash_shape_want": shapes,
+                "per_rank": [{k: v for k, v in r[label].items()
+                              if k != "profile"} for r in rs],
+                "profile_rank0": r0["profile"]}
+        gates = dict(ranks[0]["gates"], **ranks_c[0]["gates"])
+        for r in ranks + ranks_c:
+            problems += [f"rank {r['rank']}: {p}"
+                         for p in sp2_gate_problems(r["gates"], ref)]
+        sp6, p6 = fpdt_gate(self.dev)
+        problems += p6
+        emit("train_llama_750m_sp2", model=t["model"], layers=L,
+             reduced=f"{L} of 20 layers, for the script's time",
+             mesh=t["mesh"], world=t["world"], micro=t["micro"],
+             seq=t["seq"], gas=t["gas"], steps=t["steps"], zero=t["zero"],
+             params=cfg.num_params(), phase_wall_s=wall,
+             phase_wall_s_c=wall_c, card=self.card,
+             wire_note="gloo through host memory, two ranks sharing one "
+                       "card", one_process={
+                 k: v for k, v in ref.items() if not k.endswith("_path")},
+             **results)
+        emit("train_llama_750m_sp2/gates", card=self.card, gates=gates,
+             sp6=sp6, limits=SP2_LIMITS, bf16_vs_plain=BF16_VS_PLAIN)
+        if problems:
+            raise AssertionError("train_llama_750m_sp2: "
+                                 + "; ".join(problems))
+        name = "train_llama_750m_sp2"
+        for label, res in results.items():
+            for k, v in res["per_rank"][0]["launches"].items():
+                if v and k.startswith("flash"):
+                    self.launches.setdefault(k, {})[f"{name}/{label}"] = v
+            self.steps[f"{name}/{label}"] = t["steps"]
+        self.state["sp2"] = {
+            label: dict(res["profile_rank0"], step_ms=res["step_ms"],
+                        tokens_per_s=res["tokens_per_s"], mfu=res["mfu"])
+            for label, res in results.items()}
+
+    def prepare_train_llama_750m_offload(self, t=None):
+        """The NVMe directory (emptied, its disk checked) and (d)'s int8
+        job at world 2 (ZeRO-3 + qgZ + qwZ with and without offload_param
+        cpu: no file of the directory is used)."""
+        t = dict(OFFLOAD, **(t or {}))
+        path = os.path.join(nvme_dir(), "750m")
+        shutil.rmtree(path, ignore_errors=True)
+        facts = host_facts(path)
+        if facts["disk_free_bytes"] < NVME_MIN_FREE:
+            raise RuntimeError(f"{path}: {facts['disk_free_bytes']} bytes "
+                               f"free, the NVMe runs need {NVME_MIN_FREE}")
+        return {"t": t, "path": path, "facts": facts, "tmp": [path],
+                "jobs": [
+            Job("offload/d_int8", "train_llama_750m_offload_param_rank", 2,
+                dict(t, device=str(self.dev), nvme_path=path,
+                     wire=OFFLOAD_INT8, runs=("none", "cpu")))]}
+
+    def prepare_checkpoint_llama_750m(self, t=None):
+        """The tags' root (emptied, its disk checked for CKPT_TAGS_FREE
+        tags of C1's size) and C3's job at world 2, which writes under
+        it."""
+        from deepspeed_tpu_torch.models import transformer as T
+
+        t = dict(CKPT, **(t or {}))
+        depth = {} if t["layers"] is None else {"num_layers": t["layers"]}
+        cfg = T.get_model_config(t["model"], **depth)
+        root = ckpt_root()
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        tag_bytes = 12 * cfg.num_params()
+        free = shutil.disk_usage(root).free
+        if free < CKPT_TAGS_FREE * tag_bytes:
+            raise RuntimeError(
+                f"{root}: {free} bytes free, the checkpoint phase needs "
+                f"{CKPT_TAGS_FREE} tags of {tag_bytes} bytes")
+        c3 = os.path.join(root, "c3")
+        return {"t": t, "root": root, "free": free, "tag_bytes": tag_bytes,
+                "c3": c3, "tmp": [root], "jobs": [
+                    Job("checkpoint/c3", "checkpoint_zero3_rank", 2,
+                        dict(t, device=str(self.dev), root=c3))]}
+
+    def prepare_quantized_reduce_scatter(self):
+        return {"jobs": [Job(f"qrs/{w}", "quantized_reduce_scatter_rank", w,
+                             dict(QRS, device=str(self.dev)))
+                         for w in QRS["worlds"]]}
+
     def phase_train_llama_750m_zeropp_dp2(self):
         """Two ranks on the card: the ZeRO++ main path and its gates, then
         the exact ZeRO-2 baseline (``train_llama_750m_zeropp_dp2_rank``).
@@ -5905,14 +6719,11 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = dict(ZEROPP, steps=ZEROPP_STEPS, gas=ZEROPP_GAS,
-                 gate_layers=ZEROPP_GATE_LAYERS)
+        prep = self.prepared("train_llama_750m_zeropp_dp2")
+        t = prep["t"]
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"])
-        t0 = time.perf_counter()
-        ranks = spawn_ranks("train_llama_750m_zeropp_dp2_rank", world,
-                            self.seed, dict(t, device=str(self.dev)))
-        wall = time.perf_counter() - t0
+        ranks, wall = self.spawn_job(prep["jobs"][0])
         L = cfg.num_layers
         micros = gas * steps
         groups = 1 + len(ZEROPP_CHUNKS)
@@ -6028,26 +6839,15 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = dict(ZERO3, layers=ZERO3_LAYERS, steps=ZERO3_STEPS,
-                 baseline=True)
+        prep = self.prepared("train_llama_750m_zero3_dp2")
+        t, mlp, mlp_ref = prep["t"], prep["mlp"], prep["mlp_ref"]
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         L = cfg.num_layers
-        # the MLP's reference: the same spec at world 1 without ZeRO
-        mlp = dict(ZERO3_MLP, **t.get("mlp", {}))
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_mlp_")
-        ref_path = os.path.join(tmp, "ref.pt")
-        mlp_ref = mlp_run(self.dev, {"stage": 0}, mlp["micro"] * world,
-                          self.seed, mlp, path=ref_path)
-        del mlp_ref["m0"], mlp_ref["m1"]
-        t0 = time.perf_counter()
         try:
-            ranks = spawn_ranks("train_llama_750m_zero3_dp2_rank", world,
-                                self.seed, dict(t, device=str(self.dev),
-                                                mlp=mlp, mlp_ref=ref_path))
+            ranks, wall = self.spawn_job(prep["jobs"][0])
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        wall = time.perf_counter() - t0
+            self.cleanup("train_llama_750m_zero3_dp2")
         baselines = [r["baseline"] for r in ranks]
         bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
         want = {run: zero3_launches_want(
@@ -6178,14 +6978,12 @@ class Smoke:
 
         build.build_all()
         torch.cuda.empty_cache()
-        t = dict(HPZ, layers=HPZ_LAYERS, steps=HPZ_STEPS)
+        prep = self.prepared("train_llama_750m_hpz_dp4")
+        t = prep["t"]
         world, gas, steps = t["world"], t["gas"], t["steps"]
         cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         L = cfg.num_layers
-        t0 = time.perf_counter()
-        ranks = spawn_ranks("train_llama_750m_hpz_dp4_rank", world,
-                            self.seed, dict(t, device=str(self.dev)))
-        wall = time.perf_counter() - t0
+        ranks, wall = self.spawn_job(prep["jobs"][0])
         bounds = [list(b) for b in even_chunk_bounds(L, ZERO3_CHUNKS)]
         want = {"trio": zero3_launches_want(
                     L, gas, steps, len(bounds), wire=True, loco=False,
@@ -6319,23 +7117,13 @@ class Smoke:
 
         build.build_all()
         dev_free(self.dev)
-        ep_a = dict(MOE_EP, layers=MOE_EP_LAYERS)
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+        prep = self.prepared("train_moe_350m_ep")
+        ep_a, refs = prep["ep_a"], prep["refs"]
         try:
-            refs = {"a": moe_ep_reference(ep_a, self.dev, self.seed,
-                                          os.path.join(tmp, "a")),
-                    "b": moe_ep_reference(MOE_EP_B, self.dev, self.seed,
-                                          os.path.join(tmp, "b"),
-                                          plain_bf16=False)}
-            runs = {}
-            for label, t in (("a", ep_a), ("b", MOE_EP_B)):
-                t0 = time.perf_counter()
-                ranks = spawn_ranks("train_moe_350m_ep_rank", t["world"],
-                                    self.seed, dict(t, device=str(self.dev),
-                                                    ref=refs[label]))
-                runs[label] = (ranks, time.perf_counter() - t0)
+            runs = {label: self.spawn_job(job)
+                    for label, job in zip("ab", prep["jobs"])}
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+            self.cleanup("train_moe_350m_ep")
         problems, results = [], {}
         for label, t in (("a", ep_a), ("b", MOE_EP_B)):
             ranks, wall = runs[label]
@@ -6442,24 +7230,14 @@ class Smoke:
 
         build.build_all()
         dev_free(self.dev)
-        t = dict(MOE_EPZ)
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_epz_")
+        prep = self.prepared("train_moe_350m_ep_zero")
+        t, ref = prep["t"], prep["ref"]
         walls = {}
         try:
-            ref = moe_ep_reference(MOE_EPZ_DENSE, self.dev, self.seed,
-                                   os.path.join(tmp, "g"), plain_bf16=False)
-            t0 = time.perf_counter()
-            ranks = spawn_ranks("train_moe_350m_ep_zero_rank", t["world"],
-                                self.seed, dict(t, device=str(self.dev)))
-            walls["b-f"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            dense = spawn_ranks("train_moe_350m_ep_dense_rank",
-                                MOE_EPZ_DENSE["world"], self.seed,
-                                dict(MOE_EPZ_DENSE, device=str(self.dev),
-                                     ref=ref))
-            walls["g"] = time.perf_counter() - t0
+            ranks, walls["b-f"] = self.spawn_job(prep["jobs"][0])
+            dense, walls["g"] = self.spawn_job(prep["jobs"][1])
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+            self.cleanup("train_moe_350m_ep_zero")
         problems = epz_problems(ranks, dense, t)
         cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         L = cfg.num_layers
@@ -6820,16 +7598,11 @@ class Smoke:
         from deepspeed_tpu_torch.models import transformer as T
         from deepspeed_tpu_torch.ops import build
 
-        t = dict(OFFLOAD, **(t or {}))
         if self.dev.type == "cuda":
             build.build_all()
         dev_free(self.dev)
-        path = os.path.join(nvme_dir(), "750m")
-        shutil.rmtree(path, ignore_errors=True)
-        facts = host_facts(path)
-        if facts["disk_free_bytes"] < NVME_MIN_FREE:
-            raise RuntimeError(f"{path}: {facts['disk_free_bytes']} bytes "
-                               f"free, the NVMe runs need {NVME_MIN_FREE}")
+        prep = self.prepared("train_llama_750m_offload", t)
+        t, path, facts = prep["t"], prep["path"], prep["facts"]
         cfg = T.get_model_config(t["model"], **(
             {"num_layers": t["layers"]} if t.get("layers") else {}))
         L = cfg.num_layers
@@ -6892,12 +7665,7 @@ class Smoke:
                                self.seed, dict(t, device=str(self.dev),
                                                nvme_path=path))
         param_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        int8 = spawn_ranks("train_llama_750m_offload_param_rank", 2,
-                           self.seed, dict(t, device=str(self.dev),
-                                           nvme_path=path, wire=OFFLOAD_INT8,
-                                           runs=("none", "cpu")))
-        int8_s = time.perf_counter() - t0
+        int8, int8_s = self.spawn_job(prep["jobs"][0])
         shutil.rmtree(path, ignore_errors=True)
         cuda = self.dev.type == "cuda"
         for label, res, runs_where, stream in (
@@ -6981,9 +7749,9 @@ class Smoke:
         build.build_all()
         self.torch.cuda.empty_cache()
         out, problems = {}, []
-        for world in QRS["worlds"]:
-            ranks = spawn_ranks("quantized_reduce_scatter_rank", world,
-                                self.seed, dict(QRS, device=str(self.dev)))
+        for job in self.prepared("quantized_reduce_scatter")["jobs"]:
+            world = job.world
+            ranks, _ = self.spawn_job(job)
             for r in ranks:
                 tag = f"world {world} rank {r['rank']}"
                 if not r["kernel_equals_plain"]:
@@ -7439,6 +8207,11 @@ class Smoke:
         torch.cuda.empty_cache()
         fl = {label: self.flash_times(label, B, S, N, K, D, flush)
               for label, B, S, N, K, D, _ in FLASH_CASES[:3]}
+        if "sp2" in self.state:
+            # the kernels on Ulysses' head-sharded blocks (SP2's way (a))
+            B, S, sp = SP2["micro"], SP2["seq"], SP2["mesh"]["seq"]
+            fl["llama_750m_ulysses"] = self.flash_times(
+                "llama_750m_ulysses", B, S, 12 // sp, 12 // sp, 128, flush)
         adam = (self.adam_times(flush) if "train_gpt2_125m" in self.state
                 else None)
         gg = (self.gmm_times(flush) if "train_moe_350m" in self.state
@@ -7460,6 +8233,9 @@ class Smoke:
             steps["llama_750m_zero3_hpz_qwz_qgz_dp4"] = \
                 self.state["hpz"]["trio"]
             steps["llama_750m_mics_zero3_dp4"] = self.state["hpz"]["mics"]
+        if "sp2" in self.state:
+            for label, row in self.state["sp2"].items():
+                steps[f"llama_750m_sp2_{label}"] = row
         if "moe_ep" in self.state:
             steps["moe_350m_ep2"] = self.state["moe_ep"]["a"]
             steps["moe_350m_data2_ep2"] = self.state["moe_ep"]["b"]
@@ -8075,6 +8851,8 @@ class Smoke:
             if name in self.errs:
                 timed[name] = dict(fl["gpt2_125m"][name],
                                    max_abs_err=self.errs[name])
+                if "llama_750m_ulysses" in fl:
+                    timed[name]["ulysses"] = fl["llama_750m_ulysses"][name]
         for name, key in (("gmm", "gmm[up]"), ("tgmm", "tgmm[up]")):
             if gg is not None and name in self.errs:
                 timed[name] = dict(gg[key], max_abs_err=self.errs[name])
@@ -8119,7 +8897,8 @@ class Smoke:
                         "library_ms": t["library_ms"]})
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
                           "tflops_per_s", "kernel_ms", "in_graph_kernel_ms",
-                          "replica_hop", "ep_buffer", "serving_decode"):
+                          "replica_hop", "ep_buffer", "serving_decode",
+                          "ulysses"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         # the host library of the host-executed step (not a card kernel):
@@ -8157,19 +8936,30 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smoke = Smoke(torch, args.seed)
+    smoke.phases = phases
     t_start = time.perf_counter()
     timed = None
-    for phase in phases:
-        t0 = time.perf_counter()
-        try:
-            res = getattr(smoke, f"phase_{phase}")()
-        except Exception as e:
-            emit(phase, error=f"{type(e).__name__}: {e}")
-            print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
-            raise
-        if phase == "times":
-            timed = res
-        emit(f"{phase}/done", seconds=time.perf_counter() - t0)
+    done = {}
+    try:
+        for phase in phases:
+            t0 = time.perf_counter()
+            smoke.current = phase
+            try:
+                res = getattr(smoke, f"phase_{phase}")()
+            except Exception as e:
+                emit(phase, error=f"{type(e).__name__}: {e}")
+                print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
+                raise
+            smoke._ran.add(phase)
+            if phase == "times":
+                timed = res
+            done[phase] = time.perf_counter() - t0
+            emit(f"{phase}/done", seconds=done[phase])
+    finally:
+        for phase in list(smoke._prepared):
+            smoke.cleanup(phase)
+    emit("phase_seconds", merged=MERGED_SPAWNS, prepared=smoke.phase_parts,
+         by_phase=smoke.phase_seconds(done))
     emit("total", seconds=time.perf_counter() - t_start)
     print(smoke.card or nvidia_smi(), flush=True)
     if timed is not None:

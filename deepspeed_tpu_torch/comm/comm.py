@@ -39,11 +39,15 @@ gradient, JAX's transpose of ``lax.all_to_all(..., tiled=True)``) and
 :func:`all_reduce_mean_autograd` (the mean over a group, whose backward is
 the mean of the gradients, JAX's transpose of ``pmean``). They run on the
 MoE layer's own groups (``MeshManager.moe_group``) through the same gloo
-staging.
+staging. The sequence-parallel attentions run :func:`all_to_all_autograd`
+(Ulysses) and :func:`permute_autograd` (the ring's K/V hops, JAX's
+``lax.ppermute``, whose backward is the reverse permute) on their own
+``seq`` group (``MeshManager.seq_group``).
 
 Every collective counts itself in :data:`traffic` under its group's label
-(``world``, the ``zshard`` / ``data`` / ``expert`` axis groups, the MoE
-layer's ``batch`` group; ``comm/mesh.group_label``) and its kind: calls, the elements this rank
+(``world``, the ``zshard`` / ``data`` / ``expert`` / ``seq_hop`` axis
+groups, the MoE layer's ``batch`` group, the attentions' ``seq`` group;
+``comm/mesh.group_label``) and its kind: calls, the elements this rank
 sends in, and the host seconds the calling thread spent in it (the
 queue's worker thread included). A call costs two clock reads and a few
 additions; the counts show which group carries what (no parameter gather
@@ -395,6 +399,60 @@ class _AllReduceMean(torch.autograd.Function):
 def all_reduce_mean_autograd(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable mean of ``x`` over ``group``."""
     return _AllReduceMean.apply(x, group)
+
+
+def send_recv(tensor: torch.Tensor, group, dst: int, src: int
+              ) -> torch.Tensor:
+    """Send ``tensor`` to global rank ``dst`` and return what global rank
+    ``src`` sent this rank, as one paired non-blocking send and receive
+    (``batch_isend_irecv``): no rank blocks in a send, so a ring of two
+    (``dst == src``) cannot deadlock. Counted as a ``permute``."""
+    settle()
+    with _traffic(group, "permute", tensor):
+        if get_world_size(group) <= 1:
+            return tensor.clone()
+
+        def op(o, i):
+            for work in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, i, dst, group),
+                    dist.P2POp(dist.irecv, o, src, group)]):
+                work.wait()
+
+        x = tensor.contiguous()
+        return _run(op, torch.empty_like(x), x, group)
+
+
+class _Permute(torch.autograd.Function):
+    """Every rank of ``group`` sends to the one ``shift`` places after it
+    in the group's rank order (JAX's ``lax.ppermute`` over
+    ``(j, j + shift)``); backward: the gradient sent back the other
+    way."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shifted(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shifted(g, ctx.group, -ctx.shift), None, None
+
+
+def _shifted(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    ranks = dist.get_process_group_ranks(group) if group is not None \
+        else list(range(get_world_size()))
+    me = ranks.index(get_rank())
+    n = len(ranks)
+    return send_recv(x, group, ranks[(me + shift) % n],
+                     ranks[(me - shift) % n])
+
+
+def permute_autograd(x: torch.Tensor, group, shift: int = 1
+                     ) -> torch.Tensor:
+    """Differentiable neighbour permute over ``group``: rank j's ``x``
+    goes to rank j + ``shift`` (mod the group size); the result is what
+    rank j − ``shift`` sent."""
+    return _Permute.apply(x, group, shift)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

@@ -7,13 +7,14 @@ TPU the mesh's "devices" are chips; here they are the processes of the
 default ``torch.distributed`` process group (one process without one), each
 driving its own device.
 
-The ``data``, ``zshard`` and ``expert`` axes run (``data = -1`` absorbs
-the world size, as JAX's absorbs the device count; a shape that does not
-fit the world raises JAX's ``ValueError``); any other axis above 1 raises
-``NotImplementedError`` (a later slice). Ranks take JAX's device order:
-``DEFAULT_AXIS_ORDER`` with ``expert`` inside ``zshard`` inside ``data``,
-so rank r sits at ``expert = r % X``, ``zshard = (r // X) % Z``,
-``data = r // (X·Z)``. The manager holds this rank's process group over a
+The ``data``, ``zshard``, ``expert`` and ``seq`` axes run (``data = -1``
+absorbs the world size, as JAX's absorbs the device count; a shape that
+does not fit the world raises JAX's ``ValueError``); ``tensor`` and
+``pipe`` above 1 raise ``NotImplementedError`` (a later slice). Ranks take
+JAX's device order: ``DEFAULT_AXIS_ORDER`` with ``seq`` inside ``expert``
+inside ``zshard`` inside ``data``, so rank r sits at ``seq = r % Q``,
+``expert = (r // Q) % X``, ``zshard = (r // (Q·X)) % Z``, ``data = r //
+(Q·X·Z)``. The manager holds this rank's process group over a
 set of axes (:meth:`MeshManager.group`), each built by
 ``torch.distributed.new_group`` on every rank in the same order, as gloo
 requires: under hpZ / MiCS (``zshard`` above 1) the ``zshard`` group (where
@@ -22,8 +23,11 @@ ZeRO state is sharded) and the ``data`` group (its replicas); under an
 zshard)`` group (the replicas of an expert shard, JAX's
 ``EXPERT_GRAD_REDUCE_AXES``, where ZeRO shards), with it the ``(data,
 expert)`` group (the dense leaves' replica hop, JAX's ZeRO axes being
-``zshard`` alone then). A group that spans every process is the default
-group (None).
+``zshard`` alone then); under a ``seq`` axis the ``(data, zshard)`` shard
+group and the ``seq`` group, the dense leaves' replica hop (JAX's
+``DENSE_GRAD_REDUCE_AXES`` less its ZeRO axes: seq ranks hold the same
+parameters and ZeRO shards). A group that spans every process is the
+default group (None).
 
 The MoE layer's collectives (the expert all-to-alls, the global aux loss's
 mean, the dense gate's counts) run in the forward and backward on the
@@ -31,7 +35,9 @@ calling thread, while the engine's ``CommQueue`` worker may be running the
 hooked gradient reduces on the engine's groups. gloo matches collectives by
 issue order within a group, so the MoE layer has groups of its own
 (:meth:`MeshManager.moe_group`), built with ``new_group`` even where they
-span every process: the two threads never share a group.
+span every process: the two threads never share a group. So do the
+sequence-parallel attentions (Ulysses' all-to-alls, the ring's permutes):
+:meth:`MeshManager.seq_group`, labelled ``seq``.
 """
 from __future__ import annotations
 
@@ -52,8 +58,11 @@ SEQ_AXIS = "seq"
 TENSOR_AXIS = "tensor"
 DEFAULT_AXIS_ORDER: Tuple[str, ...] = (PIPE_AXIS, DATA_AXIS, ZSHARD_AXIS,
                                        EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
-# expert parameters are sharded over 'expert'; their gradients reduce over
-# the axes that replicate them (dense ones over every process)
+# dense gradients reduce over every axis that replicates dense parameters;
+# expert parameters are sharded over 'expert', their gradients reduce over
+# the axes that replicate them
+DENSE_GRAD_REDUCE_AXES: Tuple[str, ...] = (DATA_AXIS, ZSHARD_AXIS,
+                                           EXPERT_AXIS, SEQ_AXIS)
 EXPERT_GRAD_REDUCE_AXES: Tuple[str, ...] = (DATA_AXIS, ZSHARD_AXIS, SEQ_AXIS)
 # the axes that shard the token stream's batch (JAX ``batch_spec``)
 BATCH_AXES: Tuple[str, ...] = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS)
@@ -155,10 +164,27 @@ class MeshManager:
     def world_size(self) -> int:
         return int(np.prod(list(self.shape.values())))
 
+    def seq_group(self):
+        """The sequence-parallel attentions' own process group over
+        ``seq`` (label ``seq``), None for this rank alone."""
+        return self.moe_group((SEQ_AXIS,), "seq")
+
     @property
     def dp_world_size(self) -> int:
         return int(np.prod([self.axis_size(a) for a in
                             (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS, SEQ_AXIS)]))
+
+    @property
+    def batch_world_size(self) -> int:
+        """Replicas of the model over the batch rows, ``data × zshard ×
+        expert`` (JAX's engine's dp width): the ``seq`` ranks of a row
+        share it, each holding its own positions."""
+        return self.axes_size(BATCH_AXES)
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's index over the batch axes: the rows it takes."""
+        return self.group_ranks(BATCH_AXES).index(self.rank)
 
     @property
     def tp_world_size(self) -> int:
@@ -193,7 +219,7 @@ def process_world_size() -> int:
     return 1
 
 
-_RUNS = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS)   # the axes this port runs
+_RUNS = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS, SEQ_AXIS)  # the axes it runs
 # the process groups built so far, by (kind, label, ranks): dist.new_group
 # is collective, so every rank builds the same groups in the same order,
 # once each; kind "axis" the engine's, "moe" the MoE layer's (whose batch
@@ -245,13 +271,18 @@ def _axis_groups(sizes: Dict[str, int]
     MoE layer, at more than one process, the batch group, and under an
     expert axis the ``expert`` groups and, where ``data`` × ``zshard`` is
     above 1, the batch group over ``expert`` (the int8 wire's manual step
-    leaves only that batch axis to the layer)."""
+    leaves only that batch axis to the layer). Under a ``seq`` axis: the
+    ``(data, zshard)`` groups (the shard group) where ``data`` × ``zshard``
+    is above 1 and short of the world, the ``seq`` groups (the dense
+    replica hop, label ``seq_hop``), then the attentions' own ``seq``
+    groups."""
     world = int(np.prod(list(sizes.values())))
     groups: Dict[Tuple[int, ...], Any] = {}
     moe: Dict[Tuple[int, ...], Any] = {}
     if world <= 1:
         return groups, moe
     D, Z, X = sizes[DATA_AXIS], sizes[ZSHARD_AXIS], sizes[EXPERT_AXIS]
+    Q = sizes[SEQ_AXIS]
     if Z > 1:
         groups.update(_build("axis", sizes, (ZSHARD_AXIS,), "zshard", False))
         groups.update(_build("axis", sizes, (DATA_AXIS,), "data", False))
@@ -263,7 +294,13 @@ def _axis_groups(sizes: Dict[str, int]
         elif D > 1:
             groups.update(_build("axis", sizes, (DATA_AXIS, EXPERT_AXIS),
                                  "data_expert", False))
+    if Q > 1:
+        groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
+                             "data", False))
+        groups.update(_build("axis", sizes, (SEQ_AXIS,), "seq_hop", False))
     moe.update(_build("moe", sizes, BATCH_AXES, "batch", True))
+    if Q > 1:
+        moe.update(_build("moe", sizes, (SEQ_AXIS,), "seq", True))
     if X > 1:
         moe.update(_build("moe", sizes, (EXPERT_AXIS,), "expert", True))
         if D * Z > 1:
@@ -274,9 +311,10 @@ def _axis_groups(sizes: Dict[str, int]
 
 def group_label(group) -> str:
     """``world`` for the default group (None), else the axes a group runs
-    over (``zshard``, ``data``, ``expert``, ``data_expert``; ``batch`` for
-    the MoE layer's group over the batch axes); ``other`` for a group of
-    none."""
+    over (``zshard``, ``data``, ``expert``, ``data_expert``, ``seq_hop``
+    for the engine's dense hop over ``seq``; ``batch`` for the MoE layer's
+    group over the batch axes, ``seq`` for the attentions'); ``other`` for
+    a group of none."""
     if group is None:
         return "world"
     for g, label in _LABELS:
@@ -318,7 +356,7 @@ def initialize_mesh(mesh_config: Optional[MeshConfig] = None) -> MeshManager:
                        if a not in _RUNS and s > 1)
     if wider:
         raise later_slice(f"mesh axes {wider} above 1 (this slice runs the "
-                          "'data', 'zshard' and 'expert' axes)")
+                          "'data', 'zshard', 'expert' and 'seq' axes)")
     rank = dist.get_rank() if process_world_size() > 1 else 0
     _GLOBAL_MESH = MeshManager(sizes, rank, *_axis_groups(sizes))
     logger.info(f"initialized process mesh: {_GLOBAL_MESH}")

@@ -1,15 +1,27 @@
 """ModelSpec — the contract between a model and the training engine.
 
 Ports ``deepspeed_tpu/models/api.py``: ``ModelSpec`` (:23),
-``resolve_attention`` (:58) for ``xla`` / ``None``, ``flash`` and
-``sparse[:fixed|bigbird|bslongformer]``, and
-``causal_lm_spec`` (:124) for ``loss_impl`` fused or exact with untiled
-loss. A model is functions plus metadata: ``init_fn(generator, device)``
+``resolve_attention`` (:58) for ``xla`` / ``None``, ``flash``,
+``sparse[:fixed|bigbird|bslongformer]`` and the sequence-parallel
+``ulysses``, ``ulysses_flash``, ``ring``, ``chunked`` and ``fpdt``, and
+``causal_lm_spec`` (:124) for ``loss_impl`` fused or exact and the tiled
+loss (``loss_tiles > 1``, :194-198), with JAX's ``builder`` (:227-255).
+A model is functions plus metadata: ``init_fn(generator, device)``
 returns the fp32 master tree (the JAX pytree's keys and shapes), and
 ``loss_fn(params, batch)`` the scalar loss on compute-dtype parameters —
 a tree whose ``blocks`` are either stacked [L, ...] tensors or a list of
 per-layer dicts (the engine's per-layer leaves) — and ``axes_fn()`` the
 logical axes of each parameter dim.
+
+Under a ``seq`` mesh axis above 1 the engine hands each rank's
+``loss_fn`` whole rows (``tokens`` / ``loss_mask`` [B, S]) and the batch
+key ``seq_shard`` (idx, sp), and the rank computes its own positions
+``[idx·S/sp, (idx+1)·S/sp)``: the embedding and position tables there,
+attention across the ``seq`` ranks (``ulysses``, ``ulysses_flash`` or
+``ring``; another attention raises, since JAX's GSPMD gathers the
+sequence for it and the port does not), and the LM loss over those
+positions' next tokens, the rank's masked mean (the engine weights the
+ranks' means into JAX's global one).
 """
 from __future__ import annotations
 
@@ -24,8 +36,8 @@ from deepspeed_tpu_torch.runtime.config_utils import later_slice
 
 Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
-# attention names of the JAX package that a later slice ports
-_LATER_ATTENTION = ("ulysses", "ulysses_flash", "ring", "chunked", "fpdt")
+# the attentions that run across the ranks of a seq axis
+SEQ_PARALLEL_ATTENTION = ("ulysses", "ulysses_flash", "ring")
 
 
 @dataclasses.dataclass
@@ -37,13 +49,17 @@ class ModelSpec:
     num_params: Optional[int] = None
     seq_len: Optional[int] = None
     config: Any = None             # underlying model config (zoo: TransformerConfig)
-    # fn(remat=None) → an equivalent spec with that knob changed (the
-    # engine's activation_checkpointing.policy); None when the spec holds a
+    # fn(attention=None, loss_tiles=0, remat=None) → an equivalent spec
+    # with those knobs changed (AutoSP, the engine's
+    # activation_checkpointing.policy); None when the spec holds a
     # hand-written attention_fn
     builder: Optional[Callable[..., "ModelSpec"]] = None
     # → the tree of logical axis names per parameter dim (the ZeRO layout
     # reads it); None: every leaf replicated
     axes_fn: Optional[Callable[[], Any]] = None
+    # the attention name the spec was built with (AutoSP keeps the flash
+    # kernels inside Ulysses)
+    attention: Optional[str] = None
 
 
 def _tokens_of(batch: Batch) -> torch.Tensor:
@@ -57,26 +73,55 @@ def _mask_of(batch: Batch):
 def resolve_attention(attention: Optional[str], use_kernels: bool = True):
     """'xla' / None / 'default' → None (the plain attention of the model);
     'flash' → the CUDA flash-attention kernels (``ops/flash_attention.py``);
-    'sparse' | 'sparse:fixed' | 'sparse:bigbird' | 'sparse:bslongformer' →
-    block-sparse attention at block 64 (``ops/block_sparse.py``, the
-    default kind ``fixed``). ``use_kernels=False`` gives the kernels' plain
-    versions under autograd. The JAX package's sequence-parallel attentions
-    raise ``NotImplementedError``; unknown names and sparse kinds raise
-    ``ValueError``, as in JAX."""
+    'ulysses' / 'ulysses_flash' → Ulysses' all-to-alls over ``seq`` around
+    the plain attention / the flash kernels; 'ring' → the K/V ring over
+    ``seq``; 'chunked' → query-chunked attention; 'fpdt' → FPDT attention
+    (``sequence/``); 'sparse' | 'sparse:fixed' | 'sparse:bigbird' |
+    'sparse:bslongformer' → block-sparse attention at block 64
+    (``ops/block_sparse.py``, the default kind ``fixed``).
+    ``use_kernels=False`` gives the kernels' plain versions under autograd.
+    Unknown names and sparse kinds raise ``ValueError``, as in JAX."""
     if attention in (None, "xla", "default"):
         return None
-    if attention == "flash":
+    if attention in ("flash", "ulysses_flash"):
         from deepspeed_tpu_torch.ops import flash_attention as PF
 
-        return PF.flash_attention if use_kernels else PF.flash_attention_plain
+        flash = (PF.flash_attention if use_kernels
+                 else PF.flash_attention_plain)
+        if attention == "flash":
+            return flash
+        from deepspeed_tpu_torch.sequence import ulysses_attention
+
+        return ulysses_attention(inner=flash)
+    if attention == "ulysses":
+        from deepspeed_tpu_torch.sequence import ulysses_attention
+
+        return ulysses_attention()
+    if attention == "ring":
+        from deepspeed_tpu_torch.sequence import ring_attention
+
+        return ring_attention()
+    if attention == "chunked":
+        from deepspeed_tpu_torch.sequence import chunked_attention
+
+        return chunked_attention
+    if attention == "fpdt":
+        from deepspeed_tpu_torch.sequence.tiled import fpdt_attention
+
+        return fpdt_attention
     if attention.startswith("sparse"):
         from deepspeed_tpu_torch.ops.block_sparse import sparse_attention
 
         kind = attention.split(":", 1)[1] if ":" in attention else "fixed"
         return sparse_attention(kind, use_kernels=use_kernels)
-    if attention in _LATER_ATTENTION:
-        raise later_slice(f"attention={attention!r}")
     raise ValueError(f"unknown attention impl {attention!r}")
+
+
+def _seq_shard_of(batch: Batch):
+    """The batch's ``seq_shard`` (idx, sp): the positions of the whole rows
+    this rank of a ``seq`` axis computes, which the engine passes; None:
+    every position."""
+    return batch.get("seq_shard") if isinstance(batch, dict) else None
 
 
 def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
@@ -86,6 +131,9 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     """A ModelSpec for a causal-LM preset or config. ``loss_impl``: 'fused'
     (compute-dtype logits, one compute-dtype grad-logits array — the JAX
     default) or 'exact' (fp32 logits through ``head_matmul``).
+    ``loss_tiles > 1`` takes the tiled loss (``sequence/tiled.
+    tiled_lm_loss``: fp32 tile logits, no [B, S, V] array), which takes
+    precedence over ``loss_impl`` as in JAX.
     ``use_kernels=False`` runs the kernels' plain versions on any device
     (flash and block-sparse attention's whole-tensor versions under
     autograd, the plain norms and grouped GEMMs): the card's kernel-vs-plain
@@ -97,8 +145,6 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
         raise ValueError(f"unknown loss_impl {loss_impl!r}; one of "
                          "fused|exact (a typo must not silently change the "
                          "loss numerics/perf class)")
-    if loss_tiles > 1:
-        raise later_slice(f"loss_tiles={loss_tiles}")
     if attention_fn is None:
         attention_fn = resolve_attention(attention, use_kernels)
     if isinstance(cfg, str):
@@ -114,21 +160,35 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
 
     def loss_fn(params, batch):
         tokens = _tokens_of(batch)
+        shard = _seq_shard_of(batch)
+        if shard is not None and attention not in SEQ_PARALLEL_ATTENTION:
+            raise later_slice(
+                f"attention={attention!r} under a seq mesh axis above 1 "
+                "(JAX's GSPMD gathers the sequence for it; the port runs "
+                f"{'|'.join(SEQ_PARALLEL_ATTENTION)} across seq ranks)")
         hidden, head, aux = T.forward_hidden(params, tokens, cfg,
                                              attention_fn=attention_fn,
-                                             use_kernels=use_kernels)
-        if loss_impl == "fused":
-            loss = T.fused_lm_loss(hidden, head, tokens, _mask_of(batch))
+                                             use_kernels=use_kernels,
+                                             seq_shard=shard)
+        mask = _mask_of(batch)
+        if loss_tiles > 1:
+            from deepspeed_tpu_torch.sequence.tiled import tiled_lm_loss
+
+            loss = tiled_lm_loss(hidden, head, tokens, mask,
+                                 num_tiles=loss_tiles, seq_shard=shard)
+        elif loss_impl == "fused":
+            loss = T.fused_lm_loss(hidden, head, tokens, mask, shard)
         else:
             logits = T.head_matmul(hidden, head.to(hidden.dtype))
-            loss = T.causal_lm_loss(logits, tokens, _mask_of(batch))
+            loss = T.causal_lm_loss(logits, tokens, mask, shard)
         if cfg.n_experts > 0:
             loss = loss + cfg.moe_aux_coef * aux
         return loss
 
     def apply_fn(params, batch):
         return T.forward(params, _tokens_of(batch), cfg,
-                         attention_fn=attention_fn, use_kernels=use_kernels)
+                         attention_fn=attention_fn, use_kernels=use_kernels,
+                         seq_shard=_seq_shard_of(batch))
 
     def init_fn(generator: Optional[torch.Generator] = None, device=None):
         dev = resolve_device(device)
@@ -138,13 +198,20 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
 
     user_attention_fn = attention_fn is not None and attention is None
 
-    def _rebuild(remat: Optional[str] = None) -> ModelSpec:
+    orig_attention, orig_loss_tiles = attention, loss_tiles
+
+    def _rebuild(attention: Optional[str] = None, loss_tiles: int = 0,
+                 remat: Optional[str] = None) -> ModelSpec:
+        # JAX's rule: the stronger loss tiling of (original, requested);
+        # an unspecified attention keeps the original one
         cfg2 = dataclasses.replace(cfg, remat=remat) if remat else cfg
-        return causal_lm_spec(cfg2, attention=attention, loss_impl=loss_impl,
-                              use_kernels=use_kernels)
+        return causal_lm_spec(cfg2, attention=attention or orig_attention,
+                              loss_tiles=max(loss_tiles, orig_loss_tiles),
+                              loss_impl=loss_impl, use_kernels=use_kernels)
 
     return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, apply_fn=apply_fn,
                      name=name, num_params=cfg.num_params(),
                      seq_len=cfg.max_seq_len, config=cfg,
                      builder=None if user_attention_fn else _rebuild,
-                     axes_fn=lambda: T.param_logical_axes(cfg))
+                     axes_fn=lambda: T.param_logical_axes(cfg),
+                     attention=attention)

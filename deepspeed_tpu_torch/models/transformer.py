@@ -744,7 +744,8 @@ def layer_params(blocks, layer: int) -> Dict[str, torch.Tensor]:
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: TransformerConfig, attention_fn=None,
-                   use_kernels: bool = True
+                   use_kernels: bool = True,
+                   seq_shard: Optional[Tuple[int, int]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tokens [B, S] → (final hidden [B, S, H], LM head [H, V], MoE aux
     loss summed over layers, fp32 — 0 for dense models). The JAX
@@ -753,21 +754,33 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     config's remat policy. ``use_kernels=False`` takes the norms' and
     grouped GEMMs' plain versions (the card's kernel-vs-plain checks).
     ``params`` may be a :class:`ParamHook`; without one the layers take
-    :func:`layer_params`."""
+    :func:`layer_params`. ``seq_shard`` (idx, sp): ``tokens`` are whole
+    rows and this rank of a ``seq`` axis of sp computes positions
+    ``[idx·S/sp, (idx+1)·S/sp)``, its position tables taken there (the
+    hidden states of those positions come back)."""
     _check_supported(cfg)
     attention_fn = attention_fn or dot_product_attention
     dt = cfg.compute_dtype
     B, S = tokens.shape
+    lo = 0
+    if seq_shard is not None:
+        idx, sp = seq_shard
+        if S % sp:
+            raise ValueError(f"seq len {S} not divisible by the seq mesh "
+                             f"axis {sp}")
+        lo, S = idx * (S // sp), S // sp
+        tokens = tokens[:, lo:lo + S]
     hook = params if isinstance(params, ParamHook) else None
     if hook is not None:
         params = hook.head()
     x = F.embedding(tokens.long(), params["tok_emb"].to(dt))
     if cfg.pos_emb == "learned":
-        x = x + params["pos_emb"].to(dt)[:S][None]
+        x = x + params["pos_emb"].to(dt)[lo:lo + S][None]
     cos = sin = None
     if cfg.pos_emb == "rope":
-        cos, sin = rope_table(S, cfg.rope_dim, cfg.rope_theta,
+        cos, sin = rope_table(lo + S, cfg.rope_dim, cfg.rope_theta,
                               cfg.rope_scaling_dict, device=x.device)
+        cos, sin = cos[lo:], sin[lo:]
     auxes = []
     for layer in range(cfg.num_layers):
         if hook is None:
@@ -788,10 +801,12 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-            attention_fn=None, use_kernels: bool = True) -> torch.Tensor:
-    """tokens [B, S] → logits [B, S, V] in fp32."""
+            attention_fn=None, use_kernels: bool = True,
+            seq_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """tokens [B, S] → logits [B, S, V] in fp32 (``seq_shard``: of a
+    ``seq`` rank's positions, as :func:`forward_hidden`)."""
     x, head, _ = forward_hidden(params, tokens, cfg, attention_fn,
-                                use_kernels)
+                                use_kernels, seq_shard)
     return head_matmul(x, head.to(x.dtype))
 
 
@@ -802,37 +817,56 @@ def _loss_rows(n_rows: int, vocab: int) -> int:
     return max(1, min(n_rows, (1 << 28) // max(vocab, 1)))
 
 
+def loss_targets(tokens: torch.Tensor, loss_mask: Optional[torch.Tensor],
+                 seq_shard: Optional[Tuple[int, int]], n_local: int
+                 ) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """(n, targets [B, n], fp32 mask [B, n]) of the first ``n`` of a
+    rank's ``n_local`` positions: each position's next token (globally
+    ``tokens[:, 1:]`` against positions ``[0, S-1)``). ``seq_shard`` (idx,
+    sp): the rank holds positions ``[idx·n_local, (idx+1)·n_local)`` of
+    the whole rows ``tokens``, the last rank's last one without a target;
+    None: every position of ``tokens``."""
+    S = tokens.shape[1]
+    lo = 0 if seq_shard is None else seq_shard[0] * n_local
+    hi = min(lo + n_local + 1, S)
+    tgt = tokens[:, lo + 1:hi]
+    n = tgt.shape[1]
+    mask = (torch.ones(tokens.shape[0], n, dtype=torch.float32,
+                       device=tokens.device) if loss_mask is None
+            else loss_mask[:, lo + 1:hi].float())
+    return n, tgt, mask
+
+
 class _FusedLMLoss(torch.autograd.Function):
     """The JAX ``fused_lm_loss`` custom VJP: logits in the compute dtype
     (fp32 sums, one rounding), fp32 softmax statistics; the backward writes
     ONE compute-dtype grad-logits array — into the saved logits' own
     storage — that feeds both backward products. Single use: the saved
-    logits are overwritten by the backward."""
+    logits are overwritten by the backward. ``xs`` [B, n, H] are the
+    positions that have a target, ``tokens`` [B, n] their targets and
+    ``mask`` [B, n] fp32 their weights."""
 
     @staticmethod
-    def forward(ctx, x, w, tokens, mask):
+    def forward(ctx, xs, w, tokens, mask):
         with record_function("fused_lm_loss"):
-            return _FusedLMLoss._forward(ctx, x, w, tokens, mask)
+            return _FusedLMLoss._forward(ctx, xs, w, tokens, mask)
 
     @staticmethod
-    def _forward(ctx, x, w, tokens, mask):
-        dt = x.dtype
-        B, S, H = x.shape
+    def _forward(ctx, xs, w, tokens, mask):
+        dt = xs.dtype
         wc = w.to(dt)
-        xs = x[:, :-1]
-        tgt = tokens[:, 1:].long().reshape(-1)
-        logits = torch.matmul(xs, wc)                       # [B, S-1, V] dt
+        tgt = tokens.long().reshape(-1)
+        logits = torch.matmul(xs, wc)                       # [B, n, V] dt
         lg = logits.reshape(-1, logits.shape[-1])
         R = lg.shape[0]
-        logz = torch.empty(R, dtype=torch.float32, device=x.device)
-        picked = torch.empty(R, dtype=torch.float32, device=x.device)
+        logz = torch.empty(R, dtype=torch.float32, device=xs.device)
+        picked = torch.empty(R, dtype=torch.float32, device=xs.device)
         step = _loss_rows(R, lg.shape[1])
         for a in range(0, R, step):
             lf = lg[a:a + step].float()
             logz[a:a + step] = torch.logsumexp(lf, dim=-1)
             picked[a:a + step] = lf.gather(1, tgt[a:a + step, None])[:, 0]
-        m = (torch.ones(B, S - 1, device=x.device) if mask is None
-             else mask[:, 1:].float()).reshape(-1)
+        m = mask.reshape(-1)
         cnt = torch.clamp(m.sum(), min=1.0)
         loss = ((logz - picked) * m).sum() / cnt
         ctx.save_for_backward(logits, logz, xs, wc, tgt, m, cnt)
@@ -857,32 +891,39 @@ class _FusedLMLoss(torch.autograd.Function):
             p = torch.exp(lg[a:a + step].float() - logz[a:a + step, None])
             p[rows, tgt[a:a + step]] -= 1.0
             lg[a:a + step] = (p * coef[a:a + step, None]).to(dt)
-        dx = torch.matmul(logits, wc.t())                   # [B, S-1, H]
+        dx = torch.matmul(logits, wc.t())                   # [B, n, H]
         dw = torch.matmul(xs.reshape(-1, xs.shape[-1]).t(), lg)
-        B, S1, H = dx.shape
-        dx_full = torch.zeros(B, S1 + 1, H, dtype=dt, device=dx.device)
-        dx_full[:, :-1] = dx
-        return dx_full, dw.to(ctx.w_dtype), None, None
+        return dx, dw.to(ctx.w_dtype), None, None
 
 
 def fused_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
                   tokens: torch.Tensor,
-                  loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  loss_mask: Optional[torch.Tensor] = None,
+                  seq_shard: Optional[Tuple[int, int]] = None
+                  ) -> torch.Tensor:
     """Head projection + next-token cross entropy with the compute-dtype
-    logits of the JAX ``fused_lm_loss`` (torch-autocast semantics)."""
-    return _FusedLMLoss.apply(hidden, head, tokens, loss_mask)
+    logits of the JAX ``fused_lm_loss`` (torch-autocast semantics);
+    ``seq_shard``: ``hidden`` holds a ``seq`` rank's positions of the
+    whole rows ``tokens`` (:func:`loss_targets`)."""
+    n, tgt, mask = loss_targets(tokens, loss_mask, seq_shard,
+                                hidden.shape[1])
+    return _FusedLMLoss.apply(hidden[:, :n], head, tgt, mask)
 
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
-                   loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token cross entropy on fp32 logits (logsumexp − picked)."""
-    targets = tokens[:, 1:].long()
-    logits = logits[:, :-1]
+                   loss_mask: Optional[torch.Tensor] = None,
+                   seq_shard: Optional[Tuple[int, int]] = None
+                   ) -> torch.Tensor:
+    """Next-token cross entropy on fp32 logits (logsumexp − picked);
+    ``seq_shard`` as :func:`fused_lm_loss`."""
+    n, targets, mask = loss_targets(tokens, loss_mask, seq_shard,
+                                    logits.shape[1])
+    targets = targets.long()
+    logits = logits[:, :n]
     logz = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None])[..., 0]
     nll = logz - picked
-    if loss_mask is not None:
-        mask = loss_mask[:, 1:].float()
+    if loss_mask is not None or seq_shard is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
 

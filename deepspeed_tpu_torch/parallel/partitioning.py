@@ -9,9 +9,11 @@ axis sizes (``comm/mesh.MeshManager.shape``).
 
 Under an ``expert`` axis a leaf's ``expert`` dim is sharded over it (the
 rule ``"expert"``), so ZeRO never picks it, and ZeRO shards over ``(data,
-zshard)`` only; the batch shards over ``(data, zshard, expert)`` (JAX's
-``batch_spec``): rank r, in that axis order, takes the r-th rows of each
-global micro-batch (``runtime/engine.DataParallelEngine._local_rows``).
+zshard)`` only; the batch shards over ``(data, zshard, expert)`` and its
+positions over ``seq`` (JAX's ``batch_spec``): the rank at batch index r
+in that axis order takes the r-th rows of each global micro-batch
+(``runtime/engine.DataParallelEngine._local_rows``), its ``seq``
+coordinate's positions of them.
 
 The ZeRO dim of a leaf is the largest dim that the tensor-parallel rules
 leave free and that the ZeRO world divides, ties going to the later dim
@@ -28,9 +30,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from deepspeed_tpu_torch.comm.mesh import (
+    BATCH_AXES,
     DATA_AXIS,
     EXPERT_AXIS,
     PIPE_AXIS,
+    SEQ_AXIS,
     TENSOR_AXIS,
     ZSHARD_AXIS,
 )
@@ -132,6 +136,20 @@ class ShardingPolicy:
         if self.zero_stage >= 2:
             return self.zero_spec(axes_tree, shape_tree)
         return self.tp_spec(axes_tree, shape_tree)
+
+    def batch_spec(self, ndim: int = 2, seq_dim: Optional[int] = 1) -> Spec:
+        """The global batch's spec (JAX ``batch_spec``): rows over
+        ``(data, zshard, expert)``, positions over ``seq`` where that axis
+        is above 1. A rank takes its rows of every micro-batch whole and
+        its model its positions of them
+        (``runtime/engine.DataParallelEngine._local_rows`` and the batch
+        key ``seq_shard``)."""
+        parts: list = [None] * ndim
+        parts[0] = BATCH_AXES
+        if (seq_dim is not None and ndim > seq_dim
+                and self.sizes.get(SEQ_AXIS, 1) > 1):
+            parts[seq_dim] = SEQ_AXIS
+        return tuple(parts)
 
     def leaf_grad_spec(self, logical_axes: Tuple[Optional[str], ...],
                        shape: Tuple[int, ...]) -> Spec:

@@ -4,11 +4,12 @@ Ports ``deepspeed_tpu/runtime/config.py``: ``DeepSpeedTPUConfig`` (:1188)
 with the batch triple and ``resolve_batch_size``, ``gradient_clipping``,
 ``steps_per_print``, ``prescale_gradients``, ``seed``, and the sections
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler``, ``zero_optimization``,
-``data_types``, ``activation_checkpointing`` and ``mesh`` — copied field for
-field with the same defaults and the same validation, so the same JSON gives
-the same values and a wrong one raises the same ``DeepSpeedConfigError``.
-The mesh resolves over the processes of the default process group; axes
-other than ``data`` above 1 raise ``NotImplementedError`` there
+``data_types``, ``activation_checkpointing``, ``mesh`` and
+``sequence_parallel`` (:1078) — copied field for field with the same
+defaults and the same validation, so the same JSON gives the same values
+and a wrong one raises the same ``DeepSpeedConfigError``. The mesh
+resolves over the processes of the default process group; ``tensor`` and
+``pipe`` above 1 raise ``NotImplementedError`` there
 (``comm/mesh.initialize_mesh``).
 
 The sections ``checkpoint`` and ``fault_tolerance`` (JAX :904-975) and the
@@ -342,6 +343,16 @@ class FaultToleranceConfig:
                 "watchdog and tracing, queue A.5)")
 
 
+@dataclasses.dataclass
+class SequenceParallelConfig:
+    """AutoSP (JAX ``runtime/config.py:1078-1088``): with ``auto`` the
+    engine runs the planning pass (``sequence/auto_sp.py``) over the model
+    spec at initialize, choosing Ulysses or the K/V ring on the mesh's
+    ``seq`` axis; ``size``, where set, must match that axis."""
+    auto: bool = False
+    size: int = 0
+
+
 # CUDA-only reference sections accepted and ignored (as in JAX)
 _IGNORED_SECTIONS = (
     "amp", "aio", "hybrid_engine", "compression_training",
@@ -353,7 +364,7 @@ _UNREAD_SECTIONS = (
     "comms_logger", "telemetry", "serving", "fleet", "tenancy", "slo",
     "hlolint", "memlint", "autotuning", "elasticity", "flops_profiler",
     "tensorboard", "csv_monitor", "wandb", "comet", "tensor_parallel",
-    "sequence_parallel", "pipeline", "guardian", "data_efficiency", "curriculum_learning",
+    "pipeline", "guardian", "data_efficiency", "curriculum_learning",
     "progressive_layer_drop",
 )
 # top-level scalars of the JAX config that this slice does not read, with
@@ -390,6 +401,8 @@ class DeepSpeedTPUConfig:
         default_factory=ActivationCheckpointingConfig)
     data_types: DataTypesConfig = dataclasses.field(default_factory=DataTypesConfig)
     mesh: MeshSectionConfig = dataclasses.field(default_factory=MeshSectionConfig)
+    sequence_parallel: SequenceParallelConfig = dataclasses.field(
+        default_factory=SequenceParallelConfig)
     seed: int = 1234
     checkpoint_writer: str = "orbax"  # orbax | fast (checkpoint_engine.py)
     checkpoint: CheckpointSectionConfig = dataclasses.field(

@@ -81,9 +81,16 @@ step's ``adopt_state``). ``load_universal_checkpoint``,
 the SIGTERM handler (deferred to the step or save boundary), the
 emergency save and ``maybe_auto_resume``.
 
+Sequence parallelism (JAX engine.py:148-171): the ``seq`` mesh axis on
+the exact wire of every data-parallel engine (``DataParallelEngine``),
+``sequence_parallel.size`` checked against it and AutoSP run at
+initialize under ``sequence_parallel.auto`` (``engine.sp_plan``).
+
 Out of this slice, raising ``NotImplementedError``: remat policies other
-than none/full, and the config sections ``load_config`` refuses. The qwZ
-publish stays one pass after the (bucketed) update.
+than none/full, the config sections ``load_config`` refuses, and a
+``seq`` axis with hpZ / MiCS, an expert axis or an MoE model, the offload
+tiers, the host step or ZenFlow. The qwZ publish stays one pass after
+the (bucketed) update.
 """
 from __future__ import annotations
 
@@ -205,17 +212,34 @@ class DeepSpeedTPUEngine:
         self.device = resolve_device(device)
         self._check_slice()
         self._resolve_subgroup()
-        self.mesh_manager = mesh_mod.initialize_mesh(
+        self.mesh_manager = mm = mesh_mod.initialize_mesh(
             self.config.mesh.to_mesh_config())
-        self.dp_world_size = self.mesh_manager.dp_world_size
-        if self.dp_world_size > 1 and not isinstance(self,
-                                                     DataParallelEngine):
+        if mm.world_size > 1 and not isinstance(self, DataParallelEngine):
             raise ValueError(
-                f"{self.dp_world_size} processes: build the engine with "
+                f"{mm.world_size} processes: build the engine with "
                 "deepspeed_tpu_torch.initialize (DataParallelEngine)")
+        # the batch triad over JAX's dp width, data × zshard × expert: the
+        # seq ranks of a row share it (JAX engine.py:148-152)
+        self.dp_world_size = mm.batch_world_size
         self.config.resolve_batch_size(self.dp_world_size)
         self.zero_stage = self.config.zero_optimization.stage
         self._resolve_compressed_modes(self.config.zero_optimization)
+
+        # AutoSP: the sequence-parallel planning pass over the spec (JAX
+        # engine.py:157-171)
+        self.sp_plan = None
+        sp_cfg = self.config.sequence_parallel
+        if sp_cfg.size and sp_cfg.size != mm.sp_world_size:
+            raise DeepSpeedConfigError(
+                f"sequence_parallel.size {sp_cfg.size} != mesh seq axis "
+                f"{mm.sp_world_size}"
+                + ("" if sp_cfg.auto else
+                   " (note: sequence_parallel.size alone does not enable SP; "
+                   "set \"auto\": true and a mesh 'seq' axis)"))
+        if sp_cfg.auto:
+            from deepspeed_tpu_torch.sequence.auto_sp import auto_sp
+
+            model, self.sp_plan = auto_sp(model)
 
         # activation_checkpointing.policy → the spec's remat policy, rebuilt
         # through the spec's own builder (as the JAX engine does)
@@ -254,6 +278,7 @@ class DeepSpeedTPUEngine:
         self.lr_scheduler = lr_scheduler
 
         self._resolve_offload()
+        self._check_seq_axis()
         self._host_runner = None
         if self._host_step:
             from deepspeed_tpu_torch.runtime.host_step import HostStepRunner
@@ -316,6 +341,32 @@ class DeepSpeedTPUEngine:
         if cfg.precision_dtype == "bfloat16" and not cfg.bf16.fp32_master:
             raise later_slice("bf16.fp32_master=false (needs a "
                               "stochastic-rounding optimizer)")
+
+    def _check_seq_axis(self) -> None:
+        """What a ``seq`` axis above 1 does not compose with yet (queue
+        A.4): in JAX each composes through GSPMD; here each needs the dense
+        gradient summed over ``seq`` before a manual hop. The ZeRO++ int8
+        wire is not among them: JAX's falls back to the exact wire under
+        ``seq`` (``_resolve_compressed_modes``), and so does the port's."""
+        mm = self.mesh_manager
+        if mm.sp_world_size <= 1:
+            return
+        what = []
+        if mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1:
+            what.append("hpZ / MiCS (zshard > 1)")
+        if mm.ep_world_size > 1:
+            what.append("an expert axis")
+        if getattr(getattr(self.model_spec, "config", None), "n_experts", 0):
+            what.append("an MoE model")
+        if self._offload_opt or self._offload_nvme or self._offload_param:
+            what.append("the offload tiers")
+        if self._host_step:
+            what.append("the host step")
+        if self.config.zero_optimization.zenflow.enabled:
+            what.append("ZenFlow")
+        if what:
+            raise later_slice(f"mesh seq={mm.sp_world_size} with "
+                              f"{', '.join(what)} (queue A.4)")
 
     def _resolve_offload(self) -> None:
         """The offload tiers, with JAX's resolution and errors
@@ -1796,7 +1847,21 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     replicated expert leaf over ``expert``). The hooked units split into
     dense and expert units; ZeRO-3's groups put their expert pieces last.
     The MoE layers report the buffers' dropped choices
-    (``moe/layer.set_drop_monitor``), warned of at the print steps."""
+    (``moe/layer.set_drop_monitor``), warned of at the print steps.
+
+    Sequence parallelism (a ``seq`` axis of Q ranks, innermost): the seq
+    ranks of a row share its rows (the batch triad is over ``data ×
+    zshard × expert``, JAX's dp width) and each computes its positions of
+    them in the model, which the batch key ``seq_shard`` (idx, sp) names
+    (``models/api``); every rank's loss is its
+    positions' masked mean, weighted into JAX's global masked token mean
+    (:meth:`_token_weights`). ZeRO shards over ``(data, zshard)``, so the
+    seq ranks hold the same shards; a dense gradient is reduced over the
+    shard group, then hopped over ``seq`` (JAX's
+    ``DENSE_GRAD_REDUCE_AXES``), on the exact wire at every stage, ZeRO-3
+    included (its gathers stay on the shard group). The attentions'
+    exchanges run on their own ``seq`` group. What the axis does not
+    compose with yet raises (:meth:`_check_seq_axis`)."""
 
     def __init__(self, model: ModelSpec, config: Any,
                  optimizer: Optional[TPUOptimizer] = None,
@@ -1834,7 +1899,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                     self._expert_dims[path] = axes.index("expert")
         shard_axes = ((mesh_mod.ZSHARD_AXIS,) if self.hpz
                       else (mesh_mod.DATA_AXIS, mesh_mod.ZSHARD_AXIS))
-        dense_hop = tuple(a for a in (mesh_mod.DATA_AXIS, mesh_mod.EXPERT_AXIS)
+        dense_hop = tuple(a for a in mesh_mod.DENSE_GRAD_REDUCE_AXES
                           if a not in shard_axes)
         self.shard_world = mm.axes_size(shard_axes)
         self.shard_rank = mm.group_ranks(shard_axes).index(self.rank)
@@ -1851,6 +1916,12 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self.data_group = (mm.group((mesh_mod.DATA_AXIS,)) if self.hpz
                            else None)
         self.manual_world = D * Z
+        # the rows a rank takes (over data × zshard × expert) and, under a
+        # seq axis, its positions of them (the model's loss takes them)
+        self.batch_world, self.batch_rank = mm.batch_world_size, mm.batch_rank
+        self.sp = mm.sp_world_size
+        self.seq_shard = ((mm.coords[mesh_mod.SEQ_AXIS], self.sp)
+                          if self.sp > 1 else None)
         self._ex_rows: Dict[int, Tuple[Any, Any]] = {}
         self._moe_drop_max = None
         if self.ep > 1:
@@ -2331,11 +2402,12 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     # ------------------------------------------------------------------ #
     def _local_rows(self, stacked):
         """This rank's contiguous rows of every stacked global micro-batch
-        [gas, micro × world, ...]."""
+        [gas, micro × batch world, ...], whole (the ``seq`` ranks of a row
+        each take their positions of it in the model)."""
         if isinstance(stacked, dict):
             return {k: self._local_rows(v) for k, v in stacked.items()}
-        n = stacked.shape[1] // self.world
-        return stacked[:, self.rank * n:(self.rank + 1) * n]
+        n = stacked.shape[1] // self.batch_world
+        return stacked[:, self.batch_rank * n:(self.batch_rank + 1) * n]
 
     def _pack(self) -> None:
         """The micro-batch gradient (compute dtype, full) copied into the
@@ -2430,10 +2502,11 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             self._packed.div_(torch.tensor(float(self.ep),
                                            device=self.device))
 
-    def _token_weights(self, stacked, batch) -> Optional[torch.Tensor]:
+    def _token_weights(self, stacked) -> Optional[torch.Tensor]:
         """Batches with a ``loss_mask``: each micro-batch's loss weight
         n_rank · S / n_span (1 where n_span is 0), with n the valid tokens
-        (``loss_mask[:, 1:]`` summed, as ``causal_lm_loss`` counts them)
+        (the target weights of ``transformer.loss_targets``, which the loss
+        counts)
         over this rank's rows and over the rows of the S ranks that share
         one mean: every rank on the exact wire (JAX's exact step is one
         GSPMD step over the data-sharded micro-batch: the global masked
@@ -2445,21 +2518,38 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         an MoE aux loss (the same on every rank of the span) keeps weight
         one, as in JAX's loss, even where a rank holds no valid token.
         Every rank holds the global batch, so n_span needs no collective.
-        None without a ``loss_mask`` or for a span of one rank (its own
-        mean)."""
+        Under a ``seq`` axis (the exact wire) a rank's loss covers its
+        positions' next tokens only (``loss_targets`` at its
+        ``seq_shard``), the last seq rank's last position none, so the
+        weights count those, with a mask or without one (all ones). None without a ``loss_mask`` and a ``seq`` axis, or for a
+        span of one rank (its own mean)."""
         span = self.ep if self._quant_grads() else self.world
-        if (span == 1 or not isinstance(stacked, dict)
-                or stacked.get("loss_mask") is None):
+        mask = (stacked.get("loss_mask") if isinstance(stacked, dict)
+                else None)
+        if span == 1 or (mask is None and self.seq_shard is None):
             return None
+        tok = torch.as_tensor(stacked["tokens"] if isinstance(stacked, dict)
+                              else stacked)
+        mask = None if mask is None else torch.as_tensor(mask)
+        gas, _, S = tok.shape
 
-        def counts(mask):
-            return mask[:, :, 1:].float().sum(dim=(1, 2))
+        def counts(lo, hi, shard):
+            """The loss's target weights (``transformer.loss_targets``) over
+            rows [lo, hi) of each micro-batch, summed a micro-batch."""
+            def rows(x):
+                return None if x is None else x[:, lo:hi].reshape(-1, S)
 
-        mask = torch.as_tensor(stacked["loss_mask"])
-        n = mask.shape[1] // self.world
-        lo = self.rank // span * span * n
-        n_span = counts(mask[:, lo:lo + span * n]).to(self.device)
-        mine = counts(batch["loss_mask"])
+            n_local = S if shard is None else S // shard[1]
+            w = T.loss_targets(rows(tok), rows(mask), shard, n_local)[2]
+            return w.reshape(gas, -1).sum(dim=1).to(self.device)
+
+        # the rows of the span: the batch ranks of its seq ranks
+        n = tok.shape[1] // self.batch_world
+        per = span // self.sp
+        lo = self.batch_rank // per * per * n
+        n_span = counts(lo, lo + per * n, None)
+        mine = counts(self.batch_rank * n, (self.batch_rank + 1) * n,
+                      self.seq_shard)
         return torch.where(n_span > 0,
                            mine * float(span) / n_span.clamp(min=1.0),
                            torch.ones_like(mine))
@@ -2521,10 +2611,12 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             self.reduce_counts[k] = 0
         self._tiers_before_step()
         batch = self._to_device(self._local_rows(stacked))
+        if self.seq_shard is not None and not isinstance(batch, dict):
+            batch = {"tokens": batch}
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
         quant_grads = self._quant_grads()
-        weights = self._token_weights(stacked, batch)
+        weights = self._token_weights(stacked)
         if not quant_grads:
             if self._packed is not None and self._units:
                 self._packed.zero_()
@@ -2534,6 +2626,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             for i in range(gas):
                 mb = ({k: v[i] for k, v in batch.items()}
                       if isinstance(batch, dict) else batch[i])
+                if self.seq_shard is not None:
+                    mb["seq_shard"] = self.seq_shard
                 self._begin_micro(i == gas - 1)
                 with self._moe_axes():
                     if weights is None:

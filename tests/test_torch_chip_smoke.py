@@ -713,3 +713,92 @@ def test_checkpoint_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
         assert r[part]["gb_written"] > 0 and r[part]["crc_s"] >= 0
     assert smoke.steps["checkpoint_llama_750m"] == 2
     assert not (tmp_path / "ck").exists()
+
+
+# --------------------------------------------------------------------------- #
+# the sequence-parallel phase and the merged spawns
+# --------------------------------------------------------------------------- #
+
+def test_sp2_formulas():
+    """SP4 at the phase's shapes: llama_750m's 12 heads of 128 (K = N),
+    B 4, 1,024 positions a rank, gas 2."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.SP2, layers=4)
+    cfg = T.get_model_config("llama_750m", num_layers=4)
+    launches, traffic, shapes = C.sp2_want(t, 4, "ulysses_flash", cfg, 1)
+    assert (launches["flash_fwd"], launches["flash_bwd_dq"],
+            launches["flash_bwd_dkv"]) == (16, 8, 8)
+    assert launches["rms_norm"] == 17 * 2
+    assert traffic == {"seq/all_to_all": (96, 96 * 4 * 1024 * 12 * 128)}
+    assert shapes == [(4, 2048, 6, 128)]
+    launches, traffic, shapes = C.sp2_want(t, 4, "ring", cfg, 1)
+    assert launches["flash_fwd"] == 0 and shapes == []
+    assert traffic == {"seq/permute": (48, 48 * 4 * 1024 * 12 * 128)}
+
+
+def test_sp2_phase_rank_rehearsal_on_cpu(tmp_path):
+    """The sequence-parallel phase's rank function at tiny size on two
+    gloo ranks of the CPU, in one spawn with another phase's job (the
+    merged spawn's ``jobs_rank``; the plain paths, the counters read 0
+    there): both ways train, their seq-group traffic a step is the
+    formula's (tiny_llama's GQA: K/V heads 2 of 4, sent as they are by
+    Ulysses at sp 2, repeated to 4 before the ring), the flash wrapper sees
+    the head-sharded shape, and SP1-SP3 pass against the one-process
+    reference; then way (c) on four ranks at {data: 2, seq: 2}, whose SP1c
+    holds against the same reference."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.SP2, model="tiny_llama", layers=2, micro=2, seq=32, gas=2)
+    ref = C.sp2_reference(t, torch.device("cpu"), 0, str(tmp_path / "one"))
+    ranks = C.spawn_ranks("jobs_rank", 2, 0, [
+        ("sp2", "train_llama_750m_sp2_rank", dict(t, device="cpu", ref=ref)),
+        ("qrs", "quantized_reduce_scatter_rank",
+         dict(C.QRS, n=2 ** 12, device="cpu"))])
+    cfg = T.get_model_config("tiny_llama", num_layers=2)
+    for r in ranks:
+        assert set(r) == {"sp2", "qrs"}
+        got, seconds = r["sp2"]
+        assert seconds > 0 and r["qrs"][0]["kernel_equals_plain"]
+        assert C.sp2_gate_problems(got["gates"], ref) == []
+        for label, attention in C.SP2_WAYS:
+            m = got[label]
+            assert m["losses"][-1] < m["losses"][0]
+            assert m["coords"]["seq"] == got["rank"]
+            _, traffic, shapes = C.sp2_want(t, 2, attention, cfg, 1)
+            for key, (calls, elems) in traffic.items():
+                assert m["traffic"][key][:2] == [calls, elems]
+            if shapes:
+                assert m["flash_shapes"]["flash_fwd"] == shapes
+    # (c): four ranks at {data: 2, seq: 2} on the same global batch, SP1c
+    tc = C.sp2_c(t)
+    ranks = C.spawn_ranks("train_llama_750m_sp2_rank", 4, 0,
+                          dict(tc, device="cpu", ref=ref))
+    (label, attention), = C.SP2_C["ways"]
+    _, traffic, shapes = C.sp2_want(tc, 2, attention, cfg, 1)
+    for r in ranks:
+        assert set(r["gates"]) == set(C.SP2_C["gates"])
+        assert C.sp2_gate_problems(r["gates"], ref) == []
+        m = r[label]
+        assert m["coords"]["data"] == r["rank"] // 2
+        assert m["flash_shapes"]["flash_fwd"] == shapes == [(1, 32, 2, 16)]
+        for key, (calls, elems) in traffic.items():
+            assert m["traffic"][key][:2] == [calls, elems]
+
+
+def test_phase_seconds_moves_merged_jobs_to_their_phase():
+    """A job run in another phase's spawn, and a preparation made in
+    another phase's time, count for their own phase; the spawn's fixed
+    cost stays with the phase that started it."""
+    import torch
+
+    s = C.Smoke(torch, 0)
+    s.job_phase = {"zeropp": ("zeropp_phase", "zeropp_phase"),
+                   "sp2": ("sp2_phase", "zeropp_phase")}
+    s.job_seconds = {"zeropp": 90.0, "sp2": 40.0}
+    s.phase_parts = {"sp2_phase": {"prepare_s": 10.0,
+                                   "prepared_in": "zeropp_phase"}}
+    got = s.phase_seconds({"zeropp_phase": 150.0, "sp2_phase": 5.0})
+    assert got == {"zeropp_phase": 100.0, "sp2_phase": 55.0}

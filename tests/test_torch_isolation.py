@@ -1,8 +1,8 @@
 """The PyTorch port stands alone and never falls back silently.
 
 * Importing every module of ``deepspeed_tpu_torch`` (the MoE modules, the
-  grouped GEMM, ``comm/``, ``parallel/``, the int8 wire's kernels and
-  ``checkpoint/`` among them) and ``chip_smoke.py`` imports neither jax
+  grouped GEMM, ``comm/``, ``parallel/``, the int8 wire's kernels,
+  ``checkpoint/`` and ``sequence/`` among them) and ``chip_smoke.py`` imports neither jax
   nor anything of ``deepspeed_tpu``, nor ``ml_dtypes`` or ``orbax``, which
   the card's machine does not have.
 * A process that never imports jax writes and reads bf16 and fp16
@@ -53,7 +53,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(n) >= 39, out.stdout          # every module was walked
+    assert int(n) >= 44, out.stdout          # every module was walked
     for mod in ("moe.gating", "moe.layer", "ops.grouped_gemm", "comm.comm",
                 "comm.mesh", "parallel.partitioning", "parallel.compressed",
                 "ops.quantization", "ops.quant_kernels", "ops.aio",
@@ -61,7 +61,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                 "runtime.host_step", "checkpoint.fault_tolerance",
                 "checkpoint.checkpoint_engine", "checkpoint.engine",
                 "checkpoint.universal", "checkpoint.zero_to_fp32",
-                "checkpoint.reshard_cli"):
+                "checkpoint.reshard_cli", "sequence", "sequence.ulysses",
+                "sequence.ring", "sequence.tiled", "sequence.auto_sp"):
         assert f"deepspeed_tpu_torch.{mod}" in names.split(","), mod
     assert bad == "[]", bad
 

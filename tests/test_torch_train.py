@@ -309,26 +309,70 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
     # tests/test_torch_offload.py and tests/test_torch_zenflow.py)
     ({"optimizer": {"type": "adafactor", "params": {"lr": 1e-3}}}, {}),
     ({"mesh": {"tensor": 2}}, {}),
-    ({"mesh": {"seq": 2}}, {}),
     ({"bf16": {"enabled": True, "fp32_master": False}}, {}),
     ({"pipeline": {"stages": 2}}, {}),
     ({"mesh": {"pipe": 2}}, {}),
-    ({"sequence_parallel": {"auto": True}}, {}),
+    ({"mesh": {"tensor": 2, "seq": 2}}, {}),
+    ({"tensor_parallel": {"autotp_size": 2}}, {}),
     ({"telemetry": {"tracing": True}}, {}),
     ({"wall_clock_breakdown": True}, {}),
     ({"activation_checkpointing": {"policy": "selective"}}, {}),
     ({"activation_checkpointing": {"cpu_checkpointing": True}}, {}),
     ({"optimizer": {"type": "lion", "params": {"lr": 1e-3}}}, {}),
     ({}, {"remat": "dots_saveable"}),
-    ({}, {"loss_tiles": 4}),
-    ({}, {"attention": "ring"}),
-    # (the dense MoE dispatch runs: tests/test_torch_moe_dense.py)
-    ({}, {"attention": "ulysses"}),
+    # (the dense MoE dispatch runs: tests/test_torch_moe_dense.py; the
+    # seq axis, the tiled loss and the sequence-parallel attentions run:
+    # test_seq_options_at_world_1 below, tests/test_torch_sequence.py)
 ])
 def test_out_of_slice_options_raise(extra, spec_kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         spec = dtt.causal_lm_spec("tiny", dtype="float32", **spec_kw)
         dtt.initialize(model=spec, config=dict(BASE, **extra), device="cpu")
+
+
+SEQ_OPTIONS = {"mesh_seq2": ({"mesh": {"seq": 2}}, {}),
+               "autosp": ({"sequence_parallel": {"auto": True}}, {}),
+               "loss_tiles": ({}, {"loss_tiles": 4}),
+               "ring": ({}, {"attention": "ring"}),
+               "ulysses": ({}, {"attention": "ulysses"})}
+
+
+@pytest.mark.parametrize("name", list(SEQ_OPTIONS))
+def test_seq_options_at_world_1(name):
+    """The options of the seq slice in one process: ``mesh.seq = 2``
+    raises JAX's ``ValueError`` (2 does not divide one process), the
+    others train one step from JAX's master to JAX's loss (at sp = 1 the
+    attentions are the plain one, AutoSP plans nothing; the tiled loss is
+    JAX's)."""
+    from deepspeed_tpu.comm.mesh import MeshConfig, initialize_mesh
+
+    extra, spec_kw = SEQ_OPTIONS[name]
+    cfg = dict(BASE, **extra, steps_per_print=10 ** 6)
+    if name == "mesh_seq2":
+        from deepspeed_tpu.comm.mesh import MeshConfig as JMC
+
+        with pytest.raises(ValueError) as want:
+            JMC(seq=2).resolve(1)
+        with pytest.raises(ValueError) as got:
+            dtt.initialize(model=dtt.causal_lm_spec("tiny", dtype="float32"),
+                           config=cfg, device="cpu")
+        assert str(got.value) == str(want.value)
+        return
+    mm = initialize_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    jeng, *_ = dst.initialize(
+        model=dst.causal_lm_spec("tiny_llama", dtype="float32", **spec_kw),
+        config=cfg, mesh_manager=mm)
+    peng, *_ = dtt.initialize(
+        model=dtt.causal_lm_spec("tiny_llama", dtype="float32", **spec_kw),
+        config=cfg, device="cpu")
+    load_master(peng, jax.tree.map(np.asarray, jeng.state["master"]))
+    batch = next(synthetic_lm_data(2, SEQ, 512, seed=3))
+    jl = float(jeng.train_batch(iter([batch])))
+    pl = float(peng.train_batch(iter([batch])))
+    np.testing.assert_allclose(pl, jl, rtol=TOL["float32"]["loss"], atol=0)
+    assert (peng.sp_plan is None) == (jeng.sp_plan is None)
+    if jeng.sp_plan is not None:
+        assert not peng.sp_plan.enabled and not jeng.sp_plan.enabled
 
 
 def test_initialize_refuses_what_it_does_not_run_yet():
