@@ -188,6 +188,31 @@ kernel on them against its plain PyTorch version:
                attention, its device peak lower); step, tokens/s, MFU,
                peak a rank, rank 0's idle share, the seq group's host
                seconds;
+13e. train_llama_750m_tp2 — tensor parallelism (TP2): llama_750m at full
+               width, TP2_LAYERS layers, (a) two ranks at {tensor: 2} with ZeRO-1
+               (each 6 of the 12 heads, half the FFN and the vocab), (b)
+               four at {data: 2, tensor: 2} with ZeRO-3 exact; gates TP1
+               (one fp32 step of each way against one process with flash
+               by the training rule), TP2 (bf16 (a): the loss within 1e-5
+               of one process's, the update within 2x the plain bf16
+               path's), TP3 (the tensor group's all-reduces and elements
+               and the kernels' launches a step by formula, the flash
+               kernels at a rank's heads), TP4 (each rank's parameters
+               and master the reckoned TP-local sizes, its forward-backward
+               peak below one process's); step, tokens/s, MFU, peak a rank,
+               rank 0's idle share, the tensor group's host seconds;
+13f. llama2_7b_tp2 — FastGen at {tensor: 2} (TP7B): two ranks serve
+               llama2_7b at full width, TP7B_LAYERS of its 32 layers
+               (each 16 of the 32 heads and KV
+               heads, half the FFN and the vocab) with eager ticks on the
+               paged kernels, the llama2_7b phase's requests; gates T1 (a
+               mixed tick's logits against the one-process plain path's:
+               fp32 top-1 and relative error, bf16 within 2x the
+               one-process bf16 engine's), T2 (the ranks' tokens equal),
+               T3 (the tensor group's calls a tick: 2L + 1 all-reduces and
+               the logits' gather); decode tokens/s, TTFT p50, rank 0's
+               idle share; spawned in the world-2 spawn, before the serving
+               phases' engines take the card;
 14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
@@ -254,9 +279,10 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,train_llama2_7b_super_offload,train_llama_750m_offload
     python3 chip_smoke.py --phases card,build,checkpoint_llama_750m
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sp2
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_tp2,llama2_7b_tp2
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14, 13b-13d among them) and the offload phases (15-16) run right after
+(11-14, 13b-13f among them) and the offload phases (15-16) run right after
 the kernels phase, before the serving phases' engines take the card.
 Their ranks run in one spawn a world size (MERGED_SPAWNS: the first of
 them prepares every selected phase's jobs of its world, the checkpoint
@@ -292,9 +318,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
           "train_moe_350m_ep", "train_moe_350m_ep_zero",
-          "train_llama_750m_sp2", "quantized_reduce_scatter",
-          "train_llama2_7b_super_offload", "train_llama_750m_offload",
-          "llama2_7b", "gpt2_125m", "moe_350m", "train_gpt2_125m",
+          "train_llama_750m_sp2", "train_llama_750m_tp2",
+          "quantized_reduce_scatter", "train_llama2_7b_super_offload",
+          "train_llama_750m_offload", "llama2_7b_tp2", "llama2_7b",
+          "gpt2_125m", "moe_350m", "train_gpt2_125m",
           "train_llama_750m", "checkpoint_llama_750m", "train_moe_350m",
           "train_llama_750m_sparse",
           "evoformer", "times")
@@ -349,7 +376,10 @@ FLASH_CASES = (("gpt2_125m", 32, 1024, 12, 12, 64, True),
                ("full_d64", 2, 512, 4, 4, 64, False),
                ("full_d128_unaligned", 1, 300, 4, 2, 128, False),
                # Ulysses' head-sharded blocks on train_llama_750m_sp2: ways
-               # (a)-(b) at {seq: 2}, way (c) at {data: 2, seq: 2}
+               # (a)-(b) at {seq: 2}, way (c) at {data: 2, seq: 2}; the
+               # same shapes are a tensor rank's heads on
+               # train_llama_750m_tp2: way (a) at {tensor: 2}, way (b) at
+               # {data: 2, tensor: 2}
                ("llama_750m_ulysses", 4, 2048, 6, 6, 128, True),
                ("llama_750m_ulysses_d2", 2, 2048, 6, 6, 128, True))
 # Grouped GEMM against its plain version: both sum exact products in fp32,
@@ -381,12 +411,15 @@ NORM_CASES = (("rms_norm", 4096, (1, 37, 256, 4096)),
 # the last block of each tile only the rest); two tables sharing a prefix;
 # rows of two sequences
 # interleaved; one run with unordered lengths (0, 1, past the table);
-# contexts of MB * bs = 2048. fp32 outputs and the bf16 decode rows (fp32 P)
+# contexts of MB * bs = 2048; the mixed tick at a tensor rank's heads of
+# llama2_7b (N = K = 16 of 32, llama2_7b_tp2's tick). fp32 outputs and the
+# bf16 decode rows (fp32 P)
 # are held at TOL; the bf16 prefill rows (P rounded to bf16 for the tensor
 # cores) by FLASH_BF16_RULE.
 PA_TICKS = tuple(
     [(f"run{n}", f"run{n}", 32, 32, 128, 32, 16) for n in (1, 63, 64, 65, 256)]
     + [("mixed", "mixed", 32, 32, 128, 32, 16),
+       ("mixed_tp2", "mixed", 16, 16, 128, 32, 16),
        ("mixed_gpt2", "mixed", 12, 12, 64, 64, 16),
        ("gqa3", "gqa", 24, 8, 128, 32, 16),
        ("gqa4", "gqa", 32, 8, 128, 32, 16),
@@ -1179,12 +1212,13 @@ def spawn_ranks(fn_name, world, *args):
 # run that measured them), paid once a world instead of once a phase.
 MERGED_SPAWNS = {
     2: ("train_llama_750m_zeropp_dp2", "train_llama_750m_zero3_dp2",
-        "train_llama_750m_sp2", "train_moe_350m_ep",
+        "train_llama_750m_sp2", "train_llama_750m_tp2", "train_moe_350m_ep",
         "train_moe_350m_ep_zero", "quantized_reduce_scatter",
-        "train_llama_750m_offload", "checkpoint_llama_750m"),
+        "train_llama_750m_offload", "checkpoint_llama_750m",
+        "llama2_7b_tp2"),
     4: ("train_llama_750m_hpz_dp4", "train_moe_350m_ep",
         "train_moe_350m_ep_zero", "train_llama_750m_sp2",
-        "quantized_reduce_scatter")}
+        "train_llama_750m_tp2", "quantized_reduce_scatter")}
 
 
 class Job(typing.NamedTuple):
@@ -1349,6 +1383,75 @@ def zeropp_run(t, dev, zero, batch, precision="bf16"):
         "n_sharded": engine._n_sh, "n_replicated": engine._n_rep,
         "plan_chunks": [list(b) for b in
                         engine.overlap_plan()["chunk_bounds"]]}
+
+
+def profile_window(eng, n_ticks, dev):
+    """One decode_steps window of ``n_ticks`` under torch.profiler:
+    device ms, kernels and the host's CUDA runtime calls a tick, and
+    the device's idle gaps between its first and last kernel (with
+    graphs: the gaps between nodes and between replays)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = eng.decode_steps(n_ticks)
+        dev_sync(dev)
+    ticks = n_ticks if got else 0
+    spans = {"decode_window", "decode_tick", "schedule_tick"}
+    dev_us = {}     # kernels only: ops and span ranges would double count
+    n_kernels = 0
+    runtime = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith("cuda"):
+            # the host's CUDA runtime calls (launches, copies,
+            # synchronisations) a tick, as CUPTI sees them
+            runtime[e.key] = {
+                "calls": e.count / max(ticks, 1),
+                "us": float(getattr(e, "cpu_time_total", 0))
+                / max(ticks, 1)}
+        if e.device_type != DeviceType.CUDA or e.key in spans \
+                or getattr(e, "is_user_annotation", False):
+            continue
+        t = float(getattr(e, "self_device_time_total", 0)
+                  or getattr(e, "self_cuda_time_total", 0))
+        if t:
+            dev_us[e.key] = dev_us.get(e.key, 0.0) + t
+            n_kernels += e.count
+    by_kind = {}
+    for key, us in dev_us.items():
+        kind = kernel_kind(key)
+        if kind in ("norm_fwd", "other"):     # the norm kernel by kind
+            low = key.lower()
+            kind = ("rms_norm" if "rms_norm" in low
+                    else "layer_norm" if "layer_norm" in low else kind)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / max(ticks, 1)
+    total_us = sum(dev_us.values())
+    # the device's busy intervals, merged: their gaps inside the span
+    spans_us = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.key in dev_us)
+    gap_us, end = 0.0, None
+    for a, b in spans_us:
+        if end is not None and a > end:
+            gap_us += a - end
+        end = b if end is None else max(end, b)
+    span_us = end - spans_us[0][0] if spans_us else 0.0
+    return {"profiled_ticks": ticks,
+            "device_span_ms_per_tick": (span_us / 1e3 / ticks
+                                        if span_us and ticks
+                                        else "not measured"),
+            "device_gap_ms_per_tick": (gap_us / 1e3 / ticks
+                                       if span_us and ticks
+                                       else "not measured"),
+            "kernels_per_tick": (n_kernels / ticks if n_kernels
+                                 else "not measured"),
+            "device_ms_per_tick": (total_us / 1e3 / ticks
+                                   if total_us and ticks else None),
+            "device_ms_per_tick_by_kind": by_kind or "not measured",
+            "host_runtime_per_tick": runtime or "not measured",
+            "top_kernels_us": {k[:90]: v for k, v in sorted(
+                dev_us.items(), key=lambda kv: -kv[1])[:8]}}
 
 
 def zeropp_profile(engine, data, dev, profiled):
@@ -3364,13 +3467,15 @@ def sp2_c(t):
 
 def sp2_batch(t, seed, masked=False):
     """The phase's global micro-batch (``micro`` rows of ``seq`` tokens a
-    batch rank, from the seed); ``masked``: a loss mask keeping every
+    batch rank, from the seed: the ``seq`` and ``tensor`` ranks of a row
+    share it); ``masked``: a loss mask keeping every
     target of the first half of the positions and every third of the
     second."""
     from deepspeed_tpu_torch.models import transformer as T
 
     vocab = T.get_model_config(t["model"]).vocab_size
-    rows = t["micro"] * t["world"] // t["mesh"]["seq"]
+    rows = t["micro"] * t["world"] // (t["mesh"].get("seq", 1)
+                                       * t["mesh"].get("tensor", 1))
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, vocab, (rows, t["seq"]),
                                   dtype=np.int32)}
@@ -3525,11 +3630,11 @@ def sp2_run(t, dev, attention, batch):
         "coords": dict(engine.mesh_manager.coords)}
 
 
-def sp2_gates(t, dev, ref):
-    """SP1-SP3 (SP1c at (c)'s mesh) on this rank: one step of each of
-    ``t["gates"]`` from the seed's weights on the masked gate batch,
-    against the one-process reference (whole vectors, gathered over the
-    shard group)."""
+def sp2_gates(t, dev, ref, table=None):
+    """SP1-SP3 (SP1c at (c)'s mesh; TP1-TP2 with ``table`` TP2_GATES) on
+    this rank: one step of each of ``t["gates"]`` from the seed's weights
+    on the masked gate batch, against the one-process reference (whole
+    vectors, gathered over the shard group and the tensor group)."""
     import torch
 
     gate = sp2_batch(t, 0 if t.get("seed") is None else t["seed"],
@@ -3539,7 +3644,7 @@ def sp2_gates(t, dev, ref):
     out = {}
     for label in t.get("gates", ("sp1_fp32_ulysses_flash", "sp2_fp32_ring",
                                  "sp3_bf16_ulysses_flash")):
-        prec, attention = SP2_GATES[label]
+        prec, attention = (table or SP2_GATES)[label]
         engine = sp2_engine(t, dev, prec, attention, t["micro"], 1,
                             mesh=t["mesh"])
         loss, norm, grad, upd, _, _ = moe_ep_step(engine, gate, 0, dev)
@@ -3699,6 +3804,496 @@ def fpdt_gate(dev):
     del res
     dev_free(dev)
     return out, problems
+
+
+# --------------------------------------------------------------------------- #
+# The tensor-parallel phases (train_llama_750m_tp2, llama2_7b_tp2)
+# --------------------------------------------------------------------------- #
+# train_llama_750m_tp2: llama_750m at full width (hidden 1536, 12 heads of
+# 128, SwiGLU 4096, vocab 32000), TP2_LAYERS of its 20 layers, bf16 with an
+# fp32 master, flash attention, remat full, Adam lr 1e-4; global micro 4,
+# seq 2048, gas 2. Ways, each timed one step after a warm-up, then one more
+# step profiled on rank 0: (a) {tensor: 2}, ZeRO-1, two ranks, each with 6
+# of the 12 heads (flash at [4, 2048, 6, 128]), 2048 of the 4096 FFN
+# columns and 16000 of the 32000 vocab rows; (b) {data: 2, tensor: 2},
+# ZeRO-3 exact, four ranks (2 rows a data rank, flash at [2, 2048, 6,
+# 128]). Gates, on SP2's masked gate batch:
+# TP1 one fp32 step of each way against one process (flash) on the same
+#     global batch and weights, by the training rule (SP2_LIMITS);
+# TP2 bf16 (a): its first loss within TRAIN_LOSS_REL of one process's bf16
+#     loss, its update no further from the one-process fp32 update than
+#     BF16_VS_PLAIN times the one-process plain bf16 path's;
+# TP3 the tensor group's all-reduces and elements a step by formula
+#     (tp2_traffic_want: 5L + 5 a micro-batch and the norm's one), the
+#     kernels' launches a step and the flash wrapper's shapes (tp2_want);
+# TP4 each rank's parameters the TP-local count reckoned from the config
+#     (tp_local_params), its master its ZeRO part of them, its
+#     forward-backward peak above its resident state below one process's.
+TP2 = dict(model="llama_750m", world=2, mesh={"tensor": 2}, micro=4,
+           seq=2048, gas=2, steps=1, zero={"stage": 1})
+# the depth is cut for the script's time (4 layers took 126 s of the
+# phase's own on the card; 2 keep the script within 950 s)
+TP2_LAYERS = 2
+TP2_B = dict(world=4, mesh={"data": 2, "tensor": 2}, zero={"stage": 3})
+TP2_GATES = {"tp1_fp32": ("fp32", "flash"), "tp2_bf16": ("bf16", "flash")}
+# llama2_7b_tp2: llama2_7b at full width (32 heads of 128, SwiGLU 11008),
+# TP7B_LAYERS of its 32 layers, bf16 with random weights from the seed,
+# FastGen at {tensor: 2} on two ranks over gloo on the one card: each rank
+# holds 16 of the 32 heads (its 16 KV heads of the pool), 5504 FFN
+# columns and 16000 vocab rows, and every tick runs eagerly with the
+# kernels (a CUDA graph cannot capture a gloo collective). The main path:
+# the llama2_7b phase's 8 requests of 16-1024 prompt tokens and 32 new,
+# its pool (512 blocks of 32, 64 a sequence) and budget 256; then the
+# decode rate from the same prompts with eager ticks (a window of 32 decode
+# ticks, one of 8 profiled on rank 0). Gates:
+# T1 one mixed tick (TP7B_TICK's two prompts: one decoding, one's chunk
+#    prefilling), its KV blocks from a one-process engine in the parent:
+#    the TP logits with the kernels against the one-process plain path's,
+#    fp32 at TOP1_MIN / LOGIT_REL_TOL_FP32, bf16 no further from the
+#    one-process fp32 plain logits than BF16_VS_PLAIN times the
+#    one-process bf16 engine's (the kernels);
+# T2 the two ranks emit the same tokens;
+# T3 the tensor group's calls a tick: 2L + 1 all-reduces (L layers' two
+#    row-parallel sums and the embedding's) and one gather of the logits.
+TP7B = dict(model="llama2_7b", world=2, mesh={"tensor": 2}, n_req=8, lo=16,
+            hi=1024, max_new=32, engine=dict(n_blocks=512, block_size=32,
+                                              max_blocks_per_seq=64,
+                                              token_budget=256))
+# every one of the 32 layers (about 49 s of the phase's own on the card)
+TP7B_LAYERS = 32
+TP7B_TICK = dict(lens=(40, 700), n_blocks=64)
+
+
+def tp2_b(t):
+    """Way (b)'s settings from the phase's: TP2_B's mesh and ZeRO-3, the
+    same global batch (``micro`` split over the data ranks), TP1 only."""
+    return dict(t, **TP2_B, micro=t["micro"] // TP2_B["mesh"]["data"],
+                gates=("tp1_fp32",))
+
+
+def tp_local_params(cfg, T):
+    """A tensor rank's parameters by formula: the vocab rows (embedding and
+    head), the attention's and the FFN's weights and their column biases
+    ÷ T; the norms, ``bo`` / ``b_down`` and a learned position table
+    whole."""
+    H, L, F = cfg.hidden_size, cfg.num_layers, cfg.ffn_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    sliced = (cfg.vocab_size * H * (1 if cfg.tie_embeddings else 2)
+              + L * (2 * H * q + 2 * H * kv
+                     + (3 if cfg.activation == "swiglu" else 2) * H * F))
+    whole = (2 * L + 1) * H * (2 if cfg.norm == "layernorm" else 1)
+    if cfg.attn_bias_enabled:
+        sliced += L * (q + 2 * kv)
+    if cfg.use_bias:
+        sliced += L * F
+        whole += 2 * L * H
+    if cfg.pos_emb == "learned":
+        whole += cfg.max_seq_len * H
+    return sliced // T + whole
+
+
+def tp2_traffic_want(t, cfg):
+    """TP3: the tensor group's all-reduces and their elements in
+    ``t["steps"]`` steps (remat full, the fused loss): a micro-batch sums
+    each layer's two row-parallel outputs in the forward, the attention's
+    again in the recompute (the non-reentrant checkpoint stops a layer's
+    recompute once the last tensor its backward saved is back, and the
+    FFN's sum follows the last such product), and its two column-parallel
+    inputs' gradients in the backward, each B·S·H; the embedding's B·S·H;
+    the loss's row maxima, sums of exponentials and picked logits,
+    B·(S − 1) each, and its hidden state's gradient, B·(S − 1)·H; a step
+    adds the grad norm's two squares."""
+    B, S, H, L = t["micro"], t["seq"], cfg.hidden_size, cfg.num_layers
+    R = B * (S - 1)
+    calls = t["gas"] * (5 * L + 5) + 1
+    elems = t["gas"] * ((5 * L + 1) * B * S * H + 3 * R + R * H) + 2
+    return {"tensor/all_reduce": (t["steps"] * calls, t["steps"] * elems)}
+
+
+def tp2_want(t, cfg, adam_per_step):
+    """TP3's launches in ``t["steps"]`` steps: flash fwd 2·L·gas (forward
+    and recompute) and dq, dkv L·gas each, at the rank's heads; the norm
+    (4L + 1)·gas; fused Adam; nothing else."""
+    L, gas, n = cfg.num_layers, t["gas"], t["steps"]
+    launches = {"flash_fwd": 2 * L * gas * n, "flash_bwd_dq": L * gas * n,
+                "flash_bwd_dkv": L * gas * n,
+                "rms_norm": (4 * L + 1) * gas * n,
+                "fused_adam": adam_per_step * n, "quant_int8": 0,
+                "dequant_reduce": 0, "block_sparse_fwd": 0, "gmm": 0,
+                "tgmm": 0, "evoformer_fwd": 0, "paged_attention": 0}
+    T = t["mesh"]["tensor"]
+    shapes = [(t["micro"], t["seq"], cfg.num_heads // T, cfg.head_dim)]
+    return launches, shapes
+
+
+def tp2_gate_problems(g, ref):
+    """TP1-TP2's verdicts."""
+    problems = []
+    if "tp1_fp32" in g:
+        problems += [f"tp1: {k} {g['tp1_fp32'][k]:.3g} > {v}"
+                     for k, v in SP2_LIMITS.items()
+                     if not g["tp1_fp32"][k] <= v]
+    if "tp2_bf16" in g:
+        b = g["tp2_bf16"]
+        loss_rel = abs(b["loss"] - ref["bf16"]["loss"]) / abs(
+            ref["bf16"]["loss"])
+        if not loss_rel <= TRAIN_LOSS_REL:
+            problems.append(f"tp2: first loss {loss_rel:.3g} from one "
+                            f"process's bf16 loss > {TRAIN_LOSS_REL}")
+        limit = BF16_VS_PLAIN * ref["bf16_plain"]["update_rel"]
+        if not b["update_rel"] <= limit:
+            problems.append(f"tp2: update {b['update_rel']:.4g} from fp32 > "
+                            f"{BF16_VS_PLAIN} x the plain bf16 path's")
+    return problems
+
+
+def tp2_problems(label, t, ranks, ref, cfg):
+    """One way's verdicts, rank by rank: TP3's launches, traffic and flash
+    shapes, the loss falling, TP4's sizes and peak, TP1-TP2."""
+    launches, shapes = tp2_want(t, cfg, ranks[0]["main"]["adam_per_step"])
+    traffic = tp2_traffic_want(t, cfg)
+    params_want = tp_local_params(cfg, t["mesh"]["tensor"])
+    problems = []
+    for r in ranks:
+        m, tag = r["main"], f"({label}) rank {r['rank']}"
+        problems += [f"{tag}: {k} launched {m['launches'][k]} times, want "
+                     f"{v}" for k, v in launches.items()
+                     if m["launches"][k] != v]
+        for key, (calls, elems) in traffic.items():
+            got = m["traffic"].get(key, [0, 0])[:2]
+            if got != [calls, elems]:
+                problems.append(f"{tag}: TP3 {key} {got}, want "
+                                f"{[calls, elems]}")
+        # (the backward wrappers are not called on the CPU, where the
+        # flash wrapper differentiates its plain version)
+        fs = m["flash_shapes"]
+        if fs["flash_fwd"] != shapes or any(v and v != shapes
+                                            for v in fs.values()):
+            problems.append(f"{tag}: flash shapes {fs}, want {shapes}")
+        if m["losses"][-1] >= m["losses"][0] or not all(
+                np.isfinite(m["losses"])):
+            problems.append(f"{tag}: losses {m['losses']}")
+        # TP4: the rank's parameters and its master's elements
+        if m["params_local"] != params_want or m["master_local"] \
+                != params_want // m["shard_world"]:
+            problems.append(f"{tag}: TP4 {m['params_local']} parameters, "
+                            f"{m['master_local']} master elements; want "
+                            f"{params_want} and {params_want} / "
+                            f"{m['shard_world']}")
+        if not m["fwd_bwd_peak_bytes"] < \
+                ref["one_process_fwd_bwd_peak_bytes"] and \
+                m["fwd_bwd_peak_bytes"]:
+            problems.append(f"{tag}: TP4 forward-backward peak "
+                            f"{m['fwd_bwd_peak_bytes']} not below one "
+                            f"process's "
+                            f"{ref['one_process_fwd_bwd_peak_bytes']}")
+        problems += [f"{tag}: {p}" for p in tp2_gate_problems(r["gates"],
+                                                              ref)]
+    return problems
+
+
+def train_llama_750m_tp2_rank(rank, world, seed, t):
+    """One rank of the tensor-parallel training phase (``t``: TP2 or its
+    way (b), the depth, the device and the one-process reference): the
+    main path and a profiled step, the rank's parameter and state sizes,
+    then the gate steps."""
+    import torch
+
+    dev = torch.device(t["device"])
+    engine, data, out = sp2_run(t, dev, "flash", sp2_batch(t, seed))
+    out["profile"] = zeropp_profile(
+        engine, data, dev, profiled=rank == 0 and dev.type == "cuda")
+    out["tensor_host_s_per_step"] = sum(
+        v[2] for k, v in out["traffic"].items()
+        if k.startswith("tensor/")) / t["steps"]
+    out["params_local"] = sum(s.numel for s in engine._slots)
+    out["master_local"] = sum(sh.n_loc for sh in engine._shards)
+    out["shard_world"] = engine.shard_world
+    out["state_bytes"] = {
+        name: buf.numel() * buf.element_size() for name, buf in (
+            ("master", engine.flat_master),
+            ("exp_avg", engine.state["opt"]["exp_avg"]),
+            ("exp_avg_sq", engine.state["opt"]["exp_avg_sq"]),
+            ("grad_acc", engine.flat_grad_acc),
+            ("compute", engine.flat_compute),
+            ("compute_shard", engine._shard_compute)) if buf is not None}
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    gates = sp2_gates(t, dev, t["ref"], TP2_GATES)
+    return {"rank": rank, "main": out, "gates": gates}
+
+
+def mixed_tick_inputs(eng, uids, prompts, label):
+    """Put the requests and step until a tick would mix decode rows with a
+    prompt's chunk; that tick's inputs, scheduled and rolled back (the
+    engine never ran it): tokens, positions, tables [T, mb] at its width
+    tier, the heads, the real rows."""
+    eng.put(uids, prompts)
+    for _ in range(100):
+        live = [s for s in eng.seqs.values() if not s.done]
+        if any(s.prefill_remaining == 0 and s.last_tok is not None
+               for s in live) and any(s.prefill_remaining > 0
+                                      for s in live):
+            break
+        eng.step()
+    else:
+        raise AssertionError(f"{label}: no mixed tick in 100 steps")
+    snap, rr = eng._snapshot_host(live), eng._decode_rr
+    tokens, positions, tables, heads, row = eng._schedule_tick(live)
+    eng._restore_host(snap)
+    eng._decode_rr = rr
+    mb = eng._mb_tier(int(positions[:row].max()) // eng.block_size + 1)
+    return tokens, positions, tables[:, :mb], heads, row, mb
+
+
+def compact_blocks(eng, tables):
+    """The pool blocks a tick's tables name (block 0 first) and the tables
+    renumbered into them."""
+    used = np.unique(np.concatenate([[0], tables.ravel()]))
+    remap = np.zeros(eng.allocator.n_blocks, np.int32)
+    remap[used] = np.arange(len(used), dtype=np.int32)
+    return used, remap[tables]
+
+
+def upcast_tree(tree):
+    return {k: upcast_tree(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def logit_gap(a, b):
+    """(top-1 agreement, max |a − b| / max |b|) of two [rows, V] logits."""
+    return (float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+            float((a - b).abs().max() / b.abs().max()))
+
+
+def tp7b_reference(t, dev, seed, tmp):
+    """T1's one-process side, in the parent before the spawn: a bf16
+    engine of the phase's model and depth (the same seed's weights) steps
+    TP7B_TICK's prompts to a mixed tick; that tick's inputs and the KV
+    blocks it reads go to files in ``tmp``, with the fp32 plain path's
+    logits; the bf16 engine's own (kernels) error against them."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch.inference.fastgen import FastGenEngine
+    from deepspeed_tpu_torch.models import paged as PG
+
+    tick = t.get("tick", TP7B_TICK)
+    eng = FastGenEngine(t["model"], device=dev, seed=seed, temperature=0.0,
+                        num_layers=t["layers"],
+                        **dict(t["engine"], n_blocks=tick["n_blocks"]))
+    rng = np.random.default_rng(seed + 1)
+    vocab = eng.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, n).tolist() for n in tick["lens"]]
+    tokens, positions, tables, heads, row, mb = mixed_tick_inputs(
+        eng, [0, 1], prompts, "llama2_7b_tp2")
+    used, tb = compact_blocks(eng, tables)
+    idx = torch.from_numpy(used).to(dev)
+    pool = {k: v[:, idx].contiguous() for k, v in eng.pool.items()}
+    paths = {"tick": os.path.join(tmp, "tick.npz"),
+             "pool": os.path.join(tmp, "pool.pt"),
+             "logits": os.path.join(tmp, "logits.pt")}
+    np.savez(paths["tick"], tokens=tokens, positions=positions, tables=tb,
+             row=row)
+    torch.save({k: v.cpu() for k, v in pool.items()}, paths["pool"])
+    tk, ps, tbd = (eng._to_dev(a) for a in (tokens, positions, tb))
+    lg16, _ = PG.forward_paged(eng.params, tk, ps, tbd,
+                               {k: v.clone() for k, v in pool.items()},
+                               eng.cfg, use_kernels=True)
+    lg16 = lg16[:row].float()
+    cfg32 = dataclasses.replace(eng.cfg, dtype="float32")
+    params32 = upcast_tree(eng.params)
+    eng.flush([0, 1])
+    del eng
+    lg32, _ = PG.forward_paged(params32, tk, ps, tbd,
+                               {k: v.float() for k, v in pool.items()},
+                               cfg32, use_kernels=False)
+    lg32 = lg32[:row]
+    del params32, pool
+    torch.save(lg32.cpu(), paths["logits"])
+    top1, rel = logit_gap(lg16, lg32)
+    out = dict(paths, rows=row, table_width=mb, blocks=len(used),
+               decode_rows=sum(1 for h in heads if h[2]),
+               bf16_top1=top1, bf16_rel=rel,
+               finite=bool(torch.isfinite(lg16).all()
+                           and torch.isfinite(lg32).all()))
+    del lg16, lg32
+    dev_free(dev)
+    return out
+
+
+def tp7b_traffic_want(cfg, tick_rows, T):
+    """T3: the tensor group's calls and elements over ticks of
+    ``tick_rows`` rows: a tick's 2L + 1 all-reduces of its [rows, H] (each
+    layer's two row-parallel sums and the embedding's) and one gather of
+    its [rows, V/T] logits."""
+    L, H, n = cfg.num_layers, cfg.hidden_size, sum(tick_rows)
+    return {"tensor/all_reduce": [(2 * L + 1) * len(tick_rows),
+                                  (2 * L + 1) * H * n],
+            "tensor/all_gather": [len(tick_rows), cfg.vocab_size // T * n]}
+
+
+def tp7b_problems(ranks, t, ref, cfg, graphs=True):
+    """The serving phase's verdicts, rank by rank: T2, the tokens, the
+    launches, T3, the eager ticks (``graphs``: on a card, where
+    ``graph_stats`` must say why), T1."""
+    from deepspeed_tpu_torch.ops import paged_attention as PA
+
+    m0 = ranks[0]["main"]
+    rows = m0["tick_rows"]
+    want = serving_launches_want(cfg.num_layers, rows,
+                                 "rms_norm" if cfg.norm == "rmsnorm"
+                                 else "layer_norm", PA.MIN_RUN)
+    traffic = tp7b_traffic_want(cfg, rows, t["mesh"]["tensor"])
+    problems = []
+    for r in ranks:
+        m, tag = r["main"], f"rank {r['rank']}"
+        if m["tokens"] != m0["tokens"]:                              # T2
+            problems.append(f"{tag}: T2 tokens differ from rank 0's")
+        short = {u: len(v) for u, v in m["tokens"].items()
+                 if len(v) != t["max_new"]}
+        toks = [x for v in m["tokens"].values() for x in v]
+        if short or min(toks) < 0 or max(toks) >= cfg.vocab_size:
+            problems.append(f"{tag}: tokens {short or 'out of range'}")
+        problems += [f"{tag}: {k} launched {m['launches'][k]} times, want "
+                     f"{v}" for k, v in want.items()
+                     if m["launches"][k] != v]
+        for key, v in traffic.items():                              # T3
+            if m["traffic"].get(key, [0, 0])[:2] != v:
+                problems.append(f"{tag}: T3 {key} {m['traffic'].get(key)},"
+                                f" want {v}")
+        if m["tick_rows"] != rows or any(
+                not k.startswith("eager") for k in m["device_ticks"]):
+            problems.append(f"{tag}: ticks {m['device_ticks']}")
+        if graphs and "eager" not in m["graphs"]:
+            problems.append(f"{tag}: graph_stats {m['graphs']} does not "
+                            "say the ticks run eagerly")
+        g = r["t1"]                                                 # T1
+        if not g["finite"] or g["fp32"]["top1"] < TOP1_MIN or \
+                g["fp32"]["rel_err"] > LOGIT_REL_TOL_FP32:
+            problems.append(f"{tag}: T1 fp32 {g['fp32']}")
+        if g["bf16"]["rel_err"] > BF16_VS_PLAIN * ref["bf16_rel"]:
+            problems.append(f"{tag}: T1 bf16 rel err "
+                            f"{g['bf16']['rel_err']:.3g} > {BF16_VS_PLAIN} x "
+                            f"one process's {ref['bf16_rel']:.3g}")
+    return problems
+
+
+def llama2_7b_tp2_rank(rank, world, seed, t):
+    """One rank of the tensor-parallel serving phase: the main path
+    (counts and traffic set to 0 just before, read just after), the decode
+    rate with eager ticks, then T1's tick from the parent's files."""
+    import dataclasses
+
+    import torch
+
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm import mesh as M
+    from deepspeed_tpu_torch.inference.fastgen import FastGenEngine
+    from deepspeed_tpu_torch.models import paged as PG
+
+    dev = torch.device(t["device"])
+    M.initialize_mesh(M.MeshConfig(**t["mesh"]))
+    dev_peak(dev, reset=True)
+    t0 = time.perf_counter()
+    eng = FastGenEngine(t["model"], device=dev, seed=seed, temperature=0.0,
+                        num_layers=t["layers"], **t["engine"])
+    dev_sync(dev)
+    init_s = time.perf_counter() - t0
+    cfg = eng.cfg
+    # the llama2_7b phase's requests (Smoke.serve with the same seed)
+    rng = np.random.default_rng(seed)
+    lens = [int(n) for n in rng.integers(t["lo"], t["hi"] + 1, t["n_req"])]
+    prompts = [rng.integers(0, min(cfg.vocab_size, 32000), n).tolist()
+               for n in lens]
+    uids = list(range(t["n_req"]))
+    ticks0 = eng.device_ticks.copy()
+    reset_counts()
+    comm.reset_traffic()
+    t0 = time.perf_counter()
+    tokens = eng.generate_all(uids, prompts, max_new_tokens=t["max_new"])
+    dev_sync(dev)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    traffic = {k: list(v) for k, v in comm.traffic.items()}
+    ran = eng.device_ticks - ticks0
+    main = {"tokens": tokens, "generate_all_seconds": wall,
+            "init_seconds": init_s, "launches": counts, "traffic": traffic,
+            "tick_rows": [rows for (_, rows), n in sorted(ran.items())
+                          for _ in range(n)],
+            "device_ticks": {f"{how}[{rows}]": n
+                             for (how, rows), n in sorted(ran.items())},
+            "ttft_p50_s": float(np.median(list(eng.ttft_log)[-len(uids):])),
+            "graphs": eng.graph_stats(), "prompt_lens": lens,
+            "tp": (eng.tp.size, eng.tp.rank),
+            "pool_heads": eng.pool["k"].shape[3],
+            "peak_memory_bytes": dev_peak(dev)}
+    # the decode rate: the prompts prefilled by step() ticks, a window of
+    # 32 decode ticks warmed, then timed
+    uids2 = [u + 100 for u in uids]
+    eng.put(uids2, prompts)
+    t0 = time.perf_counter()
+    while any(eng.seqs[u].prefill_remaining > 0 for u in uids2):
+        eng.step()
+    dev_sync(dev)
+    prefill_s = time.perf_counter() - t0
+    eng.decode_steps(4)
+    dev_sync(dev)
+    t0 = time.perf_counter()
+    got = eng.decode_steps(32)
+    dev_sync(dev)
+    w = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in got.values())
+    decode = {"batch": len(uids2), "ticks": 32, "decode_tokens": n_tok,
+              "decode_wall_s": w, "decode_tokens_per_s": n_tok / w,
+              "decode_tick_ms": w / 32 * 1e3, "prefill_wall_s": prefill_s,
+              "prefill_tokens_per_s": sum(lens) / prefill_s,
+              "ttft_p50_s": float(np.median(
+                  list(eng.ttft_log)[-len(uids2):]))}
+    if rank == 0 and dev.type == "cuda":
+        prof = profile_window(eng, 8, dev)
+        dev_ms = prof.pop("device_ms_per_tick")
+        decode.update(device_ms_per_tick=dev_ms or "not measured",
+                      device_idle_share=(1 - dev_ms / decode["decode_tick_ms"]
+                                         if dev_ms else "not measured"),
+                      **prof)
+    else:
+        eng.decode_steps(8)
+    eng.flush(uids2)
+    # T1: the parent's tick on this rank's heads of its KV blocks
+    ref = t["ref"]
+    tick = np.load(ref["tick"])
+    pool = torch.load(ref["pool"])
+    want = torch.load(ref["logits"]).to(dev)
+    row = int(tick["row"])
+    tk, ps, tb = (eng._to_dev(tick[k]) for k in ("tokens", "positions",
+                                                  "tables"))
+    k_l = cfg.kv_heads // eng.tp.size
+    heads = slice(rank * k_l, (rank + 1) * k_l)
+
+    def run(params, cfg_, dt):
+        mine = {k: v[..., heads, :].to(dev, dt).contiguous()
+                for k, v in pool.items()}
+        lg, _ = PG.forward_paged(params, tk, ps, tb, mine, cfg_,
+                                 use_kernels=True, tp=eng.tp)
+        return lg[:row].float()
+
+    lg16 = run(eng.params, cfg, torch.bfloat16)
+    params32 = upcast_tree(eng.params)
+    lg32 = run(params32, dataclasses.replace(cfg, dtype="float32"),
+               torch.float32)
+    del params32
+    top1_32, rel_32 = logit_gap(lg32, want)
+    top1_16, rel_16 = logit_gap(lg16, want)
+    t1 = {"fp32": {"top1": top1_32, "rel_err": rel_32},
+          "bf16": {"top1": top1_16, "rel_err": rel_16},
+          "finite": bool(torch.isfinite(lg16).all()
+                         and torch.isfinite(lg32).all())}
+    del lg16, lg32, want, pool, eng
+    dev_free(dev)
+    return {"rank": rank, "main": main, "decode": decode, "t1": t1}
 
 
 # --------------------------------------------------------------------------- #
@@ -5602,22 +6197,8 @@ class Smoke:
         import dataclasses
         from deepspeed_tpu_torch.models import paged as PG
 
-        eng.put(uids, prompts)
-        for _ in range(100):
-            live = [s for s in eng.seqs.values() if not s.done]
-            if any(s.prefill_remaining == 0 and s.last_tok is not None
-                   for s in live) and any(s.prefill_remaining > 0
-                                          for s in live):
-                break
-            eng.step()
-        else:
-            raise AssertionError(f"{model}: no mixed tick in 100 steps")
-        snap, rr = eng._snapshot_host(live), eng._decode_rr
-        tokens, positions, tables, heads, row = eng._schedule_tick(live)
-        eng._restore_host(snap)
-        eng._decode_rr = rr
-        mb = eng._mb_tier(int(positions[:row].max()) // eng.block_size + 1)
-        tables = tables[:, :mb]
+        tokens, positions, tables, heads, row, mb = mixed_tick_inputs(
+            eng, uids, prompts, model)
         # the plan that forward_paged builds for this tick, on the card,
         # against the host's runs: both regimes have rows
         from deepspeed_tpu_torch.ops import paged_attention as PA
@@ -5629,23 +6210,16 @@ class Smoke:
                 f"{model}: mixed tick plan: {n_dec} decode rows, {n_tiles} "
                 f"prefill tiles; the host's runs give {int((~pre).sum())} "
                 "decode rows and both regimes")
-        used = np.unique(np.concatenate([[0], tables.ravel()]))
-        remap = np.zeros(eng.allocator.n_blocks, np.int32)
-        remap[used] = np.arange(len(used), dtype=np.int32)
-        tk, ps, tb = (eng._to_dev(a) for a in (tokens, positions,
-                                                remap[tables]))
+        used, tables_c = compact_blocks(eng, tables)
+        tk, ps, tb = (eng._to_dev(a) for a in (tokens, positions, tables_c))
         idx = torch.from_numpy(used).to(self.dev)
         cfg32 = dataclasses.replace(eng.cfg, dtype="float32")
-
-        def upcast(tree):
-            return {k: upcast(v) if isinstance(v, dict) else v.float()
-                    for k, v in tree.items()}
 
         logits = {}
         for prec, cfg, params in (("bf16", eng.cfg, eng.params),
                                   ("fp32", cfg32, None)):
             if params is None:
-                params = upcast(eng.params)
+                params = upcast_tree(eng.params)
             for path, kern in (("kernels", True), ("plain", False)):
                 pool = {k: v[:, idx].to(cfg.compute_dtype)
                         for k, v in eng.pool.items()}
@@ -5657,9 +6231,7 @@ class Smoke:
         eng.flush(uids)
 
         def cmp(a, b):
-            a, b = logits[a], logits[b]
-            return (float((a.argmax(-1) == b.argmax(-1)).float().mean()),
-                    float((a - b).abs().max() / b.abs().max()))
+            return logit_gap(logits[a], logits[b])
 
         top1_32, rel_32 = cmp(("fp32", "kernels"), ("fp32", "plain"))
         top1_16, rel_16 = cmp(("bf16", "kernels"), ("bf16", "plain"))
@@ -6661,6 +7233,160 @@ class Smoke:
             label: dict(res["profile_rank0"], step_ms=res["step_ms"],
                         tokens_per_s=res["tokens_per_s"], mfu=res["mfu"])
             for label, res in results.items()}
+
+    def prepare_train_llama_750m_tp2(self):
+        """The one-process reference (``sp2_reference`` at TP2's depth and
+        batch) and the two ways' jobs."""
+        t = dict(TP2, layers=TP2_LAYERS, gates=tuple(TP2_GATES))
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_tp2_")
+        ref = sp2_reference(t, self.dev, self.seed, os.path.join(tmp, "one"))
+        return {"t": t, "ref": ref, "tmp": [tmp], "jobs": [
+            Job("tp2", "train_llama_750m_tp2_rank", t["world"],
+                dict(t, device=str(self.dev), ref=ref)),
+            Job("tp2/b", "train_llama_750m_tp2_rank", TP2_B["world"],
+                dict(tp2_b(t), device=str(self.dev), ref=ref))]}
+
+    def phase_train_llama_750m_tp2(self):
+        """Way (a) on two ranks at {tensor: 2} (ZeRO-1) and way (b) on four
+        at {data: 2, tensor: 2} (ZeRO-3), gates TP1-TP4
+        (``train_llama_750m_tp2_rank``); step ms, tokens/s, MFU, peak a
+        rank, rank 0's idle share and the tensor group's host seconds a
+        step."""
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        dev_free(self.dev)
+        prep = self.prepared("train_llama_750m_tp2")
+        t, ref = prep["t"], prep["ref"]
+        try:
+            ways = {"a": (t, self.spawn_job(prep["jobs"][0])),
+                    "b": (tp2_b(t), self.spawn_job(prep["jobs"][1]))}
+        finally:
+            self.cleanup("train_llama_750m_tp2")
+        cfg = T.get_model_config(t["model"], num_layers=t["layers"])
+        tokens = t["micro"] * t["seq"] * t["gas"]
+        params_want = tp_local_params(cfg, t["mesh"]["tensor"])
+        problems, results, gates = [], {}, {}
+        for label, (tw, (ranks, wall)) in ways.items():
+            launches, shapes = tp2_want(tw, cfg,
+                                        ranks[0]["main"]["adam_per_step"])
+            traffic = tp2_traffic_want(tw, cfg)
+            problems += tp2_problems(label, tw, ranks, ref, cfg)
+            gates[label] = ranks[0]["gates"]
+            r0 = ranks[0]["main"]
+            step_s = r0["step_ms"] / 1e3
+            results[label] = {
+                "mesh": tw["mesh"], "world": tw["world"], "zero": tw["zero"],
+                "micro_a_batch_rank": tw["micro"], "phase_wall_s": wall,
+                "step_ms": r0["step_ms"],
+                "step_ms_per_rank": [r["main"]["step_ms"] for r in ranks],
+                "tokens_per_s": tokens / step_s,
+                "mfu": tokens / step_s * flops_per_token(cfg, t["seq"])
+                / PEAK_FLOPS["bfloat16"],
+                "params_per_rank": r0["params_local"],
+                "params_want": params_want,
+                "state_bytes_rank0": r0["state_bytes"],
+                "peak_bytes_per_rank": [r["main"]["resident_bytes"]
+                                        + r["main"]["fwd_bwd_peak_bytes"]
+                                        for r in ranks],
+                "fwd_bwd_peak_vs_one_process": [
+                    r["main"]["fwd_bwd_peak_bytes"]
+                    / ref["one_process_fwd_bwd_peak_bytes"] for r in ranks],
+                "idle_share_rank0": r0["profile"].get("device_idle_share"),
+                "tensor_host_s_per_step": [r["main"]["tensor_host_s_per_step"]
+                                           for r in ranks],
+                "launches_want": launches, "traffic_want": traffic,
+                "flash_shape_want": shapes,
+                "per_rank": [{k: v for k, v in r["main"].items()
+                              if k != "profile"} for r in ranks],
+                "profile_rank0": r0["profile"]}
+        emit("train_llama_750m_tp2", model=t["model"], layers=t["layers"],
+             reduced=f"{t['layers']} of 20 layers, for the script's time",
+             micro_global=t["micro"], seq=t["seq"], gas=t["gas"],
+             steps=t["steps"], params=cfg.num_params(), card=self.card,
+             wire_note="gloo through host memory, the ranks sharing one "
+                       "card", one_process={
+                 k: v for k, v in ref.items() if not k.endswith("_path")},
+             **results)
+        emit("train_llama_750m_tp2/gates", card=self.card, gates=gates,
+             limits=SP2_LIMITS, bf16_vs_plain=BF16_VS_PLAIN)
+        if problems:
+            raise AssertionError("train_llama_750m_tp2: "
+                                 + "; ".join(problems))
+        name = "train_llama_750m_tp2"
+        for label, res in results.items():
+            for k, v in res["per_rank"][0]["launches"].items():
+                if v and k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                               "rms_norm", "fused_adam"):
+                    self.launches.setdefault(k, {})[f"{name}/{label}"] = v
+            self.steps[f"{name}/{label}"] = t["steps"]
+        self.state["tp2"] = {
+            label: dict(res["profile_rank0"], step_ms=res["step_ms"],
+                        tokens_per_s=res["tokens_per_s"], mfu=res["mfu"])
+            for label, res in results.items()}
+
+    def prepare_llama2_7b_tp2(self):
+        """T1's one-process tick (``tp7b_reference``) and the job."""
+        t = dict(TP7B, layers=TP7B_LAYERS)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_tp7b_")
+        ref = tp7b_reference(t, self.dev, self.seed, tmp)
+        return {"t": t, "ref": ref, "tmp": [tmp], "jobs": [
+            Job("tp7b", "llama2_7b_tp2_rank", t["world"],
+                dict(t, device=str(self.dev), ref=ref))]}
+
+    def phase_llama2_7b_tp2(self):
+        """Two ranks serve llama2_7b at {tensor: 2} (TP7B): the main path
+        with its launches, eager ticks, T1-T3; decode tokens/s, TTFT p50
+        and rank 0's idle share."""
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+        from deepspeed_tpu_torch.ops import paged_attention as PA
+
+        build.build_all()
+        dev_free(self.dev)
+        prep = self.prepared("llama2_7b_tp2")
+        t, ref = prep["t"], prep["ref"]
+        try:
+            ranks, wall = self.spawn_job(prep["jobs"][0])
+        finally:
+            self.cleanup("llama2_7b_tp2")
+        cfg = T.get_model_config(t["model"], num_layers=t["layers"])
+        L = cfg.num_layers
+        m0 = ranks[0]["main"]
+        rows = m0["tick_rows"]
+        want = serving_launches_want(L, rows, "rms_norm", PA.MIN_RUN)
+        traffic = tp7b_traffic_want(cfg, rows, t["mesh"]["tensor"])
+        problems = tp7b_problems(ranks, t, ref, cfg,
+                                 graphs=self.dev.type == "cuda")
+        d0 = ranks[0]["decode"]
+        emit("llama2_7b_tp2", layers=L, mesh=t["mesh"], requests=t["n_req"],
+             prompt_lens=m0["prompt_lens"], max_new_tokens=t["max_new"],
+             reduced=(None if L == 32 else
+                      f"{L} of 32 layers, for the script's time"),
+             ticks=len(rows), tick_rows=sorted(set(rows)),
+             launches=m0["launches"], launches_want=want,
+             traffic=m0["traffic"], traffic_want=traffic,
+             init_seconds=m0["init_seconds"],
+             generate_all_seconds=m0["generate_all_seconds"],
+             ttft_p50_s=m0["ttft_p50_s"], decode=d0,
+             decode_tokens_per_s=d0["decode_tokens_per_s"],
+             decode_tick_ms=d0["decode_tick_ms"],
+             idle_share_rank0=d0.get("device_idle_share", "not measured"),
+             peak_memory_bytes_per_rank=[r["main"]["peak_memory_bytes"]
+                                         for r in ranks],
+             pool_heads_per_rank=m0["pool_heads"], graphs=m0["graphs"],
+             t1={"one_process": {k: v for k, v in ref.items()
+                                 if k not in ("tick", "pool", "logits")},
+                 "ranks": [r["t1"] for r in ranks]},
+             phase_wall_s=wall, card=self.card,
+             first_tokens={u: m0["tokens"][u][:4] for u in (0, 1)})
+        if problems:
+            raise AssertionError("llama2_7b_tp2: " + "; ".join(problems))
+        for k in want:
+            self.launches.setdefault(k, {})["llama2_7b_tp2"] = \
+                m0["launches"][k]
+        self.ticks["llama2_7b_tp2"] = len(rows)
 
     def prepare_train_llama_750m_offload(self, t=None):
         """The NVMe directory (emptied, its disk checked) and (d)'s int8
@@ -8094,72 +8820,7 @@ class Smoke:
         return out
 
     def profile_window(self, eng, n_ticks):
-        """One decode_steps window of ``n_ticks`` under torch.profiler:
-        device ms, kernels and the host's CUDA runtime calls a tick, and
-        the device's idle gaps between its first and last kernel (with
-        graphs: the gaps between nodes and between replays)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            got = eng.decode_steps(n_ticks)
-            self.sync()
-        ticks = n_ticks if got else 0
-        spans = {"decode_window", "decode_tick", "schedule_tick"}
-        dev_us = {}     # kernels only: ops and span ranges would double count
-        n_kernels = 0
-        runtime = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CPU and e.key.startswith("cuda"):
-                # the host's CUDA runtime calls (launches, copies,
-                # synchronisations) a tick, as CUPTI sees them
-                runtime[e.key] = {
-                    "calls": e.count / max(ticks, 1),
-                    "us": float(getattr(e, "cpu_time_total", 0))
-                    / max(ticks, 1)}
-            if e.device_type != DeviceType.CUDA or e.key in spans \
-                    or getattr(e, "is_user_annotation", False):
-                continue
-            t = float(getattr(e, "self_device_time_total", 0)
-                      or getattr(e, "self_cuda_time_total", 0))
-            if t:
-                dev_us[e.key] = dev_us.get(e.key, 0.0) + t
-                n_kernels += e.count
-        by_kind = {}
-        for key, us in dev_us.items():
-            kind = kernel_kind(key)
-            if kind in ("norm_fwd", "other"):     # the norm kernel by kind
-                low = key.lower()
-                kind = ("rms_norm" if "rms_norm" in low
-                        else "layer_norm" if "layer_norm" in low else kind)
-            by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / max(ticks, 1)
-        total_us = sum(dev_us.values())
-        # the device's busy intervals, merged: their gaps inside the span
-        spans_us = sorted(
-            (e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA and e.key in dev_us)
-        gap_us, end = 0.0, None
-        for a, b in spans_us:
-            if end is not None and a > end:
-                gap_us += a - end
-            end = b if end is None else max(end, b)
-        span_us = end - spans_us[0][0] if spans_us else 0.0
-        return {"profiled_ticks": ticks,
-                "device_span_ms_per_tick": (span_us / 1e3 / ticks
-                                            if span_us and ticks
-                                            else "not measured"),
-                "device_gap_ms_per_tick": (gap_us / 1e3 / ticks
-                                           if span_us and ticks
-                                           else "not measured"),
-                "kernels_per_tick": (n_kernels / ticks if n_kernels
-                                     else "not measured"),
-                "device_ms_per_tick": (total_us / 1e3 / ticks
-                                       if total_us and ticks else None),
-                "device_ms_per_tick_by_kind": by_kind or "not measured",
-                "host_runtime_per_tick": runtime or "not measured",
-                "top_kernels_us": {k[:90]: v for k, v in sorted(
-                    dev_us.items(), key=lambda kv: -kv[1])[:8]}}
+        return profile_window(eng, n_ticks, self.dev)
 
     def phase_times(self):
         """Times what the phases before it ran: the serving rows need the
@@ -8212,6 +8873,13 @@ class Smoke:
             B, S, sp = SP2["micro"], SP2["seq"], SP2["mesh"]["seq"]
             fl["llama_750m_ulysses"] = self.flash_times(
                 "llama_750m_ulysses", B, S, 12 // sp, 12 // sp, 128, flush)
+        if "tp2" in self.state:
+            # a tensor rank's heads (TP2's way (a)): the Ulysses blocks'
+            # shape, timed once
+            B, S, tp = TP2["micro"], TP2["seq"], TP2["mesh"]["tensor"]
+            fl["llama_750m_tp2"] = fl.get("llama_750m_ulysses") or \
+                self.flash_times("llama_750m_tp2", B, S, 12 // tp, 12 // tp,
+                                 128, flush)
         adam = (self.adam_times(flush) if "train_gpt2_125m" in self.state
                 else None)
         gg = (self.gmm_times(flush) if "train_moe_350m" in self.state
@@ -8236,6 +8904,9 @@ class Smoke:
         if "sp2" in self.state:
             for label, row in self.state["sp2"].items():
                 steps[f"llama_750m_sp2_{label}"] = row
+        if "tp2" in self.state:
+            for label, row in self.state["tp2"].items():
+                steps[f"llama_750m_tp2_{label}"] = row
         if "moe_ep" in self.state:
             steps["moe_350m_ep2"] = self.state["moe_ep"]["a"]
             steps["moe_350m_data2_ep2"] = self.state["moe_ep"]["b"]
@@ -8291,6 +8962,12 @@ class Smoke:
             mixed, dtype=torch.int32, device=self.dev))
         pa["mixed"] = self.pa_case("paged_attention[mixed]",
                                    *ticks["mixed"], flush)
+        # the same tick at a tensor rank's heads (llama2_7b_tp2: 16 of 32)
+        q, kp, vp, tables_m, lengths_m = ticks["mixed"]
+        pa["mixed_tp2"] = self.pa_case(
+            "paged_attention[mixed_tp2]",
+            *(x[..., :16, :].contiguous() for x in (q, kp, vp)), tables_m,
+            lengths_m, flush)
         pa["plan"] = self.plan_case(tables, flush)
         pa["decode_grid_rows"] = self.decode_grid_sweep(eng, dec_len, ticks,
                                                         flush)
@@ -8843,6 +9520,13 @@ class Smoke:
                                ("paged_attention_prefill", "prefill")):
                 timed[name] = dict(pa[case], library_ms=None,
                                    kernel_ms=pa[case]["kernel_ms"][name])
+                # llama2_7b_tp2's role: the mixed tick at a rank's 16 heads
+                tp = pa["mixed_tp2"]
+                timed[name]["tensor_parallel"] = {
+                    "tick": "mixed, N = K = 16", "ms": tp["ms"],
+                    "kernel_ms": tp["kernel_ms"][name],
+                    "plain_ms": tp["plain_ms"], "bound_ms": tp["bound_ms"],
+                    "max_abs_err": tp["max_abs_err"]}
             timed["paged_attention_plan"] = dict(pa["plan"], library_ms=None)
         if adam is not None and "fused_adam" in self.errs:
             timed["fused_adam"] = dict(adam,
@@ -8853,6 +9537,10 @@ class Smoke:
                                    max_abs_err=self.errs[name])
                 if "llama_750m_ulysses" in fl:
                     timed[name]["ulysses"] = fl["llama_750m_ulysses"][name]
+                if "llama_750m_tp2" in fl:
+                    # train_llama_750m_tp2's role: a rank's 6 heads
+                    timed[name]["tensor_parallel"] = \
+                        fl["llama_750m_tp2"][name]
         for name, key in (("gmm", "gmm[up]"), ("tgmm", "tgmm[up]")):
             if gg is not None and name in self.errs:
                 timed[name] = dict(gg[key], max_abs_err=self.errs[name])
@@ -8898,7 +9586,7 @@ class Smoke:
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
                           "tflops_per_s", "kernel_ms", "in_graph_kernel_ms",
                           "replica_hop", "ep_buffer", "serving_decode",
-                          "ulysses"):
+                          "ulysses", "tensor_parallel"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         # the host library of the host-executed step (not a card kernel):

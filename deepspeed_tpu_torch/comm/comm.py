@@ -42,11 +42,19 @@ MoE layer's own groups (``MeshManager.moe_group``) through the same gloo
 staging. The sequence-parallel attentions run :func:`all_to_all_autograd`
 (Ulysses) and :func:`permute_autograd` (the ring's K/V hops, JAX's
 ``lax.ppermute``, whose backward is the reverse permute) on their own
-``seq`` group (``MeshManager.seq_group``).
+``seq`` group (``MeshManager.seq_group``). A ``tensor`` axis runs
+Megatron's conjugate pair on its own group (``MeshManager.tensor``):
+:func:`copy_to_tensor` (identity forward, all-reduce backward) where a
+replicated activation enters the column-parallel projections,
+:func:`reduce_from_tensor` (all-reduce forward, identity backward) where
+the row-parallel projections' partial sums leave them, and
+:func:`gather_from_tensor` (all-gather of the last dim forward, this
+rank's slice backward) for the serving logits.
 
 Every collective counts itself in :data:`traffic` under its group's label
 (``world``, the ``zshard`` / ``data`` / ``expert`` / ``seq_hop`` axis
-groups, the MoE layer's ``batch`` group, the attentions' ``seq`` group;
+groups, the MoE layer's ``batch`` group, the attentions' ``seq`` group,
+the Megatron collectives' ``tensor`` group;
 ``comm/mesh.group_label``) and its kind: calls, the elements this rank
 sends in, and the host seconds the calling thread spent in it (the
 queue's worker thread included). A call costs two clock reads and a few
@@ -453,6 +461,66 @@ def permute_autograd(x: torch.Tensor, group, shift: int = 1
     goes to rank j + ``shift`` (mod the group size); the result is what
     rank j − ``shift`` sent."""
     return _Permute.apply(x, group, shift)
+
+
+class _CopyToTensor(torch.autograd.Function):
+    """Megatron's ``f``: identity forward; backward, the sum over the
+    ``tensor`` group of the ranks' partial gradients (each rank's
+    column-parallel slice contributed its part)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), group=ctx.group), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    """Megatron's ``g``: the sum over the ``tensor`` group of the ranks'
+    partial outputs forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    """Every rank's slice of the last dim, concatenated in rank order;
+    backward: this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rank, ctx.n = get_rank(group), x.shape[-1]
+        return all_gather(x, group, gather_axis=x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n], None
+
+
+def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated activation entering column-parallel projections:
+    identity forward, gradient all-reduced over ``group`` backward."""
+    return _CopyToTensor.apply(x, group)
+
+
+def reduce_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """Row-parallel partial sums leaving a layer: all-reduced over
+    ``group`` forward, gradient passed through backward."""
+    return _ReduceFromTensor.apply(x, group)
+
+
+def gather_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's slice of the last dim gathered over ``group`` (the
+    serving logits); the gradient's own slice backward."""
+    return _GatherFromTensor.apply(x, group)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

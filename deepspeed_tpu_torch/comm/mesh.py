@@ -7,14 +7,14 @@ TPU the mesh's "devices" are chips; here they are the processes of the
 default ``torch.distributed`` process group (one process without one), each
 driving its own device.
 
-The ``data``, ``zshard``, ``expert`` and ``seq`` axes run (``data = -1``
-absorbs the world size, as JAX's absorbs the device count; a shape that
-does not fit the world raises JAX's ``ValueError``); ``tensor`` and
-``pipe`` above 1 raise ``NotImplementedError`` (a later slice). Ranks take
-JAX's device order: ``DEFAULT_AXIS_ORDER`` with ``seq`` inside ``expert``
-inside ``zshard`` inside ``data``, so rank r sits at ``seq = r % Q``,
-``expert = (r // Q) % X``, ``zshard = (r // (Q·X)) % Z``, ``data = r //
-(Q·X·Z)``. The manager holds this rank's process group over a
+The ``data``, ``zshard``, ``expert``, ``seq`` and ``tensor`` axes run
+(``data = -1`` absorbs the world size, as JAX's absorbs the device count;
+a shape that does not fit the world raises JAX's ``ValueError``); ``pipe``
+above 1 raises ``NotImplementedError`` (a later slice). Ranks take JAX's
+device order: ``DEFAULT_AXIS_ORDER`` with ``tensor`` inside ``seq`` inside
+``expert`` inside ``zshard`` inside ``data``, so rank r sits at ``tensor =
+r % T``, ``seq = (r // T) % Q``, ``expert = (r // (T·Q)) % X`` and so on
+outwards. The manager holds this rank's process group over a
 set of axes (:meth:`MeshManager.group`), each built by
 ``torch.distributed.new_group`` on every rank in the same order, as gloo
 requires: under hpZ / MiCS (``zshard`` above 1) the ``zshard`` group (where
@@ -37,7 +37,14 @@ issue order within a group, so the MoE layer has groups of its own
 (:meth:`MeshManager.moe_group`), built with ``new_group`` even where they
 span every process: the two threads never share a group. So do the
 sequence-parallel attentions (Ulysses' all-to-alls, the ring's permutes):
-:meth:`MeshManager.seq_group`, labelled ``seq``.
+:meth:`MeshManager.seq_group`, labelled ``seq``, and the Megatron
+collectives of a ``tensor`` axis (the model's all-reduces and the serving
+logits' gather, on the calling thread or autograd's):
+:meth:`MeshManager.tensor`, labelled ``tensor``. The ``tensor`` axis is in
+neither the batch axes nor the gradient-reduce axes, as in JAX: its ranks
+share their rows and each holds its own slice of a tensor-parallel leaf,
+so under it the shard group ``(data, zshard)`` is built even where it
+holds one rank.
 """
 from __future__ import annotations
 
@@ -191,6 +198,20 @@ class MeshManager:
         return self.axis_size(TENSOR_AXIS)
 
     @property
+    def tp_rank(self) -> int:
+        """This rank's coordinate on the ``tensor`` axis."""
+        return self.coords[TENSOR_AXIS]
+
+    def tensor(self) -> Optional["TensorGroup"]:
+        """This rank's place on the ``tensor`` axis for the Megatron
+        collectives (their own group, label ``tensor``); None at tensor
+        = 1."""
+        if self.tp_world_size <= 1:
+            return None
+        return TensorGroup(self.moe_group((TENSOR_AXIS,), "tensor"),
+                           self.tp_world_size, self.tp_rank)
+
+    @property
     def pp_world_size(self) -> int:
         return self.axis_size(PIPE_AXIS)
 
@@ -209,6 +230,16 @@ class MeshManager:
         return f"MeshManager(shape={self.shape})"
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorGroup:
+    """A rank's place on the ``tensor`` axis: the process group of the
+    Megatron collectives, the axis size and the rank's coordinate (the
+    slice of every tensor-parallel leaf it holds)."""
+    group: Any
+    size: int
+    rank: int
+
+
 _GLOBAL_MESH: Optional[MeshManager] = None
 
 
@@ -219,7 +250,8 @@ def process_world_size() -> int:
     return 1
 
 
-_RUNS = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS, SEQ_AXIS)  # the axes it runs
+_RUNS = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS, SEQ_AXIS,
+         TENSOR_AXIS)                                     # the axes it runs
 # the process groups built so far, by (kind, label, ranks): dist.new_group
 # is collective, so every rank builds the same groups in the same order,
 # once each; kind "axis" the engine's, "moe" the MoE layer's (whose batch
@@ -282,7 +314,7 @@ def _axis_groups(sizes: Dict[str, int]
     if world <= 1:
         return groups, moe
     D, Z, X = sizes[DATA_AXIS], sizes[ZSHARD_AXIS], sizes[EXPERT_AXIS]
-    Q = sizes[SEQ_AXIS]
+    Q, T = sizes[SEQ_AXIS], sizes[TENSOR_AXIS]
     if Z > 1:
         groups.update(_build("axis", sizes, (ZSHARD_AXIS,), "zshard", False))
         groups.update(_build("axis", sizes, (DATA_AXIS,), "data", False))
@@ -298,9 +330,14 @@ def _axis_groups(sizes: Dict[str, int]
         groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
                              "data", False))
         groups.update(_build("axis", sizes, (SEQ_AXIS,), "seq_hop", False))
+    if T > 1:
+        groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
+                             "data", False))
     moe.update(_build("moe", sizes, BATCH_AXES, "batch", True))
     if Q > 1:
         moe.update(_build("moe", sizes, (SEQ_AXIS,), "seq", True))
+    if T > 1:
+        moe.update(_build("moe", sizes, (TENSOR_AXIS,), "tensor", True))
     if X > 1:
         moe.update(_build("moe", sizes, (EXPERT_AXIS,), "expert", True))
         if D * Z > 1:
@@ -312,9 +349,10 @@ def _axis_groups(sizes: Dict[str, int]
 def group_label(group) -> str:
     """``world`` for the default group (None), else the axes a group runs
     over (``zshard``, ``data``, ``expert``, ``data_expert``, ``seq_hop``
-    for the engine's dense hop over ``seq``; ``batch`` for the MoE layer's
-    group over the batch axes, ``seq`` for the attentions'); ``other`` for
-    a group of none."""
+    for the engine's dense hop over ``seq``; ``batch`` for the MoE
+    layer's group over the batch axes, ``seq`` for the attentions',
+    ``tensor`` for the Megatron collectives'); ``other`` for a group of
+    none."""
     if group is None:
         return "world"
     for g, label in _LABELS:
@@ -356,7 +394,8 @@ def initialize_mesh(mesh_config: Optional[MeshConfig] = None) -> MeshManager:
                        if a not in _RUNS and s > 1)
     if wider:
         raise later_slice(f"mesh axes {wider} above 1 (this slice runs the "
-                          "'data', 'zshard', 'expert' and 'seq' axes)")
+                          "'data', 'zshard', 'expert', 'seq' and 'tensor' "
+                          "axes)")
     rank = dist.get_rank() if process_world_size() > 1 else 0
     _GLOBAL_MESH = MeshManager(sizes, rank, *_axis_groups(sizes))
     logger.info(f"initialized process mesh: {_GLOBAL_MESH}")

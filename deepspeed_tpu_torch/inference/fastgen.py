@@ -29,14 +29,33 @@ Parity: ``deepspeed_tpu/inference/fastgen.py`` (``BlockAllocator``, ``_Seq``,
 
 Host scheduling (tiers, rotation, backpressure, rollback, deadlines) is the
 JAX package's, rule for rule, so greedy outputs match it token for token.
+
+Tensor-parallel serving (``tp``, JAX ``fastgen.py:145-199``): with a live
+mesh whose ``tensor`` axis is above 1, ``tp=None`` or ``True`` serves on
+it — every rank of the axis runs the same engine on the same requests,
+holding its slices of the parameters and its ``kv_heads / T`` heads of the
+pool (``models/paged.forward_paged``), and samples from the gathered
+logits with the engine's generator (one seed on every rank), so every rank
+emits the same tokens. An incompatible model (the KV or query heads, the
+FFN or the vocab not divisible by the axis) raises under ``tp=True`` and
+warns "serving replicated" under ``tp=None``; ``tp=False`` never engages.
+Where JAX refuses its Pallas kernel under TP and serves with XLA
+attention, the port runs its CUDA paged kernels on each rank's heads. The
+ticks run eagerly, with the kernels: a CUDA graph cannot capture a gloo
+collective, which copies through pinned host memory and synchronises
+(``comm._gloo_via_pinned_host``), and NCCL will not put two ranks on one
+device (``graph_stats()`` says so). Request deadlines are refused under TP:
+each rank's host clock would expire a request on its own.
+
 Not in this slice (they raise ``NotImplementedError``): planned serving
-(``generate_all(planned=True)``, ``serve_planned``), tensor-parallel
-serving (``tp=True``) and weight-only-quantized params.
+(``generate_all(planned=True)``, ``serve_planned``) and
+weight-only-quantized params.
 """
 from __future__ import annotations
 
 import collections
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -44,11 +63,12 @@ import torch
 
 from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm import mesh as mesh_mod
 from deepspeed_tpu_torch.inference.graphs import TickGraph
 from deepspeed_tpu_torch.inference.sampling import sample_logits
 from deepspeed_tpu_torch.models import paged as PG
 from deepspeed_tpu_torch.models import transformer as T
-from deepspeed_tpu_torch.models.convert import tree_from_numpy
+from deepspeed_tpu_torch.models.convert import params_from_numpy
 
 _QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate", "lm_head")
 
@@ -121,7 +141,11 @@ class FastGenEngine:
     kernels in eager ticks (the comparison path). ``params``: ``None``
     initialises from ``seed`` on the device; a :class:`~deepspeed_tpu_torch.
     models.paged.PagedTransformer`, or a nested dict of tensors/arrays
-    under the JAX keys (floating leaves cast to the compute dtype)."""
+    under the JAX keys (floating leaves cast to the compute dtype), whole:
+    under TP each rank keeps its slices. ``tp``: None engages a live
+    mesh's ``tensor`` axis (and serves replicated, with a warning, a model
+    the axis cannot cut), True raises for such a model, False never
+    engages."""
 
     def __init__(self, cfg: Union[str, T.TransformerConfig],
                  params: Optional[Any] = None,
@@ -133,13 +157,18 @@ class FastGenEngine:
                  tp: Optional[bool] = None,
                  request_deadline_s: Optional[float] = None,
                  device=None, **overrides):
-        if tp:
-            raise _later_slice("tensor-parallel FastGen serving (tp=True)")
         if isinstance(cfg, str):
             cfg = T.get_model_config(cfg, **overrides)
         T._check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        #: this rank's place on a live mesh's tensor axis (None: the whole
+        #: model here)
+        self.tp = self._resolve_tp(tp)
+        if self.tp is not None and request_deadline_s is not None:
+            raise _later_slice("request deadlines under tensor-parallel "
+                               "serving (each rank's clock would expire a "
+                               "request on its own)")
         self.model = self._resolve_params(params, seed)
         self.params = self.model.tree()
         self.block_size = block_size
@@ -157,7 +186,7 @@ class FastGenEngine:
 
         self.allocator = BlockAllocator(n_blocks)
         self.pool = PG.init_paged_kv(cfg, n_blocks, block_size,
-                                     device=self.device)
+                                     device=self.device, tp=self.tp)
         self.seqs: Dict[int, _Seq] = {}
         self._admit_order: List[int] = []
         self._decode_rr = 0
@@ -175,21 +204,50 @@ class FastGenEngine:
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
         self._use_kernels = bool(use_kernels)
-        # ticks replay CUDA graphs on the card with the kernels; only the
-        # comparison of graph against eager ticks turns this off
-        self._graphs = self.device.type == "cuda" and self._use_kernels
+        # ticks replay CUDA graphs on the card with the kernels; the
+        # comparison of graph against eager ticks turns this off, and so
+        # does TP (a graph cannot capture a gloo collective)
+        self._graphs = (self.device.type == "cuda" and self._use_kernels
+                        and self.tp is None)
+        #: why the ticks run eagerly where graphs would replay (None: they
+        #: replay, or the plain path runs)
+        self.eager_reason = None
+        if self.tp is not None and self.device.type == "cuda" \
+                and self._use_kernels:
+            self.eager_reason = (
+                f"tensor-parallel ticks (tensor={self.tp.size}) run eagerly "
+                "with the kernels: a CUDA graph cannot capture the gloo "
+                "collectives (pinned-host copies and a host synchronisation)"
+                ", and NCCL will not put two ranks on one device")
         self._tick_graphs: Dict[tuple, TickGraph] = {}
         self._graph_pool = self._graph_stream = None
         # a decode_stream window is in flight (see _assert_stream_drained)
         self._stream_inflight = False
 
+    def _resolve_tp(self, tp: Optional[bool]):
+        """JAX's ``tp`` (fastgen.py:145-199): a live mesh's tensor axis,
+        unless ``tp`` is False; a model the axis cannot cut raises under
+        ``tp=True`` and serves replicated, with a warning, under None."""
+        if tp is False or not mesh_mod.mesh_is_initialized():
+            return None
+        group = mesh_mod.get_mesh_manager().tensor()
+        if group is None:
+            return None
+        what = T.check_tensor_parallel(self.cfg, group.size)
+        if not what:
+            return group
+        problem = f"mesh tensor={group.size} with {', '.join(what)}"
+        if tp:
+            raise NotImplementedError(f"FastGen TP: {problem} (queue A.4)")
+        warnings.warn(f"FastGen TP disabled ({problem}); serving replicated")
+        return None
+
     def _resolve_params(self, params, seed: int) -> PG.PagedTransformer:
         cfg, dev = self.cfg, self.device
         if params is None:
             gen = torch.Generator(dev).manual_seed(seed)
-            return PG.PagedTransformer(
-                cfg, T.init_params(cfg, gen, dev, dtype=cfg.compute_dtype))
-        if isinstance(params, PG.PagedTransformer):
+            tree = T.init_params(cfg, gen, dev, dtype=cfg.compute_dtype)
+        elif isinstance(params, PG.PagedTransformer):
             tree = params.tree()
         elif isinstance(params, dict):
             tree = params
@@ -200,8 +258,7 @@ class FastGenEngine:
         if any(isinstance(blocks.get(k), dict) or isinstance(tree.get(k), dict)
                for k in _QUANTIZABLE):
             raise _later_slice("weight-only-quantized params")
-        return PG.PagedTransformer(
-            cfg, tree_from_numpy(tree, cfg.compute_dtype, dev))
+        return params_from_numpy(tree, cfg, dev, tp=self.tp)
 
     # ------------------------------------------------------------------ #
     # telemetry (the JAX package's fastgen_* metric catalog)
@@ -351,7 +408,8 @@ class FastGenEngine:
         on the device: what a tick graph captures."""
         logits, _ = PG.forward_paged(self.params, tokens, positions, tables,
                                      self.pool, self.cfg,
-                                     use_kernels=self._use_kernels)
+                                     use_kernels=self._use_kernels,
+                                     tp=self.tp)
         return logits, sample_logits(logits, generator, self.temperature,
                                      self.top_k, self.top_p).to(torch.int32)
 
@@ -383,7 +441,11 @@ class FastGenEngine:
 
     def graph_stats(self) -> Dict[str, Dict[str, object]]:
         """Per captured key: rows, table width, warm-up, capture and
-        instantiation seconds, replays, kernel launches a replay."""
+        instantiation seconds, replays, kernel launches a replay; under
+        TP on the card, ``{"eager": {"reason": ...}}`` (no graph is
+        captured)."""
+        if self.eager_reason is not None:
+            return {"eager": {"reason": self.eager_reason}}
         return {str(k): g.stats() for k, g in self._tick_graphs.items()}
 
     def _cold(self, key: tuple) -> bool:
@@ -733,6 +795,9 @@ class FastGenEngine:
         is validated whole before anything is admitted."""
         if deadline_s is None:
             deadline_s = self.request_deadline_s
+        if deadline_s is not None and self.tp is not None:
+            raise _later_slice("request deadlines under tensor-parallel "
+                               "serving")
         batch = []
         seen = set()
         for uid, prompt in zip(uids, prompts):

@@ -22,6 +22,14 @@ attention across the ``seq`` ranks (``ulysses``, ``ulysses_flash`` or
 sequence for it and the port does not), and the LM loss over those
 positions' next tokens, the rank's masked mean (the engine weights the
 ranks' means into JAX's global one).
+
+Under a ``tensor`` mesh axis above 1 the engine hands each rank's
+``loss_fn`` its slices of the parameters and the batch key ``tp`` (the
+rank's :class:`~deepspeed_tpu_torch.comm.mesh.TensorGroup`), and the model
+runs Megatron's dataflow (``models/transformer``): ``flash`` runs the
+flash kernels on the rank's heads, ``xla`` the plain attention; the
+fused and the exact loss are vocab-parallel. Block-sparse attention, the
+tiled loss and MoE raise (queue A.4).
 """
 from __future__ import annotations
 
@@ -124,6 +132,12 @@ def _seq_shard_of(batch: Batch):
     return batch.get("seq_shard") if isinstance(batch, dict) else None
 
 
+def _tp_of(batch: Batch):
+    """The batch's ``tp`` (this rank's ``tensor`` axis group, which the
+    engine passes); None: the whole model on this rank."""
+    return batch.get("tp") if isinstance(batch, dict) else None
+
+
 def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
                    attention: Optional[str] = None, loss_tiles: int = 0,
                    loss_impl: str = "fused", use_kernels: bool = True,
@@ -166,10 +180,14 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
                 f"attention={attention!r} under a seq mesh axis above 1 "
                 "(JAX's GSPMD gathers the sequence for it; the port runs "
                 f"{'|'.join(SEQ_PARALLEL_ATTENTION)} across seq ranks)")
+        tp = _tp_of(batch)
+        if tp is not None and loss_tiles > 1:
+            raise later_slice(f"loss_tiles={loss_tiles} under mesh "
+                              f"tensor={tp.size} (queue A.4)")
         hidden, head, aux = T.forward_hidden(params, tokens, cfg,
                                              attention_fn=attention_fn,
                                              use_kernels=use_kernels,
-                                             seq_shard=shard)
+                                             seq_shard=shard, tp=tp)
         mask = _mask_of(batch)
         if loss_tiles > 1:
             from deepspeed_tpu_torch.sequence.tiled import tiled_lm_loss
@@ -177,9 +195,9 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
             loss = tiled_lm_loss(hidden, head, tokens, mask,
                                  num_tiles=loss_tiles, seq_shard=shard)
         elif loss_impl == "fused":
-            loss = T.fused_lm_loss(hidden, head, tokens, mask, shard)
+            loss = T.fused_lm_loss(hidden, head, tokens, mask, shard, tp)
         else:
-            logits = T.head_matmul(hidden, head.to(hidden.dtype))
+            logits = T.lm_logits(hidden, head, tp)
             loss = T.causal_lm_loss(logits, tokens, mask, shard)
         if cfg.n_experts > 0:
             loss = loss + cfg.moe_aux_coef * aux
@@ -188,7 +206,7 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     def apply_fn(params, batch):
         return T.forward(params, _tokens_of(batch), cfg,
                          attention_fn=attention_fn, use_kernels=use_kernels,
-                         seq_shard=_seq_shard_of(batch))
+                         seq_shard=_seq_shard_of(batch), tp=_tp_of(batch))
 
     def init_fn(generator: Optional[torch.Generator] = None, device=None):
         dev = resolve_device(device)

@@ -4,15 +4,19 @@
 turns a JAX parameter pytree (nested dicts of numpy arrays, same keys and
 shapes as the port's) into a :class:`~deepspeed_tpu_torch.models.paged.
 PagedTransformer`. Floating leaves are cast to the compute dtype, as the JAX
-``FastGenEngine`` casts them; integer leaves keep theirs.
+``FastGenEngine`` casts them; integer leaves keep theirs. With ``tp`` (a
+rank's :class:`~deepspeed_tpu_torch.comm.mesh.TensorGroup`) each leaf is
+the rank's slice of the global leaf (:func:`tp_local_tree`, the one place
+a whole tree is cut for a tensor axis; FastGen goes through it too).
 
 ``load_master(engine, jax.tree.map(np.asarray, jax_engine.state["master"]))``
 copies a JAX fp32 master tree into a training engine's master state, so both
 engines start from the same weights; a data-parallel rank keeps its shard
 of each leaf (under an ``expert`` axis, its experts of each expert leaf
-first: ``engine.local_leaf``). ``gather_master(engine)`` reads a
-data-parallel engine's sharded master back as whole numpy arrays, the
-experts of every rank included (every rank calls it).
+first, under a ``tensor`` axis its slice: ``engine.local_leaf``).
+``gather_master(engine)`` reads a data-parallel engine's sharded master
+back as whole numpy arrays, the experts and the tensor slices of every
+rank included (every rank calls it).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models import transformer as T
 from deepspeed_tpu_torch.models.paged import PagedTransformer
+from deepspeed_tpu_torch.parallel.partitioning import tp_dim, tp_slice
 
 
 def _to_tensor(x: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -47,12 +52,40 @@ def tree_from_numpy(tree: Dict[str, Any], dtype: torch.dtype,
             else _to_tensor(v, dtype, device) for k, v in tree.items()}
 
 
+def tp_local_tree(tree: Dict[str, Any], cfg: T.TransformerConfig,
+                  size: int, rank: int) -> Dict[str, Any]:
+    """Rank ``rank``'s slices, on a ``tensor`` axis of ``size``, of the
+    parameter tree ``tree`` of ``cfg`` (numpy arrays or tensors): each leaf
+    with a tensor dim at its global size is cut (``tp_slice``), a leaf
+    already cut is kept as it is, and a tensor's slice is copied so that
+    the whole leaf can be freed."""
+    full = {"vocab": cfg.vocab_size, "mlp": cfg.ffn_size,
+            "heads": cfg.num_heads * cfg.head_dim,
+            "kv_heads": cfg.kv_heads * cfg.head_dim}
+
+    def cut(axes, t):
+        if isinstance(t, dict):
+            return {k: cut(axes[k], v) for k, v in t.items()}
+        dim = tp_dim(axes)
+        if dim is None or t.shape[dim] != full[axes[dim]]:
+            return t
+        piece = tp_slice(axes, t, size, rank)
+        if isinstance(piece, torch.Tensor):
+            return piece.clone(memory_format=torch.contiguous_format)
+        return piece
+
+    return cut(T.param_logical_axes(cfg), tree)
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerConfig,
-                      device=None, dtype: Optional[torch.dtype] = None
-                      ) -> PagedTransformer:
+                      device=None, dtype: Optional[torch.dtype] = None,
+                      tp=None) -> PagedTransformer:
     """``device`` as in :func:`resolve_device` (``None`` = the first GPU;
-    tests pass ``"cpu"``); ``dtype`` defaults to ``cfg.compute_dtype``."""
+    tests pass ``"cpu"``); ``dtype`` defaults to ``cfg.compute_dtype``;
+    ``tp``: the rank's slices of a ``tensor`` axis (:func:`tp_local_tree`)."""
     dev = resolve_device(device)
+    if tp is not None:
+        tree = tp_local_tree(tree, cfg, tp.size, tp.rank)
     return PagedTransformer(
         cfg, tree_from_numpy(tree, dtype or cfg.compute_dtype, dev))
 
@@ -69,8 +102,8 @@ def _leaves(tree: Dict[str, Any], prefix=()):
 def load_master(engine, tree: Dict[str, Any]) -> None:
     """Copy the fp32 master tree ``tree`` (numpy arrays or tensors, the JAX
     keys and whole shapes) into ``engine``'s master — a data-parallel rank
-    keeps its shard of its experts — and refresh its compute copy. Keys or shapes that differ
-    raise ``ValueError``."""
+    keeps its shard of its experts or of its tensor slice — and refresh
+    its compute copy. Keys or shapes that differ raise ``ValueError``."""
     slots = {slot.path: slot for slot in engine._slots}
     src = dict(_leaves(tree))
     if sorted(slots) != sorted(src):

@@ -13,6 +13,15 @@ place of ``lax.scan``, and each layer's attention gets that layer's pool
 view ``pool["k"][l]`` (contiguous ``[NB, bs, K, D]``) with the raw tables,
 where the JAX scan carried a flat ``[L*NB, ...]`` pool and offset tables by
 ``l*NB``. Both read the same slots.
+
+Tensor parallelism (``tp``, a rank's :class:`~deepspeed_tpu_torch.comm.
+mesh.TensorGroup`; JAX ``fastgen.py:145-199`` shards the same dims through
+GSPMD): the parameters are the rank's slices, the pool holds its
+``kv_heads / T`` heads, each layer runs the paged kernels on the rank's
+``num_heads / T`` query heads with the training forward's two all-reduces
+(``wo`` and ``w_down`` row-parallel), the embedding is vocab-parallel, and
+the head's [T, V/T] logits are gathered so that every rank holds the whole
+[T, V].
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 from torch import nn
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models import transformer as T
 from deepspeed_tpu_torch.ops import paged_attention as PA
 
@@ -31,14 +41,16 @@ paged_attention_reference = PA.paged_attention_reference
 
 def init_paged_kv(cfg: T.TransformerConfig, n_blocks: int, block_size: int,
                   dtype: Optional[torch.dtype] = None,
-                  device: Optional[torch.device] = None
+                  device: Optional[torch.device] = None, tp=None
                   ) -> Dict[str, torch.Tensor]:
     """Block pool per layer. Block 0 is the trash block for pad writes.
-    ``device`` as in :func:`resolve_device` (``None`` = the first GPU)."""
+    ``device`` as in :func:`resolve_device` (``None`` = the first GPU);
+    ``tp``: the rank's ``kv_heads / T`` heads."""
     T._check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.compute_dtype
-    shape = (cfg.num_layers, n_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    K = cfg.kv_heads // (1 if tp is None else tp.size)
+    shape = (cfg.num_layers, n_blocks, block_size, K, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
@@ -82,7 +94,7 @@ def _layer(blocks: Dict[str, object], li: int) -> Dict[str, object]:
 def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
                   positions: torch.Tensor, tables: torch.Tensor,
                   pool: Dict[str, torch.Tensor], cfg: T.TransformerConfig,
-                  use_kernels: bool = True
+                  use_kernels: bool = True, tp=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One SplitFuse tick over a flat token batch.
 
@@ -95,16 +107,19 @@ def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
     wrappers (the kernels on a GPU, the plain versions on the CPU), with
     one paged-attention plan (``PA.build_plan``) for every layer of the
     tick where one is read (``PA.uses_plan``: bf16, at least ``MIN_RUN``
-    rows); ``False`` takes the plain versions on any device."""
+    rows); ``False`` takes the plain versions on any device. ``tp``: the
+    rank's slices and heads (the module docstring); the logits are whole
+    on every rank."""
     T._check_supported(cfg)
     dt = cfg.compute_dtype
-    N, K, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    n_tp = 1 if tp is None else tp.size
+    N, K, D = cfg.num_heads // n_tp, cfg.kv_heads // n_tp, cfg.head_dim
     Tn = tokens.shape[0]
     pk, pv = pool["k"], pool["v"]
     L, NB, bs = pk.shape[:3]
     tok, pos = tokens.long(), positions.long()
 
-    x = params["tok_emb"][tok].to(dt)                    # [T, H]
+    x = T.embed_tokens(params["tok_emb"], tok, dt, tp)     # [T, H]
     if cfg.pos_emb == "learned":
         x = x + params["pos_emb"][pos].to(dt)
     cos_t = sin_t = None
@@ -124,13 +139,15 @@ def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
 
     def proj(h, lp, name, heads):
         out = h @ lp[f"w{name}"]
-        if cfg.attn_bias_enabled if name in ("q", "k", "v") else cfg.use_bias:
+        if cfg.attn_bias_enabled:
             out = out + lp[f"b{name}"]
-        return out.reshape(Tn, heads, D) if heads else out
+        return out.reshape(Tn, heads, D)
 
     for li in range(L):
         lp = _layer(blocks, li)
         h = T._norm(x, lp["ln1"], cfg.norm, cfg.norm_eps, use_kernels)
+        if tp is not None:
+            h = comm.copy_to_tensor(h, tp.group)
         q = proj(h, lp, "q", N)
         k = proj(h, lp, "k", K)
         v = proj(h, lp, "v", K)
@@ -142,10 +159,10 @@ def forward_paged(params: Dict[str, object], tokens: torch.Tensor,
         pk[li][block_idx, offsets] = k.to(pk.dtype)
         pv[li][block_idx, offsets] = v.to(pv.dtype)
         attn = attention_fn(q.contiguous(), pk[li], pv[li], tables32, lengths)
-        attn_out = proj(attn.reshape(Tn, N * D), lp, "o", 0)
-        x = x + attn_out
+        x = x + T.row_parallel(attn.reshape(Tn, N * D), lp["wo"],
+                               lp["bo"] if cfg.use_bias else None, dt, tp)
         h2 = T._norm(x, lp["ln2"], cfg.norm, cfg.norm_eps, use_kernels)
-        x = x + T._ffn(h2, lp, cfg, use_kernels)[0]
+        x = x + T._ffn(h2, lp, cfg, use_kernels, tp)[0]
     x = T._norm(x, params["final_norm"], cfg.norm, cfg.norm_eps, use_kernels)
-    logits = T.head_matmul(x, T._lm_head_of(params, cfg).to(x.dtype))
+    logits = T.lm_logits(x, T._lm_head_of(params, cfg), tp)
     return logits, pool

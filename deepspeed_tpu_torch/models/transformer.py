@@ -11,12 +11,31 @@ as plain tensors.
 
 Numerics follow the JAX package: matmuls in the compute dtype, fp32 norm
 statistics, fp32 softmax, fp32 logits.
+
+Tensor parallelism (``tp``, a :class:`~deepspeed_tpu_torch.comm.mesh.
+TensorGroup` of T ranks; JAX shards the same dims through GSPMD): the
+parameters are the rank's slices (``parallel/partitioning.tp_slice``) and
+the forward runs Megatron's dataflow by hand. The attention input and the
+FFN input enter through ``comm.copy_to_tensor``; ``wq``/``wk``/``wv``
+(and their biases) and ``w_up``/``w_gate``/``b_up`` are column-parallel,
+so a rank computes ``num_heads / T`` query heads, ``kv_heads / T`` KV
+heads and ``ffn / T`` FFN columns; ``wo`` and ``w_down`` are
+row-parallel: each rank's partial product is summed in fp32 and
+all-reduced (``comm.reduce_from_tensor``) before it is rounded to the
+compute dtype and the replicated bias ``bo`` / ``b_down`` is added once.
+The embedding is vocab-parallel (a rank looks up its rows, other ids give
+zero, then the all-reduce), and so are the LM head and its losses
+(:class:`_FusedLMLoss`: the softmax's max and sum, the picked logit and
+the hidden state's gradient all-reduced). Norms and ``pos_emb`` stay
+replicated; every rank computes the same loss, and each rank's gradient
+of its slices is the whole gradient of those slices (nothing is reduced
+over ``tensor`` afterwards).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +43,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.ops import norms
 
 Params = Dict[str, Any]
@@ -378,6 +398,29 @@ def _check_supported(cfg: TransformerConfig) -> None:
             "yet; it comes in a later slice of the port")
 
 
+def check_tensor_parallel(cfg: TransformerConfig, size: int,
+                          attention: Optional[str] = None) -> List[str]:
+    """What a ``tensor`` axis of ``size`` does not run yet (queue A.4), as
+    a list of problems (empty: it runs): an MoE model, block-sparse
+    attention, and a shape whose ``heads``, ``kv_heads``, ``mlp`` or
+    ``vocab`` dim the axis does not divide (JAX's GSPMD pads such a dim;
+    the port cuts even slices). The engine raises on them, FastGen raises
+    or serves replicated."""
+    what: List[str] = []
+    if size <= 1:
+        return what
+    if cfg.n_experts > 0:
+        what.append("an MoE model")
+    if attention is not None and attention.startswith("sparse"):
+        what.append(f"attention={attention!r}")
+    for name, n in (("num_heads", cfg.num_heads), ("kv_heads", cfg.kv_heads),
+                    ("ffn_size", cfg.ffn_size),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % size:
+            what.append(f"{name} {n} not divisible by {size}")
+    return what
+
+
 # --------------------------------------------------------------------------- #
 # building blocks
 # --------------------------------------------------------------------------- #
@@ -511,12 +554,27 @@ def apply_rope_at(x: torch.Tensor, cos_table: torch.Tensor,
     return out
 
 
+def row_parallel(inp: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor], dt: torch.dtype, tp
+                 ) -> torch.Tensor:
+    """``inp @ w (+ bias)`` in ``dt``; under ``tp`` a row-parallel layer:
+    this rank's partial product summed in fp32 over the ``tensor`` group,
+    rounded once to ``dt``, then the replicated bias."""
+    if tp is None:
+        out = inp @ w.to(dt)
+    else:
+        out = comm.reduce_from_tensor(head_matmul(inp, w.to(dt)),
+                                      tp.group).to(dt)
+    return out if bias is None else out + bias.to(dt)
+
+
 def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
-         cfg: TransformerConfig, use_kernels: bool = True
+         cfg: TransformerConfig, use_kernels: bool = True, tp=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense or MoE FFN on normed input → (output, aux loss: fp32 0 for a
     dense block). ``use_kernels=False`` runs the grouped GEMMs' plain
-    versions."""
+    versions; ``tp``: column-parallel ``w_up``/``w_gate``, row-parallel
+    ``w_down``."""
     if cfg.n_experts > 0:
         from deepspeed_tpu_torch.moe.layer import moe_ffn
 
@@ -540,6 +598,8 @@ def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
             gate_bias=lp.get("gate_bias"), n_group=cfg.moe_n_group,
             topk_group=cfg.moe_topk_group, dispatch=cfg.moe_dispatch,
             use_kernels=use_kernels)
+    if tp is not None:
+        h = comm.copy_to_tensor(h, tp.group)
     up = h @ lp["w_up"]
     if cfg.use_bias:
         up = up + lp["b_up"]
@@ -549,9 +609,8 @@ def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
         act = F.relu(up)
     else:
         act = F.gelu(up, approximate="tanh")
-    down = act @ lp["w_down"]
-    if cfg.use_bias:
-        down = down + lp["b_down"]
+    down = row_parallel(act, lp["w_down"], lp["b_down"] if cfg.use_bias
+                        else None, act.dtype, tp)
     return down, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
@@ -654,35 +713,41 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _block_forward(x: torch.Tensor, lp: Dict[str, torch.Tensor],
                    cfg: TransformerConfig, cos: Optional[torch.Tensor],
                    sin: Optional[torch.Tensor], attention_fn,
-                   use_kernels: bool = True
+                   use_kernels: bool = True, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One sequential (GPT/Llama) block on x [B, S, H], dense or MoE FFN;
     ``lp`` holds this layer's parameters. Returns (x, MoE aux loss). The
     parallel and MLA blocks come in a later slice (``_check_supported``).
     ``use_kernels=False`` takes the norms' and grouped GEMMs' plain
-    versions."""
+    versions. ``tp``: ``lp`` holds this rank's slices, the attention runs
+    on its heads."""
     B, S, _ = x.shape
     dt = cfg.compute_dtype
     lp = _cast_tree(lp, dt)      # a no-op for the engine's compute params
+    T_ = 1 if tp is None else tp.size
+    n_heads, kv_heads = cfg.num_heads // T_, cfg.kv_heads // T_
 
     def proj(name, inp, heads):
         out = inp @ lp[f"w{name}"].to(dt)
-        if cfg.attn_bias_enabled if name in ("q", "k", "v") else cfg.use_bias:
+        if cfg.attn_bias_enabled:
             out = out + lp[f"b{name}"].to(dt)
-        return out if heads is None else out.reshape(B, S, heads,
-                                                     cfg.head_dim)
+        return out.reshape(B, S, heads, cfg.head_dim)
 
     h = _norm(x, lp["ln1"], cfg.norm, cfg.norm_eps, use_kernels)
-    q = proj("q", h, cfg.num_heads)
-    k = proj("k", h, cfg.kv_heads)
-    v = proj("v", h, cfg.kv_heads)
+    if tp is not None:
+        h = comm.copy_to_tensor(h, tp.group)
+    q = proj("q", h, n_heads)
+    k = proj("k", h, kv_heads)
+    v = proj("v", h, kv_heads)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     attn = attention_fn(q, k, v, causal=cfg.causal)
-    x = x + proj("o", attn.reshape(B, S, cfg.num_heads * cfg.head_dim), None)
+    x = x + row_parallel(attn.reshape(B, S, n_heads * cfg.head_dim),
+                         lp["wo"], lp["bo"] if cfg.use_bias else None, dt,
+                         tp)
     h2 = _norm(x, lp["ln2"], cfg.norm, cfg.norm_eps, use_kernels)
-    down, aux = _ffn(h2, lp, cfg, use_kernels)
+    down, aux = _ffn(h2, lp, cfg, use_kernels, tp)
     return x + down, aux
 
 
@@ -742,10 +807,26 @@ def layer_params(blocks, layer: int) -> Dict[str, torch.Tensor]:
             for k, v in blocks.items()}
 
 
+def embed_tokens(tok_emb: torch.Tensor, tokens: torch.Tensor,
+                 dt: torch.dtype, tp=None) -> torch.Tensor:
+    """Token embedding in ``dt``; under ``tp`` vocab-parallel: this rank's
+    rows ``[rank·V/T, (rank+1)·V/T)`` looked up, other ids give zero, then
+    the sum over the ``tensor`` group (the gradient lands in the rank's
+    own rows only)."""
+    w = tok_emb.to(dt)
+    if tp is None:
+        return F.embedding(tokens.long(), w)
+    n = w.shape[0]
+    ids = tokens.long() - tp.rank * n
+    own = (ids >= 0) & (ids < n)
+    x = F.embedding(ids.clamp(0, n - 1), w) * own[..., None].to(dt)
+    return comm.reduce_from_tensor(x, tp.group)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: TransformerConfig, attention_fn=None,
                    use_kernels: bool = True,
-                   seq_shard: Optional[Tuple[int, int]] = None
+                   seq_shard: Optional[Tuple[int, int]] = None, tp=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """tokens [B, S] → (final hidden [B, S, H], LM head [H, V], MoE aux
     loss summed over layers, fp32 — 0 for dense models). The JAX
@@ -757,7 +838,9 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     :func:`layer_params`. ``seq_shard`` (idx, sp): ``tokens`` are whole
     rows and this rank of a ``seq`` axis of sp computes positions
     ``[idx·S/sp, (idx+1)·S/sp)``, its position tables taken there (the
-    hidden states of those positions come back)."""
+    hidden states of those positions come back). ``tp``: ``params`` hold
+    this rank's slices of a ``tensor`` axis (the module docstring); the
+    head returned is its [H, V/T] slice."""
     _check_supported(cfg)
     attention_fn = attention_fn or dot_product_attention
     dt = cfg.compute_dtype
@@ -773,7 +856,7 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     hook = params if isinstance(params, ParamHook) else None
     if hook is not None:
         params = hook.head()
-    x = F.embedding(tokens.long(), params["tok_emb"].to(dt))
+    x = embed_tokens(params["tok_emb"], tokens, dt, tp)
     if cfg.pos_emb == "learned":
         x = x + params["pos_emb"].to(dt)[lo:lo + S][None]
     cos = sin = None
@@ -788,11 +871,11 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
 
             def body(h, lp=lp):
                 return _block_forward(h, lp, cfg, cos, sin, attention_fn,
-                                      use_kernels)
+                                      use_kernels, tp)
         else:
             def body(h, layer=layer):
                 return _block_forward(h, hook.layer(layer), cfg, cos, sin,
-                                      attention_fn, use_kernels)
+                                      attention_fn, use_kernels, tp)
 
         x, aux = _remat_wrap(body, cfg.remat)(x)
         auxes.append(aux)
@@ -802,12 +885,24 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
             attention_fn=None, use_kernels: bool = True,
-            seq_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            seq_shard: Optional[Tuple[int, int]] = None,
+            tp=None) -> torch.Tensor:
     """tokens [B, S] → logits [B, S, V] in fp32 (``seq_shard``: of a
-    ``seq`` rank's positions, as :func:`forward_hidden`)."""
+    ``seq`` rank's positions, as :func:`forward_hidden`; ``tp``: every
+    rank gets the whole vocab, :func:`lm_logits`)."""
     x, head, _ = forward_hidden(params, tokens, cfg, attention_fn,
-                                use_kernels, seq_shard)
-    return head_matmul(x, head.to(x.dtype))
+                                use_kernels, seq_shard, tp)
+    return lm_logits(x, head, tp)
+
+
+def lm_logits(x: torch.Tensor, head: torch.Tensor, tp=None) -> torch.Tensor:
+    """fp32 logits ``x @ head`` (:func:`head_matmul`); under ``tp`` the
+    vocab-parallel head: ``x`` enters through ``copy_to_tensor``, each
+    rank's [..., V/T] logits are gathered over the ``tensor`` group."""
+    if tp is None:
+        return head_matmul(x, head.to(x.dtype))
+    logits = head_matmul(comm.copy_to_tensor(x, tp.group), head.to(x.dtype))
+    return comm.gather_from_tensor(logits, tp.group)
 
 
 def _loss_rows(n_rows: int, vocab: int) -> int:
@@ -844,15 +939,22 @@ class _FusedLMLoss(torch.autograd.Function):
     storage — that feeds both backward products. Single use: the saved
     logits are overwritten by the backward. ``xs`` [B, n, H] are the
     positions that have a target, ``tokens`` [B, n] their targets and
-    ``mask`` [B, n] fp32 their weights."""
+    ``mask`` [B, n] fp32 their weights.
+
+    ``tp`` (a ``tensor`` axis): ``w`` is this rank's [H, V/T] vocab slice
+    and its logits [rows, V/T]; ``logz`` comes from the row maxima and the
+    sums of exponentials, each all-reduced over the ``tensor`` group in
+    fp32, the picked logit from the rank that owns the target id,
+    all-reduced; backward, the local grad-logits give ``dw`` here and a
+    partial ``dx`` (fp32 products) all-reduced over the group."""
 
     @staticmethod
-    def forward(ctx, xs, w, tokens, mask):
+    def forward(ctx, xs, w, tokens, mask, tp=None):
         with record_function("fused_lm_loss"):
-            return _FusedLMLoss._forward(ctx, xs, w, tokens, mask)
+            return _FusedLMLoss._forward(ctx, xs, w, tokens, mask, tp)
 
     @staticmethod
-    def _forward(ctx, xs, w, tokens, mask):
+    def _forward(ctx, xs, w, tokens, mask, tp):
         dt = xs.dtype
         wc = w.to(dt)
         tgt = tokens.long().reshape(-1)
@@ -862,15 +964,36 @@ class _FusedLMLoss(torch.autograd.Function):
         logz = torch.empty(R, dtype=torch.float32, device=xs.device)
         picked = torch.empty(R, dtype=torch.float32, device=xs.device)
         step = _loss_rows(R, lg.shape[1])
-        for a in range(0, R, step):
-            lf = lg[a:a + step].float()
-            logz[a:a + step] = torch.logsumexp(lf, dim=-1)
-            picked[a:a + step] = lf.gather(1, tgt[a:a + step, None])[:, 0]
+        if tp is None:
+            for a in range(0, R, step):
+                lf = lg[a:a + step].float()
+                logz[a:a + step] = torch.logsumexp(lf, dim=-1)
+                picked[a:a + step] = lf.gather(1, tgt[a:a + step, None])[:, 0]
+        else:
+            n = lg.shape[1]
+            local = tgt - tp.rank * n
+            own = (local >= 0) & (local < n)
+            local = local.clamp(0, n - 1)
+            for a in range(0, R, step):
+                logz[a:a + step] = lg[a:a + step].float().amax(dim=-1)
+            comm.all_reduce(logz, comm.ReduceOp.MAX, group=tp.group)
+            sums = torch.empty_like(logz)
+            for a in range(0, R, step):
+                lf = lg[a:a + step].float()
+                sums[a:a + step] = torch.exp(
+                    lf - logz[a:a + step, None]).sum(dim=-1)
+                picked[a:a + step] = lf.gather(
+                    1, local[a:a + step, None])[:, 0]
+            picked = torch.where(own, picked, torch.zeros_like(picked))
+            comm.all_reduce(sums, group=tp.group)
+            comm.all_reduce(picked, group=tp.group)
+            logz = logz + torch.log(sums)
+            tgt = torch.where(own, local, torch.full_like(local, -1))
         m = mask.reshape(-1)
         cnt = torch.clamp(m.sum(), min=1.0)
         loss = ((logz - picked) * m).sum() / cnt
         ctx.save_for_backward(logits, logz, xs, wc, tgt, m, cnt)
-        ctx.w_dtype = w.dtype
+        ctx.w_dtype, ctx.tp = w.dtype, tp
         return loss
 
     @staticmethod
@@ -881,6 +1004,7 @@ class _FusedLMLoss(torch.autograd.Function):
     @staticmethod
     def _backward(ctx, g):
         logits, logz, xs, wc, tgt, m, cnt = ctx.saved_tensors
+        tp = ctx.tp
         dt = xs.dtype
         lg = logits.reshape(-1, logits.shape[-1])
         coef = m * (g / cnt)
@@ -889,25 +1013,36 @@ class _FusedLMLoss(torch.autograd.Function):
         for a in range(0, R, step):
             rows = torch.arange(lg[a:a + step].shape[0], device=lg.device)
             p = torch.exp(lg[a:a + step].float() - logz[a:a + step, None])
-            p[rows, tgt[a:a + step]] -= 1.0
+            t = tgt[a:a + step]
+            if tp is None:
+                p[rows, t] -= 1.0
+            else:       # the target's column on the rank that owns it
+                hit = t >= 0
+                p[rows[hit], t[hit]] -= 1.0
             lg[a:a + step] = (p * coef[a:a + step, None]).to(dt)
-        dx = torch.matmul(logits, wc.t())                   # [B, n, H]
+        if tp is None:
+            dx = torch.matmul(logits, wc.t())               # [B, n, H]
+        else:
+            dx = _head_product(lg, wc.t())
+            comm.all_reduce(dx, group=tp.group)
+            dx = dx.to(dt).view(*logits.shape[:-1], -1)
         dw = torch.matmul(xs.reshape(-1, xs.shape[-1]).t(), lg)
-        return dx, dw.to(ctx.w_dtype), None, None
+        return dx, dw.to(ctx.w_dtype), None, None, None
 
 
 def fused_lm_loss(hidden: torch.Tensor, head: torch.Tensor,
                   tokens: torch.Tensor,
                   loss_mask: Optional[torch.Tensor] = None,
-                  seq_shard: Optional[Tuple[int, int]] = None
+                  seq_shard: Optional[Tuple[int, int]] = None, tp=None
                   ) -> torch.Tensor:
     """Head projection + next-token cross entropy with the compute-dtype
     logits of the JAX ``fused_lm_loss`` (torch-autocast semantics);
     ``seq_shard``: ``hidden`` holds a ``seq`` rank's positions of the
-    whole rows ``tokens`` (:func:`loss_targets`)."""
+    whole rows ``tokens`` (:func:`loss_targets`); ``tp``: ``head`` is this
+    rank's vocab slice (:class:`_FusedLMLoss`)."""
     n, tgt, mask = loss_targets(tokens, loss_mask, seq_shard,
                                 hidden.shape[1])
-    return _FusedLMLoss.apply(hidden[:, :n], head, tgt, mask)
+    return _FusedLMLoss.apply(hidden[:, :n], head, tgt, mask, tp)
 
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,

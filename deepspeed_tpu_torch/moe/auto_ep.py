@@ -118,7 +118,7 @@ def auto_ep(model_or_spec, n_devices: Optional[int] = None,
     ``initialize``. ``spec_kwargs`` belong to the HF importer (JAX
     ignores them for a spec). An HF model goes through the HF importer
     (``models/hf_import.py``, queue A.8) and ``etp_size`` above 1 needs
-    the ``tensor`` mesh axis (queue A.4): both raise
+    MoE on the ``tensor`` mesh axis (queue A.4): both raise
     ``NotImplementedError``, a later slice."""
     from deepspeed_tpu_torch.models.api import ModelSpec
 
@@ -127,8 +127,8 @@ def auto_ep(model_or_spec, n_devices: Optional[int] = None,
                           "through models/hf_import.py, queue A.8)")
     if etp_size > 1:
         raise later_slice(f"auto_ep with etp_size={etp_size} (expert tensor "
-                          "parallelism needs the 'tensor' mesh axis, queue "
-                          "A.4)")
+                          "parallelism: an MoE model on the 'tensor' mesh "
+                          "axis, queue A.4)")
     spec = model_or_spec
     plan = plan_ep(spec.config, n_devices=n_devices, max_ep=max_ep,
                    etp_size=etp_size)

@@ -1,4 +1,5 @@
-"""ZeRO layout: which dim of each parameter is sharded over ``data``.
+"""ZeRO layout: which dim of each parameter is sharded over ``data``, and
+each rank's tensor-parallel slice of a leaf.
 
 Ports the ZeRO half of ``deepspeed_tpu/parallel/partitioning.py``:
 ``logical_to_spec`` (:65), ``_add_zero_axis`` (:75-90) and
@@ -21,11 +22,20 @@ leave free and that the ZeRO world divides, ties going to the later dim
 name the 'tensor' axis even at tensor = 1, so the vocab / mlp / heads dims
 are never free. The port's shards and quantization blocks must be JAX's, or
 qgZ and qwZ quantize different blocks.
+
+Tensor parallelism (a ``tensor`` axis of T ranks): a leaf whose logical
+axes hold a dim that ``DEFAULT_TP_RULES`` maps to ``tensor`` (``vocab``,
+``mlp``, ``heads``, ``kv_heads``) is cut into T contiguous slices of that
+dim, rank t holding slice t (:func:`tp_slice`, :func:`tp_gather` its
+inverse), as GSPMD lays out JAX's ``tp_spec``. The ZeRO dim is chosen on
+the leaf's shape as above; the tensor dims are not free, so a rank's ZeRO
+shard is the ZeRO slice of its tensor slice (JAX's ``zero_spec``,
+``partitioning.py:119-124``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -60,6 +70,46 @@ def logical_to_spec(logical_axes: Tuple[Optional[str], ...],
                     rules: Dict[str, Any]) -> Spec:
     return tuple(None if name is None else rules.get(name)
                  for name in logical_axes)
+
+
+def tp_dim(axes: Tuple[Optional[str], ...]) -> Optional[int]:
+    """The dim of a leaf with logical ``axes`` that ``DEFAULT_TP_RULES``
+    shard over ``tensor``, None for a replicated leaf; more than one
+    raises."""
+    spec = logical_to_spec(axes, DEFAULT_TP_RULES)
+    dims = [d for d, part in enumerate(spec) if part == TENSOR_AXIS]
+    if len(dims) > 1:
+        raise ValueError(f"logical axes {axes} shard {len(dims)} dims over "
+                         f"'{TENSOR_AXIS}'")
+    return dims[0] if dims else None
+
+
+def tp_slice(axes: Tuple[Optional[str], ...], tensor, size: int, rank: int):
+    """Rank ``rank``'s piece of the global leaf ``tensor`` (logical
+    ``axes``) on a ``tensor`` axis of ``size``: slice ``rank`` of its
+    tensor dim (the leaf itself where it has none, or at ``size`` 1). A
+    dim the axis does not divide raises ``ValueError``."""
+    dim = tp_dim(axes)
+    if dim is None or size <= 1:
+        return tensor
+    n = tensor.shape[dim]
+    if n % size:
+        raise ValueError(f"dim {dim} ({axes[dim]}) of size {n} not "
+                         f"divisible by the tensor mesh axis {size}")
+    step = n // size
+    return tensor[(slice(None),) * dim + (slice(rank * step,
+                                                (rank + 1) * step),)]
+
+
+def tp_gather(axes: Tuple[Optional[str], ...], pieces: Sequence[Any]):
+    """The global leaf from every rank's piece (tensors), in rank order
+    (the inverse of :func:`tp_slice`)."""
+    dim = tp_dim(axes)
+    if dim is None:
+        return pieces[0]
+    import torch
+
+    return torch.cat(list(pieces), dim=dim)
 
 
 def _add_zero_axis(spec: Spec, shape: Tuple[int, ...],

@@ -569,13 +569,14 @@ class Stage3Params(ParamHook):
             dst.copy_(gr)
 
     def _land(self, handle, gi: int) -> None:
-        """A reduce has landed: its sum (both hops under hpZ) ÷ the whole
-        world into the accumulator."""
+        """A reduce has landed: its sum (both hops under hpZ) ÷ the
+        engine's ``grad_world`` (the world, less a ``tensor`` axis) into the
+        accumulator."""
         g, e = self.groups[gi], self.e
         with telemetry.span("zero3_reduce_wait"):
             mine, = handle.wait()
         with torch.no_grad():
-            mine.div_(torch.tensor(float(e.world), device=e.device))
+            mine.div_(torch.tensor(float(e.grad_world), device=e.device))
             for p in g.pieces:
                 if not p.n:
                     continue

@@ -4,13 +4,14 @@ Ports ``deepspeed_tpu/runtime/config.py``: ``DeepSpeedTPUConfig`` (:1188)
 with the batch triple and ``resolve_batch_size``, ``gradient_clipping``,
 ``steps_per_print``, ``prescale_gradients``, ``seed``, and the sections
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler``, ``zero_optimization``,
-``data_types``, ``activation_checkpointing``, ``mesh`` and
-``sequence_parallel`` (:1078) — copied field for field with the same
-defaults and the same validation, so the same JSON gives the same values
-and a wrong one raises the same ``DeepSpeedConfigError``. The mesh
-resolves over the processes of the default process group; ``tensor`` and
-``pipe`` above 1 raise ``NotImplementedError`` there
-(``comm/mesh.initialize_mesh``).
+``data_types``, ``activation_checkpointing``, ``mesh``,
+``sequence_parallel`` (:1078) and ``tensor_parallel`` (:1071, inert as in
+JAX: the ``mesh`` section's ``tensor`` axis sets the width) — copied field
+for field with the same defaults and the same validation, so the same JSON
+gives the same values and a wrong one raises the same
+``DeepSpeedConfigError``. The mesh resolves over the processes of the
+default process group; ``pipe`` above 1 raises ``NotImplementedError``
+there (``comm/mesh.initialize_mesh``).
 
 The sections ``checkpoint`` and ``fault_tolerance`` (JAX :904-975) and the
 legacy top-level ``checkpoint_writer`` are read as JAX reads them, with the
@@ -353,6 +354,14 @@ class SequenceParallelConfig:
     size: int = 0
 
 
+@dataclasses.dataclass
+class TensorParallelConfig:
+    """AutoTP's knobs (JAX ``runtime/config.py:1071-1074``), read and
+    inert as in JAX: the ``tensor`` mesh axis sets the width."""
+    autotp_size: int = 1
+    tp_grain_size: int = 1
+
+
 # CUDA-only reference sections accepted and ignored (as in JAX)
 _IGNORED_SECTIONS = (
     "amp", "aio", "hybrid_engine", "compression_training",
@@ -363,8 +372,7 @@ _IGNORED_SECTIONS = (
 _UNREAD_SECTIONS = (
     "comms_logger", "telemetry", "serving", "fleet", "tenancy", "slo",
     "hlolint", "memlint", "autotuning", "elasticity", "flops_profiler",
-    "tensorboard", "csv_monitor", "wandb", "comet", "tensor_parallel",
-    "pipeline", "guardian", "data_efficiency", "curriculum_learning",
+    "tensorboard", "csv_monitor", "wandb", "comet", "pipeline", "guardian", "data_efficiency", "curriculum_learning",
     "progressive_layer_drop",
 )
 # top-level scalars of the JAX config that this slice does not read, with
@@ -403,6 +411,8 @@ class DeepSpeedTPUConfig:
     mesh: MeshSectionConfig = dataclasses.field(default_factory=MeshSectionConfig)
     sequence_parallel: SequenceParallelConfig = dataclasses.field(
         default_factory=SequenceParallelConfig)
+    tensor_parallel: TensorParallelConfig = dataclasses.field(
+        default_factory=TensorParallelConfig)
     seed: int = 1234
     checkpoint_writer: str = "orbax"  # orbax | fast (checkpoint_engine.py)
     checkpoint: CheckpointSectionConfig = dataclasses.field(

@@ -86,10 +86,17 @@ the exact wire of every data-parallel engine (``DataParallelEngine``),
 ``sequence_parallel.size`` checked against it and AutoSP run at
 initialize under ``sequence_parallel.auto`` (``engine.sp_plan``).
 
+Tensor parallelism (JAX's ``tensor`` axis under GSPMD,
+``parallel/partitioning.py:41-54 DEFAULT_TP_RULES``): the ``tensor`` mesh
+axis on the exact ZeRO 0-3 wire of the data-parallel engines, alone and
+with ``data``, for ``causal_lm_spec``'s dense transformer
+(``DataParallelEngine``).
+
 Out of this slice, raising ``NotImplementedError``: remat policies other
-than none/full, the config sections ``load_config`` refuses, and a
-``seq`` axis with hpZ / MiCS, an expert axis or an MoE model, the offload
-tiers, the host step or ZenFlow. The qwZ publish stays one pass after
+than none/full, the config sections ``load_config`` refuses, a ``seq``
+axis with hpZ / MiCS, an expert axis or an MoE model, the offload tiers,
+the host step or ZenFlow, and a ``tensor`` axis with what
+:meth:`DeepSpeedTPUEngine._check_tensor_axis` names. The qwZ publish stays one pass after
 the (bucketed) update.
 """
 from __future__ import annotations
@@ -126,7 +133,12 @@ from deepspeed_tpu_torch.parallel.overlap import (
     leaf_count,
     plan_buckets,
 )
-from deepspeed_tpu_torch.parallel.partitioning import ShardingPolicy
+from deepspeed_tpu_torch.parallel.partitioning import (
+    ShardingPolicy,
+    tp_dim,
+    tp_gather,
+    tp_slice,
+)
 from deepspeed_tpu_torch.runtime.config import (
     ActivationCheckpointingConfig,
     DeepSpeedTPUConfig,
@@ -279,6 +291,7 @@ class DeepSpeedTPUEngine:
 
         self._resolve_offload()
         self._check_seq_axis()
+        self._check_tensor_axis()
         self._host_runner = None
         if self._host_step:
             from deepspeed_tpu_torch.runtime.host_step import HostStepRunner
@@ -367,6 +380,42 @@ class DeepSpeedTPUEngine:
         if what:
             raise later_slice(f"mesh seq={mm.sp_world_size} with "
                               f"{', '.join(what)} (queue A.4)")
+
+    def _check_tensor_axis(self) -> None:
+        """What a ``tensor`` axis above 1 does not compose with yet (queue
+        A.4): ``seq`` or hpZ / MiCS beside it, an expert axis, the ZeRO++
+        int8 wire (which JAX keeps on under ``tensor``), the offload tiers,
+        the host step, ZenFlow, and a model other than
+        ``causal_lm_spec``'s dense transformer or one whose shape the axis
+        does not cut (``transformer.check_tensor_parallel``)."""
+        mm = self.mesh_manager
+        tp = mm.tp_world_size
+        if tp <= 1:
+            return
+        what = []
+        if mm.sp_world_size > 1:
+            what.append("seq > 1")
+        if mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1:
+            what.append("hpZ / MiCS (zshard > 1)")
+        if mm.ep_world_size > 1:
+            what.append("an expert axis")
+        if self._compressed is not None:
+            what.append("the ZeRO++ int8 wire (qgZ / qwZ / LoCo)")
+        if self._offload_opt or self._offload_nvme or self._offload_param:
+            what.append("the offload tiers")
+        if self._host_step:
+            what.append("the host step")
+        if self.config.zero_optimization.zenflow.enabled:
+            what.append("ZenFlow")
+        cfg = getattr(self.model_spec, "config", None)
+        if isinstance(cfg, T.TransformerConfig):
+            what += T.check_tensor_parallel(cfg, tp,
+                                            self.model_spec.attention)
+        else:
+            what.append("a model spec other than causal_lm_spec's")
+        if what:
+            raise later_slice(f"mesh tensor={tp} with {', '.join(what)} "
+                              "(queue A.4)")
 
     def _resolve_offload(self) -> None:
         """The offload tiers, with JAX's resolution and errors
@@ -1861,7 +1910,25 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     ``DENSE_GRAD_REDUCE_AXES``), on the exact wire at every stage, ZeRO-3
     included (its gathers stay on the shard group). The attentions'
     exchanges run on their own ``seq`` group. What the axis does not
-    compose with yet raises (:meth:`_check_seq_axis`)."""
+    compose with yet raises (:meth:`_check_seq_axis`).
+
+    Tensor parallelism (a ``tensor`` axis of T ranks, innermost, JAX's
+    ``DEFAULT_TP_RULES``): the tensor ranks of a row share its rows, and
+    each holds its slice of every leaf with a ``vocab``, ``mlp``,
+    ``heads`` or ``kv_heads`` dim (``parallel/partitioning.tp_slice``);
+    the compute parameters, the master, the moments and the accumulator
+    are those local leaves, ZeRO-sharded over ``(data, zshard)`` inside
+    them (the ZeRO dim is never a tensor dim, JAX's ``zero_spec``). The
+    model runs Megatron's collectives on the mesh's ``tensor`` group
+    (batch key ``tp``, ``models/transformer``), after which each rank's
+    gradient of its slices is whole: gradients are reduced over the shard
+    group only and ÷ ``world / T``. The local buffers hold the leaves
+    without a tensor dim first, then the sliced ones, in each region; the
+    global norm sums the sliced leaves' squares over ``tensor`` too and
+    counts the others once. A checkpoint leaf is gathered over ``tensor``
+    after the shards and a load slices it, so tags cross tensor sizes.
+    What the axis does not compose with yet raises
+    (:meth:`_check_tensor_axis`)."""
 
     def __init__(self, model: ModelSpec, config: Any,
                  optimizer: Optional[TPUOptimizer] = None,
@@ -1904,6 +1971,21 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self.shard_world = mm.axes_size(shard_axes)
         self.shard_rank = mm.group_ranks(shard_axes).index(self.rank)
         self.shard_group = mm.group(shard_axes)
+        # the tensor axis: the Megatron group (the model's and the norm's
+        # sums, the checkpoint's gathers), each leaf's tensor dim, and the
+        # ranks whose gradients are summed (every rank's but the tensor
+        # axis's, which each hold their own slice)
+        self.tp = mm.tp_world_size
+        self.tp_group = mm.tensor()
+        self.grad_world = self.world // self.tp
+        self.dense_group = (mm.group(mesh_mod.DENSE_GRAD_REDUCE_AXES)
+                            if self.tp > 1 else None)
+        # each leaf with a tensor dim: its logical axes
+        self._tp_axes: Dict[Tuple[str, ...], Tuple] = {}
+        if self.tp > 1:
+            self._tp_axes = {path: axes for path, axes in
+                             _flatten(self.model_spec.axes_fn())
+                             if tp_dim(axes) is not None}
         self.replica_world = mm.axes_size(dense_hop)
         self.replica_group = (mm.group(dense_hop) if self.replica_world > 1
                               else None)
@@ -1983,16 +2065,22 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         return hit[1]
 
     def _local_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
-        """Each expert leaf cut to this rank's E/X experts."""
+        """Each expert leaf cut to this rank's E/X experts, each leaf with
+        a tensor dim to this rank's slice."""
         for path, t in list(_flatten(tree)):
-            if path in self._expert_dims:
+            if path in self._expert_dims or path in self._tp_axes:
                 _set_path(tree, path, self.local_leaf(path, t))
         return tree
 
     def local_leaf(self, path: Tuple[str, ...],
                    full: torch.Tensor) -> torch.Tensor:
-        """This rank's experts of a whole expert leaf (other leaves whole;
-        a leaf already cut is returned as it is)."""
+        """This rank's experts of a whole expert leaf, its slice of a leaf
+        with a tensor dim (other leaves whole; a leaf already cut is
+        returned as it is)."""
+        axes = self._tp_axes.get(path)
+        if axes is not None and tuple(full.shape) == self._full_shapes[path]:
+            return tp_slice(axes, full, self.tp,
+                            self.mesh_manager.tp_rank).contiguous()
         dim = self._expert_dims.get(path)
         if dim is None or full.shape[dim] != self._full_shapes[path][dim]:
             return full
@@ -2055,8 +2143,15 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         W, dev, cdt = self.shard_world, self.device, self.compute_dtype
         self._shards, sh_off, rep_off = zero_layout(
             self.model_spec, self._slots, W, self.zero_stage,
-            self.mesh_manager.shape, expert_paths=set(self._expert_dims))
+            self.mesh_manager.shape, expert_paths=set(self._expert_dims),
+            tp_paths=set(self._tp_axes))
         self._n_sh, self._n_rep = sh_off, rep_off
+        # the tensor-sliced leaves lie after the others in each region
+        tps = [sh for sh in self._shards if sh.slot.path in self._tp_axes]
+        self._n_sh_tp = min([sh.offset for sh in tps if sh.dim is not None]
+                            + [sh_off])
+        self._n_rep_tp = min([sh.offset for sh in tps if sh.dim is None]
+                             + [rep_off])
         # the expert leaves lie after the dense ones in each region
         ex = [sh for sh in self._shards if sh.slot.path in self._expert_dims]
         self._n_sh_dense = min([sh.offset for sh in ex if sh.dim is not None]
@@ -2244,12 +2339,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             self._land_reduce(*self._reduces.pop(0))
 
     def _land_reduce(self, handle, unit: _Unit) -> None:
-        """A unit's reduce has landed: its sum ÷ the whole world added into
-        the accumulator."""
+        """A unit's reduce has landed: its sum ÷ ``grad_world`` (the world,
+        less a ``tensor`` axis) added into the accumulator."""
         with telemetry.span("zero_reduce_wait"):
             mine, = handle.wait()
         with torch.no_grad():
-            mine.div_(torch.tensor(float(self.world), device=self.device))
+            mine.div_(torch.tensor(float(self.grad_world),
+                                   device=self.device))
             for p in unit.group.pieces:
                 if not p.n:
                     continue
@@ -2426,16 +2522,17 @@ class DataParallelEngine(DeepSpeedTPUEngine):
 
     def _replicated_mean(self) -> torch.Tensor:
         """The replicated leaves' gradient mean: dense leaves summed over
-        the world, expert leaves over the ranks of their expert (the
-        shard group, then ``data`` under hpZ), ÷ the world."""
+        the world (over every axis but ``tensor`` under one), expert
+        leaves over the ranks of their expert (the shard group, then
+        ``data`` under hpZ), ÷ the ranks summed."""
         nd = self._n_rep_dense
-        comm.all_reduce(self._rep_buf[:nd])
+        comm.all_reduce(self._rep_buf[:nd], group=self.dense_group)
         if nd < self._n_rep:
             for group, size in ((self.shard_group, self.shard_world),
                                 (self.data_group, self.data_world)):
                 if size > 1:
                     comm.all_reduce(self._rep_buf[nd:], group=group)
-        return self._rep_buf / torch.tensor(float(self.world),
+        return self._rep_buf / torch.tensor(float(self.grad_world),
                                             device=self.device)
 
     def _replica_mean(self, mine: torch.Tensor, quant: bool) -> torch.Tensor:
@@ -2523,7 +2620,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         ``seq_shard``), the last seq rank's last position none, so the
         weights count those, with a mask or without one (all ones). None without a ``loss_mask`` and a ``seq`` axis, or for a
         span of one rank (its own mean)."""
-        span = self.ep if self._quant_grads() else self.world
+        span = self.ep if self._quant_grads() else self.grad_world
         mask = (stacked.get("loss_mask") if isinstance(stacked, dict)
                 else None)
         if span == 1 or (mask is None and self.seq_shard is None):
@@ -2611,7 +2708,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             self.reduce_counts[k] = 0
         self._tiers_before_step()
         batch = self._to_device(self._local_rows(stacked))
-        if self.seq_shard is not None and not isinstance(batch, dict):
+        if (self.seq_shard is not None or self.tp_group is not None) \
+                and not isinstance(batch, dict):
             batch = {"tokens": batch}
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
@@ -2628,6 +2726,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                       if isinstance(batch, dict) else batch[i])
                 if self.seq_shard is not None:
                     mb["seq_shard"] = self.seq_shard
+                if self.tp_group is not None:
+                    mb["tp"] = self.tp_group
                 self._begin_micro(i == gas - 1)
                 with self._moe_axes():
                     if weights is None:
@@ -2672,6 +2772,17 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                               g[n_sh:n_sh + nrd].square().sum()])
             comm.all_reduce(sq[:2], group=self.shard_group)
             comm.all_reduce(sq[1:3], group=self.expert_group)
+        elif self.tp > 1:
+            # a tensor-sliced leaf's shard is held once a shard group of
+            # each tensor coordinate, a replicated sliced leaf once a
+            # tensor coordinate; overflow shows on every rank
+            nst, nrt = self._n_sh_tp, n_sh + self._n_rep_tp
+            sq = torch.stack([g[:nst].square().sum(),
+                              g[nst:n_sh].square().sum(),
+                              g[nrt:].square().sum(),
+                              g[n_sh:nrt].square().sum()])
+            comm.all_reduce(sq[:2], group=self.shard_group)
+            comm.all_reduce(sq[1:3], group=self.tp_group.group)
         else:
             sq = torch.stack([g[:n_sh].square().sum(),
                               g[n_sh:].square().sum()])
@@ -2736,14 +2847,25 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             else:
                 full = torch.movedim(self._rows(rows, sh).reshape(
                     (-1,) + sh.moved(self.shard_world)[2:]), 0, sh.dim)
-            dim = self._expert_dims.get(sh.slot.path)
-            if dim is not None:
-                full = comm.all_gather(full.contiguous(),
-                                       group=self.expert_group,
-                                       gather_axis=dim)
+            full = self._whole(sh.slot.path, full)
             _set_path(tree, sh.slot.path,
                       full.detach().to(device, copy=True))
         return tree
+
+    def _whole(self, path: Tuple[str, ...],
+               full: torch.Tensor) -> torch.Tensor:
+        """A leaf gathered from its shards → the global leaf: its experts
+        gathered over the expert group, its tensor slices over the
+        ``tensor`` group (collective)."""
+        dim = self._expert_dims.get(path)
+        if dim is not None:
+            full = comm.all_gather(full.contiguous(), group=self.expert_group,
+                                   gather_axis=dim)
+        axes = self._tp_axes.get(path)
+        if axes is not None:
+            full = tp_gather(axes, comm.all_gather(
+                full.contiguous(), group=self.tp_group.group, tiled=False))
+        return full
 
     # ------------------------------------------------------------------ #
     # checkpoints: whole leaves gathered one at a time, each rank's part
@@ -2758,7 +2880,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _leaf(self, flat: torch.Tensor, slot: _Slot) -> torch.Tensor:
         """Leaf ``slot`` of a local buffer, whole, on the host: its shards
         gathered over the shard group (the ``zshard`` group under hpZ),
-        an expert leaf's experts over the expert group."""
+        an expert leaf's experts over the expert group, a tensor-sliced
+        leaf's slices over the ``tensor`` group (:meth:`_whole`)."""
         sh = next(s for s in self._shards if s.slot is slot)
         with torch.no_grad():
             if sh.dim is None:
@@ -2772,12 +2895,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                     group=self.shard_group)
                 full = torch.movedim(rows.view(sh.moved(W)).reshape(
                     (-1,) + sh.moved(W)[2:]), 0, sh.dim)
-            dim = self._expert_dims.get(slot.path)
-            if dim is not None:
-                full = comm.all_gather(full.contiguous(),
-                                       group=self.expert_group,
-                                       gather_axis=dim)
-            return full.to("cpu")
+            return self._whole(slot.path, full).to("cpu")
 
     def _rank_state_items(self):
         """LoCo's residual as JAX's ``loco_err`` leaves, one leaf gathered
@@ -3022,15 +3140,17 @@ class Zero3Engine(DataParallelEngine):
 
 
 def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,
-                zero_stage: int, sizes: Dict[str, int], expert_paths=()
-                ) -> Tuple[List[_Shard], int, int]:
+                zero_stage: int, sizes: Dict[str, int], expert_paths=(),
+                tp_paths=()) -> Tuple[List[_Shard], int, int]:
     """Each leaf's place in a rank's local buffers → (shards, sharded
     elements, replicated elements), ``world`` the ranks a shard is split
     over (the ``zshard`` axis under hpZ, ``(data, zshard)`` under an expert
     axis). The sharded dim is JAX's
     (``parallel/partitioning.ShardingPolicy.state_spec`` from the model's
     logical axes); a spec without ``axes_fn`` replicates every leaf. The
-    leaves of ``expert_paths`` come after the others in each region."""
+    leaves of ``expert_paths`` come after the others in each region, and
+    within each class the leaves of ``tp_paths`` (tensor-sliced) after the
+    others."""
     specs: Dict[Tuple[str, ...], Any] = {slot.path: () for slot in slots}
     if model.axes_fn is not None:
         shapes: Dict[str, Any] = {}
@@ -3041,9 +3161,11 @@ def zero_layout(model: ModelSpec, slots: List[_Slot], world: int,
         specs = dict(_flatten(tree))
     placed: Dict[Tuple[str, ...], _Shard] = {}
     sh_off = rep_off = 0
-    for expert in (False, True):
+    for expert, sliced in ((False, False), (False, True), (True, False),
+                           (True, True)):
         for slot in slots:
-            if (slot.path in expert_paths) != expert:
+            if (slot.path in expert_paths) != expert or \
+                    (slot.path in tp_paths) != sliced:
                 continue
             dim = C.sharded_dim(specs[slot.path], (mesh_mod.DATA_AXIS,
                                                    mesh_mod.ZSHARD_AXIS))

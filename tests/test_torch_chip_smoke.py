@@ -802,3 +802,129 @@ def test_phase_seconds_moves_merged_jobs_to_their_phase():
                                    "prepared_in": "zeropp_phase"}}
     got = s.phase_seconds({"zeropp_phase": 150.0, "sp2_phase": 5.0})
     assert got == {"zeropp_phase": 100.0, "sp2_phase": 55.0}
+
+
+# --------------------------------------------------------------------------- #
+# the tensor-parallel phases
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("model", ["tiny_llama", "tiny", "llama_750m"])
+def test_tp_local_params_counts_a_ranks_slices(model):
+    """TP4's formula against the slices of the port's own tree (layers cut
+    to 2 so the tree stays small), at T = 2 and 4."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.convert import tp_local_tree
+
+    cfg = T.get_model_config(model, num_layers=2)
+    tree = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         dtype=torch.bfloat16)
+    for n in (2, 4):
+        mine = tp_local_tree(tree, cfg, n, 1)
+        count = sum(v.numel() for _, v in _flat(mine))
+        assert C.tp_local_params(cfg, n) == count
+
+
+def _flat(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat(tree[k], f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", tree[k]
+
+
+def test_tp2_formulas():
+    """TP3 at the phase's shapes: llama_750m at 4 layers (H 1536, 12 heads
+    of 128), B 4, S 2048, gas 2; way (b)'s B 2."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.TP2, layers=4)
+    cfg = T.get_model_config("llama_750m", num_layers=4)
+    R, BSH = 4 * 2047, 4 * 2048 * 1536
+    assert C.tp2_traffic_want(t, cfg) == {"tensor/all_reduce": (
+        2 * 25 + 1, 2 * (21 * BSH + 3 * R + R * 1536) + 2)}
+    launches, shapes = C.tp2_want(t, cfg, 1)
+    assert (launches["flash_fwd"], launches["flash_bwd_dq"],
+            launches["flash_bwd_dkv"], launches["rms_norm"]) == (
+                16, 8, 8, 17 * 2)
+    assert shapes == [(4, 2048, 6, 128)]
+    tb = C.tp2_b(t)
+    assert (tb["micro"], tb["world"], tb["mesh"]) == (
+        2, 4, {"data": 2, "tensor": 2})
+    assert C.tp2_want(tb, cfg, 1)[1] == [(2, 2048, 6, 128)]
+
+
+def test_tp7b_traffic_want():
+    """T3: 2L + 1 all-reduces of [rows, H] and one gather of [rows, V/T]
+    a tick."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    cfg = T.get_model_config("llama2_7b")
+    assert C.tp7b_traffic_want(cfg, [256, 8, 8], 2) == {
+        "tensor/all_reduce": [65 * 3, 65 * 4096 * 272],
+        "tensor/all_gather": [3, 16000 * 272]}
+
+
+def _but_launches(problems):
+    """The verdicts but the launch counts (0 on the CPU: the plain versions
+    count nothing)."""
+    return [p for p in problems if " launched " not in p]
+
+
+def test_tp2_phase_rank_rehearsal_on_cpu(tmp_path):
+    """The tensor-parallel training phase's rank function at tiny size,
+    way (a) on two gloo ranks of the CPU in one spawn with another phase's
+    job (the merged spawn's ``jobs_rank``; the plain paths, the counters
+    read 0 there), way (b) on four: both train, the tensor group's traffic
+    a step is TP3's formula, the flash wrapper sees a rank's heads, the
+    rank's parameters and master are TP4's sizes, and TP1-TP2 pass against
+    the one-process reference."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.TP2, model="tiny_llama", layers=2, micro=2, seq=32, gas=2,
+             gates=tuple(C.TP2_GATES))
+    cfg = T.get_model_config("tiny_llama", num_layers=2)
+    ref = C.sp2_reference(t, torch.device("cpu"), 0, str(tmp_path / "one"))
+    ranks = C.spawn_ranks("jobs_rank", 2, 0, [
+        ("tp2", "train_llama_750m_tp2_rank", dict(t, device="cpu", ref=ref)),
+        ("qrs", "quantized_reduce_scatter_rank",
+         dict(C.QRS, n=2 ** 12, device="cpu"))])
+    assert all(set(r) == {"tp2", "qrs"} for r in ranks)
+    got = [r["tp2"][0] for r in ranks]
+    assert _but_launches(C.tp2_problems("a", t, got, ref, cfg)) == []
+    assert all(set(r["gates"]) == set(C.TP2_GATES) for r in got)
+    assert got[0]["main"]["flash_shapes"]["flash_fwd"] == [(2, 32, 2, 16)]
+    tb = C.tp2_b(t)
+    got = C.spawn_ranks("train_llama_750m_tp2_rank", 4, 0,
+                        dict(tb, device="cpu", ref=ref))
+    assert _but_launches(C.tp2_problems("b", tb, got, ref, cfg)) == []
+    assert [r["main"]["coords"]["tensor"] for r in got] == [0, 1, 0, 1]
+    assert got[0]["main"]["shard_world"] == 2
+
+
+def test_tp7b_phase_rank_rehearsal_on_cpu(tmp_path):
+    """The tensor-parallel serving phase at tiny size on two gloo ranks of
+    the CPU: the one-process tick of the parent, the ranks' main path with
+    its launches (0: the plain paths) and the tensor group's traffic a
+    tick, equal tokens on both ranks, and T1 against the one-process
+    plain path."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.TP7B, model="tiny_llama", layers=2, n_req=3, lo=4, hi=40,
+             max_new=4, engine=dict(n_blocks=64, block_size=16,
+                                    max_blocks_per_seq=8, token_budget=32),
+             tick=dict(lens=(10, 60), n_blocks=32))
+    ref = C.tp7b_reference(t, torch.device("cpu"), 0, str(tmp_path))
+    assert ref["decode_rows"] and ref["rows"] > ref["decode_rows"]
+    ranks = C.spawn_ranks("llama2_7b_tp2_rank", 2, 0,
+                          dict(t, device="cpu", ref=ref))
+    cfg = T.get_model_config("tiny_llama", num_layers=2)
+    assert _but_launches(C.tp7b_problems(ranks, t, ref, cfg,
+                                         graphs=False)) == []
+    assert ranks[0]["main"]["pool_heads"] == 1
+    assert ranks[0]["main"]["traffic"]["tensor/all_reduce"][0] > 0

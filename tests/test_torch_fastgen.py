@@ -170,13 +170,11 @@ def test_rematerialize_and_temperature_sampling():
     assert eng.rematerialize(99) is None
 
 
-@pytest.mark.parametrize("call", ["planned", "serve_planned", "tp",
-                                  "quantized"])
+@pytest.mark.parametrize("call", ["planned", "serve_planned", "quantized"])
 def test_later_slice_options_raise(call):
+    # (tp=True runs: tests/test_torch_tensor_parallel.py)
     with pytest.raises(NotImplementedError, match="later slice"):
-        if call == "tp":
-            _engine(tp=True)
-        elif call == "quantized":
+        if call == "quantized":
             params = _jax_params("tiny_llama")
             params["lm_head"] = {"q": params["lm_head"], "scale": 1.0}
             _engine(params=params)

@@ -308,12 +308,9 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
     # (the offload tiers, ZenFlow and SuperOffload run: they are held in
     # tests/test_torch_offload.py and tests/test_torch_zenflow.py)
     ({"optimizer": {"type": "adafactor", "params": {"lr": 1e-3}}}, {}),
-    ({"mesh": {"tensor": 2}}, {}),
     ({"bf16": {"enabled": True, "fp32_master": False}}, {}),
     ({"pipeline": {"stages": 2}}, {}),
     ({"mesh": {"pipe": 2}}, {}),
-    ({"mesh": {"tensor": 2, "seq": 2}}, {}),
-    ({"tensor_parallel": {"autotp_size": 2}}, {}),
     ({"telemetry": {"tracing": True}}, {}),
     ({"wall_clock_breakdown": True}, {}),
     ({"activation_checkpointing": {"policy": "selective"}}, {}),
@@ -322,7 +319,9 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
     ({}, {"remat": "dots_saveable"}),
     # (the dense MoE dispatch runs: tests/test_torch_moe_dense.py; the
     # seq axis, the tiled loss and the sequence-parallel attentions run:
-    # test_seq_options_at_world_1 below, tests/test_torch_sequence.py)
+    # test_seq_options_at_world_1 below, tests/test_torch_sequence.py; the
+    # tensor axis and the tensor_parallel section: test_tensor_options_at_
+    # world_1 below, tests/test_torch_tensor_parallel.py)
 ])
 def test_out_of_slice_options_raise(extra, spec_kw):
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -373,6 +372,48 @@ def test_seq_options_at_world_1(name):
     assert (peng.sp_plan is None) == (jeng.sp_plan is None)
     if jeng.sp_plan is not None:
         assert not peng.sp_plan.enabled and not jeng.sp_plan.enabled
+
+
+TENSOR_OPTIONS = {"mesh_tensor2": {"mesh": {"tensor": 2}},
+                  "mesh_tensor2_seq2": {"mesh": {"tensor": 2, "seq": 2}},
+                  "autotp_size": {"tensor_parallel": {"autotp_size": 2}}}
+
+
+@pytest.mark.parametrize("name", list(TENSOR_OPTIONS))
+def test_tensor_options_at_world_1(name):
+    """The options of the tensor slice in one process: a ``tensor`` axis
+    of 2 (alone or beside ``seq = 2``) raises JAX's ``ValueError`` (it
+    does not divide one process); the ``tensor_parallel`` section is read
+    and inert, as in JAX, and the engine trains one step from JAX's master
+    to JAX's loss."""
+    from deepspeed_tpu.comm.mesh import MeshConfig, initialize_mesh
+
+    extra = TENSOR_OPTIONS[name]
+    cfg = dict(BASE, **extra, steps_per_print=10 ** 6)
+    if "mesh" in extra:
+        from deepspeed_tpu.comm.mesh import MeshConfig as JMC
+
+        with pytest.raises(ValueError) as want:
+            JMC(**extra["mesh"]).resolve(1)
+        with pytest.raises(ValueError) as got:
+            dtt.initialize(model=dtt.causal_lm_spec("tiny", dtype="float32"),
+                           config=cfg, device="cpu")
+        assert str(got.value) == str(want.value)
+        return
+    mm = initialize_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    jeng, *_ = dst.initialize(
+        model=dst.causal_lm_spec("tiny_llama", dtype="float32"),
+        config=cfg, mesh_manager=mm)
+    peng, *_ = dtt.initialize(
+        model=dtt.causal_lm_spec("tiny_llama", dtype="float32"),
+        config=cfg, device="cpu")
+    assert peng.config.tensor_parallel.autotp_size == \
+        jeng.config.tensor_parallel.autotp_size == 2
+    load_master(peng, jax.tree.map(np.asarray, jeng.state["master"]))
+    batch = next(synthetic_lm_data(2, SEQ, 512, seed=3))
+    jl = float(jeng.train_batch(iter([batch])))
+    pl = float(peng.train_batch(iter([batch])))
+    np.testing.assert_allclose(pl, jl, rtol=TOL["float32"]["loss"], atol=0)
 
 
 def test_initialize_refuses_what_it_does_not_run_yet():
