@@ -27,7 +27,9 @@ kernel on them against its plain PyTorch version:
                (forward, dq, dkv) and the Evoformer forward against their
                plain versions, bf16 and fp32, at the main-path shapes and
                edge cases (unaligned S, GQA, non-causal; ragged groups, an
-               empty group, moe_1b's width; sparse layouts with an inactive
+               empty group, moe_1b's width, tgmm at outputs of O(100) with
+               each side's distance from the fp64 sum; sparse layouts with
+               an inactive
                row; a dense layout against flash; Evoformer at OpenFold's
                widths, D 8, a masked row, unaligned S); the bf16 flash,
                block-sparse and Evoformer outputs by FLASH_BF16_RULE's
@@ -94,7 +96,8 @@ kernel on them against its plain PyTorch version:
                through the Evoformer kernel, held against the plain path;
 11. train_llama_750m_zeropp_dp2 — two ranks (spawned processes, gloo, both
                on the one card by explicit device) train llama_750m at full
-               width and depth with ZeRO-2 + qgZ + qwZ + LoCo (the repo's
+               width, ZEROPP_LAYERS of its 20 layers, with ZeRO-2 + qgZ +
+               qwZ + LoCo (the repo's
                zero2_qgz_llama_750m_bf16 row: micro 4 a rank, seq 2048, gas
                ZEROPP_GAS, bf16, flash, remat full, Adam): the loss falls,
                the counters prove every step launched the int8 quantize and
@@ -119,7 +122,8 @@ kernel on them against its plain PyTorch version:
                qgZ + qwZ + LoCo, (c) exact ZeRO-2 at the same depth: step,
                tokens/s, MFU, peak a rank, the wire's host
                waits with the prefetch on and off; gates Z1 (one fp32 step
-               ZeRO-3 vs ZeRO-2 at 4 layers, full width, by the training
+               ZeRO-3 vs ZeRO-2 at ZERO3["gate_layers"] layers, full width,
+               by the training
                rule), Z2 (bf16: the loss within 1e-5, the update no
                further from fp32 than 2x ZeRO-2's), Z3 (each chunk's qwZ
                gather within half a step of the exact gather; the zeropp
@@ -138,8 +142,9 @@ kernel on them against its plain PyTorch version:
                exact): step, tokens/s, MFU, each rank's peak and their sum
                against the card's memory, the host seconds in each
                group's collectives; gates H1 (one fp32 step of hpZ ZeRO-3
-               and of hpZ ZeRO-2 against the same step at data = 4, 4
-               layers, by the training rule), H2 (bf16: the first loss
+               and of hpZ ZeRO-2 against the same step at data = 4, at
+               HPZ["gate_layers"] layers, by the training rule), H2 (bf16:
+               the first loss
                bit-equal to data = 4's, the update no further from fp32
                than 2x), H3 (the step's real reduced shard through the
                replica hop: its quantize and dequant-reduce kernels
@@ -150,10 +155,10 @@ kernel on them against its plain PyTorch version:
                replica hop only), H5 (the launches and gathers a step);
 13b. train_moe_350m_ep — moe_350m over the expert axis (MOE_EP,
                MOE_EP_B): (a) two ranks at mesh {expert: 2}, full width,
-               6 of 12 layers, each holding 2 of the 4 experts, the choices
-               sent to
-               their expert's rank by all-to-all; (b) four ranks at mesh
-               {data: 2, expert: 2}, 4 layers; gates E1-E5 (the fp32 step
+               MOE_EP_LAYERS of 12 layers, each holding 2 of the 4
+               experts, the choices sent to their expert's rank by
+               all-to-all; (b) four ranks at mesh {data: 2, expert: 2},
+               as many layers; gates E1-E5 (the fp32 step
                by the training rule against the same ranks without the
                expert axis, and against one process; bf16 within 2x the
                plain bf16 path; the grouped GEMM on a rank's received
@@ -162,7 +167,8 @@ kernel on them against its plain PyTorch version:
                parameters, peak a rank, the expert group's host seconds,
                the idle share;
 13c. train_moe_350m_ep_zero — the expert axis on every engine (MOE_EPZ):
-               four ranks train moe_350m at full width, 4 layers, with (b)
+               four ranks train moe_350m at full width, MOE_EP_LAYERS
+               layers, with (b)
                exact ZeRO-2, (c) ZeRO-3, (d) ZeRO-2 + qgZ + qwZ + LoCo, (e)
                ZeRO-3 + qgZ + qwZ at {data: 2, expert: 2} and (f) hpZ
                ZeRO-3 at {zshard: 2, expert: 2}; two ranks with (g) the
@@ -175,7 +181,8 @@ kernel on them against its plain PyTorch version:
                against one process), E10 ((c)'s peak below (b)'s); step,
                tokens/s, MFU, peak a rank, the idle share of rank 0;
 13d. train_llama_750m_sp2 — sequence parallelism (SP2): two ranks train
-               llama_750m at full width, 4 layers, at mesh {seq: 2} (each
+               llama_750m at full width, SP2_LAYERS layers, at mesh {seq:
+               2} (each
                1,024 positions of the same 4 rows) with (a) Ulysses around
                the flash kernels and (b) the K/V ring, four ranks with (c)
                Ulysses at {data: 2, seq: 2}; gates SP1-SP2 and SP1c (one
@@ -213,6 +220,21 @@ kernel on them against its plain PyTorch version:
                the logits' gather); decode tokens/s, TTFT p50, rank 0's
                idle share; spawned in the world-2 spawn, before the serving
                phases' engines take the card;
+13g. train_llama_750m_pp2 — pipeline parallelism (PP2): llama_750m at
+               full width, 1F1B with M = 4 pipeline micro-batches of 1 x
+               2048 tokens, gas 2, ZeRO-1: (a) two ranks at {pipe: 2},
+               PP2_LAYERS layers (PP2_LAYERS / 2 a stage), (b) four at
+               {pipe: 2, tensor: 2}, PP2_GATE_LAYERS layers; gates PP1 (one
+               fp32 step of each way at PP2_GATE_LAYERS layers against one
+               process with flash and the
+               exact loss: loss 1e-6, norm and gradient 1e-5), PP2 (bf16
+               (a): the first loss within 2x the plain bf16 path's distance
+               of one process's bf16 loss), PP3 (a rank's launches and the
+               stage hops a step by formula: M·gas activations and
+               cotangents), PP4 (the stage-local parameters; 1F1B's peak
+               at M = 8 within 1.15x of M = 4's, GPipe's beside); step,
+               tokens/s, MFU, peak a rank, rank 0's idle share, the bubble
+               (formula and measured), the pipe group's host seconds;
 14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
@@ -227,7 +249,8 @@ kernel on them against its plain PyTorch version:
                off, against the device path: loss bit-equal, master within
                1e-6), S2 (bf16: the update no further from S1's than 2x
                the device bf16 step's), S3 (the overlap schedule's losses)
-               at 4 layers; then 3 steps with overlap and 2 without, the
+               at SUPER["gate_layers"] layers; then 3 steps with overlap
+               and 2 without, the
                update in the compiled host library: step time, tokens/s,
                MFU, the card's idle share, the host update's seconds and
                GB/s against the host copy rate, the copies' GB/s, device
@@ -240,8 +263,9 @@ kernel on them against its plain PyTorch version:
 16. train_llama_750m_offload — llama_750m at its training shape with
                (a) offload_optimizer cpu, (b) nvme, each bit-equal to the
                run without offload, (c) ZenFlow (top 1 %, a boundary every
-               2 steps) and its kernels-vs-plain step at 4 layers by the
-               training rule, (d) ZeRO-3 at world 1 on a spawned rank with
+               2 steps) and its kernels-vs-plain step at
+               OFFLOAD["gate_layers"] layers by the training rule, (d)
+               ZeRO-3 at world 1 on a spawned rank with
                offload_param cpu and nvme at OFFLOAD["param_layers"]
                layers in JAX's in-step
                streaming mode (the master off the card through the step,
@@ -280,9 +304,10 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,checkpoint_llama_750m
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sp2
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_tp2,llama2_7b_tp2
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_pp2
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14, 13b-13f among them) and the offload phases (15-16) run right after
+(11-14, 13b-13g among them) and the offload phases (15-16) run right after
 the kernels phase, before the serving phases' engines take the card.
 Their ranks run in one spawn a world size (MERGED_SPAWNS: the first of
 them prepares every selected phase's jobs of its world, the checkpoint
@@ -295,6 +320,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import hashlib
 import json
 import os
@@ -319,7 +345,7 @@ PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
           "train_moe_350m_ep", "train_moe_350m_ep_zero",
           "train_llama_750m_sp2", "train_llama_750m_tp2",
-          "quantized_reduce_scatter", "train_llama2_7b_super_offload",
+          "train_llama_750m_pp2", "quantized_reduce_scatter", "train_llama2_7b_super_offload",
           "train_llama_750m_offload", "llama2_7b_tp2", "llama2_7b",
           "gpt2_125m", "moe_350m", "train_gpt2_125m",
           "train_llama_750m", "checkpoint_llama_750m", "train_moe_350m",
@@ -381,11 +407,16 @@ FLASH_CASES = (("gpt2_125m", 32, 1024, 12, 12, 64, True),
                # train_llama_750m_tp2: way (a) at {tensor: 2}, way (b) at
                # {data: 2, tensor: 2}
                ("llama_750m_ulysses", 4, 2048, 6, 6, 128, True),
-               ("llama_750m_ulysses_d2", 2, 2048, 6, 6, 128, True))
+               ("llama_750m_ulysses_d2", 2, 2048, 6, 6, 128, True),
+               # a pipeline micro-batch (1 row) on train_llama_750m_pp2:
+               # way (a) at {pipe: 2}, way (b) at a tensor rank's heads
+               ("llama_750m_pp", 1, 2048, 12, 12, 128, True),
+               ("llama_750m_pp_t2", 1, 2048, 6, 6, 128, True))
 # Grouped GEMM against its plain version: both sum exact products in fp32,
-# over up to K = 3072 terms (gmm) and a whole group's rows (tgmm, ~16k), in
-# other orders, so fp32 gets flash attention's 1e-4 on outputs of O(1)
-# (the inputs are scaled so); bf16 adds one rounding of the output (2^-7).
+# over up to K = 3072 terms (gmm) and a whole group's rows (tgmm, ~16k: the
+# kernel in chunks of 1024 rows, then the chunk sums), in other orders, so
+# fp32 gets flash attention's 1e-4 on outputs of O(1) (the inputs are
+# scaled so); bf16 adds one rounding of the output (2^-7).
 GMM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 2.0 ** -7)}
 # (label, M, K, N, E, tail): moe_350m's up and down projections (micro 16 x
 # seq 1024 x top-2 rows), moe_1b's expert shape (bench.py moe_1b_large_
@@ -398,9 +429,10 @@ GMM_CASES = (("moe_350m_up", 32768, 768, 3072, 4, 0),
              ("ragged", 1000, 264, 200, 8, 24))
 # (kind, H, rows): the serving sizes (a decode tick to a prefill chunk),
 # then the training main paths', micro x seq rows (llama2_7b's 4096 under
-# super_offload; llama_750m's H 1536 is a masked BLOCK_H 2048 program)
+# super_offload; llama_750m's H 1536 is a masked BLOCK_H 2048 program; 2048
+# rows a pipeline micro-batch on train_llama_750m_pp2)
 NORM_CASES = (("rms_norm", 4096, (1, 37, 256, 4096)),
-              ("rms_norm", 1536, (8192,)),
+              ("rms_norm", 1536, (8192, 2048)),
               ("layer_norm", 768, (1, 37, 256, 32768)))
 # Paged-attention ticks of the kernels phase beside the three main-path
 # shapes, (label, paged_tick kind, N, K, D, bs, MB): prefill runs of 1, 63,
@@ -578,13 +610,21 @@ EVO_MAIN = dict(rows=128, seq=256, c_m=256, heads=8, head_dim=32)
 # attention (ulysses_flash at sequence world 1) and remat full; then
 # llama_750m's run again with block-sparse attention ("sparse:fixed", the
 # model path's default kind; the JAX package's sparse training path).
-# "model" names the preset where the run's key does not.
+# "model" names the preset where the run's key does not. gate_micro: the
+# rows of the step gate. moe_350m's gate takes the main path's whole
+# micro-batch (2 rows before the pipeline phase came): over 2 rows its bf16
+# loss distance is set by routing flips at near-ties (0.3-0.4 % of the
+# (token, choice) pairs on each bf16 path, each moving one token's loss),
+# not by the paths' arithmetic. From one trained master (tools/
+# probe_moe_gate.py, NVIDIA H100 80GB HBM3, 700.00 W), the kernel path's
+# distance was 0.71-3.33x the plain path's over the batch's 8 slices of 2
+# rows, and the two equal (1.797e-6) over all 16.
 TRAIN = {"gpt2_125m": dict(micro=32, seq=1024, gas=4, steps=4,
                            norm="layer_norm", gate_micro=2),
          "llama_750m": dict(micro=4, seq=2048, gas=4, steps=3,
                             norm="rms_norm", gate_micro=1),
          "moe_350m": dict(micro=16, seq=1024, gas=4, steps=3,
-                          norm="layer_norm", gate_micro=2),
+                          norm="layer_norm", gate_micro=16),
          "llama_750m_sparse": dict(model="llama_750m",
                                    attention="sparse:fixed", micro=4,
                                    seq=2048, gas=4, steps=3, norm="rms_norm",
@@ -645,14 +685,21 @@ BF16_TOP1_SLACK = 0.05
 # qgZ + qwZ + LoCo, micro 4 a rank, seq 2048, gas 4, bf16) at world 2, both
 # ranks on the one card over gloo; 1 warm-up + 2 steps. The qwZ publish
 # quantizes by JAX's overlap plan: at allgather_bucket_size 5e8 and
-# llama_750m's 28,311,552 elements a layer, two layer chunks, so three
-# groups (the head group, then each chunk). Per rank and step the design
-# launches quantize gas + 3 times (each micro-batch's qgZ send, the
-# publish's groups) and dequant-reduce 2 gas + 3 times (each micro-batch's
-# receive and LoCo's dequantized send, the publish's groups).
+# llama_750m's 28,311,552 elements a layer, 17 layers a chunk, so at
+# ZEROPP_LAYERS one chunk, which publishes as one group of every leaf (at
+# all 20 layers two chunks of 10 and three groups: the head group, then
+# each chunk). Per rank and step
+# the design launches quantize gas + groups times (each micro-batch's qgZ
+# send, the publish's groups) and dequant-reduce 2 gas + groups times
+# (each micro-batch's receive and LoCo's dequantized send, the publish's
+# groups).
 ZEROPP = dict(model="llama_750m", world=2, micro=4, seq=2048, gas=4, steps=2,
               gate_micro=1)
-ZEROPP_CHUNKS = [[0, 10], [10, 20]]
+# the phase's main path runs this many of llama_750m's 20 layers, full
+# width (all 20 until the pipeline phase came: with it the whole script
+# took 1,016.9 s on an H100 and was stopped past 1,200 s on another)
+ZEROPP_LAYERS = 4
+ZEROPP_CHUNKS = [[0, ZEROPP_LAYERS]]
 # the phase's main-path runs take one timed step after the warm-up (2
 # before the checkpoint phase came) of ZEROPP_GAS micro-batches (4 before
 # the expert-axis phase train_moe_350m_ep_zero came): the cuts that keep
@@ -661,9 +708,9 @@ ZEROPP_STEPS = 1
 ZEROPP_GAS = 2
 # the phase's gate steps (gates 2-3 and the overlap gate) run this many
 # layers at full width from the seed's initial weights (the main path's
-# trained master at all 20 before the expert-axis phase came), as the
-# ZeRO-3 and hpZ gates do
-ZEROPP_GATE_LAYERS = 4
+# trained master at all 20 before the expert-axis phase came, 4 before
+# the pipeline phase came), as the ZeRO-3 and hpZ gates do
+ZEROPP_GATE_LAYERS = 2
 ZEROPP_WIRE = {"stage": 2, "zero_quantized_gradients": True,
                "zero_quantized_weights": True, "loco_error_feedback": True}
 ZEROPP_EXACT = {"stage": 2}
@@ -689,9 +736,11 @@ WIRE_NOISE_SHARE = 0.1
 # chunks (at all 20 layers even_chunk_bounds(20, 8): 3, 3, 3, 3, 2, 2, 2,
 # 2 layers; at ZERO3_LAYERS one layer each). Run (a) exact ZeRO-3, (b)
 # ZeRO-3 + qgZ + qwZ + LoCo, (c) exact ZeRO-2 at the same depth; 1 warm-up
-# + ZERO3_STEPS steps each. The gate steps Z1-Z2 run the model cut to ZERO3["gate_layers"]
-# layers at full width (gas 1, micro 1 a rank).
-ZERO3 = dict(ZEROPP, gate_layers=4)
+# + ZERO3_STEPS steps each, at gas ZEROPP_GAS (the row's 4 before the
+# pipeline phase came: the cut that keeps the whole script within its
+# time; hpZ's phase takes it too). The gate steps Z1-Z2 run the model cut
+# to ZERO3["gate_layers"] layers at full width (gas 1, micro 1 a rank).
+ZERO3 = dict(ZEROPP, gas=ZEROPP_GAS, gate_layers=ZEROPP_GATE_LAYERS)
 ZERO3_EXACT = {"stage": 3}
 ZERO3_WIRE = dict(ZEROPP_WIRE, stage=3)
 ZERO3_CHUNKS = 8
@@ -699,10 +748,11 @@ ZERO3_CHUNKS = 8
 # unchanged; JAX's plan cuts them into min(layers, 8) chunks, one layer
 # each here) and one timed step after the warm-up: the cuts that keep the
 # whole script within its time beside the expert-parallel and checkpoint
-# phases (10 layers and 2 steps before the checkpoint phase came). Its
+# phases (10 layers and 2 steps before the checkpoint phase came, 4
+# layers before the pipeline phase came). Its
 # exact ZeRO-2 baseline runs in this phase at the same depth; the gates
 # keep their own depth.
-ZERO3_LAYERS = 4
+ZERO3_LAYERS = 2
 ZERO3_STEPS = 1
 # Z4: run (a)'s peak a rank at least this far below exact ZeRO-2's at the
 # preset's 20 layers, and the same share of it at fewer (what ZeRO-3 saves
@@ -729,9 +779,10 @@ ZERO3_SPANS = ("zero3_gather_issue", "zero3_gather_wait",
 HPZ = dict(ZERO3, world=4)
 # the phase's main path runs this many of llama_750m's 20 layers (width
 # unchanged) and one timed step after the warm-up (8 layers and 2 steps
-# before the checkpoint phase came): the cuts that keep the whole script
-# within its time; the gates keep their own depth
-HPZ_LAYERS = 4
+# before the checkpoint phase came, 4 layers before the pipeline phase
+# came): the cuts that keep the whole script within its time; the gates
+# keep their own depth
+HPZ_LAYERS = 2
 HPZ_STEPS = 1
 HPZ_Z = 2
 HPZ_TRIO = {"stage": 3, "zero_hpz_partition_size": HPZ_Z,
@@ -776,10 +827,10 @@ QRS = dict(n=2 ** 26, worlds=(2, 4))
 # build/checkpoints/ (ignored by git) and are deleted at the end.
 # C1-C2 run CKPT["layers"] of llama_750m's 20 layers and C3
 # CKPT["zero3_layers"] (20 and ZERO3_LAYERS before the expert-axis phase
-# train_moe_350m_ep_zero came: the cuts that keep the whole script within
-# its time)
-CKPT = dict(model="llama_750m", micro=4, seq=2048, gas=4, layers=8,
-            zero3_layers=2, nvme_layers=8)
+# train_moe_350m_ep_zero came, C1-C2 and C4 at 8 before the pipeline phase
+# came: the cuts that keep the whole script within its time)
+CKPT = dict(model="llama_750m", micro=4, seq=2048, gas=4, layers=4,
+            zero3_layers=2, nvme_layers=4)
 # the disk under build/checkpoints/ must hold this many tags of C1's size
 # (12 bytes a parameter: the fp32 master and Adam's two moments)
 CKPT_TAGS_FREE = 3
@@ -934,6 +985,28 @@ def checkpoint_zero3_rank(rank, world, seed, t):
     del fresh
     dev_free(dev)
     return out
+
+
+# The seconds a spawned rank spends in its main helpers (each call's whole
+# time, helpers called inside it included), by job: ``jobs_rank`` clears it
+# before each job and keeps it in JOB_PARTS, which the rank sends to the
+# parent with its fixed costs (the spawn line's "parts", rank 0's).
+PART_SECONDS: dict = {}
+JOB_PARTS: dict = {}
+
+
+def timed_part(fn):
+    """``fn`` with its calls and seconds added to PART_SECONDS."""
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            calls, sec = PART_SECONDS.get(fn.__name__, (0, 0.0))
+            PART_SECONDS[fn.__name__] = (calls + 1,
+                                         sec + time.perf_counter() - t0)
+    return timed
 
 
 def emit(phase: str, **fields) -> None:
@@ -1151,6 +1224,7 @@ def rank_entry(fn_name, rank, world, init_method, out, args):
             dtt.initialize = real_init
         fixed["returned"] = time.time()
         fixed["engine_builds_s"] = builds
+        fixed["parts"] = dict(JOB_PARTS) or {fn_name: dict(PART_SECONDS)}
         dtt.comm.destroy_process_group()
         out.put((rank, "ok", result, fixed))
     except Exception:                                   # noqa: BLE001
@@ -1212,13 +1286,15 @@ def spawn_ranks(fn_name, world, *args):
 # run that measured them), paid once a world instead of once a phase.
 MERGED_SPAWNS = {
     2: ("train_llama_750m_zeropp_dp2", "train_llama_750m_zero3_dp2",
-        "train_llama_750m_sp2", "train_llama_750m_tp2", "train_moe_350m_ep",
+        "train_llama_750m_sp2", "train_llama_750m_tp2",
+        "train_llama_750m_pp2", "train_moe_350m_ep",
         "train_moe_350m_ep_zero", "quantized_reduce_scatter",
         "train_llama_750m_offload", "checkpoint_llama_750m",
         "llama2_7b_tp2"),
     4: ("train_llama_750m_hpz_dp4", "train_moe_350m_ep",
         "train_moe_350m_ep_zero", "train_llama_750m_sp2",
-        "train_llama_750m_tp2", "quantized_reduce_scatter")}
+        "train_llama_750m_tp2", "train_llama_750m_pp2",
+        "quantized_reduce_scatter")}
 
 
 class Job(typing.NamedTuple):
@@ -1238,9 +1314,11 @@ def jobs_rank(rank, world, seed, jobs):
 
     out = {}
     for key, fn, args in jobs:
+        PART_SECONDS.clear()
         t0 = time.perf_counter()
         out[key] = (globals()[fn](rank, world, seed, args),
                     time.perf_counter() - t0)
+        JOB_PARTS[key] = dict(PART_SECONDS)
         # the job's pinned staging buffers (sized by its model) go too
         comm_mod = sys.modules.get("deepspeed_tpu_torch.comm.comm")
         if comm_mod is not None:
@@ -1254,7 +1332,8 @@ def spawn_costs(fn_name, world, spawned, fixed, joined):
     """A spawn's fixed costs from its ranks' wall-clock marks (the slowest
     rank's): process start to the rank's entry, importing torch, the CUDA
     context, importing the port, joining the group, each engine build,
-    and from the last rank's return to every process joined."""
+    and from the last rank's return to every process joined; rank 0's
+    seconds in its helpers by job (PART_SECONDS)."""
     def worst(a, b):
         return max(f[b] - (spawned if a is None else f[a])
                    for f in fixed.values())
@@ -1271,7 +1350,8 @@ def spawn_costs(fn_name, world, spawned, fixed, joined):
             "run_s": worst("group_joined", "returned"),
             "teardown_s": joined - max(f["returned"]
                                        for f in fixed.values()),
-            "wall_s": joined - spawned}
+            "wall_s": joined - spawned,
+            "parts": fixed[min(fixed)].get("parts")}
 
 
 def digest(t) -> str:
@@ -1335,6 +1415,7 @@ def gathered_sq(n_sh, t):
     return float(sq.sum())
 
 
+@timed_part
 def zeropp_run(t, dev, zero, batch, precision="bf16"):
     """The main path of one data-parallel config on this rank: initialize,
     a warm-up step, then ``t["steps"]`` timed steps with the counters (and
@@ -1454,19 +1535,25 @@ def profile_window(eng, n_ticks, dev):
                 dev_us.items(), key=lambda kv: -kv[1])[:8]}}
 
 
+@timed_part
 def zeropp_profile(engine, data, dev, profiled):
     """One more step; on rank 0 under torch.profiler: device time by kind
-    (compute kernels, the two int8 kernels, the annotated wire spans'
-    device time), the host time of the wire stages (telemetry spans: gloo
-    through host memory), and the idle share."""
+    (compute kernels, the two int8 kernels), the host time of the wire
+    stages (telemetry spans: gloo through host memory), and the idle
+    share. It traces the card's activity only (no host ops, so no spans'
+    device time): a step of many small ops processes in a fraction of the
+    time (1F1B's ticks took ~14 s with the host ops, 20 layers, on an
+    H100)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from deepspeed_tpu_torch import telemetry
 
     telemetry.reset()
-    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-           if profiled else contextlib.nullcontext())
+    # a rehearsal without a card traces the host
+    acts = ([ProfilerActivity.CPU] if dev.type != "cuda" else []) \
+        + [ProfilerActivity.CUDA]
+    ctx = profile(activities=acts) if profiled else contextlib.nullcontext()
     with ctx as prof:
         dev_sync(dev)
         t0 = time.perf_counter()
@@ -1481,16 +1568,14 @@ def zeropp_profile(engine, data, dev, profiled):
                for sp in spans}
     if not profiled:
         return {"profiled_step_ms": wall_ms, "host_span_ms": host_ms}
-    kinds, dev_spans = {}, {}
+    kinds = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = float(getattr(e, "self_device_time_total", 0)
                    or getattr(e, "self_cuda_time_total", 0))
-        if e.key in spans:
-            dev_spans[e.key] = dev_spans.get(e.key, 0.0) + us / 1e3
-            continue
-        if getattr(e, "is_user_annotation", False) or not us:
+        if e.key in spans or getattr(e, "is_user_annotation", False) \
+                or not us:
             continue
         low = e.key.lower()
         kind = ("quant_int8" if "quant_kernel" in low
@@ -1508,7 +1593,6 @@ def zeropp_profile(engine, data, dev, profiled):
     return {"profiled_step_ms": wall_ms,
             "device_ms_per_step": device_ms or "not measured",
             "device_ms_by_kind": kinds or "not measured",
-            "wire_span_device_ms": dev_spans or "not measured",
             "host_span_ms": host_ms,
             "wire_host_ms_gloo": sum(host_ms[k] for k in (
                 "qgz_all_to_all", "qwz_publish", "zero_reduce_issue",
@@ -1517,6 +1601,7 @@ def zeropp_profile(engine, data, dev, profiled):
                                   else "not measured")}
 
 
+@timed_part
 def wire_gates(engine, batch, dev):
     """Gates 1 and 4 on the step's real packed gradient: one more
     micro-batch's gradient packed as the wire sends it (with the LoCo
@@ -1583,6 +1668,7 @@ def wire_gates(engine, batch, dev):
     return out
 
 
+@timed_part
 def zeropp_gate_step(t, dev, master, batch, zero, precision, kernels):
     """One step (the gate's micro, ``t["gate_layers"]`` layers when set;
     ``batch`` one micro-batch, or a list of them: gas their number) from
@@ -1925,6 +2011,7 @@ def zero3_memory_problems(peak_zero3, peak_zero2, layers=20):
             f" GB below exact ZeRO-2's {peak_zero2 / 1e9:.3f} GB"]
 
 
+@timed_part
 def qwz_chunk_gate(engine, groups=None):
     """Z3: each group's qwZ gather (the head group, every chunk) against
     the exact fp32 gather of the same master: |q − exact| ≤ scale / 2 per
@@ -1962,6 +2049,7 @@ def zero3_stats(engine):
             "groups": len(z.groups)}
 
 
+@timed_part
 def zero3_exposed(engine, data, dev):
     """One step with the next chunk's gather in flight (overlap_comm on),
     one with every gather issued where it is used (what overlap_comm off
@@ -1989,6 +2077,7 @@ def zero3_exposed(engine, data, dev):
     return out
 
 
+@timed_part
 def zero3_gate_step(t, dev, master, batch, zero, precision):
     """One step (gas 1, the gate's micro, ``t["gate_layers"]`` layers at
     full width) from ``master`` (None: this engine's own initial master,
@@ -2097,6 +2186,7 @@ def mlp_batches(seed, m, rows):
              for k in ("x", "y")} for _ in range(m["gas"])]
 
 
+@timed_part
 def mlp_run(dev, zero, micro, seed, m, path=None):
     """The MLP spec through ``initialize`` + ``train_batch`` in fp32: the
     initial master, the losses and grad norms of ``m["steps"]`` steps and
@@ -2305,6 +2395,7 @@ def hpz_run(t, dev, zero, batch):
     return engine, data, run
 
 
+@timed_part
 def replica_gate(engine, batch, dev):
     """H3 on the step's real reduced shard: one more micro-batch's
     gradient packed as the wire sends it, through qgZ's first hop (the
@@ -2376,6 +2467,7 @@ def replica_gate(engine, batch, dev):
             "two_hop_err_out_of_bound": over}
 
 
+@timed_part
 def hpz_gate_step(t, dev, master, batch, zero, precision):
     """One step (gas 1, the gate's micro, ``t["gate_layers"]`` layers at
     full width) from ``master`` (None: this engine's own initial master,
@@ -2534,12 +2626,13 @@ def train_llama_750m_hpz_dp4_rank(rank, world, seed, t):
 # E5 one fp32 step of (b), the same two comparisons at its depth.
 MOE_EP = dict(model="moe_350m", world=2, mesh={"expert": 2}, micro=8,
               seq=1024, gas=1, steps=1, gate_micro=1)
+# the phase runs (a) and (b) at this many of moe_350m's 12 layers, full
+# width ((a) at all 12 before the checkpoint phase came, both at 4 before
+# the pipeline phase came): the cut that keeps the whole script within its
+# time beside them
+MOE_EP_LAYERS = 2
 MOE_EP_B = dict(MOE_EP, world=4, mesh={"data": 2, "expert": 2}, micro=4,
-                gas=1, layers=4)
-# the phase runs (a) at this many of moe_350m's 12 layers, full width (all
-# 12 before the checkpoint phase came): the cut that keeps the whole
-# script within its time beside it
-MOE_EP_LAYERS = 4
+                gas=1, layers=MOE_EP_LAYERS)
 MOE_EP_ZERO = {"stage": 2}
 
 
@@ -2599,6 +2692,7 @@ def moe_ep_spec(t, precision, use_kernels=True):
         **t.get("spec", {}))
 
 
+@timed_part
 def moe_ep_step(engine, tokens, L, dev):
     """One step of ``engine`` on ``tokens`` (or a batch dict) → loss, grad
     norm, the whole gradient and update as flat fp32 vectors (every leaf,
@@ -2708,6 +2802,7 @@ def moe_ep_load_ref(ref, dev):
                 idx=ref["idx"].to(dev))
 
 
+@timed_part
 def moe_ep_gates(t, dev, ref, bf16=True, ways=("ep32", "dp32")):
     """E1 (E5 at (b)): one fp32 EP step from the seed's weights on the
     gate's rows against the same step at mesh {data: world} (the same
@@ -2825,6 +2920,7 @@ def ep_buffer_capture():
         MoE.ragged_expert_ffn = fn
 
 
+@timed_part
 def ep_buffer_gate(cap, dev):
     """E3 on the captured buffer: gmm (the up projection) and tgmm (of a
     seeded gradient) kernel vs plain on the routed rows (GMM_TOL), the
@@ -3154,6 +3250,7 @@ def epz_layout(engine):
                                   if sl.path == ("blocks", "w_up"))}
 
 
+@timed_part
 def epz_gate_step(t, dev, tokens, L, mesh, zero, precision, kernels=True):
     """One step of ``zero`` at ``mesh`` from the seed's weights on the
     gate's rows → {loss, norm, grad, upd, idx, aux, total}: the reduced
@@ -3444,7 +3541,7 @@ def epz_problems(ranks, dense, t):
 #     device peak below chunked's.
 SP2 = dict(model="llama_750m", world=2, mesh={"seq": 2}, micro=4, seq=2048,
            gas=2, steps=1, zero={"stage": 1})
-SP2_LAYERS = 4
+SP2_LAYERS = 2
 SP2_WAYS = (("a_ulysses_flash", "ulysses_flash"), ("b_ring", "ring"))
 SP2_C = dict(world=4, mesh={"data": 2, "seq": 2},
              ways=(("c_d2_ulysses_flash", "ulysses_flash"),),
@@ -3467,15 +3564,16 @@ def sp2_c(t):
 
 def sp2_batch(t, seed, masked=False):
     """The phase's global micro-batch (``micro`` rows of ``seq`` tokens a
-    batch rank, from the seed: the ``seq`` and ``tensor`` ranks of a row
-    share it); ``masked``: a loss mask keeping every
+    batch rank, from the seed: the ``seq``, ``tensor`` and ``pipe`` ranks
+    of a row share it); ``masked``: a loss mask keeping every
     target of the first half of the positions and every third of the
     second."""
     from deepspeed_tpu_torch.models import transformer as T
 
     vocab = T.get_model_config(t["model"]).vocab_size
     rows = t["micro"] * t["world"] // (t["mesh"].get("seq", 1)
-                                       * t["mesh"].get("tensor", 1))
+                                       * t["mesh"].get("tensor", 1)
+                                       * t["mesh"].get("pipe", 1))
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, vocab, (rows, t["seq"]),
                                   dtype=np.int32)}
@@ -3493,7 +3591,8 @@ def sp2_spec(t, precision, attention, use_kernels=True):
     return dtt.causal_lm_spec(
         t["model"], attention=attention, remat="full",
         use_kernels=use_kernels, num_layers=t["layers"],
-        dtype="float32" if precision == "fp32" else "bfloat16")
+        dtype="float32" if precision == "fp32" else "bfloat16",
+        **t.get("spec", {}))
 
 
 def sp2_engine(t, dev, precision, attention, micro, gas, mesh=None,
@@ -3582,11 +3681,13 @@ def recorded_flash_shapes():
             setattr(PF, name, fn)
 
 
-def sp2_run(t, dev, attention, batch):
+@timed_part
+def sp2_run(t, dev, attention, batch, timed=contextlib.nullcontext):
     """One way's main path on this rank: initialize at mesh {seq: 2}, a
     warm-up step, ``t["steps"]`` timed steps with the counters and the
     traffic set to 0 just before and read just after (the flash wrappers'
-    shapes recorded meanwhile), the peak above the resident state."""
+    shapes recorded meanwhile, the steps inside ``timed()``), the peak
+    above the resident state; the warm-up's traffic beside."""
     import itertools
 
     import deepspeed_tpu_torch as dtt
@@ -3601,13 +3702,14 @@ def sp2_run(t, dev, attention, batch):
     t0 = time.perf_counter()
     first = float(engine.train_batch(data))
     warm_s = time.perf_counter() - t0
+    warm_traffic = {k: list(v) for k, v in comm.traffic.items()}
     comm.barrier()
     resident = dev_allocated(dev)
     dev_peak(dev, reset=True)
     reset_counts()
     comm.reset_traffic()
     losses, walls = [], []
-    with recorded_flash_shapes() as shapes:
+    with recorded_flash_shapes() as shapes, timed():
         for _ in range(t["steps"]):
             t0 = time.perf_counter()
             loss = engine.train_batch(data)
@@ -3618,7 +3720,8 @@ def sp2_run(t, dev, attention, batch):
     traffic = {k: list(v) for k, v in comm.traffic.items()}
     return engine, data, {
         "attention": attention, "init_seconds": init_s,
-        "warmup_step_seconds": warm_s, "losses": [first] + losses,
+        "warmup_step_seconds": warm_s, "warmup_traffic": warm_traffic,
+        "losses": [first] + losses,
         "step_walls_s": walls, "step_ms": float(np.median(walls)) * 1e3,
         "launches": counts, "traffic": traffic,
         "flash_shapes": {k: sorted(v) for k, v in shapes.items()},
@@ -3630,6 +3733,7 @@ def sp2_run(t, dev, attention, batch):
         "coords": dict(engine.mesh_manager.coords)}
 
 
+@timed_part
 def sp2_gates(t, dev, ref, table=None):
     """SP1-SP3 (SP1c at (c)'s mesh; TP1-TP2 with ``table`` TP2_GATES) on
     this rank: one step of each of ``t["gates"]`` from the seed's weights
@@ -3859,8 +3963,10 @@ TP7B = dict(model="llama2_7b", world=2, mesh={"tensor": 2}, n_req=8, lo=16,
             hi=1024, max_new=32, engine=dict(n_blocks=512, block_size=32,
                                               max_blocks_per_seq=64,
                                               token_budget=256))
-# every one of the 32 layers (about 49 s of the phase's own on the card)
-TP7B_LAYERS = 32
+# 16 of the 32 layers, full width: at all 32 its job took 44-45 s of the
+# world-2 spawn, and the whole script 1,016.9 s on an H100 (stopped past
+# 1,200 s on another); at 16, 22.9 s (the first card run of the phase)
+TP7B_LAYERS = 16
 TP7B_TICK = dict(lens=(40, 700), n_blocks=64)
 
 
@@ -4022,6 +4128,318 @@ def train_llama_750m_tp2_rank(rank, world, seed, t):
     dev_free(dev)
     gates = sp2_gates(t, dev, t["ref"], TP2_GATES)
     return {"rank": rank, "main": out, "gates": gates}
+
+
+# --------------------------------------------------------------------------- #
+# The pipeline phase (train_llama_750m_pp2)
+# --------------------------------------------------------------------------- #
+# train_llama_750m_pp2: llama_750m at full width (hidden 1536, 12 heads of
+# 128, SwiGLU 4096, vocab 32000), bf16 with an fp32 master, flash
+# attention, remat full, Adam lr 1e-4, ZeRO-1, the 1F1B schedule with
+# M = 4 pipeline micro-batches of 1 row x 2048 tokens a step's micro-batch
+# (global micro 4), gas 2; one timed step after a warm-up, then one more
+# profiled on rank 0. Ways: (a) {pipe: 2}, PP2_LAYERS layers (each stage
+# PP2_LAYERS / 2), two ranks; (b) {pipe: 2, tensor: 2} at PP2_GATE_LAYERS
+# layers and gas 1, four ranks (flash at a tensor rank's 6 heads), no
+# profiled step. Gates:
+# PP1 one fp32 step of each way at PP2_GATE_LAYERS layers against one
+#     process (flash, the exact loss the pipelined head computes) on the
+#     same weights and masked batch: loss, grad norm, the whole gradient
+#     (every stage's layers gathered) and the update within PP1_LIMITS;
+# PP2 bf16 (a): its first loss (the warm-up step's, before any update) no
+#     further from one process's bf16 loss on the same weights and batch
+#     than BF16_VS_PLAIN times the one-process plain bf16 path's (a
+#     distance below TRAIN_LOSS_REL counting as that);
+# PP3 a rank's launches a step by formula (pp2_want: the no-grad forward,
+#     the VJP's forward and its recompute on every stage but the last,
+#     which skips the first) and the stage hops (pp_hops_want: M·gas
+#     activations sent by every stage but the last, M·gas cotangents by
+#     every stage but the first; the pipeline's sums one a run and the
+#     norm's one a step);
+# PP4 each rank's parameters the stage-local count (pp_local_params) and,
+#     at PP2_GATE_LAYERS layers, 1F1B's forward-backward peak above the
+#     resident state at M = 8 within PP4_GROWTH of M = 4's with the same
+#     1-row micro-batch (O(P) activations); GPipe's at M = 4 beside them.
+PP2 = dict(model="llama_750m", world=2, mesh={"pipe": 2}, micro=4,
+           seq=2048, gas=2, steps=1, zero={"stage": 1},
+           spec={"pipeline_schedule": "1f1b", "pipeline_micro_batches": 4,
+                 "loss_impl": "exact"})
+# cut from 20 for the script's time: with (a) at 20 layers the whole
+# script took 1,044.8 s on an H100, past 950; at 10 it took 1,016.9 s
+# there and was stopped past 1,200 s on another
+PP2_LAYERS = 4
+PP2_GATE_LAYERS = 4
+# way (b) at gas 1 and without the profiled step, for the script's time
+PP2_B = dict(world=4, mesh={"pipe": 2, "tensor": 2}, gas=1, profile=False)
+PP2_GATES = {"pp1_fp32": ("fp32", "flash")}
+PP1_LIMITS = {"loss_rel": 1e-6, "norm_rel": 1e-5, "grad_rel": 1e-5,
+              "update_rel": TRAIN_UPDATE_REL, "sign_miss": TRAIN_SIGN_MISS}
+PP4_GROWTH = 1.15
+# PP4's runs at PP2_GATE_LAYERS layers, gas 1: (label, schedule, M)
+PP4_RUNS = (("1f1b_m4", "1f1b", 4), ("1f1b_m8", "1f1b", 8),
+            ("gpipe_m4", "gpipe", 4))
+
+
+def pp2_b(t):
+    """Way (b)'s settings from the phase's: PP2_B's mesh, gas 1, no
+    profiled step, the gate depth, the same global micro-batch (the tensor
+    ranks of a stage share it)."""
+    return dict(t, **PP2_B, layers=PP2_GATE_LAYERS)
+
+
+def pp_local_params(cfg, P, T=1):
+    """A rank's parameters by formula: its stage's L/P layers and every
+    leaf outside the layers (the embedding, the final norm, the head),
+    each cut by the tensor axis as ``tp_local_params`` reckons."""
+    import dataclasses
+
+    return tp_local_params(
+        dataclasses.replace(cfg, num_layers=cfg.num_layers // P), T)
+
+
+def pp_hops_want(P, M, runs, stage):
+    """PP3's stage hops of ``runs`` 1F1B schedules on ``stage``: the
+    activations it sends (to stage + 1), the cotangents it sends (to stage
+    − 1) and its exchanges (the ticks it sends or receives on), from the
+    schedule's ticks (``parallel/pipeline.pipelined_train_1f1b``)."""
+    act = cot = ex = 0
+    lag = 2 * (P - 1) - stage
+    for t in range(M + 2 * P - 2):
+        sends_f = stage < P - 1 and 0 <= t - stage < M
+        sends_b = stage > 0 and 0 <= t - lag < M
+        recv_f = stage > 0 and 0 <= t - (stage - 1) < M
+        recv_b = stage < P - 1 and 0 <= t - (lag - 1) < M
+        act += sends_f
+        cot += sends_b
+        ex += sends_f or sends_b or recv_f or recv_b
+    return {"activation": act * runs, "cotangent": cot * runs,
+            "exchange": ex * runs}
+
+
+def pp2_want(t, cfg, stage, adam_per_step):
+    """PP3's launches of ``stage`` in ``t["steps"]`` steps (remat full, the
+    1F1B schedule over M·gas pipeline micro-batches a step, L/P layers a
+    stage): flash fwd 3 a layer a micro-batch on every stage but the last
+    (the no-grad forward, the VJP's forward, its recompute), 2 on the last
+    (no no-grad forward), dq and dkv 1; the norm 2 a layer a forward pass,
+    the last stage's final norm once a micro-batch; fused Adam; nothing
+    else. The flash shape: a pipeline micro-batch at a tensor rank's
+    heads."""
+    P, M = t["mesh"]["pipe"], t["spec"]["pipeline_micro_batches"]
+    L, n = cfg.num_layers // P, M * t["gas"] * t["steps"]
+    last = stage == P - 1
+    launches = {"flash_fwd": (2 if last else 3) * L * n,
+                "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n,
+                "rms_norm": ((4 * L + 1) if last else 6 * L) * n,
+                "fused_adam": adam_per_step * t["steps"], "quant_int8": 0,
+                "dequant_reduce": 0, "block_sparse_fwd": 0, "gmm": 0,
+                "tgmm": 0, "evoformer_fwd": 0, "paged_attention": 0}
+    T = t["mesh"].get("tensor", 1)
+    shapes = [(t["micro"] // M, t["seq"], cfg.num_heads // T, cfg.head_dim)]
+    return launches, shapes
+
+
+def pp2_traffic_want(t, cfg, stage):
+    """PP3's ``pipe`` group calls in ``t["steps"]`` steps: the hops
+    (``pp_hops_want``, elements a pipeline micro-batch's [b, S, H]) and the
+    all-reduces: the schedule's sum of the loss and the extras' gradients
+    once a run, the grad norm's once a step."""
+    P, M = t["mesh"]["pipe"], t["spec"]["pipeline_micro_batches"]
+    runs = t["gas"] * t["steps"]
+    hops = pp_hops_want(P, M, runs, stage)
+    act = t["micro"] // M * t["seq"] * cfg.hidden_size
+    return {"pipe/activation": [hops["activation"], hops["activation"] * act],
+            "pipe/cotangent": [hops["cotangent"], hops["cotangent"] * act],
+            "pipe/exchange": [hops["exchange"], None],
+            "pipe/all_reduce": [runs + t["steps"], None]}
+
+
+def pp2_reference(t, dev, seed, path):
+    """One process: PP1's fp32 step at PP2_GATE_LAYERS layers on the masked
+    gate batch (its whole gradient and update in numpy files beside
+    ``path``), and PP2's first-step losses at the phase's depth on the
+    main path's batch, from the seed's weights in bf16 (the master's
+    compute copy): with the kernels and with the plain versions (forward
+    only, the exact loss the pipelined head computes); each part's
+    seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    tg = dict(t, layers=PP2_GATE_LAYERS)
+    engine = sp2_engine(tg, dev, "fp32", "flash", t["micro"], 1)
+    loss, norm, grad, upd, _, _ = moe_ep_step(
+        engine, sp2_batch(tg, seed, masked=True), 0, dev)
+    del engine
+    np.save(path + ".grad.npy", grad.cpu().numpy())
+    np.save(path + ".upd.npy", upd.cpu().numpy())
+    out = {"loss": loss, "norm": norm, "grad_path": path + ".grad.npy",
+           "upd_path": path + ".upd.npy"}
+    del grad, upd
+    dev_free(dev)
+    out["seconds"] = {"pp1_step": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    engine = sp2_engine(t, dev, "bf16", "flash", t["micro"], 1)
+    mb = {k: torch.from_numpy(v).to(dev)
+          for k, v in sp2_batch(t, seed).items()}
+    with torch.no_grad():
+        for label, kernels in (("bf16", True), ("bf16_plain", False)):
+            out[f"first_loss_{label}"] = float(sp2_spec(
+                t, "bf16", "flash", use_kernels=kernels).loss_fn(
+                    engine._params, mb))
+    del engine
+    dev_free(dev)
+    out["seconds"]["pp2_losses"] = time.perf_counter() - t0
+    return out
+
+
+def pp4_peaks(t, dev, seed):
+    """PP4's forward-backward peaks above the resident state at
+    PP2_GATE_LAYERS layers, bf16, gas 1, a 1-row pipeline micro-batch:
+    one step to warm up, then the measured one, for each of PP4_RUNS."""
+    import itertools
+
+    out = {}
+    for label, sched, M in PP4_RUNS:
+        tm = dict(t, layers=PP2_GATE_LAYERS, micro=M, gas=1, spec=dict(
+            t["spec"], pipeline_schedule=sched, pipeline_micro_batches=M))
+        engine = sp2_engine(tm, dev, "bf16", "flash", M, 1, mesh=t["mesh"])
+        data = itertools.repeat(sp2_batch(tm, seed))
+        t0 = time.perf_counter()
+        engine.train_batch(data)
+        dev_sync(dev)
+        out["first_step_s"] = out.get("first_step_s", []) + [
+            time.perf_counter() - t0]
+        resident = dev_allocated(dev)
+        dev_peak(dev, reset=True)
+        engine.train_batch(data)
+        dev_sync(dev)
+        out[label] = dev_peak(dev) - resident
+        engine.close()
+        del engine, data
+        dev_free(dev)
+    return out
+
+
+def pp2_problems(label, t, ranks, ref, cfg):
+    """One way's verdicts, rank by rank: PP3's launches, hops and flash
+    shapes, the loss falling, PP4's sizes and peaks, PP1 (and PP2 at
+    way (a))."""
+    problems = []
+    T = t["mesh"].get("tensor", 1)
+    params_want = pp_local_params(cfg, t["mesh"]["pipe"], T)
+    for r in ranks:
+        m, tag = r["main"], f"({label}) rank {r['rank']}"
+        stage = m["coords"]["pipe"]
+        launches, shapes = pp2_want(t, cfg, stage, m["adam_per_step"])
+        problems += [f"{tag}: {k} launched {m['launches'][k]} times, want "
+                     f"{v}" for k, v in launches.items()
+                     if m["launches"][k] != v]
+        for key, (calls, elems) in pp2_traffic_want(t, cfg, stage).items():
+            got = m["traffic"].get(key, [0, 0])[:2]
+            if got[0] != calls or (elems is not None and got[1] != elems):
+                problems.append(f"{tag}: PP3 {key} {got}, want "
+                                f"{[calls, elems]}")
+        # (the backward wrappers are not called on the CPU, where the
+        # flash wrapper differentiates its plain version)
+        fs = m["flash_shapes"]
+        if fs["flash_fwd"] != shapes or any(v and v != shapes
+                                            for v in fs.values()):
+            problems.append(f"{tag}: flash shapes {fs}, want {shapes}")
+        if m["losses"][-1] >= m["losses"][0] or not all(
+                np.isfinite(m["losses"])):
+            problems.append(f"{tag}: losses {m['losses']}")
+        if m["params_local"] != params_want:
+            problems.append(f"{tag}: PP4 {m['params_local']} parameters, "
+                            f"want {params_want}")
+        peaks = r.get("pp4")
+        if peaks and peaks["1f1b_m4"] and not peaks["1f1b_m8"] <= \
+                PP4_GROWTH * peaks["1f1b_m4"]:
+            problems.append(f"{tag}: PP4 1F1B peak at M = 8 "
+                            f"{peaks['1f1b_m8']} > {PP4_GROWTH} x M = 4's "
+                            f"{peaks['1f1b_m4']}")
+        g = r["gates"]["pp1_fp32"]
+        problems += [f"{tag}: PP1 {k} {g[k]:.3g} > {v}"
+                     for k, v in PP1_LIMITS.items() if not g[k] <= v]
+        if t.get("pp2_gate"):
+            d, limit = pp2_distance(m["losses"][0], ref)
+            if not d <= limit:
+                problems.append(f"{tag}: PP2 first loss {d:.3g} from one "
+                                f"process's bf16 loss > {limit:.3g}")
+    return problems
+
+
+def pp2_distance(loss, ref):
+    """PP2: (the bf16 pipelined loss's relative distance from one
+    process's bf16 loss, its limit: BF16_VS_PLAIN x the plain bf16 path's
+    distance, or TRAIN_LOSS_REL where that is less)."""
+    one = ref["first_loss_bf16"]
+    plain = abs(ref["first_loss_bf16_plain"] - one) / abs(one)
+    return abs(loss - one) / abs(one), BF16_VS_PLAIN * max(plain,
+                                                           TRAIN_LOSS_REL)
+
+
+def train_llama_750m_pp2_rank(rank, world, seed, t):
+    """One rank of the pipeline phase (``t``: PP2 or its way (b), the
+    depth, the device and the one-process reference): the main path, a
+    profiled step whose 1F1B runs are timed for the measured bubble, the
+    rank's sizes, PP4's peaks (way (a)) and PP1's gate step."""
+    import torch
+
+    from deepspeed_tpu_torch.parallel import pipeline as PL
+
+    dev = torch.device(t["device"])
+    stats = {}
+
+    @contextlib.contextmanager
+    def timed():
+        # the timed steps' 1F1B runs: the measured bubble
+        PL.tick_stats = stats
+        try:
+            yield
+        finally:
+            PL.tick_stats = None
+
+    t0 = time.perf_counter()
+    PL.tick_stats = warm = {}
+    try:
+        engine, data, out = sp2_run(t, dev, "flash", sp2_batch(t, seed),
+                                    timed)
+    finally:
+        PL.tick_stats = None
+    out["bubble_measured"] = 1 - stats["compute_s"] / stats["wall_s"]
+    out["pipeline_runs_timed"] = stats
+    out["pipeline_runs_warmup"] = warm
+    seconds = {"main": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["profile"] = zeropp_profile(
+        engine, data, dev, profiled=rank == 0 and dev.type == "cuda") \
+        if t.get("profile", True) else {"device_idle_share": "not measured"}
+    seconds["profile"] = time.perf_counter() - t0
+    out["pipe_host_s_per_step"] = sum(
+        v[2] for k, v in out["traffic"].items()
+        if k.startswith("pipe/")) / t["steps"]
+    out["params_local"] = sum(s.numel for s in engine._slots)
+    out["state_bytes"] = {
+        name: buf.numel() * buf.element_size() for name, buf in (
+            ("master", engine.flat_master),
+            ("exp_avg", engine.state["opt"]["exp_avg"]),
+            ("exp_avg_sq", engine.state["opt"]["exp_avg_sq"]),
+            ("grad_acc", engine.flat_grad_acc),
+            ("compute", engine.flat_compute),
+            ("grad32", getattr(engine, "flat_grad32", None)),
+            ("compute_shard", engine._shard_compute)) if buf is not None}
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    t0 = time.perf_counter()
+    pp4 = pp4_peaks(t, dev, seed) if t.get("pp4") else None
+    seconds["pp4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gates = sp2_gates(dict(t, layers=PP2_GATE_LAYERS), dev, t["ref"],
+                      PP2_GATES)
+    seconds["pp1"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return {"rank": rank, "main": out, "gates": gates, "pp4": pp4}
 
 
 def mixed_tick_inputs(eng, uids, prompts, label):
@@ -4320,10 +4738,11 @@ def llama2_7b_tp2_rank(rank, world, seed, t):
 # step 2 loss.
 # the main path runs at most max_layers of llama2_7b's 32 layers (the
 # most the host's memory held, 20-21, before the expert-axis phase
-# train_moe_350m_ep_zero came: the cut that keeps the whole script within
-# its time)
+# train_moe_350m_ep_zero came, 4 before the pipeline phase came: the cuts
+# that keep the whole script within its time); the gates run gate_layers
+# (4 before the pipeline phase came)
 SUPER = dict(model="llama2_7b", micro=2, seq=2048, gas=4, overlap_steps=3,
-             sync_steps=2, gate_layers=4, gate_micro=1, max_layers=4)
+             sync_steps=2, gate_layers=2, gate_micro=1, max_layers=2)
 SUPER_ZERO = {"stage": 1, "super_offload": True}
 SUPER_HOST_SYNC = {"stage": 1, "offload_optimizer": {
     "device": "cpu", "host_step": True, "overlap_step": False}}
@@ -4354,10 +4773,11 @@ S0_P_SHARE = 1e-4
 # ZeRO-3 at world 1 (one spawned rank) with offload_param cpu and nvme at
 # OFFLOAD["param_layers"] layers, bit-equal to the run without it.
 # (a)-(c) run OFFLOAD["layers"] of llama_750m's 20 layers (all 20 before
-# the expert-axis phase train_moe_350m_ep_zero came: the cut that keeps
-# the whole script within its time)
+# the expert-axis phase train_moe_350m_ep_zero came, 8 before the
+# pipeline phase came: the cuts that keep the whole script within its
+# time)
 OFFLOAD = dict(model="llama_750m", micro=4, seq=2048, gas=4, steps=2,
-               gate_layers=4, gate_micro=1, param_layers=4, layers=8)
+               gate_layers=4, gate_micro=1, param_layers=4, layers=4)
 # (d) at world 1 runs JAX's in-step streaming mode (the master in pinned
 # host memory through the step, streamed a chunk at a time); the int8
 # wire, which needs two ranks, keeps the boundary swap: ZeRO-3 + qgZ + qwZ
@@ -5693,17 +6113,41 @@ class Smoke:
                 if not empty:
                     raise AssertionError(f"tgmm{tag}: the empty group's "
                                          "gradient is not zero")
+                del got, want
+                exact = {}
                 if label == "moe_350m_up" and dtype == "bfloat16":
+                    exact = self.tgmm_unscaled(lhs, dy, gs, tag, tol)
+                    errs["tgmm_unscaled"] = exact.pop("max_abs_err")
                     self.errs.update(gmm=max(errs["gmm"],
                                              errs["gmm_transpose_rhs"]),
                                      tgmm=errs["tgmm"])
                 rows.append({"kernel": "grouped_gemm", "shape": label,
                              "M": M, "K": K, "N": N, "E": E,
                              "group_sizes": sizes.tolist(), "dtype": dtype,
-                             "max_abs_err": errs, "tol": tol})
-                del lhs, rhs, dy, dyt, gs, got, want
+                             "max_abs_err": errs, "tol": tol, **exact})
+                del lhs, rhs, dy, dyt, gs
                 self.torch.cuda.empty_cache()
         return rows
+
+    def tgmm_unscaled(self, lhs, dy, gs, tag, tol):
+        """tgmm at the E3 gate's scale (dy unscaled: outputs of O(100) over
+        a group's up to 18,725 rows) against its plain version by ``tol``,
+        and each one's largest distance from the fp64 sum."""
+        torch = self.torch
+        from deepspeed_tpu_torch.ops import grouped_gemm as GG
+
+        got, want = GG.tgmm(lhs, dy, gs), GG.tgmm_ref(lhs, dy, gs)
+        self.sync()
+        err = self.close_tol("tgmm_unscaled" + tag, got, want, tol)
+        dist = {"kernel": 0.0, "plain": 0.0}
+        for e, (a, b) in enumerate(GG._bounds(gs, lhs.shape[0])):
+            ex = lhs[a:b].double().t() @ dy[a:b].double()
+            for k, v in (("kernel", got[e]), ("plain", want[e])):
+                dist[k] = max(dist[k], float((v.double() - ex).abs().max()))
+            del ex
+        del got, want
+        torch.cuda.empty_cache()
+        return {"max_abs_err": err, "tgmm_unscaled_vs_fp64_sum": dist}
 
     @staticmethod
     def sparse_layout(kind, n_blocks, causal):
@@ -7059,7 +7503,7 @@ class Smoke:
 
     def prepare_train_llama_750m_zeropp_dp2(self):
         t = dict(ZEROPP, steps=ZEROPP_STEPS, gas=ZEROPP_GAS,
-                 gate_layers=ZEROPP_GATE_LAYERS)
+                 layers=ZEROPP_LAYERS, gate_layers=ZEROPP_GATE_LAYERS)
         return {"t": t, "jobs": [Job("zeropp", "train_llama_750m_zeropp_dp2_rank",
                                      t["world"], dict(t, device=str(self.dev)))]}
 
@@ -7326,6 +7770,119 @@ class Smoke:
                         tokens_per_s=res["tokens_per_s"], mfu=res["mfu"])
             for label, res in results.items()}
 
+    def prepare_train_llama_750m_pp2(self):
+        """The one-process reference (``pp2_reference``: PP1's gate step,
+        PP2's first losses) and the two ways' jobs."""
+        t = dict(PP2, layers=PP2_LAYERS, gates=tuple(PP2_GATES),
+                 seed=self.seed)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_pp2_")
+        ref = pp2_reference(t, self.dev, self.seed, os.path.join(tmp, "one"))
+        return {"t": t, "ref": ref, "tmp": [tmp], "jobs": [
+            Job("pp2", "train_llama_750m_pp2_rank", t["world"],
+                dict(t, device=str(self.dev), ref=ref, pp4=True,
+                     pp2_gate=True)),
+            Job("pp2/b", "train_llama_750m_pp2_rank", PP2_B["world"],
+                dict(pp2_b(t), device=str(self.dev), ref=ref))]}
+
+    def phase_train_llama_750m_pp2(self):
+        """Way (a) on two ranks at {pipe: 2} (ZeRO-1, 1F1B) and way (b) on
+        four at {pipe: 2, tensor: 2}, gates PP1-PP4
+        (``train_llama_750m_pp2_rank``); step ms, tokens/s, MFU, peak a
+        rank, rank 0's idle share, the bubble share (formula and measured)
+        and the pipe group's host seconds a step."""
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        dev_free(self.dev)
+        prep = self.prepared("train_llama_750m_pp2")
+        t, ref = prep["t"], prep["ref"]
+        try:
+            ways = {"a": (t, self.spawn_job(prep["jobs"][0])),
+                    "b": (pp2_b(t), self.spawn_job(prep["jobs"][1]))}
+        finally:
+            self.cleanup("train_llama_750m_pp2")
+        problems, results, gates = [], {}, {}
+        for label, (tw, (ranks, wall)) in ways.items():
+            cfg = T.get_model_config(tw["model"], num_layers=tw["layers"])
+            tw = dict(tw, pp2_gate=label == "a")
+            problems += pp2_problems(label, tw, ranks, ref, cfg)
+            gates[label] = {f"rank {r['rank']}": r["gates"] for r in ranks}
+            r0 = ranks[0]["main"]
+            step_s = r0["step_ms"] / 1e3
+            P, M = tw["mesh"]["pipe"], tw["spec"]["pipeline_micro_batches"]
+            tokens = tw["micro"] * tw["seq"] * tw["gas"]
+            results[label] = {
+                "mesh": tw["mesh"], "world": tw["world"], "zero": tw["zero"],
+                "layers": tw["layers"], "schedule": "1f1b",
+                "pipeline_micro_batches": M,
+                "pipeline_micro_batch_rows": tw["micro"] // M,
+                "phase_wall_s": wall, "step_ms": r0["step_ms"],
+                "step_ms_per_rank": [r["main"]["step_ms"] for r in ranks],
+                "tokens_per_s": tokens / step_s,
+                "mfu": tokens / step_s * flops_per_token(cfg, tw["seq"])
+                / PEAK_FLOPS["bfloat16"],
+                "bubble_formula": (P - 1) / (M + P - 1),
+                "bubble_measured_per_rank": [r["main"]["bubble_measured"]
+                                             for r in ranks],
+                "params_per_rank": [r["main"]["params_local"]
+                                    for r in ranks],
+                "params_want": pp_local_params(
+                    cfg, P, tw["mesh"].get("tensor", 1)),
+                "state_bytes_rank0": r0["state_bytes"],
+                "peak_bytes_per_rank": [r["main"]["resident_bytes"]
+                                        + r["main"]["fwd_bwd_peak_bytes"]
+                                        for r in ranks],
+                "pp4_fwd_bwd_peak_bytes": {f"rank {r['rank']}": r["pp4"]
+                                           for r in ranks if r["pp4"]},
+                "idle_share_rank0": r0["profile"].get("device_idle_share"),
+                "pipe_host_s_per_step": [r["main"]["pipe_host_s_per_step"]
+                                         for r in ranks],
+                "launches_want": {f"stage {s}": pp2_want(
+                    tw, cfg, s, r0["adam_per_step"])[0] for s in range(P)},
+                "traffic_want": {f"stage {s}": pp2_traffic_want(tw, cfg, s)
+                                 for s in range(P)},
+                "per_rank": [{k: v for k, v in r["main"].items()
+                              if k != "profile"} for r in ranks],
+                "profile_rank0": r0["profile"]}
+            if label == "a":
+                d, limit = pp2_distance(r0["losses"][0], ref)
+                results[label]["pp2"] = {
+                    "first_loss": r0["losses"][0], "distance": d,
+                    "limit": limit, "one_process": {
+                        k: v for k, v in ref.items()
+                        if k.startswith("first_loss")}}
+        emit("train_llama_750m_pp2", model=t["model"],
+             reduced=f"(a) {t['layers']} of 20 layers; (b) and the gates "
+                     f"{PP2_GATE_LAYERS}",
+             micro_global=t["micro"], seq=t["seq"], gas=t["gas"],
+             steps=t["steps"], card=self.card,
+             wire_note="gloo through host memory, the ranks sharing one "
+                       "card", one_process={
+                 k: v for k, v in ref.items() if not k.endswith("_path")},
+             **results)
+        emit("train_llama_750m_pp2/gates", card=self.card, gates=gates,
+             limits=PP1_LIMITS, bf16_vs_plain=BF16_VS_PLAIN,
+             pp4_growth=PP4_GROWTH)
+        if problems:
+            raise AssertionError("train_llama_750m_pp2: "
+                                 + "; ".join(problems))
+        name = "train_llama_750m_pp2"
+        for label, res in results.items():
+            for r in res["per_rank"]:
+                for k, v in r["launches"].items():
+                    if v and k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "rms_norm",
+                                   "fused_adam"):
+                        by = self.launches.setdefault(k, {})
+                        key = f"{name}/{label}"
+                        by[key] = by.get(key, 0) + v
+            self.steps[f"{name}/{label}"] = t["steps"] * res["world"]
+        self.state["pp2"] = {
+            label: dict(res["profile_rank0"], step_ms=res["step_ms"],
+                        tokens_per_s=res["tokens_per_s"], mfu=res["mfu"])
+            for label, res in results.items()}
+
     def prepare_llama2_7b_tp2(self):
         """T1's one-process tick (``tp7b_reference``) and the job."""
         t = dict(TP7B, layers=TP7B_LAYERS)
@@ -7448,11 +8005,13 @@ class Smoke:
         prep = self.prepared("train_llama_750m_zeropp_dp2")
         t = prep["t"]
         world, gas, steps = t["world"], t["gas"], t["steps"]
-        cfg = T.get_model_config(t["model"])
+        cfg = T.get_model_config(t["model"], num_layers=t["layers"])
         ranks, wall = self.spawn_job(prep["jobs"][0])
         L = cfg.num_layers
         micros = gas * steps
-        groups = 1 + len(ZEROPP_CHUNKS)
+        # the publish's groups: the head group and one a chunk when the
+        # plan has more than one chunk, else one group of every leaf
+        groups = 1 + len(ZEROPP_CHUNKS) if len(ZEROPP_CHUNKS) > 1 else 1
         want = {"quant_int8": (gas + groups) * steps,
                 "dequant_reduce": (2 * gas + groups) * steps,
                 "flash_fwd": 2 * L * micros, "flash_bwd_dq": L * micros,
@@ -7510,6 +8069,9 @@ class Smoke:
         r0 = ranks[0]
         result = {"model": t["model"], "world": world, "micro": t["micro"],
                   "seq": t["seq"], "gas": gas, "steps": steps,
+                  "layers": L, "reduced": f"{L} of "
+                  f"{T.get_model_config(t['model']).num_layers} layers, to "
+                  "keep the whole script within its time",
                   "zero": ZEROPP_WIRE, "params": cfg.num_params(),
                   "phase_wall_s": wall, "card": self.card,
                   "wire_note": "gloo through host memory, two ranks "
@@ -8833,7 +9395,8 @@ class Smoke:
         g = torch.Generator(self.dev).manual_seed(2)
         nm = {}
         for kind, H, R in (("rms_norm", 4096, 8), ("rms_norm", 4096, 256),
-                           ("rms_norm", 1536, 8192), ("layer_norm", 768, 8),
+                           ("rms_norm", 1536, 8192), ("rms_norm", 1536, 2048),
+                           ("layer_norm", 768, 8),
                            ("layer_norm", 768, 512),
                            ("layer_norm", 768, 32768)):
             x = torch.randn(R, H, generator=g, device=self.dev).to(
@@ -8880,6 +9443,11 @@ class Smoke:
             fl["llama_750m_tp2"] = fl.get("llama_750m_ulysses") or \
                 self.flash_times("llama_750m_tp2", B, S, 12 // tp, 12 // tp,
                                  128, flush)
+        if "pp2" in self.state:
+            # a pipeline micro-batch (PP2's way (a)): one row, every head
+            fl["llama_750m_pp2"] = self.flash_times(
+                "llama_750m_pp2", PP2["micro"] // PP2["spec"][
+                    "pipeline_micro_batches"], PP2["seq"], 12, 12, 128, flush)
         adam = (self.adam_times(flush) if "train_gpt2_125m" in self.state
                 else None)
         gg = (self.gmm_times(flush) if "train_moe_350m" in self.state
@@ -8907,6 +9475,9 @@ class Smoke:
         if "tp2" in self.state:
             for label, row in self.state["tp2"].items():
                 steps[f"llama_750m_tp2_{label}"] = row
+        if "pp2" in self.state:
+            for label, row in self.state["pp2"].items():
+                steps[f"llama_750m_pp2_{label}"] = row
         if "moe_ep" in self.state:
             steps["moe_350m_ep2"] = self.state["moe_ep"]["a"]
             steps["moe_350m_data2_ep2"] = self.state["moe_ep"]["b"]
@@ -9513,6 +10084,9 @@ class Smoke:
                                "deepspeed_tpu/ops/pallas/quantization.py:80")})
         timed = {"rms_norm": nm["rms_norm[R=8]"],
                  "layer_norm": nm["layer_norm[R=8]"]}
+        if "pp2" in self.state:
+            # train_llama_750m_pp2's role: a pipeline micro-batch's rows
+            timed["rms_norm"]["pipeline"] = nm["rms_norm[R=2048]"]
         if pa is not None:
             # the wrapper's call at the tick each kernel serves (CUDA events,
             # as every row); the kernel's own profiler time beside it
@@ -9541,6 +10115,9 @@ class Smoke:
                     # train_llama_750m_tp2's role: a rank's 6 heads
                     timed[name]["tensor_parallel"] = \
                         fl["llama_750m_tp2"][name]
+                if "llama_750m_pp2" in fl:
+                    # train_llama_750m_pp2's role: a pipeline micro-batch
+                    timed[name]["pipeline"] = fl["llama_750m_pp2"][name]
         for name, key in (("gmm", "gmm[up]"), ("tgmm", "tgmm[up]")):
             if gg is not None and name in self.errs:
                 timed[name] = dict(gg[key], max_abs_err=self.errs[name])
@@ -9586,7 +10163,7 @@ class Smoke:
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
                           "tflops_per_s", "kernel_ms", "in_graph_kernel_ms",
                           "replica_hop", "ep_buffer", "serving_decode",
-                          "ulysses", "tensor_parallel"):
+                          "ulysses", "tensor_parallel", "pipeline"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         # the host library of the host-executed step (not a card kernel):

@@ -49,13 +49,18 @@ replicated activation enters the column-parallel projections,
 :func:`reduce_from_tensor` (all-reduce forward, identity backward) where
 the row-parallel projections' partial sums leave them, and
 :func:`gather_from_tensor` (all-gather of the last dim forward, this
-rank's slice backward) for the serving logits.
+rank's slice backward) for the serving logits. A ``pipe`` axis runs
+its stage hops through :func:`pipe_exchange` on the pipeline's own group
+(``MeshManager.pipe``): one batched exchange with the neighbour stages, an
+activation to stage s + 1 and a cotangent to stage s − 1, each received
+where the neighbour sent one; ``parallel/pipeline.py`` builds its
+schedules on it.
 
 Every collective counts itself in :data:`traffic` under its group's label
 (``world``, the ``zshard`` / ``data`` / ``expert`` / ``seq_hop`` axis
 groups, the MoE layer's ``batch`` group, the attentions' ``seq`` group,
-the Megatron collectives' ``tensor`` group;
-``comm/mesh.group_label``) and its kind: calls, the elements this rank
+the Megatron collectives' ``tensor`` group, the pipeline's ``pipe``
+group; ``comm/mesh.group_label``) and its kind: calls, the elements this rank
 sends in, and the host seconds the calling thread spent in it (the
 queue's worker thread included). A call costs two clock reads and a few
 additions; the counts show which group carries what (no parameter gather
@@ -521,6 +526,62 @@ def gather_from_tensor(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's slice of the last dim gathered over ``group`` (the
     serving logits); the gradient's own slice backward."""
     return _GatherFromTensor.apply(x, group)
+
+
+def pipe_exchange(pp, to_next: Optional[torch.Tensor] = None,
+                  to_prev: Optional[torch.Tensor] = None,
+                  from_prev=None, from_next=None
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """One exchange of a pipeline stage with its neighbours on the
+    ``pipe`` group (``pp``, a ``MeshManager.pipe()``): ``to_next`` (an
+    activation) goes to stage s + 1 and ``to_prev`` (a cotangent) to stage
+    s − 1; ``from_prev`` / ``from_next`` — (shape, dtype, device), or None
+    — receive the activation stage s − 1 sends in its exchange and the
+    cotangent stage s + 1 sends. Every send and receive is one paired
+    non-blocking op of one ``batch_isend_irecv``, so no rank blocks in a
+    send; a neighbour's matching exchange must carry the other half of
+    each. Returns (activation received, cotangent received), None where
+    nothing was received. Counted under ``pipe/activation`` and
+    ``pipe/cotangent`` (the sends: calls and elements) and
+    ``pipe/exchange`` (exchanges, elements received, host seconds)."""
+    settle()
+    me = pp.stage
+    sends = [(t.contiguous(), pp.ranks[me + d], kind) for t, d, kind in (
+        (to_next, 1, "activation"), (to_prev, -1, "cotangent"))
+        if t is not None]
+    recvs = [(like, pp.ranks[me + d], d) for like, d in (
+        (from_prev, -1), (from_next, 1)) if like is not None]
+    outs = [torch.empty(shape, dtype=dtype, device=device)
+            for (shape, dtype, device), _, _ in recvs]
+    label = mesh_mod.group_label(pp.group)
+    t0 = time.perf_counter()
+    staged = any(t.device.type == "cuda" for t, _, _ in sends) or any(
+        o.device.type == "cuda" for o in outs)
+    staged = staged and get_backend(pp.group) == "gloo"
+    h_sends = [_host_buffer(f"pipe_send{i}", t).copy_(t) if staged else t
+               for i, (t, _, _) in enumerate(sends)]
+    h_outs = [_host_buffer(f"pipe_recv{i}", o) if staged else o
+              for i, o in enumerate(outs)]
+    ops = [dist.P2POp(dist.isend, t, dst, pp.group)
+           for t, (_, dst, _) in zip(h_sends, sends)]
+    ops += [dist.P2POp(dist.irecv, o, src, pp.group)
+            for o, (_, src, _) in zip(h_outs, recvs)]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if staged:
+        for o, h in zip(outs, h_outs):
+            o.copy_(h)
+    for t, _, kind in sends:
+        c = traffic.setdefault(f"{label}/{kind}", [0, 0, 0.0])
+        c[0] += 1
+        c[1] += t.numel()
+    c = traffic.setdefault(f"{label}/exchange", [0, 0, 0.0])
+    c[0] += 1
+    c[1] += sum(o.numel() for o in outs)
+    c[2] += time.perf_counter() - t0
+    got = {d: o for o, (_, _, d) in zip(outs, recvs)}
+    return got.get(-1), got.get(1)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

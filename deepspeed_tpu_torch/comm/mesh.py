@@ -7,14 +7,13 @@ TPU the mesh's "devices" are chips; here they are the processes of the
 default ``torch.distributed`` process group (one process without one), each
 driving its own device.
 
-The ``data``, ``zshard``, ``expert``, ``seq`` and ``tensor`` axes run
-(``data = -1`` absorbs the world size, as JAX's absorbs the device count;
-a shape that does not fit the world raises JAX's ``ValueError``); ``pipe``
-above 1 raises ``NotImplementedError`` (a later slice). Ranks take JAX's
-device order: ``DEFAULT_AXIS_ORDER`` with ``tensor`` inside ``seq`` inside
-``expert`` inside ``zshard`` inside ``data``, so rank r sits at ``tensor =
-r % T``, ``seq = (r // T) % Q``, ``expert = (r // (T·Q)) % X`` and so on
-outwards. The manager holds this rank's process group over a
+Every axis runs (``data = -1`` absorbs the world size, as JAX's absorbs
+the device count; a shape that does not fit the world raises JAX's
+``ValueError``). Ranks take JAX's device order: ``DEFAULT_AXIS_ORDER``
+with ``tensor`` inside ``seq`` inside ``expert`` inside ``zshard`` inside
+``data`` inside ``pipe``, so rank r sits at ``tensor = r % T``, ``seq =
+(r // T) % Q``, ``expert = (r // (T·Q)) % X`` and so on outwards, ``pipe
+= r // (world / P)`` outermost. The manager holds this rank's process group over a
 set of axes (:meth:`MeshManager.group`), each built by
 ``torch.distributed.new_group`` on every rank in the same order, as gloo
 requires: under hpZ / MiCS (``zshard`` above 1) the ``zshard`` group (where
@@ -45,6 +44,14 @@ neither the batch axes nor the gradient-reduce axes, as in JAX: its ranks
 share their rows and each holds its own slice of a tensor-parallel leaf,
 so under it the shard group ``(data, zshard)`` is built even where it
 holds one rank.
+
+The ``pipe`` axis (P stages, ``parallel/pipeline.py``): a rank holds its
+stage's layers, and its stage hops run on the pipeline's own group
+(:meth:`MeshManager.pipe`, label ``pipe``): an activation to stage s + 1,
+a cotangent to stage s − 1 (``comm.pipe_exchange``). ``pipe`` is in
+neither the batch axes nor the gradient-reduce axes, as in JAX: the
+stages of a data rank share its rows, so under it the shard group
+``(data, zshard)`` is built even where it holds one rank.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch.distributed as dist
 
-from deepspeed_tpu_torch.runtime.config_utils import later_slice, logger
+from deepspeed_tpu_torch.runtime.config_utils import logger
 
 PIPE_AXIS = "pipe"
 DATA_AXIS = "data"
@@ -216,6 +223,21 @@ class MeshManager:
         return self.axis_size(PIPE_AXIS)
 
     @property
+    def stage(self) -> int:
+        """This rank's pipeline stage: its coordinate on ``pipe``."""
+        return self.coords[PIPE_AXIS]
+
+    def pipe(self) -> Optional["PipeGroup"]:
+        """This rank's place on the ``pipe`` axis for the stage hops and
+        the pipeline's sums (their own group, label ``pipe``); None at
+        pipe = 1."""
+        if self.pp_world_size <= 1:
+            return None
+        return PipeGroup(self.moe_group((PIPE_AXIS,), "pipe"),
+                         self.pp_world_size, self.stage,
+                         self.group_ranks((PIPE_AXIS,)))
+
+    @property
     def ep_world_size(self) -> int:
         return self.axis_size(EXPERT_AXIS)
 
@@ -240,6 +262,17 @@ class TensorGroup:
     rank: int
 
 
+@dataclasses.dataclass(frozen=True)
+class PipeGroup:
+    """A rank's place on the ``pipe`` axis: the process group of the stage
+    hops, the number of stages, the rank's stage and the global rank of
+    every stage (its neighbours' among them)."""
+    group: Any
+    size: int
+    stage: int
+    ranks: Tuple[int, ...]
+
+
 _GLOBAL_MESH: Optional[MeshManager] = None
 
 
@@ -250,8 +283,6 @@ def process_world_size() -> int:
     return 1
 
 
-_RUNS = (DATA_AXIS, ZSHARD_AXIS, EXPERT_AXIS, SEQ_AXIS,
-         TENSOR_AXIS)                                     # the axes it runs
 # the process groups built so far, by (kind, label, ranks): dist.new_group
 # is collective, so every rank builds the same groups in the same order,
 # once each; kind "axis" the engine's, "moe" the MoE layer's (whose batch
@@ -307,14 +338,17 @@ def _axis_groups(sizes: Dict[str, int]
     ``(data, zshard)`` groups (the shard group) where ``data`` × ``zshard``
     is above 1 and short of the world, the ``seq`` groups (the dense
     replica hop, label ``seq_hop``), then the attentions' own ``seq``
-    groups."""
+    groups. Under a ``pipe`` axis: the ``(data, zshard)`` groups even of
+    one rank (the shard group, and the dense reduce group, which
+    ``expert`` = ``seq`` = 1 make the same ranks), and the pipeline's own
+    ``pipe`` groups."""
     world = int(np.prod(list(sizes.values())))
     groups: Dict[Tuple[int, ...], Any] = {}
     moe: Dict[Tuple[int, ...], Any] = {}
     if world <= 1:
         return groups, moe
     D, Z, X = sizes[DATA_AXIS], sizes[ZSHARD_AXIS], sizes[EXPERT_AXIS]
-    Q, T = sizes[SEQ_AXIS], sizes[TENSOR_AXIS]
+    Q, T, P = sizes[SEQ_AXIS], sizes[TENSOR_AXIS], sizes[PIPE_AXIS]
     if Z > 1:
         groups.update(_build("axis", sizes, (ZSHARD_AXIS,), "zshard", False))
         groups.update(_build("axis", sizes, (DATA_AXIS,), "data", False))
@@ -330,7 +364,7 @@ def _axis_groups(sizes: Dict[str, int]
         groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
                              "data", False))
         groups.update(_build("axis", sizes, (SEQ_AXIS,), "seq_hop", False))
-    if T > 1:
+    if T > 1 or P > 1:
         groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
                              "data", False))
     moe.update(_build("moe", sizes, BATCH_AXES, "batch", True))
@@ -338,6 +372,8 @@ def _axis_groups(sizes: Dict[str, int]
         moe.update(_build("moe", sizes, (SEQ_AXIS,), "seq", True))
     if T > 1:
         moe.update(_build("moe", sizes, (TENSOR_AXIS,), "tensor", True))
+    if P > 1:
+        moe.update(_build("moe", sizes, (PIPE_AXIS,), "pipe", True))
     if X > 1:
         moe.update(_build("moe", sizes, (EXPERT_AXIS,), "expert", True))
         if D * Z > 1:
@@ -351,8 +387,8 @@ def group_label(group) -> str:
     over (``zshard``, ``data``, ``expert``, ``data_expert``, ``seq_hop``
     for the engine's dense hop over ``seq``; ``batch`` for the MoE
     layer's group over the batch axes, ``seq`` for the attentions',
-    ``tensor`` for the Megatron collectives'); ``other`` for a group of
-    none."""
+    ``tensor`` for the Megatron collectives', ``pipe`` for the stage hops
+    and the pipeline's sums); ``other`` for a group of none."""
     if group is None:
         return "world"
     for g, label in _LABELS:
@@ -386,16 +422,7 @@ def initialize_mesh(mesh_config: Optional[MeshConfig] = None) -> MeshManager:
     """Resolve ``mesh_config`` over the process world and install it."""
     global _GLOBAL_MESH
     mesh_config = mesh_config or MeshConfig()
-    asked = dataclasses.asdict(mesh_config)
-    wider = sorted(a for a, s in asked.items() if a not in _RUNS and s > 1)
-    if not wider:
-        sizes = mesh_config.resolve(process_world_size())
-        wider = sorted(a for a, s in sizes.items()
-                       if a not in _RUNS and s > 1)
-    if wider:
-        raise later_slice(f"mesh axes {wider} above 1 (this slice runs the "
-                          "'data', 'zshard', 'expert', 'seq' and 'tensor' "
-                          "axes)")
+    sizes = mesh_config.resolve(process_world_size())
     rank = dist.get_rank() if process_world_size() > 1 else 0
     _GLOBAL_MESH = MeshManager(sizes, rank, *_axis_groups(sizes))
     logger.info(f"initialized process mesh: {_GLOBAL_MESH}")

@@ -30,6 +30,16 @@ runs Megatron's dataflow (``models/transformer``): ``flash`` runs the
 flash kernels on the rank's heads, ``xla`` the plain attention; the
 fused and the exact loss are vocab-parallel. Block-sparse attention, the
 tiled loss and MoE raise (queue A.4).
+
+Under a ``pipe`` mesh axis above 1 (the batch key ``pp``, this rank's
+:class:`~deepspeed_tpu_torch.comm.mesh.PipeGroup`, which the engine
+passes; else the installed mesh's) ``loss_fn`` takes the GPipe loss
+(``transformer.pipelined_lm_loss``) and ``loss_and_grads_fn`` the 1F1B
+schedule's loss and gradients (``pipelined_lm_loss_and_grads``), as JAX's
+``causal_lm_spec`` (:129-146, :172-181, :217-224) with
+``pipeline_schedule`` and ``pipeline_micro_batches``; ``params`` hold the
+stage's layers. The engine's batch key ``pipe_weights`` [M] weights each
+pipeline micro-batch's loss (``runtime/engine``).
 """
 from __future__ import annotations
 
@@ -68,6 +78,12 @@ class ModelSpec:
     # the attention name the spec was built with (AutoSP keeps the flash
     # kernels inside Ulysses)
     attention: Optional[str] = None
+    # (params, batch, loss_scale=None) → (loss, grads) for a schedule with
+    # an explicit backward (1F1B under a pipe axis), else None: the engine
+    # differentiates loss_fn
+    loss_and_grads_fn: Optional[Callable[..., Any]] = None
+    # the pipeline's micro-batches a step's micro-batch (None: the stages)
+    pipeline_micro_batches: Optional[int] = None
 
 
 def _tokens_of(batch: Batch) -> torch.Tensor:
@@ -132,15 +148,36 @@ def _seq_shard_of(batch: Batch):
     return batch.get("seq_shard") if isinstance(batch, dict) else None
 
 
+def _weights_of(batch: Batch):
+    """The batch's ``pipe_weights`` [M] (the engine's weight of each
+    pipeline micro-batch's loss); None: weight one."""
+    return batch.get("pipe_weights") if isinstance(batch, dict) else None
+
+
 def _tp_of(batch: Batch):
     """The batch's ``tp`` (this rank's ``tensor`` axis group, which the
     engine passes); None: the whole model on this rank."""
     return batch.get("tp") if isinstance(batch, dict) else None
 
 
+def _pp_of(batch: Batch):
+    """This rank's ``pipe`` axis group: the batch's ``pp`` (which the
+    engine passes), else the installed mesh's; None at pipe = 1 (JAX's
+    ``_pipe_stages`` reads the global mesh)."""
+    pp = batch.get("pp") if isinstance(batch, dict) else None
+    if pp is None:
+        from deepspeed_tpu_torch.comm import mesh as mesh_mod
+
+        if mesh_mod.mesh_is_initialized():
+            pp = mesh_mod.get_mesh_manager().pipe()
+    return pp
+
+
 def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
                    attention: Optional[str] = None, loss_tiles: int = 0,
                    loss_impl: str = "fused", use_kernels: bool = True,
+                   pipeline_schedule: str = "1f1b",
+                   pipeline_micro_batches: Optional[int] = None,
                    **overrides) -> ModelSpec:
     """A ModelSpec for a causal-LM preset or config. ``loss_impl``: 'fused'
     (compute-dtype logits, one compute-dtype grad-logits array — the JAX
@@ -152,7 +189,12 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     (flash and block-sparse attention's whole-tensor versions under
     autograd, the plain norms and grouped GEMMs): the card's kernel-vs-plain
     checks. An MoE config (``n_experts > 0``) adds ``moe_aux_coef`` × the layers' summed
-    aux loss to the LM loss, as JAX does."""
+    aux loss to the LM loss, as JAX does.
+    ``pipeline_schedule``: '1f1b' (the explicit backward, O(stages)
+    activations) or 'gpipe' (autograd over the ticks, O(micro-batches));
+    only read under a ``pipe`` axis above 1. ``pipeline_micro_batches``:
+    the schedule's micro-batches M of a step's micro-batch (default M =
+    P); the bubble is (P − 1)/(M + P − 1)."""
     if attention_fn is not None and attention is not None:
         raise ValueError("pass either attention_fn or attention=, not both")
     if loss_impl not in ("fused", "exact"):
@@ -172,8 +214,24 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
         raise later_slice(f"remat={cfg.remat!r} (this slice runs none|full)")
     T._check_supported(cfg)
 
+    def _check_pipe(pp):
+        if loss_tiles > 1:
+            raise later_slice(f"loss_tiles={loss_tiles} under mesh "
+                              f"pipe={pp.size} (queue A.4)")
+
     def loss_fn(params, batch):
         tokens = _tokens_of(batch)
+        pp = _pp_of(batch)
+        if pp is not None:
+            _check_pipe(pp)
+            loss, aux = T.pipelined_lm_loss(
+                params, tokens, cfg, pp, n_micro=pipeline_micro_batches,
+                attention_fn=attention_fn, loss_mask=_mask_of(batch),
+                use_kernels=use_kernels, tp=_tp_of(batch),
+                loss_weights=_weights_of(batch))
+            if cfg.n_experts > 0:
+                loss = loss + cfg.moe_aux_coef * aux
+            return loss
         shard = _seq_shard_of(batch)
         if shard is not None and attention not in SEQ_PARALLEL_ATTENTION:
             raise later_slice(
@@ -208,6 +266,18 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
                          attention_fn=attention_fn, use_kernels=use_kernels,
                          seq_shard=_seq_shard_of(batch), tp=_tp_of(batch))
 
+    def loss_and_grads_fn(params, batch, loss_scale=None):
+        pp = _pp_of(batch)
+        if pipeline_schedule != "1f1b" or pp is None:
+            return None     # the engine differentiates loss_fn
+        _check_pipe(pp)
+        return T.pipelined_lm_loss_and_grads(
+            params, _tokens_of(batch), cfg, pp,
+            n_micro=pipeline_micro_batches, attention_fn=attention_fn,
+            loss_mask=_mask_of(batch), loss_scale=loss_scale,
+            use_kernels=use_kernels, tp=_tp_of(batch),
+            loss_weights=_weights_of(batch))
+
     def init_fn(generator: Optional[torch.Generator] = None, device=None):
         dev = resolve_device(device)
         if generator is None:
@@ -221,15 +291,23 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
     def _rebuild(attention: Optional[str] = None, loss_tiles: int = 0,
                  remat: Optional[str] = None) -> ModelSpec:
         # JAX's rule: the stronger loss tiling of (original, requested);
-        # an unspecified attention keeps the original one
+        # an unspecified attention keeps the original one. Both pipeline
+        # arguments are kept: JAX's _rebuild (api.py:253-259) drops
+        # pipeline_micro_batches, so a spec rebuilt for
+        # activation_checkpointing.policy falls back to M = P there
+        # (ROADMAP queue C)
         cfg2 = dataclasses.replace(cfg, remat=remat) if remat else cfg
         return causal_lm_spec(cfg2, attention=attention or orig_attention,
                               loss_tiles=max(loss_tiles, orig_loss_tiles),
-                              loss_impl=loss_impl, use_kernels=use_kernels)
+                              loss_impl=loss_impl, use_kernels=use_kernels,
+                              pipeline_schedule=pipeline_schedule,
+                              pipeline_micro_batches=pipeline_micro_batches)
 
     return ModelSpec(init_fn=init_fn, loss_fn=loss_fn, apply_fn=apply_fn,
                      name=name, num_params=cfg.num_params(),
                      seq_len=cfg.max_seq_len, config=cfg,
                      builder=None if user_attention_fn else _rebuild,
                      axes_fn=lambda: T.param_logical_axes(cfg),
-                     attention=attention)
+                     attention=attention,
+                     loss_and_grads_fn=loss_and_grads_fn,
+                     pipeline_micro_batches=pipeline_micro_batches)

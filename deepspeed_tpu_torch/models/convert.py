@@ -8,12 +8,16 @@ PagedTransformer`. Floating leaves are cast to the compute dtype, as the JAX
 rank's :class:`~deepspeed_tpu_torch.comm.mesh.TensorGroup`) each leaf is
 the rank's slice of the global leaf (:func:`tp_local_tree`, the one place
 a whole tree is cut for a tensor axis; FastGen goes through it too).
+:func:`pp_local_tree` cuts a stage's layers of a ``pipe`` axis; the two
+compose (``tp_local_tree(pp_local_tree(tree, ...), ...)``), each keeping
+what the other or an earlier call already cut.
 
 ``load_master(engine, jax.tree.map(np.asarray, jax_engine.state["master"]))``
 copies a JAX fp32 master tree into a training engine's master state, so both
 engines start from the same weights; a data-parallel rank keeps its shard
 of each leaf (under an ``expert`` axis, its experts of each expert leaf
-first, under a ``tensor`` axis its slice: ``engine.local_leaf``).
+first, under a ``tensor`` axis its slice, under a ``pipe`` axis its
+stage's layers: ``engine.local_leaf``).
 ``gather_master(engine)`` reads a data-parallel engine's sharded master
 back as whole numpy arrays, the experts and the tensor slices of every
 rank included (every rank calls it).
@@ -28,7 +32,11 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models import transformer as T
 from deepspeed_tpu_torch.models.paged import PagedTransformer
-from deepspeed_tpu_torch.parallel.partitioning import tp_dim, tp_slice
+from deepspeed_tpu_torch.parallel.partitioning import (
+    pp_slice,
+    tp_dim,
+    tp_slice,
+)
 
 
 def _to_tensor(x: Any, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -75,6 +83,26 @@ def tp_local_tree(tree: Dict[str, Any], cfg: T.TransformerConfig,
         return piece
 
     return cut(T.param_logical_axes(cfg), tree)
+
+
+def pp_local_tree(tree: Dict[str, Any], cfg: T.TransformerConfig,
+                  size: int, stage: int) -> Dict[str, Any]:
+    """Stage ``stage``'s part, on a ``pipe`` axis of ``size``, of the
+    parameter tree ``tree`` of ``cfg`` (numpy arrays or tensors): each
+    ``blocks`` leaf at its whole L layers is cut to the stage's L/P
+    (``pp_slice``), a leaf already cut is kept as it is, a tensor's cut is
+    copied so that the whole leaf can be freed; every other leaf whole."""
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        if t.shape[0] != cfg.num_layers:
+            return t
+        piece = pp_slice(t, size, stage)
+        if isinstance(piece, torch.Tensor):
+            return piece.clone(memory_format=torch.contiguous_format)
+        return piece
+
+    return {k: cut(v) if k == "blocks" else v for k, v in tree.items()}
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: T.TransformerConfig,

@@ -641,6 +641,41 @@ class _HeadMatmul(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(w.dtype)
 
 
+class _PlainHead(torch.autograd.Function):
+    """JAX's plain head dot (``jnp.matmul(h, head, preferred_element_type=
+    float32)`` under autodiff, the pipelined ``logits_fn``): fp32 logits
+    forward as :class:`_HeadMatmul`'s; backward, the fp32 cotangent's
+    products summed in fp32 and each rounded once to its input's dtype
+    (JAX's transpose of the dot keeps the cotangent fp32; the custom VJP
+    of ``head_matmul`` rounds it to the compute dtype first)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _head_product(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        dx = (g2 @ w.float().t()).to(x.dtype).view(x.shape)
+        dw = (x.reshape(-1, x.shape[-1]).float().t() @ g2).to(w.dtype)
+        return dx, dw
+
+
+def plain_head_logits(x: torch.Tensor, head: torch.Tensor,
+                      tp=None) -> torch.Tensor:
+    """fp32 logits ``x @ head`` by :class:`_PlainHead` (JAX's pipelined
+    ``logits_fn``); under ``tp`` the vocab-parallel head, as
+    :func:`lm_logits`."""
+    if tp is not None:
+        x = comm.copy_to_tensor(x, tp.group)
+    logits = _PlainHead.apply(x, head.to(x.dtype))
+    return logits if tp is None else comm.gather_from_tensor(logits,
+                                                             tp.group)
+
+
 def head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """LM-head projection ``x [..., H] @ w [H, V]`` with fp32 logits (the
     JAX ``head_matmul``).
@@ -1061,6 +1096,217 @@ def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
     if loss_mask is not None or seq_shard is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+# --------------------------------------------------------------------------- #
+# the pipelined LM (JAX transformer.py:1244-1428)
+# --------------------------------------------------------------------------- #
+
+def stage_blocks(blocks, cfg: TransformerConfig, pp):
+    """This stage's layers of ``params["blocks"]``: the stage's L/P
+    contiguous layers of a whole stack (stacked [L, ...] tensors or a list
+    of L per-layer dicts), a stack already cut to L/P layers as it is."""
+    from deepspeed_tpu_torch.parallel.partitioning import pp_slice
+    from deepspeed_tpu_torch.parallel.pipeline import _leaves
+
+    n = len(blocks) if isinstance(blocks, (list, tuple)) else \
+        _leaves(blocks)[0].shape[0]
+    if n == cfg.num_layers // pp.size:
+        return blocks
+    if n != cfg.num_layers:
+        raise ValueError(f"blocks of {n} layers: neither the model's "
+                         f"{cfg.num_layers} nor a stage's "
+                         f"{cfg.num_layers // pp.size}")
+    if isinstance(blocks, (list, tuple)):
+        k = n // pp.size
+        return list(blocks[pp.stage * k:(pp.stage + 1) * k])
+    return {k: stage_blocks(v, cfg, pp) if isinstance(v, dict)
+            else pp_slice(v, pp.size, pp.stage) for k, v in blocks.items()}
+
+
+def _pipeline_parts(params: Params, tokens: torch.Tensor,
+                    cfg: TransformerConfig, pp, n_micro, attention_fn,
+                    loss_mask, use_kernels: bool = True, tp=None,
+                    loss_weights: Optional[torch.Tensor] = None):
+    """Shared scaffolding of the GPipe and 1F1B schedules (JAX's
+    ``_pipeline_parts``): the embedding, the micro-batched inputs, the
+    extra parameters, ``stage_fn``, ``finalize_fn`` and ``logits_fn``.
+    ``loss_weights`` [M] (the port's data-parallel engine): each
+    micro-batch's loss times its weight (``finalize_fn``)."""
+    from deepspeed_tpu_torch.parallel.pipeline import microbatch, pipe_of
+
+    pp = pipe_of(pp)
+    n_stages = pp.size
+    if cfg.num_layers % n_stages != 0:
+        raise ValueError(
+            f"num_layers {cfg.num_layers} not divisible by pipe={n_stages}")
+    if cfg.lm_head_bias:
+        raise NotImplementedError(
+            "lm_head_bias unsupported in the pipelined path")
+    _check_supported(cfg)
+    attention_fn = attention_fn or dot_product_attention
+    dt = cfg.compute_dtype
+    B, S = tokens.shape
+    M = n_micro or n_stages
+
+    def embed(embp, toks):
+        e = embed_tokens(embp["tok_emb"], toks, dt, tp)
+        if cfg.pos_emb == "learned":
+            e = e + embp["pos_emb"].to(dt)[:S][None]
+        return e
+
+    emb_keys = ["tok_emb"] + (["pos_emb"] if cfg.pos_emb == "learned"
+                              else [])
+    embp = {k: params[k] for k in emb_keys}
+    x = embed(embp, tokens)
+    head = _lm_head_of(params, cfg)
+    inputs = {"x": microbatch(x, M), "tokens": microbatch(tokens, M)}
+    if loss_mask is not None:
+        inputs["loss_mask"] = microbatch(loss_mask, M)
+    if loss_weights is not None:
+        inputs["loss_weight"] = loss_weights
+    extra = {"final_norm": params["final_norm"], "head": head}
+    if cfg.pos_emb == "rope":
+        extra["cos"], extra["sin"] = rope_table(
+            S, cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling_dict,
+            device=x.device)
+    blocks = stage_blocks(params["blocks"], cfg, pp)
+    n_local = cfg.num_layers // n_stages
+
+    def stage_fn(x_in, blocks_l, ex):
+        auxes = []
+        for layer in range(n_local):
+            lp = layer_params(blocks_l, layer)
+
+            def body(h, lp=lp):
+                return _block_forward(h, lp, cfg, ex.get("cos"),
+                                      ex.get("sin"), attention_fn,
+                                      use_kernels, tp)
+
+            x_in, aux = _remat_wrap(body, cfg.remat)(x_in)
+            auxes.append(aux)
+        return x_in, torch.stack(auxes).sum()
+
+    def logits_fn(y, ex):
+        """ONE head for every schedule (training and inference agree):
+        the final norm, then JAX's plain fp32-accumulated dot
+        (``plain_head_logits``: the whole vocab under ``tp``)."""
+        h = _norm(y, ex["final_norm"], cfg.norm, cfg.norm_eps, use_kernels)
+        return plain_head_logits(h, ex["head"], tp)
+
+    def finalize_fn(y, micro, ex):
+        loss = causal_lm_loss(logits_fn(y, ex), micro["tokens"],
+                              micro.get("loss_mask"))
+        w = micro.get("loss_weight")
+        return loss if w is None else loss * w
+
+    return (pp, M, embed, embp, inputs, extra, blocks, stage_fn, finalize_fn,
+            logits_fn)
+
+
+def pipelined_lm_loss(params: Params, tokens: torch.Tensor,
+                      cfg: TransformerConfig, pp=None,
+                      n_micro: Optional[int] = None, attention_fn=None,
+                      loss_mask: Optional[torch.Tensor] = None,
+                      use_kernels: bool = True, tp=None,
+                      loss_weights: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal-LM loss with the layers pipelined over the ``pipe`` axis
+    (``pp``: this rank's ``PipeGroup``, default the installed mesh's):
+    GPipe, backward by autograd (``parallel/pipeline.pipelined_apply``).
+    Returns (loss, MoE aux), the same on every stage. ``params`` hold the
+    whole stack or this stage's layers (``stage_blocks``); under ``tp``
+    this rank's tensor slices."""
+    from deepspeed_tpu_torch.parallel.pipeline import pipelined_apply
+
+    pp, _, _, _, inputs, extra, blocks, stage_fn, finalize_fn, _ = \
+        _pipeline_parts(params, tokens, cfg, pp, n_micro, attention_fn,
+                        loss_mask, use_kernels, tp, loss_weights)
+    return pipelined_apply(inputs, blocks, extra, stage_fn, finalize_fn, pp)
+
+
+def pipelined_lm_logits(params: Params, tokens: torch.Tensor,
+                        cfg: TransformerConfig, pp=None,
+                        n_micro: Optional[int] = None, attention_fn=None,
+                        use_kernels: bool = True, tp=None) -> torch.Tensor:
+    """Forward-only pipelined logits (reference ``runtime/pipe/
+    schedule.py:135 InferenceSchedule``): the fill wavefront only, no
+    graph. Returns [B, S, vocab] fp32 on every stage."""
+    from deepspeed_tpu_torch.parallel.pipeline import pipelined_infer
+
+    pp, M, _, _, inputs, extra, blocks, stage_fn, _, logits_fn = \
+        _pipeline_parts(params, tokens, cfg, pp, n_micro, attention_fn,
+                        None, use_kernels, tp)
+    B, S = tokens.shape
+    with torch.no_grad():
+        out = pipelined_infer(inputs, blocks, extra, stage_fn, logits_fn,
+                              ((B // M, S, cfg.vocab_size), torch.float32),
+                              pp)
+    return out.reshape(B, S, -1)
+
+
+def pipelined_lm_loss_and_grads(params: Params, tokens: torch.Tensor,
+                                cfg: TransformerConfig, pp=None,
+                                n_micro: Optional[int] = None,
+                                attention_fn=None,
+                                loss_mask: Optional[torch.Tensor] = None,
+                                loss_scale=None, use_kernels: bool = True,
+                                tp=None,
+                                loss_weights: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, Params]:
+    """The 1F1B pipelined loss AND gradients (reference ``runtime/pipe/
+    schedule.py:189 TrainSchedule``): the explicit backward schedule
+    (``parallel/pipeline.pipelined_train_1f1b``), O(P) stage inputs live
+    instead of GPipe's O(M). Returns (loss with any MoE aux term,
+    gradients — ``params``' tree, fp32 —: this stage's layers, the extras
+    summed over ``pipe``; a tied embedding's ``tok_emb`` gets the head's
+    gradient transposed, as JAX's ``g_tok + gextra["head"].T``). The
+    parameters need ``requires_grad``. ``loss_scale`` multiplies the
+    gradients (the seeds), not the loss."""
+    from deepspeed_tpu_torch.parallel.pipeline import pipelined_train_1f1b
+
+    pp, _, embed, embp, inputs, extra, blocks, stage_fn, finalize_fn, _ = \
+        _pipeline_parts(params, tokens, cfg, pp, n_micro, attention_fn,
+                        loss_mask, use_kernels, tp, loss_weights)
+    dt = cfg.compute_dtype
+    keys = sorted(embp)
+
+    def input_grad_fn(dx, micro, acc):
+        if dx is None:      # the zero accumulators
+            return {k: torch.zeros(embp[k].shape, dtype=torch.float32,
+                                   device=embp[k].device) for k in keys}
+        with torch.enable_grad():
+            e = embed(embp, micro["tokens"])
+            d = torch.autograd.grad(e, [embp[k] for k in keys], dx.to(dt),
+                                    allow_unused=True)
+        return {k: acc[k] if g is None else acc[k] + g.float()
+                for k, g in zip(keys, d)}
+
+    aux_seed = None
+    if cfg.n_experts > 0:
+        aux_seed = cfg.moe_aux_coef * (1.0 if loss_scale is None
+                                       else float(loss_scale))
+    loss, aux, gblocks, gextra, gemb = pipelined_train_1f1b(
+        inputs, blocks, extra, stage_fn, finalize_fn, input_grad_fn, pp,
+        loss_scale=loss_scale, aux_seed=aux_seed)
+    if cfg.n_experts > 0:
+        # the reported loss as the GPipe path's (its loss_fn adds the aux)
+        loss = loss + cfg.moe_aux_coef * aux
+    grads: Dict[str, Any] = {"blocks": gblocks,
+                             "final_norm": gextra["final_norm"]}
+    g_tok = gemb["tok_emb"]
+    if cfg.tie_embeddings:
+        g_tok = g_tok + gextra["head"].t()
+    else:
+        grads["lm_head"] = gextra["head"]
+    grads["tok_emb"] = g_tok
+    if cfg.pos_emb == "learned":
+        grads["pos_emb"] = gemb["pos_emb"]
+    missing = set(params) - set(grads)
+    if missing:
+        raise NotImplementedError(
+            f"pipelined grads missing for param groups {sorted(missing)}")
+    return loss, grads
 
 
 # --------------------------------------------------------------------------- #

@@ -26,9 +26,19 @@
 // block walks group_sizes (E int32 on the device) to find the (group, row
 // tile) of its slot, or skips it. No host sync, no schedule kernel. Rows of
 // another group (and rows past M, columns past K or N) are zero-filled by
-// cp.async's src-size operand, never read, and never written. tgmm gives a
-// block one (group, tile of out[e]) and loops over the group's rows: no
-// atomics, so the weight gradient is deterministic.
+// cp.async's src-size operand, never read, and never written. tgmm splits
+// each group's rows into chunks of `rc` rows (the last one shorter) and
+// gives a block one (chunk, tile of out[e]); the block sums its chunk's
+// rows in fp32 and writes the tile to the chunk's slot of an fp32
+// workspace (no rounding), and a second kernel adds a group's chunk slots
+// in chunk order and rounds the sum once to the output dtype. No atomics,
+// so the weight gradient is deterministic. One accumulator over a whole
+// group's rows (~10-19 k, as a block summed them before) drifted up to
+// 2.8e-3 from the exact sum at outputs of O(100) on the card (the fp32
+// body 2.2-6.3e-3), against 0.07-1.3e-3 for the library's fp32 product;
+// a chunk of 1024 rows bounds each running sum's length, and the chunk
+// sums add in a short second pass. Rows past the groups' chunks are never
+// read; the number of chunk slots has the upper bound ceil(M/rc) + E.
 //
 // bf16: Hopper's warpgroup tensor cores (`wgmma.mma_async` m64n128k16, fp32
 // sums; helpers in wgmma.cuh), warp-specialised. A block of 384 threads
@@ -153,6 +163,8 @@ struct Args {
   T* out;
   const int* group_sizes;  // [E] int32
   int M, K, N, E;
+  float* ws;               // tgmm: [ceil(M/rc) + E, K, N] chunk sums
+  int rc;                  // tgmm: rows of a chunk
 };
 
 // This block's piece of work.
@@ -165,26 +177,46 @@ struct Work {
   int64_t out_off;
 };
 
-// The work of slot (x, y) for tiles BM x TN. tgmm: x a tile of out[y].
-// gmm, gmmT: x a column tile, y an upper-bound row tile; walk the groups
-// (and the tail past them, e == E) to find its (group, row tile), or
-// return false.
+// The chunks of rc rows group e's rows [start, end) make (none if empty).
+__device__ __forceinline__ int chunks_of(int start, int end, int rc) {
+  return end > start ? (end - start + rc - 1) / rc : 0;
+}
+
+// The work of slot (x, y) for tiles BM x TN. tgmm: x a tile of out[e], y a
+// chunk slot; walk the groups' chunks (group by group, each group's in row
+// order) to find its (group, chunk), whose sum goes to ws[y], or return
+// false. gmm, gmmT: x a column tile, y an upper-bound row tile; walk the
+// groups (and the tail past them, e == E) to find its (group, row tile),
+// or return false.
 template <typename T, int MODE, int BK, int TN = BN>
 __device__ __forceinline__ bool find_work(const Args<T>& a, int x, int y,
                                           Work& w) {
   if constexpr (MODE == kTgmm) {
     const int tiles_n = (a.N + TN - 1) / TN;
-    w.e = y;
+    int64_t off = 0;
+    int seen = 0;
+    bool found = false;
+    for (int e = 0; e < a.E && !found; ++e) {
+      const int64_t size = size_of(a.group_sizes, e);
+      const int start = (int)clamp_hi(off, a.M);
+      const int end = (int)clamp_hi(off + size, a.M);
+      off += size;
+      const int count = chunks_of(start, end, a.rc);
+      if (y < seen + count) {
+        w.e = e;
+        w.gs = start + (y - seen) * a.rc;
+        w.ge = (int)clamp_hi((int64_t)w.gs + a.rc, end);
+        found = true;
+      }
+      seen += count;
+    }
+    if (!found) return false;
     w.row0 = (x / tiles_n) * BM;
     w.n0 = (x % tiles_n) * TN;
-    int64_t off = 0;
-    for (int e = 0; e < w.e; ++e) off += size_of(a.group_sizes, e);
-    w.gs = (int)clamp_hi(off, a.M);
-    w.ge = (int)clamp_hi(off + size_of(a.group_sizes, w.e), a.M);
     w.rlo = 0;
     w.rhi = a.K;
     w.nk = (w.ge - w.gs + BK - 1) / BK;
-    w.out_off = (int64_t)w.e * a.K * a.N;
+    w.out_off = (int64_t)y * a.K * a.N;
     return true;
   } else {
     w.n0 = x * TN;
@@ -399,8 +431,32 @@ __device__ __forceinline__ void store_part(unsigned char* epi,
   __syncwarp();
 }
 
-// Slot t of the launch → its work: tgmm x = t mod tiles of out[e], y = e;
-// gmm / gmmT x = the column tile, y the row slot.
+// A consumer warp's 16 rows x 128 columns of a tgmm chunk's tile (rows
+// 16 warp .. of the tile, columns from n0) as fp32 to its workspace slot:
+// each thread's column pairs as 8-byte stores, a row's four threads
+// covering 32 contiguous bytes.
+__device__ __forceinline__ void store_part_f32(const float (&acc)[64],
+                                               const Args<bf16>& a,
+                                               const Work& w, int n0,
+                                               int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int r = w.row0 + 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col >= a.N) continue;
+    if (r < w.rhi)
+      *reinterpret_cast<float2*>(a.ws + w.out_off + (int64_t)r * a.N + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < w.rhi)
+      *reinterpret_cast<float2*>(a.ws + w.out_off + (int64_t)(r + 8) * a.N +
+                                 col) = make_float2(acc[4 * j + 2],
+                                                    acc[4 * j + 3]);
+  }
+}
+
+// Slot t of the launch → its work: tgmm x = t mod tiles of out[e], y the
+// chunk slot; gmm / gmmT x = the column tile, y the row slot.
 template <int MODE>
 __device__ __forceinline__ bool slot_work(const Args<bf16>& a, int t,
                                           int per_y, Work& w) {
@@ -481,10 +537,73 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
       for (int h = 0; h < TN / 128; ++h) dstpu_wg::fence_acc(acc[h]);
       if (w.nk > 0) dstpu_wg::mbar_arrive(empty + 8 * prev);
 #pragma unroll
-      for (int h = 0; h < TN / 128; ++h)
-        store_part(epi, acc[h], a, w, w.n0 + 128 * h, warp, lane);
+      for (int h = 0; h < TN / 128; ++h) {
+        if constexpr (MODE == kTgmm)
+          store_part_f32(acc[h], a, w, w.n0 + 128 * h, warp, lane);
+        else
+          store_part(epi, acc[h], a, w, w.n0 + 128 * h, warp, lane);
+      }
     }
   }
+}
+
+// tgmm's second pass: out[e] = the sum of group e's chunk slots of ws, in
+// chunk order, rounded once to T (zeros for an empty group); four
+// consecutive elements a thread, grid (element blocks, E).
+__device__ __forceinline__ void store4(float* o, float4 v) {
+  *reinterpret_cast<float4*>(o) = v;
+}
+__device__ __forceinline__ void store4(bf16* o, float4 v) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(o);
+  p[0] = __floats2bfloat162_rn(v.x, v.y);
+  p[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    tgmm_reduce_kernel(const float* __restrict__ ws,
+                       const int* __restrict__ group_sizes,
+                       T* __restrict__ out, int M, int K, int N, int rc) {
+  const int e = blockIdx.y;
+  int64_t off = 0;
+  int first = 0, count = 0;
+  for (int i = 0; i <= e; ++i) {
+    const int64_t size = size_of(group_sizes, i);
+    const int start = (int)clamp_hi(off, M);
+    const int end = (int)clamp_hi(off + size, M);
+    off += size;
+    const int n = chunks_of(start, end, rc);
+    if (i < e) first += n; else count = n;
+  }
+  const int64_t kn = (int64_t)K * N;
+  const float* src = ws + (int64_t)first * kn;
+  T* dst = out + (int64_t)e * kn;
+  for (int64_t i = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+       i < kn; i += 4 * (int64_t)gridDim.x * blockDim.x) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = 0; c < count; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(src + c * kn + i);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    store4(dst + i, acc);
+  }
+}
+
+// The chunk slots of a tgmm launch: an upper bound of the groups' chunks.
+inline int tgmm_slots(int M, int E, int rc) { return (M + rc - 1) / rc + E; }
+
+template <typename T>
+int launch_tgmm_reduce(const Args<T>& a, cudaStream_t stream) {
+  const int64_t kn = (int64_t)a.K * a.N;
+  int64_t blocks = (kn / 4 + 255) / 256;
+  if (blocks > 2048) blocks = 2048;
+  if (blocks == 0 || a.E == 0) return 0;
+  tgmm_reduce_kernel<T><<<dim3((unsigned)blocks, a.E), 256, 0, stream>>>(
+      a.ws, a.group_sizes, a.out, a.M, a.K, a.N, a.rc);
+  return (int)cudaGetLastError();
 }
 
 template <int MODE>
@@ -504,7 +623,7 @@ int launch_wgmma(const Args<bf16>& a, cudaStream_t stream) {
   int per_y, n_slots, grid;
   if (MODE == kTgmm) {
     per_y = ((a.K + BM - 1) / BM) * tiles_n;
-    n_slots = per_y * a.E;
+    n_slots = per_y * tgmm_slots(a.M, a.E, a.rc);
     grid = n_slots;
   } else {
     per_y = tiles_n;
@@ -514,7 +633,10 @@ int launch_wgmma(const Args<bf16>& a, cudaStream_t stream) {
   if (n_slots == 0) return 0;
   gmm_wgmma_kernel<MODE><<<grid, wg::kThreads, kSmem, stream>>>(
       a, n_slots, per_y);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (MODE == kTgmm) return launch_tgmm_reduce(a, stream);
+  return 0;
 }
 
 // ------------------------------------------------------------------------ //
@@ -631,34 +753,49 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // fp32: grid (column tiles, upper bound of row tiles) for gmm / gmmT,
-// (tiles of out[e], E) for tgmm
+// (tiles of out[e], chunk slots) for tgmm, whose blocks write their chunk
+// sums to the workspace (the body's out) before the second pass
 template <int MODE>
 int launch_fp32(const Args<float>& a, cudaStream_t stream) {
   dim3 grid;
   if (MODE == kTgmm)
-    grid = dim3(((a.K + BM - 1) / BM) * ((a.N + BN - 1) / BN), a.E);
+    grid = dim3(((a.K + BM - 1) / BM) * ((a.N + BN - 1) / BN),
+                tgmm_slots(a.M, a.E, a.rc));
   else
     grid = dim3((a.N + BN - 1) / BN, (a.M + BM - 1) / BM + a.E);
   if (grid.x == 0 || grid.y == 0) return 0;
+  if constexpr (MODE == kTgmm) {
+    Args<float> body = a;
+    body.out = a.ws;
+    gmm_kernel<float, MODE><<<grid, kThreads, 0, stream>>>(body);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return launch_tgmm_reduce(a, stream);
+  }
   gmm_kernel<float, MODE><<<grid, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
 int dispatch(const void* lhs, const void* rhs, const void* group_sizes,
-             void* out, int M, int K, int N, int E, int dtype, void* stream) {
+             void* out, void* ws, int M, int K, int N, int E, int rc,
+             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (MODE == kTgmm && (ws == nullptr || rc <= 0))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return launch_wgmma<MODE>(
         Args<bf16>{static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
                    static_cast<bf16*>(out),
-                   static_cast<const int*>(group_sizes), M, K, N, E},
+                   static_cast<const int*>(group_sizes), M, K, N, E,
+                   static_cast<float*>(ws), rc},
         s);
   if (dtype == 0)
     return launch_fp32<MODE>(
         Args<float>{static_cast<const float*>(lhs),
                     static_cast<const float*>(rhs), static_cast<float*>(out),
-                    static_cast<const int*>(group_sizes), M, K, N, E},
+                    static_cast<const int*>(group_sizes), M, K, N, E,
+                    static_cast<float*>(ws), rc},
         s);
   return (int)cudaErrorInvalidValue;
 }
@@ -674,19 +811,26 @@ extern "C" int dstpu_gmm(const void* lhs, const void* rhs,
                          int N, int E, int transpose_rhs, int dtype,
                          void* stream) {
   if (transpose_rhs)
-    return dispatch<kGmmT>(lhs, rhs, group_sizes, out, M, K, N, E, dtype,
-                           stream);
-  return dispatch<kGmm>(lhs, rhs, group_sizes, out, M, K, N, E, dtype,
-                        stream);
+    return dispatch<kGmmT>(lhs, rhs, group_sizes, out, nullptr, M, K, N, E,
+                           0, dtype, stream);
+  return dispatch<kGmm>(lhs, rhs, group_sizes, out, nullptr, M, K, N, E, 0,
+                        dtype, stream);
 }
 
 // lhs [M,K] (the tgmm's lhs^T [K,M] as it lies in memory); grad [M,N];
-// out [E,K,N].
+// out [E,K,N]; ws an fp32 workspace of dstpu_tgmm_ws_elems(M, K, N, E, rc)
+// elements; rc the rows of a chunk (> 0).
 extern "C" int dstpu_tgmm(const void* lhs, const void* grad,
-                          const void* group_sizes, void* out, int M, int K,
-                          int N, int E, int dtype, void* stream) {
-  return dispatch<kTgmm>(lhs, grad, group_sizes, out, M, K, N, E, dtype,
-                         stream);
+                          const void* group_sizes, void* out, void* ws,
+                          int M, int K, int N, int E, int rc, int dtype,
+                          void* stream) {
+  return dispatch<kTgmm>(lhs, grad, group_sizes, out, ws, M, K, N, E, rc,
+                         dtype, stream);
+}
+
+// The fp32 elements of tgmm's chunk workspace: (ceil(M/rc) + E) x K x N.
+extern "C" int64_t dstpu_tgmm_ws_elems(int M, int K, int N, int E, int rc) {
+  return rc > 0 ? (int64_t)tgmm_slots(M, E, rc) * K * N : 0;
 }
 
 // Dynamic shared memory of a launch, every mode alike (bytes; dtype 0 =

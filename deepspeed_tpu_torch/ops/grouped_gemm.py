@@ -18,7 +18,9 @@ output dtype (the inputs').
   [E, K, N]; with ``transpose_rhs`` rhs is [E, N, K] and the product takes
   ``rhs[e]ᵀ``.
 * :func:`tgmm` — ``out[e] = lhs[rows of e]ᵀ @ grad[rows of e]`` → [E, K, N];
-  an empty group gives zeros, as ``ragged_dot``'s VJP does.
+  an empty group gives zeros, as ``ragged_dot``'s VJP does. The kernel
+  sums a group's rows in chunks of ``TGMM_CHUNK_ROWS`` into an fp32
+  workspace the wrapper allocates, then adds the chunk sums.
 
 Both run their plain versions (:func:`gmm_ref`, :func:`tgmm_ref`) for
 tensors on the CPU and launch the kernels for tensors on a CUDA device — or
@@ -39,6 +41,10 @@ from deepspeed_tpu_torch.ops import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 _ROW_TILE = 128          # the kernels' output tile rows (BM in the source)
+# tgmm sums each group's rows in chunks of this many rows, each chunk into
+# an fp32 workspace slot, then adds a group's chunk sums (the source's
+# header says why)
+TGMM_CHUNK_ROWS = 1024
 
 launches: Dict[str, int] = {"gmm": 0, "tgmm": 0}
 
@@ -95,12 +101,22 @@ def _bind(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(build.load("grouped_gemm"), name)
-        n_int = 6 if name == "dstpu_gmm" else 5
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int \
-            + [ctypes.c_void_p]
+        if name == "dstpu_gmm":
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+                + [ctypes.c_void_p]
+        else:           # dstpu_tgmm: the workspace, then rc beside the sizes
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+                + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def tgmm_workspace_elems(M: int, K: int, N: int, E: int,
+                         rc: int = TGMM_CHUNK_ROWS) -> int:
+    """The fp32 elements of tgmm's chunk workspace: an upper bound of the
+    groups' chunks of ``rc`` rows, ceil(M / rc) + E, times K x N."""
+    return (-(-M // rc) + E) * K * N
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor,
@@ -187,10 +203,16 @@ def tgmm(lhs: torch.Tensor, grad: torch.Tensor,
     out = torch.empty(E, K, N, dtype=lhs.dtype, device=lhs.device)
     if out.numel() == 0:
         return out
+    rc = TGMM_CHUNK_ROWS
+    if -(-M // rc) + E > _MAX_GRID_Y:
+        raise ValueError(f"tgmm: {M} rows in {E} groups exceed the grid")
+    ws = torch.empty(tgmm_workspace_elems(M, K, N, E, rc),
+                     dtype=torch.float32, device=lhs.device)
     with on_device(lhs.device):
         err = _bind("dstpu_tgmm")(
             lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
-            out.data_ptr(), M, K, N, E, _DTYPES[lhs.dtype],
+            out.data_ptr(), ws.data_ptr(), M, K, N, E, rc,
+            _DTYPES[lhs.dtype],
             torch.cuda.current_stream(lhs.device).cuda_stream)
     _launched("tgmm", err)
     return out

@@ -31,6 +31,12 @@ inverse), as GSPMD lays out JAX's ``tp_spec``. The ZeRO dim is chosen on
 the leaf's shape as above; the tensor dims are not free, so a rank's ZeRO
 shard is the ZeRO slice of its tensor slice (JAX's ``zero_spec``,
 ``partitioning.py:119-124``).
+
+Pipeline parallelism (a ``pipe`` axis of P stages): the rule ``layers →
+pipe`` (JAX ``partitioning.py:103-106``) gives stage s the L/P contiguous
+layers ``[s·L/P, (s+1)·L/P)`` of every layer-stacked leaf (:func:`pp_slice`,
+:func:`pp_gather` its inverse); every other leaf is whole on every stage.
+The ZeRO dim is never the layer dim under it.
 """
 from __future__ import annotations
 
@@ -110,6 +116,28 @@ def tp_gather(axes: Tuple[Optional[str], ...], pieces: Sequence[Any]):
     import torch
 
     return torch.cat(list(pieces), dim=dim)
+
+
+def pp_slice(tensor, size: int, stage: int):
+    """Stage ``stage``'s contiguous layers of a layer-stacked leaf
+    ``tensor`` [L, ...] on a ``pipe`` axis of ``size`` stages (the leaf
+    itself at ``size`` 1). L not divisible by ``size`` raises JAX's
+    ``ValueError``."""
+    if size <= 1:
+        return tensor
+    L = tensor.shape[0]
+    if L % size:
+        raise ValueError(f"num_layers {L} not divisible by pipe={size}")
+    n = L // size
+    return tensor[stage * n:(stage + 1) * n]
+
+
+def pp_gather(pieces: Sequence[Any]):
+    """The whole stack from every stage's layers, in stage order (the
+    inverse of :func:`pp_slice`)."""
+    import torch
+
+    return torch.cat(list(pieces), dim=0)
 
 
 def _add_zero_axis(spec: Spec, shape: Tuple[int, ...],

@@ -5,13 +5,15 @@ with the batch triple and ``resolve_batch_size``, ``gradient_clipping``,
 ``steps_per_print``, ``prescale_gradients``, ``seed``, and the sections
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler``, ``zero_optimization``,
 ``data_types``, ``activation_checkpointing``, ``mesh``,
-``sequence_parallel`` (:1078) and ``tensor_parallel`` (:1071, inert as in
-JAX: the ``mesh`` section's ``tensor`` axis sets the width) — copied field
-for field with the same defaults and the same validation, so the same JSON
-gives the same values and a wrong one raises the same
-``DeepSpeedConfigError``. The mesh resolves over the processes of the
-default process group; ``pipe`` above 1 raises ``NotImplementedError``
-there (``comm/mesh.initialize_mesh``).
+``sequence_parallel`` (:1078), ``tensor_parallel`` (:1071, inert as in
+JAX: the ``mesh`` section's ``tensor`` axis sets the width) and
+``pipeline`` (:1090, parsed and read by nothing, as in JAX: the ``mesh``
+section's ``pipe`` axis sets the stages and ``causal_lm_spec``'s
+``pipeline_micro_batches`` the micro-batches) — copied field for field
+with the same defaults and the same validation, so the same JSON gives the
+same values and a wrong one raises the same ``DeepSpeedConfigError``. The
+mesh resolves over the processes of the default process group
+(``comm/mesh.initialize_mesh``).
 
 The sections ``checkpoint`` and ``fault_tolerance`` (JAX :904-975) and the
 legacy top-level ``checkpoint_writer`` are read as JAX reads them, with the
@@ -355,6 +357,15 @@ class SequenceParallelConfig:
 
 
 @dataclasses.dataclass
+class PipelineSectionConfig:
+    """The reference's ``pipeline`` section (JAX ``runtime/config.py:
+    1090-1093``), parsed and read by nothing, as in JAX."""
+    stages: int = 1
+    micro_batches: Optional[int] = None
+    activation_checkpoint_interval: int = 0
+
+
+@dataclasses.dataclass
 class TensorParallelConfig:
     """AutoTP's knobs (JAX ``runtime/config.py:1071-1074``), read and
     inert as in JAX: the ``tensor`` mesh axis sets the width."""
@@ -372,7 +383,7 @@ _IGNORED_SECTIONS = (
 _UNREAD_SECTIONS = (
     "comms_logger", "telemetry", "serving", "fleet", "tenancy", "slo",
     "hlolint", "memlint", "autotuning", "elasticity", "flops_profiler",
-    "tensorboard", "csv_monitor", "wandb", "comet", "pipeline", "guardian", "data_efficiency", "curriculum_learning",
+    "tensorboard", "csv_monitor", "wandb", "comet", "guardian", "data_efficiency", "curriculum_learning",
     "progressive_layer_drop",
 )
 # top-level scalars of the JAX config that this slice does not read, with
@@ -413,6 +424,8 @@ class DeepSpeedTPUConfig:
         default_factory=SequenceParallelConfig)
     tensor_parallel: TensorParallelConfig = dataclasses.field(
         default_factory=TensorParallelConfig)
+    pipeline: PipelineSectionConfig = dataclasses.field(
+        default_factory=PipelineSectionConfig)
     seed: int = 1234
     checkpoint_writer: str = "orbax"  # orbax | fast (checkpoint_engine.py)
     checkpoint: CheckpointSectionConfig = dataclasses.field(

@@ -92,11 +92,19 @@ axis on the exact ZeRO 0-3 wire of the data-parallel engines, alone and
 with ``data``, for ``causal_lm_spec``'s dense transformer
 (``DataParallelEngine``).
 
+Pipeline parallelism (JAX engine.py:528, :754, :775, :1798-1808): the
+``pipe`` mesh axis on the exact ZeRO 0-2 engines, beside ``data`` and
+``tensor``, for ``causal_lm_spec``'s transformer (dense, or MoE at
+``expert`` = 1): each rank holds its stage's layers, and a micro-batch
+runs the spec's 1F1B ``loss_and_grads_fn`` when it returns gradients,
+else autograd over its ``loss_fn`` (GPipe) (``DataParallelEngine``).
+
 Out of this slice, raising ``NotImplementedError``: remat policies other
 than none/full, the config sections ``load_config`` refuses, a ``seq``
 axis with hpZ / MiCS, an expert axis or an MoE model, the offload tiers,
-the host step or ZenFlow, and a ``tensor`` axis with what
-:meth:`DeepSpeedTPUEngine._check_tensor_axis` names. The qwZ publish stays one pass after
+the host step or ZenFlow, a ``tensor`` axis with what
+:meth:`DeepSpeedTPUEngine._check_tensor_axis` names, and a ``pipe`` axis
+with what :meth:`DeepSpeedTPUEngine._check_pipe_axis` names. The qwZ publish stays one pass after
 the (bucketed) update.
 """
 from __future__ import annotations
@@ -135,6 +143,8 @@ from deepspeed_tpu_torch.parallel.overlap import (
 )
 from deepspeed_tpu_torch.parallel.partitioning import (
     ShardingPolicy,
+    pp_gather,
+    pp_slice,
     tp_dim,
     tp_gather,
     tp_slice,
@@ -292,6 +302,7 @@ class DeepSpeedTPUEngine:
         self._resolve_offload()
         self._check_seq_axis()
         self._check_tensor_axis()
+        self._check_pipe_axis()
         self._host_runner = None
         if self._host_step:
             from deepspeed_tpu_torch.runtime.host_step import HostStepRunner
@@ -415,6 +426,42 @@ class DeepSpeedTPUEngine:
             what.append("a model spec other than causal_lm_spec's")
         if what:
             raise later_slice(f"mesh tensor={tp} with {', '.join(what)} "
+                              "(queue A.4)")
+
+    def _check_pipe_axis(self) -> None:
+        """What a ``pipe`` axis above 1 does not compose with yet (queue
+        A.4): ZeRO stage 3, hpZ / MiCS, an expert axis, ``seq`` above 1,
+        the offload tiers, ZenFlow, block-sparse attention and a model spec
+        other than ``causal_lm_spec``'s (its tiled loss raises at the first
+        step). As in JAX the ZeRO++ int8 wire falls back to the exact wire
+        (``_resolve_compressed_modes``) and the host step raises
+        (``runtime/host_step.py``)."""
+        mm = self.mesh_manager
+        P = mm.pp_world_size
+        if P <= 1:
+            return
+        what = []
+        if self.zero_stage >= 3:
+            what.append("ZeRO stage 3")
+        if mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1:
+            what.append("hpZ / MiCS (zshard > 1)")
+        if mm.ep_world_size > 1:
+            what.append("an expert axis")
+        if mm.sp_world_size > 1:
+            what.append("seq > 1")
+        if self._offload_opt or self._offload_nvme or self._offload_param:
+            what.append("the offload tiers")
+        if self.config.zero_optimization.zenflow.enabled:
+            what.append("ZenFlow")
+        attention = self.model_spec.attention
+        if attention is not None and attention.startswith("sparse"):
+            what.append(f"attention={attention!r}")
+        if not isinstance(getattr(self.model_spec, "config", None),
+                          T.TransformerConfig) \
+                or self.model_spec.loss_and_grads_fn is None:
+            what.append("a model spec other than causal_lm_spec's")
+        if what:
+            raise later_slice(f"mesh pipe={P} with {', '.join(what)} "
                               "(queue A.4)")
 
     def _resolve_offload(self) -> None:
@@ -1099,7 +1146,30 @@ class DeepSpeedTPUEngine:
     def _loss_and_grads(self, mb, scale: Optional[float]) -> torch.Tensor:
         """One micro-batch: forward, loss, backward. The gradient of the
         (scaled) loss lands in ``flat_grad`` in the compute dtype; returns
-        the unscaled loss."""
+        the unscaled loss. A spec whose ``loss_and_grads_fn`` returns
+        gradients (the 1F1B schedule's explicit backward, JAX
+        engine.py:1798-1808) has them copied there instead, or into the
+        fp32 ``flat_grad32`` where the engine keeps one (JAX keeps that
+        schedule's fp32 sums: ``g.astype(master dtype)``)."""
+        fn = self.model_spec.loss_and_grads_fn
+        out = None if fn is None else fn(self._params, mb, scale)
+        self._grad_src = self.flat_grad
+        if out is not None:
+            from deepspeed_tpu_torch.parallel.pipeline import _leaves
+
+            loss, grads = out
+            dst = getattr(self, "flat_grad32", None)
+            base = self.flat_grad.storage_offset()
+            with torch.no_grad():
+                for p, g in zip(_leaves(self._params), _leaves(grads)):
+                    if dst is None:
+                        p.grad.copy_(g)
+                        continue
+                    off = p.grad.storage_offset() - base
+                    dst[off:off + g.numel()].view(g.shape).copy_(g)
+            if dst is not None:
+                self._grad_src = dst
+            return loss.detach()
         self.flat_grad.zero_()
         loss = self.model_spec.loss_fn(self._params, mb)
         (loss * scale if scale is not None else loss).backward()
@@ -1928,7 +1998,28 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     counts the others once. A checkpoint leaf is gathered over ``tensor``
     after the shards and a load slices it, so tags cross tensor sizes.
     What the axis does not compose with yet raises
-    (:meth:`_check_tensor_axis`)."""
+    (:meth:`_check_tensor_axis`).
+
+    Pipeline parallelism (a ``pipe`` axis of P stages, outermost, JAX's
+    ``layers → pipe``): each rank holds its stage's L/P layers of every
+    layer-stacked leaf and the whole of the others (the extras: the
+    embedding, the final norm, the head); the slots, the flat buffers and
+    the ZeRO shards over ``(data, zshard)`` are those local leaves. A
+    micro-batch runs the spec's 1F1B ``loss_and_grads_fn`` where it
+    returns gradients (copied into ``flat_grad``, or kept fp32 in
+    ``flat_grad32`` for a low-precision engine), else autograd over its
+    GPipe ``loss_fn``; either way the extras' gradients come out summed
+    over ``pipe`` (equal on every stage) and the layers' are the stage's,
+    so gradients reduce over the shard group only and ÷ ``world / (T ·
+    P)``; the hooked reduces are off (one unit after the backward). The
+    rows of a data rank are its part of each of JAX's pipeline
+    micro-batches (:meth:`_local_rows`), and with a ``loss_mask`` each
+    micro-batch's loss is weighted into JAX's mean of micro-batch means
+    (:meth:`_pipe_weights`). The global norm sums each leaf class's
+    squares over the groups it is split over (:meth:`_pipe_norm_sq`). A
+    checkpoint leaf is gathered over ``pipe`` and a load cuts the stage's
+    layers, so tags cross pipe sizes. What the axis does not compose with
+    yet raises (:meth:`_check_pipe_axis`)."""
 
     def __init__(self, model: ModelSpec, config: Any,
                  optimizer: Optional[TPUOptimizer] = None,
@@ -1977,9 +2068,16 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         # axis's, which each hold their own slice)
         self.tp = mm.tp_world_size
         self.tp_group = mm.tensor()
-        self.grad_world = self.world // self.tp
+        # the pipe axis: the stage's group (its hops and the checkpoint's
+        # gathers of the layers), and the pipeline's micro-batches
+        self.pp = mm.pp_world_size
+        self.pp_group = mm.pipe()
+        self._pipe_micro = (self.model_spec.pipeline_micro_batches
+                            or self.pp)
+        self._norm_classes = None
+        self.grad_world = self.world // (self.tp * self.pp)
         self.dense_group = (mm.group(mesh_mod.DENSE_GRAD_REDUCE_AXES)
-                            if self.tp > 1 else None)
+                            if self.tp > 1 or self.pp > 1 else None)
         # each leaf with a tensor dim: its logical axes
         self._tp_axes: Dict[Tuple[str, ...], Tuple] = {}
         if self.tp > 1:
@@ -2066,21 +2164,29 @@ class DataParallelEngine(DeepSpeedTPUEngine):
 
     def _local_tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
         """Each expert leaf cut to this rank's E/X experts, each leaf with
-        a tensor dim to this rank's slice."""
+        a tensor dim to this rank's slice, each layer-stacked leaf to this
+        rank's stage's layers."""
         for path, t in list(_flatten(tree)):
-            if path in self._expert_dims or path in self._tp_axes:
+            if path in self._expert_dims or path in self._tp_axes or (
+                    self.pp > 1 and path[0] == _STACKED):
                 _set_path(tree, path, self.local_leaf(path, t))
         return tree
 
     def local_leaf(self, path: Tuple[str, ...],
                    full: torch.Tensor) -> torch.Tensor:
         """This rank's experts of a whole expert leaf, its slice of a leaf
-        with a tensor dim (other leaves whole; a leaf already cut is
-        returned as it is)."""
+        with a tensor dim, its stage's layers of a layer-stacked leaf
+        (other leaves whole; a leaf already cut is returned as it is)."""
+        whole = self._full_shapes[path]
+        if self.pp > 1 and path[0] == _STACKED and full.shape[0] == whole[0]:
+            full = pp_slice(full, self.pp, self.pp_group.stage).contiguous()
         axes = self._tp_axes.get(path)
-        if axes is not None and tuple(full.shape) == self._full_shapes[path]:
-            return tp_slice(axes, full, self.tp,
-                            self.mesh_manager.tp_rank).contiguous()
+        if axes is not None:
+            d = tp_dim(axes)
+            if full.shape[d] == whole[d]:
+                return tp_slice(axes, full, self.tp,
+                                self.mesh_manager.tp_rank).contiguous()
+            return full
         dim = self._expert_dims.get(path)
         if dim is None or full.shape[dim] != self._full_shapes[path][dim]:
             return full
@@ -2102,6 +2208,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         dev, cdt = self.device, self.compute_dtype
         self.flat_compute = torch.zeros(self._numel, dtype=cdt, device=dev)
         self.flat_grad = torch.zeros(self._numel, dtype=cdt, device=dev)
+        self._grad_src = self.flat_grad
+        if self.pp > 1 and cdt != torch.float32 \
+                and self.model_spec.loss_and_grads_fn is not None:
+            # the 1F1B schedule's fp32 gradient sums, whole (JAX's
+            # explicit-backward path keeps them fp32)
+            self.flat_grad32 = torch.zeros(self._numel, dtype=torch.float32,
+                                           device=dev)
         self._init_shards(tree)
         del tree
         # qwZ publishes by the plan's layer chunks when it has more than
@@ -2116,7 +2229,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         # micro-batch's backward completes it (JAX's make_grad_sync and
         # _constrain_grads_bucketed), else one unit after the backward
         self._grad_hooks = (self._overlap.enabled and not self._quant_grads()
-                            and 1 <= self.zero_stage <= 2)
+                            and 1 <= self.zero_stage <= 2 and self.pp == 1)
         self._params = self._leaves()
         n_cols = self._n_sh
         if not self._quant_grads():
@@ -2296,7 +2409,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             rows = self._packed.view(-1)[unit.row_off:unit.row_off
                                          + W * g.n_row].view(W, g.n_row)
             for p in g.pieces:
-                full = self._view(self.flat_grad, p.shard.slot)
+                full = self._view(self._grad_src, p.shard.slot)
                 if p.layers is not None:
                     full = full[p.layers[0]:p.layers[1]]
                 if not p.n:
@@ -2499,9 +2612,24 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _local_rows(self, stacked):
         """This rank's contiguous rows of every stacked global micro-batch
         [gas, micro × batch world, ...], whole (the ``seq`` ranks of a row
-        each take their positions of it in the model)."""
+        each take their positions of it in the model). Under a ``pipe``
+        axis its rows of each of JAX's pipeline micro-batches: JAX's
+        ``microbatch`` cuts the global micro-batch into M contiguous row
+        blocks, and the rank takes its contiguous part of each, so that
+        its pipeline micro-batch m is its part of JAX's."""
         if isinstance(stacked, dict):
             return {k: self._local_rows(v) for k, v in stacked.items()}
+        if self.pp > 1 and self.batch_world > 1:
+            gas, B, rest = stacked.shape[0], stacked.shape[1], \
+                tuple(stacked.shape[2:])
+            M, D = self._pipe_micro, self.batch_world
+            if B % (M * D):
+                raise ValueError(
+                    f"global micro-batch of {B} rows: not {M} pipeline "
+                    f"micro-batches of rows that {D} data ranks split "
+                    "evenly")
+            return stacked.reshape((gas, M, D, B // (M * D)) + rest)[
+                :, :, self.batch_rank].reshape((gas, B // D) + rest)
         n = stacked.shape[1] // self.batch_world
         return stacked[:, self.batch_rank * n:(self.batch_rank + 1) * n]
 
@@ -2623,7 +2751,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         span = self.ep if self._quant_grads() else self.grad_world
         mask = (stacked.get("loss_mask") if isinstance(stacked, dict)
                 else None)
-        if span == 1 or (mask is None and self.seq_shard is None):
+        if span == 1 or (mask is None and self.seq_shard is None) \
+                or self.pp > 1:
             return None
         tok = torch.as_tensor(stacked["tokens"] if isinstance(stacked, dict)
                               else stacked)
@@ -2650,6 +2779,29 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         return torch.where(n_span > 0,
                            mine * float(span) / n_span.clamp(min=1.0),
                            torch.ones_like(mine))
+
+    def _pipe_weights(self, stacked) -> Optional[torch.Tensor]:
+        """Under a ``pipe`` axis with a ``loss_mask`` and more than one
+        data rank: [gas, M] weights D · n_m / N_m of this rank's pipeline
+        micro-batch losses, n_m its valid targets of JAX's pipeline
+        micro-batch m (``_local_rows``) and N_m that micro-batch's (1 where
+        N_m is 0). JAX's loss is the mean over m of micro-batch m's masked
+        mean over all its rows, which is the mean over the data ranks of
+        the weighted losses, and so the engine's mean of their gradients;
+        it is not the global masked token mean of the step without
+        ``pipe``. None otherwise (all weights 1)."""
+        mask = (stacked.get("loss_mask") if isinstance(stacked, dict)
+                else None)
+        D = self.batch_world
+        if self.pp <= 1 or mask is None or D == 1:
+            return None
+        w = torch.as_tensor(mask)[..., 1:].float()  # loss_targets' weights
+        gas, B, M = w.shape[0], w.shape[1], self._pipe_micro
+        per = w.reshape(gas, M, D, B // (M * D), -1)
+        n_all = per.sum(dim=(2, 3, 4))
+        mine = per[:, :, self.batch_rank].sum(dim=(2, 3))
+        return torch.where(n_all > 0, mine * float(D) / n_all.clamp(min=1.0),
+                           torch.ones_like(mine)).to(self.device)
 
     def _quant_grads(self) -> bool:
         return bool(self._compressed and self._compressed["quant_grads"])
@@ -2708,9 +2860,11 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             self.reduce_counts[k] = 0
         self._tiers_before_step()
         batch = self._to_device(self._local_rows(stacked))
-        if (self.seq_shard is not None or self.tp_group is not None) \
+        if (self.seq_shard is not None or self.tp_group is not None
+                or self.pp_group is not None) \
                 and not isinstance(batch, dict):
             batch = {"tokens": batch}
+        pipe_weights = self._pipe_weights(stacked)
         scale = self._scaler_state.scale if self.fp16_enabled else None
         self.flat_grad_acc.zero_()
         quant_grads = self._quant_grads()
@@ -2728,6 +2882,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                     mb["seq_shard"] = self.seq_shard
                 if self.tp_group is not None:
                     mb["tp"] = self.tp_group
+                if self.pp_group is not None:
+                    mb["pp"] = self.pp_group
+                if pipe_weights is not None:
+                    mb["pipe_weights"] = pipe_weights[i]
                 self._begin_micro(i == gas - 1)
                 with self._moe_axes():
                     if weights is None:
@@ -2772,6 +2930,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                               g[n_sh:n_sh + nrd].square().sum()])
             comm.all_reduce(sq[:2], group=self.shard_group)
             comm.all_reduce(sq[1:3], group=self.expert_group)
+        elif self.pp > 1:
+            sq = self._pipe_norm_sq(g)
         elif self.tp > 1:
             # a tensor-sliced leaf's shard is held once a shard group of
             # each tensor coordinate, a replicated sliced leaf once a
@@ -2813,6 +2973,36 @@ class DataParallelEngine(DeepSpeedTPUEngine):
             metrics["loss_scale"] = self._scaler_state.scale
         self.state["step"] += 1
         return metrics
+
+    def _pipe_norm_sq(self, g: torch.Tensor) -> torch.Tensor:
+        """Under a ``pipe`` axis: the squares of the local gradient by leaf
+        class — sharded or not, tensor-sliced or not, a stage's layers or
+        not — each class summed over the groups its parts are split over
+        (the shard group, the ``tensor`` group, the ``pipe`` group), so
+        that every leaf counts once (the extras, whole on every stage,
+        once) and overflow shows on every rank."""
+        if self._norm_classes is None:
+            classes: Dict[Tuple[bool, bool, bool], List] = {}
+            for sh in self._shards:
+                lo = sh.offset if sh.dim is not None \
+                    else self._n_sh + sh.offset
+                key = (sh.dim is not None, sh.slot.path in self._tp_axes,
+                       sh.slot.path[0] == _STACKED)
+                classes.setdefault(key, []).append((lo, lo + sh.n_loc))
+            self._norm_classes = sorted(classes.items())
+        sq = torch.stack([sum(g[lo:hi].square().sum() for lo, hi in ranges)
+                          for _, ranges in self._norm_classes])
+        groups = (self.shard_group,
+                  None if self.tp_group is None else self.tp_group.group,
+                  self.pp_group.group)
+        for i, group in enumerate(groups):
+            sel = [j for j, (key, _) in enumerate(self._norm_classes)
+                   if key[i]]
+            if sel and comm.get_world_size(group) > 1:
+                part = sq[sel]
+                comm.all_reduce(part, group=group)
+                sq[sel] = part
+        return sq
 
     def close(self) -> None:
         """Land the publish in flight and stop the queue's thread."""
@@ -2856,7 +3046,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                full: torch.Tensor) -> torch.Tensor:
         """A leaf gathered from its shards → the global leaf: its experts
         gathered over the expert group, its tensor slices over the
-        ``tensor`` group (collective)."""
+        ``tensor`` group, a layer stack's stages over the ``pipe`` group
+        (collective)."""
         dim = self._expert_dims.get(path)
         if dim is not None:
             full = comm.all_gather(full.contiguous(), group=self.expert_group,
@@ -2865,6 +3056,9 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         if axes is not None:
             full = tp_gather(axes, comm.all_gather(
                 full.contiguous(), group=self.tp_group.group, tiled=False))
+        if self.pp > 1 and path[0] == _STACKED:
+            full = pp_gather(comm.all_gather(
+                full.contiguous(), group=self.pp_group.group, tiled=False))
         return full
 
     # ------------------------------------------------------------------ #

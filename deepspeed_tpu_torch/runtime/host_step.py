@@ -36,9 +36,8 @@ for update k-1 there and nowhere else, so the result does not depend on
 the threads' timing. Without overlap, update k lands before step k+1.
 
 Refused as in JAX (``host_step.py:57-72``, ``engine.py:362-364``): fp16
-loss scaling, more than one process (the update addresses this process's
-host memory only) and the compressed wires; the port's mesh refuses a
-pipeline axis before. The host library is built when the runner is made:
+loss scaling, a ``pipe`` mesh axis, more than one process (the update
+addresses this process's host memory only) and the compressed wires. The host library is built when the runner is made:
 a missing compiler or a failed build raises ``KernelBuildError`` there,
 and nothing falls back to an eager update.
 """
@@ -71,6 +70,9 @@ class HostStepRunner:
                 "offload_optimizer.host_step does not support fp16 loss "
                 "scaling; use bf16 (the reference's SuperOffload targets "
                 "bf16 too)")
+        if engine.mesh_manager.pp_world_size > 1:
+            raise DeepSpeedConfigError(
+                "host_step is not supported with pipeline parallelism")
         if comm.get_world_size() > 1:
             raise DeepSpeedConfigError(
                 "host_step is single-host for now: the update runs on this "

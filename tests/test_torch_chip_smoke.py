@@ -272,7 +272,7 @@ def test_zero3_launches_want():
     assert (wire["quant_int8"], wire["dequant_reduce"]) == (144, 152)
     assert (wire["flash_fwd"], wire["flash_bwd_dq"], wire["flash_bwd_dkv"],
             wire["fused_adam"], wire["rms_norm"]) == (320, 160, 160, 2, 648)
-    assert C.ZERO3_CHUNKS == 8 and C.ZERO3["gas"] == 4
+    assert C.ZERO3_CHUNKS == 8 and C.ZERO3["gas"] == C.ZEROPP_GAS == 2
 
 
 def test_zero3_count_problems():
@@ -928,3 +928,89 @@ def test_tp7b_phase_rank_rehearsal_on_cpu(tmp_path):
                                          graphs=False)) == []
     assert ranks[0]["main"]["pool_heads"] == 1
     assert ranks[0]["main"]["traffic"]["tensor/all_reduce"][0] > 0
+
+
+def test_pp2_formulas():
+    """PP3 and PP4 at the phase's shapes: llama_750m at 20 layers (10 a
+    stage), M = 4 pipeline micro-batches of 1 x 2048 tokens, gas 2: the
+    launches a step of each stage, the stage hops (M·gas activations sent
+    by stage 0, M·gas cotangents by stage 1, each [1, 2048, 1536]) and the
+    exchanges, and the stage-local parameter count against the tree the
+    converter cuts; way (b) at 4 layers and a tensor rank's 6 heads."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.models.convert import (
+        pp_local_tree,
+        tp_local_tree,
+    )
+
+    t = dict(C.PP2, layers=20)
+    cfg = T.get_model_config("llama_750m", num_layers=20)
+    for stage, (fwd, rms) in enumerate(((3 * 10 * 8, 6 * 10 * 8),
+                                        (2 * 10 * 8, 41 * 8))):
+        launches, shapes = C.pp2_want(t, cfg, stage, 1)
+        assert (launches["flash_fwd"], launches["flash_bwd_dq"],
+                launches["flash_bwd_dkv"], launches["rms_norm"],
+                launches["fused_adam"]) == (fwd, 80, 80, rms, 1)
+        assert shapes == [(1, 2048, 12, 128)]
+    act = 2048 * 1536
+    assert C.pp2_traffic_want(t, cfg, 0) == {
+        "pipe/activation": [8, 8 * act], "pipe/cotangent": [0, 0],
+        "pipe/exchange": [10, None], "pipe/all_reduce": [3, None]}
+    assert C.pp2_traffic_want(t, cfg, 1) == {
+        "pipe/activation": [0, 0], "pipe/cotangent": [8, 8 * act],
+        "pipe/exchange": [10, None], "pipe/all_reduce": [3, None]}
+    for P, M in ((2, 4), (4, 8), (4, 4)):
+        hops = [C.pp_hops_want(P, M, 1, s) for s in range(P)]
+        assert [h["activation"] for h in hops] == [M] * (P - 1) + [0]
+        assert [h["cotangent"] for h in hops] == [0] + [M] * (P - 1)
+    tb = C.pp2_b(t)
+    cfg4 = T.get_model_config("llama_750m", num_layers=4)
+    assert (tb["world"], tb["mesh"], tb["layers"]) == (
+        4, {"pipe": 2, "tensor": 2}, 4)
+    assert C.pp2_want(tb, cfg4, 0, 1)[1] == [(1, 2048, 6, 128)]
+    small = T.get_model_config("llama_750m", num_layers=4, hidden_size=128,
+                               num_heads=2, ffn_hidden_size=256,
+                               vocab_size=512)
+    tree = T.init_params(small, torch.Generator().manual_seed(0), "cpu")
+    for P, Tn in ((2, 1), (2, 2), (4, 2)):
+        for s in range(P):
+            mine = tp_local_tree(pp_local_tree(tree, small, P, s), small,
+                                 Tn, 1)
+            count = sum(v.numel() for _, v in _flat(mine))
+            assert C.pp_local_params(small, P, Tn) == count
+
+
+def test_pp2_phase_rank_rehearsal_on_cpu(tmp_path):
+    """The pipeline phase's rank function at tiny size: way (a) on two
+    gloo ranks of the CPU in one merged spawn, way (b) on four (the plain
+    paths, the counters read 0 there): both train, the stage hops a step
+    are PP3's formula, the flash wrapper sees a pipeline micro-batch, the
+    rank's parameters are PP4's count, PP1 and PP2 pass against the
+    one-process reference, and the measured bubble lies in [0, 1)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.PP2, model="tiny_llama", layers=2, seq=32,
+             gates=tuple(C.PP2_GATES), seed=0)
+    cfg = T.get_model_config("tiny_llama", num_layers=2)
+    ref = C.pp2_reference(t, torch.device("cpu"), 0, str(tmp_path / "one"))
+    ranks = C.spawn_ranks("jobs_rank", 2, 0, [
+        ("pp2", "train_llama_750m_pp2_rank",
+         dict(t, device="cpu", ref=ref, pp4=True, pp2_gate=True))])
+    got = [r["pp2"][0] for r in ranks]
+    assert _but_launches(C.pp2_problems(
+        "a", dict(t, pp2_gate=True), got, ref, cfg)) == []
+    assert [r["main"]["coords"]["pipe"] for r in got] == [0, 1]
+    assert got[0]["main"]["flash_shapes"]["flash_fwd"] == [(1, 32, 4, 16)]
+    assert all(0 <= r["main"]["bubble_measured"] < 1 for r in got)
+    assert {label for label, _, _ in C.PP4_RUNS} <= set(got[0]["pp4"])
+    tb = C.pp2_b(t)
+    got = C.spawn_ranks("train_llama_750m_pp2_rank", 4, 0,
+                        dict(tb, device="cpu", ref=ref))
+    cfg4 = T.get_model_config("tiny_llama", num_layers=tb["layers"])
+    assert _but_launches(C.pp2_problems("b", tb, got, ref, cfg4)) == []
+    assert [(r["main"]["coords"]["pipe"], r["main"]["coords"]["tensor"])
+            for r in got] == [(0, 0), (0, 1), (1, 0), (1, 1)]

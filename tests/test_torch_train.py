@@ -309,8 +309,8 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
     # tests/test_torch_offload.py and tests/test_torch_zenflow.py)
     ({"optimizer": {"type": "adafactor", "params": {"lr": 1e-3}}}, {}),
     ({"bf16": {"enabled": True, "fp32_master": False}}, {}),
-    ({"pipeline": {"stages": 2}}, {}),
-    ({"mesh": {"pipe": 2}}, {}),
+    ({"progressive_layer_drop": {"enabled": True}}, {}),
+    ({"data_efficiency": {"enabled": True}}, {}),
     ({"telemetry": {"tracing": True}}, {}),
     ({"wall_clock_breakdown": True}, {}),
     ({"activation_checkpointing": {"policy": "selective"}}, {}),
@@ -321,7 +321,9 @@ BASE = {"train_micro_batch_size_per_gpu": 2,
     # seq axis, the tiled loss and the sequence-parallel attentions run:
     # test_seq_options_at_world_1 below, tests/test_torch_sequence.py; the
     # tensor axis and the tensor_parallel section: test_tensor_options_at_
-    # world_1 below, tests/test_torch_tensor_parallel.py)
+    # world_1 below, tests/test_torch_tensor_parallel.py; the pipe axis and
+    # the pipeline section: test_pipe_options_at_world_1 below,
+    # tests/test_torch_pipeline.py)
 ])
 def test_out_of_slice_options_raise(extra, spec_kw):
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -409,6 +411,46 @@ def test_tensor_options_at_world_1(name):
         config=cfg, device="cpu")
     assert peng.config.tensor_parallel.autotp_size == \
         jeng.config.tensor_parallel.autotp_size == 2
+    load_master(peng, jax.tree.map(np.asarray, jeng.state["master"]))
+    batch = next(synthetic_lm_data(2, SEQ, 512, seed=3))
+    jl = float(jeng.train_batch(iter([batch])))
+    pl = float(peng.train_batch(iter([batch])))
+    np.testing.assert_allclose(pl, jl, rtol=TOL["float32"]["loss"], atol=0)
+
+
+PIPE_OPTIONS = {"mesh_pipe2": {"mesh": {"pipe": 2}},
+                "pipeline_section": {"pipeline": {
+                    "stages": 2, "micro_batches": 4,
+                    "activation_checkpoint_interval": 1}}}
+
+
+@pytest.mark.parametrize("name", list(PIPE_OPTIONS))
+def test_pipe_options_at_world_1(name):
+    """The options of the pipeline slice in one process: a ``pipe`` axis
+    of 2 raises JAX's ``ValueError`` (it does not divide one process); the
+    ``pipeline`` section is read and inert, as in JAX, and the engine
+    trains one step from JAX's master to JAX's loss."""
+    from deepspeed_tpu.comm.mesh import MeshConfig, initialize_mesh
+
+    extra = PIPE_OPTIONS[name]
+    cfg = dict(BASE, **extra, steps_per_print=10 ** 6)
+    if "mesh" in extra:
+        with pytest.raises(ValueError) as want:
+            MeshConfig(**extra["mesh"]).resolve(1)
+        with pytest.raises(ValueError) as got:
+            dtt.initialize(model=dtt.causal_lm_spec("tiny", dtype="float32"),
+                           config=cfg, device="cpu")
+        assert str(got.value) == str(want.value)
+        return
+    mm = initialize_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
+    jeng, *_ = dst.initialize(
+        model=dst.causal_lm_spec("tiny_llama", dtype="float32"),
+        config=cfg, mesh_manager=mm)
+    peng, *_ = dtt.initialize(
+        model=dtt.causal_lm_spec("tiny_llama", dtype="float32"),
+        config=cfg, device="cpu")
+    assert peng.config.pipeline.micro_batches == \
+        jeng.config.pipeline.micro_batches == 4
     load_master(peng, jax.tree.map(np.asarray, jeng.state["master"]))
     batch = next(synthetic_lm_data(2, SEQ, 512, seed=3))
     jl = float(jeng.train_batch(iter([batch])))
