@@ -235,6 +235,28 @@ kernel on them against its plain PyTorch version:
                at M = 8 within 1.15x of M = 4's, GPipe's beside); step,
                tokens/s, MFU, peak a rank, rank 0's idle share, the bubble
                (formula and measured), the pipe group's host seconds;
+13h. train_llama_750m_pp_compose — the pipe axis composed (PPC): full
+               width, PPC_LAYERS layers (PPC_LAYERS / 2 a stage), 1F1B with M = 4
+               pipeline micro-batches of 1 row a batch rank, gas 2, bf16
+               with an fp32 master; (a) llama_750m at {pipe: 2, data: 2},
+               ZeRO-3 (gathered by the chunks of the stage's layers) beside
+               ZeRO-2: PC1 (one fp32 step against ZeRO-2's by the training
+               rule), PC2 (bf16 loss within 1e-5 of ZeRO-2's, update within
+               2x ZeRO-2's from fp32), PC3 (the gathers and reduces a step
+               by formula), PC4 (the peak a rank below ZeRO-2's by 0.75 of
+               the reckoned margin); (b) {pipe: 2, seq: 2} with
+               ulysses_flash: PC5 (one fp32 step against the same rows at
+               {pipe: 2, data: 2} with flash), the seq group's all-to-alls
+               by formula; (c) moe_350m at {pipe: 2, expert: 2}: PC6 (one
+               fp32 step against {pipe: 2, data: 2} on the same rows,
+               routing agreement >= 1 - 1e-4, aux within 1e-5), the grouped
+               GEMM on a rank's received buffer against its plain version;
+               (d) two ranks at {pipe: 2}, ZeRO-1 with offload_optimizer
+               cpu: PC7 (losses and the master's and moments' fingerprints
+               bit-equal to no offload); each way's step, tokens/s, MFU,
+               peak a rank, rank 0's idle share, the pipe, seq and expert
+               groups' host seconds; (a)-(c) in the world-4 spawn, (d) in
+               the world-2 spawn;
 14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
@@ -305,9 +327,10 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_sp2
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_tp2,llama2_7b_tp2
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_pp2
+    python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_pp_compose
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14, 13b-13g among them) and the offload phases (15-16) run right after
+(11-14, 13b-13h among them) and the offload phases (15-16) run right after
 the kernels phase, before the serving phases' engines take the card.
 Their ranks run in one spawn a world size (MERGED_SPAWNS: the first of
 them prepares every selected phase's jobs of its world, the checkpoint
@@ -345,7 +368,8 @@ PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_llama_750m_zero3_dp2", "train_llama_750m_hpz_dp4",
           "train_moe_350m_ep", "train_moe_350m_ep_zero",
           "train_llama_750m_sp2", "train_llama_750m_tp2",
-          "train_llama_750m_pp2", "quantized_reduce_scatter", "train_llama2_7b_super_offload",
+          "train_llama_750m_pp2", "train_llama_750m_pp_compose",
+          "quantized_reduce_scatter", "train_llama2_7b_super_offload",
           "train_llama_750m_offload", "llama2_7b_tp2", "llama2_7b",
           "gpt2_125m", "moe_350m", "train_gpt2_125m",
           "train_llama_750m", "checkpoint_llama_750m", "train_moe_350m",
@@ -1287,14 +1311,15 @@ def spawn_ranks(fn_name, world, *args):
 MERGED_SPAWNS = {
     2: ("train_llama_750m_zeropp_dp2", "train_llama_750m_zero3_dp2",
         "train_llama_750m_sp2", "train_llama_750m_tp2",
-        "train_llama_750m_pp2", "train_moe_350m_ep",
-        "train_moe_350m_ep_zero", "quantized_reduce_scatter",
+        "train_llama_750m_pp2", "train_llama_750m_pp_compose",
+        "train_moe_350m_ep", "train_moe_350m_ep_zero",
+        "quantized_reduce_scatter",
         "train_llama_750m_offload", "checkpoint_llama_750m",
         "llama2_7b_tp2"),
     4: ("train_llama_750m_hpz_dp4", "train_moe_350m_ep",
         "train_moe_350m_ep_zero", "train_llama_750m_sp2",
         "train_llama_750m_tp2", "train_llama_750m_pp2",
-        "quantized_reduce_scatter")}
+        "train_llama_750m_pp_compose", "quantized_reduce_scatter")}
 
 
 class Job(typing.NamedTuple):
@@ -4440,6 +4465,320 @@ def train_llama_750m_pp2_rank(rank, world, seed, t):
     seconds["pp1"] = time.perf_counter() - t0
     out["seconds"] = seconds
     return {"rank": rank, "main": out, "gates": gates, "pp4": pp4}
+
+
+# --------------------------------------------------------------------------- #
+# The pipe axis composed (train_llama_750m_pp_compose)
+# --------------------------------------------------------------------------- #
+# train_llama_750m_pp_compose: the pipe axis beside ZeRO-3, seq, expert and
+# the offload tier, full width, PPC_LAYERS layers (PPC_LAYERS / 2 a stage),
+# bf16 with an fp32 master, remat full, 1F1B with M = 4 pipeline
+# micro-batches of 1 row a batch rank, gas 2; a warm-up step, one timed
+# step, a profiled one on rank 0. Ways, each with its own gates:
+# (a) llama_750m at {pipe: 2, data: 2}, ZeRO-3 (exact wire, the chunks of
+#     the stage's layers), beside ZeRO-2 at the same mesh: PC1 one fp32
+#     step against ZeRO-2's by the training rule (SP2_LIMITS); PC2 the
+#     bf16 step's loss within TRAIN_LOSS_REL of ZeRO-2's and its update
+#     from the fp32 ZeRO-2 step no further than BF16_VS_PLAIN x ZeRO-2's
+#     bf16 one;
+#     PC3 the gathers and reduces a step by formula (ppc_zero3_want); PC4
+#     the peak a rank below ZeRO-2's by PPC_MEMORY_SHARE of the reckoned
+#     margin (ppc_memory_margin);
+# (b) llama_750m at {pipe: 2, seq: 2}, Ulysses around the flash kernels:
+#     PC5 one fp32 step against the same rows at {pipe: 2, data: 2} with
+#     flash (the same pipeline micro-batches) by the training rule; the seq
+#     group's all-to-alls by formula (ppc_seq_want);
+# (c) moe_350m at {pipe: 2, expert: 2} (its 1,024 tokens a row): PC6 one
+#     fp32 step against the same rows at {pipe: 2, data: 2} by the
+#     training rule, routing agreement >= ROUTE_AGREE_MIN and the aux loss
+#     within TRAIN_LOSS_REL; the grouped GEMMs launched, and on a rank's
+#     first received buffer against their plain versions (ep_buffer_gate);
+# (d) llama_750m at {pipe: 2}, ZeRO-1 with offload_optimizer cpu (world 2):
+#     PC7 the losses and the master's and moments' fingerprints bit-equal
+#     to the same run without offload.
+# Every way: the launches of flash and the norm by pp2_want's formula (the
+# same schedule), step ms, tokens/s, MFU, the peak a rank, rank 0's idle
+# share, and the pipe, seq and expert groups' host seconds a step.
+PPC = dict(model="llama_750m", world=4, micro=4, seq=2048, gas=2, steps=1,
+           zero={"stage": 1}, spec=dict(PP2["spec"]))
+# cut from 4 for the script's time: with every way at 4 layers (way (a)'s
+# gates at 2) the whole script took 947.1 s on an H100, at the 950 s mark
+PPC_LAYERS = 2
+PPC_WAYS = {
+    "a": dict(mesh={"pipe": 2, "data": 2}, zero={"stage": 3},
+              baseline={"stage": 2}),
+    "b": dict(mesh={"pipe": 2, "seq": 2}, attention="ulysses_flash",
+              ref_mesh={"pipe": 2, "data": 2}),
+    "c": dict(model="moe_350m", seq=1024, mesh={"pipe": 2, "expert": 2},
+              ref_mesh={"pipe": 2, "data": 2}),
+    "d": dict(world=2, mesh={"pipe": 2}, zero={
+        "stage": 1, "offload_optimizer": {"device": "cpu"}},
+        baseline={"stage": 1})}
+PPC_MEMORY_SHARE = 0.75
+
+
+def ppc_way(t, label):
+    """Way ``label``'s settings from the phase's."""
+    return dict(t, **PPC_WAYS[label], way=label)
+
+
+def ppc_zero3_want(t, chunks, stage):
+    """PC3: a ZeRO-3 rank's gathers and reduces in ``t["steps"]`` steps
+    of 1F1B (remat full): the head group (the extras) gathered once a
+    schedule and reduced once (their sums over pipe); each of the stage's
+    ``chunks`` gathered in the no-grad forward (not on the last stage), in
+    each VJP's forward and in its recompute, and reduced once a VJP."""
+    P, M = t["mesh"]["pipe"], t["spec"]["pipeline_micro_batches"]
+    runs = t["gas"] * t["steps"]
+    last = stage == P - 1
+    return {"gather_fwd": runs * (1 + M * chunks * (1 if last else 2)),
+            "gather_bwd": runs * M * chunks,
+            "reduce": runs * (M * chunks + 1)}
+
+
+def ppc_memory_margin(cfg, P, chunk_layers):
+    """PC4's reckoned margin (bytes) of ZeRO-3 below ZeRO-2 at {pipe: P,
+    data: D} (any D): what ZeRO-2 holds that ZeRO-3 does not — the
+    stage's whole compute copy (bf16) and micro-batch gradient (bf16),
+    1F1B's fp32 gradient buffer, the packed fp32 rows of the reduce ([D,
+    N / D]) and the schedule's fp32 sums of the stage's layers — less
+    what ZeRO-3 gathers for a step: the head group (bf16, a schedule
+    long), two layer chunks (bf16) and two chunks' reduce rows (fp32) in
+    flight."""
+    import dataclasses
+
+    stage = dataclasses.replace(cfg, num_layers=cfg.num_layers // P)
+    n = tp_local_params(stage, 1)
+    n_ex = tp_local_params(dataclasses.replace(stage, num_layers=0), 1)
+    n_blk = n - n_ex
+    n_chunk = n_blk // stage.num_layers * chunk_layers
+    return (2 + 2 + 4 + 4) * n + 4 * n_blk - 2 * n_ex - (2 + 4) * 2 * n_chunk
+
+
+def ppc_seq_want(t, cfg, stage):
+    """The seq group's all-to-alls a rank makes in ``t["steps"]`` steps:
+    Ulysses scatters q, k, v and gathers o (4 calls of B S/sp (2N + 2K) D
+    elements in all) in each pass over a layer — the no-grad forward (not
+    on the last stage), each VJP's forward, its recompute and its
+    backward."""
+    P, M, sp = (t["mesh"]["pipe"], t["spec"]["pipeline_micro_batches"],
+                t["mesh"]["seq"])
+    L = cfg.num_layers // P
+    passes = (3 if stage == P - 1 else 4) * L * M * t["gas"] * t["steps"]
+    b = t["micro"] // M
+    elems = b * t["seq"] // sp * (2 * cfg.num_heads + 2 * cfg.kv_heads) \
+        * cfg.head_dim
+    return {"seq/all_to_all": [4 * passes, passes * elems]}
+
+
+def ppc_host_seconds(traffic, steps):
+    """Each group's host seconds a step (comm.traffic's third column)."""
+    out = {}
+    for k, v in traffic.items():
+        g = k.split("/")[0]
+        out[g] = out.get(g, 0.0) + v[2] / steps
+    return {g: out.get(g, 0.0) for g in ("pipe", "seq", "expert")}
+
+
+def ppc_main(t, dev, attention, batch, rank, profile=True):
+    """One main-path run of a way (``sp2_run``): the timed step's launches,
+    traffic and peak, the groups' host seconds, rank 0's profiled step."""
+    engine, data, out = sp2_run(t, dev, attention, batch)
+    if t["way"] == "d":
+        # PC7: the state after the main path's steps (before any other)
+        out["fingerprints"] = state_fingerprints(engine)
+    out["host_s_per_step"] = ppc_host_seconds(out["traffic"], t["steps"])
+    out["peak_bytes"] = out["resident_bytes"] + out["fwd_bwd_peak_bytes"]
+    out["params_local"] = sum(s.numel for s in engine._slots)
+    z = getattr(engine, "_zero3", None)
+    if z is not None:
+        out["zero3_counts"] = dict(z.counts)
+        out["chunks"] = len(z.groups) - 1
+        out["n_local"] = engine.flat_master.numel()
+    out["profile"] = zeropp_profile(
+        engine, data, dev, profiled=rank == 0 and dev.type == "cuda") \
+        if profile else {"device_idle_share": "not measured"}
+    return engine, data, out
+
+
+def ppc_gate_step(t, dev, batch, zero, precision, attention, mesh, L=0):
+    """One step from the seed's weights at ``mesh`` (gas 1): loss, norm,
+    the whole gradient and update, and under MoE every routed call's
+    routes and their summed aux (``moe_ep_step``)."""
+    engine = sp2_engine(dict(t, zero=zero), dev, precision, attention,
+                        t["micro"], 1, mesh=mesh)
+    res = moe_ep_step(engine, batch, L, dev)
+    engine.close()
+    del engine
+    dev_free(dev)
+    return res
+
+
+@timed_part
+def ppc_gates(t, dev, seed):
+    """The way's gate steps → {gate: training-rule metrics}: (a) ZeRO-3's
+    fp32 and both bf16 steps against ZeRO-2's fp32 one; (b), (c) the
+    way's fp32 step against the same rows at {pipe: 2, data: 2}."""
+    w = t["way"]
+    out = {}
+    if w == "a":
+        gate = sp2_batch(t, seed, masked=True)
+        ref = None
+        for label, zero, prec in (("z2_fp32", t["baseline"], "fp32"),
+                                  ("z3_fp32", t["zero"], "fp32"),
+                                  ("z2_bf16", t["baseline"], "bf16"),
+                                  ("z3_bf16", t["zero"], "bf16")):
+            loss, norm, grad, upd, _, _ = ppc_gate_step(
+                t, dev, gate, zero, prec, "flash", t["mesh"])
+            if ref is None:
+                ref = {"loss": loss, "norm": norm, "grad": grad, "upd": upd}
+            else:
+                out[label] = step_metrics(loss, norm, grad, upd, None, None,
+                                          ref)
+            del grad, upd
+        del ref
+    elif w in ("b", "c"):
+        L = 10 ** 6 if w == "c" else 0     # every routed call's routes
+        # the same rows in both: M pipeline micro-batches of 2 rows
+        tr = dict(t, mesh=t["ref_mesh"])
+        gate = sp2_batch(tr, seed, masked=True)
+        ref = dict(zip(("loss", "norm", "grad", "upd", "idx", "aux"),
+                       ppc_gate_step(tr, dev, gate, t["zero"], "fp32",
+                                     "flash", t["ref_mesh"], L)))
+        # micro rows a batch rank of the way's mesh
+        ta = dict(t, micro=len(gate["tokens"]) // int(np.prod(
+            [t["mesh"].get(a, 1) for a in ("data", "zshard", "expert")])))
+        out["pc_fp32"] = step_metrics(*ppc_gate_step(
+            ta, dev, gate, t["zero"], "fp32", t.get("attention", "flash"),
+            t["mesh"], L), ref)
+        del ref
+    dev_free(dev)
+    return out
+
+
+def train_llama_750m_pp_compose_rank(rank, world, seed, t):
+    """One rank of way ``t["way"]`` of the composed pipe phase: its main
+    path (and the ZeRO-2 / no-offload baseline's), what its gates need."""
+    import torch
+
+    dev = torch.device(t["device"])
+    w = t["way"]
+    batch = sp2_batch(t, seed)
+    out = {"rank": rank, "way": w}
+    if w == "c":
+        with ep_buffer_capture() as cap:
+            engine, data, out["main"] = ppc_main(t, dev, "flash", batch,
+                                                 rank)
+        out["ep_buffer"] = ep_buffer_gate(cap, dev)
+        del cap
+    else:
+        engine, data, out["main"] = ppc_main(
+            t, dev, t.get("attention", "flash"), batch, rank)
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    if t.get("baseline"):
+        engine, data, out["baseline"] = ppc_main(
+            dict(t, zero=t["baseline"]), dev, "flash", batch, rank,
+            profile=False)
+        out["baseline"]["state_bytes"] = {
+            name: buf.numel() * buf.element_size() for name, buf in (
+                ("compute", engine.flat_compute),
+                ("grad", engine.flat_grad),
+                ("grad32", getattr(engine, "flat_grad32", None)),
+                ("packed", engine._packed)) if buf is not None}
+        engine.close()
+        del engine, data
+        dev_free(dev)
+    out["gates"] = ppc_gates(t, dev, seed)
+    return out
+
+
+def ppc_problems(t, ranks, cfg):
+    """One way's verdicts, rank by rank."""
+    w = t["way"]
+    problems = []
+    P = t["mesh"]["pipe"]
+    for r in ranks:
+        m, tag = r["main"], f"({w}) rank {r['rank']}"
+        stage = m["coords"]["pipe"]
+        launches, shapes = pp2_want(t, cfg, stage, m["adam_per_step"])
+        if cfg.norm != "rmsnorm":       # moe_350m's LayerNorm
+            launches["layer_norm"] = launches.pop("rms_norm")
+            launches["rms_norm"] = 0
+        keys = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rms_norm",
+                "layer_norm", "fused_adam", "quant_int8", "dequant_reduce")
+        problems += [f"{tag}: {k} launched {m['launches'][k]} times, want "
+                     f"{launches.get(k, 0)}" for k in keys
+                     if m["launches"][k] != launches.get(k, 0)]
+        if m["losses"][-1] >= m["losses"][0] or not all(
+                np.isfinite(m["losses"])):
+            problems.append(f"{tag}: losses {m['losses']}")
+        if w == "a":
+            want = ppc_zero3_want(t, m["chunks"], stage)
+            if m["zero3_counts"] != want:
+                problems.append(f"{tag}: PC3 ZeRO-3 counts "
+                                f"{m['zero3_counts']}, want {want}")
+            g = r["gates"]
+            problems += [f"{tag}: PC1 {k} {g['z3_fp32'][k]:.3g} > {v}"
+                         for k, v in SP2_LIMITS.items()
+                         if not g["z3_fp32"][k] <= v]
+            lrel = abs(g["z3_bf16"]["loss"] - g["z2_bf16"]["loss"]) \
+                / abs(g["z2_bf16"]["loss"])
+            if not lrel <= TRAIN_LOSS_REL:
+                problems.append(f"{tag}: PC2 bf16 loss {lrel:.3g} from "
+                                f"ZeRO-2's > {TRAIN_LOSS_REL}")
+            limit = BF16_VS_PLAIN * g["z2_bf16"]["update_rel"]
+            if not g["z3_bf16"]["update_rel"] <= limit:
+                problems.append(f"{tag}: PC2 bf16 update "
+                                f"{g['z3_bf16']['update_rel']:.4g} > "
+                                f"{BF16_VS_PLAIN} x ZeRO-2's")
+            margin = ppc_memory_margin(cfg, P,
+                                       cfg.num_layers // P // m["chunks"])
+            saved = r["baseline"]["peak_bytes"] - m["peak_bytes"]
+            if t["device"].startswith("cuda") and \
+                    not saved >= PPC_MEMORY_SHARE * margin:
+                problems.append(f"{tag}: PC4 peak {m['peak_bytes']} only "
+                                f"{saved} below ZeRO-2's, want >= "
+                                f"{PPC_MEMORY_SHARE} x {margin}")
+        if w in ("b", "c"):
+            g = r["gates"]["pc_fp32"]
+            limits = dict(SP2_LIMITS) if w == "b" else dict(
+                SP2_LIMITS, route_miss=1 - ROUTE_AGREE_MIN,
+                aux_rel=TRAIN_LOSS_REL)
+            problems += [f"{tag}: PC{5 if w == 'b' else 6} {k} {g[k]:.3g} "
+                         f"> {v}" for k, v in limits.items()
+                         if not g[k] <= v]
+        if w == "b":
+            for key, (calls, elems) in ppc_seq_want(t, cfg, stage).items():
+                got = m["traffic"].get(key, [0, 0])[:2]
+                if got != [calls, elems]:
+                    problems.append(f"{tag}: {key} {got}, want "
+                                    f"{[calls, elems]}")
+            want = [(t["micro"] // t["spec"]["pipeline_micro_batches"],
+                     t["seq"], cfg.num_heads // t["mesh"]["seq"],
+                     cfg.head_dim)]
+            if m["flash_shapes"]["flash_fwd"] != want:
+                problems.append(f"{tag}: flash shapes {m['flash_shapes']}, "
+                                f"want {want}")
+        if w == "c":
+            if not (m["launches"]["gmm"] and m["launches"]["tgmm"]):
+                problems.append(f"{tag}: gmm launched "
+                                f"{m['launches']['gmm']} times, tgmm "
+                                f"{m['launches']['tgmm']}, want both > 0")
+            e = r["ep_buffer"]
+            if not (e["gmm_close"] and e["tgmm_close"] and e["tail_zero"]):
+                problems.append(f"{tag}: the received buffer's grouped GEMM "
+                                f"against its plain version: {e}")
+        if w == "d":
+            b = r["baseline"]
+            if m["losses"] != b["losses"] or any(
+                    m["fingerprints"][k] != b["fingerprints"][k]
+                    for k in ("master", "exp_avg", "exp_avg_sq")):
+                problems.append(f"{tag}: PC7 offload {m['losses']} "
+                                f"{m['fingerprints']} against "
+                                f"{b['losses']} {b['fingerprints']}")
+    return problems
 
 
 def mixed_tick_inputs(eng, uids, prompts, label):
@@ -7883,6 +8222,127 @@ class Smoke:
                         tokens_per_s=res["tokens_per_s"], mfu=res["mfu"])
             for label, res in results.items()}
 
+    def prepare_train_llama_750m_pp_compose(self):
+        """The four ways' jobs: (a)-(c) in the world-4 spawn, (d) in the
+        world-2 spawn."""
+        t = dict(PPC, layers=PPC_LAYERS, device=str(self.dev))
+        return {"t": t, "jobs": [
+            Job(f"ppc/{w}", "train_llama_750m_pp_compose_rank",
+                ppc_way(t, w)["world"], ppc_way(t, w)) for w in PPC_WAYS]}
+
+    def phase_train_llama_750m_pp_compose(self):
+        """The pipe axis beside ZeRO-3 (a), seq (b), expert (c) and the
+        offload tier (d), gates PC1-PC7 (``train_llama_750m_pp_compose_
+        rank``); step ms, tokens/s, MFU, peak a rank, rank 0's idle share
+        and the pipe, seq and expert groups' host seconds a step."""
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        dev_free(self.dev)
+        prep = self.prepared("train_llama_750m_pp_compose")
+        t = prep["t"]
+        ways = {j.args["way"]: (j.args, self.spawn_job(j))
+                for j in prep["jobs"]}
+        problems, results, gates = [], {}, {}
+        for w, (tw, (ranks, wall)) in ways.items():
+            cfg = T.get_model_config(tw["model"], num_layers=tw["layers"])
+            problems += ppc_problems(tw, ranks, cfg)
+            gates[w] = {f"rank {r['rank']}": r["gates"] for r in ranks}
+            r0 = ranks[0]["main"]
+            step_s = r0["step_ms"] / 1e3
+            rows = tw["micro"] * int(np.prod([tw["mesh"].get(a, 1) for a in
+                                              ("data", "zshard", "expert")]))
+            tokens = rows * tw["seq"] * tw["gas"]
+            res = {
+                "mesh": tw["mesh"], "world": tw["world"], "zero": tw["zero"],
+                "model": tw["model"], "layers": tw["layers"],
+                "attention": tw.get("attention", "flash"),
+                "schedule": "1f1b",
+                "pipeline_micro_batches": tw["spec"][
+                    "pipeline_micro_batches"],
+                "rows_global": rows, "seq": tw["seq"], "phase_wall_s": wall,
+                "step_ms": r0["step_ms"],
+                "step_ms_per_rank": [r["main"]["step_ms"] for r in ranks],
+                "tokens_per_s": tokens / step_s,
+                "mfu": tokens / step_s * flops_per_token(cfg, tw["seq"])
+                / PEAK_FLOPS["bfloat16"],
+                "peak_bytes_per_rank": [r["main"]["peak_bytes"]
+                                        for r in ranks],
+                "idle_share_rank0": r0["profile"].get("device_idle_share"),
+                "host_s_per_step_per_rank": [r["main"]["host_s_per_step"]
+                                             for r in ranks],
+                "params_per_rank": [r["main"]["params_local"]
+                                    for r in ranks],
+                "per_rank": [{k: v for k, v in r["main"].items()
+                              if k != "profile"} for r in ranks],
+                "profile_rank0": r0["profile"]}
+            if tw.get("baseline"):
+                res["baseline"] = {
+                    "zero": tw["baseline"],
+                    "step_ms": ranks[0]["baseline"]["step_ms"],
+                    "peak_bytes_per_rank": [r["baseline"]["peak_bytes"]
+                                            for r in ranks],
+                    "losses_per_rank": [r["baseline"]["losses"]
+                                        for r in ranks],
+                    "state_bytes_rank0": ranks[0]["baseline"]["state_bytes"]}
+            if w == "a":
+                P = tw["mesh"]["pipe"]
+                res["zero3"] = {
+                    "counts_per_rank": [r["main"]["zero3_counts"]
+                                        for r in ranks],
+                    "want_by_stage": [ppc_zero3_want(tw, r0["chunks"], s)
+                                      for s in range(P)],
+                    "chunks_a_stage": r0["chunks"],
+                    "n_local": r0["n_local"],
+                    "margin_reckoned_bytes": ppc_memory_margin(
+                        cfg, P, cfg.num_layers // P // r0["chunks"]),
+                    "peak_saved_bytes_per_rank": [
+                        r["baseline"]["peak_bytes"] - r["main"]["peak_bytes"]
+                        for r in ranks]}
+            if w == "b":
+                res["seq_traffic_want_by_stage"] = [
+                    ppc_seq_want(tw, cfg, s)
+                    for s in range(tw["mesh"]["pipe"])]
+            if w == "c":
+                res["ep_buffer_per_rank"] = [r["ep_buffer"] for r in ranks]
+            if w == "d":
+                res["fingerprints"] = {
+                    f"rank {r['rank']}": {"offload": r["main"][
+                        "fingerprints"], "none": r["baseline"][
+                        "fingerprints"]} for r in ranks}
+            results[w] = res
+        emit("train_llama_750m_pp_compose", reduced=(
+            f"{t['layers']} of 20 layers (moe_350m: of 12), for the "
+            "script's time"), micro_a_batch_rank=t["micro"], gas=t["gas"],
+            steps=t["steps"], card=self.card,
+            wire_note="gloo through host memory, the ranks sharing one "
+                      "card", **results)
+        emit("train_llama_750m_pp_compose/gates", card=self.card,
+             gates=gates, limits=SP2_LIMITS, bf16_vs_plain=BF16_VS_PLAIN,
+             route_agree_min=ROUTE_AGREE_MIN,
+             memory_share=PPC_MEMORY_SHARE)
+        if problems:
+            raise AssertionError("train_llama_750m_pp_compose: "
+                                 + "; ".join(problems))
+        name = "train_llama_750m_pp_compose"
+        for w, res in results.items():
+            for r in res["per_rank"]:
+                for k, v in r["launches"].items():
+                    if v and k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "rms_norm", "layer_norm",
+                                   "fused_adam", "gmm", "tgmm"):
+                        by = self.launches.setdefault(k, {})
+                        key = f"{name}/{w}"
+                        by[key] = by.get(key, 0) + v
+            self.steps[f"{name}/{w}"] = t["steps"] * res["world"]
+        self.state["pp_compose"] = {
+            "zero3_n_local": results["a"]["zero3"]["n_local"],
+            "ep_buffer": results["c"]["ep_buffer_per_rank"][0],
+            "steps": {w: dict(res["profile_rank0"], step_ms=res["step_ms"],
+                              tokens_per_s=res["tokens_per_s"],
+                              mfu=res["mfu"]) for w, res in results.items()}}
+
     def prepare_llama2_7b_tp2(self):
         """T1's one-process tick (``tp7b_reference``) and the job."""
         t = dict(TP7B, layers=TP7B_LAYERS)
@@ -9448,8 +9908,18 @@ class Smoke:
             fl["llama_750m_pp2"] = self.flash_times(
                 "llama_750m_pp2", PP2["micro"] // PP2["spec"][
                     "pipeline_micro_batches"], PP2["seq"], 12, 12, 128, flush)
+        if "pp_compose" in self.state:
+            # Ulysses' head shard of a pipeline micro-batch (PPC's way (b)):
+            # one row, 6 of 12 heads
+            b = PPC["micro"] // PPC["spec"]["pipeline_micro_batches"]
+            fl["llama_750m_pp_seq2"] = self.flash_times(
+                "llama_750m_pp_seq2", b, PPC["seq"], 6, 6, 128, flush)
         adam = (self.adam_times(flush) if "train_gpt2_125m" in self.state
                 else None)
+        if adam is not None and "pp_compose" in self.state:
+            # a ZeRO-3 rank's local buffer at {pipe: 2, data: 2} (PPC (a))
+            adam["zero3_stage_shard"] = self.adam_times(
+                flush, self.state["pp_compose"]["zero3_n_local"])
         gg = (self.gmm_times(flush) if "train_moe_350m" in self.state
               else None)
         nb = self.norm_bwd_times(flush)
@@ -9478,6 +9948,9 @@ class Smoke:
         if "pp2" in self.state:
             for label, row in self.state["pp2"].items():
                 steps[f"llama_750m_pp2_{label}"] = row
+        if "pp_compose" in self.state:
+            for label, row in self.state["pp_compose"]["steps"].items():
+                steps[f"pp_compose_{label}"] = row
         if "moe_ep" in self.state:
             steps["moe_350m_ep2"] = self.state["moe_ep"]["a"]
             steps["moe_350m_data2_ep2"] = self.state["moe_ep"]["b"]
@@ -9805,15 +10278,15 @@ class Smoke:
                 "plain": self.time_ms(lambda: self.evo_step(x, False),
                                       iters=5)}
 
-    def adam_times(self, flush):
+    def adam_times(self, flush, n=None):
         """Fused Adam over gpt2_125m's flat buffer (the main path's, with
-        the bf16 compute copy written): kernel, plain, and
-        ``torch.optim.AdamW(fused=True).step()`` as the yardstick (no
-        compute copy)."""
+        the bf16 compute copy written), or over ``n`` elements: kernel,
+        plain, and ``torch.optim.AdamW(fused=True).step()`` as the
+        yardstick (no compute copy)."""
         torch = self.torch
         from deepspeed_tpu_torch.ops import fused_adam as FA
 
-        n = self.state["train_gpt2_125m"]["flat_n"]
+        n = n or self.state["train_gpt2_125m"]["flat_n"]
         g = torch.Generator(self.dev).manual_seed(5)
         p, grad, m = (0.02 * torch.randn(n, generator=g, device=self.dev)
                       for _ in range(3))
@@ -10118,6 +10591,10 @@ class Smoke:
                 if "llama_750m_pp2" in fl:
                     # train_llama_750m_pp2's role: a pipeline micro-batch
                     timed[name]["pipeline"] = fl["llama_750m_pp2"][name]
+                if "llama_750m_pp_seq2" in fl:
+                    # train_llama_750m_pp_compose (b): Ulysses' head shard
+                    # of a pipeline micro-batch
+                    timed[name]["pipe_seq"] = fl["llama_750m_pp_seq2"][name]
         for name, key in (("gmm", "gmm[up]"), ("tgmm", "tgmm[up]")):
             if gg is not None and name in self.errs:
                 timed[name] = dict(gg[key], max_abs_err=self.errs[name])
@@ -10131,6 +10608,19 @@ class Smoke:
                             "gmm_library_ms", "gmm_library")}
                 if name == "gmm":
                     timed[name]["serving_decode"] = gg["gmm[serving_decode]"]
+                if "pp_compose" in self.state and name == "gmm":
+                    # a {pipe: 2, expert: 2} rank's received buffer (PPC c)
+                    e = self.state["pp_compose"]["ep_buffer"]
+                    routed, K, N = e["routed_rows"], e["K"], e["N"]
+                    E = len(e["group_sizes"])
+                    timed[name]["pipe_expert_buffer"] = dict(
+                        {k: e.get(k) for k in (
+                            "rows", "routed_rows", "group_sizes",
+                            "gmm_max_abs_err", "gmm_ms", "gmm_plain_ms",
+                            "gmm_library_ms", "gmm_library")},
+                        **self.bound(2 * (routed * K + E * K * N
+                                          + e["rows"] * N),
+                                     2 * routed * K * N))
         for name in sp:
             if name in self.errs:
                 timed[name] = dict(sp[name], max_abs_err=self.errs[name])
@@ -10163,7 +10653,9 @@ class Smoke:
             for extra in ("sdpa_fwd_bwd_ms", "dense_flash_ms",
                           "tflops_per_s", "kernel_ms", "in_graph_kernel_ms",
                           "replica_hop", "ep_buffer", "serving_decode",
-                          "ulysses", "tensor_parallel", "pipeline"):
+                          "ulysses", "tensor_parallel", "pipeline",
+                          "pipe_seq", "pipe_expert_buffer",
+                          "zero3_stage_shard"):
                 if extra in t:
                     out[-1][extra] = t[extra]
         # the host library of the host-executed step (not a card kernel):

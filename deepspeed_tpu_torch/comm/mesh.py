@@ -51,7 +51,13 @@ stage's layers, and its stage hops run on the pipeline's own group
 a cotangent to stage s − 1 (``comm.pipe_exchange``). ``pipe`` is in
 neither the batch axes nor the gradient-reduce axes, as in JAX: the
 stages of a data rank share its rows, so under it the shard group
-``(data, zshard)`` is built even where it holds one rank.
+``(data, zshard)`` is built even where it holds one rank. Every group
+but the ``pipe`` group holds one stage's ranks (a group over axes keeps
+this rank's coordinate on every other axis, ``pipe`` among them): the
+shard group and hpZ's replica hops, the ``expert`` and ``seq`` groups, the
+MoE layer's and the attentions' own, so two stages never meet on a group
+(gloo matches collectives by issue order, and the stages run different
+ticks).
 """
 from __future__ import annotations
 
@@ -341,7 +347,9 @@ def _axis_groups(sizes: Dict[str, int]
     groups. Under a ``pipe`` axis: the ``(data, zshard)`` groups even of
     one rank (the shard group, and the dense reduce group, which
     ``expert`` = ``seq`` = 1 make the same ranks), and the pipeline's own
-    ``pipe`` groups."""
+    ``pipe`` groups; where an ``expert`` or ``seq`` axis makes the stage's
+dense reduce group over ``DENSE_GRAD_REDUCE_AXES`` other ranks than those
+groups, that group too (label ``dense``)."""
     world = int(np.prod(list(sizes.values())))
     groups: Dict[Tuple[int, ...], Any] = {}
     moe: Dict[Tuple[int, ...], Any] = {}
@@ -367,6 +375,12 @@ def _axis_groups(sizes: Dict[str, int]
     if T > 1 or P > 1:
         groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
                              "data", False))
+    if P > 1 and any(r not in groups for r in _all_groups(
+            sizes, DENSE_GRAD_REDUCE_AXES)):
+        # a stage's dense reduce group where no group above holds its
+        # ranks (an expert or seq axis beside data)
+        groups.update(_build("axis", sizes, DENSE_GRAD_REDUCE_AXES, "dense",
+                             False))
     moe.update(_build("moe", sizes, BATCH_AXES, "batch", True))
     if Q > 1:
         moe.update(_build("moe", sizes, (SEQ_AXIS,), "seq", True))

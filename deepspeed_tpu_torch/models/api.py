@@ -38,8 +38,12 @@ passes; else the installed mesh's) ``loss_fn`` takes the GPipe loss
 schedule's loss and gradients (``pipelined_lm_loss_and_grads``), as JAX's
 ``causal_lm_spec`` (:129-146, :172-181, :217-224) with
 ``pipeline_schedule`` and ``pipeline_micro_batches``; ``params`` hold the
-stage's layers. The engine's batch key ``pipe_weights`` [M] weights each
-pipeline micro-batch's loss (``runtime/engine``).
+stage's layers (or are a ZeRO-3 engine's parameter hook). The engine's
+batch key ``pipe_weights`` [M] weights each pipeline micro-batch's loss
+(``runtime/engine``); with ``seq_shard`` beside ``pp`` each rank computes
+its positions inside every stage. As in JAX the pipelined loss is taken
+before the tiled loss: ``loss_tiles`` is not read under ``pipe``. The
+ring attention raises under ``pipe``, as JAX's does.
 """
 from __future__ import annotations
 
@@ -214,30 +218,40 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
         raise later_slice(f"remat={cfg.remat!r} (this slice runs none|full)")
     T._check_supported(cfg)
 
-    def _check_pipe(pp):
-        if loss_tiles > 1:
-            raise later_slice(f"loss_tiles={loss_tiles} under mesh "
-                              f"pipe={pp.size} (queue A.4)")
+    def _check_seq(shard):
+        if shard is not None and attention not in SEQ_PARALLEL_ATTENTION:
+            raise later_slice(
+                f"attention={attention!r} under a seq mesh axis above 1 "
+                "(JAX's GSPMD gathers the sequence for it; the port runs "
+                f"{'|'.join(SEQ_PARALLEL_ATTENTION)} across seq ranks)")
 
+    def _check_pipe(pp):
+        if attention == "ring":
+            # JAX's ring shard_map takes the concrete mesh, which does not
+            # match the pipeline's manual context mesh: it raises there
+            raise ValueError(
+                f"attention='ring' under mesh pipe={pp.size}: the JAX "
+                "package's ring attention does not run inside its pipeline "
+                "(its shard_map's mesh does not match the pipeline's "
+                "context mesh); use 'ulysses' or 'ulysses_flash'")
+
+    # under a pipe axis JAX's loss_fn returns the pipelined loss before the
+    # tiled loss (api.py:174-182 against :194-198): loss_tiles is not read
     def loss_fn(params, batch):
         tokens = _tokens_of(batch)
         pp = _pp_of(batch)
+        shard = _seq_shard_of(batch)
+        _check_seq(shard)
         if pp is not None:
             _check_pipe(pp)
             loss, aux = T.pipelined_lm_loss(
                 params, tokens, cfg, pp, n_micro=pipeline_micro_batches,
                 attention_fn=attention_fn, loss_mask=_mask_of(batch),
                 use_kernels=use_kernels, tp=_tp_of(batch),
-                loss_weights=_weights_of(batch))
+                loss_weights=_weights_of(batch), seq_shard=shard)
             if cfg.n_experts > 0:
                 loss = loss + cfg.moe_aux_coef * aux
             return loss
-        shard = _seq_shard_of(batch)
-        if shard is not None and attention not in SEQ_PARALLEL_ATTENTION:
-            raise later_slice(
-                f"attention={attention!r} under a seq mesh axis above 1 "
-                "(JAX's GSPMD gathers the sequence for it; the port runs "
-                f"{'|'.join(SEQ_PARALLEL_ATTENTION)} across seq ranks)")
         tp = _tp_of(batch)
         if tp is not None and loss_tiles > 1:
             raise later_slice(f"loss_tiles={loss_tiles} under mesh "
@@ -270,13 +284,15 @@ def causal_lm_spec(cfg: Union[str, T.TransformerConfig], attention_fn=None,
         pp = _pp_of(batch)
         if pipeline_schedule != "1f1b" or pp is None:
             return None     # the engine differentiates loss_fn
+        shard = _seq_shard_of(batch)
+        _check_seq(shard)
         _check_pipe(pp)
         return T.pipelined_lm_loss_and_grads(
             params, _tokens_of(batch), cfg, pp,
             n_micro=pipeline_micro_batches, attention_fn=attention_fn,
             loss_mask=_mask_of(batch), loss_scale=loss_scale,
             use_kernels=use_kernels, tp=_tp_of(batch),
-            loss_weights=_weights_of(batch))
+            loss_weights=_weights_of(batch), seq_shard=shard)
 
     def init_fn(generator: Optional[torch.Generator] = None, device=None):
         dev = resolve_device(device)

@@ -1127,12 +1127,22 @@ def stage_blocks(blocks, cfg: TransformerConfig, pp):
 def _pipeline_parts(params: Params, tokens: torch.Tensor,
                     cfg: TransformerConfig, pp, n_micro, attention_fn,
                     loss_mask, use_kernels: bool = True, tp=None,
-                    loss_weights: Optional[torch.Tensor] = None):
+                    loss_weights: Optional[torch.Tensor] = None,
+                    seq_shard: Optional[Tuple[int, int]] = None,
+                    detach_head: bool = False):
     """Shared scaffolding of the GPipe and 1F1B schedules (JAX's
     ``_pipeline_parts``): the embedding, the micro-batched inputs, the
     extra parameters, ``stage_fn``, ``finalize_fn`` and ``logits_fn``.
     ``loss_weights`` [M] (the port's data-parallel engine): each
-    micro-batch's loss times its weight (``finalize_fn``)."""
+    micro-batch's loss times its weight (``finalize_fn``). ``seq_shard``
+    (idx, sp): ``tokens`` are whole rows and this rank of a ``seq`` axis
+    computes positions ``[idx·S/sp, (idx+1)·S/sp)``, its embedding and
+    position tables taken there, its loss over those positions' next
+    tokens (the engine's weights make the ranks' mean JAX's). ``params``
+    may be a :class:`ParamHook` (a ZeRO-3 engine): the extras from its
+    :meth:`~ParamHook.head`, each layer from :meth:`~ParamHook.layer`
+    inside the layer's remat body; ``detach_head`` hands the schedule the
+    extras as leaves of their own (1F1B returns their gradients)."""
     from deepspeed_tpu_torch.parallel.pipeline import microbatch, pipe_of
 
     pp = pipe_of(pp)
@@ -1148,11 +1158,28 @@ def _pipeline_parts(params: Params, tokens: torch.Tensor,
     dt = cfg.compute_dtype
     B, S = tokens.shape
     M = n_micro or n_stages
+    lo, n_pos = 0, S
+    if seq_shard is not None:
+        idx, sp = seq_shard
+        if S % sp:
+            raise ValueError(f"seq len {S} not divisible by the seq mesh "
+                             f"axis {sp}")
+        lo, n_pos = idx * (S // sp), S // sp
+    hook = params if isinstance(params, ParamHook) else None
+    if hook is not None:
+        params = hook.head()
+        if detach_head:
+            def leaf(v):
+                if isinstance(v, dict):
+                    return {k: leaf(t) for k, t in v.items()}
+                return v.detach().requires_grad_(True)
+
+            params = leaf(params)
 
     def embed(embp, toks):
-        e = embed_tokens(embp["tok_emb"], toks, dt, tp)
+        e = embed_tokens(embp["tok_emb"], toks[:, lo:lo + n_pos], dt, tp)
         if cfg.pos_emb == "learned":
-            e = e + embp["pos_emb"].to(dt)[:S][None]
+            e = e + embp["pos_emb"].to(dt)[lo:lo + n_pos][None]
         return e
 
     emb_keys = ["tok_emb"] + (["pos_emb"] if cfg.pos_emb == "learned"
@@ -1167,21 +1194,28 @@ def _pipeline_parts(params: Params, tokens: torch.Tensor,
         inputs["loss_weight"] = loss_weights
     extra = {"final_norm": params["final_norm"], "head": head}
     if cfg.pos_emb == "rope":
-        extra["cos"], extra["sin"] = rope_table(
-            S, cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling_dict,
-            device=x.device)
-    blocks = stage_blocks(params["blocks"], cfg, pp)
+        cos, sin = rope_table(lo + n_pos, cfg.rope_dim, cfg.rope_theta,
+                              cfg.rope_scaling_dict, device=x.device)
+        extra["cos"], extra["sin"] = cos[lo:], sin[lo:]
+    blocks = hook if hook is not None else stage_blocks(params["blocks"],
+                                                        cfg, pp)
     n_local = cfg.num_layers // n_stages
 
     def stage_fn(x_in, blocks_l, ex):
         auxes = []
         for layer in range(n_local):
-            lp = layer_params(blocks_l, layer)
+            if hook is None:
+                lp = layer_params(blocks_l, layer)
 
-            def body(h, lp=lp):
-                return _block_forward(h, lp, cfg, ex.get("cos"),
-                                      ex.get("sin"), attention_fn,
-                                      use_kernels, tp)
+                def body(h, lp=lp):
+                    return _block_forward(h, lp, cfg, ex.get("cos"),
+                                          ex.get("sin"), attention_fn,
+                                          use_kernels, tp)
+            else:
+                def body(h, layer=layer):
+                    return _block_forward(h, hook.layer(layer), cfg,
+                                          ex.get("cos"), ex.get("sin"),
+                                          attention_fn, use_kernels, tp)
 
             x_in, aux = _remat_wrap(body, cfg.remat)(x_in)
             auxes.append(aux)
@@ -1196,7 +1230,7 @@ def _pipeline_parts(params: Params, tokens: torch.Tensor,
 
     def finalize_fn(y, micro, ex):
         loss = causal_lm_loss(logits_fn(y, ex), micro["tokens"],
-                              micro.get("loss_mask"))
+                              micro.get("loss_mask"), seq_shard)
         w = micro.get("loss_weight")
         return loss if w is None else loss * w
 
@@ -1209,19 +1243,21 @@ def pipelined_lm_loss(params: Params, tokens: torch.Tensor,
                       n_micro: Optional[int] = None, attention_fn=None,
                       loss_mask: Optional[torch.Tensor] = None,
                       use_kernels: bool = True, tp=None,
-                      loss_weights: Optional[torch.Tensor] = None
+                      loss_weights: Optional[torch.Tensor] = None,
+                      seq_shard: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The causal-LM loss with the layers pipelined over the ``pipe`` axis
     (``pp``: this rank's ``PipeGroup``, default the installed mesh's):
     GPipe, backward by autograd (``parallel/pipeline.pipelined_apply``).
     Returns (loss, MoE aux), the same on every stage. ``params`` hold the
-    whole stack or this stage's layers (``stage_blocks``); under ``tp``
-    this rank's tensor slices."""
+    whole stack or this stage's layers (``stage_blocks``), or are a
+    :class:`ParamHook`; under ``tp`` this rank's tensor slices;
+    ``seq_shard`` as :func:`_pipeline_parts`."""
     from deepspeed_tpu_torch.parallel.pipeline import pipelined_apply
 
     pp, _, _, _, inputs, extra, blocks, stage_fn, finalize_fn, _ = \
         _pipeline_parts(params, tokens, cfg, pp, n_micro, attention_fn,
-                        loss_mask, use_kernels, tp, loss_weights)
+                        loss_mask, use_kernels, tp, loss_weights, seq_shard)
     return pipelined_apply(inputs, blocks, extra, stage_fn, finalize_fn, pp)
 
 
@@ -1252,7 +1288,8 @@ def pipelined_lm_loss_and_grads(params: Params, tokens: torch.Tensor,
                                 loss_mask: Optional[torch.Tensor] = None,
                                 loss_scale=None, use_kernels: bool = True,
                                 tp=None,
-                                loss_weights: Optional[torch.Tensor] = None
+                                loss_weights: Optional[torch.Tensor] = None,
+                                seq_shard: Optional[Tuple[int, int]] = None
                                 ) -> Tuple[torch.Tensor, Params]:
     """The 1F1B pipelined loss AND gradients (reference ``runtime/pipe/
     schedule.py:189 TrainSchedule``): the explicit backward schedule
@@ -1262,12 +1299,16 @@ def pipelined_lm_loss_and_grads(params: Params, tokens: torch.Tensor,
     summed over ``pipe``; a tied embedding's ``tok_emb`` gets the head's
     gradient transposed, as JAX's ``g_tok + gextra["head"].T``). The
     parameters need ``requires_grad``. ``loss_scale`` multiplies the
-    gradients (the seeds), not the loss."""
+    gradients (the seeds), not the loss. ``params`` a :class:`ParamHook`
+    (ZeRO-3): the layers' gradients go to the hook as each VJP computes
+    them (``blocks`` None in the result), the extras' come back here.
+    ``seq_shard`` as :func:`_pipeline_parts`."""
     from deepspeed_tpu_torch.parallel.pipeline import pipelined_train_1f1b
 
     pp, _, embed, embp, inputs, extra, blocks, stage_fn, finalize_fn, _ = \
         _pipeline_parts(params, tokens, cfg, pp, n_micro, attention_fn,
-                        loss_mask, use_kernels, tp, loss_weights)
+                        loss_mask, use_kernels, tp, loss_weights, seq_shard,
+                        detach_head=True)
     dt = cfg.compute_dtype
     keys = sorted(embp)
 
@@ -1302,7 +1343,8 @@ def pipelined_lm_loss_and_grads(params: Params, tokens: torch.Tensor,
     grads["tok_emb"] = g_tok
     if cfg.pos_emb == "learned":
         grads["pos_emb"] = gemb["pos_emb"]
-    missing = set(params) - set(grads)
+    missing = (set() if isinstance(params, ParamHook)
+               else set(params) - set(grads))
     if missing:
         raise NotImplementedError(
             f"pipelined grads missing for param groups {sorted(missing)}")

@@ -337,7 +337,15 @@ def pipelined_train_1f1b(inputs: Dict[str, torch.Tensor], blocks: PyTree,
     fp32, ÷ M —, ``extra``'s gradients summed over ``pipe`` ÷ M, the
     embedding gradients summed over ``pipe`` ÷ M); the loss, the aux and
     the sums are one all-reduce over ``pipe``. A leaf that does not
-    require grad gets zeros."""
+    require grad gets zeros.
+
+    ``blocks`` may be a parameter hook (a ZeRO-3 engine's
+    ``parallel/stage3.Stage3Params``, which ``stage_fn`` asks for each
+    layer): the schedule marks each pass on it (``begin_forward`` before a
+    forward, ``begin_backward`` before a VJP's backward) and takes its
+    ``anchor`` among a VJP's inputs, so that the hook's gathers hand it
+    the layers' gradients as each VJP computes them; the blocks' result is
+    None then."""
     pp = pipe_of(pp)
     P, s = pp.size, pp.stage
     first, last = s == 0, s == P - 1
@@ -345,7 +353,8 @@ def pipelined_train_1f1b(inputs: Dict[str, torch.Tensor], blocks: PyTree,
     M = xm.shape[0]
     dt, dev = xm.dtype, xm.device
     like = _like(xm[0])
-    bl, ex = _leaves(blocks), _leaves(extra)
+    hook = blocks if hasattr(blocks, "anchor") else None
+    bl, ex = ([] if hook is not None else _leaves(blocks)), _leaves(extra)
     bl_d = [t for t in bl if t.requires_grad]
     ex_d = [t for t in ex if t.requires_grad]
     gbl = [torch.zeros(t.shape, dtype=torch.float32, device=dev) for t in bl]
@@ -374,6 +383,8 @@ def pipelined_train_1f1b(inputs: Dict[str, torch.Tensor], blocks: PyTree,
             x_in = xm[t - s] if first else fwd_recv
             store[(t - s) % (2 * P)] = x_in
             if not last:
+                if hook is not None:
+                    hook.begin_forward()
                 with torch.no_grad(), timed():
                     y, aux = stage_fn(x_in, blocks, extra)
                 aux_sum = aux_sum + aux.float()
@@ -384,6 +395,8 @@ def pipelined_train_1f1b(inputs: Dict[str, torch.Tensor], blocks: PyTree,
             micro = {k: v[m] for k, v in inputs.items() if k != "x"}
             x = store[m % (2 * P)].detach().requires_grad_(True)
             store[m % (2 * P)] = None
+            if hook is not None:
+                hook.begin_forward()
             with torch.enable_grad(), timed():
                 yy, aux = stage_fn(x, blocks, extra)
                 if last:
@@ -396,8 +409,12 @@ def pipelined_train_1f1b(inputs: Dict[str, torch.Tensor], blocks: PyTree,
                 if aseed is not None and aux.requires_grad:
                     outs.append(aux.float())
                     seeds.append(aseed)
-                grads = torch.autograd.grad(outs, [x] + bl_d + ex_d, seeds,
-                                            allow_unused=True)
+                if hook is not None:
+                    hook.begin_backward()
+                grads = torch.autograd.grad(
+                    outs, [x] + bl_d + ex_d + ([hook.anchor] if hook
+                                               is not None else []),
+                    seeds, allow_unused=True)
             dx = grads[0]
             for acc, g in zip((a for a, t_ in zip(gbl, bl)
                                if t_.requires_grad), grads[1:1 + len(bl_d)]):
@@ -431,7 +448,8 @@ def pipelined_train_1f1b(inputs: Dict[str, torch.Tensor], blocks: PyTree,
     for g in gex + ge:
         vals.append(flat[off:off + g.numel()].view(g.shape))
         off += g.numel()
-    gblocks = _rebuild(blocks, iter([g.div_(float(M)) for g in gbl]))
+    gblocks = None if hook is not None else _rebuild(
+        blocks, iter([g.div_(float(M)) for g in gbl]))
     gextra = _rebuild(extra, iter(vals[:len(gex)]))
     gemb = _rebuild(gemb, iter(vals[len(gex):]))
     return flat[0], flat[1], gblocks, gextra, gemb

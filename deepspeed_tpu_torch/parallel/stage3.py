@@ -72,6 +72,23 @@ chunks, and a reduce's second hop runs in two parts (the dense part over
 the engine's dense replica group, the expert part over its expert
 leaves' replica group, ``engine.hops``). The int8 wire quantizes the
 expert pieces in JAX's blocks (:class:`ExpertRows`).
+
+Under a ``pipe`` axis (JAX gathers per use under GSPMD there, its
+``can_chunk`` false) the groups are the stage's: the head group (the
+extras: the embedding, the final norm, the head) and the chunks of the
+stage's L/P layers, gathered over the shard group inside the stage. A
+pipeline schedule uses the layers once a pass — 1F1B's no-grad forward,
+each VJP's forward and its backward's recompute, GPipe's ticks — and marks
+each pass (:meth:`Stage3Params.begin_forward` / ``begin_backward``): a
+chunk is gathered when a pass first asks for one of its layers and dropped
+after the pass has taken each of them once (no prefetch: a pass's order
+of layers is the schedule's), and whatever a pass left (a recompute that
+stopped early) goes at the next mark. Each chunk's gradient is reduced
+when a pass's backward is done with it, ÷ ``grad_div`` (1F1B's M: its
+VJPs are seeded per micro-batch). The head group is gathered once a
+schedule; GPipe's autograd reduces its gradient (summed over ``pipe``
+first) through the gather, 1F1B hands the schedule's sums to
+:meth:`Stage3Params.reduce_head`.
 """
 from __future__ import annotations
 
@@ -370,6 +387,13 @@ class Stage3Params(ParamHook):
                          for l in range(s, e)}
         self.prefetch = prefetch
         self.recompute = recompute
+        # a pipeline stage's passes (module docstring); 1F1B's ÷ M
+        self.piped = engine.pp > 1
+        self.grad_div = 1.0
+        if self.piped and any(p.layers is None and p.path[0] == BLOCKS
+                              for p in self.groups[0].pieces):
+            raise ValueError("ZeRO-3 under pipe: a layer-stacked leaf in "
+                             "the head group (its layer dim is the stage's)")
         self.queue = comm.CommQueue()
         self.anchor = torch.zeros((), device=engine.device,
                                   requires_grad=True)
@@ -473,11 +497,16 @@ class Stage3Params(ParamHook):
     # ------------------------------------------------------------------ #
     def begin_forward(self) -> None:
         self._pass = "fwd"
+        if self.piped:
+            self._cache.clear()
+            return
         self._submit_ahead(0, "fwd")
         self._submit_ahead(1, "fwd")
 
     def begin_backward(self) -> None:
         self._pass = "bwd"
+        if self.piped:
+            self._cache.clear()
 
     def head(self) -> Dict[str, Any]:
         outs = _ChunkGather.apply(self.anchor, self, (0, "fwd"))
@@ -498,7 +527,26 @@ class Stage3Params(ParamHook):
             _set_path(tree, p.path, t)
         return tree
 
-    def layer(self, layer: int) -> Dict[str, Any]:
+    def _piped_chunk(self, layer: int) -> Tuple[int, Tuple]:
+        """A pipeline pass's chunk of ``layer`` (gathered at the pass's
+        first use, dropped once each of its layers was taken)."""
+        gi = self.chunk_of[layer]
+        entry = self._cache.get(gi)
+        if entry is None:
+            start, stop = self.groups[gi].layers
+            entry = self._cache[gi] = (
+                _ChunkGather.apply(self.anchor, self, (gi, self._pass)),
+                set(range(start, stop)))
+        outs, left = entry
+        left.discard(layer)
+        if not left:
+            del self._cache[gi]
+        return gi, outs
+
+    def _planned_chunk(self, layer: int) -> Tuple[int, Tuple]:
+        """The chunk of ``layer`` in the plan's order: the next one
+        submitted at a chunk's first layer (the previous one in the
+        backward), dropped after its last."""
         gi = self.chunk_of[layer]
         start, stop = self.groups[gi].layers
         fwd = self._pass == "fwd"
@@ -507,6 +555,15 @@ class Stage3Params(ParamHook):
         if first and (fwd or gi > 1):
             self._submit_ahead(gi + 1 if fwd else gi - 1, self._pass)
         outs = self._take(gi)
+        if last:
+            del self._cache[(gi, self._pass)]
+            if fwd and gi == len(self.groups) - 1 and self.recompute:
+                self._submit_ahead(gi, "bwd")
+        return gi, outs
+
+    def layer(self, layer: int) -> Dict[str, Any]:
+        gi, outs = (self._piped_chunk if self.piped
+                    else self._planned_chunk)(layer)
         lp: Dict[str, Any] = {}
         for (p, l), t in zip(self._layout[gi], outs):
             if l == layer:
@@ -514,17 +571,24 @@ class Stage3Params(ParamHook):
         for path, t in self._head.items():      # blocks leaves sharded on 0
             if path[0] == BLOCKS:
                 _set_path(lp, path[1:], t[layer])
-        if last:
-            del self._cache[(gi, self._pass)]
-            if fwd and gi == len(self.groups) - 1 and self.recompute:
-                self._submit_ahead(gi, "bwd")
         return lp
 
     # ------------------------------------------------------------------ #
     # the gradients
     # ------------------------------------------------------------------ #
-    def _backward(self, gi: int, grads) -> None:
+    def reduce_head(self, grads: Dict[str, Any]) -> None:
+        """The head group's gradient from a tree of whole leaves (1F1B's
+        extras, summed over ``pipe`` and ÷ M by the schedule): reduced as
+        a gather's backward reduces it."""
+        flat = dict(_flatten(grads))
+        self._backward(0, [flat.get(p.path) for p, _ in self._layout[0]],
+                       div=1.0)
+
+    def _backward(self, gi: int, grads, div: Optional[float] = None) -> None:
         g, e = self.groups[gi], self.e
+        div = self.grad_div if div is None else div
+        if div != 1.0:
+            grads = [None if gr is None else gr / div for gr in grads]
         with torch.no_grad():
             if e.flat_grad is not None:          # qgZ / LoCo
                 self._to_full_grad(gi, grads)
@@ -592,6 +656,8 @@ class Stage3Params(ParamHook):
             self._land(*self._reduces.pop(0))
         self.queue.drain()
         self._head = None
+        if self.piped:
+            self._cache.clear()
         if self._inflight or self._cache:
             raise RuntimeError(f"ZeRO-3: gathers left after the micro-batch:"
                                f" {sorted(self._inflight)} "
@@ -606,6 +672,16 @@ class Stage3Params(ParamHook):
 
     def close(self) -> None:
         self.queue.close()
+
+
+def _flatten(tree, prefix: Tuple[str, ...] = ()):
+    """(path, leaf) of a tree of dicts (None leaves left out)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        elif v is not None:
+            yield prefix + (k,), v
 
 
 def _set_path(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:

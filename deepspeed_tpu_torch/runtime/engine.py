@@ -93,11 +93,13 @@ with ``data``, for ``causal_lm_spec``'s dense transformer
 (``DataParallelEngine``).
 
 Pipeline parallelism (JAX engine.py:528, :754, :775, :1798-1808): the
-``pipe`` mesh axis on the exact ZeRO 0-2 engines, beside ``data`` and
-``tensor``, for ``causal_lm_spec``'s transformer (dense, or MoE at
-``expert`` = 1): each rank holds its stage's layers, and a micro-batch
-runs the spec's 1F1B ``loss_and_grads_fn`` when it returns gradients,
-else autograd over its ``loss_fn`` (GPipe) (``DataParallelEngine``).
+``pipe`` mesh axis on the exact ZeRO 0-3 engines, beside every axis and
+tier JAX composes it with (``data``, hpZ / MiCS, ``expert``, ``seq``,
+``tensor``, the offload tiers, ZenFlow), for ``causal_lm_spec``'s
+transformer: each rank holds its stage's layers, and a micro-batch runs
+the spec's 1F1B ``loss_and_grads_fn`` when it returns gradients, else
+autograd over its ``loss_fn`` (GPipe) (``DataParallelEngine``,
+``Zero3Engine``).
 
 Out of this slice, raising ``NotImplementedError``: remat policies other
 than none/full, the config sections ``load_config`` refuses, a ``seq``
@@ -430,39 +432,23 @@ class DeepSpeedTPUEngine:
 
     def _check_pipe_axis(self) -> None:
         """What a ``pipe`` axis above 1 does not compose with yet (queue
-        A.4): ZeRO stage 3, hpZ / MiCS, an expert axis, ``seq`` above 1,
-        the offload tiers, ZenFlow, block-sparse attention and a model spec
-        other than ``causal_lm_spec``'s (its tiled loss raises at the first
-        step). As in JAX the ZeRO++ int8 wire falls back to the exact wire
+        A.4): a model spec other than ``causal_lm_spec``'s. Every other
+        composition JAX runs under ``pipe`` runs here (ZeRO-3, hpZ / MiCS,
+        the expert and seq axes, the offload tiers, ZenFlow, block-sparse
+        attention; ``loss_tiles`` is not read under ``pipe``, as in JAX),
+        or raises from :meth:`_check_seq_axis` / :meth:`_check_tensor_axis`.
+        As in JAX the ZeRO++ int8 wire falls back to the exact wire
         (``_resolve_compressed_modes``) and the host step raises
         (``runtime/host_step.py``)."""
         mm = self.mesh_manager
         P = mm.pp_world_size
         if P <= 1:
             return
-        what = []
-        if self.zero_stage >= 3:
-            what.append("ZeRO stage 3")
-        if mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1:
-            what.append("hpZ / MiCS (zshard > 1)")
-        if mm.ep_world_size > 1:
-            what.append("an expert axis")
-        if mm.sp_world_size > 1:
-            what.append("seq > 1")
-        if self._offload_opt or self._offload_nvme or self._offload_param:
-            what.append("the offload tiers")
-        if self.config.zero_optimization.zenflow.enabled:
-            what.append("ZenFlow")
-        attention = self.model_spec.attention
-        if attention is not None and attention.startswith("sparse"):
-            what.append(f"attention={attention!r}")
         if not isinstance(getattr(self.model_spec, "config", None),
                           T.TransformerConfig) \
                 or self.model_spec.loss_and_grads_fn is None:
-            what.append("a model spec other than causal_lm_spec's")
-        if what:
-            raise later_slice(f"mesh pipe={P} with {', '.join(what)} "
-                              "(queue A.4)")
+            raise later_slice(f"mesh pipe={P} with a model spec other than "
+                              "causal_lm_spec's (queue A.4)")
 
     def _resolve_offload(self) -> None:
         """The offload tiers, with JAX's resolution and errors
@@ -978,7 +964,8 @@ class DeepSpeedTPUEngine:
 
     def _layer_bounds(self) -> List[Tuple[int, int]]:
         """The plan's layer chunks, else the chunks it would have at
-        ``stage3_prefetch_bucket_size`` (none for a spec without layers)."""
+        ``stage3_prefetch_bucket_size`` (none for a spec without layers);
+        under ``pipe`` (no plan) those of the stage's layers."""
         cfg = getattr(self.model_spec, "config", None)
         if self._overlap_plan["chunk_bounds"]:
             return self._overlap_plan["chunk_bounds"]
@@ -987,8 +974,9 @@ class DeepSpeedTPUEngine:
         per_layer = max(sum(leaf_count(self._full_shapes[s.path])
                             for s in self._slots
                             if s.path[0] == _STACKED) // cfg.num_layers, 1)
-        return chunk_layers(cfg.num_layers, per_layer,
-                            self._overlap.prefetch_bucket_elems)
+        return chunk_layers(
+            cfg.num_layers // self.mesh_manager.pp_world_size, per_layer,
+            self._overlap.prefetch_bucket_elems)
 
     def _stream_ranges(self) -> List[Tuple[int, int]]:
         """The streamed chunks of the local master: as many contiguous
@@ -2018,8 +2006,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     (:meth:`_pipe_weights`). The global norm sums each leaf class's
     squares over the groups it is split over (:meth:`_pipe_norm_sq`). A
     checkpoint leaf is gathered over ``pipe`` and a load cuts the stage's
-    layers, so tags cross pipe sizes. What the axis does not compose with
-    yet raises (:meth:`_check_pipe_axis`)."""
+    layers, so tags cross pipe sizes. Every group but the ``pipe`` group
+    holds one stage's ranks, so hpZ's hops, the ``expert`` and ``seq``
+    groups and the stage's dense reduce group stay inside the stage;
+    under ``seq`` the loss weights count a rank's positions too
+    (:meth:`_pipe_weights`), and ZenFlow's threshold of a layer-stacked
+    leaf is taken over every stage's layers. What the axis does not
+    compose with yet raises (:meth:`_check_pipe_axis`)."""
 
     def __init__(self, model: ModelSpec, config: Any,
                  optimizer: Optional[TPUOptimizer] = None,
@@ -2533,17 +2526,29 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _zenflow_segments(self) -> List[Segment]:
         """ZenFlow's leaves in the local buffer: a sharded leaf's rows
         gather the whole leaf's |g| over the shard group for its
-        threshold."""
-        def gather(a: torch.Tensor) -> torch.Tensor:
-            rows = torch.empty(self.shard_world * a.numel(), dtype=a.dtype,
-                               device=a.device)
-            comm.all_gather_into_tensor(rows, a.contiguous(),
-                                        group=self.shard_group)
-            return rows
+        threshold; under ``pipe`` a layer-stacked leaf's over the ``pipe``
+        group too (JAX's threshold is the whole leaf's, every stage's
+        layers)."""
+        def gather(a: torch.Tensor, groups) -> torch.Tensor:
+            for group, size in groups:
+                rows = torch.empty(size * a.numel(), dtype=a.dtype,
+                                   device=a.device)
+                comm.all_gather_into_tensor(rows, a.contiguous(),
+                                            group=group)
+                a = rows
+            return a
 
-        return [Segment(sh.offset, sh.n_loc, gather) if sh.dim is not None
-                else Segment(self._n_sh + sh.offset, sh.n_loc)
-                for sh in self._shards]
+        out = []
+        for sh in self._shards:
+            groups = ([(self.shard_group, self.shard_world)]
+                      if sh.dim is not None else []) + (
+                [(self.pp_group.group, self.pp)]
+                if self.pp > 1 and sh.slot.path[0] == _STACKED else [])
+            out.append(Segment(
+                sh.offset if sh.dim is not None else self._n_sh + sh.offset,
+                sh.n_loc, functools.partial(gather, groups=groups)
+                if groups else None))
+        return out
 
     def _load_master_leaf(self, slot: _Slot, full: torch.Tensor) -> None:
         self._materialize_master()
@@ -2782,26 +2787,41 @@ class DataParallelEngine(DeepSpeedTPUEngine):
 
     def _pipe_weights(self, stacked) -> Optional[torch.Tensor]:
         """Under a ``pipe`` axis with a ``loss_mask`` and more than one
-        data rank: [gas, M] weights D · n_m / N_m of this rank's pipeline
-        micro-batch losses, n_m its valid targets of JAX's pipeline
-        micro-batch m (``_local_rows``) and N_m that micro-batch's (1 where
-        N_m is 0). JAX's loss is the mean over m of micro-batch m's masked
-        mean over all its rows, which is the mean over the data ranks of
-        the weighted losses, and so the engine's mean of their gradients;
-        it is not the global masked token mean of the step without
-        ``pipe``. None otherwise (all weights 1)."""
+        batch rank, or with a ``seq`` axis: [gas, M] weights D · Q · n_m /
+        N_m of this rank's pipeline micro-batch losses (its masked means),
+        n_m its loss targets of JAX's pipeline micro-batch m (its rows,
+        ``_local_rows``; its positions' next tokens under ``seq``,
+        ``transformer.loss_targets``) and N_m that micro-batch's (1 where
+        N_m is 0), D the batch ranks and Q the seq ranks. JAX's loss is the
+        mean over m of micro-batch m's masked mean over all its rows and
+        positions, which is the mean over the D · Q ranks of the weighted
+        losses, and so the engine's mean of their gradients; it is not the
+        global masked token mean of the step without ``pipe``. None
+        otherwise (all weights 1)."""
         mask = (stacked.get("loss_mask") if isinstance(stacked, dict)
                 else None)
-        D = self.batch_world
-        if self.pp <= 1 or mask is None or D == 1:
+        D, Q = self.batch_world, self.sp
+        if self.pp <= 1 or (mask is None and Q == 1) or D * Q == 1:
             return None
-        w = torch.as_tensor(mask)[..., 1:].float()  # loss_targets' weights
-        gas, B, M = w.shape[0], w.shape[1], self._pipe_micro
-        per = w.reshape(gas, M, D, B // (M * D), -1)
-        n_all = per.sum(dim=(2, 3, 4))
-        mine = per[:, :, self.batch_rank].sum(dim=(2, 3))
-        return torch.where(n_all > 0, mine * float(D) / n_all.clamp(min=1.0),
-                           torch.ones_like(mine)).to(self.device)
+        tok = torch.as_tensor(stacked["tokens"] if isinstance(stacked, dict)
+                              else stacked)
+        mask = None if mask is None else torch.as_tensor(mask)
+        gas, B, S = tok.shape
+        M = self._pipe_micro
+        b = B // (M * D)
+        w = T.loss_targets(tok.reshape(-1, S), None if mask is None
+                           else mask.reshape(-1, S), None, S)[2]
+        n_all = w.reshape(gas, M, -1).sum(dim=2)
+
+        def mine(x):
+            return None if x is None else x.reshape(gas, M, D, b, S)[
+                :, :, self.batch_rank].reshape(-1, S)
+
+        w = T.loss_targets(mine(tok), mine(mask), self.seq_shard,
+                           S // Q)[2]
+        n = w.reshape(gas, M, -1).sum(dim=2)
+        return torch.where(n_all > 0, n * float(D * Q) / n_all.clamp(min=1.0),
+                           torch.ones_like(n)).to(self.device)
 
     def _quant_grads(self) -> bool:
         return bool(self._compressed and self._compressed["quant_grads"])
@@ -2922,7 +2942,9 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         # of each expert coordinate; a replicated expert leaf once an
         # expert group
         n_sh = self._n_sh
-        if self.ep > 1:
+        if self.pp > 1:
+            sq = self._pipe_norm_sq(g)
+        elif self.ep > 1:
             nsd, nrd = self._n_sh_dense, self._n_rep_dense
             sq = torch.stack([g[:nsd].square().sum(),
                               g[nsd:n_sh].square().sum(),
@@ -2930,8 +2952,6 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                               g[n_sh:n_sh + nrd].square().sum()])
             comm.all_reduce(sq[:2], group=self.shard_group)
             comm.all_reduce(sq[1:3], group=self.expert_group)
-        elif self.pp > 1:
-            sq = self._pipe_norm_sq(g)
         elif self.tp > 1:
             # a tensor-sliced leaf's shard is held once a shard group of
             # each tensor coordinate, a replicated sliced leaf once a
@@ -2977,28 +2997,31 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _pipe_norm_sq(self, g: torch.Tensor) -> torch.Tensor:
         """Under a ``pipe`` axis: the squares of the local gradient by leaf
         class — sharded or not, tensor-sliced or not, a stage's layers or
-        not — each class summed over the groups its parts are split over
-        (the shard group, the ``tensor`` group, the ``pipe`` group), so
-        that every leaf counts once (the extras, whole on every stage,
-        once) and overflow shows on every rank."""
+        not, an expert leaf or not — each class summed over the groups its
+        parts are split over (the shard group, the ``tensor`` group, the
+        ``pipe`` group, the ``expert`` group), so that every leaf counts
+        once (the extras, whole on every stage, once; a shard once a shard
+        group, which hpZ's ``zshard`` group is) and overflow shows on every
+        rank."""
         if self._norm_classes is None:
-            classes: Dict[Tuple[bool, bool, bool], List] = {}
+            classes: Dict[Tuple[bool, bool, bool, bool], List] = {}
             for sh in self._shards:
                 lo = sh.offset if sh.dim is not None \
                     else self._n_sh + sh.offset
                 key = (sh.dim is not None, sh.slot.path in self._tp_axes,
-                       sh.slot.path[0] == _STACKED)
+                       sh.slot.path[0] == _STACKED,
+                       sh.slot.path in self._expert_dims)
                 classes.setdefault(key, []).append((lo, lo + sh.n_loc))
             self._norm_classes = sorted(classes.items())
         sq = torch.stack([sum(g[lo:hi].square().sum() for lo, hi in ranges)
                           for _, ranges in self._norm_classes])
         groups = (self.shard_group,
                   None if self.tp_group is None else self.tp_group.group,
-                  self.pp_group.group)
+                  self.pp_group.group, self.expert_group)
         for i, group in enumerate(groups):
             sel = [j for j, (key, _) in enumerate(self._norm_classes)
                    if key[i]]
-            if sel and comm.get_world_size(group) > 1:
+            if sel and group is not None and comm.get_world_size(group) > 1:
                 part = sq[sel]
                 comm.all_reduce(part, group=group)
                 sq[sel] = part
@@ -3201,7 +3224,11 @@ class Zero3Engine(DataParallelEngine):
     its whole tree, gathered as one group each forward, its gradient
     reduced when the backward is done. With ``offload_param`` streaming,
     the fp32 exact wire gathers each group from the master in pinned host
-    memory."""
+    memory. Under ``pipe`` the groups are the stage's (the extras, then
+    the chunks of its L/P layers), gathered once a pass of the schedule
+    (``parallel/stage3.py``); 1F1B hands the coordinator the layers'
+    gradients VJP by VJP and the engine the extras' sums over ``pipe``
+    (:meth:`_loss_and_grads`)."""
 
     def _init_state(self, seed: int) -> None:
         # causal_lm_spec's layer loop takes the parameter hook; any other
@@ -3233,7 +3260,10 @@ class Zero3Engine(DataParallelEngine):
     def _stage3_bounds(self):
         """The plan's chunks; with ``overlap_comm`` off, the chunks the
         plan would have (no prefetch) — none on the qwZ wire, whose
-        straight-through JAX step quantizes whole leaves."""
+        straight-through JAX step quantizes whole leaves; under ``pipe``
+        (no plan, the exact wire) the chunks of the stage's layers."""
+        if self.pp > 1:
+            return self._layer_bounds()
         if self._overlap.enabled:
             return self._overlap_plan["chunk_bounds"]
         if self._quant_weights():
@@ -3289,10 +3319,26 @@ class Zero3Engine(DataParallelEngine):
             self.flat_grad = self._packed = None
 
     def _loss_and_grads(self, mb, scale: Optional[float]) -> torch.Tensor:
+        """A micro-batch through the coordinator: the loss's forward and
+        backward (GPipe's under ``pipe``), or under ``pipe`` the 1F1B
+        schedule, which hands the coordinator the layers' gradients VJP by
+        VJP (÷ M) and returns the extras', reduced as the head group's."""
         if self.flat_grad is not None:
             self.flat_grad.zero_()
         z = self._zero3
         z.begin_forward()
+        fn = self.model_spec.loss_and_grads_fn
+        if self.pp > 1 and fn is not None:
+            z.grad_div = float(self._pipe_micro)
+            try:
+                out = fn(z, mb, scale)
+            finally:
+                z.grad_div = 1.0
+            if out is not None:
+                loss, grads = out
+                z.reduce_head(grads)
+                z.finish_micro()
+                return loss.detach()
         loss = self.model_spec.loss_fn(z if self._hooked else z.tree(), mb)
         z.begin_backward()
         (loss * scale if scale is not None else loss).backward()

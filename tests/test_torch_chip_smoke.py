@@ -1014,3 +1014,70 @@ def test_pp2_phase_rank_rehearsal_on_cpu(tmp_path):
     assert _but_launches(C.pp2_problems("b", tb, got, ref, cfg4)) == []
     assert [(r["main"]["coords"]["pipe"], r["main"]["coords"]["tensor"])
             for r in got] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+def test_pp_compose_formulas():
+    """The composed pipe phase's formulas at its widths: llama_750m at 4
+    layers (2 a stage, one a ZeRO-3 chunk at the default prefetch bucket;
+    the phase runs PPC_LAYERS), M = 4, gas 2: ZeRO-3's gathers and reduces a step on each stage (PC3),
+    Ulysses' all-to-alls at {pipe: 2, seq: 2} (a row's 1,024 positions of
+    6 + 6 heads, 3 passes a layer on the last stage and 4 on the others),
+    and PC4's reckoned margin from the stage's sizes."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.PPC, layers=4, device="cpu")
+    a = C.ppc_way(t, "a")
+    assert (a["world"], a["mesh"], a["zero"]) == (
+        4, {"pipe": 2, "data": 2}, {"stage": 3})
+    assert C.ppc_zero3_want(a, 2, 0) == {"gather_fwd": 34,
+                                         "gather_bwd": 16, "reduce": 18}
+    assert C.ppc_zero3_want(a, 2, 1) == {"gather_fwd": 18,
+                                         "gather_bwd": 16, "reduce": 18}
+    cfg = T.get_model_config("llama_750m", num_layers=4)
+    b = C.ppc_way(t, "b")
+    per = 2048 // 2 * (2 * 12 + 2 * 12) * 128
+    assert C.ppc_seq_want(b, cfg, 0) == {
+        "seq/all_to_all": [4 * 4 * 2 * 4 * 2, 4 * 2 * 4 * 2 * per]}
+    assert C.ppc_seq_want(b, cfg, 1) == {
+        "seq/all_to_all": [4 * 3 * 2 * 4 * 2, 3 * 2 * 4 * 2 * per]}
+    n = C.pp_local_params(cfg, 2)
+    n_ex = 2 * 32000 * 1536 + 1536
+    n_blk = n - n_ex
+    assert C.ppc_memory_margin(cfg, 2, 1) == (
+        12 * n + 4 * n_blk - 2 * n_ex - 12 * (n_blk // 2))
+    assert C.ppc_memory_margin(cfg, 2, 1) == 1_549_347_840
+    assert C.ppc_way(t, "d")["world"] == 2
+    assert C.ppc_way(t, "c")["model"] == "moe_350m"
+    # the phase's depth: one layer, one chunk a stage
+    cfg2 = T.get_model_config("llama_750m", num_layers=C.PPC_LAYERS)
+    assert C.ppc_memory_margin(cfg2, 2, 1) == 1_096_313_856
+    assert C.ppc_zero3_want(a, 1, 0) == {"gather_fwd": 18,
+                                         "gather_bwd": 8, "reduce": 10}
+
+
+def test_pp_compose_phase_rank_rehearsal_on_cpu():
+    """The composed pipe phase's rank function at tiny size: ways (a)-(c)
+    on four gloo ranks of the CPU in one merged spawn, (d) on two (the
+    plain paths, the counters read 0 there): every way trains and every
+    gate passes but the card-only PC4 — ZeRO-3's gathers by formula, the
+    seq group's all-to-alls, the MoE step against {pipe: 2, data: 2} with
+    the grouped GEMM on a received buffer, the offload tier bit-equal."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.PPC, model="tiny_llama", layers=2, seq=32, device="cpu")
+    ways = {w: C.ppc_way(t, w) for w in C.PPC_WAYS}
+    ways["c"].update(model="tiny_moe", seq=32)
+    ranks = C.spawn_ranks("jobs_rank", 4, 0, [
+        (f"ppc/{w}", "train_llama_750m_pp_compose_rank", ways[w])
+        for w in "abc"])
+    got = {w: [r[f"ppc/{w}"][0] for r in ranks] for w in "abc"}
+    got["d"] = C.spawn_ranks("train_llama_750m_pp_compose_rank", 2, 0,
+                             ways["d"])
+    for w, tw in ways.items():
+        cfg = T.get_model_config(tw["model"], num_layers=tw["layers"])
+        assert _but_launches(C.ppc_problems(tw, got[w], cfg)) == [], w
+    assert [r["main"]["coords"]["pipe"] for r in got["a"]] == [0, 0, 1, 1]
+    assert got["a"][0]["main"]["zero3_counts"]["reduce"] > 0
+    assert got["b"][0]["main"]["flash_shapes"]["flash_fwd"] == [
+        (1, 32, 2, 16)]
+    assert got["c"][0]["ep_buffer"]["routed_rows"] > 0

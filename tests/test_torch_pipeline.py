@@ -29,9 +29,12 @@ the port's ``{pipe: 2}`` tag and its rebuilt spec in a process of its own
   and ``{pipe: 2, data: 4}`` (``tests/unit/test_pipeline.py:144-169,
   247-275``), a ``tiny_moe`` at ``{pipe: 2}``; one bf16 case within
   ``LOW_VS_JAX`` of JAX's own bf16 run.
-* Refusals: every composition ``_check_pipe_axis`` names raises naming
-  A.4; the int8 wire warns and runs exact; ``host_step`` raises JAX's
-  error; ``num_layers % P`` raises JAX's ``ValueError``.
+* Refusals: a spec other than ``causal_lm_spec``'s (what
+  ``_check_pipe_axis`` names), and what the seq and tensor checks refuse
+  beside ``pipe``, raise naming A.4 (the compositions JAX runs are
+  ``test_torch_pipe_compose.py``'s); the int8 wire warns and runs exact;
+  ``host_step`` raises JAX's error; ``num_layers % P`` raises JAX's
+  ``ValueError``.
 * Checkpoints across pipe sizes: a ``{pipe: 2}`` tag loads into one
   process and into ``{pipe: 2, data: 2}`` bit-equal, a one-process tag
   into ``{pipe: 2}``; JAX resumes the ``{pipe: 2}`` tag to the port's next
@@ -102,26 +105,17 @@ JAX_OF = {"p2_zero0_gpipe": "p2_zero0_1f1b",
 # into {pipe: 2, data: 2}
 CKPT = "p2_zero1_1f1b"
 # what a pipe axis does not compose with yet (queue A.4): name → (world,
-# mesh, extra config, model, spec keywords, what the error names)
+# mesh, extra config, model, spec keywords, what the error names). The
+# compositions JAX runs under pipe are tests/test_torch_pipe_compose.py's
+# parity cases; what stays refused is another spec, and what the seq and
+# tensor axes refuse beside pipe
 REFUSED = {
-    "zero3": (2, {"pipe": 2}, {"zero_optimization": {"stage": 3}}, "tiny",
-              {}, "ZeRO stage 3"),
-    "hpz": (4, {"pipe": 2}, {"zero_optimization": {
-        "stage": 2, "zero_hpz_partition_size": 2}}, "tiny", {},
-        "hpZ / MiCS"),
-    "expert_axis": (4, {"pipe": 2, "expert": 2}, {}, "tiny_moe", {},
-                    "an expert axis"),
-    "seq": (4, {"pipe": 2, "seq": 2}, {}, "tiny_llama", {}, "seq > 1"),
-    "offload_optimizer": (2, {"pipe": 2}, {"zero_optimization": {
-        "stage": 1, "offload_optimizer": {"device": "cpu"}}}, "tiny", {},
-        "the offload tiers"),
-    "zenflow": (2, {"pipe": 2}, {"zero_optimization": {
-        "stage": 1, "zenflow": {"enabled": True}}}, "tiny", {}, "ZenFlow"),
-    "sparse_attention": (2, {"pipe": 2}, {}, "tiny_llama",
-                         {"attention": "sparse:fixed"},
-                         "attention='sparse:fixed'"),
-    "loss_tiles": (2, {"pipe": 2}, {}, "tiny_llama", {"loss_tiles": 4},
-                   "loss_tiles=4"),
+    "seq_hpz": (8, {"pipe": 2, "seq": 2}, {"zero_optimization": {
+        "stage": 2, "zero_hpz_partition_size": 2}}, "tiny_llama",
+        {"attention": "ulysses"}, "mesh seq=2 with hpZ / MiCS"),
+    "tensor_zenflow": (4, {"pipe": 2, "tensor": 2}, {"zero_optimization": {
+        "stage": 1, "zenflow": {"enabled": True}}}, "tiny_llama", {},
+        "mesh tensor=2 with ZenFlow"),
     "other_spec": (2, {"pipe": 2}, {}, None, {},
                    "a model spec other than causal_lm_spec's"),
 }
