@@ -257,6 +257,25 @@ kernel on them against its plain PyTorch version:
                peak a rank, rank 0's idle share, the pipe, seq and expert
                groups' host seconds; (a)-(c) in the world-4 spawn, (d) in
                the world-2 spawn;
+13i. train_sp_tp_moe_compose — the seq axis composed and MoE under
+               tensor (STM): full width, STM_LAYERS layers, bf16 with an
+               fp32 master, remat full, gas 2; (a) llama_750m hpZ ZeRO-3
+               at {zshard: 2, seq: 2} with Ulysses around flash: SC1 (one
+               fp32 step against ZeRO-3 at {data: 2, seq: 2} by the
+               training rule), SC2 (each group's collectives by formula);
+               (b) moe_350m at {expert: 2, seq: 2}: SC3 (against {data: 2,
+               expert: 2} on the same rows: training rule, routes over the
+               global batch ≥ 1 − 1e-4, aux 1e-5), the expert and seq
+               all-to-alls by formula, the grouped GEMM on a received
+               buffer; (c) llama_750m at {seq: 2} with the sync host step:
+               SC4 (loss bit-equal, master within 1e-6 of the device
+               step's, the card's peak while the engine is built 12 bytes
+               an element of the master below the device step's); (d)
+               moe_350m at {expert: 2, tensor: 2}: SC5 (as SC3, the tensor
+               group's all-reduces by formula), SC6 (the grouped GEMM over
+               a rank's [2, 768, 1536] slice, the peak a rank below
+               (e)'s); (e) moe_350m at {expert: 2}; (a), (b), (d) in the
+               world-4 spawn, (c), (e) in the world-2 spawn;
 14. quantized_reduce_scatter — the entry point at world 2 and 4 (ranks on
                the one card), 2^26 fp32 a rank: kernels vs plain bit-equal,
                the error against the exact mean within the bound, the ranks'
@@ -328,9 +347,10 @@ and the repository beside it, and does not import jax.
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_tp2,llama2_7b_tp2
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_pp2
     python3 chip_smoke.py --phases card,build,kernels,train_llama_750m_pp_compose
+    python3 chip_smoke.py --phases card,build,kernels,train_sp_tp_moe_compose
 
 The whole run takes the phases in PHASES order: the data-parallel phases
-(11-14, 13b-13h among them) and the offload phases (15-16) run right after
+(11-14, 13b-13i among them) and the offload phases (15-16) run right after
 the kernels phase, before the serving phases' engines take the card.
 Their ranks run in one spawn a world size (MERGED_SPAWNS: the first of
 them prepares every selected phase's jobs of its world, the checkpoint
@@ -369,6 +389,7 @@ PHASES = ("card", "build", "kernels", "train_llama_750m_zeropp_dp2",
           "train_moe_350m_ep", "train_moe_350m_ep_zero",
           "train_llama_750m_sp2", "train_llama_750m_tp2",
           "train_llama_750m_pp2", "train_llama_750m_pp_compose",
+          "train_sp_tp_moe_compose",
           "quantized_reduce_scatter", "train_llama2_7b_super_offload",
           "train_llama_750m_offload", "llama2_7b_tp2", "llama2_7b",
           "gpt2_125m", "moe_350m", "train_gpt2_125m",
@@ -1312,6 +1333,7 @@ MERGED_SPAWNS = {
     2: ("train_llama_750m_zeropp_dp2", "train_llama_750m_zero3_dp2",
         "train_llama_750m_sp2", "train_llama_750m_tp2",
         "train_llama_750m_pp2", "train_llama_750m_pp_compose",
+        "train_sp_tp_moe_compose",
         "train_moe_350m_ep", "train_moe_350m_ep_zero",
         "quantized_reduce_scatter",
         "train_llama_750m_offload", "checkpoint_llama_750m",
@@ -1319,7 +1341,8 @@ MERGED_SPAWNS = {
     4: ("train_llama_750m_hpz_dp4", "train_moe_350m_ep",
         "train_moe_350m_ep_zero", "train_llama_750m_sp2",
         "train_llama_750m_tp2", "train_llama_750m_pp2",
-        "train_llama_750m_pp_compose", "quantized_reduce_scatter")}
+        "train_llama_750m_pp_compose", "train_sp_tp_moe_compose",
+        "quantized_reduce_scatter")}
 
 
 class Job(typing.NamedTuple):
@@ -3133,21 +3156,20 @@ def _add(want, key, calls, elems):
 
 
 def epz_traffic_want(engine, t):
-    """E8: the collectives a rank of ``engine`` runs in ``t["steps"]``
-    steps → {group label/kind: [calls, elements it sends in]}, from its
-    layout: the MoE layer's (``moe_ep_traffic_want``; the dense
-    dispatch's per layer and micro-batch: the gate's counts gathered on
-    the batch group in the
-    forward and the recompute, the aux loss's mean there and in the
-    backward, the [E, C, H] buffers to the experts and back in each of
-    the three passes), then the engine's: ZeRO-3's gathers (each group in
-    the forward, each chunk in the recompute) and exact reduces (each
-    group's reduce-scatter on the shard group, its dense part's hop on
-    the dense replica group, its expert part's on the expert leaves'),
-    the int8 wire's dense rows summed on the expert group, its expert
-    pieces all-gathered there (JAX's blocks), its all-to-all of q and the
-    scales; the qwZ publish; the replicated leaves' mean, the norm's two
-    sums and the loss's mean."""
+    """E8: the collectives a rank of ``engine`` runs in ``t["steps"]`` steps →
+    {group label/kind: [calls, elements it sends in]}, from its layout: the
+    MoE layer's (``moe_ep_traffic_want``; the dense dispatch's per layer and
+    micro-batch: the gate's per-row counts gathered on the batch group in
+    the forward and the recompute, the aux loss's mean there and in the
+    backward, the [E, C, H] buffers to the experts and back in each of the
+    three passes), then the engine's: ZeRO-3's gathers (each group in the
+    forward, each chunk in the recompute) and exact reduces (each group's
+    reduce-scatter on the shard group, its dense part's hop on the dense
+    replica group, its expert part's on the expert leaves'), the int8 wire's
+    dense rows summed on the expert group, its expert pieces all-gathered
+    there (JAX's blocks), its all-to-all of q and the scales; the qwZ
+    publish; the replicated leaves' mean, the norm's two sums and the loss's
+    mean."""
     from deepspeed_tpu_torch.comm import mesh as M
     from deepspeed_tpu_torch.moe import gating as G
     from deepspeed_tpu_torch.ops.quant_kernels import DEFAULT_BLOCK as B
@@ -3165,7 +3187,7 @@ def epz_traffic_want(engine, t):
         n = L * gas
         _add(want, "expert/all_to_all", 6 * n, 6 * n * E * C * H)
         _add(want, "batch/all_reduce", 3 * n, 3 * n * 2 * E)
-        _add(want, "batch/all_gather", 2 * n, 2 * n * k * E)
+        _add(want, "batch/all_gather", 2 * n, 2 * n * t["micro"] * k * E)
     else:
         want.update(moe_ep_traffic_want(L, gas, 1, t["micro"], t["seq"],
                                         cfg.moe_top_k, X, cfg.hidden_size,
@@ -3215,7 +3237,8 @@ def epz_traffic_want(engine, t):
         _add(want, f"{world}/all_reduce", 1, engine._n_rep_dense)
     if engine._n_rep_dense < engine._n_rep:
         for grp, size in ((engine.shard_group, engine.shard_world),
-                          (engine.data_group, engine.data_world)):
+                          (engine.expert_hop_group,
+                           engine.expert_hop_world)):
             if size > 1:
                 _add(want, f"{M.group_label(grp)}/all_reduce",
                      gas if int8 else 1,
@@ -4778,6 +4801,375 @@ def ppc_problems(t, ranks, cfg):
                 problems.append(f"{tag}: PC7 offload {m['losses']} "
                                 f"{m['fingerprints']} against "
                                 f"{b['losses']} {b['fingerprints']}")
+    return problems
+
+
+# --------------------------------------------------------------------------- #
+# The seq axis composed, and MoE on the tensor axis
+# (train_sp_tp_moe_compose)
+# --------------------------------------------------------------------------- #
+# train_sp_tp_moe_compose: the seq axis beside hpZ, MoE and the host step,
+# and MoE under the tensor axis, full width, STM_LAYERS layers, bf16 with
+# an fp32 master, remat full, gas 2; a warm-up step, one timed step, a
+# profiled one on rank 0. Ways, each with its own gates:
+# (a) llama_750m hpZ ZeRO-3 at {zshard: 2, seq: 2}, Ulysses around the
+#     flash kernels: SC1 one fp32 step against ZeRO-3 at {data: 2, seq:
+#     2} on the same global batch by the training rule (SP2_LIMITS); SC2
+#     each group's collectives and elements a step by formula — the
+#     zshard gathers and reduce-scatters, the seq hop, the attentions' seq
+#     all-to-alls, the norm's and the loss's sums (stm_hpz_traffic_want);
+# (b) moe_350m at {expert: 2, seq: 2}, ZeRO-2, Ulysses around flash: SC3
+#     one fp32 step against {data: 2, expert: 2} on the same rows by the
+#     training rule, the routes (over the global batch) agreeing on at
+#     least ROUTE_AGREE_MIN and the aux within TRAIN_LOSS_REL; the expert
+#     and seq all-to-alls and the token group's sums by formula; the
+#     grouped GEMM on a rank's first received buffer against its plain
+#     version (role seq_expert_buffer);
+# (c) llama_750m at {seq: 2}, ZeRO-1 with offload_optimizer cpu and the
+#     sync host step (two ranks): SC4 one fp32 step against the same mesh
+#     without offload, the loss bit-equal and the master within
+#     HOST_SYNC_VS_PLAIN (relative L2), as SuperOffload's S1, and the
+#     card's peak while the engine is built at least HOST_INIT_SAVED bytes
+#     an element of the master below the device step's;
+# (d) moe_350m (ragged) at {expert: 2, tensor: 2}, ZeRO-2, flash at a
+#     rank's heads: SC5 one fp32 step against {data: 2, expert: 2} on the
+#     same rows by the training rule, routes and aux as SC3; the tensor
+#     group's all-reduces a step by formula, the MoE layer's included
+#     (stm_tensor_traffic_want); SC6 the grouped GEMM over a rank's
+#     received buffer and its [2, 768, 1536] expert slice against its
+#     plain version (role tensor_expert_slice), and the peak a rank below
+#     (e)'s;
+# (e) moe_350m at {expert: 2} on the same global batch (two ranks): the
+#     main path only, (d)'s peak and step time beside.
+# Every way: the launches by formula, step ms, tokens/s, MFU (active
+# parameters), the peak a rank, rank 0's idle share and the seq, expert,
+# tensor and batch groups' host seconds a step. (a), (b), (d) run in the
+# world-4 spawn, (c) and (e) in the world-2 spawn.
+STM = dict(model="llama_750m", world=4, micro=2, seq=2048, gas=2, steps=1,
+           zero={"stage": 1}, spec={})
+STM_LAYERS = 2
+STM_WAYS = {
+    "a": dict(mesh={"zshard": 2, "seq": 2}, attention="ulysses_flash",
+              zero={"stage": 3, "zero_hpz_partition_size": 2},
+              ref_mesh={"data": 2, "seq": 2}, ref_zero={"stage": 3}),
+    "b": dict(model="moe_350m", seq=1024, mesh={"expert": 2, "seq": 2},
+              attention="ulysses_flash", zero={"stage": 2},
+              ref_mesh={"data": 2, "expert": 2}, ref_zero={"stage": 2}),
+    "c": dict(world=2, mesh={"seq": 2}, attention="ulysses_flash",
+              zero={"stage": 1, "offload_optimizer": {
+                  "device": "cpu", "host_step": True,
+                  "overlap_step": False}},
+              ref_mesh={"seq": 2}, ref_zero={"stage": 1}),
+    "d": dict(model="moe_350m", seq=1024, mesh={"expert": 2, "tensor": 2},
+              attention="flash", zero={"stage": 2},
+              ref_mesh={"data": 2, "expert": 2}, ref_zero={"stage": 2}),
+    "e": dict(world=2, model="moe_350m", seq=1024, mesh={"expert": 2},
+              attention="flash", zero={"stage": 2})}
+# SC4: the host step's fp32 master after one step against the device
+# step's (relative L2; both run the same rounded fp32 operations but for
+# PyTorch's CPU sqrt, as SuperOffload's S1)
+HOST_SYNC_VS_PLAIN = 1e-6
+# SC4: the bytes an element of the master that the host step's engine never
+# puts on the card while it is built: the fp32 master and Adam's two fp32
+# moments
+HOST_INIT_SAVED = 12
+
+
+def stm_way(t, label):
+    """Way ``label``'s settings from the phase's."""
+    return dict(t, **STM_WAYS[label], way=label)
+
+
+def stm_batch_ranks(t):
+    """The ranks over the batch axes (data × zshard × expert) of a way's
+    mesh."""
+    return int(np.prod([t["mesh"].get(a, 1)
+                        for a in ("data", "zshard", "expert")]))
+
+
+def stm_n_experts(t):
+    """The way's model's experts (0: a dense model)."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    return T.get_model_config(t["model"]).n_experts
+
+
+def stm_hpz_traffic_want(engine, t, cfg):
+    """SC2: a ZeRO-3 rank's collectives in ``t["steps"]`` steps (remat
+    full) → {group label/kind: [calls, elements it sends in]}: each
+    gather group on the shard group in the forward, each layer chunk
+    again in the recompute; each group's reduce-scatter on the shard
+    group and its replica hop (``engine.hops``: ``seq`` under hpZ
+    without data); the replicated leaves' mean; Ulysses' q, k, v and o on
+    the attentions' seq group (``sp2_want``); the norm's sum on the shard
+    group and the loss's mean."""
+    from deepspeed_tpu_torch.comm import mesh as M
+
+    want = {}
+    shard = M.group_label(engine.shard_group)
+    groups = engine._zero3.groups
+    for _ in range(t["gas"]):
+        for g in list(groups) + list(groups[1:]):    # fwd, recompute
+            _add(want, f"{shard}/all_gather", 1, g.n_row)
+        for g in groups:
+            _add(want, f"{shard}/reduce_scatter", 1,
+                 engine.shard_world * g.n_row)
+            for grp, lo, hi in engine.hops(g.n_dense, g.n_row):
+                _add(want, f"{M.group_label(grp)}/all_reduce", 1, hi - lo)
+    if engine._n_rep:
+        _add(want, "world/all_reduce", 1, engine._n_rep)
+    _, seq, _ = sp2_want(t, cfg.num_layers, t["attention"], cfg, 0)
+    for k, (calls, elems) in seq.items():
+        _add(want, k, calls, elems)
+    _add(want, f"{shard}/all_reduce", 1, 1)          # the norm's sum
+    _add(want, "world/all_reduce", 1, 1)             # the loss's mean
+    return {k: [c * t["steps"], e * t["steps"]] for k, (c, e) in want.items()}
+
+
+def stm_moe_seq_traffic_want(t, cfg):
+    """(b): the MoE layer's collectives (``moe_ep_traffic_want`` at a
+    rank's tokens: its rows × its positions; the token group over
+    ``expert`` and ``seq`` labelled ``batch``) and Ulysses' all-to-alls
+    (``sp2_want``) in ``t["steps"]`` steps."""
+    sp = t["mesh"]["seq"]
+    want = moe_ep_traffic_want(cfg.num_layers, t["gas"], t["steps"],
+                               t["micro"], t["seq"] // sp, cfg.moe_top_k,
+                               t["mesh"]["expert"], cfg.hidden_size,
+                               cfg.n_experts)
+    _, seq, _ = sp2_want(t, cfg.num_layers, t["attention"], cfg, 0)
+    want.update({k: [c * t["steps"], e * t["steps"]]
+                 for k, (c, e) in seq.items()})
+    return want
+
+
+def stm_tensor_traffic_want(t, cfg, tp_classes):
+    """SC5: the tensor group's all-reduces and their elements in
+    ``t["steps"]`` steps (remat full, the fused loss). A micro-batch sums
+    each layer's attention output (row-parallel) in the forward and again
+    in the recompute, and its input's gradient (column-parallel) in the
+    backward, each B·S·H; each MoE layer's received rows' outputs over
+    the rank's ``mlp`` slices ([X·Cs, H], Cs = ep_shard_capacity(B·S·k,
+    X)) in the forward and again in the recompute (its combine saves what
+    the second all-to-all brings back), and its sent rows' gradient (B·S·H)
+    in the backward; the vocab-parallel embedding's B·S·H; the loss's row
+    maxima, sums of exponentials and picked logits, B·(S − 1) each, and
+    its hidden state's gradient, B·(S − 1)·H. A step adds the global
+    norm's squares of the ``tp_classes`` tensor-sliced leaf classes."""
+    from deepspeed_tpu_torch.moe.layer import ep_shard_capacity
+
+    B, S, H, L = t["micro"], t["seq"], cfg.hidden_size, cfg.num_layers
+    X = t["mesh"]["expert"]
+    R = B * (S - 1)
+    rows = X * ep_shard_capacity(B * S * cfg.moe_top_k, X)
+    calls = t["gas"] * (6 * L + 5) + 1
+    elems = t["gas"] * (B * S * H + L * (4 * B * S * H + 2 * rows * H)
+                        + 3 * R + R * H) + tp_classes
+    return {"tensor/all_reduce": [t["steps"] * calls, t["steps"] * elems]}
+
+
+def stm_global_routes(engine, idx, t):
+    """The routes [L, rows, positions, k] over the global batch from every
+    rank's routes of its tokens [L, b·s, k] (its rows at its batch index,
+    its positions at its seq coordinate; a tensor rank's copy the same):
+    gathered over the world (collective)."""
+    import torch
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm import mesh as M
+
+    mm = engine.mesh_manager
+    Q = mm.sp_world_size
+    L, n, k = idx.shape
+    b = t["micro"]
+    s = n // b
+    rows = comm.all_gather(idx.contiguous(), tiled=False)     # [W, L, n, k]
+    out = torch.empty(L, b * mm.batch_world_size, s * Q, k,
+                      dtype=idx.dtype, device=idx.device)
+    for r in range(mm.world_size):
+        other = M.MeshManager(mm.shape, r)
+        bi, q = other.batch_rank, other.coords["seq"]
+        out[:, bi * b:(bi + 1) * b, q * s:(q + 1) * s] = rows[r].view(
+            L, b, s, k)
+    return out
+
+
+def stm_gate_step(t, dev, batch, mesh, zero, attention, L):
+    """One fp32 step from the seed's weights at ``mesh`` (gas 1): loss,
+    norm, the whole gradient and update (``moe_ep_step``), the host
+    step's first update landed; the routes over the global batch and the
+    summed aux of a MoE model's first ``L`` routed calls; the card's peak
+    bytes while the engine is built (above what was allocated before) and
+    the master's elements."""
+    micro = len(batch["tokens"]) // int(np.prod(
+        [mesh.get(a, 1) for a in ("data", "zshard", "expert")]))
+    base = dev_allocated(dev)
+    dev_peak(dev, reset=True)
+    engine = sp2_engine(dict(t, zero=zero, micro=micro), dev, "fp32",
+                        attention, micro, 1, mesh=mesh)
+    init = (dev_peak(dev) - base, engine.flat_master.numel())
+    loss, norm, grad, upd, idx, aux = moe_ep_step(engine, batch, L, dev)
+    if idx is not None:
+        idx = stm_global_routes(engine, idx, dict(t, micro=micro))
+    master = master_on(engine, dev) if t["way"] == "c" else None
+    engine.close()
+    del engine
+    dev_free(dev)
+    return loss, norm, grad, upd, idx, aux, master, init
+
+
+@timed_part
+def stm_gates(t, dev, seed):
+    """The way's gate steps → {gate: metrics}: the way's fp32 step against
+    its reference mesh's on one masked global batch (the training rule;
+    routes and aux under MoE); (c): the host step's loss, master and peak
+    while the engine is built against the device step's."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    if "ref_mesh" not in t:
+        return {}
+    gate = sp2_batch(t, seed, masked=True)
+    cfg = T.get_model_config(t["model"], num_layers=t["layers"])
+    L = cfg.num_layers if cfg.n_experts else 0
+    ref_attention = "flash" if "seq" not in t["ref_mesh"] else \
+        t["attention"]
+    r = stm_gate_step(t, dev, gate, t["ref_mesh"], t["ref_zero"],
+                      ref_attention, L)
+    ref = dict(zip(("loss", "norm", "grad", "upd", "idx", "aux"), r[:6]))
+    w = stm_gate_step(t, dev, gate, t["mesh"], t["zero"], t["attention"],
+                      L)
+    out = {"sc_fp32": step_metrics(*w[:6], ref)}
+    if t["way"] == "c":
+        out["sc_fp32"].update(
+            loss_bit_equal=w[0] == r[0], master_rel_l2=rel_l2(w[6], r[6]),
+            master_bit_equal=same_bits(w[6], r[6]),
+            init_peak_bytes=w[7][0], ref_init_peak_bytes=r[7][0],
+            master_elems=w[7][1])
+    del ref, r, w
+    dev_free(dev)
+    return out
+
+
+def train_sp_tp_moe_compose_rank(rank, world, seed, t):
+    """One rank of way ``t["way"]`` of the composed seq / tensor phase: its
+    main path (the received buffer captured under MoE), a profiled step on
+    rank 0, then its gates."""
+    import torch
+
+    dev = torch.device(t["device"])
+    w = t["way"]
+    batch = sp2_batch(t, seed)
+    out = {"rank": rank, "way": w}
+    moe = bool(stm_n_experts(t)) and w != "e"
+    with (ep_buffer_capture() if moe
+          else contextlib.nullcontext({})) as cap:
+        engine, data, m = sp2_run(t, dev, t["attention"], batch)
+    if moe:
+        out["ep_buffer"] = ep_buffer_gate(cap, dev)
+    del cap
+    m["peak_bytes"] = m["resident_bytes"] + m["fwd_bwd_peak_bytes"]
+    m["host_s_per_step"] = {
+        g: sum(v[2] for k, v in m["traffic"].items()
+               if k.split("/")[0] == g) / t["steps"]
+        for g in ("seq", "expert", "tensor", "batch", "zshard")}
+    m["params_local"] = sum(s.numel for s in engine._slots)
+    z = getattr(engine, "_zero3", None)
+    if z is not None:
+        m["zero3_counts"] = dict(z.counts)
+        m["traffic_want"] = stm_hpz_traffic_want(engine, t,
+                                                 engine.model_spec.config)
+    if w == "d":
+        m["tp_classes"] = sum(1 for key, _ in engine._norm_classes
+                              if key[1])
+    m["host_step"] = engine._host_runner is not None
+    m["profile"] = zeropp_profile(
+        engine, data, dev, profiled=rank == 0 and dev.type == "cuda")
+    out["main"] = m
+    engine.close()
+    del engine, data
+    dev_free(dev)
+    out["gates"] = stm_gates(t, dev, seed)
+    return out
+
+
+def stm_problems(t, ranks, cfg, peak_e=None):
+    """One way's verdicts, rank by rank."""
+    w = t["way"]
+    problems = []
+    L = cfg.num_layers
+    limits = dict(SP2_LIMITS) if cfg.n_experts == 0 else dict(
+        SP2_LIMITS, route_miss=1 - ROUTE_AGREE_MIN, aux_rel=TRAIN_LOSS_REL)
+    for r in ranks:
+        m, tag = r["main"], f"({w}) rank {r['rank']}"
+        if cfg.n_experts:
+            launches = moe_ep_launches_want(L, t["gas"], t["steps"], 2,
+                                            m["adam_per_step"])
+        else:
+            launches = sp2_want(t, L, t["attention"], cfg,
+                                0 if m["host_step"]
+                                else m["adam_per_step"])[0]
+        keys = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rms_norm",
+                "layer_norm", "fused_adam", "gmm", "tgmm", "quant_int8",
+                "dequant_reduce")
+        problems += [f"{tag}: {k} launched {m['launches'][k]} times, want "
+                     f"{launches.get(k, 0)}" for k in keys
+                     if m["launches"][k] != launches.get(k, 0)]
+        if not all(np.isfinite(m["losses"])) or \
+                m["losses"][-1] >= m["losses"][0]:
+            problems.append(f"{tag}: losses {m['losses']}")
+        g = r["gates"].get("sc_fp32")
+        sc = {"a": "SC1", "b": "SC3", "c": "SC4", "d": "SC5"}.get(w)
+        if g is not None and w != "c":
+            problems += [f"{tag}: {sc} {k} {g[k]:.3g} > {v}"
+                         for k, v in limits.items() if not g[k] <= v]
+        if w == "c":
+            if not g["loss_bit_equal"]:
+                problems.append(f"{tag}: SC4 host-step loss {g['loss']!r} "
+                                "not bit-equal to the device step's")
+            if not g["master_rel_l2"] <= HOST_SYNC_VS_PLAIN:
+                problems.append(f"{tag}: SC4 master rel L2 "
+                                f"{g['master_rel_l2']:.3g} > "
+                                f"{HOST_SYNC_VS_PLAIN}")
+            if not m["host_step"]:
+                problems.append(f"{tag}: SC4 the main path ran no host step")
+            saved = HOST_INIT_SAVED * g["master_elems"]
+            if t["device"].startswith("cuda") and not (
+                    g["init_peak_bytes"] + saved <= g["ref_init_peak_bytes"]):
+                problems.append(
+                    f"{tag}: SC4 init peak {g['init_peak_bytes']} not "
+                    f"{saved} below the device step's "
+                    f"{g['ref_init_peak_bytes']}")
+        if w == "a":
+            got = {k: [int(v[0]), int(v[1])] for k, v in m["traffic"].items()
+                   if int(v[0])}
+            if got != m["traffic_want"]:
+                keys = sorted(set(got) | set(m["traffic_want"]))
+                problems.append(f"{tag}: SC2 " + "; ".join(
+                    f"{k} {got.get(k)} want {m['traffic_want'].get(k)}"
+                    for k in keys if got.get(k) != m["traffic_want"].get(k)))
+        want = {}
+        if w == "b":
+            want = stm_moe_seq_traffic_want(t, cfg)
+        if w == "d":
+            want = stm_tensor_traffic_want(t, cfg, m["tp_classes"])
+        for key, (calls, elems) in want.items():
+            got = [int(x) for x in m["traffic"].get(key, [0, 0])[:2]]
+            if got != [calls, elems]:
+                problems.append(f"{tag}: {sc} {key} {got}, want "
+                                f"{[calls, elems]}")
+        if w in ("b", "d"):
+            e = r["ep_buffer"]
+            if not (e["gmm_close"] and e["tgmm_close"] and e["tail_zero"]):
+                problems.append(f"{tag}: the received buffer's grouped GEMM "
+                                f"against its plain version: {e}")
+        if w == "d":
+            T_ = t["mesh"]["tensor"]
+            want_n = cfg.ffn_size // T_
+            if r["ep_buffer"]["N"] != want_n:
+                problems.append(f"{tag}: SC6 expert slice N "
+                                f"{r['ep_buffer']['N']}, want {want_n}")
+            if peak_e is not None and t["device"].startswith("cuda") and \
+                    not m["peak_bytes"] < peak_e:
+                problems.append(f"{tag}: SC6 peak {m['peak_bytes']} not "
+                                f"below {{expert: 2}}'s {peak_e}")
     return problems
 
 
@@ -8343,6 +8735,99 @@ class Smoke:
                               tokens_per_s=res["tokens_per_s"],
                               mfu=res["mfu"]) for w, res in results.items()}}
 
+    def prepare_train_sp_tp_moe_compose(self):
+        """The five ways' jobs: (a), (b), (d) in the world-4 spawn, (c)
+        and (e) in the world-2 spawn."""
+        t = dict(STM, layers=STM_LAYERS, device=str(self.dev))
+        return {"t": t, "jobs": [
+            Job(f"stm/{w}", "train_sp_tp_moe_compose_rank",
+                stm_way(t, w)["world"], stm_way(t, w)) for w in STM_WAYS]}
+
+    def phase_train_sp_tp_moe_compose(self):
+        """The seq axis beside hpZ (a), MoE and the expert axis (b) and the
+        host step (c), and MoE under the tensor axis (d) against {expert:
+        2} (e): gates SC1-SC6 (``train_sp_tp_moe_compose_rank``); step ms,
+        tokens/s, MFU, peak a rank, rank 0's idle share and the groups'
+        host seconds a step."""
+        from deepspeed_tpu_torch.models import transformer as T
+        from deepspeed_tpu_torch.ops import build
+
+        build.build_all()
+        dev_free(self.dev)
+        prep = self.prepared("train_sp_tp_moe_compose")
+        t = prep["t"]
+        ways = {j.args["way"]: (j.args, self.spawn_job(j))
+                for j in prep["jobs"]}
+        peak_e = max(r["main"]["peak_bytes"] for r in ways["e"][1][0])
+        problems, results, gates = [], {}, {}
+        for w, (tw, (ranks, wall)) in ways.items():
+            cfg = T.get_model_config(tw["model"], num_layers=tw["layers"])
+            problems += stm_problems(tw, ranks, cfg, peak_e)
+            gates[w] = {f"rank {r['rank']}": r["gates"] for r in ranks}
+            r0 = ranks[0]["main"]
+            step_s = r0["step_ms"] / 1e3
+            rows = tw["micro"] * stm_batch_ranks(tw)
+            tokens = rows * tw["seq"] * tw["gas"]
+            res = {
+                "mesh": tw["mesh"], "world": tw["world"], "zero": tw["zero"],
+                "model": tw["model"], "layers": tw["layers"],
+                "attention": tw["attention"], "rows_global": rows,
+                "seq": tw["seq"], "phase_wall_s": wall,
+                "step_ms": r0["step_ms"],
+                "step_ms_per_rank": [r["main"]["step_ms"] for r in ranks],
+                "tokens_per_s": tokens / step_s,
+                "mfu": tokens / step_s * flops_per_token(cfg, tw["seq"])
+                / PEAK_FLOPS["bfloat16"],
+                "peak_bytes_per_rank": [r["main"]["peak_bytes"]
+                                        for r in ranks],
+                "idle_share_rank0": r0["profile"].get("device_idle_share"),
+                "host_s_per_step_per_rank": [r["main"]["host_s_per_step"]
+                                             for r in ranks],
+                "params_per_rank": [r["main"]["params_local"]
+                                    for r in ranks],
+                "per_rank": [{k: v for k, v in r["main"].items()
+                              if k != "profile"} for r in ranks],
+                "profile_rank0": r0["profile"]}
+            if w == "b":
+                res["traffic_want"] = stm_moe_seq_traffic_want(tw, cfg)
+            if w == "d":
+                res["traffic_want"] = stm_tensor_traffic_want(
+                    tw, cfg, r0["tp_classes"])
+                res["peak_below_expert2_bytes"] = [
+                    peak_e - r["main"]["peak_bytes"] for r in ranks]
+            if w in ("b", "d"):
+                res["ep_buffer_per_rank"] = [r["ep_buffer"] for r in ranks]
+            results[w] = res
+        emit("train_sp_tp_moe_compose", reduced=(
+            f"{t['layers']} of 20 layers (moe_350m: of 12), for the "
+            "script's time"), micro_a_batch_rank=t["micro"], gas=t["gas"],
+            steps=t["steps"], card=self.card,
+            wire_note="gloo through host memory, the ranks sharing one "
+                      "card", **results)
+        emit("train_sp_tp_moe_compose/gates", card=self.card, gates=gates,
+             limits=SP2_LIMITS, route_agree_min=ROUTE_AGREE_MIN,
+             host_sync_vs_plain=HOST_SYNC_VS_PLAIN)
+        if problems:
+            raise AssertionError("train_sp_tp_moe_compose: "
+                                 + "; ".join(problems))
+        name = "train_sp_tp_moe_compose"
+        for w, res in results.items():
+            for r in res["per_rank"]:
+                for k, v in r["launches"].items():
+                    if v and k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "rms_norm", "layer_norm",
+                                   "fused_adam", "gmm", "tgmm"):
+                        by = self.launches.setdefault(k, {})
+                        key = f"{name}/{w}"
+                        by[key] = by.get(key, 0) + v
+            self.steps[f"{name}/{w}"] = t["steps"] * res["world"]
+        self.state["sp_tp_moe_compose"] = {
+            "seq_expert_buffer": results["b"]["ep_buffer_per_rank"][0],
+            "tensor_expert_slice": results["d"]["ep_buffer_per_rank"][0],
+            "steps": {w: dict(res["profile_rank0"], step_ms=res["step_ms"],
+                              tokens_per_s=res["tokens_per_s"],
+                              mfu=res["mfu"]) for w, res in results.items()}}
+
     def prepare_llama2_7b_tp2(self):
         """T1's one-process tick (``tp7b_reference``) and the job."""
         t = dict(TP7B, layers=TP7B_LAYERS)
@@ -9951,6 +10436,10 @@ class Smoke:
         if "pp_compose" in self.state:
             for label, row in self.state["pp_compose"]["steps"].items():
                 steps[f"pp_compose_{label}"] = row
+        if "sp_tp_moe_compose" in self.state:
+            for label, row in self.state["sp_tp_moe_compose"][
+                    "steps"].items():
+                steps[f"sp_tp_moe_compose_{label}"] = row
         if "moe_ep" in self.state:
             steps["moe_350m_ep2"] = self.state["moe_ep"]["a"]
             steps["moe_350m_data2_ep2"] = self.state["moe_ep"]["b"]
@@ -10608,6 +11097,24 @@ class Smoke:
                             "gmm_library_ms", "gmm_library")}
                 if name == "gmm":
                     timed[name]["serving_decode"] = gg["gmm[serving_decode]"]
+                if "sp_tp_moe_compose" in self.state and name == "gmm":
+                    # an {expert: 2, seq: 2} rank's received buffer (STM
+                    # b) and an {expert: 2, tensor: 2} rank's over its
+                    # experts' mlp slices (STM d)
+                    for role in ("seq_expert_buffer",
+                                 "tensor_expert_slice"):
+                        e = self.state["sp_tp_moe_compose"][role]
+                        routed, K, N = e["routed_rows"], e["K"], e["N"]
+                        E = len(e["group_sizes"])
+                        timed[name][role] = dict(
+                            {k: e.get(k) for k in (
+                                "rows", "routed_rows", "group_sizes", "K",
+                                "N", "gmm_max_abs_err", "gmm_ms",
+                                "gmm_plain_ms", "gmm_library_ms",
+                                "gmm_library")},
+                            **self.bound(2 * (routed * K + E * K * N
+                                              + e["rows"] * N),
+                                         2 * routed * K * N))
                 if "pp_compose" in self.state and name == "gmm":
                     # a {pipe: 2, expert: 2} rank's received buffer (PPC c)
                     e = self.state["pp_compose"]["ep_buffer"]
@@ -10655,6 +11162,7 @@ class Smoke:
                           "replica_hop", "ep_buffer", "serving_decode",
                           "ulysses", "tensor_parallel", "pipeline",
                           "pipe_seq", "pipe_expert_buffer",
+                          "seq_expert_buffer", "tensor_expert_slice",
                           "zero3_stage_shard"):
                 if extra in t:
                     out[-1][extra] = t[extra]

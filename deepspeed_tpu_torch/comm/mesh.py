@@ -25,8 +25,11 @@ expert)`` group (the dense leaves' replica hop, JAX's ZeRO axes being
 ``zshard`` alone then); under a ``seq`` axis the ``(data, zshard)`` shard
 group and the ``seq`` group, the dense leaves' replica hop (JAX's
 ``DENSE_GRAD_REDUCE_AXES`` less its ZeRO axes: seq ranks hold the same
-parameters and ZeRO shards). A group that spans every process is the
-default group (None).
+parameters and ZeRO shards), and beside other axes the hops over
+``(expert, seq)``, ``(data, seq)`` or ``(data, expert, seq)``: the dense
+leaves' over ``DENSE_GRAD_REDUCE_AXES``, the expert leaves' over
+``EXPERT_GRAD_REDUCE_AXES``, each less the shard axes. A group that spans
+every process is the default group (None).
 
 The MoE layer's collectives (the expert all-to-alls, the global aux loss's
 mean, the dense gate's counts) run in the forward and backward on the
@@ -34,7 +37,11 @@ calling thread, while the engine's ``CommQueue`` worker may be running the
 hooked gradient reduces on the engine's groups. gloo matches collectives by
 issue order within a group, so the MoE layer has groups of its own
 (:meth:`MeshManager.moe_group`), built with ``new_group`` even where they
-span every process: the two threads never share a group. So do the
+span every process: the two threads never share a group. Its token group
+(label ``batch``) is over the batch axes, and ``seq`` under a ``seq`` axis
+(JAX's ``mean_axes``); its sum of the experts' ``mlp`` slices over
+``tensor`` runs on the Megatron collectives' ``tensor`` group, on the same
+calling thread. So do the
 sequence-parallel attentions (Ulysses' all-to-alls, the ring's permutes):
 :meth:`MeshManager.seq_group`, labelled ``seq``, and the Megatron
 collectives of a ``tensor`` axis (the model's all-reduces and the serving
@@ -344,9 +351,12 @@ def _axis_groups(sizes: Dict[str, int]
     ``(data, zshard)`` groups (the shard group) where ``data`` × ``zshard``
     is above 1 and short of the world, the ``seq`` groups (the dense
     replica hop, label ``seq_hop``), then the attentions' own ``seq``
-    groups. Under a ``pipe`` axis: the ``(data, zshard)`` groups even of
-    one rank (the shard group, and the dense reduce group, which
-    ``expert`` = ``seq`` = 1 make the same ranks), and the pipeline's own
+    groups, and the replica hops of more than one axis beside ``seq``
+    (labelled by their axes, ``expert_seq``, ``data_seq``,
+    ``data_expert_seq``), and for the MoE layer the token group over the
+    batch axes and ``seq``. Under a ``pipe`` axis: the ``(data, zshard)``
+    groups even of one rank (the shard group, and the dense reduce group,
+    which ``expert`` = ``seq`` = 1 make the same ranks), and the pipeline's own
     ``pipe`` groups; where an ``expert`` or ``seq`` axis makes the stage's
 dense reduce group over ``DENSE_GRAD_REDUCE_AXES`` other ranks than those
 groups, that group too (label ``dense``)."""
@@ -372,6 +382,17 @@ groups, that group too (label ``dense``)."""
         groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
                              "data", False))
         groups.update(_build("axis", sizes, (SEQ_AXIS,), "seq_hop", False))
+        # the replica hops beside seq: the dense leaves' over the batch
+        # and seq axes off the shard axes, the expert leaves' over
+        # EXPERT_GRAD_REDUCE_AXES off them (labels: the axes joined)
+        shard = (ZSHARD_AXIS,) if Z > 1 else (DATA_AXIS, ZSHARD_AXIS)
+        for reduce_axes in (DENSE_GRAD_REDUCE_AXES, EXPERT_GRAD_REDUCE_AXES):
+            hop = tuple(a for a in reduce_axes
+                        if a not in shard and sizes[a] > 1)
+            if len(hop) > 1 and any(r not in groups for r in _all_groups(
+                    sizes, hop)):
+                groups.update(_build("axis", sizes, hop, "_".join(hop),
+                                     False))
     if T > 1 or P > 1:
         groups.update(_build("axis", sizes, (DATA_AXIS, ZSHARD_AXIS),
                              "data", False))
@@ -383,6 +404,10 @@ groups, that group too (label ``dense``)."""
                              False))
     moe.update(_build("moe", sizes, BATCH_AXES, "batch", True))
     if Q > 1:
+        # the MoE layer's token group under seq: the batch axes and seq
+        # (JAX's ``mean_axes``)
+        moe.update(_build("moe", sizes, BATCH_AXES + (SEQ_AXIS,), "batch",
+                          True))
         moe.update(_build("moe", sizes, (SEQ_AXIS,), "seq", True))
     if T > 1:
         moe.update(_build("moe", sizes, (TENSOR_AXIS,), "tensor", True))

@@ -227,13 +227,18 @@ class FastGenEngine:
     def _resolve_tp(self, tp: Optional[bool]):
         """JAX's ``tp`` (fastgen.py:145-199): a live mesh's tensor axis,
         unless ``tp`` is False; a model the axis cannot cut raises under
-        ``tp=True`` and serves replicated, with a warning, under None."""
+        ``tp=True`` and serves replicated, with a warning, under None. An
+        MoE model is served replicated too (queue A.5: JAX's FastGen
+        serves no MoE model, and the port's MoE serving is held at one
+        process only), though training runs it under ``tensor``."""
         if tp is False or not mesh_mod.mesh_is_initialized():
             return None
         group = mesh_mod.get_mesh_manager().tensor()
         if group is None:
             return None
         what = T.check_tensor_parallel(self.cfg, group.size)
+        if self.cfg.n_experts > 0:
+            what = ["an MoE model (queue A.5)"] + what
         if not what:
             return group
         problem = f"mesh tensor={group.size} with {', '.join(what)}"

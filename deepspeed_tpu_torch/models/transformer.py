@@ -401,21 +401,23 @@ def _check_supported(cfg: TransformerConfig) -> None:
 def check_tensor_parallel(cfg: TransformerConfig, size: int,
                           attention: Optional[str] = None) -> List[str]:
     """What a ``tensor`` axis of ``size`` does not run yet (queue A.4), as
-    a list of problems (empty: it runs): an MoE model, block-sparse
-    attention, and a shape whose ``heads``, ``kv_heads``, ``mlp`` or
-    ``vocab`` dim the axis does not divide (JAX's GSPMD pads such a dim;
-    the port cuts even slices). The engine raises on them, FastGen raises
-    or serves replicated."""
+    a list of problems (empty: it runs): block-sparse attention, and a
+    shape whose ``heads``, ``kv_heads``, ``mlp`` or ``vocab`` dim the axis
+    does not divide (JAX's GSPMD pads such a dim; the port cuts even
+    slices) — of an MoE model the experts' and the shared expert's
+    ``mlp`` dims. The engine raises on them, FastGen raises or serves
+    replicated."""
     what: List[str] = []
     if size <= 1:
         return what
-    if cfg.n_experts > 0:
-        what.append("an MoE model")
     if attention is not None and attention.startswith("sparse"):
         what.append(f"attention={attention!r}")
+    ffn = (("moe_ffn_size", cfg.moe_ffn),) if cfg.n_experts > 0 \
+        else (("ffn_size", cfg.ffn_size),)
+    if cfg.n_experts > 0 and cfg.moe_shared_size > 0:
+        ffn += (("moe_shared_size", cfg.moe_shared_size),)
     for name, n in (("num_heads", cfg.num_heads), ("kv_heads", cfg.kv_heads),
-                    ("ffn_size", cfg.ffn_size),
-                    ("vocab_size", cfg.vocab_size)):
+                    *ffn, ("vocab_size", cfg.vocab_size)):
         if n % size:
             what.append(f"{name} {n} not divisible by {size}")
     return what
@@ -574,7 +576,7 @@ def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
     """Dense or MoE FFN on normed input → (output, aux loss: fp32 0 for a
     dense block). ``use_kernels=False`` runs the grouped GEMMs' plain
     versions; ``tp``: column-parallel ``w_up``/``w_gate``, row-parallel
-    ``w_down``."""
+    ``w_down`` (of an MoE block each expert's, ``moe/layer.moe_ffn``)."""
     if cfg.n_experts > 0:
         from deepspeed_tpu_torch.moe.layer import moe_ffn
 
@@ -597,7 +599,7 @@ def _ffn(h: torch.Tensor, lp: Dict[str, torch.Tensor],
             route_scale=cfg.moe_route_scale, shared=shared or None,
             gate_bias=lp.get("gate_bias"), n_group=cfg.moe_n_group,
             topk_group=cfg.moe_topk_group, dispatch=cfg.moe_dispatch,
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, tp=tp)
     if tp is not None:
         h = comm.copy_to_tensor(h, tp.group)
     up = h @ lp["w_up"]

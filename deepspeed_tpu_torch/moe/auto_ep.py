@@ -8,9 +8,9 @@ rest of the width is expert-data parallelism). Here the "devices" are the
 processes of the default process group.
 
 ``auto_ep`` (:125) for a zoo ``ModelSpec``: the spec, its mesh section
-and the plan. An HF model needs the HF importer (``models/hf_import.py``)
-and ``etp_size`` above 1 the ``tensor`` axis, later slices: both raise
-``NotImplementedError``.
+(``expert``, and ``tensor`` with ``etp_size`` above 1) and the plan. An
+HF model needs the HF importer (``models/hf_import.py``), a later slice:
+it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -116,19 +116,16 @@ def auto_ep(model_or_spec, n_devices: Optional[int] = None,
     """Detect + plan (JAX :125) for a zoo ``ModelSpec`` → (model_spec,
     mesh_section, plan); pass ``config={'mesh': mesh_section, ...}`` to
     ``initialize``. ``spec_kwargs`` belong to the HF importer (JAX
-    ignores them for a spec). An HF model goes through the HF importer
-    (``models/hf_import.py``, queue A.8) and ``etp_size`` above 1 needs
-    MoE on the ``tensor`` mesh axis (queue A.4): both raise
-    ``NotImplementedError``, a later slice."""
+    ignores them for a spec). ``etp_size`` above 1 adds the ``tensor``
+    axis to the mesh section (expert tensor parallelism: each rank holds
+    its ``mlp`` slice of its experts, JAX ``auto_ep.py:154-163``). An HF
+    model goes through the HF importer (``models/hf_import.py``, queue
+    A.8): it raises ``NotImplementedError``, a later slice."""
     from deepspeed_tpu_torch.models.api import ModelSpec
 
     if not isinstance(model_or_spec, ModelSpec):
         raise later_slice("auto_ep of an HF model (it imports the model "
                           "through models/hf_import.py, queue A.8)")
-    if etp_size > 1:
-        raise later_slice(f"auto_ep with etp_size={etp_size} (expert tensor "
-                          "parallelism: an MoE model on the 'tensor' mesh "
-                          "axis, queue A.4)")
     spec = model_or_spec
     plan = plan_ep(spec.config, n_devices=n_devices, max_ep=max_ep,
                    etp_size=etp_size)
@@ -136,4 +133,6 @@ def auto_ep(model_or_spec, n_devices: Optional[int] = None,
     mesh_section: Dict[str, int] = {}
     if plan.enabled:
         mesh_section["expert"] = plan.ep_size
+        if plan.etp_size > 1:
+            mesh_section["tensor"] = plan.etp_size
     return spec, mesh_section, plan

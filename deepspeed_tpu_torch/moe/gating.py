@@ -19,9 +19,11 @@ a test puts JAX's draw in place of :func:`gate_noise` to hold the rest of
 the gate against JAX's.
 
 The dense gate of a token batch sharded over processes takes
-``global_counts``: a function from this rank's per-choice expert counts
-[k, E] to (the choices' location offsets [k, E], the global first-choice
-counts [E], the global token count). Capacity then comes from the global
+``global_counts``: a function from this rank's per-choice one-hot masks
+(k of [T, E]) to (the choices' location offsets, [k, E] or per token [k,
+T, E] — a rank's tokens under a ``seq`` axis are segments of the global
+order —, the global first-choice counts [E], the global token count).
+Capacity then comes from the global
 token count and each choice's locations continue the earlier ranks' and
 the earlier choices' counts, as JAX's one GSPMD gate over the whole batch
 lays them out (``moe/layer.py`` builds it).
@@ -184,12 +186,12 @@ def topk_gating(logits: torch.Tensor, k: int = 2,
         noise)
     gates_list, idx_list, masks = _iter_topk(sel_logits, gate_source, k)
     aux = (aux_fn or _aux_loss)(probs, masks[0])
-    local = torch.stack([m.sum(dim=0) for m in masks])       # [k, E]
     if global_counts is None:
+        local = torch.stack([m.sum(dim=0) for m in masks])   # [k, E]
         base = torch.cumsum(local, dim=0) - local
         counts1, n_tokens = local[0], T
     else:
-        base, counts1, n_tokens = global_counts(local)
+        base, counts1, n_tokens = global_counts(masks)
     C = gate_capacity(n_tokens, E, k, capacity_factor, min_capacity)
 
     # capacity assignment in choice-priority order (1st choices fill first)
@@ -197,7 +199,7 @@ def topk_gating(logits: torch.Tensor, k: int = 2,
     per_choice = []
     for i in range(k):
         mask = masks[i]
-        locations = torch.cumsum(mask, dim=0) - 1 + base[i][None, :]
+        locations = torch.cumsum(mask, dim=0) - 1 + base[i]
         keep = (locations < C) & (mask > 0)
         mask = torch.where(keep, mask, torch.zeros_like(mask))
         denom = denom + gates_list[i] * mask.sum(dim=-1)

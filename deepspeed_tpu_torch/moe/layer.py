@@ -25,11 +25,22 @@ Over processes the layer reads the process mesh (``comm/mesh``), as JAX's
 reads its device mesh, and each process holds its own rows of the batch
 (the engine's split; JAX's ``shard_map`` takes the same rows per device):
 
-* a batch sharded over ``data`` / ``zshard`` / ``expert`` sorts per rank
-  and takes the EXACT global aux loss: the token means of the router
-  probabilities and of the first-choice mask averaged over the batch group
-  before their product (JAX's ``_global_aux``), through a differentiable
-  all-reduce mean on the MoE layer's own group;
+* a batch sharded over ``data`` / ``zshard`` / ``expert``, and its
+  positions over ``seq``, sorts per rank and takes the EXACT global aux
+  loss: the token means of the router probabilities and of the
+  first-choice mask averaged over the token group (the batch axes and
+  ``seq``) before their product (JAX's ``_global_aux`` over its
+  ``mean_axes``), through a differentiable all-reduce mean on the MoE
+  layer's own group;
+* under a ``tensor`` axis (the model's ``tp``, JAX's rule ``mlp →
+  tensor``) each rank holds its ``mlp`` slice of its experts (and of the
+  shared expert): the experts' outputs are summed over ``tensor`` in fp32
+  and rounded once (JAX's ``psum``: after the combine on the local path,
+  before the second all-to-all on the expert-parallel one), and the rows
+  the slices read, and the local path's combine weights, enter through
+  ``comm.copy_to_tensor``, so that every gradient of a leaf that is not
+  sliced (the gate, its bias, the rows) comes out whole and equal on
+  every tensor rank;
 * under an ``expert`` axis of X ranks each rank holds E/X experts (its
   coordinate c: experts c·E/X …) and the choices travel by all-to-all to
   their expert's rank in fixed per-destination buffers of
@@ -50,7 +61,9 @@ Dense (``dispatch="dense"``): the GShard capacity gate
 (``moe/gating.topk_gating``) and the [E, C, H] einsums, every expert on
 every rank. Over a sharded batch the gate is JAX's global one: C from the
 global token count and each choice's locations after the earlier ranks'
-(an all-gather of the [k, E] counts); a slot is filled by at most one
+(an all-gather of the [k, E] counts; under ``seq`` a rank's tokens are
+segments of the global order, so its rows' [B, k, E] counts are gathered
+and each token's base counts every earlier segment); a slot is filled by at most one
 token, so each rank's buffer holds only its own tokens and the expert FFN,
 row by row, needs no other rank's. Under an ``expert`` axis of X ranks
 each rank holds E/X experts: its [E, C, H] buffer goes by all-to-all to
@@ -310,23 +323,46 @@ def buffer_exchange_kdup(x: torch.Tensor, fwd_rows: torch.Tensor,
     return _BufferExchangeKdup.apply(x, fwd_rows, bwd_idx2d)
 
 
+def _tp_in(x: torch.Tensor, tp) -> torch.Tensor:
+    """A replicated input of the experts' ``mlp`` slices under a ``tensor``
+    axis: identity forward, its gradient summed over the tensor group
+    backward (``comm.copy_to_tensor``)."""
+    return x if tp is None else comm.copy_to_tensor(x, tp.group)
+
+
+def _tp_sum(y: torch.Tensor, tp) -> torch.Tensor:
+    """The experts' partial outputs over their ``mlp`` slices summed over
+    the ``tensor`` group in fp32 and rounded once to their dtype, as
+    ``transformer.row_parallel`` sums (JAX's ``psum`` over ``tensor``)."""
+    if tp is None:
+        return y
+    return comm.reduce_from_tensor(y.float(), tp.group).to(y.dtype)
+
+
 def _ragged_dispatch_local(xt: torch.Tensor, weights: torch.Tensor,
                            idx: torch.Tensor,
                            experts: Dict[str, torch.Tensor], activation: str,
-                           use_kernels: bool = True) -> torch.Tensor:
+                           use_kernels: bool = True, tp=None
+                           ) -> torch.Tensor:
     """Dropless dispatch on local tokens: sort → grouped GEMMs → un-sort.
-    xt [T, H]; weights/idx [T, k]."""
+    xt [T, H]; weights/idx [T, k]. Under ``tp`` the experts are this
+    rank's ``mlp`` slices: the combined output is summed over ``tensor``
+    (JAX's ``psum`` after the combine), and the token rows and the combine
+    weights enter through :func:`_tp_in`, so that their gradients (partial
+    on each rank) come out whole on every tensor rank."""
     T, _ = xt.shape
     k = idx.shape[-1]
     E = experts["w_up"].shape[0]
     with record_function("moe_dispatch"):
         order, inv, group_sizes = expert_sort(idx.reshape(T * k), E)
         inv2d = inv.reshape(T, k)
-        x_s = dispatch_gather(xt, order, inv2d)
+        x_s = dispatch_gather(_tp_in(xt, tp), order, inv2d)
     y_s = ragged_expert_ffn(x_s, group_sizes, experts, activation,
                             use_kernels)
     with record_function("moe_combine"):
-        return combine_gather(y_s, weights.to(xt.dtype), order, inv2d)
+        y = combine_gather(y_s, _tp_in(weights, tp).to(xt.dtype), order,
+                           inv2d)
+        return _tp_sum(y, tp)
 
 
 def _gate_indices(xt: torch.Tensor, gate_w: torch.Tensor,
@@ -352,26 +388,43 @@ def _mesh():
         else None
 
 
-def ragged_mesh_plan(mm, B: int, S: Optional[int], E: int):
+def ragged_mesh_plan(mm, B: int, S: Optional[int], E: int, tp=None):
     """How the layer runs on the process mesh ``mm`` for this rank's
     [B, S, H] rows → ``('local', None)`` (no axis sharded, or all of them
-    under ``manual_axes``), ``('shard', (batch_axes, ep))`` or
+    under ``manual_axes``), ``('shard', (batch_axes, seq_ax, ep, tp))`` or
     ``('indivisible', None)`` (E does not divide the expert axis). The
     ONE copy of this predicate, for :func:`resolve_dispatch` and
-    :func:`moe_ffn` (JAX ``ragged_mesh_plan``; each rank's rows are its own
-    already, so no batch shape can fail to divide)."""
+    :func:`moe_ffn` (JAX ``ragged_mesh_plan``; each rank's rows and
+    positions are its own already, so no batch shape can fail to
+    divide). ``seq_ax`` is ``seq`` where that axis is above 1 (the token
+    means then run over the batch axes and ``seq``); ``tp`` the caller's
+    ``tensor`` group (``mesh.TensorGroup``) where it is above 1, the
+    experts then being this rank's ``mlp`` slices."""
     if mm is None:
         return "local", None
     manual = set(mesh_mod.current_manual_axes())
     batch_axes = tuple(a for a in mesh_mod.BATCH_AXES
                        if mm.axis_size(a) > 1 and a not in manual)
+    seq_ax = mesh_mod.SEQ_AXIS if (mm.axis_size(mesh_mod.SEQ_AXIS) > 1
+                                   and mesh_mod.SEQ_AXIS not in manual) \
+        else None
     ep = mm.axis_size(mesh_mod.EXPERT_AXIS) \
         if mesh_mod.EXPERT_AXIS not in manual else 1
-    if not (batch_axes or ep > 1):
+    if tp is not None and (tp.size <= 1
+                           or mesh_mod.TENSOR_AXIS in manual):
+        tp = None
+    if not (batch_axes or seq_ax or tp is not None or ep > 1):
         return "local", None
     if ep > 1 and E % ep:
         return "indivisible", None
-    return "shard", (batch_axes, ep)
+    return "shard", (batch_axes, seq_ax, ep, tp)
+
+
+def _token_axes(plan) -> Tuple[str, ...]:
+    """The axes a plan's tokens are spread over: its batch axes and its
+    seq axis (JAX's ``mean_axes``)."""
+    batch_axes, seq_ax = plan[0], plan[1]
+    return batch_axes + ((seq_ax,) if seq_ax else ())
 
 
 def resolve_dispatch(dispatch: str, rng=None, noise_std: float = 0.0,
@@ -453,14 +506,19 @@ def _aux_over(group, probs: torch.Tensor, mask1: torch.Tensor
 def _ep_dispatch(xt: torch.Tensor, gate: IndexGateOutput,
                  experts: Dict[str, torch.Tensor], E: int, ep: int,
                  expert_group, batch_group, activation: str,
-                 route_norm: bool, use_kernels: bool) -> torch.Tensor:
+                 route_norm: bool, use_kernels: bool, tp=None
+                 ) -> torch.Tensor:
     """The expert-parallel dispatch of this rank's tokens xt [t, H]
     (JAX's ``_ragged_routed`` EP branch): each choice to the buffer of
     its expert's rank (slot order: position among the choices bound there,
     overflow → the sentinel), the rows and local expert ids all-to-all'd,
     sorted by local expert (empties last), the grouped GEMMs over the
     routed rows, back by the inverse permutation and a second all-to-all,
-    and the combine renormalised over the kept choices."""
+    and the combine renormalised over the kept choices. ``batch_group``:
+    the group of the tokens' axes (the drop count's sums). Under ``tp``
+    the received rows' outputs over this rank's ``mlp`` slices are summed
+    over ``tensor`` before they go back (JAX's ``psum`` of ``y_r``), and
+    the sent rows enter through :func:`_tp_in`."""
     t, H = xt.shape
     k = gate.experts.shape[-1]
     E_l = E // ep
@@ -486,7 +544,8 @@ def _ep_dispatch(xt: torch.Tensor, gate: IndexGateOutput,
             if batch_group is not None:
                 comm.all_reduce(stats, group=batch_group)
             _DROP_MONITOR(stats[0] / stats[1])
-        send_x = buffer_exchange_kdup(xt, slot2row // k, slot.reshape(t, k))
+        send_x = buffer_exchange_kdup(_tp_in(xt, tp), slot2row // k,
+                                      slot.reshape(t, k))
         send_e = torch.where(
             slot2row < tk,
             (flat_e % E_l).index_select(0, slot2row.clamp(max=tk - 1)),
@@ -498,7 +557,7 @@ def _ep_dispatch(xt: torch.Tensor, gate: IndexGateOutput,
     y_r = ragged_expert_ffn(rx, rc[:E_l].contiguous(), experts, activation,
                             use_kernels)
     with record_function("moe_combine"):
-        y_slots = permute_rows(y_r, rinv, ro)
+        y_slots = permute_rows(_tp_sum(y_r, tp), rinv, ro)
         y_back = comm.all_to_all_autograd(y_slots, expert_group)
         keep = (slot < ep * Cs).reshape(t, k).float()
         w = gate.weights * keep
@@ -516,7 +575,9 @@ def _ragged_routed(xt: torch.Tensor, gate_w: torch.Tensor,
                    route_norm: bool, n_group: int, topk_group: int,
                    use_kernels: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dropless routed experts on this rank's tokens xt [t, H] → (y,
-    aux): local, per-rank sort with the global aux, or expert-parallel."""
+    aux): local, per-rank sort with the global aux (over the batch axes
+    and ``seq``), or expert-parallel; under ``tensor`` over this rank's
+    ``mlp`` slices of the experts."""
     E = gate_w.shape[1]
     with record_function("moe_gate"):
         gate = _gate_indices(xt, gate_w, gate_bias, k, score_func,
@@ -525,15 +586,15 @@ def _ragged_routed(xt: torch.Tensor, gate_w: torch.Tensor,
         y = _ragged_dispatch_local(xt, gate.weights, gate.experts, experts,
                                    activation, use_kernels)
         return y, gate.aux_loss
-    batch_axes, ep = plan
+    _, _, ep, tp = plan
     mm = _mesh()
-    batch_group = mm.moe_group(batch_axes, "batch") if batch_axes \
-        else None
-    aux = _aux_over(batch_group, gate.probs,
+    token_axes = _token_axes(plan)
+    token_group = mm.moe_group(token_axes, "batch") if token_axes else None
+    aux = _aux_over(token_group, gate.probs,
                     F.one_hot(gate.experts[:, 0], E))
     if ep == 1:
         y = _ragged_dispatch_local(xt, gate.weights, gate.experts, experts,
-                                   activation, use_kernels)
+                                   activation, use_kernels, tp)
         return y, aux
     if experts["w_up"].shape[0] != E // ep:
         raise ValueError(
@@ -541,8 +602,7 @@ def _ragged_routed(xt: torch.Tensor, gate_w: torch.Tensor,
             f"experts, got {experts['w_up'].shape[0]}")
     y = _ep_dispatch(xt, gate, experts, E, ep,
                      mm.moe_group((mesh_mod.EXPERT_AXIS,), "expert"),
-                     batch_group,
-                     activation, route_norm, use_kernels)
+                     token_group, activation, route_norm, use_kernels, tp)
     return y, aux
 
 
@@ -552,18 +612,22 @@ def _dense_routed(xt: torch.Tensor, gate_w: torch.Tensor,
                   activation: str, k: int, capacity_factor: float,
                   min_capacity: int, rng, noise_std: float,
                   score_func: str, route_norm: bool, n_group: int,
-                  topk_group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  topk_group: int, B: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The GShard capacity dispatch: [T, E, C] combine and dispatch
     tensors, [E, C, H] buffers, the experts as batched einsums (JAX
-    ``moe_ffn`` dense branch); over a sharded batch with JAX's global
-    gate."""
+    ``moe_ffn`` dense branch); over tokens spread on the batch axes and
+    ``seq`` with JAX's global gate (``B`` this rank's rows); under
+    ``tensor`` over this rank's ``mlp`` slices of the experts, their
+    outputs summed over ``tensor`` before the combine."""
     T, E = xt.shape[0], gate_w.shape[1]
     logits = xt.float() @ gate_w.float()
-    global_counts = aux_fn = expert_group = None
+    global_counts = aux_fn = expert_group = tp = None
     W = r = 0
     ep = 1
+    rows_of = None
     if plan is not None:
-        batch_axes, ep = plan
+        _, seq_ax, ep, tp = plan
         mm = _mesh()
         if ep > 1:
             if experts["w_up"].shape[0] != E // ep:
@@ -571,25 +635,27 @@ def _dense_routed(xt: torch.Tensor, gate_w: torch.Tensor,
                     f"expert axis {ep}: each rank holds {E // ep} of the "
                     f"{E} experts, got {experts['w_up'].shape[0]}")
             expert_group = mm.moe_group((mesh_mod.EXPERT_AXIS,), "expert")
-        group = mm.moe_group(batch_axes, "batch")
-        ranks = mm.group_ranks(batch_axes)
-        W, r = len(ranks), ranks.index(mm.rank)
+        token_axes = _token_axes(plan)
+        if token_axes:
+            group = mm.moe_group(token_axes, "batch")
+            ranks = mm.group_ranks(token_axes)
+            W, r = len(ranks), ranks.index(mm.rank)
+            Q = mm.axis_size(seq_ax) if seq_ax else 1
+            global_counts = _segment_counts(group, W // Q, r // Q, r % Q,
+                                            Q, B, T // B)
+            rows_of = _global_tokens(W // Q, r // Q, r % Q, Q, B, T // B,
+                                     xt.device)
 
-        def global_counts(local):
-            rows = comm.all_gather(local.contiguous(), group,
-                                   tiled=False)          # [W, k, E]
-            total = rows.sum(dim=0)
-            base = torch.cumsum(total, dim=0) - total + rows[:r].sum(dim=0)
-            return base, total[0], T * W
+            def aux_fn(probs, mask1):
+                return _aux_over(group, probs, mask1)
 
-        def aux_fn(probs, mask1):
-            return _aux_over(group, probs, mask1)
-
-    # a sharded batch's rows of the draw over the global batch, as JAX's
+    # a sharded batch's tokens of the draw over the global batch, as JAX's
     # GSPMD gate draws jax.random.normal(rng, global logits.shape)
     noise = None
     if rng is not None and noise_std > 0.0:
-        noise = G.gate_noise(rng, (T * max(W, 1), E))[r * T:(r + 1) * T]
+        noise = G.gate_noise(rng, (T * max(W, 1), E))
+        if rows_of is not None:
+            noise = noise.index_select(0, rows_of.to(noise.device))
     gate: GateOutput = topk_gating(
         logits, k=k, capacity_factor=capacity_factor,
         min_capacity=min_capacity, rng=rng, noise_std=noise_std,
@@ -598,19 +664,59 @@ def _dense_routed(xt: torch.Tensor, gate_w: torch.Tensor,
         noise=noise, aux_fn=aux_fn)
     dt = xt.dtype
     with record_function("moe_dispatch"):
-        xe = torch.einsum("tec,th->ech", gate.dispatch.to(dt), xt)
+        xe = torch.einsum("tec,th->ech", gate.dispatch.to(dt), _tp_in(xt, tp))
         if ep > 1:
             xe = _to_experts(xe, ep, expert_group)
     up = torch.einsum("ech,ehf->ecf", xe, experts["w_up"].to(dt))
     g = (torch.einsum("ech,ehf->ecf", xe, experts["w_gate"].to(dt))
          if "w_gate" in experts else None)
     act = _expert_act(up, g, activation)
-    ye = torch.einsum("ecf,efh->ech", act, experts["w_down"].to(dt))
+    ye = _tp_sum(torch.einsum("ecf,efh->ech", act, experts["w_down"].to(dt)),
+                 tp)
     with record_function("moe_combine"):
         if ep > 1:
             ye = _from_experts(ye, ep, expert_group)
         y = torch.einsum("tec,ech->th", gate.combine.to(dt), ye)
     return y, gate.aux_loss
+
+
+def _segment_counts(group, Wb: int, bi: int, q: int, Q: int, B: int,
+                    S: int):
+    """The dense gate's ``global_counts`` over a token group, under a
+    ``seq`` axis of Q ranks (Q = 1 without one): a rank holds positions
+    [q·S, (q+1)·S) of its B rows (rows [bi·B, (bi+1)·B) of the global
+    batch), so its tokens are B segments of the global token order
+    (row-major over the global [rows, Q·S]). The per-row [B, k, E]
+    counts are all-gathered over the token group (rank index bi·Q + q),
+    laid out in the global order of the segments, and
+    each token's base is the count before its segment (every earlier
+    choice's total first) less its own rows' before it, as the local
+    cumsum over the rank's tokens counts them → [k, T, E]."""
+    def global_counts(masks):
+        k, E = len(masks), masks[0].shape[-1]
+        rowc = torch.stack([m.reshape(B, S, E).sum(dim=1) for m in masks],
+                           dim=1)                             # [B, k, E]
+        rows = comm.all_gather(rowc.contiguous(), group,
+                               tiled=False)                   # [W, B, k, E]
+        segs = rows.reshape(Wb, Q, B, k, E).permute(0, 2, 1, 3, 4)
+        segs = segs.reshape(Wb * B * Q, k, E)                 # global order
+        total = segs.sum(dim=0)                               # [k, E]
+        before = (torch.cumsum(segs, dim=0) - segs).reshape(
+            Wb, B, Q, k, E)[bi, :, q]                         # [B, k, E]
+        prior = torch.cumsum(total, dim=0) - total            # [k, E]
+        local = torch.cumsum(rowc, dim=0) - rowc              # [B, k, E]
+        base = (before + prior[None] - local).repeat_interleave(S, dim=0)
+        return base.permute(1, 0, 2), total[0], Wb * Q * B * S
+    return global_counts
+
+
+def _global_tokens(Wb: int, bi: int, q: int, Q: int, B: int, S: int,
+                   device) -> torch.Tensor:
+    """The global token index (row-major over the global [Wb·B, Q·S]
+    batch) of each of this rank's B·S tokens."""
+    rows = torch.arange(bi * B, (bi + 1) * B, device=device)
+    pos = torch.arange(q * S, (q + 1) * S, device=device)
+    return (rows[:, None] * (Q * S) + pos[None, :]).reshape(-1)
 
 
 def _to_experts(xe: torch.Tensor, ep: int, group) -> torch.Tensor:
@@ -646,9 +752,10 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor,
             shared: Optional[Dict[str, torch.Tensor]] = None,
             gate_bias: Optional[torch.Tensor] = None,
             n_group: int = 1, topk_group: int = 1, dispatch: str = "auto",
-            use_kernels: bool = True
+            use_kernels: bool = True, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mixture-of-experts FFN (JAX's signature, plus ``use_kernels``).
+    """Mixture-of-experts FFN (JAX's signature, plus ``use_kernels`` and
+    ``tp``).
 
     x [B, S, H] (this rank's rows); gate_w [H, E]; experts: w_up
     [E, H, F], w_down [E, F, H], optional w_gate [E, H, F] (swiglu) — under
@@ -659,13 +766,17 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor,
     ``route_scale`` scales the routed output; ``shared`` adds an always-on
     expert (sw_up [H, Fs], sw_down [Fs, H], optional sw_gate [H, Fs] and
     shared_gate_w [H, 1], a sigmoid gate). ``use_kernels=False`` runs the
-    grouped GEMMs' plain versions."""
+    grouped GEMMs' plain versions. ``tp``: the model's ``tensor`` group
+    (``mesh.TensorGroup``, the batch key ``tp``), under which the experts
+    and the shared expert are this rank's ``mlp`` slices (JAX's rule
+    ``mlp → tensor``) and the gate is whole on every tensor rank."""
     B, S, H = x.shape
     dt = x.dtype
     E = gate_w.shape[1]
     xt = x.reshape(B * S, H)
     mode = resolve_dispatch(dispatch, rng, noise_std, B, S, E)
-    kind, plan = ragged_mesh_plan(_mesh(), B, S, E)
+    kind, plan = ragged_mesh_plan(_mesh(), B, S, E, tp)
+    tp = None if plan is None else plan[3]
     if kind == "indivisible":
         raise ValueError(f"n_experts={E} not divisible by the expert mesh "
                          "axis")
@@ -679,14 +790,16 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor,
             xt, gate_w, experts, gate_bias, plan, activation=activation,
             k=k, capacity_factor=capacity_factor, min_capacity=min_capacity,
             rng=rng, noise_std=noise_std, score_func=score_func,
-            route_norm=route_norm, n_group=n_group, topk_group=topk_group)
+            route_norm=route_norm, n_group=n_group, topk_group=topk_group,
+            B=B)
     if route_scale != 1.0:
         # the scale rounded to the compute dtype on the host, as JAX's
         # jnp.asarray(route_scale, dt), then a Python float: no copy
         y = y * torch.tensor(route_scale, dtype=dt).item()
     if shared:
-        ys = _dense_ffn(xt, shared["sw_up"], shared["sw_down"],
-                        shared.get("sw_gate"), activation)
+        ys = _tp_sum(_dense_ffn(_tp_in(xt, tp), shared["sw_up"],
+                                shared["sw_down"], shared.get("sw_gate"),
+                                activation), tp)
         if "shared_gate_w" in shared:
             sg = torch.sigmoid(xt.float() @ shared["shared_gate_w"].float())
             ys = ys * sg.to(dt)

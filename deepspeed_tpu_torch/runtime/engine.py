@@ -302,7 +302,6 @@ class DeepSpeedTPUEngine:
         self.lr_scheduler = lr_scheduler
 
         self._resolve_offload()
-        self._check_seq_axis()
         self._check_tensor_axis()
         self._check_pipe_axis()
         self._host_runner = None
@@ -368,39 +367,16 @@ class DeepSpeedTPUEngine:
             raise later_slice("bf16.fp32_master=false (needs a "
                               "stochastic-rounding optimizer)")
 
-    def _check_seq_axis(self) -> None:
-        """What a ``seq`` axis above 1 does not compose with yet (queue
-        A.4): in JAX each composes through GSPMD; here each needs the dense
-        gradient summed over ``seq`` before a manual hop. The ZeRO++ int8
-        wire is not among them: JAX's falls back to the exact wire under
-        ``seq`` (``_resolve_compressed_modes``), and so does the port's."""
-        mm = self.mesh_manager
-        if mm.sp_world_size <= 1:
-            return
-        what = []
-        if mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1:
-            what.append("hpZ / MiCS (zshard > 1)")
-        if mm.ep_world_size > 1:
-            what.append("an expert axis")
-        if getattr(getattr(self.model_spec, "config", None), "n_experts", 0):
-            what.append("an MoE model")
-        if self._offload_opt or self._offload_nvme or self._offload_param:
-            what.append("the offload tiers")
-        if self._host_step:
-            what.append("the host step")
-        if self.config.zero_optimization.zenflow.enabled:
-            what.append("ZenFlow")
-        if what:
-            raise later_slice(f"mesh seq={mm.sp_world_size} with "
-                              f"{', '.join(what)} (queue A.4)")
-
     def _check_tensor_axis(self) -> None:
         """What a ``tensor`` axis above 1 does not compose with yet (queue
-        A.4): ``seq`` or hpZ / MiCS beside it, an expert axis, the ZeRO++
-        int8 wire (which JAX keeps on under ``tensor``), the offload tiers,
-        the host step, ZenFlow, and a model other than
-        ``causal_lm_spec``'s dense transformer or one whose shape the axis
-        does not cut (``transformer.check_tensor_parallel``)."""
+        A.4): ``seq`` or hpZ / MiCS beside it, the ZeRO++ int8 wire (which
+        JAX keeps on under ``tensor``), the offload tiers, the host step,
+        ZenFlow, and a model other than ``causal_lm_spec``'s transformer
+        or one whose shape the axis does not cut
+        (``transformer.check_tensor_parallel``). An MoE model and an
+        ``expert`` axis run: each rank holds its ``mlp`` slice of its
+        experts. Every other composition of a ``seq`` axis JAX runs runs
+        here too; the host step's own limits are ``runtime/host_step.py``'s."""
         mm = self.mesh_manager
         tp = mm.tp_world_size
         if tp <= 1:
@@ -410,8 +386,6 @@ class DeepSpeedTPUEngine:
             what.append("seq > 1")
         if mm.axis_size(mesh_mod.ZSHARD_AXIS) > 1:
             what.append("hpZ / MiCS (zshard > 1)")
-        if mm.ep_world_size > 1:
-            what.append("an expert axis")
         if self._compressed is not None:
             what.append("the ZeRO++ int8 wire (qgZ / qwZ / LoCo)")
         if self._offload_opt or self._offload_nvme or self._offload_param:
@@ -436,7 +410,7 @@ class DeepSpeedTPUEngine:
         composition JAX runs under ``pipe`` runs here (ZeRO-3, hpZ / MiCS,
         the expert and seq axes, the offload tiers, ZenFlow, block-sparse
         attention; ``loss_tiles`` is not read under ``pipe``, as in JAX),
-        or raises from :meth:`_check_seq_axis` / :meth:`_check_tensor_axis`.
+        or raises from :meth:`_check_tensor_axis`.
         As in JAX the ZeRO++ int8 wire falls back to the exact wire
         (``_resolve_compressed_modes``) and the host step raises
         (``runtime/host_step.py``)."""
@@ -726,29 +700,35 @@ class DeepSpeedTPUEngine:
 
     def _init_host_state(self, seed: int) -> None:
         """``host_step``: the tree is drawn on the card (the same draws as
-        without offload), copied leaf by leaf into the fp32 master in host
-        memory and freed before the card's buffers are allocated; the
-        moments are made on the host too. The card keeps the compute copy,
-        the micro-batch gradient and the accumulator."""
+        without offload) and moved into the host's master before the card's
+        buffers are allocated. The card keeps the compute copy, the
+        micro-batch gradient and the accumulator."""
         tree = self._init_tree(seed)
         n, dev = self._numel, self.device
-        self.flat_master = torch.zeros(n, dtype=torch.float32)
-        with torch.no_grad():
-            for slot, (_, t) in zip(self._slots, _flatten(tree)):
-                self._view(self.flat_master, slot).copy_(t)
-                _set_path(tree, slot.path, None)
-                del t
+        self._init_host_master(tree, n)
         del tree
-        self.state = {"step": 0, "master": self._views(self.flat_master),
-                      "opt": self.optimizer.init(self.flat_master)}
         self.flat_compute = torch.zeros(n, dtype=self.compute_dtype,
                                         device=dev)
         self.flat_grad = torch.zeros(n, dtype=self.compute_dtype, device=dev)
         self.flat_grad_acc = torch.zeros(n, dtype=self._accum_dtype(),
                                          device=dev)
-        self._host_runner.allocate(n)
         self._params = self._leaves()
         self._compute_params()
+
+    def _init_host_master(self, tree: Dict[str, Any], n: int) -> None:
+        """``host_step``: the fp32 master of the ``n`` local elements in
+        host memory, filled leaf by leaf from ``tree`` (each leaf freed once
+        copied), the moments made on the host beside it, so neither reaches
+        the card; then the runner's pinned landing and staging buffers."""
+        self.flat_master = torch.zeros(n, dtype=torch.float32)
+        with torch.no_grad():
+            for slot, (_, t) in zip(self._slots, _flatten(tree)):
+                self._load_master_leaf(slot, t)
+                _set_path(tree, slot.path, None)
+                del t
+        self.state = {"step": 0, "master": self._master_views(),
+                      "opt": self.optimizer.init(self.flat_master)}
+        self._host_runner.allocate(n)
 
     def _zenflow_segments(self) -> List[Segment]:
         """ZenFlow's leaves in the flat master (the pads left out)."""
@@ -829,6 +809,11 @@ class DeepSpeedTPUEngine:
 
     def _finish_publish(self) -> None:
         """The data-parallel engines land their publish here."""
+
+    def _land_host_update(self, src: torch.Tensor) -> None:
+        """The host step's compute copy (``src``, the flat layout in host
+        memory) onto the card, ordered after every queued kernel."""
+        self.flat_compute.copy_(src, non_blocking=True)
 
     def _nvme_swapper(self) -> OptimizerSwapper:
         if self._opt_swapper is None:
@@ -1939,8 +1924,9 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     group is the shard group (:meth:`_shard_topology`). On the exact wire
     a dense gradient is reduced over every batch rank (the shard group,
     then its replica hop over ``expert``, or ``(data, expert)`` under
-    hpZ), an expert leaf's over the ranks of its expert (the shard group,
-    then ``data`` under hpZ), each then ÷ the whole world: every rank's
+    hpZ; ``seq`` joins both under a seq axis), an expert leaf's over the
+    ranks of its expert (the shard group, then ``data`` under hpZ,
+    ``seq`` under a seq axis), each then ÷ the whole world: every rank's
     loss is its own rows' mean, and the all-to-all's backward has brought
     every rank's contribution to the expert's owner. The int8 wire follows
     JAX's manual step over ``data`` and ``zshard``: the dense rows summed
@@ -1966,9 +1952,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     seq ranks hold the same shards; a dense gradient is reduced over the
     shard group, then hopped over ``seq`` (JAX's
     ``DENSE_GRAD_REDUCE_AXES``), on the exact wire at every stage, ZeRO-3
-    included (its gathers stay on the shard group). The attentions'
-    exchanges run on their own ``seq`` group. What the axis does not
-    compose with yet raises (:meth:`_check_seq_axis`).
+    included (its gathers stay on the shard group); beside hpZ / MiCS and
+    an ``expert`` axis the hops take ``seq`` with their other axes, and
+    an MoE layer's token means run over the batch axes and ``seq``. The
+    attentions' exchanges run on their own ``seq`` group. The offload
+    tiers, ZenFlow and the host step take the reduced gradient; the host
+    step runs where every rank holds the whole state (a seq mesh), each
+    rank's runner updating its own copy (``runtime/host_step.py``).
 
     Tensor parallelism (a ``tensor`` axis of T ranks, innermost, JAX's
     ``DEFAULT_TP_RULES``): the tensor ranks of a row share its rows, and
@@ -1983,10 +1973,13 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     group only and ÷ ``world / T``. The local buffers hold the leaves
     without a tensor dim first, then the sliced ones, in each region; the
     global norm sums the sliced leaves' squares over ``tensor`` too and
-    counts the others once. A checkpoint leaf is gathered over ``tensor``
-    after the shards and a load slices it, so tags cross tensor sizes.
-    What the axis does not compose with yet raises
-    (:meth:`_check_tensor_axis`).
+    counts the others once. An MoE model's experts are sliced on their
+    ``mlp`` dim (beside an ``expert`` axis: E/X experts' F/T columns), the
+    gate and the other unsliced leaves come out of the model whole on
+    every tensor rank (``moe/layer.py``). A checkpoint leaf is gathered
+    over ``expert`` and ``tensor`` after the shards and a load slices it,
+    so tags cross tensor sizes. What the axis does not compose with yet
+    raises (:meth:`_check_tensor_axis`).
 
     Pipeline parallelism (a ``pipe`` axis of P stages, outermost, JAX's
     ``layers → pipe``): each rank holds its stage's L/P layers of every
@@ -2004,7 +1997,7 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     micro-batches (:meth:`_local_rows`), and with a ``loss_mask`` each
     micro-batch's loss is weighted into JAX's mean of micro-batch means
     (:meth:`_pipe_weights`). The global norm sums each leaf class's
-    squares over the groups it is split over (:meth:`_pipe_norm_sq`). A
+    squares over the groups it is split over (:meth:`_class_norm_sq`). A
     checkpoint leaf is gathered over ``pipe`` and a load cuts the stage's
     layers, so tags cross pipe sizes. Every group but the ``pipe`` group
     holds one stage's ranks, so hpZ's hops, the ``expert`` and ``seq``
@@ -2032,9 +2025,11 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         (JAX's ``ZERO_SHARD_AXES``, ``(zshard,)`` under hpZ / MiCS,
         ``partitioning.py:101-110``): the shard group over ``(data,
         zshard)``, or ``zshard`` alone under hpZ; the dense leaves'
-        replica hop over the other batch axes (``expert``; ``(data,
-        expert)`` under hpZ; ``data`` under hpZ alone); an expert leaf's
-        over ``data`` under hpZ, none without. The int8 wire sums the
+        replica hop over the other batch axes and ``seq`` (``expert``;
+        ``(data, expert)`` under hpZ; ``data`` under hpZ alone; ``seq``
+        with each); an expert leaf's over ``EXPERT_GRAD_REDUCE_AXES`` off
+        the shard axes (``data`` under hpZ, ``seq`` under a seq axis, none
+        without). The int8 wire sums the
         dense gradient over ``expert`` before its first hop and takes its
         replica hop over ``data`` (:meth:`_reduce_micro_int8`)."""
         mm = self.mesh_manager
@@ -2082,9 +2077,16 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                               else None)
         self.expert_group = (mm.group((mesh_mod.EXPERT_AXIS,))
                              if self.ep > 1 else None)
-        # hpZ's `data` hop: the expert leaves' on the exact wire, every
-        # leaf's on the int8 wire (which JAX takes at data = 1 too, an int8
-        # round trip on a group of one)
+        # the expert leaves' replica hop on the exact wire: JAX's
+        # EXPERT_GRAD_REDUCE_AXES off the shard axes (``data`` under hpZ,
+        # ``seq`` under a seq axis, both under both)
+        expert_hop = tuple(a for a in mesh_mod.EXPERT_GRAD_REDUCE_AXES
+                           if a not in shard_axes)
+        self.expert_hop_world = mm.axes_size(expert_hop)
+        self.expert_hop_group = (mm.group(expert_hop)
+                                 if self.expert_hop_world > 1 else None)
+        # hpZ's `data` hop on the int8 wire, every leaf's (JAX takes it at
+        # data = 1 too, an int8 round trip on a group of one)
         self.data_world = D if self.hpz else 1
         self.data_group = (mm.group((mesh_mod.DATA_AXIS,)) if self.hpz
                            else None)
@@ -2135,8 +2137,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         out = []
         if self.replica_world > 1 and n_dense:
             out.append((self.replica_group, 0, n_dense))
-        if self.data_world > 1 and n_row > n_dense:
-            out.append((self.data_group, n_dense, n_row))
+        if self.expert_hop_world > 1 and n_row > n_dense:
+            out.append((self.expert_hop_group, n_dense, n_row))
         return out
 
     def expert_rows(self, group) -> Optional[S3.ExpertRows]:
@@ -2177,9 +2179,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         if axes is not None:
             d = tp_dim(axes)
             if full.shape[d] == whole[d]:
-                return tp_slice(axes, full, self.tp,
+                full = tp_slice(axes, full, self.tp,
                                 self.mesh_manager.tp_rank).contiguous()
-            return full
         dim = self._expert_dims.get(path)
         if dim is None or full.shape[dim] != self._full_shapes[path][dim]:
             return full
@@ -2245,8 +2246,11 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         (``zero_layout``): the fp32 master (from ``tree``), the gradient
         accumulator, the compute-dtype shard Adam writes (bf16), the
         replicated leaves' gradient, LoCo's residual when armed, and the
-        optimizer state."""
+        optimizer state. Under ``host_step`` (a ``seq`` axis: every rank
+        holds the whole state) the master and the moments are made in host
+        memory (``_init_host_master``) and no bf16 shard is kept."""
         W, dev, cdt = self.shard_world, self.device, self.compute_dtype
+        host = self._host_runner is not None
         self._shards, sh_off, rep_off = zero_layout(
             self.model_spec, self._slots, W, self.zero_stage,
             self.mesh_manager.shape, expert_paths=set(self._expert_dims),
@@ -2265,12 +2269,11 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self._n_rep_dense = min([sh.offset for sh in ex if sh.dim is None]
                                 + [rep_off])
         n_local = sh_off + rep_off
-        self.flat_master = torch.zeros(n_local, dtype=torch.float32,
-                                       device=dev)
         self.flat_grad_acc = torch.zeros(n_local, dtype=self._accum_dtype(),
                                          device=dev)
         self._shard_compute = (torch.zeros(n_local, dtype=cdt, device=dev)
-                               if cdt == torch.bfloat16 else None)
+                               if cdt == torch.bfloat16 and not host
+                               else None)
         self._rep_buf = torch.zeros(rep_off, dtype=torch.float32, device=dev)
         # the sharded region as the int8 gradient wire sends it (its expert
         # leaves in JAX's blocks under an expert axis: S3.ExpertRows)
@@ -2282,11 +2285,20 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self.loco_err = (torch.zeros(W, self._n_wire, dtype=torch.float32,
                                      device=dev)
                          if self._wire_format() == "qz+loco" else None)
+        if host:
+            return self._init_host_master(tree, n_local)
+        self.flat_master = torch.zeros(n_local, dtype=torch.float32,
+                                       device=dev)
         for sh, (_, t) in zip(self._shards, _flatten(tree)):
             self._load_master_leaf(sh.slot, t)
         self.state: Dict[str, Any] = {
             "step": 0, "master": self._master_tree(),
             "opt": self.optimizer.init(self.flat_master)}
+
+    def _land_host_update(self, src: torch.Tensor) -> None:
+        """The host step's updated local buffer (``src``, in host memory)
+        published into the compute copy."""
+        self._compute_params(src=src)
 
     def _local(self, flat: torch.Tensor, sh: _Shard) -> torch.Tensor:
         """The rank's part of leaf ``sh`` in a local buffer: its shard in
@@ -2580,18 +2592,23 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _quant_weights(self) -> bool:
         return bool(self._compressed and self._compressed["quant_weights"])
 
-    def _compute_params(self, shard_written: bool = False) -> None:
+    def _compute_params(self, shard_written: bool = False,
+                        src: Optional[torch.Tensor] = None) -> None:
         """Publish the compute copy from the master shards, group by group
         (``_publish_groups``): qwZ (int8 all-gather of the fp32 master,
         dequantized into ``_packed``) or the exact all-gather of the
         compute-dtype shards; replicated leaves are cast in place.
         ``shard_written``: Adam has just written the bf16 compute
-        shard. Under hpZ the gathers run on the ``zshard`` group only."""
+        shard; ``src``: the local buffer to publish (the host step's, in
+        host memory). Under hpZ the gathers run on the ``zshard`` group
+        only."""
         cdt, W = self.compute_dtype, self.shard_world
         quant = self._quant_weights()
         with torch.no_grad(), telemetry.span("zero_publish"):
-            if self._shard_compute is None:
-                src = self.flat_master.to(cdt)
+            if src is not None:
+                src = src.to(self.device, cdt)
+            elif self._shard_compute is None:
+                src = self.flat_master.to(self.device, cdt)
             else:
                 src = self._shard_compute
                 if not shard_written:
@@ -2656,13 +2673,15 @@ class DataParallelEngine(DeepSpeedTPUEngine):
     def _replicated_mean(self) -> torch.Tensor:
         """The replicated leaves' gradient mean: dense leaves summed over
         the world (over every axis but ``tensor`` under one), expert
-        leaves over the ranks of their expert (the shard group, then
-        ``data`` under hpZ), ÷ the ranks summed."""
+        leaves over the ranks of their expert (the shard group, then their
+        replica hop: ``data`` under hpZ, ``seq`` under a seq axis), ÷ the
+        ranks summed."""
         nd = self._n_rep_dense
         comm.all_reduce(self._rep_buf[:nd], group=self.dense_group)
         if nd < self._n_rep:
             for group, size in ((self.shard_group, self.shard_world),
-                                (self.data_group, self.data_world)):
+                                (self.expert_hop_group,
+                                 self.expert_hop_world)):
                 if size > 1:
                     comm.all_reduce(self._rep_buf[nd:], group=group)
         return self._rep_buf / torch.tensor(float(self.grad_world),
@@ -2921,7 +2940,10 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         mean_loss = comm.all_reduce(mean_loss.float().reshape(1),
                                     comm.ReduceOp.AVG)[0]
         grad_scale = float(gas) * (scale if scale is not None else 1.0)
-        metrics = self._tiered_update(grad_scale)
+        if self._host_runner is not None:
+            metrics = self._host_runner.step_update(grad_scale)
+        else:
+            metrics = self._tiered_update(grad_scale)
         if self.loco_err is not None and metrics["overflow"]:
             self.loco_err.zero_()
         metrics["loss"] = mean_loss
@@ -2942,8 +2964,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         # of each expert coordinate; a replicated expert leaf once an
         # expert group
         n_sh = self._n_sh
-        if self.pp > 1:
-            sq = self._pipe_norm_sq(g)
+        if self.pp > 1 or (self.ep > 1 and self.tp > 1):
+            sq = self._class_norm_sq(g)
         elif self.ep > 1:
             nsd, nrd = self._n_sh_dense, self._n_rep_dense
             sq = torch.stack([g[:nsd].square().sum(),
@@ -2994,22 +3016,24 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self.state["step"] += 1
         return metrics
 
-    def _pipe_norm_sq(self, g: torch.Tensor) -> torch.Tensor:
-        """Under a ``pipe`` axis: the squares of the local gradient by leaf
-        class — sharded or not, tensor-sliced or not, a stage's layers or
-        not, an expert leaf or not — each class summed over the groups its
-        parts are split over (the shard group, the ``tensor`` group, the
-        ``pipe`` group, the ``expert`` group), so that every leaf counts
-        once (the extras, whole on every stage, once; a shard once a shard
-        group, which hpZ's ``zshard`` group is) and overflow shows on every
-        rank."""
+    def _class_norm_sq(self, g: torch.Tensor) -> torch.Tensor:
+        """Under a ``pipe`` axis, or ``expert`` and ``tensor`` axes both:
+        the squares of the local gradient by leaf class — sharded or not,
+        tensor-sliced or not, a stage's layers or not, an expert leaf or
+        not — each class summed over the groups its parts are split over
+        (the shard group, the ``tensor`` group, the ``pipe`` group, the
+        ``expert`` group), so that every leaf counts once (the extras,
+        whole on every stage, once; a shard once a shard group, which
+        hpZ's ``zshard`` group is; an expert leaf's slice once a shard
+        group of each expert and tensor coordinate) and overflow shows on
+        every rank."""
         if self._norm_classes is None:
             classes: Dict[Tuple[bool, bool, bool, bool], List] = {}
             for sh in self._shards:
                 lo = sh.offset if sh.dim is not None \
                     else self._n_sh + sh.offset
                 key = (sh.dim is not None, sh.slot.path in self._tp_axes,
-                       sh.slot.path[0] == _STACKED,
+                       self.pp > 1 and sh.slot.path[0] == _STACKED,
                        sh.slot.path in self._expert_dims)
                 classes.setdefault(key, []).append((lo, lo + sh.n_loc))
             self._norm_classes = sorted(classes.items())
@@ -3017,7 +3041,8 @@ class DataParallelEngine(DeepSpeedTPUEngine):
                           for _, ranges in self._norm_classes])
         groups = (self.shard_group,
                   None if self.tp_group is None else self.tp_group.group,
-                  self.pp_group.group, self.expert_group)
+                  None if self.pp_group is None else self.pp_group.group,
+                  self.expert_group)
         for i, group in enumerate(groups):
             sel = [j for j, (key, _) in enumerate(self._norm_classes)
                    if key[i]]
@@ -3051,8 +3076,9 @@ class DataParallelEngine(DeepSpeedTPUEngine):
         self._finish_publish()
         rows = torch.empty(self.shard_world, self._n_sh, dtype=torch.float32,
                            device=self.device)
-        comm.all_gather_into_tensor(rows, flat[:self._n_sh].float(),
-                                    group=self.shard_group)
+        comm.all_gather_into_tensor(
+            rows, flat[:self._n_sh].to(self.device, torch.float32),
+            group=self.shard_group)
         tree: Dict[str, Any] = {}
         for sh in self._shards:
             if sh.dim is None:
@@ -3231,6 +3257,9 @@ class Zero3Engine(DataParallelEngine):
     (:meth:`_loss_and_grads`)."""
 
     def _init_state(self, seed: int) -> None:
+        if self._host_runner is not None:
+            raise later_slice("host_step on the ZeRO-3 engine between "
+                              "processes (queue A.4)")
         # causal_lm_spec's layer loop takes the parameter hook; any other
         # spec is handed the whole tree, gathered as one group
         self._hooked = isinstance(getattr(self.model_spec, "config", None),

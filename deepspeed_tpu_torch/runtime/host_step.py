@@ -36,8 +36,14 @@ for update k-1 there and nowhere else, so the result does not depend on
 the threads' timing. Without overlap, update k lands before step k+1.
 
 Refused as in JAX (``host_step.py:57-72``, ``engine.py:362-364``): fp16
-loss scaling, a ``pipe`` mesh axis, more than one process (the update
-addresses this process's host memory only) and the compressed wires. The host library is built when the runner is made:
+loss scaling, a ``pipe`` mesh axis, a state split over processes (the
+update addresses this process's host memory only: JAX refuses more than
+one process, each of whose devices it addresses) and the compressed
+wires. Over processes that each hold the whole state — a ``seq`` axis,
+whose ranks share every parameter — the data-parallel engine reduces the
+gradient (its ``seq`` hop included) into its accumulator, and each rank's
+runner updates its own whole copy (:meth:`HostStepRunner.step_update`).
+The host library is built when the runner is made:
 a missing compiler or a failed build raises ``KernelBuildError`` there,
 and nothing falls back to an eager update.
 """
@@ -73,7 +79,9 @@ class HostStepRunner:
         if engine.mesh_manager.pp_world_size > 1:
             raise DeepSpeedConfigError(
                 "host_step is not supported with pipeline parallelism")
-        if comm.get_world_size() > 1:
+        mm = engine.mesh_manager
+        if comm.get_world_size() > 1 and mm.axes_size(
+                ("data", "zshard", "expert", "tensor")) > 1:
             raise DeepSpeedConfigError(
                 "host_step is single-host for now: the update runs on this "
                 "process's CPU backend and cannot address remote shards")
@@ -127,7 +135,7 @@ class HostStepRunner:
         self._pending = None
         e = self.engine
         rec["h2d"] = (self._event(),)
-        e.flat_compute.copy_(self.staging, non_blocking=True)
+        e._land_host_update(self.staging)
         rec["h2d"] += (self._event(),)
 
     def drain(self) -> None:
@@ -157,7 +165,7 @@ class HostStepRunner:
             for k, v in opt.items():
                 if isinstance(v, torch.Tensor) and v.device.type != "cpu":
                     opt[k] = v.cpu()
-            e.flat_compute.copy_(e.flat_master)
+            e._land_host_update(e.flat_master)
 
     def train_step(self, stacked, gas: int):
         """One global step; returns (mean loss, metrics). The metrics'
@@ -168,6 +176,16 @@ class HostStepRunner:
         mean_loss = e.accumulate_microbatches(
             lambda mb: e._loss_and_grads(mb, None), e.flat_grad_acc,
             e.flat_grad, batch, gas)
+        return mean_loss, self.step_update(float(gas))
+
+    def step_update(self, gas_scale: float) -> Dict[str, Any]:
+        """The update of a step whose gradient sum (÷ ``gas_scale`` to its
+        mean) is in the engine's accumulator: landed to the host, Adam on
+        the host's master, the compute copy landed on the card
+        (``engine._land_host_update``) now or, under ``overlap``, after
+        the next step's gradients → the metrics (``grad_norm`` a future
+        the update resolves)."""
+        e = self.engine
         if self.overlap:
             self._land()        # update k-1, after step k's gradients
         rec: Dict[str, Any] = {"d2h": (self._event(),)}
@@ -176,12 +194,12 @@ class HostStepRunner:
         lr = e._lr_at(e.state["step"])
         norm = concurrent.futures.Future()
         self.records.append(rec)
-        self._pending = self._pool.submit(self._update, rec, float(gas), lr,
+        self._pending = self._pool.submit(self._update, rec, gas_scale, lr,
                                           norm)
         if not self.overlap:
             self._land()
         e.state["step"] += 1
-        return mean_loss, {"grad_norm": norm, "lr": lr, "overflow": 0.0}
+        return {"grad_norm": norm, "lr": lr, "overflow": 0.0}
 
     def _update(self, rec, gas_scale: float, lr: float, norm_out):
         """The host update of one step (the worker thread)."""

@@ -1081,3 +1081,84 @@ def test_pp_compose_phase_rank_rehearsal_on_cpu():
     assert got["b"][0]["main"]["flash_shapes"]["flash_fwd"] == [
         (1, 32, 2, 16)]
     assert got["c"][0]["ep_buffer"]["routed_rows"] > 0
+
+
+def test_sp_tp_moe_compose_formulas():
+    """The composed seq / tensor phase's formulas at its widths (gas 2, one
+    step): (b) moe_350m at {expert: 2, seq: 2} — a rank's 2 rows × 512
+    positions, its expert buffer 2 × 2,048 rows, Ulysses' all-to-alls of
+    its 6 + 6 heads; (d) at {expert: 2, tensor: 2} — the tensor group's
+    6 all-reduces a layer and 5 a micro-batch beside, the received rows'
+    outputs of a rank's 1,024 positions of 2 rows ([2 × 4,096, 768]
+    twice a layer), and the norm's two sliced classes; the seq expert
+    buffer and the tensor expert slice a rank's [2, 768, 1536] GEMM."""
+    from deepspeed_tpu_torch.models import transformer as T
+    from deepspeed_tpu_torch.moe.layer import ep_shard_capacity
+
+    t = dict(C.STM, layers=C.STM_LAYERS, device="cpu")
+    cfg = T.get_model_config("moe_350m", num_layers=2)
+    b = C.stm_way(t, "b")
+    assert (b["world"], b["mesh"], b["seq"]) == (
+        4, {"expert": 2, "seq": 2}, 1024)
+    want = C.stm_moe_seq_traffic_want(b, cfg)
+    rows = 2 * ep_shard_capacity(2 * 512 * 2, 2)
+    assert rows == 2 * 2048
+    assert want["expert/all_to_all"] == [8 * 2 * 2, 2 * 2 * (
+        6 * rows * 768 + 2 * rows)]
+    assert want["batch/all_reduce"] == [5 * 2 * 2, 2 * 2 * (3 * 8 + 4)]
+    assert want["seq/all_to_all"] == [4 * 3 * 2 * 2, 3 * 2 * 2 * 2 * 512
+                                      * (2 * 12 + 2 * 12) * 64]
+    d = C.stm_way(t, "d")
+    assert (d["world"], d["mesh"], d["attention"]) == (
+        4, {"expert": 2, "tensor": 2}, "flash")
+    B, S, H = 2, 1024, 768
+    R = B * (S - 1)
+    rows = 2 * ep_shard_capacity(B * S * 2, 2)
+    assert C.stm_tensor_traffic_want(d, cfg, 2) == {"tensor/all_reduce": [
+        2 * (6 * 2 + 5) + 1,
+        2 * (B * S * H + 2 * (4 * B * S * H + 2 * rows * H) + 3 * R
+             + R * H) + 2]}
+    assert C.stm_way(t, "c")["world"] == C.stm_way(t, "e")["world"] == 2
+    assert C.stm_batch_ranks(C.stm_way(t, "a")) == 2
+    assert C.stm_batch_ranks(d) == C.stm_batch_ranks(
+        C.stm_way(t, "e")) == 2
+    # a tensor rank's expert slice: E/X experts, F/T columns
+    assert (cfg.n_experts // 2, cfg.hidden_size, cfg.ffn_size // 2) == (
+        2, 768, 1536)
+
+
+def test_sp_tp_moe_compose_phase_rank_rehearsal_on_cpu():
+    """The composed seq / tensor phase's rank function at tiny size: ways
+    (a), (b), (d) on four gloo ranks of the CPU in one merged spawn, (c)
+    and (e) on two (the plain paths, the counters read 0 there): every
+    way trains and every gate passes but the card-only SC6 peak — SC1
+    and SC2 (hpZ's collectives by formula), SC3 (routes over the global
+    batch), SC4 (the host step bit-equal in its loss), SC5 (the tensor
+    group's all-reduces by formula), the grouped GEMM on each received
+    buffer against its plain version, at the tensor slice's width."""
+    from deepspeed_tpu_torch.models import transformer as T
+
+    t = dict(C.STM, model="tiny_llama", layers=2, seq=32, device="cpu")
+    ways = {w: C.stm_way(t, w) for w in C.STM_WAYS}
+    for w in "bde":
+        ways[w].update(model="tiny_moe", seq=32)
+    ranks = C.spawn_ranks("jobs_rank", 4, 0, [
+        (f"stm/{w}", "train_sp_tp_moe_compose_rank", ways[w])
+        for w in "abd"])
+    got = {w: [r[f"stm/{w}"][0] for r in ranks] for w in "abd"}
+    ranks = C.spawn_ranks("jobs_rank", 2, 0, [
+        (f"stm/{w}", "train_sp_tp_moe_compose_rank", ways[w])
+        for w in "ce"])
+    got.update({w: [r[f"stm/{w}"][0] for r in ranks] for w in "ce"})
+    for w, tw in ways.items():
+        cfg = T.get_model_config(tw["model"], num_layers=tw["layers"])
+        assert _but_launches(C.stm_problems(tw, got[w], cfg)) == [], w
+    a = got["a"][0]["main"]
+    assert a["zero3_counts"]["reduce"] > 0
+    assert a["traffic"]["seq_hop/all_reduce"][0] > 0
+    assert got["b"][0]["ep_buffer"]["routed_rows"] > 0
+    assert got["c"][0]["main"]["host_step"]
+    assert got["c"][0]["gates"]["sc_fp32"]["loss_bit_equal"]
+    assert got["d"][0]["ep_buffer"]["N"] == 128
+    assert got["d"][0]["main"]["traffic"]["tensor/all_reduce"][0] > 0
+    assert got["e"][0]["gates"] == {}

@@ -34,7 +34,8 @@ spawn a world runs every port case:
   expert axis: ``tests/test_torch_expert_zero.py``.)
 * Presets, ``ep_topology`` / ``fold_group_tables``, ``plan_ep`` and
   ``auto_ep`` of a model spec against JAX's (no ranks); ``auto_ep`` with
-  ``etp_size`` above 1 or of an HF model raises, a later slice.
+  an HF model raises, a later slice; with ``etp_size`` above 1 it adds
+  the ``tensor`` axis.
 
 jax is imported inside the fixtures and tests, never at the top: a spawned
 rank imports this module to find its function.
@@ -468,20 +469,20 @@ def test_engine_installs_the_drop_monitor(runs):
 
 @pytest.mark.parametrize("case", ["etp", "hf"])
 def test_expert_axis_later_slices_raise(case):
-    """What stays a later slice of the expert axis: ``auto_ep`` with
-    ``etp_size`` above 1 (expert tensor parallelism, the ``tensor`` axis of
-    queue A.4) and ``auto_ep`` of an HF model (the HF importer of queue
-    A.8). Every engine and wire composes with the axis
-    (``tests/test_torch_expert_zero.py``)."""
+    """What stays a later slice of the expert axis: ``auto_ep`` of an HF
+    model (the HF importer of queue A.8) raises. ``auto_ep`` with
+    ``etp_size`` above 1 (expert tensor parallelism) no longer does: its
+    mesh section holds the ``tensor`` axis, as JAX's (the engine runs it,
+    ``tests/test_torch_tensor_moe.py``). Every engine and wire composes
+    with the axis (``tests/test_torch_expert_zero.py``)."""
     import deepspeed_tpu_torch as dtt
     from deepspeed_tpu_torch.moe.auto_ep import auto_ep
 
     if case == "etp":
         spec = dtt.causal_lm_spec("tiny_moe", dtype="float32")
-        with pytest.raises(NotImplementedError,
-                           match="later slice") as e:
-            auto_ep(spec, n_devices=8, etp_size=2)
-        assert "'tensor' mesh axis" in str(e.value) and "A.4" in str(e.value)
+        _, section, plan = auto_ep(spec, n_devices=8, etp_size=2)
+        assert section == {"expert": 4, "tensor": 2}, section
+        assert (plan.ep_size, plan.edp_size, plan.etp_size) == (4, 1, 2)
     else:
         with pytest.raises(NotImplementedError,
                            match="later slice") as e:

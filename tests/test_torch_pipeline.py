@@ -110,9 +110,6 @@ CKPT = "p2_zero1_1f1b"
 # parity cases; what stays refused is another spec, and what the seq and
 # tensor axes refuse beside pipe
 REFUSED = {
-    "seq_hpz": (8, {"pipe": 2, "seq": 2}, {"zero_optimization": {
-        "stage": 2, "zero_hpz_partition_size": 2}}, "tiny_llama",
-        {"attention": "ulysses"}, "mesh seq=2 with hpZ / MiCS"),
     "tensor_zenflow": (4, {"pipe": 2, "tensor": 2}, {"zero_optimization": {
         "stage": 1, "zenflow": {"enabled": True}}}, "tiny_llama", {},
         "mesh tensor=2 with ZenFlow"),

@@ -83,23 +83,11 @@ CASES = {
 STEPS = 3
 CKPT = {2: "s2_ulysses_zero1", 4: "d2s2_ulysses_zero2_overlap"}
 # what a seq axis does not compose with yet (queue A.4): name → (world,
-# mesh, extra config, model, what the error names)
+# mesh, extra config, model, what the error names). Every composition JAX
+# runs under seq is a parity case of tests/test_torch_seq_compose.py; a
+# tensor axis beside seq stays refused
 REFUSED = {
-    "offload_optimizer": (2, {"seq": 2}, {"zero_optimization": {
-        "stage": 1, "offload_optimizer": {"device": "cpu"}}}, "tiny_llama",
-        "the offload tiers"),
-    "host_step": (2, {"seq": 2}, {"zero_optimization": {
-        "stage": 1, "offload_optimizer": {"device": "cpu",
-                                          "host_step": True}}},
-        "tiny_llama", "the host step"),
-    "zenflow": (2, {"seq": 2}, {"zero_optimization": {
-        "stage": 1, "zenflow": {"enabled": True}}}, "tiny_llama", "ZenFlow"),
-    "moe_model": (2, {"seq": 2}, {}, "tiny_moe", "an MoE model"),
-    "hpz": (4, {"seq": 2}, {"zero_optimization": {
-        "stage": 2, "zero_hpz_partition_size": 2}}, "tiny_llama",
-        "hpZ / MiCS"),
-    "expert_axis": (4, {"expert": 2, "seq": 2}, {}, "tiny_moe",
-                    "an expert axis"),
+    "tensor": (4, {"seq": 2, "tensor": 2}, {}, "tiny_llama", "seq > 1"),
 }
 WORLDS = (2, 4)
 

@@ -90,8 +90,6 @@ REFUSED = {
     "hpz": (4, {"tensor": 2}, {"zero_optimization": {
         "stage": 2, "zero_hpz_partition_size": 2}}, "tiny_llama", {},
         "hpZ / MiCS"),
-    "expert_axis": (4, {"expert": 2, "tensor": 2}, {}, "tiny_moe", {},
-                    "an expert axis"),
     "int8_wire": (4, {"data": 2, "tensor": 2}, {"zero_optimization": {
         "stage": 2, "zero_quantized_gradients": True,
         "zero_quantized_weights": True}}, "tiny_llama", {},
@@ -111,7 +109,6 @@ REFUSED = {
     "zenflow": (2, {"tensor": 2}, {"zero_optimization": {
         "stage": 1, "zenflow": {"enabled": True}}}, "tiny_llama", {},
         "ZenFlow"),
-    "moe_model": (2, {"tensor": 2}, {}, "tiny_moe", {}, "an MoE model"),
     "sparse_attention": (2, {"tensor": 2}, {}, "tiny_llama",
                          {"attention": "sparse:fixed"},
                          "attention='sparse:fixed'"),
